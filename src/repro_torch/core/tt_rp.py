@@ -1,0 +1,131 @@
+"""f_TT(R): tensor-train random projection (paper Definition 1).
+
+(f_TT(R)(X))_i = 1/sqrt(k) * < <<G_i^1, ..., G_i^N>>, X >,   i in [k]
+
+with core entries drawn i.i.d. N(0, sigma_n^2) where sigma_n^2 = 1/sqrt(R)
+for the boundary cores (n = 1, N) and 1/R for interior cores.
+
+Batched-core layout: cores[n] has shape (k, r_{n-1}, d_n, r_n), r_0 = r_N = 1
+— the layout of `repro.core.tt_rp.TTRP`, so operators carry across as they
+are (`repro_torch.core.from_numpy_operator`). These einsum paths are the
+plain route (`backend='torch'`); the mode-sweep kernels live in
+`repro_torch.kernels`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import torch
+
+from .formats import _prod
+
+
+@dataclasses.dataclass(frozen=True)
+class TTRP:
+    """A sampled TT random projection operator."""
+
+    cores: tuple[torch.Tensor, ...]  # cores[n]: (k, r_{n-1}, d_n, r_n)
+
+    @property
+    def k(self) -> int:
+        return int(self.cores[0].shape[0])
+
+    @property
+    def order(self) -> int:
+        return len(self.cores)
+
+    @property
+    def dims(self) -> tuple[int, ...]:
+        return tuple(int(c.shape[2]) for c in self.cores)
+
+    @property
+    def in_dims(self) -> tuple[int, ...]:
+        """RPOperator protocol: input mode sizes (alias of `dims`)."""
+        return self.dims
+
+    @property
+    def rank(self) -> int:
+        return int(self.cores[0].shape[3]) if self.order > 1 else 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.cores[0].device
+
+    def num_params(self) -> int:
+        return sum(_prod(c.shape) for c in self.cores)
+
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        """Project dense input(s). x: (*batch, d1, ..., dN) -> (*batch, k)."""
+        N = self.order
+        if tuple(x.shape[x.ndim - N:]) != self.dims:
+            raise ValueError(f"input shape {tuple(x.shape)} does not end in "
+                             f"dims {self.dims}")
+        scale = 1.0 / math.sqrt(self.k)
+        if N == 1:
+            g = self.cores[0][:, 0, :, 0]
+            return torch.einsum("...d,kd->...k", x, g) * scale
+        # right-to-left contraction; carry axes (*batch, d1..d_n, k, r_n)
+        c = torch.einsum("...d,krd->...kr", x, self.cores[-1][:, :, :, 0])
+        for n in range(N - 2, 0, -1):
+            c = torch.einsum("...dkr,ksdr->...ks", c, self.cores[n])
+        y = torch.einsum("...dkr,kdr->...k", c, self.cores[0][:, 0, :, :])
+        return y * scale
+
+    def reconstruct(self, y: torch.Tensor, *,
+                    chunk: int | None = None) -> torch.Tensor:
+        """Unbiased adjoint x_hat = (1/sqrt k) sum_i y_i S_i for a (k,) sketch.
+
+        `chunk` bounds the k-sized intermediate (memory
+        O(chunk * d^{N-1} * R)); chunks are summed in order.
+        """
+        k = self.k
+        if tuple(y.shape) != (k,):
+            raise ValueError(f"sketch shape {tuple(y.shape)} != ({k},)")
+        scale = 1.0 / math.sqrt(k)
+        if self.order == 1:
+            return torch.einsum("k,kd->d", y, self.cores[0][:, 0, :, 0]) * scale
+
+        def partial(cores, yc):
+            w = torch.einsum("k,kdr->kdr", yc, cores[0][:, 0, :, :])
+            for g in cores[1:-1]:
+                w = torch.einsum("k...r,krds->k...ds", w, g)
+            return torch.einsum("k...r,krd->...d", w, cores[-1][:, :, :, 0])
+
+        if chunk is None or chunk >= k:
+            return partial(self.cores, y) * scale
+        out = y.new_zeros(self.dims)
+        for s in range(0, k, chunk):
+            out = out + partial([c[s:s + chunk] for c in self.cores],
+                                y[s:s + chunk])
+        return out * scale
+
+    def as_dense_matrix(self) -> torch.Tensor:
+        """Materialize the k x prod(dims) matrix (tests only)."""
+        rows = self.cores[0][:, 0]                       # (k, d1, r1)
+        for c in self.cores[1:]:
+            rows = torch.einsum("kpr,krds->kpds", rows, c)
+            rows = rows.reshape(self.k, -1, c.shape[3])
+        return rows.reshape(self.k, -1) / math.sqrt(self.k)
+
+
+def sample_tt_rp(generator: torch.Generator, dims: Sequence[int], k: int,
+                 rank: int, dtype=torch.float32) -> TTRP:
+    """Draw f_TT(R) cores per Definition 1's variance schedule, on the
+    generator's device."""
+    N = len(dims)
+    ranks = [1] + [rank] * (N - 1) + [1]
+    cores = []
+    for n in range(N):
+        if N == 1:
+            var = 1.0  # classical Gaussian RP; R plays no role
+        elif n == 0 or n == N - 1:
+            var = 1.0 / math.sqrt(rank)
+        else:
+            var = 1.0 / rank
+        g = torch.randn((k, ranks[n], int(dims[n]), ranks[n + 1]),
+                        generator=generator, device=generator.device,
+                        dtype=dtype)
+        cores.append(g * math.sqrt(var))
+    return TTRP(tuple(cores))

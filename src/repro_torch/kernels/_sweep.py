@@ -1,0 +1,262 @@
+"""The mode-sweep kernels K1 (`sweep_project`) and K2 (`sweep_reconstruct`).
+
+Python side of the hand-written CUDA kernels in `csrc/`: the build and
+load, argument checks, output and scratch allocation, and the launch
+counters. Counterpart of the Pallas machinery in `repro/kernels/_sweep.py`;
+`tt_sweep.py` / `cp_sweep.py` add the family core layouts.
+
+Each kernel source is compiled at first use by `nvcc` for `sm_90a` into a
+shared library with a plain C interface under the repository's `build/`
+directory (named by a digest of the sources and flags, so an edited source
+is rebuilt), and loaded with `ctypes`.
+
+Beside each kernel sits its plain PyTorch version: the planner's einsum
+program run step by step with `torch.einsum`, exactly the Pallas kernel
+body. A wrapper takes the plain version only for tensors on the CPU; for a
+CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from .ops import MAX_ORDER, MAX_RANK, ContractionPlan, program_codes
+
+CSRC = Path(__file__).with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+SOURCES = {"sweep_project": "sweep_project.cu",
+           "sweep_reconstruct": "sweep_reconstruct.cu"}
+_HEADERS = ("sweep_common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # x, y, cores, dims, ops, order, B, K, R, tk, tb, ba, tg, rch,
+    # smem_bytes, scale, stream
+    "sweep_project": [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I),
+                      ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _I, ctypes.c_float, _P],
+    # y, out, m_scratch, cores, dims, ops, order, B, K, R, tile_m, tile_n,
+    # tile_k, scale, stream
+    "sweep_reconstruct": [_P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I),
+                          ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I,
+                          ctypes.c_float, _P],
+}
+_FNS: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _nvcc() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH); the CUDA kernels "
+                           "are built on first use and need the CUDA toolkit")
+    return found
+
+
+def lib_path(name: str) -> Path:
+    """Where the shared library of kernel source `name` is built."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (SOURCES[name],) + _HEADERS:
+        h.update((CSRC / f).read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile the named kernel sources (all by default) with one `nvcc`
+    per source, all started together; returns each source's compiler
+    output (`-Xptxas -v`: registers, shared memory, spills). A library
+    already built from the same sources is reused with its saved log."""
+    names = list(SOURCES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    logs, procs = {}, {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            logs[name] = out.with_suffix(".log").read_text()
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {name} "
+                               f"(exit {proc.returncode}):\n{log}")
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
+        logs[name] = log
+    return logs
+
+
+def _launcher(name: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        build([name])
+        fn = getattr(ctypes.CDLL(str(lib_path(name))), f"{name}_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[name]
+        _FNS[name] = fn
+    return fn
+
+
+def _check(kind: str, a: torch.Tensor, cores, plan: ContractionPlan) -> None:
+    """Raise on what the kernels do not take: dtype, device, layout,
+    shapes."""
+    if plan.kind != kind or len(cores) != plan.order:
+        raise ValueError(f"{kind} sweep got a {plan.kind!r} plan of order "
+                         f"{plan.order} and {len(cores)} cores")
+    want = ((plan.b,) + plan.dims if kind == "project"
+            else (plan.b, plan.k))
+    if tuple(a.shape) != want:
+        raise ValueError(f"{kind} sweep input has shape {tuple(a.shape)}, "
+                         f"plan expects {want}")
+    for t in (a,) + tuple(cores):
+        if t.dtype != torch.float32:
+            raise TypeError(f"mode-sweep kernels take float32, got {t.dtype}")
+        if t.device != a.device:
+            raise ValueError(f"operands on {t.device} and {a.device}")
+        if not t.is_contiguous():
+            raise ValueError("mode-sweep kernels take contiguous operands")
+    for c in cores:
+        if c.shape[0] != plan.k:
+            raise ValueError(f"core of shape {tuple(c.shape)} does not lead "
+                             f"with k = {plan.k}")
+
+
+def _cuda_only(a: torch.Tensor, name: str) -> None:
+    if a.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors (its plain version "
+                         f"on CPU tensors), got a {a.device.type} tensor")
+
+
+def _row_chunk(rank: int) -> int:
+    """Bond rows per register tile of K1 (a template parameter 1..8): the
+    chunk that wastes the fewest padded rows, the larger one on ties."""
+    if rank <= 8:
+        return rank
+    return min(range(8, 0, -1), key=lambda c: -(-rank // c) * c - rank)
+
+
+def _pointers(tensors):
+    return (_P * MAX_ORDER)(*[t.data_ptr() for t in tensors])
+
+
+def _ints(values):
+    return (_I * MAX_ORDER)(*[int(v) for v in values])
+
+
+# ---------------------------------------------------------------------------
+# K1: project
+# ---------------------------------------------------------------------------
+
+def sweep_project_plain(x: torch.Tensor, *cores: torch.Tensor, steps,
+                        scale: float) -> torch.Tensor:
+    """The project program step by step with `torch.einsum`: x (B, *dims)
+    and the cores in kernel layout -> (B, k)."""
+    z = x
+    for spec, g in zip(steps, reversed(cores)):
+        z = torch.einsum(spec, z, g)
+    return z * scale
+
+
+def sweep_project(x: torch.Tensor, *cores: torch.Tensor,
+                  plan: ContractionPlan, scale: float) -> torch.Tensor:
+    """K1: y = scale * sweep(x) for x (B, *dims) -> (B, k) float32.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (counted in `sweep_project.launches`) or raises.
+    """
+    _check("project", x, cores, plan)
+    if x.device.type == "cpu":
+        return sweep_project_plain(x, *cores, steps=plan.steps, scale=scale)
+    _cuda_only(x, "sweep_project")
+    codes = program_codes(plan)
+    y = torch.empty((plan.b, plan.k), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = _launcher("sweep_project")(
+            x.data_ptr(), y.data_ptr(), _pointers(cores), _ints(plan.dims),
+            _ints(codes), plan.order, plan.b, plan.k, plan.rank, plan.tk,
+            plan.tb, plan.ba, plan.tg, _row_chunk(plan.rank), plan.smem_bytes,
+            float(scale), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sweep_project launch failed with CUDA error "
+                           f"{err} (plan {plan})")
+    sweep_project.launches += 1
+    return y
+
+
+sweep_project.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: reconstruct
+# ---------------------------------------------------------------------------
+
+def sweep_reconstruct_plain(y: torch.Tensor, *cores: torch.Tensor, steps,
+                            scale: float) -> torch.Tensor:
+    """The adjoint program step by step with `torch.einsum`: fold the
+    trailing cores into m, graft y onto the leading core, contract."""
+    m_steps, h_spec, out_spec = steps
+    m = cores[-1]
+    if m_steps[0] is not None:
+        m = torch.einsum(m_steps[0], m)
+    for spec, g in zip(m_steps[1:], reversed(cores[1:-1])):
+        m = torch.einsum(spec, g, m)
+    h = torch.einsum(h_spec, y, cores[0])
+    return torch.einsum(out_spec, h, m) * scale
+
+
+def sweep_reconstruct(y: torch.Tensor, *cores: torch.Tensor,
+                      plan: ContractionPlan, scale: float) -> torch.Tensor:
+    """K2: x_hat = scale * adjoint(y) for y (B, k) -> (B, *dims) float32.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the fold
+    and product kernels (counted once in `sweep_reconstruct.launches`) or
+    raises.
+    """
+    _check("reconstruct", y, cores, plan)
+    if y.device.type == "cpu":
+        return sweep_reconstruct_plain(y, *cores, steps=plan.steps,
+                                       scale=scale)
+    _cuda_only(y, "sweep_reconstruct")
+    if plan.rank > MAX_RANK:
+        raise ValueError(f"sweep_reconstruct holds bond ranks up to "
+                         f"{MAX_RANK} per thread, got rank {plan.rank}")
+    codes = program_codes(plan)
+    trail = math.prod(plan.dims[1:])
+    m = torch.empty((plan.k, plan.rank, trail), device=y.device,
+                    dtype=torch.float32)
+    out = torch.empty((plan.b,) + plan.dims, device=y.device,
+                      dtype=torch.float32)
+    with torch.cuda.device(y.device):
+        err = _launcher("sweep_reconstruct")(
+            y.data_ptr(), out.data_ptr(), m.data_ptr(), _pointers(cores),
+            _ints(plan.dims), _ints(codes), plan.order, plan.b, plan.k,
+            plan.rank, plan.tb, plan.ba, plan.tk, float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sweep_reconstruct launch failed with CUDA "
+                           f"error {err} (plan {plan})")
+    sweep_reconstruct.launches += 1
+    return out
+
+
+sweep_reconstruct.launches = 0
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch counter to 0."""
+    sweep_project.launches = 0
+    sweep_reconstruct.launches = 0

@@ -1,0 +1,41 @@
+"""repro_torch.rp — the unified projector API (port of `repro.rp`).
+
+One protocol (`RPOperator`), one declarative spec (`ProjectorSpec`), a
+registry (`register_family` / `make_projector`), and the dispatched entry
+points `project` / `reconstruct` / `project_many`, each resolving through
+a cached `ExecutionPlan` (`repro_torch.rp.plan`) that routes dense inputs
+and sketches of TT/CP operators to the hand-written CUDA kernels on the
+card ('auto' | 'kernel' | 'torch').
+
+Quickstart::
+
+    from repro_torch import rp
+
+    spec = rp.ProjectorSpec(family="tt", k=512, dims=(64, 64, 64), rank=5)
+    op = rp.make_projector(spec, seed=0)           # on the CUDA device
+    y = rp.project(op, x)                          # (*batch, k)
+    x_hat = rp.reconstruct(op, y)                  # unbiased adjoint
+"""
+from . import families as _families  # noqa: F401  (registers built-ins)
+from .dispatch import (DispatchStats, current_stats, dispatch_breakdown,
+                       dispatch_stats, kernel_call_count, project,
+                       reconstruct)
+from .many import project_many
+from .plan import (BACKENDS, CostLedger, ExecutionPlan, PlanCacheStats,
+                   StructureSig, clear_plan_cache, execute_plan, explain,
+                   group_signature, plan_cache_stats, plan_execution,
+                   pow2ceil, structure_tag, validate_backend)
+from .protocol import FormatMismatchError, ProjectorSpec, RPOperator
+from .registry import (get_family, list_families, make_projector,
+                       register_family)
+
+__all__ = [
+    "BACKENDS", "CostLedger", "DispatchStats", "ExecutionPlan",
+    "FormatMismatchError", "PlanCacheStats", "ProjectorSpec", "RPOperator",
+    "StructureSig", "clear_plan_cache", "current_stats",
+    "dispatch_breakdown", "dispatch_stats", "execute_plan", "explain",
+    "get_family", "group_signature", "kernel_call_count", "list_families",
+    "make_projector", "plan_cache_stats", "plan_execution", "pow2ceil",
+    "project", "project_many", "reconstruct", "register_family",
+    "structure_tag", "validate_backend",
+]

@@ -1,0 +1,471 @@
+"""ExecutionPlan: the one plan layer under every projection path.
+
+Port of `repro/rp/plan.py` for the dense and sketch rows of the dispatch
+matrix. Every `rp.project` / `rp.reconstruct` / `rp.project_many` / serve
+tick resolves through a frozen, hashable `ExecutionPlan` held in an LRU
+plan cache keyed by (family, k, dims, rank) x (structure, batch, chunk) x
+(kind, backend) x the device type the operator lives on.
+
+Dispatch matrix (input format x operator family -> route):
+
+  dense/flat x tt/cp (2<=N<=MAX_ORDER)  mode-sweep kernel K1 | einsum
+  (*batch, k) sketch x tt/cp            mode-sweep adjoint K2 | einsum
+  order outside [2, MAX_ORDER] x any    einsum, even under 'kernel'
+  (Batched)TT/CP inputs                 NotImplementedError: the carry
+                                        sweep (K3) is ROADMAP queue 1
+                                        item 5 and queue 2
+
+Backend policy (`backend='auto' | 'kernel' | 'torch'`, standing in for
+the reference's 'auto' | 'pallas' | 'xla'):
+
+* 'torch'  — always the operator's einsum path.
+* 'kernel' — always the kernel wrappers; on a CUDA operator they launch
+             the hand-written kernels, on a CPU operator they run the
+             kernels' plain versions (the CPU counterpart of interpret mode).
+* 'auto'   — the kernel for every tt/cp operator of a supported order on a
+             CUDA device; the einsum path on the CPU.
+
+The plan carries a `CostLedger` (flops, analytic device-memory bytes of
+the route, the kernel's shared memory per block, the operator's parameter
+count and the Thm-1 variance factor); `rp.explain(op, x)` returns the plan
+with its rejected alternatives and reasons.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from collections import OrderedDict
+
+import torch
+
+from repro_torch.core import theory
+from repro_torch.core.cp_rp import CPRP
+from repro_torch.core.formats import STRUCT_TYPES, CPTensor, TTTensor, _prod
+from repro_torch.core.tt_rp import TTRP
+
+from .protocol import ProjectorSpec
+
+BACKENDS = ("auto", "kernel", "torch")
+STRUCTURES = ("dense", "tt", "cp", "sketch")
+STRUCT_NOT_PORTED = (
+    "structured (TT/CP-format) inputs project through the carry-sweep "
+    "kernel K3, which is not ported yet (ROADMAP queue 1 item 5, queue 2)")
+
+
+def validate_backend(backend: str) -> str:
+    """The single `backend=` check: returns it, or raises the one typed
+    ValueError naming the accepted set."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
+    return backend
+
+
+def pow2ceil(n: int, floor: int = 1) -> int:
+    """Smallest power of two >= max(n, floor) — the shape bucket
+    `project_many` pads batches to and the serve engine plans against."""
+    out = 1
+    while out < max(int(n), floor):
+        out *= 2
+    return out
+
+
+def structure_tag(payload) -> str:
+    """'tt' | 'cp' | 'dense' — the structure of ONE payload (the group key
+    of `project_many` and the serve batcher's lane splitter)."""
+    if isinstance(payload, TTTensor):
+        return "tt"
+    if isinstance(payload, CPTensor):
+        return "cp"
+    return "dense"
+
+
+# ---------------------------------------------------------------------------
+# the plan IR
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StructureSig:
+    """Signature of WHAT is being executed.
+
+    structure : 'dense' | 'sketch' (reconstruct input); 'tt' | 'cp' name
+                structured inputs, which raise NotImplementedError here.
+    batch     : coalesced batch rows the dispatch will see.
+    chunk     : reconstruct-only k-intermediate bound (None elsewhere).
+    """
+
+    structure: str = "dense"
+    batch: int = 1
+    chunk: int | None = None
+
+    def __post_init__(self):
+        if self.structure not in STRUCTURES:
+            raise ValueError(f"unknown structure {self.structure!r}; "
+                             f"expected {STRUCTURES}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CostLedger:
+    """Analytic cost of one planned execution.
+
+    flops      : 2x multiply-add count for the whole batch, from theory.
+    hbm_bytes  : device-memory traffic: the kernel routes read the
+                 planner's `sweep_hbm_bytes`; the einsum route reports the
+                 one-pass lower bound (inputs + operator + outputs).
+    smem_bytes : the kernel's dynamic shared memory per block (0 on torch).
+    params     : operator parameter count (the paper's memory axis).
+    var_factor : Thm-1 variance factor of the family at this order/rank.
+    """
+
+    flops: int
+    hbm_bytes: int
+    smem_bytes: int
+    params: int
+    var_factor: float
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    """A fully-resolved, frozen, hashable execution decision.
+
+    `route` is the RESOLVED backend ('kernel' | 'torch'); `rejected` names
+    every alternative route with the reason it lost. `tiles` / `grid` come
+    from the kernel planner (`plan_contraction`); None on the torch route.
+    `device` is the device type the operator lives on.
+    """
+
+    plan_id: str
+    family: str
+    structure: str
+    kind: str                      # 'project' | 'reconstruct'
+    order: int
+    k: int
+    batch: int
+    dims: tuple
+    rank: int
+    backend: str                   # requested policy
+    route: str                     # resolved 'kernel' | 'torch'
+    kernel: str
+    device: str
+    chunk: int | None
+    chunk_policy: str              # 'n/a' | 'folded' | 'honored'
+    tiles: tuple | None            # (tk, tb, ba)
+    grid: tuple | None
+    rejected: tuple                # ((route, reason), ...)
+    cost: CostLedger
+
+    def describe(self) -> str:
+        """Markdown block for `rp.explain`."""
+        c = self.cost
+        lines = [
+            f"### plan {self.plan_id}: {self.kind} "
+            f"{self.family}/{self.structure} N={self.order}",
+            "",
+            f"* route: **{self.route}** (requested backend="
+            f"'{self.backend}', device={self.device})",
+            f"* kernel: {self.kernel}",
+            f"* shape: k={self.k} dims={'x'.join(map(str, self.dims))} "
+            f"rank={self.rank} batch={self.batch}",
+        ]
+        if self.tiles is not None:
+            lines.append(f"* tiles: {self.tiles} grid={self.grid}")
+        if self.kind == "reconstruct":
+            lines.append(f"* chunk: {self.chunk} ({self.chunk_policy})")
+        lines += [
+            f"* cost: flops={c.flops} hbm_bytes={c.hbm_bytes} "
+            f"smem_bytes={c.smem_bytes} params={c.params} "
+            f"var_factor={c.var_factor:.2f}",
+            "",
+            "rejected alternatives:",
+        ]
+        for route, reason in self.rejected:
+            lines.append(f"* {route}: {reason}")
+        return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# plan cache
+# ---------------------------------------------------------------------------
+
+_CACHE_CAP = 512
+
+
+@dataclasses.dataclass
+class PlanCacheStats:
+    builds: int = 0
+    hits: int = 0
+    evictions: int = 0
+
+
+_PLAN_CACHE: "OrderedDict[tuple, ExecutionPlan]" = OrderedDict()
+_CACHE_STATS = PlanCacheStats()
+
+
+def plan_cache_stats() -> PlanCacheStats:
+    """The LIVE plan-cache stats object (builds/hits/evictions)."""
+    return _CACHE_STATS
+
+
+def clear_plan_cache() -> None:
+    """Drop every cached plan and reset the stats."""
+    _PLAN_CACHE.clear()
+    _CACHE_STATS.builds = _CACHE_STATS.hits = _CACHE_STATS.evictions = 0
+
+
+# ---------------------------------------------------------------------------
+# signatures
+# ---------------------------------------------------------------------------
+
+_FAMILY_BY_TYPE = {TTRP: "tt", CPRP: "cp"}
+_TN_FAMILIES = ("tt", "cp")
+
+
+@dataclasses.dataclass(frozen=True)
+class _OpSig:
+    """Signature of the OPERATOR side of a plan key."""
+
+    family: str
+    k: int
+    dims: tuple
+    rank: int
+    is_tn: bool
+    device: str
+
+
+def _op_signature(op_spec, device: str | None = None) -> _OpSig:
+    """Normalize an operator instance OR a `ProjectorSpec` to one key.
+
+    A spec has no device: pass `device` ('cuda' or 'cpu') to plan for one;
+    an operator's own device is authoritative.
+    """
+    if isinstance(op_spec, ProjectorSpec):
+        is_tn = op_spec.family in _TN_FAMILIES
+        return _OpSig(family=op_spec.family, k=int(op_spec.k),
+                      dims=tuple(op_spec.dims),
+                      rank=int(op_spec.rank) if is_tn else 0, is_tn=is_tn,
+                      device=device or "cuda")
+    op = op_spec
+    family = _FAMILY_BY_TYPE.get(type(op), type(op).__name__.lower())
+    is_tn = family in _TN_FAMILIES
+    dev = getattr(op, "device", torch.device("cpu"))
+    return _OpSig(family=family, k=int(op.k),
+                  dims=tuple(int(d) for d in op.in_dims),
+                  rank=int(op.rank) if is_tn else 0, is_tn=is_tn,
+                  device=torch.device(dev).type)
+
+
+def group_signature(op, payloads, *, bucket: bool = True) -> StructureSig:
+    """The `StructureSig` a coalesced `project_many` dense group will
+    dispatch, computed without materializing it: batch rows bucketed to
+    `pow2ceil(n, 8)`. The serve engine plans with it, so its tick hits the
+    plan-cache entry the dispatch resolves."""
+    del op
+    payloads = list(payloads)
+    if not payloads:
+        raise ValueError("group_signature needs at least one payload")
+    tags = {structure_tag(p) for p in payloads}
+    if len(tags) > 1:
+        raise ValueError(
+            f"group_signature needs a structurally homogeneous group, got "
+            f"{sorted(tags)}; split by structure_tag first")
+    if tags.pop() != "dense":
+        raise NotImplementedError(STRUCT_NOT_PORTED)
+    b = pow2ceil(len(payloads), 8) if bucket else len(payloads)
+    return StructureSig(structure="dense", batch=b)
+
+
+# ---------------------------------------------------------------------------
+# the resolver
+# ---------------------------------------------------------------------------
+
+def _resolve_route(backend: str, *, supported: bool,
+                   on_cuda: bool) -> tuple[str, tuple]:
+    """(route, rejected) under the backend policy."""
+    if not supported:
+        return "torch", (("kernel", "no mode-sweep kernel for this "
+                          "(family, order): kernels cover tt/cp at "
+                          "2 <= N <= MAX_ORDER"),)
+    if backend == "kernel":
+        return "kernel", (("torch", "backend='kernel' pins the kernel "
+                           "route"),)
+    if backend == "torch":
+        return "torch", (("kernel", "backend='torch' pins the einsum "
+                          "route"),)
+    if on_cuda:
+        return "kernel", (("torch", "'auto' on a CUDA device selects the "
+                           "kernel"),)
+    return "torch", (("kernel", "'auto' on the CPU takes the einsum route; "
+                      "backend='kernel' runs the kernels' plain versions"),)
+
+
+def _safe_params(family: str, k: int, dims: tuple, rank: int) -> int:
+    try:
+        return int(theory.params_rp(family, k, dims, max(1, rank)))
+    except KeyError:
+        return int(k * _prod(dims))  # unknown registered family: dense-eq
+
+
+def _build_plan(op_sig: _OpSig, sig: StructureSig, kind: str, backend: str,
+                key: tuple) -> ExecutionPlan:
+    # local import: the kernels package is not a module-level dependency
+    # of the rp layer
+    from repro_torch.kernels import ops as kops
+
+    f, k, dims, rank = op_sig.family, op_sig.k, op_sig.dims, op_sig.rank
+    order, b = len(dims), int(sig.batch)
+    supported = op_sig.is_tn and kops.kernel_order_supported(order)
+    route, rejected = _resolve_route(backend, supported=supported,
+                                     on_cuda=op_sig.device == "cuda")
+    params = _safe_params(f, k, dims, rank)
+    var = float(theory.variance_factor(f, N=order, R=max(1, rank),
+                                       D=_prod(dims)))
+    if op_sig.is_tn:
+        per_item = (theory.flops_project_dense_tt(k, dims, max(1, rank))
+                    if f == "tt"
+                    else theory.flops_project_dense_cp(k, dims, max(1, rank)))
+    else:
+        per_item = 2 * params
+    tiles = grid = None
+    smem = 0
+    if route == "kernel":
+        kplan = kops.plan_contraction(f, kind, k, b, dims, rank)
+        tiles, grid = (kplan.tk, kplan.tb, kplan.ba), kplan.grid
+        smem = kplan.smem_bytes
+        hbm = kops.sweep_hbm_bytes(kplan)
+        kernel = ("sweep_project" if kind == "project"
+                  else "sweep_reconstruct")
+    else:
+        hbm = 4 * (b * _prod(dims) + params + b * k)
+        kernel = "einsum" if kind == "project" else "einsum_adjoint"
+    if kind == "reconstruct":
+        chunk_policy = "folded" if route == "kernel" else "honored"
+    else:
+        chunk_policy = "n/a"
+    plan_id = hashlib.blake2s(repr(key).encode(), digest_size=6).hexdigest()
+    return ExecutionPlan(
+        plan_id=plan_id, family=f, structure=sig.structure, kind=kind,
+        order=order, k=k, batch=b, dims=dims, rank=rank, backend=backend,
+        route=route, kernel=kernel, device=op_sig.device, chunk=sig.chunk,
+        chunk_policy=chunk_policy, tiles=tiles, grid=grid, rejected=rejected,
+        cost=CostLedger(flops=int(b * per_item), hbm_bytes=int(hbm),
+                        smem_bytes=int(smem), params=params, var_factor=var))
+
+
+def plan_execution(op_spec, structure_sig: StructureSig | None = None, *,
+                   kind: str = "project", backend: str = "auto",
+                   device: str | None = None) -> ExecutionPlan:
+    """Resolve (or fetch from the LRU cache) the `ExecutionPlan` for one
+    execution of `op_spec` (an operator, or a `ProjectorSpec` planned for
+    `device`) against `structure_sig` (defaults to one dense payload)."""
+    validate_backend(backend)
+    if kind not in ("project", "reconstruct"):
+        raise ValueError(f"unknown kind {kind!r}; expected "
+                         "('project', 'reconstruct')")
+    sig = structure_sig if structure_sig is not None else StructureSig()
+    if sig.structure in ("tt", "cp"):
+        raise NotImplementedError(STRUCT_NOT_PORTED)
+    if (kind == "reconstruct") != (sig.structure == "sketch"):
+        raise ValueError(
+            f"kind={kind!r} does not take structure={sig.structure!r}: "
+            "reconstruct plans take 'sketch' signatures, projects the rest")
+    op_sig = _op_signature(op_spec, device)
+    key = (op_sig, sig, kind, backend)
+    cached = _PLAN_CACHE.get(key)
+    if cached is not None:
+        _PLAN_CACHE.move_to_end(key)
+        _CACHE_STATS.hits += 1
+        return cached
+    plan = _build_plan(op_sig, sig, kind, backend, key)
+    _CACHE_STATS.builds += 1
+    _PLAN_CACHE[key] = plan
+    while len(_PLAN_CACHE) > _CACHE_CAP:
+        _PLAN_CACHE.popitem(last=False)
+        _CACHE_STATS.evictions += 1
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# signature builders used by dispatch (operator + concrete input -> sig)
+# ---------------------------------------------------------------------------
+
+def dense_signature(op, xt) -> StructureSig:
+    """Signature of a COERCED dense input `(*batch, *op.in_dims)`."""
+    n = len(tuple(op.in_dims))
+    return StructureSig(structure="dense",
+                        batch=int(_prod(xt.shape[:-n])) if xt.ndim > n else 1)
+
+
+def sketch_signature(op, y, chunk: int | None = None) -> StructureSig:
+    """Signature of a reconstruct input `(*batch, k)`."""
+    del op
+    return StructureSig(structure="sketch",
+                        batch=int(_prod(y.shape[:-1])) if y.ndim > 1 else 1,
+                        chunk=chunk)
+
+
+# ---------------------------------------------------------------------------
+# execution: the plan's route, run (owns every kernels import)
+# ---------------------------------------------------------------------------
+
+def execute_plan(plan: ExecutionPlan, op, x):
+    """Run one planned execution on a coerced dense array or a sketch."""
+    if plan.kind == "reconstruct":
+        return _exec_reconstruct(plan, op, x)
+    return _exec_dense_project(plan, op, x)
+
+
+def _exec_dense_project(plan: ExecutionPlan, op, xt):
+    if plan.route == "torch":
+        return op.project(xt)
+    from repro_torch.kernels import ops as kops
+    kern = kops.tt_project if plan.family == "tt" else kops.cp_project
+    n = plan.order
+    if xt.ndim <= n + 1:  # single input / one batch axis
+        return kern(op, xt)
+    batch = xt.shape[:-n]
+    flat = xt.reshape((-1,) + tuple(xt.shape[-n:]))
+    return kern(op, flat).reshape(batch + (op.k,))
+
+
+def _exec_reconstruct(plan: ExecutionPlan, op, y):
+    if plan.route == "kernel":
+        # chunk_policy='folded': the kernel tiles k itself, no dense
+        # (D, k) intermediate exists
+        from repro_torch.kernels import ops as kops
+        kern = (kops.tt_reconstruct if plan.family == "tt"
+                else kops.cp_reconstruct)
+        if y.ndim <= 2:
+            return kern(op, y)
+        out = kern(op, y.reshape(-1, op.k))
+        return out.reshape(y.shape[:-1] + tuple(op.in_dims))
+    if y.ndim == 1:
+        return op.reconstruct(y, chunk=plan.chunk)
+    rows = [op.reconstruct(r, chunk=plan.chunk) for r in y.reshape(-1, op.k)]
+    return torch.stack(rows).reshape(y.shape[:-1] + tuple(op.in_dims))
+
+
+# ---------------------------------------------------------------------------
+# explain
+# ---------------------------------------------------------------------------
+
+def explain(op, x, *, kind: str = "project", backend: str = "auto",
+            chunk: int | None = None) -> ExecutionPlan:
+    """The `ExecutionPlan` that `rp.project` / `rp.reconstruct` would
+    resolve for `(op, x)`, with its rejected alternatives. Pure: nothing
+    executes, but the plan lands in the cache the dispatch reads."""
+    if kind == "reconstruct":
+        y = torch.as_tensor(x)
+        return plan_execution(op, sketch_signature(op, y, chunk),
+                              kind="reconstruct", backend=backend)
+    if isinstance(x, STRUCT_TYPES):
+        raise NotImplementedError(STRUCT_NOT_PORTED)
+    from .dispatch import _coerce_dense
+    xt = _coerce_dense(op, x)
+    return plan_execution(op, dense_signature(op, xt), backend=backend)
+
+
+__all__ = [
+    "BACKENDS", "CostLedger", "ExecutionPlan", "PlanCacheStats",
+    "StructureSig", "clear_plan_cache", "dense_signature", "execute_plan",
+    "explain", "group_signature", "plan_cache_stats", "plan_execution",
+    "pow2ceil", "sketch_signature", "structure_tag", "validate_backend",
+]

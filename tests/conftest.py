@@ -32,6 +32,12 @@ def run_subprocess(code: str, devices: int = 8, timeout: int = 900):
     return res.stdout
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips (from a fixture) "
+        "where none is present")
+
+
 @pytest.fixture
 def subproc():
     return run_subprocess

@@ -1,0 +1,46 @@
+"""The port imports no JAX and nothing of the reference package.
+
+Every module of `src/repro_torch/` and the port's `chip_smoke.py` are
+parsed with `ast` (not imported) and each import statement is checked.
+"""
+import ast
+import pathlib
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+FILES = PORT_FILES + [REPO / "chip_smoke.py"]
+
+
+def _forbidden(tree) -> list[str]:
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [] if node.level else [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "repro", "flax", "optax"):
+                bad.append(f"line {node.lineno}: {name}")
+    return bad
+
+
+def test_port_has_modules():
+    assert len(PORT_FILES) >= 20
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert _forbidden(tree) == []
+
+
+def test_checker_catches_forbidden_imports():
+    src = "import jax.numpy as jnp\nfrom repro.core import theory\n"
+    assert len(_forbidden(ast.parse(src))) == 2
+    assert _forbidden(ast.parse("from .core import theory\n")) == []

@@ -1,0 +1,291 @@
+"""repro_torch.kernels against repro.kernels, on the CPU.
+
+* The port planner's einsum programs are diffed string for string against
+  `repro.kernels.ops.plan_contraction(...).steps`.
+* The port's kernel wrappers run their plain versions on CPU tensors (the
+  CUDA kernels run only on the card: tests/test_torch_gpu.py and
+  chip_smoke.py) and are held against the reference wrappers, whose Pallas
+  kernels run in interpret mode. Operators are sampled in JAX and carried
+  across; inputs come from numpy.
+
+Tolerance rtol=1e-5, atol=1e-5: float32 on both sides with the same
+contraction program; the sum order differs between torch and the Pallas
+interpreter, which moves results by a few ulps of the partial sums.
+"""
+import math
+import pathlib
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import rp as jrp
+from repro.core import sample_cp_rp as j_sample_cp
+from repro.core import sample_tt_rp as j_sample_tt
+from repro.kernels import ops as jops
+from repro_torch import rp
+from repro_torch.core import from_numpy_operator
+from repro_torch.kernels import _sweep, ops
+
+RTOL = ATOL = 1e-5
+ORDER_SHAPES = {2: (8, 8), 3: (4, 8, 8), 4: (4, 4, 4, 8), 5: (2, 3, 4, 3, 4)}
+
+
+def _pair(family, dims, k=20, rank=3, seed=0):
+    sampler = j_sample_tt if family == "tt" else j_sample_cp
+    jop = sampler(jax.random.PRNGKey(seed), dims, k, rank)
+    arrays = jop.cores if family == "tt" else jop.factors
+    return jop, from_numpy_operator(family, [np.asarray(a) for a in arrays],
+                                    "cpu")
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("family", ["tt", "cp"])
+@pytest.mark.parametrize("kind", ["project", "reconstruct"])
+@pytest.mark.parametrize("order", range(2, 9))
+def test_planner_program_matches_reference(family, kind, order):
+    dims = (4,) * order
+    got = ops.plan_contraction(family, kind, 64, 5, dims, 3)
+    want = jops.plan_contraction(family, kind, 64, 5, dims, 3)
+    assert got.steps == want.steps
+    # and the program lowers to kernel opcodes, one per (transfer) step
+    codes = ops.program_codes(got)
+    assert len(codes) == (order if kind == "project" else order - 1)
+
+
+@pytest.mark.parametrize("family", ["tt", "cp"])
+@pytest.mark.parametrize("order", [2, 3, 4, 5])
+def test_sweep_wrappers_match_reference_kernels(family, order):
+    """tt_/cp_project and tt_/cp_reconstruct, batched and unbatched, against
+    the reference's Pallas kernels in interpret mode."""
+    dims = ORDER_SHAPES[order]
+    jop, top = _pair(family, dims)
+    rng = np.random.default_rng(order)
+    x = rng.standard_normal((3,) + dims, dtype=np.float32)
+    y = rng.standard_normal((3, 20), dtype=np.float32)
+    jproj = jops.tt_project if family == "tt" else jops.cp_project
+    jrec = jops.tt_reconstruct if family == "tt" else jops.cp_reconstruct
+    proj = ops.tt_project if family == "tt" else ops.cp_project
+    rec = ops.tt_reconstruct if family == "tt" else ops.cp_reconstruct
+    want_p = np.asarray(jproj(jop, jnp.asarray(x)))
+    _close(proj(top, torch.from_numpy(x)), want_p)
+    _close(proj(top, torch.from_numpy(x[1])), want_p[1])
+    want_r = np.asarray(jrec(jop, jnp.asarray(y)))
+    _close(rec(top, torch.from_numpy(y)), want_r)
+    _close(rec(top, torch.from_numpy(y[2])), want_r[2])
+
+
+@pytest.mark.parametrize("family", ["tt", "cp"])
+def test_order_one_takes_the_einsum_route(family):
+    jop, top = _pair(family, (12,), k=8)
+    x = np.random.default_rng(0).standard_normal((2, 12), dtype=np.float32)
+    proj = ops.tt_project if family == "tt" else ops.cp_project
+    _close(proj(top, torch.from_numpy(x)), jop.project(jnp.asarray(x)))
+    plan = rp.explain(top, torch.from_numpy(x), backend="kernel")
+    assert plan.route == "torch"
+    assert "2 <= N <= MAX_ORDER" in plan.rejected[0][1]
+
+
+SHAPES = [(64, 64, 64), (128, 128), (8, 128, 64), (4, 4, 4, 4, 4, 4, 4, 4),
+          (32, 16, 16), (256, 1024)]
+
+
+@pytest.mark.parametrize("family", ["tt", "cp"])
+@pytest.mark.parametrize("dims", SHAPES, ids=lambda d: "x".join(map(str, d)))
+def test_every_planned_tile_fits_shared_memory(family, dims):
+    for kind in ("project", "reconstruct"):
+        for b, k, rank in [(1, 512, 5), (8, 512, 25), (64, 512, 25),
+                           (300, 100, 2), (64, 4096, 16)]:
+            plan = ops.plan_contraction(family, kind, k, b, dims, rank)
+            assert plan.smem_bytes <= ops.SMEM_BUDGET_BYTES
+            if kind == "project":
+                assert plan.tb % ops.TBT == 0
+                assert plan.tk * plan.tb // ops.TBT * plan.tg <= 1024
+                assert 1 <= plan.tg <= dims[0]
+                assert plan.smem_bytes == ops.project_smem_bytes(
+                    plan.tk, plan.tb, plan.ba, plan.tg, dims, rank)
+
+
+def test_planner_refuses_a_last_core_row_too_big_for_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.plan_contraction("cp", "project", 64, 4, (2, 8192), 16)
+
+
+def test_opcodes_agree_with_the_cuda_header():
+    header = (pathlib.Path(_sweep.CSRC) / "sweep_common.cuh").read_text()
+    enum = dict((n, int(v)) for n, v in re.findall(r"(OP_\w+) = (\d+)",
+                                                   header))
+    assert enum == {n: getattr(ops, n) for n in enum}
+    assert len(enum) == 9
+
+
+def _defines(source: str) -> dict[str, int]:
+    text = (pathlib.Path(_sweep.CSRC) / source).read_text()
+    return {n: int(v) for n, v in re.findall(r"#define (\w+) (\d+)", text)}
+
+
+def test_tile_constants_agree_with_the_cuda_sources():
+    """The planner's tiling constants are the ones the kernels compile."""
+    project = _defines("sweep_project.cu")
+    assert (project["TBT"], project["XPAD"]) == (ops.TBT, ops.XPAD)
+    recon = _defines("sweep_reconstruct.cu")
+    assert recon["MAXR"] == ops.MAX_RANK
+    assert (recon["BM"], recon["BN"], recon["BK"]) == ops.RECON_TILE
+    assert _defines("sweep_common.cuh")["SWEEP_MAX_ORDER"] == ops.MAX_ORDER
+
+
+def test_row_chunk_covers_rank_with_least_waste():
+    assert [_sweep._row_chunk(r) for r in (1, 5, 8)] == [1, 5, 8]
+    assert _sweep._row_chunk(25) == 5
+    assert _sweep._row_chunk(16) == 8
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    """A non-CPU tensor that is not on CUDA cannot take the plain version
+    and has no kernel: the wrapper raises."""
+    plan = ops.plan_contraction("cp", "project", 4, 2, (3, 5), 2)
+    x = torch.empty((2, 3, 5), device="meta")
+    cores = [torch.empty((4, d, 2), device="meta") for d in (3, 5)]
+    with pytest.raises(ValueError, match="CUDA"):
+        _sweep.sweep_project(x, *cores, plan=plan, scale=1.0)
+
+
+def test_wrappers_check_layouts():
+    _, top = _pair("tt", (4, 8, 8))
+    plan = ops.plan_contraction("tt", "project", 20, 2, (4, 8, 8), 3)
+    from repro_torch.kernels.tt_sweep import tt_sweep_project
+    with pytest.raises(ValueError, match="squeezed cores"):
+        tt_sweep_project(torch.zeros(2, 4, 8, 8), *top.cores, plan=plan,
+                         scale=1.0)
+    with pytest.raises(TypeError, match="float32"):
+        _sweep.sweep_project(torch.zeros(2, 4, 8, 8, dtype=torch.float64),
+                             *ops.tt_cores_squeezed(top), plan=plan,
+                             scale=1.0)
+
+
+def test_hbm_ledger_counts_each_operand():
+    p = ops.plan_contraction("tt", "project", 512, 64, (64, 64, 64), 5)
+    nk, nb = p.grid
+    x = 4 * 64 * 64 ** 3
+    assert ops.sweep_hbm_bytes(p) >= nk * x + 4 * 64 * 512
+    r = ops.plan_contraction("tt", "reconstruct", 512, 64, (64, 64, 64), 5)
+    assert ops.sweep_hbm_bytes(r) > 4 * 64 * 64 ** 3 + 4 * 512 * 5 * 64 ** 2
+
+
+# ---------------------------------------------------------------------------
+# the plan layer and dispatch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("family", ["tt", "cp"])
+@pytest.mark.parametrize("backend", ["auto", "kernel", "torch"])
+def test_dispatch_matches_reference_project_and_reconstruct(family, backend):
+    jop, top = _pair(family, (4, 8, 8))
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 3, 4, 8, 8), dtype=np.float32)
+    flat = rng.standard_normal((3, 200), dtype=np.float32)   # short vectors
+    y = rng.standard_normal((2, 20), dtype=np.float32)
+    with rp.dispatch_stats() as st:
+        _close(rp.project(top, torch.from_numpy(x), backend=backend),
+               jrp.project(jop, jnp.asarray(x), backend="xla"))
+        _close(rp.project(top, flat, backend=backend),
+               jrp.project(jop, jnp.asarray(flat), backend="xla"))
+        _close(rp.reconstruct(top, torch.from_numpy(y), backend=backend),
+               jrp.reconstruct(jop, jnp.asarray(y), backend="xla"))
+    assert st.kernel_calls == (3 if backend == "kernel" else 0)
+    route = "kernel" if backend == "kernel" else "torch"
+    assert sum(st.breakdown.values()) == 3
+    assert all(key[2] == route for key in st.breakdown)
+
+
+def test_auto_route_takes_the_kernel_on_cuda_and_torch_on_cpu():
+    spec = rp.ProjectorSpec("tt", 512, (64, 64, 64), rank=5)
+    on_card = rp.plan_execution(spec, rp.StructureSig("dense", 64),
+                                device="cuda")
+    assert on_card.route == "kernel" and on_card.kernel == "sweep_project"
+    assert on_card.tiles is not None and on_card.cost.smem_bytes > 0
+    back = rp.plan_execution(spec, rp.StructureSig("sketch", 64),
+                             kind="reconstruct", device="cuda")
+    assert back.route == "kernel" and back.chunk_policy == "folded"
+    on_cpu = rp.plan_execution(spec, rp.StructureSig("dense", 64),
+                               device="cpu")
+    assert on_cpu.route == "torch" and on_cpu.tiles is None
+    assert "CPU" in on_cpu.rejected[0][1]
+    assert on_card.cost.flops == on_cpu.cost.flops
+
+
+def test_structured_rows_raise_not_implemented():
+    from repro_torch.core import TTTensor
+    _, top = _pair("tt", (4, 8, 8))
+    tt = TTTensor(tuple(torch.zeros(s) for s in [(1, 4, 2), (2, 8, 2),
+                                                  (2, 8, 1)]))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rp.project(top, tt)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rp.plan_execution(top, rp.StructureSig("tt", 8))
+    with pytest.raises(NotImplementedError):
+        rp.project_many(top, [tt])
+
+
+def test_plan_cache_hits_and_explain():
+    rp.clear_plan_cache()
+    _, top = _pair("cp", (4, 8, 8))
+    x = torch.zeros(8, 4, 8, 8)
+    first = rp.explain(top, x, backend="kernel")
+    rp.project(top, x, backend="kernel")
+    stats = rp.plan_cache_stats()
+    assert (stats.builds, stats.hits) == (1, 1)
+    assert "sweep_project" in first.describe()
+    assert first.plan_id == rp.explain(top, x, backend="kernel").plan_id
+
+
+def test_dispatch_rejects_bad_inputs():
+    _, top = _pair("tt", (4, 8, 8))
+    with pytest.raises(rp.FormatMismatchError, match="near-miss"):
+        rp.project(top, torch.zeros(4, 8, 7))
+    with pytest.raises(rp.FormatMismatchError):
+        rp.reconstruct(top, torch.zeros(3, 21))
+    with pytest.raises(ValueError, match="backend"):
+        rp.project(top, torch.zeros(4, 8, 8), backend="pallas")
+
+
+def test_dispatch_imports_no_kernel_module():
+    src = pathlib.Path(rp.dispatch.__file__).read_text()
+    imports = [ln for ln in src.splitlines()
+               if ln.lstrip().startswith(("import ", "from "))]
+    assert not [ln for ln in imports if "kernels" in ln]
+
+
+def test_project_many_matches_reference():
+    jop, top = _pair("tt", (4, 8, 8))
+    rng = np.random.default_rng(9)
+    payloads = [rng.standard_normal((4, 8, 8), dtype=np.float32),
+                rng.standard_normal(200, dtype=np.float32),
+                rng.standard_normal(256, dtype=np.float32)]
+    with rp.dispatch_stats() as st:
+        got = rp.project_many(top, payloads, backend="kernel")
+    assert st.kernel_calls == 1 and got.shape == (3, 20)
+    _close(got, jrp.project_many(jop, [jnp.asarray(p) for p in payloads],
+                                 backend="xla"))
+    sig = rp.group_signature(top, payloads)
+    assert (sig.structure, sig.batch) == ("dense", 8)
+    with pytest.raises(rp.FormatMismatchError):
+        rp.project_many(top, [np.zeros((2, 256), np.float32)])
+
+
+def test_projector_spec_roundtrip_and_for_flat():
+    spec = rp.ProjectorSpec("cp", 64, (8, 16), rank=4, backend="kernel")
+    assert rp.ProjectorSpec.from_dict(spec.to_dict()) == spec
+    assert spec.to_dict()["dtype"] == "float32"
+    flat = rp.ProjectorSpec.for_flat("tt", 1000, 32)
+    assert flat.dims == jrp.ProjectorSpec.for_flat("tt", 1000, 32).dims
+    assert math.prod(flat.dims) >= 1000
+    assert rp.list_families() == ("cp", "tt")
+    with pytest.raises(KeyError):
+        rp.get_family("gaussian")

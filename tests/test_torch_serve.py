@@ -1,0 +1,199 @@
+"""The whole slice on the CPU: repro_torch.serve against repro.serve.
+
+One dense trace is built with `repro.serve.synth_trace(mix=(1, 0, 0))`; its
+payloads go as numpy arrays through both servers. The port's
+`OperatorCache` is made to hand out the reference's operator, carried
+across with `from_numpy_operator` (monkeypatched in these tests only), so
+both servers compute the same map. Tick counts, occupancy and latency
+percentiles must be equal; stored sketches agree to rtol=1e-5,
+atol=1e-5 (float32 on both sides, different summation order); query ids
+and the JL bounds must be equal.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import rp as jrp
+from repro import serve as jserve
+from repro_torch import rp
+from repro_torch import serve
+from repro_torch.core import from_numpy_operator
+from repro_torch.launch import serve_rp
+
+RTOL = ATOL = 1e-5
+
+
+def _specs(family):
+    kw = dict(family=family, k=24, dims=(4, 8, 8), rank=3)
+    return jrp.ProjectorSpec(**kw), rp.ProjectorSpec(**kw)
+
+
+def _carry(jspec, seed):
+    jop = jrp.make_projector(jspec, jax.random.PRNGKey(seed))
+    arrays = jop.cores if jspec.family == "tt" else jop.factors
+    return from_numpy_operator(jspec.family, [np.asarray(a) for a in arrays],
+                               "cpu")
+
+
+def _port_trace(jtrace, spec):
+    return [serve.TraceEvent(t_us=ev.t_us, payload=np.asarray(ev.payload),
+                             spec=spec, seed=ev.seed) for ev in jtrace]
+
+
+@pytest.fixture
+def carried_ops(monkeypatch):
+    """Make the port's OperatorCache sample the reference's operators."""
+    made = []
+
+    def make(spec, seed=0, *, device=None):
+        jspec = jrp.ProjectorSpec(family=spec.family, k=spec.k,
+                                  dims=spec.dims, rank=spec.rank)
+        made.append((spec, seed))
+        return _carry(jspec, seed)
+
+    monkeypatch.setattr(serve.cache.rp, "make_projector", make)
+    return made
+
+
+@pytest.mark.parametrize("family", ["tt", "cp"])
+@pytest.mark.parametrize("backend", ["auto", "kernel"])
+@pytest.mark.parametrize("pool", [1, 3])
+def test_server_reproduces_reference_server(family, backend, pool,
+                                            carried_ops):
+    jspec, spec = _specs(family)
+    jtrace = jserve.synth_trace(60, [(jspec, s) for s in range(pool)],
+                                mix=(1.0, 0.0, 0.0), seed=4)
+    cfg = dict(max_batch=8, flush_us=1000.0, cache_capacity=2)
+    jstore = jserve.SketchStore(jspec)
+    jserver = jserve.SketchServer(jserve.ServeConfig(**cfg), jstore)
+    jrep = jserve.replay(jserver, jtrace)
+
+    store = serve.SketchStore(spec, device="cpu")
+    server = serve.SketchServer(serve.ServeConfig(backend=backend, **cfg),
+                                store, device="cpu")
+    with rp.dispatch_stats() as st:
+        rep = serve.replay(server, _port_trace(jtrace, spec))
+
+    for key in ("requests_done", "ticks", "occupancy_mean", "p50_us",
+                "p99_us", "store_size", "store_bytes"):
+        assert rep[key] == jrep[key], key
+    for key in ("hits", "misses", "evictions"):
+        assert rep["cache"][key] == jrep["cache"][key], key
+    assert st.kernel_calls == (rep["ticks"] if backend == "kernel" else 0)
+    n = len(jstore)
+    # sketches of the first seed only: the store holds every seed's rows
+    # (same spec), and both servers ingest them in the same order
+    np.testing.assert_allclose(store.get(np.arange(n)).numpy(),
+                               np.asarray(jstore.get(np.arange(n))),
+                               rtol=RTOL, atol=ATOL)
+    q = store.get(np.arange(3))
+    res = server.query(q, top_m=5)
+    jres = jserver.query(np.asarray(jstore.get(np.arange(3))), top_m=5)
+    np.testing.assert_array_equal(res.ids, jres.ids)
+    assert res.ids[0][0] == 0
+    np.testing.assert_allclose(res.dist2, jres.dist2, rtol=1e-4, atol=1e-3)
+    assert res.eps == jres.eps and res.delta == jres.delta
+    pw = server.pairwise([0, 1], [int(res.ids[0][-1]), 2])
+    jpw = jserver.pairwise([0, 1], [int(jres.ids[0][-1]), 2])
+    np.testing.assert_allclose(pw.dist2, jpw.dist2, rtol=1e-4)
+    assert pw.eps == jpw.eps == store.eps_bound() == jstore.eps_bound()
+    np.testing.assert_allclose(pw.dist2_lo, jpw.dist2_lo, rtol=1e-4)
+
+
+def test_trace_arrivals_match_reference_generator():
+    jspec, spec = _specs("tt")
+    jtrace = jserve.synth_trace(50, [(jspec, 0), (jspec, 1)],
+                                mix=(1.0, 0.0, 0.0), seed=11)
+    trace = serve.synth_trace(50, [(spec, 0), (spec, 1)], seed=11)
+    assert [e.t_us for e in trace] == [e.t_us for e in jtrace]
+    assert [e.seed for e in trace] == [e.seed for e in jtrace]
+    assert all(e.payload.dtype == np.float32 for e in trace)
+    with pytest.raises(NotImplementedError):
+        serve.synth_trace(4, [(spec, 0)], mix=(1.0, 1.0, 0.0))
+
+
+def test_evicted_operator_regenerates_bitwise():
+    _, spec = _specs("tt")
+    cache = serve.OperatorCache(capacity=1, device="cpu")
+    first = cache.get(spec, 3)
+    cache.get(spec, 4)                  # evicts seed 3
+    assert (spec, 3) not in cache and cache.stats.evictions == 1
+    again = cache.get(spec, 3)
+    assert again is not first
+    assert all(torch.equal(a, b) for a, b in zip(first.cores, again.cores))
+    assert cache.stats.as_dict()["misses"] == 3
+
+
+def _no_cuda_calls():
+    _, spec = _specs("cp")
+    return {
+        "SketchServer": lambda: serve.SketchServer(),
+        "OperatorCache": lambda: serve.OperatorCache(),
+        "SketchStore": lambda: serve.SketchStore(spec),
+        "make_projector": lambda: rp.make_projector(spec, 0),
+        "serve_rp": lambda: serve_rp.main(["--requests", "2"]),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_no_cuda_calls()))
+def test_default_device_is_cuda_and_raises_without_it(entry, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _no_cuda_calls()[entry]()
+
+
+def test_serve_rp_cli_runs_on_cpu(capsys):
+    assert serve_rp.main(["--device", "cpu", "--requests", "24",
+                          "--max-batch", "4", "--family", "cp"]) == 0
+    out = capsys.readouterr().out
+    assert "24/24 requests" in out and "top-5 of sketch 0: ids [0," in out
+
+
+def test_server_refuses_structured_payloads_and_foreign_stores():
+    from repro_torch.core import CPTensor
+    _, spec = _specs("cp")
+    server = serve.SketchServer(device="cpu")
+    cp = CPTensor(tuple(torch.zeros(d, 2) for d in spec.dims))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        server.submit(cp, spec)
+    with pytest.raises(ValueError, match="store on"):
+        serve.SketchServer(store=serve.SketchStore(spec, device="meta"),
+                           device="cpu")
+
+
+def test_batcher_flush_policy():
+    _, spec = _specs("tt")
+    b = serve.DynamicBatcher(serve.ServeConfig(max_batch=2, flush_us=100.0))
+    for i, t in enumerate([0.0, 10.0, 20.0]):
+        b.submit(serve.SketchRequest(rid=i, payload=np.zeros(3), spec=spec,
+                                     t_submit=t))
+    assert b.ready(20.0)
+    key, batch = b.next_batch(20.0)
+    assert [r.rid for r in batch] == [0, 1]
+    assert not b.ready(50.0) and b.next_deadline() == 120.0
+    assert [r.rid for r in b.next_batch(120.0)[1]] == [2]
+    assert b.next_batch(500.0, force=True) is None
+
+
+def test_store_typed_errors_and_query_tiling():
+    _, spec = _specs("tt")
+    store = serve.SketchStore(spec, query_tile=3, device="cpu")
+    with pytest.raises(ValueError, match="empty"):
+        store.query(torch.zeros(24), 1)
+    rows = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (10, 24)).astype(np.float32))
+    assert store.add(rows).tolist() == list(range(10))
+    with pytest.raises(ValueError, match="top_m"):
+        store.query(rows[0], 11)
+    with pytest.raises(ValueError, match="mixed-dtype"):
+        store.add(rows.double())
+    res = store.query(rows[:2], 4)
+    d2 = ((rows[:2, None] - rows[None]) ** 2).sum(-1)
+    np.testing.assert_array_equal(res.ids, torch.argsort(d2, dim=1)[:, :4])
+    with pytest.raises(ValueError, match="out of range"):
+        store.pairwise([0], [10])
+    with pytest.raises(ValueError):
+        serve.ServeConfig(flush_us=0)
+    with pytest.raises(ValueError, match="backend"):
+        serve.ServeConfig(backend="xla")
