@@ -11,17 +11,36 @@ Phases (each raises on failure, so the script exits non-zero):
   3. hold K1 `sweep_project` and K2 `sweep_reconstruct` against their plain
      PyTorch versions on the card: TT and CP, orders 2-5, ragged small
      shapes, and the serving shapes.
+  3b. hold K3 `carry_sweep_project` and K6 `carry_sweep_project_pipelined`
+     against their plain versions (four pairings x orders 2-8, k=37, B=3,
+     ragged TT ranks, CP inputs with and without weights; K3 alone at one
+     shape whose operator core row K6's planner refuses) and K5 `sweep_project_pipelined`
+     (TT/CP x orders 2-5), each also at the serving shapes; K6 against K3
+     and K5 against K1 on the same inputs.
   4. serve 1024 dense TT(5) requests through `SketchServer`
      (k=512, dims 64x64x64, max_batch=64, flush_us=1000) and check every
      tick launched K1 once; query the store.
   5. serve 256 dense CP(25) requests the same way.
+  5b. serve the reference's mixed dense/TT/CP traffic (`mix=(1, 1, 1)`,
+     input ranks 2, 3, 4): 1024 requests under TT(5), 256 under CP(25);
+     K1 launches must equal the dense ticks, K3 launches the TT and CP
+     ticks, `kernel_call_count` all ticks; served sketches are checked
+     against the plain versions on the same operator.
   6. reconstruct 64 stored sketches of each through `rp.reconstruct` (K2).
+  6b. `rp.project(op, x, pipeline="double")` on a B=64 dense batch (K5) and
+     on B=64 batched TT and CP inputs (K6), for both operators; launch
+     counts and equality with `pipeline="serial"`.
   7. time K1 and K2 at the serving shapes (B=64) beside their bound, their
      plain versions and one `torch.einsum` of the whole contraction. The
      bound counts the flops of the cheaper of two routes to the same
      function: the sweep program, or building the dense (k, prod(dims))
      operator and one product with it; the sweep program's own bound is
-     printed beside it as `program_bound_ms`.
+     printed beside it as `program_bound_ms`. Then K5 at the same shapes,
+     K3 and K6 at the four pairings (input rank 4), and K3 in the paper's
+     regime (TT(5), k=512, dims 8^8, unit-norm rank-10 TT inputs), whose
+     cheaper route is the carry program (each einsum step counted with the
+     operands' true bonds) against densifying the input and the cheapest
+     dense product.
 Then it prints the `kernels` JSON line, the card's name and power limit,
 and as its last line `{"ok": true, "device": {...}}`.
 """
@@ -44,10 +63,24 @@ SLICE_K = 512
 SLICE_RANKS = {"tt": 5, "cp": 25}
 SMALL_DIMS = {2: (12, 20), 3: (6, 10, 14), 4: (4, 6, 5, 7), 5: (3, 4, 5, 3, 6)}
 SOURCES = {"sweep_project": "src/repro_torch/kernels/csrc/sweep_project.cu",
+           "sweep_project_pipelined":
+               "src/repro_torch/kernels/csrc/sweep_project.cu",
            "sweep_reconstruct":
-               "src/repro_torch/kernels/csrc/sweep_reconstruct.cu"}
+               "src/repro_torch/kernels/csrc/sweep_reconstruct.cu",
+           "carry_sweep_project":
+               "src/repro_torch/kernels/csrc/carry_sweep.cu",
+           "carry_sweep_project_pipelined":
+               "src/repro_torch/kernels/csrc/carry_sweep.cu"}
 REPLACES = {"sweep_project": "src/repro/kernels/_sweep.py:118",
-            "sweep_reconstruct": "src/repro/kernels/_sweep.py:236"}
+            "sweep_project_pipelined": "src/repro/kernels/_sweep.py:204",
+            "sweep_reconstruct": "src/repro/kernels/_sweep.py:236",
+            "carry_sweep_project": "src/repro/kernels/struct/carry.py:99",
+            "carry_sweep_project_pipelined":
+                "src/repro/kernels/struct/carry.py:182"}
+SMALL_CARRY_DIMS = {2: (12, 20), 3: (6, 10, 14), 4: (4, 6, 5, 7),
+                    5: (3, 4, 5, 3, 6), 6: (3, 2, 4, 3, 2, 3),
+                    7: (2, 3, 2, 3, 2, 2, 3), 8: (2,) * 8}
+PAIRINGS = (("tt", "tt"), ("tt", "cp"), ("cp", "tt"), ("cp", "cp"))
 
 
 def log(msg: str) -> None:
@@ -116,6 +149,59 @@ def kernel_operands(op, family):
     return tuple(c.contiguous() for c in cores)
 
 
+def struct_operands(op, op_family, xb, in_family):
+    """(operator cores, then the batched input's cores) in the carry
+    kernels' layouts, and the count of operator cores."""
+    from repro_torch.kernels.struct.ops import _in_operands
+    opc = kernel_operands(op, op_family)
+    inc = tuple(c.contiguous() for c in _in_operands(in_family, xb))
+    return opc + inc, len(opc)
+
+
+def densify_flops(in_family: str, dims, r_in: int) -> int:
+    """Flops to densify one TT/CP input, left to right (TT: each step a
+    product over one bond; CP: each step a Hadamard product, then the sum
+    over the rank)."""
+    total, prefix = 0, dims[0]
+    for n, d in enumerate(dims[1:], start=1):
+        last = n == len(dims) - 1
+        if in_family == "tt":
+            total += 2 * prefix * r_in * d * (1 if last else r_in)
+        else:
+            total += prefix * d * r_in
+        prefix *= d
+    return total + (prefix * r_in if in_family == "cp" else 0)
+
+
+def carry_flops(op_family: str, in_family: str, cores, n_op: int) -> int:
+    """Flops of the carry program on these operands, step by step with
+    their true bonds (the TT boundary bonds are 1)."""
+    from repro_torch.kernels.struct import plan as splan
+    program = splan._carry_program(op_family, in_family, n_op)
+    return splan.carry_program_flops(program,
+                                     [c.shape for c in cores[:n_op]],
+                                     [c.shape for c in cores[n_op:]])
+
+
+def struct_einsum_spec(op_family: str, in_family: str, order: int) -> str:
+    """One einsum over all operands of a structured projection, operator
+    core n then input core n for each mode (so a left-to-right contraction
+    is the carry program, not the dense operator)."""
+    modes, op_bonds, in_bonds = "abcdefgh", "ijlmopq", "ABCDEFG"
+
+    def terms(family, lead, bonds, rank):
+        if family == "cp":
+            return [f"{lead}{m}{rank}" for m in modes[:order]]
+        return ([f"{lead}{modes[0]}{bonds[0]}"]
+                + [f"{lead}{bonds[n - 1]}{modes[n]}{bonds[n]}"
+                   for n in range(1, order - 1)]
+                + [f"{lead}{bonds[order - 2]}{modes[order - 1]}"])
+
+    ops_ = terms(op_family, "k", op_bonds, "r")
+    ins = terms(in_family, "n", in_bonds, "s")
+    return ",".join(t for pair in zip(ops_, ins) for t in pair) + "->nk"
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -129,6 +215,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch import rp
     from repro_torch.core import theory
+    from repro_torch import kernels
     from repro_torch.kernels import _sweep, ops
     from repro_torch.serve import (ServeConfig, SketchServer, SketchStore,
                                    replay, synth_trace)
@@ -192,6 +279,98 @@ def main() -> int:
         hold(family, SLICE_DIMS, SLICE_K, SLICE_RANKS[family], 64, "slice")
         torch.cuda.empty_cache()
 
+    # -- 3b. K3 / K6 / K5 vs plain versions -------------------------------
+    from repro_torch.core import (BatchedCPTensor, random_cp, random_tt,
+                                  stack_ragged_cp, stack_ragged_tt)
+    from repro_torch.kernels import struct
+    from repro_torch.kernels.struct import carry
+    from repro_torch.kernels.struct import plan as splan
+
+    def struct_batch(in_family, dims, ranks, b, weights=False, norm=None):
+        mk = random_tt if in_family == "tt" else random_cp
+        items = [mk(gen, dims, ranks[i % len(ranks)], norm=norm)
+                 for i in range(b)]
+        if in_family == "tt":
+            return stack_ragged_tt(items)
+        xb = stack_ragged_cp(items)
+        if weights:
+            xb = BatchedCPTensor(xb.factors, torch.rand(
+                (b, xb.rank), generator=gen, device=dev) + 0.5)
+        return xb
+
+    def hold_carry(of, inf, dims, k, r_op, ranks, b, tag, weights=False,
+                   double=True):
+        op = rp.make_projector(rp.ProjectorSpec(of, k, dims, r_op), seed=9,
+                               device=dev)
+        xb = struct_batch(inf, dims, ranks, b, weights)
+        cores, n_op = struct_operands(op, of, xb, inf)
+        r_in = struct.struct_rank(xb)
+        p3 = splan.plan_carry_sweep(of, inf, k, b, dims, r_op, r_in)
+        scale = 1.0 / math.sqrt(k)
+        ref = carry.carry_sweep_project_plain(*cores, n_op=n_op,
+                                              program=p3.program, scale=scale)
+        got = [("carry_sweep_project", "K3", carry.carry_sweep_project(
+            *cores, n_op=n_op, plan=p3, scale=scale))]
+        if double:
+            p6 = splan.plan_carry_sweep(of, inf, k, b, dims, r_op, r_in,
+                                        pipeline="double")
+            got.append(("carry_sweep_project_pipelined", "K6",
+                        carry.carry_sweep_project_pipelined(
+                            *cores, n_op=n_op, plan=p6, scale=scale)))
+        what = (f"{of}x{inf} {tag} dims={dims} k={k} R={r_op} "
+                f"ranks={ranks} B={b}{' weighted' if weights else ''}")
+        for key, name, y in got:
+            key = f"{key}:{of}x{inf}"
+            errs[key] = max(errs.get(key, 0.0),
+                            check(f"{name} {what}", y, ref))
+        if double:
+            check(f"K6 vs K3 {what}", got[1][2], got[0][2])
+        torch.cuda.synchronize()
+
+    for of, inf in PAIRINGS:
+        for order, dims in SMALL_CARRY_DIMS.items():
+            hold_carry(of, inf, dims, 37, 3, (2, 3, 4), 3, f"order {order}",
+                       weights=inf == "cp" and order % 2 == 0)
+        hold_carry(of, inf, SLICE_DIMS, SLICE_K, SLICE_RANKS[of], (4,), 64,
+                   "slice")
+    # a TT(25) interior core row of 320 KB: K3 reads it through the caches;
+    # K6, which holds a k-tile's operator cores in shared memory, refuses it
+    try:
+        splan.plan_carry_sweep("tt", "tt", 37, 3, (8, 128, 64), 25, 4,
+                               pipeline="double")
+    except ValueError as e:
+        log(f"K6 refuses TT(25) over a mode of 128: {e}")
+    else:
+        raise AssertionError("K6 planned an operator core row of 320 KB")
+    hold_carry("tt", "tt", (8, 128, 64), 37, 25, (2, 3, 4), 3,
+               "operator core row of 320 KB", double=False)
+
+    def hold_k5(family, dims, k, rank, b, tag):
+        op = rp.make_projector(rp.ProjectorSpec(family, k, dims, rank),
+                               seed=7, device=dev)
+        cores = kernel_operands(op, family)
+        x = torch.randn((b,) + dims, generator=gen, device=dev)
+        p1 = ops.plan_contraction(family, "project", k, b, dims, rank)
+        p5 = ops.plan_contraction(family, "project", k, b, dims, rank,
+                                  pipeline="double")
+        scale = 1.0 / math.sqrt(k)
+        y5 = _sweep.sweep_project_pipelined(x, *cores, plan=p5, scale=scale)
+        ref = _sweep.sweep_project_pipelined_plain(
+            x, *cores, steps=p5.steps, tg=p5.tg, scale=scale)
+        key = f"sweep_project_pipelined:{family}"
+        what = f"{family} {tag} dims={dims} k={k} R={rank} B={b}"
+        errs[key] = max(errs.get(key, 0.0), check(f"K5 {what}", y5, ref))
+        check(f"K5 vs K1 {what}", y5,
+              _sweep.sweep_project(x, *cores, plan=p1, scale=scale))
+        torch.cuda.synchronize()
+
+    for family in ("tt", "cp"):
+        for order, dims in SMALL_DIMS.items():
+            hold_k5(family, dims, 37, 3, 3, f"order {order}")
+        hold_k5(family, SLICE_DIMS, SLICE_K, SLICE_RANKS[family], 64,
+                "slice")
+    torch.cuda.empty_cache()
+
     # -- 4./5. serve dense traffic ----------------------------------------
     class TimedServer(SketchServer):
         """Records CUDA events around every tick that served requests."""
@@ -199,18 +378,26 @@ def main() -> int:
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.tick_events = []
+            self.tick_structures = []
 
         def tick(self, now, *, force=False):
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
+            before = rp.dispatch_breakdown()
             s.record()
             n = super().tick(now, force=force)
             e.record()
             if n:
                 self.tick_events.append((s, e))
+                after = rp.dispatch_breakdown()
+                self.tick_structures.append(next(
+                    key[1] for key, c in after.items()
+                    if c != before.get(key, 0)))
             return n
 
-    launches = {"sweep_project": 0, "sweep_reconstruct": 0}
+    launches = {"sweep_project": 0, "sweep_reconstruct": 0,
+                "sweep_project_pipelined": 0, "carry_sweep_project": 0,
+                "carry_sweep_project_pipelined": 0}
     per_family = {}
     stores = {}
 
@@ -223,7 +410,7 @@ def main() -> int:
         trace = synth_trace(n_requests, [(spec, 0)], mix=(1.0, 0.0, 0.0),
                             mean_gap_us=200.0, seed=0)
         torch.cuda.synchronize()
-        _sweep.reset_launch_counts()
+        kernels.reset_launch_counts()
         with rp.dispatch_stats() as st:
             report = replay(server, trace)
             torch.cuda.synchronize()
@@ -270,12 +457,96 @@ def main() -> int:
     serve("tt", 1024)
     serve("cp", 256)
 
+    # -- 5b. serve mixed dense/TT/CP traffic ------------------------------
+    from repro_torch.core import CPTensor, TTTensor
+
+    def on_card(x):
+        if isinstance(x, TTTensor):
+            return TTTensor(tuple(c.to(dev) for c in x.cores))
+        return CPTensor(tuple(f.to(dev) for f in x.factors),
+                        None if x.weights is None else x.weights.to(dev))
+
+    def serve_mixed(family, n_requests):
+        spec = rp.ProjectorSpec(family=family, k=SLICE_K, dims=SLICE_DIMS,
+                                rank=SLICE_RANKS[family])
+        store = SketchStore(spec, device=dev)
+        server = TimedServer(ServeConfig(max_batch=64, flush_us=1000.0),
+                             store, device=dev)
+        trace = synth_trace(n_requests, [(spec, 0)], mix=(1.0, 1.0, 1.0),
+                            ranks=(2, 3, 4), mean_gap_us=200.0, seed=0)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with rp.dispatch_stats() as st:
+            report = replay(server, trace)
+            torch.cuda.synchronize()
+        k1 = _sweep.sweep_project.launches
+        k3 = carry.carry_sweep_project.launches
+        ticks = report["ticks"]
+        by = {t: server.tick_structures.count(t) for t in ("dense", "tt",
+                                                           "cp")}
+        if report["requests_done"] != n_requests:
+            raise AssertionError(f"{report['requests_done']} of "
+                                 f"{n_requests} requests served")
+        if (k1 != by["dense"] or k3 != by["tt"] + by["cp"]
+                or st.kernel_calls != ticks or sum(by.values()) != ticks
+                or min(by.values()) == 0):
+            raise AssertionError(
+                f"mixed {family}: ticks {ticks} {by}, K1 launches {k1}, K3 "
+                f"launches {k3}, kernel_call_count {st.kernel_calls}")
+        for inf in ("tt", "cp"):
+            per_family[f"carry_sweep_project:{family}x{inf}"] = by[inf]
+        launches["carry_sweep_project"] += k3
+        ms = {t: [] for t in by}
+        for (s, e), t in zip(server.tick_events, server.tick_structures):
+            ms[t].append(s.elapsed_time(e))
+        per_tick = ", ".join(f"{t} {by[t]} ticks {sum(v) / len(v):.3f} ms"
+                             for t, v in ms.items())
+        log(f"serve mixed {family.upper()}(R={spec.rank}) k={spec.k} dims="
+            f"{spec.dims}: {n_requests} requests, {ticks} ticks ({by}); K1 "
+            f"launches {k1} == dense ticks, K3 launches {k3} == TT+CP ticks,"
+            f" kernel_call_count {st.kernel_calls} == ticks; p50="
+            f"{report['p50_us']:.1f}us p99={report['p99_us']:.1f}us (trace "
+            f"clock) occupancy={report['occupancy_mean']:.3f} cache hit "
+            f"rate={report['cache']['hit_rate']:.4f} wall="
+            f"{report['wall_s']:.3f}s; device ms/tick by structure: "
+            f"{per_tick}")
+        # K3 alone at a tick's usual shape (B=8 bucket, input rank 4): the
+        # rest of a structured tick's device time is the host waiting
+        op = server.cache.get(spec, 0)
+        for inf in ("tt", "cp"):
+            xb = struct_batch(inf, op.in_dims, (4,), 8)
+            cores, n_op = struct_operands(op, family, xb, inf)
+            plan = splan.plan_carry_sweep(family, inf, op.k, 8, op.in_dims,
+                                          op.rank, 4)
+            k3_ms = cuda_ms(lambda: carry.carry_sweep_project(
+                *cores, n_op=n_op, plan=plan, scale=1.0), reps=20)
+            log(f"K3 alone {family}x{inf} B=8 input rank 4: {k3_ms:.3f} ms "
+                f"of {sum(ms[inf]) / len(ms[inf]):.3f} device ms per {inf} "
+                "tick")
+        # served sketches against the plain versions on the same operator
+        for tag in ("dense", "tt", "cp"):
+            rows = [r for r in server.done
+                    if rp.structure_tag(trace[r.rid].payload) == tag][:8]
+            if tag == "dense":
+                want = op.project(torch.stack([rp.dispatch._coerce_dense(
+                    op, torch.as_tensor(trace[r.rid].payload, device=dev))
+                    for r in rows]))
+            else:
+                want = torch.stack([struct.struct_project(
+                    op, on_card(trace[r.rid].payload), use_kernel=False)
+                    for r in rows])
+            check(f"served mixed {family} {tag} sketches vs plain", torch.stack(
+                [store.get(r.store_id) for r in rows]), want)
+
+    serve_mixed("tt", 1024)
+    serve_mixed("cp", 256)
+
     # -- 6. reconstruct stored sketches -----------------------------------
     outs = {}
     for family, (op, store) in stores.items():
         y = store.get(range(64))
         torch.cuda.synchronize()
-        _sweep.reset_launch_counts()
+        kernels.reset_launch_counts()
         with rp.dispatch_stats() as st:
             outs[family] = rp.reconstruct(op, y)
             torch.cuda.synchronize()
@@ -300,8 +571,73 @@ def main() -> int:
     del outs
     torch.cuda.empty_cache()
 
+    # -- 6b. pipeline="double": K5 (dense) and K6 (structured) ------------
+    for family, (op, _) in stores.items():
+        batches = [("dense", torch.randn((64,) + op.in_dims, generator=gen,
+                                         device=dev))]
+        batches += [(inf, struct_batch(inf, op.in_dims, (4,), 64))
+                    for inf in ("tt", "cp")]
+        for tag, x in batches:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with rp.dispatch_stats() as st:
+                got = rp.project(op, x, pipeline="double")
+                torch.cuda.synchronize()
+            counts = (_sweep.sweep_project_pipelined.launches,
+                      carry.carry_sweep_project_pipelined.launches,
+                      _sweep.sweep_project.launches,
+                      carry.carry_sweep_project.launches)
+            want = (1, 0, 0, 0) if tag == "dense" else (0, 1, 0, 0)
+            if counts != want or st.kernel_calls != 1:
+                raise AssertionError(
+                    f"pipeline='double' {family} {tag}: (K5, K6, K1, K3) "
+                    f"launches {counts}, expected {want}")
+            name = ("sweep_project_pipelined:" + family if tag == "dense"
+                    else f"carry_sweep_project_pipelined:{family}x{tag}")
+            per_family[name] = 1
+            launches[name.split(":")[0]] += 1
+            check(f"rp.project {family} {tag} B=64 pipeline='double' vs "
+                  "'serial'", got, rp.project(op, x))
+            log(f"pipeline='double' {family} {tag}: (K5, K6, K1, K3) "
+                f"launches {counts}")
+    torch.cuda.empty_cache()
+
     # -- 7. times at the serving shapes -----------------------------------
     rows = []
+
+    def time_row(key, program_flops, cheaper_flops, nbytes, kern, plain,
+                 library, shape, reps=20):
+        """Time one kernel beside its plain version and one torch.einsum;
+        the bound takes the cheaper of the program's and the other route's
+        flops."""
+        name = key.split(":")[0]
+        ms = cuda_ms(kern, reps=reps)
+        plain_ms = cuda_ms(plain, reps=5, warmup=1)
+        torch.cuda.empty_cache()
+        library_ms = cuda_ms(library, reps=5, warmup=1)
+        torch.cuda.empty_cache()
+        flops = min(program_flops, cheaper_flops)
+        t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        program_bound_ms = max(program_flops / PEAK_FP32 * 1e3, t_bytes)
+        row = {"name": key, "route": "cuda", "source": SOURCES[name],
+               "replaces": REPLACES[name],
+               "launches": per_family.get(key, 0),
+               "max_abs_err": errs[key], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": library_ms, "shape": shape,
+               "flops": flops, "bytes": nbytes,
+               "program_flops": program_flops,
+               "program_bound_ms": program_bound_ms}
+        route = "program" if flops == program_flops else "cheaper"
+        log(f"time {key} {shape}: kernel {ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({row['bound_by']}, {flops:.4g} flops by "
+            f"the {route} route; {100 * bound_ms / ms:.1f}% of the "
+            f"kernel's time), program's own bound {program_bound_ms:.3f} ms "
+            f"({program_flops:.4g} flops), plain {plain_ms:.3f} ms, "
+            f"torch.einsum {library_ms:.3f} ms")
+        return row
     for family in ("tt", "cp"):
         op, store = stores[family]
         cores = kernel_operands(op, family)
@@ -336,12 +672,21 @@ def main() -> int:
         p_spec = f"n{letters}," + ",".join(terms) + "->nk"
         r_spec = "nk," + ",".join(terms) + f"->n{letters}"
         pplan = ops.plan_contraction(family, "project", k, b, dims, rank)
+        p5plan = ops.plan_contraction(family, "project", k, b, dims, rank,
+                                      pipeline="double")
         rplan = ops.plan_contraction(family, "reconstruct", k, b, dims, rank)
         cases = [
             ("sweep_project", p_flops, x_bytes + core_bytes + y_bytes,
              lambda: _sweep.sweep_project(x, *cores, plan=pplan, scale=scale),
              lambda: _sweep.sweep_project_plain(x, *cores, steps=pplan.steps,
                                                 scale=scale),
+             lambda: torch.einsum(p_spec, x, *cores)),
+            ("sweep_project_pipelined", p_flops,
+             x_bytes + core_bytes + y_bytes,
+             lambda: _sweep.sweep_project_pipelined(x, *cores, plan=p5plan,
+                                                    scale=scale),
+             lambda: _sweep.sweep_project_pipelined_plain(
+                 x, *cores, steps=p5plan.steps, tg=p5plan.tg, scale=scale),
              lambda: torch.einsum(p_spec, x, *cores)),
             ("sweep_reconstruct", r_flops, y_bytes + core_bytes + x_bytes,
              lambda: _sweep.sweep_reconstruct(y, *cores, plan=rplan,
@@ -350,42 +695,88 @@ def main() -> int:
                  y, *cores, steps=rplan.steps, scale=scale),
              lambda: torch.einsum(r_spec, y, *cores)),
         ]
+        shape = f"B={b} k={k} dims={'x'.join(map(str, dims))} R={rank}"
         for name, program_flops, nbytes, kern, plain, library in cases:
-            ms = cuda_ms(kern, reps=20)
-            plain_ms = cuda_ms(plain, reps=5, warmup=1)
-            torch.cuda.empty_cache()
-            library_ms = cuda_ms(library, reps=5, warmup=1)
-            torch.cuda.empty_cache()
-            flops = min(program_flops, dense)
-            t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-            bound_ms = max(t_ops, t_bytes)
-            program_bound_ms = max(program_flops / PEAK_FP32 * 1e3, t_bytes)
-            key = f"{name}:{family}"
-            row = {"name": key, "route": "cuda", "source": SOURCES[name],
-                   "replaces": REPLACES[name],
-                   "launches": per_family[key],
-                   "max_abs_err": errs[key], "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                   "library_ms": library_ms,
-                   "shape": f"B={b} k={k} dims={'x'.join(map(str, dims))} "
-                            f"R={rank}",
-                   "flops": flops, "bytes": nbytes,
-                   "program_flops": program_flops,
-                   "program_bound_ms": program_bound_ms}
-            rows.append(row)
-            route = ("sweep program" if flops == program_flops
-                     else "dense operator")
-            log(f"time {key} {row['shape']}: kernel {ms:.3f} ms, bound "
-                f"{bound_ms:.3f} ms ({row['bound_by']}, {flops:.4g} flops "
-                f"by the {route} route; {100 * bound_ms / ms:.1f}% of the "
-                f"kernel's time), "
-                f"sweep program's own bound {program_bound_ms:.3f} ms "
-                f"({program_flops:.4g} flops), plain {plain_ms:.3f} ms, "
-                f"torch.einsum {library_ms:.3f} ms")
+            rows.append(time_row(f"{name}:{family}", program_flops, dense,
+                                 nbytes, kern, plain, library, shape))
+
+    # K3 and K6 at the four pairings on the serving shapes, input rank 4;
+    # the cheaper route densifies the inputs, then the cheaper dense product
+    for of in ("tt", "cp"):
+        op, _ = stores[of]
+        dims, k, rank, b = op.in_dims, op.k, op.rank, 64
+        scale = 1.0 / math.sqrt(k)
+        dense_product = min(
+            b * (theory.flops_project_dense_tt(k, dims, rank) if of == "tt"
+                 else theory.flops_project_dense_cp(k, dims, rank)),
+            dense_operator_flops(of, k, dims, rank)
+            + 2 * b * k * math.prod(dims))
+        for inf in ("tt", "cp"):
+            xb = struct_batch(inf, dims, (4,), b)
+            cores, n_op = struct_operands(op, of, xb, inf)
+            inter = [t for pair in zip(cores[:n_op], cores[n_op:])
+                     for t in pair]
+            spec = struct_einsum_spec(of, inf, len(dims))
+            program_flops = carry_flops(of, inf, cores, n_op)
+            cheaper = b * densify_flops(inf, dims, 4) + dense_product
+            nbytes = 4 * (sum(c.numel() for c in cores) + b * k)
+            shape = (f"B={b} k={k} dims={'x'.join(map(str, dims))} R={rank} "
+                     f"input {inf.upper()} rank 4")
+            for name, pipeline, kern in (
+                    ("carry_sweep_project", "serial",
+                     carry.carry_sweep_project),
+                    ("carry_sweep_project_pipelined", "double",
+                     carry.carry_sweep_project_pipelined)):
+                plan = splan.plan_carry_sweep(of, inf, k, b, dims, rank, 4,
+                                              pipeline=pipeline)
+                rows.append(time_row(
+                    f"{name}:{of}x{inf}", program_flops, cheaper, nbytes,
+                    lambda: kern(*cores, n_op=n_op, plan=plan, scale=scale),
+                    lambda: carry.carry_sweep_project_plain(
+                        *cores, n_op=n_op, program=plan.program, scale=scale),
+                    lambda: torch.einsum(spec, *inter), shape))
+
+    # K3 in the paper's regime: TT(5), k=512, dims 8^8, unit-norm rank-10 TT
+    # inputs (a dense item would be 16.7 M floats); the numbers go into the
+    # TT x TT row as `paper_*`
+    dims, k, rank, b = (8,) * 8, SLICE_K, 5, 64
+    op = rp.make_projector(rp.ProjectorSpec("tt", k, dims, rank), seed=11,
+                           device=dev)
+    xb = struct_batch("tt", dims, (10,), b, norm="unit")
+    cores, n_op = struct_operands(op, "tt", xb, "tt")
+    inter = [t for pair in zip(cores[:n_op], cores[n_op:]) for t in pair]
+    spec = struct_einsum_spec("tt", "tt", len(dims))
+    plan = splan.plan_carry_sweep("tt", "tt", k, b, dims, rank, 10)
+    scale = 1.0 / math.sqrt(k)
+    paper_ref = carry.carry_sweep_project_plain(*cores, n_op=n_op,
+                                                program=plan.program,
+                                                scale=scale)
+    paper_err = check(f"K3 paper regime dims={dims} k={k} R={rank} input "
+                      "rank 10", carry.carry_sweep_project(
+                          *cores, n_op=n_op, plan=plan, scale=scale),
+                      paper_ref)
+    cheaper = (b * densify_flops("tt", dims, 10)
+               + min(b * theory.flops_project_dense_tt(k, dims, rank),
+                     dense_operator_flops("tt", k, dims, rank)
+                     + 2 * b * k * math.prod(dims)))
+    errs["carry_sweep_project:paper"] = paper_err
+    paper = time_row(
+        "carry_sweep_project:paper", carry_flops("tt", "tt", cores, n_op),
+        cheaper, 4 * (sum(c.numel() for c in cores) + b * k),
+        lambda: carry.carry_sweep_project(*cores, n_op=n_op, plan=plan,
+                                          scale=scale),
+        lambda: carry.carry_sweep_project_plain(
+            *cores, n_op=n_op, program=plan.program, scale=scale),
+        lambda: torch.einsum(spec, *inter),
+        f"B={b} k={k} dims=8^8 R={rank} input TT rank 10 (unit norm)")
+    row = next(r for r in rows if r["name"] == "carry_sweep_project:ttxtt")
+    row.update({f"paper_{key}": paper[key] for key in (
+        "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "program_bound_ms", "flops", "program_flops", "max_abs_err")})
 
     for name in launches:
-        total = sum(r["launches"] for r in rows if r["name"].startswith(name))
+        total = sum(r["launches"] for r in rows
+                    if r["name"].split(":")[0] == name)
         if total != launches[name]:
             raise AssertionError(f"{name}: per-family launches {total} != "
                                  f"counter {launches[name]}")

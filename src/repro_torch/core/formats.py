@@ -1,10 +1,9 @@
 """Tensor-train (TT) and CP tensor containers and flat-vector tensorization.
 
-Port of `repro/core/formats.py` for the dense slice: the containers exist
-so that dispatch and `SketchServer.submit` can recognise structured
-payloads; projecting them (the carry sweep) comes with the structured-input
-slice, together with the batched containers, rank padding, `random_tt` /
-`random_cp`, `tt_svd` and the inner products.
+Port of `repro/core/formats.py`: the TT/CP containers and their batched
+forms (the carry sweep's input format), exact rank padding for coalescing
+rank-ragged payloads, and the seeded random constructions. `tt_svd` and
+the public inner products are not ported yet.
 
 Conventions (the paper's, Sec. 2.2):
   * TT core n has shape (r_{n-1}, d_n, r_n), with r_0 = r_N = 1.
@@ -40,6 +39,42 @@ class TTTensor:
     def dims(self) -> tuple[int, ...]:
         return tuple(int(c.shape[1]) for c in self.cores)
 
+    @property
+    def ranks(self) -> tuple[int, ...]:
+        """Bond ranks (r_0, ..., r_N) including boundary 1s."""
+        return (tuple(int(c.shape[0]) for c in self.cores)
+                + (int(self.cores[-1].shape[2]),))
+
+    @property
+    def dtype(self):
+        return self.cores[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.cores[0].device
+
+    def num_params(self) -> int:
+        return sum(_prod(c.shape) for c in self.cores)
+
+    def full(self) -> torch.Tensor:
+        """Materialize the dense tensor (exponential memory; tests only)."""
+        out = self.cores[0].reshape(self.cores[0].shape[1], -1)  # (d1, r1)
+        for core in self.cores[1:]:
+            out = torch.tensordot(out, core, dims=([-1], [0]))
+        return out.reshape(self.dims)
+
+    def norm_squared(self) -> torch.Tensor:
+        """||T||_F^2 by a bond carry, without materializing."""
+        carry = self.cores[0].new_ones((1, 1))
+        for c in self.cores:
+            tmp = torch.einsum("ab,adc->bdc", carry, c)
+            carry = torch.einsum("bdc,bde->ce", tmp, c)
+        return carry.reshape(())
+
+    def scale(self, alpha) -> "TTTensor":
+        """Multiply the tensor by a scalar (applied to the first core)."""
+        return TTTensor((self.cores[0] * alpha,) + tuple(self.cores[1:]))
+
 
 @dataclasses.dataclass(frozen=True)
 class CPTensor:
@@ -56,6 +91,306 @@ class CPTensor:
     @property
     def dims(self) -> tuple[int, ...]:
         return tuple(int(f.shape[0]) for f in self.factors)
+
+    @property
+    def rank(self) -> int:
+        return int(self.factors[0].shape[1])
+
+    @property
+    def dtype(self):
+        return self.factors[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.factors[0].device
+
+    def num_params(self) -> int:
+        n = sum(_prod(f.shape) for f in self.factors)
+        if self.weights is not None:
+            n += _prod(self.weights.shape)
+        return n
+
+    def full(self) -> torch.Tensor:
+        out = self.factors[0]  # (d1, R)
+        if self.weights is not None:
+            out = out * self.weights[None, :]
+        for f in self.factors[1:]:
+            out = torch.einsum("pr,dr->pdr", out, f).reshape(-1, out.shape[-1])
+        return out.sum(-1).reshape(self.dims)
+
+    def norm_squared(self) -> torch.Tensor:
+        acc = self.factors[0].new_ones((self.rank, self.rank))
+        for f in self.factors:
+            acc = acc * (f.T @ f)
+        w = (self.weights if self.weights is not None
+             else self.factors[0].new_ones((self.rank,)))
+        return torch.einsum("a,ab,b->", w, acc, w)
+
+    def scale(self, alpha) -> "CPTensor":
+        return CPTensor((self.factors[0] * alpha,) + tuple(self.factors[1:]),
+                        self.weights)
+
+    def to_tt(self) -> TTTensor:
+        """Exact CP -> TT conversion with bond rank == R (diagonal cores)."""
+        R = self.rank
+        cores = []
+        for n, f in enumerate(self.factors):  # f: (d, R)
+            if n == 0:
+                w = f if self.weights is None else f * self.weights[None, :]
+                cores.append(w[None, :, :])                     # (1, d, R)
+            elif n == len(self.factors) - 1:
+                cores.append(f.T[:, :, None])                   # (R, d, 1)
+            else:
+                eye = torch.eye(R, dtype=f.dtype, device=f.device)
+                cores.append(torch.einsum("dr,rs->rds", f, eye))
+        return TTTensor(tuple(cores))
+
+
+# ---------------------------------------------------------------------------
+# Batched structured containers: B same-structure tensors sharing one
+# leading batch axis, so a whole batch projects in ONE kernel launch
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BatchedTTTensor:
+    """A batch of B same-structure TT tensors; cores[n]: (B, r_{n-1}, d_n, r_n).
+
+    Every tensor in the batch shares dims and bond ranks. Build one with
+    `stack` from a list of `TTTensor`s or directly from batched cores;
+    `unstack` recovers the per-item tensors.
+    """
+
+    cores: tuple[torch.Tensor, ...]
+
+    @classmethod
+    def stack(cls, tensors: Sequence[TTTensor]) -> "BatchedTTTensor":
+        first = tensors[0]
+        for t in tensors[1:]:
+            if t.dims != first.dims or t.ranks != first.ranks:
+                raise ValueError(
+                    f"cannot stack TT tensors with mismatched structure: "
+                    f"{(t.dims, t.ranks)} != {(first.dims, first.ranks)}")
+        return cls(tuple(torch.stack([t.cores[n] for t in tensors])
+                         for n in range(first.order)))
+
+    def unstack(self) -> list[TTTensor]:
+        return [self[i] for i in range(self.batch)]
+
+    def __getitem__(self, i: int) -> TTTensor:
+        return TTTensor(tuple(c[i] for c in self.cores))
+
+    @property
+    def batch(self) -> int:
+        return int(self.cores[0].shape[0])
+
+    @property
+    def order(self) -> int:
+        return len(self.cores)
+
+    @property
+    def dims(self) -> tuple[int, ...]:
+        return tuple(int(c.shape[2]) for c in self.cores)
+
+    @property
+    def ranks(self) -> tuple[int, ...]:
+        return (tuple(int(c.shape[1]) for c in self.cores)
+                + (int(self.cores[-1].shape[3]),))
+
+    @property
+    def dtype(self):
+        return self.cores[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.cores[0].device
+
+    def num_params(self) -> int:
+        return sum(_prod(c.shape) for c in self.cores)
+
+    def full(self) -> torch.Tensor:
+        """Materialize the dense (B, *dims) batch (tests/small cases only)."""
+        return torch.stack([t.full() for t in self.unstack()])
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedCPTensor:
+    """A batch of B same-rank CP tensors; factors[n]: (B, d_n, R).
+
+    Optional per-item component weights have shape (B, R); None means
+    all-ones. See `BatchedTTTensor` for the stack/unstack contract.
+    """
+
+    factors: tuple[torch.Tensor, ...]
+    weights: torch.Tensor | None = None
+
+    @classmethod
+    def stack(cls, tensors: Sequence[CPTensor]) -> "BatchedCPTensor":
+        first = tensors[0]
+        for t in tensors[1:]:
+            if t.dims != first.dims or t.rank != first.rank:
+                raise ValueError(
+                    f"cannot stack CP tensors with mismatched structure: "
+                    f"{(t.dims, t.rank)} != {(first.dims, first.rank)}")
+        has_w = [t.weights is not None for t in tensors]
+        if any(has_w) and not all(has_w):
+            raise ValueError("cannot stack CP tensors mixing weighted and "
+                             "unweighted components")
+        factors = tuple(torch.stack([t.factors[n] for t in tensors])
+                        for n in range(first.order))
+        weights = (torch.stack([t.weights for t in tensors])
+                   if all(has_w) else None)
+        return cls(factors, weights)
+
+    def unstack(self) -> list[CPTensor]:
+        return [self[i] for i in range(self.batch)]
+
+    def __getitem__(self, i: int) -> CPTensor:
+        w = None if self.weights is None else self.weights[i]
+        return CPTensor(tuple(f[i] for f in self.factors), w)
+
+    @property
+    def batch(self) -> int:
+        return int(self.factors[0].shape[0])
+
+    @property
+    def order(self) -> int:
+        return len(self.factors)
+
+    @property
+    def dims(self) -> tuple[int, ...]:
+        return tuple(int(f.shape[1]) for f in self.factors)
+
+    @property
+    def rank(self) -> int:
+        return int(self.factors[0].shape[2])
+
+    @property
+    def dtype(self):
+        return self.factors[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.factors[0].device
+
+    def num_params(self) -> int:
+        n = sum(_prod(f.shape) for f in self.factors)
+        if self.weights is not None:
+            n += _prod(self.weights.shape)
+        return n
+
+    def full(self) -> torch.Tensor:
+        """Materialize the dense (B, *dims) batch (tests/small cases only)."""
+        return torch.stack([t.full() for t in self.unstack()])
+
+
+# Everything that dispatches to the compressed-domain (carry-sweep) path.
+STRUCT_TYPES = (TTTensor, CPTensor, BatchedTTTensor, BatchedCPTensor)
+
+
+# ---------------------------------------------------------------------------
+# Rank-ragged coalescing: zero-padded bond/component channels contribute a
+# term with a zero factor to every entry, so padding is exact
+# ---------------------------------------------------------------------------
+
+def pad_tt_rank(t: TTTensor, ranks: Sequence[int]) -> TTTensor:
+    """Zero-pad a TT tensor's INTERIOR bond ranks up to `ranks` (len N+1).
+
+    Boundary ranks (r_0, r_N) must match the target exactly: padding a
+    boundary would change the tensor's meaning, not embed it.
+    """
+    cur = t.ranks
+    ranks = tuple(int(r) for r in ranks)
+    if len(ranks) != t.order + 1:
+        raise ValueError(f"target ranks {ranks} must have length "
+                         f"order+1 = {t.order + 1}")
+    if ranks[0] != cur[0] or ranks[-1] != cur[-1]:
+        raise ValueError(f"cannot pad TT boundary ranks {cur[0], cur[-1]} "
+                         f"to {ranks[0], ranks[-1]}")
+    if any(r < c for r, c in zip(ranks, cur)):
+        raise ValueError(f"target ranks {ranks} below current {cur}")
+    cores = tuple(
+        torch.nn.functional.pad(c, (0, ranks[n + 1] - cur[n + 1], 0, 0,
+                                    0, ranks[n] - cur[n]))
+        for n, c in enumerate(t.cores))
+    return TTTensor(cores)
+
+
+def pad_cp_rank(t: CPTensor, rank: int) -> CPTensor:
+    """Zero-pad a CP tensor's component rank up to `rank` (exact)."""
+    if rank < t.rank:
+        raise ValueError(f"target rank {rank} below current {t.rank}")
+    if rank == t.rank:
+        return t
+    factors = tuple(torch.nn.functional.pad(f, (0, rank - t.rank))
+                    for f in t.factors)
+    weights = (None if t.weights is None
+               else torch.nn.functional.pad(t.weights, (0, rank - t.rank)))
+    return CPTensor(factors, weights)
+
+
+def stack_ragged_tt(tensors: Sequence[TTTensor]) -> BatchedTTTensor:
+    """Stack same-dims TT tensors of possibly DIFFERENT bond ranks: interior
+    ranks are zero-padded to the per-bond max (exact); mismatched dims
+    raise a ValueError naming them."""
+    first = tensors[0]
+    for t in tensors[1:]:
+        if t.dims != first.dims:
+            raise ValueError(f"cannot coalesce TT tensors with mismatched "
+                             f"dims: {t.dims} != {first.dims}")
+    ranks = tuple(max(t.ranks[n] for t in tensors)
+                  for n in range(first.order + 1))
+    return BatchedTTTensor.stack([pad_tt_rank(t, ranks) for t in tensors])
+
+
+def stack_ragged_cp(tensors: Sequence[CPTensor]) -> BatchedCPTensor:
+    """Stack same-dims CP tensors of possibly DIFFERENT component ranks,
+    zero-padded to the max (exact). Unweighted tensors mixed with weighted
+    ones get all-ones weights before padding."""
+    first = tensors[0]
+    for t in tensors[1:]:
+        if t.dims != first.dims:
+            raise ValueError(f"cannot coalesce CP tensors with mismatched "
+                             f"dims: {t.dims} != {first.dims}")
+    rank = max(t.rank for t in tensors)
+    if any(t.weights is not None for t in tensors):
+        tensors = [t if t.weights is not None
+                   else CPTensor(t.factors, t.factors[0].new_ones((t.rank,)))
+                   for t in tensors]
+    return BatchedCPTensor.stack([pad_cp_rank(t, rank) for t in tensors])
+
+
+# ---------------------------------------------------------------------------
+# Random constructions
+# ---------------------------------------------------------------------------
+
+def random_tt(generator: torch.Generator, dims: Sequence[int], rank: int, *,
+              norm: str | None = None, dtype=torch.float32) -> TTTensor:
+    """Gaussian random TT tensor with bond rank `rank`, on the generator's
+    device. norm='unit' rescales to ||T||_F = 1 (the paper's experiments
+    draw unit-norm rank-10 TT inputs)."""
+    N = len(dims)
+    ranks = [1] + [int(rank)] * (N - 1) + [1]
+    cores = tuple(torch.randn((ranks[n], int(dims[n]), ranks[n + 1]),
+                              generator=generator, device=generator.device,
+                              dtype=dtype) for n in range(N))
+    t = TTTensor(cores)
+    if norm == "unit":
+        nrm = torch.sqrt(t.norm_squared())
+        t = t.scale(torch.where(nrm > 0, 1.0 / nrm, torch.ones_like(nrm)))
+    return t
+
+
+def random_cp(generator: torch.Generator, dims: Sequence[int], rank: int, *,
+              norm: str | None = None, dtype=torch.float32) -> CPTensor:
+    """Gaussian random CP tensor with `rank` components (see `random_tt`)."""
+    factors = tuple(torch.randn((int(d), int(rank)), generator=generator,
+                                device=generator.device, dtype=dtype)
+                    for d in dims)
+    t = CPTensor(factors)
+    if norm == "unit":
+        nrm = torch.sqrt(t.norm_squared())
+        t = t.scale(torch.where(nrm > 0, 1.0 / nrm, torch.ones_like(nrm)))
+    return t
 
 
 def tensorize(vec: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
@@ -98,5 +433,3 @@ def pad_to_tensorizable(vec: torch.Tensor, align: int = 128,
         vec = torch.cat([vec, vec.new_zeros(padded - n)])
     return vec, dims, n
 
-
-STRUCT_TYPES = (TTTensor, CPTensor)

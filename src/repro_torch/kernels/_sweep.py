@@ -1,7 +1,9 @@
-"""The mode-sweep kernels K1 (`sweep_project`) and K2 (`sweep_reconstruct`).
+"""The mode-sweep kernels K1 (`sweep_project`), K5
+(`sweep_project_pipelined`) and K2 (`sweep_reconstruct`).
 
 Python side of the hand-written CUDA kernels in `csrc/`: the build and
-load, argument checks, output and scratch allocation, and the launch
+load of every kernel source listed in `SOURCES`, and for the mode sweeps
+the argument checks, output and scratch allocation, and the launch
 counters. Counterpart of the Pallas machinery in `repro/kernels/_sweep.py`;
 `tt_sweep.py` / `cp_sweep.py` add the family core layouts.
 
@@ -32,7 +34,8 @@ from .ops import MAX_ORDER, MAX_RANK, ContractionPlan, program_codes
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = {"sweep_project": "sweep_project.cu",
-           "sweep_reconstruct": "sweep_reconstruct.cu"}
+           "sweep_reconstruct": "sweep_reconstruct.cu",
+           "carry_sweep": "carry_sweep.cu"}
 _HEADERS = ("sweep_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,7 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     # x, y, cores, dims, ops, order, B, K, R, tk, tb, ba, tg, rch,
-    # smem_bytes, scale, stream
+    # smem_bytes, scale, stream (K5: the same)
     "sweep_project": [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I),
                       ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, ctypes.c_float, _P],
@@ -50,6 +53,7 @@ _ARGTYPES = {
                           ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I,
                           ctypes.c_float, _P],
 }
+_ARGTYPES["sweep_project_pipelined"] = _ARGTYPES["sweep_project"]
 _FNS: dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -100,14 +104,17 @@ def build(names=None) -> dict[str, str]:
     return logs
 
 
-def _launcher(name: str):
-    fn = _FNS.get(name)
+def _launcher(entry: str, source: str | None = None, argtypes=None):
+    """The C entry `<entry>_launch` of kernel source `source` (default: the
+    source named like the entry), built and loaded at first use."""
+    fn = _FNS.get(entry)
     if fn is None:
-        build([name])
-        fn = getattr(ctypes.CDLL(str(lib_path(name))), f"{name}_launch")
+        source = entry if source is None else source
+        build([source])
+        fn = getattr(ctypes.CDLL(str(lib_path(source))), f"{entry}_launch")
         fn.restype = ctypes.c_int
-        fn.argtypes = _ARGTYPES[name]
-        _FNS[name] = fn
+        fn.argtypes = _ARGTYPES[entry] if argtypes is None else argtypes
+        _FNS[entry] = fn
     return fn
 
 
@@ -171,6 +178,24 @@ def sweep_project_plain(x: torch.Tensor, *cores: torch.Tensor, steps,
     return z * scale
 
 
+def _launch_project(entry: str, x, cores, plan: ContractionPlan,
+                    scale: float) -> torch.Tensor:
+    """Launch K1 or K5 (same C signature) and return y (B, k)."""
+    _cuda_only(x, entry)
+    codes = program_codes(plan)
+    y = torch.empty((plan.b, plan.k), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = _launcher(entry, "sweep_project")(
+            x.data_ptr(), y.data_ptr(), _pointers(cores), _ints(plan.dims),
+            _ints(codes), plan.order, plan.b, plan.k, plan.rank, plan.tk,
+            plan.tb, plan.ba, plan.tg, _row_chunk(plan.rank), plan.smem_bytes,
+            float(scale), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed with CUDA error {err} "
+                           f"(plan {plan})")
+    return y
+
+
 def sweep_project(x: torch.Tensor, *cores: torch.Tensor,
                   plan: ContractionPlan, scale: float) -> torch.Tensor:
     """K1: y = scale * sweep(x) for x (B, *dims) -> (B, k) float32.
@@ -179,25 +204,61 @@ def sweep_project(x: torch.Tensor, *cores: torch.Tensor,
     kernel (counted in `sweep_project.launches`) or raises.
     """
     _check("project", x, cores, plan)
+    if plan.pipeline != "serial":
+        raise ValueError(f"sweep_project runs serial plans; a "
+                         f"{plan.pipeline!r} plan goes to "
+                         "sweep_project_pipelined")
     if x.device.type == "cpu":
         return sweep_project_plain(x, *cores, steps=plan.steps, scale=scale)
-    _cuda_only(x, "sweep_project")
-    codes = program_codes(plan)
-    y = torch.empty((plan.b, plan.k), device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        err = _launcher("sweep_project")(
-            x.data_ptr(), y.data_ptr(), _pointers(cores), _ints(plan.dims),
-            _ints(codes), plan.order, plan.b, plan.k, plan.rank, plan.tk,
-            plan.tb, plan.ba, plan.tg, _row_chunk(plan.rank), plan.smem_bytes,
-            float(scale), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sweep_project launch failed with CUDA error "
-                           f"{err} (plan {plan})")
+    y = _launch_project("sweep_project", x, cores, plan, scale)
     sweep_project.launches += 1
     return y
 
 
 sweep_project.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: project, double-buffered
+# ---------------------------------------------------------------------------
+
+def sweep_project_pipelined_plain(x: torch.Tensor, *cores: torch.Tensor,
+                                  steps, tg: int,
+                                  scale: float) -> torch.Tensor:
+    """K5's schedule with `torch.einsum`: the project program run on each
+    tile of `tg` leading indices (input rows and leading-core tile, the
+    two operands K5 double-buffers), the tiles' outputs summed."""
+    y = None
+    for a0 in range(0, x.shape[1], tg):
+        z = x[:, a0:a0 + tg]
+        for spec, g in zip(steps, reversed(cores[1:])):
+            z = torch.einsum(spec, z, g)
+        z = torch.einsum(steps[-1], z, cores[0][:, a0:a0 + tg])
+        y = z if y is None else y + z
+    return y * scale
+
+
+def sweep_project_pipelined(x: torch.Tensor, *cores: torch.Tensor,
+                            plan: ContractionPlan,
+                            scale: float) -> torch.Tensor:
+    """K5: K1's function, with the next chunk's input rows and
+    leading-core tile copied by cp.async into a second shared-memory slot
+    while the current chunk contracts. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (counted in
+    `sweep_project_pipelined.launches`) or raises."""
+    _check("project", x, cores, plan)
+    if plan.pipeline != "double":
+        raise ValueError(f"sweep_project_pipelined runs 'double' plans, got "
+                         f"{plan.pipeline!r}")
+    if x.device.type == "cpu":
+        return sweep_project_pipelined_plain(x, *cores, steps=plan.steps,
+                                             tg=plan.tg, scale=scale)
+    y = _launch_project("sweep_project_pipelined", x, cores, plan, scale)
+    sweep_project_pipelined.launches += 1
+    return y
+
+
+sweep_project_pipelined.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +318,7 @@ sweep_reconstruct.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch counter to 0."""
+    """Set K1's, K5's and K2's launch counters to 0."""
     sweep_project.launches = 0
+    sweep_project_pipelined.launches = 0
     sweep_reconstruct.launches = 0

@@ -1,4 +1,4 @@
-"""CP entries of the mode-sweep kernels K1/K2 (`_sweep.py`).
+"""CP entries of the mode-sweep kernels K1/K5/K2 (`_sweep.py`).
 
 Counterpart of `repro/kernels/cp_sweep.py`. Factor layout is `op.factors`
 as is: f_n (k, d_n, R). The CP program keeps one rank index 'r' through
@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from ._sweep import sweep_project, sweep_reconstruct
+from ._sweep import (sweep_project, sweep_project_pipelined,
+                     sweep_reconstruct)
 from .ops import ContractionPlan
 
 
@@ -26,7 +27,9 @@ def cp_sweep_project(x: torch.Tensor, *factors: torch.Tensor,
                      plan: ContractionPlan, scale: float) -> torch.Tensor:
     """Batched order-N CP projection, x (B, d1, ..., dN) -> (B, k)."""
     _check_layout(factors, plan)
-    return sweep_project(x, *factors, plan=plan, scale=scale)
+    kern = (sweep_project_pipelined if plan.pipeline == "double"
+            else sweep_project)
+    return kern(x, *factors, plan=plan, scale=scale)
 
 
 def cp_sweep_reconstruct(y: torch.Tensor, *factors: torch.Tensor,

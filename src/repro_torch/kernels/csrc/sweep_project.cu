@@ -27,6 +27,20 @@
 // parallelism: B*k/TBT (batch, k) thread slots are too few to fill the card
 // at small B, so the planner adds thread groups along d1 until a call has
 // about 1024 threads per SM (or shared memory runs out).
+//
+// K5: sweep_project_pipelined — the same function and the same device sweep
+// code (PIPE = true below). Replaces repro/kernels/_sweep.py::
+// sweep_project_pipelined (_project_pipelined_kernel), which moved the d1
+// axis inside the kernel and double-buffered the input block and the
+// leading-core tile with explicit DMAs. K1 already loops over d1 inside
+// the block, but stages each chunk of input rows with plain loads between
+// two barriers, so the block idles while the chunk arrives. K5 keeps two
+// slots of the staged input and of the block's (tk, tg, R) leading-core
+// tile, and issues the cp.async copies of chunk i+1 into the other slot
+// before it contracts chunk i: the copies overlap the FMAs. What bounds it
+// is what bounds K1 (fp32 FMA issue); the second slots cost shared memory,
+// which the planner charges (ops.py::project_smem_bytes), so it may run
+// fewer thread groups than K1 at the same shape.
 #include <cstdint>
 
 #include "sweep_common.cuh"
@@ -49,8 +63,33 @@ static __device__ inline long long up4(long long n) {
   return (n + 3) / 4 * 4;
 }
 
+// One 4-byte asynchronous copy global -> shared; zero-fills dst when !valid
+// (src-size 0 reads nothing, but src must still be a mapped address).
+static __device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                                 bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(n));
+}
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+static __device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// A core element: through the read-only cache from device memory (GLOBAL),
+// or a plain load from K5's staged leading-core tile in shared memory.
+template <bool GLOBAL>
+static __device__ __forceinline__ float ld_core(const float* p) {
+  if (GLOBAL) return __ldg(p);
+  return *p;
+}
+
 // Fold one level's accumulator (R x TBT, per-thread strided in shared
 // memory) through step `op` with the core's slice at mode index `idx`.
+template <bool GLOBAL>
 static __device__ __forceinline__ void fold(int op, const float* __restrict__ core,
                                             int d, int idx, int kk, int R,
                                             const float* src, float* dst,
@@ -60,7 +99,7 @@ static __device__ __forceinline__ void fold(int op, const float* __restrict__ co
       const float* g = core + ((static_cast<size_t>(kk) * R + v) * d + idx) * R;
       float s[TBT] = {};
       for (int u = 0; u < R; ++u) {
-        const float w = __ldg(g + u);
+        const float w = ld_core<GLOBAL>(g + u);
 #pragma unroll
         for (int t = 0; t < TBT; ++t) s[t] = fmaf(src[(u * TBT + t) * stride], w, s[t]);
       }
@@ -70,7 +109,7 @@ static __device__ __forceinline__ void fold(int op, const float* __restrict__ co
   } else if (op == OP_HAD_CP) {
     const float* g = core + (static_cast<size_t>(kk) * d + idx) * R;
     for (int u = 0; u < R; ++u) {
-      const float w = __ldg(g + u);
+      const float w = ld_core<GLOBAL>(g + u);
 #pragma unroll
       for (int t = 0; t < TBT; ++t)
         dst[(u * TBT + t) * stride] = fmaf(src[(u * TBT + t) * stride], w,
@@ -79,7 +118,7 @@ static __device__ __forceinline__ void fold(int op, const float* __restrict__ co
   } else {  // OP_LAST
     const float* g = core + (static_cast<size_t>(kk) * d + idx) * R;
     for (int u = 0; u < R; ++u) {
-      const float w = __ldg(g + u);
+      const float w = ld_core<GLOBAL>(g + u);
 #pragma unroll
       for (int t = 0; t < TBT; ++t) yv[t] = fmaf(src[(u * TBT + t) * stride], w, yv[t]);
     }
@@ -88,7 +127,7 @@ static __device__ __forceinline__ void fold(int op, const float* __restrict__ co
 
 // The same fold for bond rows u0..u0+RCH of the first level, held in
 // registers (z) instead of shared memory.
-template <int RCH>
+template <int RCH, bool GLOBAL>
 static __device__ __forceinline__ void fold_regs(int op, const float* __restrict__ core,
                                                  int d, int idx, int kk, int R, int u0,
                                                  const float (&z)[TBT][RCH], float* dst,
@@ -99,7 +138,7 @@ static __device__ __forceinline__ void fold_regs(int op, const float* __restrict
       float s[TBT] = {};
 #pragma unroll
       for (int u = 0; u < RCH; ++u) {
-        const float w = (u0 + u < R) ? __ldg(g + u) : 0.f;
+        const float w = (u0 + u < R) ? ld_core<GLOBAL>(g + u) : 0.f;
 #pragma unroll
         for (int t = 0; t < TBT; ++t) s[t] = fmaf(z[t][u], w, s[t]);
       }
@@ -111,7 +150,7 @@ static __device__ __forceinline__ void fold_regs(int op, const float* __restrict
 #pragma unroll
     for (int u = 0; u < RCH; ++u) {
       if (u0 + u < R) {
-        const float w = __ldg(g + u);
+        const float w = ld_core<GLOBAL>(g + u);
 #pragma unroll
         for (int t = 0; t < TBT; ++t) {
           if (op == OP_HAD_CP) {
@@ -130,8 +169,8 @@ static __device__ __forceinline__ void fold_regs(int op, const float* __restrict
 // thread groups along d1); grid = (ceil(K / tk), ceil(B / tb)). Group g
 // takes the leading indices g, g + tg, ...; the groups' partial outputs are
 // summed in shared memory before the block writes its tile once.
-// RCH: bond rows per register tile.
-template <int RCH>
+// RCH: bond rows per register tile. PIPE: K5's double-buffered schedule.
+template <int RCH, bool PIPE>
 __global__ void sweep_project_kernel(ProjectArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int N = a.order, R = a.R, dN = a.dims[N - 1], d1 = a.dims[0];
@@ -146,9 +185,14 @@ __global__ void sweep_project_kernel(ProjectArgs a) {
   const int gstride = R * dN + 1;
   const int xstride = a.ba * dN * TB + XPAD;      // per group, padded
                                                   // against bank conflicts
+  const long long xslot = up4(static_cast<long long>(TG) * xstride);
+  const long long cslot = up4(static_cast<long long>(TK) * TG * R);
   float* gs = smem;                                         // [TK][R*dN (+1)]
   float* xs = gs + up4(static_cast<long long>(TK) * gstride);   // [TG][ba][dN][TB]
-  float* acc = xs + up4(static_cast<long long>(TG) * xstride);
+  // K5: a second input slot, then two slots of the leading-core tile
+  // cs[slot][TK][TG][R]
+  float* cs = xs + (PIPE ? 2 : 1) * xslot;
+  float* acc = cs + (PIPE ? 2 * cslot : 0);
   // acc: level l (1..N-2), bond u, row t of this thread at
   //      (((l-1)*R + u)*TBT + t)*nthr + tid
   float* yred = acc + up4(static_cast<long long>(N - 2) * R * TBT * nthr);
@@ -187,27 +231,74 @@ __global__ void sweep_project_kernel(ProjectArgs a) {
   const int lvl = R * TBT * nthr;    // floats per accumulator level
   const long long n_sub = a.n_prefix / d1;        // prod(d2..d_{N-1})
 
-  for (int a0 = 0; a0 < d1; a0 += TG) {
+  // The block walks chunks i = (leading tile a0, prefix chunk p0), the
+  // prefix chunks of one leading tile in order (the digits wrap to 0 at
+  // the end of each leading tile).
+  const long long n_p = (n_sub + a.ba - 1) / a.ba;
+  const long long n_steps = (d1 + TG - 1) / TG * n_p;
+  const float* g0 = a.core[0];
+  // stage chunk i into `slot`: the input rows, and under PIPE the block's
+  // leading-core tile, each as 4-byte cp.async copies; else plain loads
+  auto stage = [&](long long i, int slot) {
+    const int a0 = static_cast<int>(i / n_p) * TG;
+    const long long p0 = (i % n_p) * a.ba;
+    const int np = static_cast<int>(min(static_cast<long long>(a.ba), n_sub - p0));
+    float* xd = xs + slot * xslot;
+    for (int e = tid; e < TG * np * TB * dN; e += nthr) {
+      const int c = e % dN, r1 = e / dN;
+      const int nl = r1 % TB, r2 = r1 / TB;
+      const int pp = r2 % np, g = r2 / np;
+      const int n = b0 + nl, ag = a0 + g;
+      const bool ok = n < a.B && ag < d1;
+      const float* src =
+          ok ? a.x + ((static_cast<size_t>(n) * d1 + ag) * n_sub + p0 + pp) * dN + c : a.x;
+      float* dst = xd + g * xstride + (pp * dN + c) * TB + nl;
+      if (PIPE) cp_async4(dst, src, ok);
+      else *dst = ok ? *src : 0.f;
+    }
+    if (PIPE) {
+      float* cd = cs + slot * cslot;
+      for (int e = tid; e < TK * TG * R; e += nthr) {
+        const int u = e % R, r1 = e / R;
+        const int g = r1 % TG, row = r1 / TG;
+        const int kg = k0 + row, ag = a0 + g;
+        const bool ok = kg < a.K && ag < d1;
+        cp_async4(cd + e, ok ? g0 + (static_cast<size_t>(kg) * d1 + ag) * R + u : g0, ok);
+      }
+      cp_async_commit();
+    }
+  };
+
+  if (PIPE) stage(0, 0);
+  for (long long i = 0; i < n_steps; ++i) {
+    const int slot = PIPE ? static_cast<int>(i & 1) : 0;
+    const int a0 = static_cast<int>(i / n_p) * TG;
+    const long long p0 = (i % n_p) * a.ba;
+    const int np = static_cast<int>(min(static_cast<long long>(a.ba), n_sub - p0));
     const int ia = a0 + grp;
     const bool aval = ia < d1;
     digit[0] = ia;
-    for (long long p0 = 0; p0 < n_sub; p0 += a.ba) {
-      const int np = static_cast<int>(min(static_cast<long long>(a.ba), n_sub - p0));
-      __syncthreads();               // previous chunk fully consumed
-      for (int e = tid; e < TG * np * TB * dN; e += nthr) {
-        const int c = e % dN, r1 = e / dN;
-        const int nl = r1 % TB, r2 = r1 / TB;
-        const int pp = r2 % np, g = r2 / np;
-        const int n = b0 + nl, ag = a0 + g;
-        float v = 0.f;
-        if (n < a.B && ag < d1)
-          v = a.x[((static_cast<size_t>(n) * d1 + ag) * n_sub + p0 + pp) * dN + c];
-        xs[g * xstride + (pp * dN + c) * TB + nl] = v;
-      }
+    if (PIPE) {
+      // chunk i+1 streams into the other slot while chunk i contracts (an
+      // empty group keeps the wait count right on the last chunk)
+      if (i + 1 < n_steps) stage(i + 1, slot ^ 1);
+      else cp_async_commit();
+      cp_async_wait1();      // this thread's copies of chunk i have landed
+      __syncthreads();       // ... and every other thread's
+    } else {
+      __syncthreads();       // previous chunk fully consumed
+      stage(i, 0);
       __syncthreads();
-      if (!kval || !aval) continue;
+    }
+    // the leading core: K1 reads it from device memory at (kk, ia); K5 from
+    // its staged tile, row tkl of TK, column grp of TG
+    const float* lead = PIPE ? cs + slot * cslot : g0;
+    const int lead_k = PIPE ? tkl : kk, lead_d = PIPE ? TG : d1,
+              lead_i = PIPE ? grp : ia;
+    if (kval && aval) {
+      const float* xbase = xs + slot * xslot;
       for (int pp = 0; pp < np; ++pp) {
-        const float* xp = xs + grp * xstride + pp * dN * TB + tn * TBT;
+        const float* xp = xbase + grp * xstride + pp * dN * TB + tn * TBT;
         // step 0 contracts the last mode, RCH bond rows at a time; step 1
         // folds each chunk at once into level 1 (into y at order 2)
         for (int u0 = 0; u0 < R; u0 += RCH) {
@@ -223,8 +314,12 @@ __global__ void sweep_project_kernel(ProjectArgs a) {
               for (int t = 0; t < TBT; ++t) z[t][u] = fmaf(xr[t], g, z[t][u]);
             }
           }
-          fold_regs<RCH>(a.ops[1], a.core[N - 2], a.dims[N - 2], digit[N - 2], kk, R,
-                         u0, z, acc + tid, yv, nthr);
+          if (N == 2)
+            fold_regs<RCH, !PIPE>(a.ops[1], lead, lead_d, lead_i, lead_k, R, u0, z, acc + tid,
+                           yv, nthr);
+          else
+            fold_regs<RCH, true>(a.ops[1], a.core[N - 2], a.dims[N - 2], digit[N - 2], kk, R,
+                           u0, z, acc + tid, yv, nthr);
         }
         // steps 2..N-1: step s contracts mode m = N-1-s; level s-1 is
         // complete once mode m+1 wrapped, and folds into level s (y at s=N-1)
@@ -233,7 +328,10 @@ __global__ void sweep_project_kernel(ProjectArgs a) {
           if (digit[m + 1] != a.dims[m + 1] - 1) break;
           float* src = acc + (s - 2) * lvl + tid;
           float* dst = s < N - 1 ? acc + (s - 1) * lvl + tid : nullptr;
-          fold(a.ops[s], a.core[m], a.dims[m], digit[m], kk, R, src, dst, yv, nthr);
+          if (m == 0)
+            fold<!PIPE>(a.ops[s], lead, lead_d, lead_i, lead_k, R, src, dst, yv, nthr);
+          else
+            fold<true>(a.ops[s], a.core[m], a.dims[m], digit[m], kk, R, src, dst, yv, nthr);
           for (int e = 0; e < R * TBT; ++e) src[e * nthr] = 0.f;
         }
         for (int m = N - 2; m >= 1; --m) {   // next prefix, last mode fastest
@@ -242,6 +340,7 @@ __global__ void sweep_project_kernel(ProjectArgs a) {
         }
       }
     }
+    if (PIPE) __syncthreads();   // slot consumed before chunk i+2 refills it
   }
   // sum the groups' partial outputs, then write the tile once
   __syncthreads();
@@ -258,24 +357,24 @@ __global__ void sweep_project_kernel(ProjectArgs a) {
   }
 }
 
-template <int RCH>
+template <int RCH, bool PIPE>
 static cudaError_t launch_rch(const ProjectArgs& a, int tk, int tb, int tg,
                               size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(sweep_project_kernel<RCH>,
+  cudaError_t err = cudaFuncSetAttribute(sweep_project_kernel<RCH, PIPE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 block(tb / TBT, tk, tg);
   dim3 grid((a.K + tk - 1) / tk, (a.B + tb - 1) / tb);
-  sweep_project_kernel<RCH><<<grid, block, smem, stream>>>(a);
+  sweep_project_kernel<RCH, PIPE><<<grid, block, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-extern "C" int sweep_project_launch(const void* x, void* y, const void* const* cores,
-                                    const int* dims, const int* ops, int order,
-                                    int B, int K, int R, int tk, int tb, int ba,
-                                    int tg, int rch, int smem_bytes, float scale,
-                                    void* stream) {
+template <bool PIPE>
+static int project_launch(const void* x, void* y, const void* const* cores,
+                          const int* dims, const int* ops, int order, int B, int K,
+                          int R, int tk, int tb, int ba, int tg, int rch,
+                          int smem_bytes, float scale, void* stream) {
   // smem_bytes: the planner's ContractionPlan.smem_bytes
   // (ops.py::project_smem_bytes), the size of the regions the kernel lays out
   if (order < 2 || order > SWEEP_MAX_ORDER || tb % TBT != 0 || rch < 1 || rch > 8 ||
@@ -296,14 +395,36 @@ extern "C" int sweep_project_launch(const void* x, void* y, const void* const* c
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (rch) {
-    case 1: err = launch_rch<1>(a, tk, tb, tg, smem, s); break;
-    case 2: err = launch_rch<2>(a, tk, tb, tg, smem, s); break;
-    case 3: err = launch_rch<3>(a, tk, tb, tg, smem, s); break;
-    case 4: err = launch_rch<4>(a, tk, tb, tg, smem, s); break;
-    case 5: err = launch_rch<5>(a, tk, tb, tg, smem, s); break;
-    case 6: err = launch_rch<6>(a, tk, tb, tg, smem, s); break;
-    case 7: err = launch_rch<7>(a, tk, tb, tg, smem, s); break;
-    default: err = launch_rch<8>(a, tk, tb, tg, smem, s); break;
+    case 1: err = launch_rch<1, PIPE>(a, tk, tb, tg, smem, s); break;
+    case 2: err = launch_rch<2, PIPE>(a, tk, tb, tg, smem, s); break;
+    case 3: err = launch_rch<3, PIPE>(a, tk, tb, tg, smem, s); break;
+    case 4: err = launch_rch<4, PIPE>(a, tk, tb, tg, smem, s); break;
+    case 5: err = launch_rch<5, PIPE>(a, tk, tb, tg, smem, s); break;
+    case 6: err = launch_rch<6, PIPE>(a, tk, tb, tg, smem, s); break;
+    case 7: err = launch_rch<7, PIPE>(a, tk, tb, tg, smem, s); break;
+    default: err = launch_rch<8, PIPE>(a, tk, tb, tg, smem, s); break;
   }
   return static_cast<int>(err);
+}
+
+// K1
+extern "C" int sweep_project_launch(const void* x, void* y, const void* const* cores,
+                                    const int* dims, const int* ops, int order,
+                                    int B, int K, int R, int tk, int tb, int ba,
+                                    int tg, int rch, int smem_bytes, float scale,
+                                    void* stream) {
+  return project_launch<false>(x, y, cores, dims, ops, order, B, K, R, tk, tb, ba,
+                               tg, rch, smem_bytes, scale, stream);
+}
+
+// K5: the same arguments; smem_bytes is the planner's 'double' figure
+extern "C" int sweep_project_pipelined_launch(const void* x, void* y,
+                                              const void* const* cores,
+                                              const int* dims, const int* ops,
+                                              int order, int B, int K, int R, int tk,
+                                              int tb, int ba, int tg, int rch,
+                                              int smem_bytes, float scale,
+                                              void* stream) {
+  return project_launch<true>(x, y, cores, dims, ops, order, B, K, R, tk, tb, ba, tg,
+                              rch, smem_bytes, scale, stream);
 }

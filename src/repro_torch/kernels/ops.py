@@ -17,7 +17,10 @@ tiles do not carry over):
   thread groups share the d1 loop. `ba` is the number of prefixes each
   group stages in shared memory per step. Shared memory
   holds the block's k-rows of the last core, the staged input and the
-  per-thread bond accumulators of every sweep level.
+  per-thread bond accumulators of every sweep level. Under
+  `pipeline='double'` (K5) the staged input and the block's tile of the
+  leading core have two slots each, so the next chunk streams in while
+  the current one contracts.
 * reconstruct (K2): a fold launch writes the batch-independent transfer
   block m (k, R, d2..dN) to a scratch buffer, then a tiled product kernel
   owns a (tb rows of (n, d1) x ba columns of d2..dN) output tile and loops
@@ -53,6 +56,21 @@ MAX_ORDER = len(MODES)
 
 _FAMILIES = ("tt", "cp")
 _KINDS = ("project", "reconstruct")
+# 'serial': K1 stages each input chunk, then contracts it.
+# 'double': K5 copies chunk i+1 (input rows and the leading-core tile) into
+# a second shared-memory slot with cp.async while chunk i contracts
+# (project only); the planner charges the second slot.
+PIPELINES = ("serial", "double")
+
+
+def validate_pipeline(pipeline: str) -> str:
+    """The single `pipeline=` check (planners, dispatch and the plan layer
+    delegate here): returns it, or raises the one typed ValueError naming
+    the accepted set."""
+    if pipeline not in PIPELINES:
+        raise ValueError(f"unknown pipeline {pipeline!r}; expected "
+                         f"{PIPELINES}")
+    return pipeline
 
 # Batch rows each thread of the project kernel carries (csrc: TBT).
 TBT = 4
@@ -217,6 +235,7 @@ class ContractionPlan:
     steps: tuple
     smem_bytes: int
     tg: int = 1
+    pipeline: str = "serial"
 
     @property
     def order(self) -> int:
@@ -233,25 +252,30 @@ class ContractionPlan:
 
 
 def project_smem_bytes(tk: int, tb: int, ba: int, tg: int,
-                       dims: tuple[int, ...], rank: int) -> int:
-    """Dynamic shared memory of one K1 block (csrc/sweep_project.cu):
+                       dims: tuple[int, ...], rank: int,
+                       pipeline: str = "serial") -> int:
+    """Dynamic shared memory of one K1/K5 block (csrc/sweep_project.cu):
     the last core's tk rows (padded by one float per row against bank
     conflicts), `ba` staged input prefixes per thread group (padded by
     XPAD floats per group), the bond accumulators of the N-2 interior sweep
     levels and one output slot per thread for the group reduction; each
-    region 16-byte aligned."""
+    region 16-byte aligned. 'double' (K5) holds two slots of the staged
+    input and two of the block's (tk, tg, rank) leading-core tile."""
     def up4(n):
         return -(-n // 4) * 4
     last = dims[-1]
     nthr = tb // TBT * tk * tg
+    slots = 2 if pipeline == "double" else 1
+    lead = 2 * up4(tk * tg * rank) if pipeline == "double" else 0
     return 4 * (up4(tk * (rank * last + 1))
-                + up4(tg * (ba * last * tb + XPAD))
+                + slots * up4(tg * (ba * last * tb + XPAD)) + lead
                 + up4((len(dims) - 2) * rank * TBT * nthr) + TBT * nthr)
 
 
 def plan_contraction(family: str, kind: str, k: int, b: int,
                      dims: tuple[int, ...], rank: int, *,
-                     budget: int = SMEM_BUDGET_BYTES) -> ContractionPlan:
+                     budget: int = SMEM_BUDGET_BYTES,
+                     pipeline: str = "serial") -> ContractionPlan:
     """Plan a mode-sweep kernel launch for order N = len(dims).
 
     project: at most 32 k-rows with their last-core rows within 48 KB of
@@ -263,11 +287,17 @@ def plan_contraction(family: str, kind: str, k: int, b: int,
     raises: the kernel stages that row whole.
     reconstruct: the fixed RECON_TILE product tile; the transfer block
     lives in device memory, so shared memory does not depend on shape.
+    `pipeline='double'` (project only) charges K5's second slots.
     """
     if kind not in _KINDS:
         raise ValueError(f"unknown kind {kind!r}; expected {_KINDS}")
     if family not in _FAMILIES:
         raise ValueError(f"unknown family {family!r}; expected {_FAMILIES}")
+    validate_pipeline(pipeline)
+    if pipeline == "double" and kind != "project":
+        raise ValueError(
+            "pipeline='double' is implemented for kind='project' only: the "
+            "reconstruct sweep accumulates over k and stays serial")
     dims = tuple(int(d) for d in dims)
     order = len(dims)
     if order < 2:
@@ -293,7 +323,7 @@ def plan_contraction(family: str, kind: str, k: int, b: int,
         ba = min(8, _prod(dims[1:-1]))
 
         def smem():
-            return project_smem_bytes(tk, tb, ba, tg, dims, r)
+            return project_smem_bytes(tk, tb, ba, tg, dims, r, pipeline)
 
         # two blocks per SM where possible, then the hard block budget
         for limit in (budget // 2, budget):
@@ -323,7 +353,7 @@ def plan_contraction(family: str, kind: str, k: int, b: int,
         steps = _reconstruct_steps(family, order)
     return ContractionPlan(family=family, kind=kind, k=int(k), b=b, dims=dims,
                            rank=r, tk=tk, tb=tb, ba=ba, steps=steps,
-                           smem_bytes=nbytes, tg=tg)
+                           smem_bytes=nbytes, tg=tg, pipeline=pipeline)
 
 
 def sweep_hbm_bytes(plan: ContractionPlan) -> int:
@@ -331,7 +361,8 @@ def sweep_hbm_bytes(plan: ContractionPlan) -> int:
     the kernels' schedules.
 
     project: each block streams its batch rows of x once (so x is read
-    once per k tile) and reads its k-rows of every core once.
+    once per k tile) and reads its k-rows of every core once; K5 copies
+    the same tiles, only earlier.
     reconstruct: the fold reads the trailing cores and writes m; the
     product reads the sketch and leading core once per column tile, m once
     per row tile, and writes the output once.
@@ -386,14 +417,15 @@ def _as_batch(x: torch.Tensor, ndim: int) -> tuple[torch.Tensor, bool]:
 # projections and adjoints
 # ---------------------------------------------------------------------------
 
-def _sweep_project(family, op, cores, x):
+def _sweep_project(family, op, cores, x, pipeline="serial"):
     from .cp_sweep import cp_sweep_project
     from .tt_sweep import tt_sweep_project
     xb, batched = _as_batch(x, op.order)
     plan = plan_contraction(family, "project", op.k, xb.shape[0], op.in_dims,
-                            op.rank)
+                            op.rank, pipeline=pipeline)
     kern = tt_sweep_project if family == "tt" else cp_sweep_project
-    y = kern(xb.contiguous(), *(c.contiguous() for c in cores), plan=plan, scale=1.0 / math.sqrt(op.k))
+    y = kern(xb.contiguous(), *(c.contiguous() for c in cores), plan=plan,
+             scale=1.0 / math.sqrt(op.k))
     return y if batched else y[0]
 
 
@@ -415,21 +447,27 @@ def _einsum_reconstruct(op, y):
     return op.reconstruct(y)
 
 
-def tt_project(op: TTRP, x: torch.Tensor) -> torch.Tensor:
+def tt_project(op: TTRP, x: torch.Tensor, *,
+               pipeline: str = "serial") -> torch.Tensor:
     """f_TT(R)(x) for dense order-N input(s) via the mode-sweep kernel.
 
     x: (*dims) -> (k,)  or  (B, *dims) -> (B, k), one launch either way.
+    `pipeline='double'` launches K5 (`sweep_project_pipelined`) instead of
+    K1 — the same function with double-buffered input streams.
     """
+    validate_pipeline(pipeline)
     if not kernel_order_supported(op.order):
         return op.project(x)
-    return _sweep_project("tt", op, tt_cores_squeezed(op), x)
+    return _sweep_project("tt", op, tt_cores_squeezed(op), x, pipeline)
 
 
-def cp_project(op: CPRP, x: torch.Tensor) -> torch.Tensor:
+def cp_project(op: CPRP, x: torch.Tensor, *,
+               pipeline: str = "serial") -> torch.Tensor:
     """f_CP(R)(x) for dense order-N input(s) via the mode-sweep kernel."""
+    validate_pipeline(pipeline)
     if not kernel_order_supported(op.order):
         return op.project(x)
-    return _sweep_project("cp", op, op.factors, x)
+    return _sweep_project("cp", op, op.factors, x, pipeline)
 
 
 def tt_reconstruct(op: TTRP, y: torch.Tensor) -> torch.Tensor:
@@ -447,7 +485,8 @@ def cp_reconstruct(op: CPRP, y: torch.Tensor) -> torch.Tensor:
     return _sweep_reconstruct("cp", op, op.factors, y)
 
 
-__all__ = ["ContractionPlan", "MAX_ORDER", "SMEM_BUDGET_BYTES", "cp_project",
-           "cp_reconstruct", "kernel_order_supported", "plan_contraction",
-           "program_codes", "sweep_hbm_bytes", "tt_cores_squeezed",
-           "tt_project", "tt_reconstruct"]
+__all__ = ["ContractionPlan", "MAX_ORDER", "PIPELINES", "SMEM_BUDGET_BYTES",
+           "cp_project", "cp_reconstruct", "kernel_order_supported",
+           "plan_contraction", "program_codes", "sweep_hbm_bytes",
+           "tt_cores_squeezed", "tt_project", "tt_reconstruct",
+           "validate_pipeline"]

@@ -1,4 +1,4 @@
-"""TT entries of the mode-sweep kernels K1/K2 (`_sweep.py`).
+"""TT entries of the mode-sweep kernels K1/K5/K2 (`_sweep.py`).
 
 Counterpart of `repro/kernels/tt_sweep.py`. Core layout is
 `ops.tt_cores_squeezed`: (k, d1, R), interior (k, R, d, R), (k, R, dN);
@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from ._sweep import sweep_project, sweep_reconstruct
+from ._sweep import (sweep_project, sweep_project_pipelined,
+                     sweep_reconstruct)
 from .ops import ContractionPlan
 
 
@@ -29,7 +30,9 @@ def tt_sweep_project(x: torch.Tensor, *cores: torch.Tensor,
                      plan: ContractionPlan, scale: float) -> torch.Tensor:
     """Batched order-N TT projection, x (B, d1, ..., dN) -> (B, k)."""
     _check_layout(cores, plan)
-    return sweep_project(x, *cores, plan=plan, scale=scale)
+    kern = (sweep_project_pipelined if plan.pipeline == "double"
+            else sweep_project)
+    return kern(x, *cores, plan=plan, scale=scale)
 
 
 def tt_sweep_reconstruct(y: torch.Tensor, *cores: torch.Tensor,

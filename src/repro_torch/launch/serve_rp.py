@@ -31,10 +31,9 @@ def main(argv=None) -> int:
     ap.add_argument("--pool", type=int, default=1,
                     help="operator pool size (distinct seeds of the spec); "
                          ">1 exercises LRU cache eviction")
-    ap.add_argument("--mix", type=float, nargs=3, default=[1.0, 0.0, 0.0],
+    ap.add_argument("--mix", type=float, nargs=3, default=[1.0, 1.0, 1.0],
                     metavar=("DENSE", "TT", "CP"),
-                    help="relative payload-structure weights (dense only "
-                         "so far)")
+                    help="relative payload-structure weights")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--flush-us", type=float, default=1_000.0)
     ap.add_argument("--top-m", type=int, default=5)

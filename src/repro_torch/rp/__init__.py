@@ -3,9 +3,10 @@
 One protocol (`RPOperator`), one declarative spec (`ProjectorSpec`), a
 registry (`register_family` / `make_projector`), and the dispatched entry
 points `project` / `reconstruct` / `project_many`, each resolving through
-a cached `ExecutionPlan` (`repro_torch.rp.plan`) that routes dense inputs
-and sketches of TT/CP operators to the hand-written CUDA kernels on the
-card ('auto' | 'kernel' | 'torch').
+a cached `ExecutionPlan` (`repro_torch.rp.plan`) that routes dense
+inputs, TT/CP-format inputs and sketches of TT/CP operators to the
+hand-written CUDA kernels on the card ('auto' | 'kernel' | 'torch';
+`pipeline='double'` for the double-buffered projections).
 
 Quickstart::
 
@@ -24,7 +25,8 @@ from .many import project_many
 from .plan import (BACKENDS, CostLedger, ExecutionPlan, PlanCacheStats,
                    StructureSig, clear_plan_cache, execute_plan, explain,
                    group_signature, plan_cache_stats, plan_execution,
-                   pow2ceil, structure_tag, validate_backend)
+                   pow2ceil, struct_in_rank, struct_signature, structure_tag,
+                   validate_backend, validate_pipeline)
 from .protocol import FormatMismatchError, ProjectorSpec, RPOperator
 from .registry import (get_family, list_families, make_projector,
                        register_family)
@@ -37,5 +39,6 @@ __all__ = [
     "get_family", "group_signature", "kernel_call_count", "list_families",
     "make_projector", "plan_cache_stats", "plan_execution", "pow2ceil",
     "project", "project_many", "reconstruct", "register_family",
-    "structure_tag", "validate_backend",
+    "struct_in_rank", "struct_signature", "structure_tag",
+    "validate_backend", "validate_pipeline",
 ]

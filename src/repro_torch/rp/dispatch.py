@@ -1,11 +1,11 @@
 """Structure-dispatched projection: plan lookup -> record -> execute.
 
-Port of `repro/rp/dispatch.py` for dense inputs and sketches. `project`
-normalizes the input (dense tensor or flat vector, raising a typed
-`FormatMismatchError` on incompatible shapes) and every execution
-resolves through a cached `repro_torch.rp.plan.ExecutionPlan`. This
-module imports no kernel module: every kernel decision is behind the plan
-layer.
+Port of `repro/rp/dispatch.py`. `project` inspects the input's structure
+(dense tensor, flat vector, `TTTensor` / `CPTensor`, or the batched
+containers), raising a typed `FormatMismatchError` on incompatible shapes,
+and every execution resolves through a cached
+`repro_torch.rp.plan.ExecutionPlan`. This module imports no kernel module:
+every kernel decision is behind the plan layer.
 
 Instrumentation is CONTEXT-LOCAL: a `DispatchStats` object held in a
 `contextvars.ContextVar` carries the kernel-dispatch counter and the
@@ -23,7 +23,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.cp_rp import CPRP
 from repro_torch.core.formats import STRUCT_TYPES, _prod
+from repro_torch.core.tt_rp import TTRP
 
 from . import plan as _plan
 from .protocol import FormatMismatchError, RPOperator
@@ -143,18 +145,53 @@ def _run_planned(eplan, op, x) -> torch.Tensor:
     return _plan.execute_plan(eplan, op, x)
 
 
-def project(op: RPOperator, x, *, backend: str = "auto") -> torch.Tensor:
-    """Project `x` with `op`: a dense array `(*batch, *op.in_dims)` or a
-    flat vector / `(*batch, D)` stack of them (short vectors zero-padded).
+def _check_struct_dims(op: RPOperator, x) -> None:
+    if tuple(x.dims) != tuple(op.in_dims):
+        raise FormatMismatchError(
+            f"{type(x).__name__} input dims {tuple(x.dims)} != operator "
+            f"in_dims {tuple(op.in_dims)}")
 
-    Returns the `(*batch, k)` sketch. Structured (TT/CP-format) inputs
-    raise NotImplementedError until the carry sweep is ported.
+
+def _project_struct(op: RPOperator, x, backend: str,
+                    pipeline: str) -> torch.Tensor:
+    """Structured (TT/CP-format) input(s), single or batched: TT/CP
+    operators project in the compressed domain — the carry-sweep kernels
+    on the kernel route, their einsum oracles otherwise; a batched
+    container is ONE dispatch either way. Densifying for flat-vector
+    families waits with those families, so any other operator raises."""
+    if not isinstance(op, (TTRP, CPRP)):
+        raise TypeError(f"structured inputs project with a TT/CP operator, "
+                        f"got {type(op).__name__}")
+    _check_struct_dims(op, x)
+    if x.device != _op_device(op):
+        raise FormatMismatchError(f"input on {x.device}, operator on "
+                                  f"{_op_device(op)}")
+    eplan = _plan.plan_execution(op, _plan.struct_signature(op, x),
+                                 backend=backend, pipeline=pipeline)
+    return _run_planned(eplan, op, x)
+
+
+def project(op: RPOperator, x, *, backend: str = "auto",
+            pipeline: str = "serial") -> torch.Tensor:
+    """Project `x` with `op`, dispatching on the input's structure.
+
+    x may be a dense array `(*batch, *op.in_dims)`, a flat vector or a
+    `(*batch, D)` stack of them (short vectors zero-padded), a `TTTensor` /
+    `CPTensor` (compressed-domain projection, never densified), or a
+    `BatchedTTTensor` / `BatchedCPTensor` (a whole batch in ONE dispatch).
+
+    `pipeline='double'` selects the double-buffered kernels on the kernel
+    route (K5 for dense inputs, K6 for structured ones); same results to
+    fp32 tolerance. The einsum route ignores it; it is validated either
+    way. Returns the `(*batch, k)` sketch ((k,) for a single structured
+    input, (B, k) for a batched container).
     """
+    _plan.validate_pipeline(pipeline)
     if isinstance(x, STRUCT_TYPES):
-        raise NotImplementedError(_plan.STRUCT_NOT_PORTED)
+        return _project_struct(op, x, backend, pipeline)
     xt = _coerce_dense(op, x)
     eplan = _plan.plan_execution(op, _plan.dense_signature(op, xt),
-                                 backend=backend)
+                                 backend=backend, pipeline=pipeline)
     return _run_planned(eplan, op, xt)
 
 

@@ -1,19 +1,21 @@
 """ExecutionPlan: the one plan layer under every projection path.
 
-Port of `repro/rp/plan.py` for the dense and sketch rows of the dispatch
-matrix. Every `rp.project` / `rp.reconstruct` / `rp.project_many` / serve
-tick resolves through a frozen, hashable `ExecutionPlan` held in an LRU
-plan cache keyed by (family, k, dims, rank) x (structure, batch, chunk) x
-(kind, backend) x the device type the operator lives on.
+Port of `repro/rp/plan.py`. Every `rp.project` / `rp.reconstruct` /
+`rp.project_many` / serve tick resolves through a frozen, hashable
+`ExecutionPlan` held in an LRU plan cache keyed by (family, k, dims, rank)
+x (structure, batch, in_rank, chunk) x (kind, backend, pipeline) x the
+device type the operator lives on.
 
 Dispatch matrix (input format x operator family -> route):
 
-  dense/flat x tt/cp (2<=N<=MAX_ORDER)  mode-sweep kernel K1 | einsum
+  dense/flat x tt/cp (2<=N<=MAX_ORDER)  mode-sweep kernel K1 (K5 under
+                                        pipeline='double') | einsum
   (*batch, k) sketch x tt/cp            mode-sweep adjoint K2 | einsum
+  (Batched)TT/CP x tt/cp (2<=N)         carry-sweep kernel K3 (K6 under
+                                        pipeline='double'), ONE launch
+                                        per batched call | batched einsum
+                                        oracles (`kernels.struct.ref`)
   order outside [2, MAX_ORDER] x any    einsum, even under 'kernel'
-  (Batched)TT/CP inputs                 NotImplementedError: the carry
-                                        sweep (K3) is ROADMAP queue 1
-                                        item 5 and queue 2
 
 Backend policy (`backend='auto' | 'kernel' | 'torch'`, standing in for
 the reference's 'auto' | 'pallas' | 'xla'):
@@ -25,10 +27,15 @@ the reference's 'auto' | 'pallas' | 'xla'):
 * 'auto'   — the kernel for every tt/cp operator of a supported order on a
              CUDA device; the einsum path on the CPU.
 
+`pipeline='serial' | 'double'` picks the double-buffered kernels K5/K6 on
+the kernel route; the einsum route has nothing to pipeline and ignores it
+(it is validated either way).
+
 The plan carries a `CostLedger` (flops, analytic device-memory bytes of
 the route, the kernel's shared memory per block, the operator's parameter
-count and the Thm-1 variance factor); `rp.explain(op, x)` returns the plan
-with its rejected alternatives and reasons.
+count and the Thm-1 variance factor) and, on structured rows, the bytes of
+the carried bond state; `rp.explain(op, x)` returns the plan with its
+rejected alternatives and reasons.
 """
 from __future__ import annotations
 
@@ -40,16 +47,15 @@ import torch
 
 from repro_torch.core import theory
 from repro_torch.core.cp_rp import CPRP
-from repro_torch.core.formats import STRUCT_TYPES, CPTensor, TTTensor, _prod
+from repro_torch.core.formats import (STRUCT_TYPES, BatchedCPTensor,
+                                      BatchedTTTensor, CPTensor, TTTensor,
+                                      _prod)
 from repro_torch.core.tt_rp import TTRP
 
 from .protocol import ProjectorSpec
 
 BACKENDS = ("auto", "kernel", "torch")
 STRUCTURES = ("dense", "tt", "cp", "sketch")
-STRUCT_NOT_PORTED = (
-    "structured (TT/CP-format) inputs project through the carry-sweep "
-    "kernel K3, which is not ported yet (ROADMAP queue 1 item 5, queue 2)")
 
 
 def validate_backend(backend: str) -> str:
@@ -58,6 +64,14 @@ def validate_backend(backend: str) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
     return backend
+
+
+def validate_pipeline(pipeline: str) -> str:
+    """The single `pipeline=` check — delegates to the kernels layer, which
+    owns the `PIPELINES` tuple the schedules implement."""
+    # local import: the kernels package is not a module-level dependency
+    from repro_torch.kernels.ops import validate_pipeline as _vp
+    return _vp(pipeline)
 
 
 def pow2ceil(n: int, floor: int = 1) -> int:
@@ -72,9 +86,9 @@ def pow2ceil(n: int, floor: int = 1) -> int:
 def structure_tag(payload) -> str:
     """'tt' | 'cp' | 'dense' — the structure of ONE payload (the group key
     of `project_many` and the serve batcher's lane splitter)."""
-    if isinstance(payload, TTTensor):
+    if isinstance(payload, (TTTensor, BatchedTTTensor)):
         return "tt"
-    if isinstance(payload, CPTensor):
+    if isinstance(payload, (CPTensor, BatchedCPTensor)):
         return "cp"
     return "dense"
 
@@ -87,14 +101,18 @@ def structure_tag(payload) -> str:
 class StructureSig:
     """Signature of WHAT is being executed.
 
-    structure : 'dense' | 'sketch' (reconstruct input); 'tt' | 'cp' name
-                structured inputs, which raise NotImplementedError here.
+    structure : 'dense' | 'tt' | 'cp' (structured input) | 'sketch'
+                (reconstruct input).
     batch     : coalesced batch rows the dispatch will see.
+    in_rank   : structured-input rank as the carry-sweep planner sees it
+                (TT: max bond rank incl. boundary 1s; CP: component rank);
+                0 for dense/sketch.
     chunk     : reconstruct-only k-intermediate bound (None elsewhere).
     """
 
     structure: str = "dense"
     batch: int = 1
+    in_rank: int = 0
     chunk: int | None = None
 
     def __post_init__(self):
@@ -107,10 +125,12 @@ class StructureSig:
 class CostLedger:
     """Analytic cost of one planned execution.
 
-    flops      : 2x multiply-add count for the whole batch, from theory.
+    flops      : 2x multiply-add count for the whole batch, from theory
+                 (`flops_project_struct` on structured rows).
     hbm_bytes  : device-memory traffic: the kernel routes read the
-                 planner's `sweep_hbm_bytes`; the einsum route reports the
-                 one-pass lower bound (inputs + operator + outputs).
+                 planners' `sweep_hbm_bytes` / `struct_hbm_bytes`; the
+                 einsum route reports the one-pass lower bound (inputs +
+                 operator + outputs).
     smem_bytes : the kernel's dynamic shared memory per block (0 on torch).
     params     : operator parameter count (the paper's memory axis).
     var_factor : Thm-1 variance factor of the family at this order/rank.
@@ -142,16 +162,20 @@ class ExecutionPlan:
     batch: int
     dims: tuple
     rank: int
+    in_rank: int
     backend: str                   # requested policy
     route: str                     # resolved 'kernel' | 'torch'
     kernel: str
+    pipeline: str
     device: str
     chunk: int | None
     chunk_policy: str              # 'n/a' | 'folded' | 'honored'
-    tiles: tuple | None            # (tk, tb, ba)
+    tiles: tuple | None            # (tk, tb, ba) / (tk, tb)
     grid: tuple | None
     rejected: tuple                # ((route, reason), ...)
     cost: CostLedger
+    carry_bytes: int = 0           # structured rows: the (B, k, R·R~)
+                                   # bond state replacing dense sweep temps
 
     def describe(self) -> str:
         """Markdown block for `rp.explain`."""
@@ -161,13 +185,17 @@ class ExecutionPlan:
             f"{self.family}/{self.structure} N={self.order}",
             "",
             f"* route: **{self.route}** (requested backend="
-            f"'{self.backend}', device={self.device})",
+            f"'{self.backend}', pipeline='{self.pipeline}', "
+            f"device={self.device})",
             f"* kernel: {self.kernel}",
             f"* shape: k={self.k} dims={'x'.join(map(str, self.dims))} "
-            f"rank={self.rank} batch={self.batch}",
+            f"rank={self.rank} batch={self.batch}"
+            + (f" in_rank={self.in_rank}" if self.in_rank else ""),
         ]
         if self.tiles is not None:
             lines.append(f"* tiles: {self.tiles} grid={self.grid}")
+        if self.carry_bytes:
+            lines.append(f"* carry_bytes: {self.carry_bytes}")
         if self.kind == "reconstruct":
             lines.append(f"* chunk: {self.chunk} ({self.chunk_policy})")
         lines += [
@@ -253,11 +281,23 @@ def _op_signature(op_spec, device: str | None = None) -> _OpSig:
                   device=torch.device(dev).type)
 
 
+def struct_in_rank(x) -> int:
+    """The structured-input rank exactly as the carry-sweep planner sees
+    it: max TT bond rank (boundary 1s included) or the CP component rank."""
+    if isinstance(x, (TTTensor, BatchedTTTensor)):
+        return int(max(x.ranks))
+    return int(x.rank)
+
+
 def group_signature(op, payloads, *, bucket: bool = True) -> StructureSig:
-    """The `StructureSig` a coalesced `project_many` dense group will
-    dispatch, computed without materializing it: batch rows bucketed to
-    `pow2ceil(n, 8)`. The serve engine plans with it, so its tick hits the
-    plan-cache entry the dispatch resolves."""
+    """The `StructureSig` a coalesced `project_many` group will dispatch.
+
+    Computes, without materializing the batch, the padded shape `many.py`
+    produces for a homogeneous payload list: batch rows bucketed to
+    `pow2ceil(n, 8)`, TT interior bond ranks / CP component ranks bucketed
+    per position to powers of two. The serve engine plans with it, so its
+    tick hits the plan-cache entry the coalesced dispatch resolves.
+    """
     del op
     payloads = list(payloads)
     if not payloads:
@@ -267,10 +307,20 @@ def group_signature(op, payloads, *, bucket: bool = True) -> StructureSig:
         raise ValueError(
             f"group_signature needs a structurally homogeneous group, got "
             f"{sorted(tags)}; split by structure_tag first")
-    if tags.pop() != "dense":
-        raise NotImplementedError(STRUCT_NOT_PORTED)
+    tag = tags.pop()
     b = pow2ceil(len(payloads), 8) if bucket else len(payloads)
-    return StructureSig(structure="dense", batch=b)
+    if tag == "dense":
+        return StructureSig(structure="dense", batch=b)
+    if tag == "tt":
+        per_pos = [max(p.ranks[i] for p in payloads)
+                   for i in range(len(payloads[0].ranks))]
+        if bucket:
+            per_pos = ([per_pos[0]] + [pow2ceil(r) for r in per_pos[1:-1]]
+                       + [per_pos[-1]])
+        return StructureSig(structure="tt", batch=b, in_rank=max(per_pos))
+    r = max(int(p.rank) for p in payloads)
+    return StructureSig(structure="cp", batch=b,
+                        in_rank=pow2ceil(r) if bucket else r)
 
 
 # ---------------------------------------------------------------------------
@@ -304,11 +354,25 @@ def _safe_params(family: str, k: int, dims: tuple, rank: int) -> int:
         return int(k * _prod(dims))  # unknown registered family: dense-eq
 
 
+def _kernel_name(sig: StructureSig, kind: str, route: str,
+                 pipeline: str) -> str:
+    if route == "torch":
+        return "einsum" if kind == "project" else "einsum_adjoint"
+    if sig.structure in ("tt", "cp"):
+        return ("carry_sweep_pipelined" if pipeline == "double"
+                else "carry_sweep")
+    if kind == "reconstruct":
+        return "sweep_reconstruct"
+    return ("sweep_pipelined" if pipeline == "double"
+            else "sweep_project")
+
+
 def _build_plan(op_sig: _OpSig, sig: StructureSig, kind: str, backend: str,
-                key: tuple) -> ExecutionPlan:
+                pipeline: str, key: tuple) -> ExecutionPlan:
     # local import: the kernels package is not a module-level dependency
     # of the rp layer
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.struct import plan as ksplan
 
     f, k, dims, rank = op_sig.family, op_sig.k, op_sig.dims, op_sig.rank
     order, b = len(dims), int(sig.batch)
@@ -318,24 +382,41 @@ def _build_plan(op_sig: _OpSig, sig: StructureSig, kind: str, backend: str,
     params = _safe_params(f, k, dims, rank)
     var = float(theory.variance_factor(f, N=order, R=max(1, rank),
                                        D=_prod(dims)))
-    if op_sig.is_tn:
-        per_item = (theory.flops_project_dense_tt(k, dims, max(1, rank))
-                    if f == "tt"
-                    else theory.flops_project_dense_cp(k, dims, max(1, rank)))
-    else:
-        per_item = 2 * params
     tiles = grid = None
-    smem = 0
-    if route == "kernel":
-        kplan = kops.plan_contraction(f, kind, k, b, dims, rank)
-        tiles, grid = (kplan.tk, kplan.tb, kplan.ba), kplan.grid
-        smem = kplan.smem_bytes
-        hbm = kops.sweep_hbm_bytes(kplan)
-        kernel = ("sweep_project" if kind == "project"
-                  else "sweep_reconstruct")
+    smem = carry = 0
+    if sig.structure in ("tt", "cp"):
+        # structured input x TT/CP operator: the carry sweep
+        r_in = max(1, sig.in_rank)
+        per_item = theory.flops_project_struct(f, sig.structure, k, dims,
+                                               max(1, rank), r_in)
+        carry = theory.mem_carry_struct(k, max(1, rank), r_in, batch=b)
+        if route == "kernel":
+            cplan = ksplan.plan_carry_sweep(f, sig.structure, k, b, dims,
+                                            rank, r_in, pipeline=pipeline)
+            tiles, grid = (cplan.tk, cplan.tb), cplan.grid
+            smem = cplan.smem_bytes
+            hbm = ksplan.struct_hbm_bytes(cplan)
+        else:
+            hbm = 4 * (k * ksplan._core_elems(f, dims, max(1, rank))
+                       + b * ksplan._core_elems(sig.structure, dims, r_in)
+                       + b * k)
     else:
-        hbm = 4 * (b * _prod(dims) + params + b * k)
-        kernel = "einsum" if kind == "project" else "einsum_adjoint"
+        if op_sig.is_tn:
+            per_item = (theory.flops_project_dense_tt(k, dims, max(1, rank))
+                        if f == "tt"
+                        else theory.flops_project_dense_cp(k, dims,
+                                                           max(1, rank)))
+        else:
+            per_item = 2 * params
+        if route == "kernel":
+            kplan = kops.plan_contraction(f, kind, k, b, dims, rank,
+                                          pipeline=pipeline)
+            tiles, grid = (kplan.tk, kplan.tb, kplan.ba), kplan.grid
+            smem = kplan.smem_bytes
+            hbm = kops.sweep_hbm_bytes(kplan)
+        else:
+            hbm = 4 * (b * _prod(dims) + params + b * k)
+    kernel = _kernel_name(sig, kind, route, pipeline)
     if kind == "reconstruct":
         chunk_policy = "folded" if route == "kernel" else "honored"
     else:
@@ -343,38 +424,45 @@ def _build_plan(op_sig: _OpSig, sig: StructureSig, kind: str, backend: str,
     plan_id = hashlib.blake2s(repr(key).encode(), digest_size=6).hexdigest()
     return ExecutionPlan(
         plan_id=plan_id, family=f, structure=sig.structure, kind=kind,
-        order=order, k=k, batch=b, dims=dims, rank=rank, backend=backend,
-        route=route, kernel=kernel, device=op_sig.device, chunk=sig.chunk,
-        chunk_policy=chunk_policy, tiles=tiles, grid=grid, rejected=rejected,
+        order=order, k=k, batch=b, dims=dims, rank=rank,
+        in_rank=int(sig.in_rank), backend=backend, route=route,
+        kernel=kernel, pipeline=pipeline, device=op_sig.device,
+        chunk=sig.chunk, chunk_policy=chunk_policy, tiles=tiles, grid=grid,
+        rejected=rejected,
         cost=CostLedger(flops=int(b * per_item), hbm_bytes=int(hbm),
-                        smem_bytes=int(smem), params=params, var_factor=var))
+                        smem_bytes=int(smem), params=params, var_factor=var),
+        carry_bytes=int(carry))
 
 
 def plan_execution(op_spec, structure_sig: StructureSig | None = None, *,
                    kind: str = "project", backend: str = "auto",
+                   pipeline: str = "serial",
                    device: str | None = None) -> ExecutionPlan:
     """Resolve (or fetch from the LRU cache) the `ExecutionPlan` for one
     execution of `op_spec` (an operator, or a `ProjectorSpec` planned for
     `device`) against `structure_sig` (defaults to one dense payload)."""
     validate_backend(backend)
+    validate_pipeline(pipeline)
     if kind not in ("project", "reconstruct"):
         raise ValueError(f"unknown kind {kind!r}; expected "
                          "('project', 'reconstruct')")
     sig = structure_sig if structure_sig is not None else StructureSig()
-    if sig.structure in ("tt", "cp"):
-        raise NotImplementedError(STRUCT_NOT_PORTED)
     if (kind == "reconstruct") != (sig.structure == "sketch"):
         raise ValueError(
             f"kind={kind!r} does not take structure={sig.structure!r}: "
             "reconstruct plans take 'sketch' signatures, projects the rest")
     op_sig = _op_signature(op_spec, device)
-    key = (op_sig, sig, kind, backend)
+    if sig.structure in ("tt", "cp") and not op_sig.is_tn:
+        raise ValueError(
+            f"structured ({sig.structure!r}) execution plans exist for "
+            f"tt/cp operators only, got family {op_sig.family!r}")
+    key = (op_sig, sig, kind, backend, pipeline)
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
         _PLAN_CACHE.move_to_end(key)
         _CACHE_STATS.hits += 1
         return cached
-    plan = _build_plan(op_sig, sig, kind, backend, key)
+    plan = _build_plan(op_sig, sig, kind, backend, pipeline, key)
     _CACHE_STATS.builds += 1
     _PLAN_CACHE[key] = plan
     while len(_PLAN_CACHE) > _CACHE_CAP:
@@ -394,6 +482,15 @@ def dense_signature(op, xt) -> StructureSig:
                         batch=int(_prod(xt.shape[:-n])) if xt.ndim > n else 1)
 
 
+def struct_signature(op, x) -> StructureSig:
+    """Signature of a structured (TT/CP-format) input, single or batched."""
+    del op
+    batch = (int(x.batch)
+             if isinstance(x, (BatchedTTTensor, BatchedCPTensor)) else 1)
+    return StructureSig(structure=structure_tag(x), batch=batch,
+                        in_rank=struct_in_rank(x))
+
+
 def sketch_signature(op, y, chunk: int | None = None) -> StructureSig:
     """Signature of a reconstruct input `(*batch, k)`."""
     del op
@@ -407,9 +504,12 @@ def sketch_signature(op, y, chunk: int | None = None) -> StructureSig:
 # ---------------------------------------------------------------------------
 
 def execute_plan(plan: ExecutionPlan, op, x):
-    """Run one planned execution on a coerced dense array or a sketch."""
+    """Run one planned execution on a coerced dense array, a structured
+    container, or a sketch."""
     if plan.kind == "reconstruct":
         return _exec_reconstruct(plan, op, x)
+    if plan.structure in ("tt", "cp"):
+        return _exec_struct_project(plan, op, x)
     return _exec_dense_project(plan, op, x)
 
 
@@ -420,10 +520,17 @@ def _exec_dense_project(plan: ExecutionPlan, op, xt):
     kern = kops.tt_project if plan.family == "tt" else kops.cp_project
     n = plan.order
     if xt.ndim <= n + 1:  # single input / one batch axis
-        return kern(op, xt)
+        return kern(op, xt, pipeline=plan.pipeline)
     batch = xt.shape[:-n]
     flat = xt.reshape((-1,) + tuple(xt.shape[-n:]))
-    return kern(op, flat).reshape(batch + (op.k,))
+    return kern(op, flat, pipeline=plan.pipeline).reshape(batch + (op.k,))
+
+
+def _exec_struct_project(plan: ExecutionPlan, op, x):
+    from repro_torch.kernels import struct as kstruct
+    if plan.route == "kernel":
+        return kstruct.struct_project(op, x, pipeline=plan.pipeline)
+    return kstruct.struct_project(op, x, use_kernel=False)
 
 
 def _exec_reconstruct(plan: ExecutionPlan, op, y):
@@ -448,24 +555,29 @@ def _exec_reconstruct(plan: ExecutionPlan, op, y):
 # ---------------------------------------------------------------------------
 
 def explain(op, x, *, kind: str = "project", backend: str = "auto",
+            pipeline: str = "serial",
             chunk: int | None = None) -> ExecutionPlan:
     """The `ExecutionPlan` that `rp.project` / `rp.reconstruct` would
     resolve for `(op, x)`, with its rejected alternatives. Pure: nothing
-    executes, but the plan lands in the cache the dispatch reads."""
+    executes, but the plan lands in the cache the dispatch reads. `x` may
+    be anything `project` takes, or for kind='reconstruct' a sketch."""
     if kind == "reconstruct":
         y = torch.as_tensor(x)
         return plan_execution(op, sketch_signature(op, y, chunk),
                               kind="reconstruct", backend=backend)
     if isinstance(x, STRUCT_TYPES):
-        raise NotImplementedError(STRUCT_NOT_PORTED)
+        return plan_execution(op, struct_signature(op, x), backend=backend,
+                              pipeline=pipeline)
     from .dispatch import _coerce_dense
     xt = _coerce_dense(op, x)
-    return plan_execution(op, dense_signature(op, xt), backend=backend)
+    return plan_execution(op, dense_signature(op, xt), backend=backend,
+                          pipeline=pipeline)
 
 
 __all__ = [
     "BACKENDS", "CostLedger", "ExecutionPlan", "PlanCacheStats",
     "StructureSig", "clear_plan_cache", "dense_signature", "execute_plan",
     "explain", "group_signature", "plan_cache_stats", "plan_execution",
-    "pow2ceil", "sketch_signature", "structure_tag", "validate_backend",
+    "pow2ceil", "sketch_signature", "struct_in_rank", "struct_signature",
+    "structure_tag", "validate_backend", "validate_pipeline",
 ]

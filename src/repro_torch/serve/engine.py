@@ -10,8 +10,11 @@ queryable through `query` / `pairwise`.
 The engine is synchronous and clock-explicit (`now` in trace-clock
 microseconds), so latency percentiles are a deterministic function of the
 trace and the flush policy. Operators, dispatch and store live on one
-device (`device=None` means CUDA). The telemetry spans and the distortion
-monitor wait for the telemetry slice; the manifest for a later one.
+device (`device=None` means CUDA). Payloads are dense arrays or TT/CP
+tensors; each lane holds one structure, so a tick is one dense (K1) or
+one carry-sweep (K3) launch on the card. The telemetry spans and the
+distortion monitor wait for the telemetry slice; the manifest for a later
+one.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import collections
 import numpy as np
 
 from repro_torch import rp
-from repro_torch.core.formats import STRUCT_TYPES
+from repro_torch.core.formats import CPTensor, TTTensor
 
 from .batcher import DynamicBatcher, SketchRequest
 from .cache import OperatorCache
@@ -54,13 +57,17 @@ class SketchServer:
 
     def submit(self, payload, spec: rp.ProjectorSpec, *, seed: int = 0,
                now: float = 0.0) -> SketchRequest:
-        """Queue one dense payload for sketching under (spec, seed).
+        """Queue one payload for sketching under (spec, seed).
 
-        Structured payloads are refused here, at submit time, rather than
-        poisoning a batch at dispatch time.
+        Structured payloads are validated against the spec's dims HERE:
+        failing at submit time with a typed error beats poisoning a whole
+        batch at dispatch time.
         """
-        if isinstance(payload, STRUCT_TYPES):
-            raise NotImplementedError(rp.plan.STRUCT_NOT_PORTED)
+        if isinstance(payload, (TTTensor, CPTensor)):
+            if tuple(payload.dims) != tuple(spec.dims):
+                raise rp.FormatMismatchError(
+                    f"{type(payload).__name__} payload dims "
+                    f"{tuple(payload.dims)} != spec dims {tuple(spec.dims)}")
         req = SketchRequest(rid=self._next_rid, payload=payload, spec=spec,
                             seed=seed, t_submit=float(now))
         self._next_rid += 1

@@ -1,16 +1,18 @@
 """Offline load generator: synthetic traces + deterministic replay.
 
 Port of `repro/serve/loadgen.py`. `synth_trace` draws a Poisson-arrival
-request stream of dense payloads over a pool of (spec, seed) pairs —
-repeated specs are what exercise the operator cache. `replay` drives a
-`SketchServer` through the trace on the trace's own clock, so the reported
-p50/p99 are the deterministic queueing latencies of the flush policy,
-while `wall_s` separately records the real time of the replay.
+request stream over a structure mix (dense / TT / CP payloads, rank- and
+length-ragged) and a pool of (spec, seed) pairs — repeated specs are what
+exercise the operator cache. `replay` drives a `SketchServer` through the
+trace on the trace's own clock, so the reported p50/p99 are the
+deterministic queueing latencies of the flush policy, while `wall_s`
+separately records the real time of the replay.
 
 Everything is drawn from one seeded numpy generator. Arrivals, structure
 kinds and spec choices use the same draws, in the same order, as the
-reference's generator, so the same seed gives the same arrival times. TT
-and CP payloads wait for the structured-input slice.
+reference's generator, so the same seed gives the same arrival times,
+kinds and specs. Payload values cannot follow the reference's `jax.random`
+draws; TT/CP payloads hold float32 CPU tensors.
 """
 from __future__ import annotations
 
@@ -19,9 +21,10 @@ import time
 from typing import Any, Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.core.formats import CPTensor, TTTensor
 from repro_torch.rp import ProjectorSpec
-from repro_torch.rp.plan import STRUCT_NOT_PORTED
 
 from .engine import SketchServer
 
@@ -37,18 +40,34 @@ class TraceEvent:
     seed: int = 0
 
 
+def _random_tt(rng, dims, rank: int) -> TTTensor:
+    ranks = [1] + [rank] * (len(dims) - 1) + [1]
+    return TTTensor(tuple(
+        torch.from_numpy(rng.standard_normal(
+            (ranks[n], d, ranks[n + 1]), dtype=np.float32))
+        for n, d in enumerate(dims)))
+
+
+def _random_cp(rng, dims, rank: int) -> CPTensor:
+    return CPTensor(tuple(
+        torch.from_numpy(rng.standard_normal((d, rank), dtype=np.float32))
+        for d in dims))
+
+
 def synth_trace(n_requests: int, specs: Sequence[tuple[ProjectorSpec, int]],
-                *, mix: tuple[float, float, float] = (1.0, 0.0, 0.0),
-                mean_gap_us: float = 200.0,
+                *, mix: tuple[float, float, float] = (1.0, 1.0, 1.0),
+                mean_gap_us: float = 200.0, ranks: tuple[int, ...] = (2, 3, 4),
                 seed: int = 0) -> list[TraceEvent]:
     """A seeded synthetic request trace.
 
     specs       : pool of (ProjectorSpec, seed) pairs, drawn uniformly.
-    mix         : relative weights of (dense, tt, cp) payloads; only
-                  dense traffic is served by this port so far.
+    mix         : relative weights of (dense, tt, cp) payload structures.
     mean_gap_us : mean exponential inter-arrival gap (Poisson arrivals).
+    ranks       : TT/CP input ranks, cycled by request index — rank-RAGGED
+                  on purpose; the lane coalescing pads them exactly.
     Dense payloads alternate full `dims`-shaped float32 tensors with
-    ragged SHORT flat vectors (zero-padded downstream).
+    ragged SHORT flat vectors (zero-padded downstream); TT/CP payloads
+    have standard-normal cores/factors.
     """
     if n_requests < 0:
         raise ValueError(f"n_requests must be >= 0, got {n_requests}")
@@ -57,17 +76,20 @@ def synth_trace(n_requests: int, specs: Sequence[tuple[ProjectorSpec, int]],
     w = np.asarray(mix, np.float64)
     if w.shape != (3,) or (w < 0).any() or w.sum() == 0:
         raise ValueError(f"mix must be 3 non-negative weights, got {mix}")
-    if w[1] > 0 or w[2] > 0:
-        raise NotImplementedError(STRUCT_NOT_PORTED)
     rng = np.random.default_rng(seed)
     gaps = rng.exponential(mean_gap_us, size=n_requests)
     t = np.cumsum(gaps)
-    rng.choice(3, size=n_requests, p=w / w.sum())   # kinds: all dense
+    kinds = rng.choice(3, size=n_requests, p=w / w.sum())
     which = rng.integers(0, len(specs), size=n_requests)
     events: list[TraceEvent] = []
     for i in range(n_requests):
         spec, op_seed = specs[which[i]]
-        if i % 2 == 0:
+        rank = int(ranks[i % len(ranks)])
+        if kinds[i] == 1:
+            payload: Any = _random_tt(rng, spec.dims, rank)
+        elif kinds[i] == 2:
+            payload = _random_cp(rng, spec.dims, rank)
+        elif i % 2 == 0:
             payload = rng.standard_normal(spec.dims, dtype=np.float32)
         else:
             size = max(1, spec.input_size - int(rng.integers(

@@ -221,16 +221,25 @@ def test_auto_route_takes_the_kernel_on_cuda_and_torch_on_cpu():
 
 
 def test_structured_rows_raise_not_implemented():
-    from repro_torch.core import TTTensor
+    """The structured rows are ported: they plan the carry sweep. What they
+    still refuse is a non-TT/CP operator (densifying waits with the
+    gaussian/sparse families) and batched containers in project_many."""
+    from repro_torch.core import BatchedTTTensor, TTTensor
     _, top = _pair("tt", (4, 8, 8))
     tt = TTTensor(tuple(torch.zeros(s) for s in [(1, 4, 2), (2, 8, 2),
                                                   (2, 8, 1)]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rp.project(top, tt)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rp.plan_execution(top, rp.StructureSig("tt", 8))
-    with pytest.raises(NotImplementedError):
-        rp.project_many(top, [tt])
+    plan = rp.plan_execution(top, rp.StructureSig("tt", 8, in_rank=2),
+                             backend="kernel")
+    assert plan.kernel == "carry_sweep" and plan.carry_bytes > 0
+    assert tuple(rp.project(top, tt).shape) == (20,)
+
+    class Foreign:
+        k, in_dims = 20, (4, 8, 8)
+
+    with pytest.raises(TypeError, match="TT/CP operator"):
+        rp.project(Foreign(), tt)
+    with pytest.raises(rp.FormatMismatchError, match="batched containers"):
+        rp.project_many(top, [BatchedTTTensor.stack([tt])])
 
 
 def test_plan_cache_hits_and_explain():

@@ -1,7 +1,10 @@
 """The whole slice on the CPU: repro_torch.serve against repro.serve.
 
-One dense trace is built with `repro.serve.synth_trace(mix=(1, 0, 0))`; its
-payloads go as numpy arrays through both servers. The port's
+Traces are built with `repro.serve.synth_trace` — dense only
+(`mix=(1, 0, 0)`) and the reference's default mixed dense/TT/CP traffic
+(`mix=(1, 1, 1)`, input ranks (2, 3, 4)); their payloads go across as numpy
+arrays (TT/CP payloads through `from_numpy_tt` / `from_numpy_cp`) through
+both servers. The port's
 `OperatorCache` is made to hand out the reference's operator, carried
 across with `from_numpy_operator` (monkeypatched in these tests only), so
 both servers compute the same map. Tick counts, occupancy and latency
@@ -16,9 +19,11 @@ import torch
 
 from repro import rp as jrp
 from repro import serve as jserve
+from repro.core import formats as jformats
 from repro_torch import rp
 from repro_torch import serve
-from repro_torch.core import from_numpy_operator
+from repro_torch.core import (from_numpy_cp, from_numpy_operator,
+                              from_numpy_tt)
 from repro_torch.launch import serve_rp
 
 RTOL = ATOL = 1e-5
@@ -36,8 +41,18 @@ def _carry(jspec, seed):
                                "cpu")
 
 
+def _port_payload(payload):
+    if isinstance(payload, jformats.TTTensor):
+        return from_numpy_tt([np.asarray(c) for c in payload.cores], "cpu")
+    if isinstance(payload, jformats.CPTensor):
+        w = None if payload.weights is None else np.asarray(payload.weights)
+        return from_numpy_cp([np.asarray(f) for f in payload.factors], w,
+                             "cpu")
+    return np.asarray(payload)
+
+
 def _port_trace(jtrace, spec):
-    return [serve.TraceEvent(t_us=ev.t_us, payload=np.asarray(ev.payload),
+    return [serve.TraceEvent(t_us=ev.t_us, payload=_port_payload(ev.payload),
                              spec=spec, seed=ev.seed) for ev in jtrace]
 
 
@@ -56,14 +71,16 @@ def carried_ops(monkeypatch):
     return made
 
 
+@pytest.mark.parametrize("mix", [(1.0, 0.0, 0.0), (1.0, 1.0, 1.0)],
+                         ids=["dense", "mixed"])
 @pytest.mark.parametrize("family", ["tt", "cp"])
 @pytest.mark.parametrize("backend", ["auto", "kernel"])
 @pytest.mark.parametrize("pool", [1, 3])
-def test_server_reproduces_reference_server(family, backend, pool,
+def test_server_reproduces_reference_server(family, backend, pool, mix,
                                             carried_ops):
     jspec, spec = _specs(family)
     jtrace = jserve.synth_trace(60, [(jspec, s) for s in range(pool)],
-                                mix=(1.0, 0.0, 0.0), seed=4)
+                                mix=mix, seed=4)
     cfg = dict(max_batch=8, flush_us=1000.0, cache_capacity=2)
     jstore = jserve.SketchStore(jspec)
     jserver = jserve.SketchServer(jserve.ServeConfig(**cfg), jstore)
@@ -81,6 +98,11 @@ def test_server_reproduces_reference_server(family, backend, pool,
     for key in ("hits", "misses", "evictions"):
         assert rep["cache"][key] == jrep["cache"][key], key
     assert st.kernel_calls == (rep["ticks"] if backend == "kernel" else 0)
+    # one dispatch per tick, each of one structure
+    assert sum(st.breakdown.values()) == rep["ticks"]
+    structures = {key[1] for key in st.breakdown}
+    assert structures == ({"dense"} if mix[1] == 0 else
+                          {"dense", "tt", "cp"})
     n = len(jstore)
     # sketches of the first seed only: the store holds every seed's rows
     # (same spec), and both servers ingest them in the same order
@@ -105,12 +127,20 @@ def test_trace_arrivals_match_reference_generator():
     jspec, spec = _specs("tt")
     jtrace = jserve.synth_trace(50, [(jspec, 0), (jspec, 1)],
                                 mix=(1.0, 0.0, 0.0), seed=11)
-    trace = serve.synth_trace(50, [(spec, 0), (spec, 1)], seed=11)
+    trace = serve.synth_trace(50, [(spec, 0), (spec, 1)],
+                              mix=(1.0, 0.0, 0.0), seed=11)
     assert [e.t_us for e in trace] == [e.t_us for e in jtrace]
     assert [e.seed for e in trace] == [e.seed for e in jtrace]
     assert all(e.payload.dtype == np.float32 for e in trace)
-    with pytest.raises(NotImplementedError):
-        serve.synth_trace(4, [(spec, 0)], mix=(1.0, 1.0, 0.0))
+    # the mixed default draws the same structure kinds and ranks
+    jmixed = jserve.synth_trace(30, [(jspec, 0)], seed=3)
+    mixed = serve.synth_trace(30, [(spec, 0)], seed=3)
+    assert [e.t_us for e in mixed] == [e.t_us for e in jmixed]
+    assert ([(type(e.payload).__name__, getattr(e.payload, "order", None))
+             for e in mixed]
+            == [(type(e.payload).__name__ if type(e.payload).__name__ in
+                 ("TTTensor", "CPTensor") else "ndarray",
+                 getattr(e.payload, "order", None)) for e in jmixed])
 
 
 def test_evicted_operator_regenerates_bitwise():
@@ -151,11 +181,13 @@ def test_serve_rp_cli_runs_on_cpu(capsys):
 
 
 def test_server_refuses_structured_payloads_and_foreign_stores():
+    """Structured payloads whose dims differ from the spec's are refused at
+    submit time (matching ones are served, see the mixed replay)."""
     from repro_torch.core import CPTensor
     _, spec = _specs("cp")
     server = serve.SketchServer(device="cpu")
-    cp = CPTensor(tuple(torch.zeros(d, 2) for d in spec.dims))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cp = CPTensor(tuple(torch.zeros(d, 2) for d in spec.dims[::-1]))
+    with pytest.raises(rp.FormatMismatchError, match="spec dims"):
         server.submit(cp, spec)
     with pytest.raises(ValueError, match="store on"):
         serve.SketchServer(store=serve.SketchStore(spec, device="meta"),
