@@ -41,6 +41,27 @@ Phases (each raises on failure, so the script exits non-zero):
      cheaper route is the carry program (each einsum step counted with the
      operands' true bonds) against densifying the input and the cheapest
      dense product.
+  8. hold K4 `fused_update_buckets` against its plain version: TT/CP at
+     orders 2-5 (ragged k and B) and the reference test's TT(2), k=128,
+     dims (16, 16, 8).
+  9. train llama3.2-3b at its published widths, cut to 2 layers, sequence
+     4096, batch 2, with sketch-compressed gradients (`tt:k=1024,rank=8,
+     order=4`: 571 buckets of 32^4) through `build_train_step(...,
+     fused_update=True)` and `init_train_state`: one warm-up step, then N
+     counted steps, each one K1 and one K4 launch per leaf (11 leaves);
+     every loss finite; the device time per step, and its split into
+     loss+grad, sketch and fused update from the CUDA events the counted
+     steps record inside themselves (`runtime.spans`).
+  10. from that mid-trajectory state and one gradient: on every leaf, K4
+     and K1 (each launched on the whole leaf, as the step launches them)
+     against their plain versions in chunks of buckets, and K1 against
+     the sketch rows; the fused update against the unfused chain
+     (`compress` -> `adamw.update`: K1 + K2 + torch AdamW): residual, m'
+     and v' within 1e-4 of their largest entry, w' within W_TOL_LR
+     learning rates; then K4 and K1 timed at the layers/w_gate leaf.
+  11. the reference test's learning run on the card: reduced llama3.2-3b,
+     `tt:k=1024,rank=8,dims=4x8x16`, constant lr 3e-3, 8 fused steps; the
+     last loss must be below the first.
 Then it prints the `kernels` JSON line, the card's name and power limit,
 and as its last line `{"ok": true, "device": {...}}`.
 """
@@ -48,6 +69,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -62,6 +84,12 @@ SLICE_DIMS = (64, 64, 64)
 SLICE_K = 512
 SLICE_RANKS = {"tt": 5, "cp": 25}
 SMALL_DIMS = {2: (12, 20), 3: (6, 10, 14), 4: (4, 6, 5, 7), 5: (3, 4, 5, 3, 6)}
+# the training slice: llama3.2-3b cut to 2 layers, its train_4k sequence,
+# batch 2, and README's compressor flag
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_STEPS = 2, 2, 5
+TRAIN_COMPRESS = "tt:k=1024,rank=8,order=4"
+TRAIN_LR = 3e-4
+W_TOL_LR = 1e-3  # max|w'_fused - w'_unfused| in learning rates
 SOURCES = {"sweep_project": "src/repro_torch/kernels/csrc/sweep_project.cu",
            "sweep_project_pipelined":
                "src/repro_torch/kernels/csrc/sweep_project.cu",
@@ -70,13 +98,15 @@ SOURCES = {"sweep_project": "src/repro_torch/kernels/csrc/sweep_project.cu",
            "carry_sweep_project":
                "src/repro_torch/kernels/csrc/carry_sweep.cu",
            "carry_sweep_project_pipelined":
-               "src/repro_torch/kernels/csrc/carry_sweep.cu"}
+               "src/repro_torch/kernels/csrc/carry_sweep.cu",
+           "fused_update": "src/repro_torch/kernels/csrc/fused_update.cu"}
 REPLACES = {"sweep_project": "src/repro/kernels/_sweep.py:118",
             "sweep_project_pipelined": "src/repro/kernels/_sweep.py:204",
             "sweep_reconstruct": "src/repro/kernels/_sweep.py:236",
             "carry_sweep_project": "src/repro/kernels/struct/carry.py:99",
             "carry_sweep_project_pipelined":
-                "src/repro/kernels/struct/carry.py:182"}
+                "src/repro/kernels/struct/carry.py:182",
+            "fused_update": "src/repro/kernels/fused_update.py:169"}
 SMALL_CARRY_DIMS = {2: (12, 20), 3: (6, 10, 14), 4: (4, 6, 5, 7),
                     5: (3, 4, 5, 3, 6), 6: (3, 2, 4, 3, 2, 3),
                     7: (2, 3, 2, 3, 2, 2, 3), 8: (2,) * 8}
@@ -200,6 +230,369 @@ def struct_einsum_spec(op_family: str, in_family: str, order: int) -> str:
     ops_ = terms(op_family, "k", op_bonds, "r")
     ins = terms(in_family, "n", in_bonds, "s")
     return ",".join(t for pair in zip(ops_, ins) for t in pair) + "->nk"
+
+
+def fused_flops(family: str, k: int, dims, rank: int, nb: int):
+    """(program, cheaper) flops of K4 on nb buckets: the reconstruct
+    program (fold, graft, the (nb*d1, k*R) x (k*R, d2..dN) product) or the
+    dense (k, prod(dims)) operator and one product, each plus the
+    epilogue's 18 operations an element."""
+    trail, d_all = math.prod(dims[1:]), math.prod(dims)
+    inner = (2 * k * rank * rank if family == "tt" else k * rank)
+    fold = inner * trail * (len(dims) - 2)
+    program = (2 * nb * dims[0] * k * rank * trail + fold
+               + nb * dims[0] * k * rank)
+    cheaper = dense_operator_flops(family, k, dims, rank) + 2 * nb * k * d_all
+    return program + 18 * nb * d_all, cheaper + 18 * nb * d_all
+
+
+def train_phases(dev, gen, errs, per_family, launches, time_row):
+    """Phases 8-11: K4 against its plain version, the sketch-compressed
+    training slice at full width, the fused update against the unfused
+    chain, and the reduced learning run. Returns the K4 and K1 (training
+    shape) rows of the `kernels` line."""
+    import dataclasses
+    import functools
+
+    import torch
+    from repro_torch import kernels, rp
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import theory
+    from repro_torch.core.tree import (tree_flatten, tree_leaves, tree_map,
+                                       tree_unflatten)
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import _sweep, ops
+    from repro_torch.kernels import fused_update as kfused
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw, schedule
+    from repro_torch.optim.compress import (SketchCompressor,
+                                            parse_compress_flag)
+    from repro_torch.runtime import spans
+
+    hp = dict(alpha=0.9, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+    # -- 8. K4 vs its plain version ---------------------------------------
+    def hold_k4(family, dims, k, rank, nb, tag):
+        op = rp.make_projector(rp.ProjectorSpec(family, k, dims, rank),
+                               seed=5, device=dev)
+        y = torch.randn((nb, k), generator=gen, device=dev)
+        p, w, m, v = (torch.randn((nb,) + dims, generator=gen, device=dev)
+                      for _ in range(4))
+        v = v.abs()
+        scal = (1e-3, 0.1, 0.05)
+        got = kfused.fused_update_buckets(op, y, p, w, m, v, *scal, **hp)
+        ref = kfused.fused_update_buckets_plain(op, y, p, w, m, v, *scal,
+                                                **hp)
+        worst = 0.0
+        for name, a, b in zip(("resid", "w'", "m'", "v'"), got, ref):
+            worst = max(worst, check(f"K4 {family} {tag} dims={dims} k={k} "
+                                     f"R={rank} B={nb} {name}", a, b))
+        if family == "tt":
+            errs["fused_update:tt"] = max(errs.get("fused_update:tt", 0.0),
+                                          worst)
+        torch.cuda.synchronize()
+
+    for family in ("tt", "cp"):
+        for order, dims in SMALL_DIMS.items():
+            hold_k4(family, dims, 37, 3, 3, f"order {order}")
+    hold_k4("tt", (16, 16, 8), 128, 2, 3, "reference test shape")
+
+    # -- 9. the training slice at full width, 2 layers --------------------
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              n_layers=TRAIN_LAYERS)
+    model = build_model(cfg)
+    shape = ShapeSpec("train_4k", cfg.shape("train_4k").seq_len,
+                      TRAIN_BATCH, "train")
+    comp = SketchCompressor(parse_compress_flag(TRAIN_COMPRESS))
+    opt = adamw.AdamWConfig(clip_norm=None)
+    lr_fn = functools.partial(schedule.constant, peak_lr=TRAIN_LR)
+    step_fn = steps.build_train_step(model, shape, compressor=comp,
+                                     opt=opt, lr_fn=lr_fn, fused_update=True,
+                                     device=dev)
+    t0 = time.perf_counter()
+    state = steps.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(0), opt=opt,
+        compressor=comp)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
+                                  global_batch=shape.global_batch, seed=0))
+    batches = [data.batch(i) for i in range(TRAIN_STEPS + 2)]
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    sk = comp._sketcher(state["params"])
+    log(f"train llama3.2-3b x{TRAIN_LAYERS} layers: {n_params} params, "
+        f"seq {shape.seq_len}, batch {shape.global_batch}, "
+        f"{TRAIN_COMPRESS} (dims {comp.cfg.dims}, shrinkage "
+        f"{comp.cfg.shrinkage():.4g}): {sk.n_buckets} buckets in "
+        f"{len(sk._nb)} leaves {sk._nb}; set-up "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    state, met = step_fn(state, batches[0])          # warm-up step
+    torch.cuda.synchronize()
+    log(f"train warm-up step: loss {float(met['loss']):.4f}, "
+        f"{time.perf_counter() - t0:.2f}s host")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, events = [], []
+    t0 = time.perf_counter()
+    with spans.record(lambda: torch.cuda.Event(enable_timing=True)) as marks:
+        for i in range(1, TRAIN_STEPS + 1):
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            state, met = step_fn(state, batches[i])
+            e_ev.record()
+            losses.append(met["loss"])
+            events.append((s_ev, e_ev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (kfused.fused_update_buckets.launches,
+              _sweep.sweep_project.launches,
+              _sweep.sweep_reconstruct.launches)
+    losses = [float(x) for x in losses]
+    n_leaves = len(sk._nb)
+    if counts != (n_leaves * TRAIN_STEPS, n_leaves * TRAIN_STEPS, 0):
+        raise AssertionError(
+            f"train: (K4, K1, K2) launches {counts} over {TRAIN_STEPS} "
+            f"steps, expected {n_leaves} K4 and {n_leaves} K1 launches a "
+            "step and no K2")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: non-finite loss in {losses}")
+    step_ms = [s_ev.elapsed_time(e_ev) for s_ev, e_ev in events]
+    per_family["fused_update:tt"] = counts[0]
+    per_family["sweep_project:train"] = counts[1]
+    launches["fused_update"] += counts[0]
+    launches["sweep_project"] += counts[1]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"train {TRAIN_STEPS} fused steps: losses "
+        f"{[round(x, 4) for x in losses]}, device ms/step "
+        f"{[round(x, 1) for x in step_ms]}, wall {wall:.2f}s, K4 launches "
+        f"{counts[0]} = K1 launches {counts[1]} = {n_leaves} leaves x "
+        f"{TRAIN_STEPS} steps, K2 launches {counts[2]}; peak memory "
+        f"{peak:.1f} GiB")
+    # the split of each counted step, from the spans it recorded
+    parts = ("loss_grad", "sketch", "fused_update")
+    recorded = [name for name, _, _ in marks]
+    if recorded != list(parts) * TRAIN_STEPS:
+        raise AssertionError(f"train: spans {recorded}, expected {parts} a "
+                             "step")
+    split = {name: [] for name in parts}
+    for name, s_ev, e_ev in marks:
+        split[name].append(s_ev.elapsed_time(e_ev))
+    split["rest"] = [t - sum(split[name][i] for name in parts)
+                     for i, t in enumerate(step_ms)]
+    median = {name: statistics.median(v) for name, v in split.items()}
+    log("train step split, device ms inside the counted steps (median; "
+        "per step): " + "; ".join(
+            f"{name} {median[name]:.1f} ({', '.join(f'{x:.1f}' for x in v)})"
+            for name, v in split.items())
+        + f"; the step {statistics.median(step_ms):.1f}. loss_grad: forward "
+        f"and backward; sketch: {n_leaves} K1 launches with the bucket "
+        f"copies of padded leaves; fused_update: {n_leaves} K4 launches "
+        "with the bucket copies in and out; rest: p = g + e, operator "
+        "sampling, glue")
+    train_log = {"losses": losses, "step_ms": step_ms, "split_ms": split,
+                 "split_median_ms": median, "peak_gib": peak}
+
+    # -- 10. one gradient at the mid-trajectory state ---------------------
+    params, ef, ostate = state["params"], state["ef"], state["opt"]
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in batches[TRAIN_STEPS + 1].items()}
+    leaves, treedef = tree_flatten(params)
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    loss = model.loss_fn(tree_unflatten(treedef, live), batch)
+    grads = tree_unflatten(treedef, list(torch.autograd.grad(loss, live)))
+    del live, loss
+    seed = comp._key(ostate["count"])
+    p_fed = tree_map(lambda g, e: g.float() + e, grads, ef["residual"])
+    y = sk.sketch(p_fed, seed)
+    op = comp.cfg.operator(seed, dev)
+    count = ostate["count"] + 1
+    c1 = 1.0 - opt.b1 ** count.to(torch.float32)
+    c2 = 1.0 - opt.b2 ** count.to(torch.float32)
+    alpha = comp.cfg.shrinkage()
+    khp = dict(alpha=alpha, b1=opt.b1, b2=opt.b2, eps=opt.eps,
+               weight_decay=opt.weight_decay)
+    leaves_in = [tree_leaves(t) for t in (p_fed, params, ostate["m"],
+                                          ostate["v"])]
+    buckets = [[sk._leaf_to_buckets(t[j], nb) for t in leaves_in]
+               for j, nb in enumerate(sk._nb)]
+    offs = [sum(sk._nb[:j]) for j in range(n_leaves)]
+    cores = kernel_operands(op, "tt")
+    scale = 1.0 / math.sqrt(op.k)
+
+    def hold_chunked(what, got, plain, nb, chunk):
+        """Hold the kernel's outputs `got` over nb buckets, named `what`,
+        against the plain version's over chunks of them (`plain(i, j)`:
+        buckets i:j), each output by its max|d| over its max|ref|; returns
+        the worst max|d|."""
+        diff, top = [0.0] * len(got), [0.0] * len(got)
+        for i in range(0, nb, chunk):
+            for q, (a, b) in enumerate(zip(got, plain(i, i + chunk))):
+                diff[q] = max(diff[q], rel_err(a[i:i + chunk], b)[0])
+                top[q] = max(top[q], float(b.abs().max()))
+        for name, d, t in zip(what, diff, top):
+            log(f"{name}: max|d|={d:.3e} max|d|/max|ref|="
+                f"{d / max(t, 1e-30):.3e}")
+            if d / max(t, 1e-30) > TOL:
+                raise AssertionError(f"{name}: relative error "
+                                     f"{d / max(t, 1e-30):.3e} > {TOL}")
+        return max(diff)
+
+    # K4 and K1 against their plain versions on every leaf, each kernel
+    # launched on the whole leaf as the step launches it
+    names = ["/".join(key) for key in _leaf_names(params)]
+    errs["sweep_project:train"] = 0.0
+    for j, nb in enumerate(sk._nb):
+        o, bj = offs[j], buckets[j]
+        yj = y[o:o + nb]
+        tag = f"{names[j]} B={nb} mid-trajectory"
+        got = kfused.fused_update_buckets(op, yj, *bj, TRAIN_LR, c1, c2,
+                                          **khp)
+        errs["fused_update:tt"] = max(errs["fused_update:tt"], hold_chunked(
+            [f"K4 {tag} {n}" for n in ("resid", "w'", "m'", "v'")],
+            got, lambda i, e: kfused.fused_update_buckets_plain(
+                op, yj[i:e], *(b[i:e] for b in bj), TRAIN_LR, c1, c2,
+                **khp), nb, 48))
+        del got
+        pplan = ops.plan_contraction("tt", "project", op.k, nb, op.in_dims,
+                                     op.rank)
+        got = _sweep.sweep_project(bj[0], *cores, plan=pplan, scale=scale)
+        errs["sweep_project:train"] = max(
+            errs["sweep_project:train"], hold_chunked(
+                [f"K1 {tag} (plain in chunks of 4)"], (got,),
+                lambda i, e: (_sweep.sweep_project_plain(
+                    bj[0][i:e], *cores, steps=pplan.steps, scale=scale),),
+                nb, 4))
+        check(f"K1 {tag} == the sketch rows of the step", got, yj)
+        del got
+        torch.cuda.empty_cache()
+
+    # the fused update against the unfused chain, same state and gradient
+    new_p, new_o, new_ef, _ = adamw.update_sketched(
+        params, grads, ef, ostate, TRAIN_LR, opt, compressor=comp)
+    g_hat, ef_u, _ = comp.compress(grads, ef, step=ostate["count"])
+    p_u, o_u, _ = adamw.update(params, g_hat, ostate, TRAIN_LR, opt)
+    del g_hat
+    worst = {"resid": 0.0, "m'": 0.0, "v'": 0.0}
+    for key, a_t, b_t in (("resid", new_ef["residual"], ef_u["residual"]),
+                          ("m'", new_o["m"], o_u["m"]),
+                          ("v'", new_o["v"], o_u["v"])):
+        for a, b in zip(tree_leaves(a_t), tree_leaves(b_t)):
+            worst[key] = max(worst[key], rel_err(a, b)[1])
+    w_lr = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(new_p), tree_leaves(p_u))) / TRAIN_LR
+    log(f"fused vs unfused update at step {int(ostate['count'])}: "
+        "max|d|/max|ref| per leaf: " + ", ".join(
+            f"{key} {val:.3e}" for key, val in worst.items())
+        + f"; max|w'_f - w'_u| = {w_lr:.3e} lr")
+    if max(worst.values()) > TOL or w_lr > W_TOL_LR:
+        raise AssertionError(f"fused update differs from the unfused "
+                             f"chain: {worst}, w' {w_lr:.3e} lr")
+    del new_p, new_o, new_ef, ef_u, p_u, o_u, p_fed, state
+    torch.cuda.empty_cache()
+
+    # times at layers/w_gate: K4 beside its bound, its plain version and
+    # the unfused library chain; K1 beside its own
+    j = names.index("layers/w_gate")
+    nb, bj = sk._nb[j], buckets[j]
+    yj, x = y[offs[j]:offs[j] + nb], bj[0]
+    pplan = ops.plan_contraction("tt", "project", op.k, nb, op.in_dims,
+                                 op.rank)
+    chunk = 4
+
+    def k1_plain():
+        return torch.cat([_sweep.sweep_project_plain(
+            x[i:i + chunk], *cores, steps=pplan.steps, scale=scale)
+            for i in range(0, nb, chunk)])
+
+    dims, k, rank = op.in_dims, op.k, op.rank
+    d_all = math.prod(dims)
+    core_bytes = 4 * sum(c.numel() for c in cores)
+    letters = "abcd"
+    lib_cores = "kau,kubv,kvcw,kwd"
+    shape_s = (f"layers/w_gate B={nb} k={k} dims={'x'.join(map(str, dims))} "
+               f"TT(R={rank})")
+    program, cheaper = fused_flops("tt", k, dims, rank, nb)
+    scale_a = alpha / math.sqrt(k)
+
+    def dense_route(spec, *operands):
+        """One torch.einsum contracted left to right: the cores first (the
+        dense (k, prod(dims)) operator), then the batch; opt_einsum's
+        reordering could pick a 51 GB intermediate at this shape."""
+        with torch.backends.opt_einsum.flags(enabled=False):
+            return torch.einsum(spec, *operands)
+
+    def unfused_chain():
+        g = dense_route(f"{lib_cores},nk->n{letters}", *cores, yj) * scale_a
+        m32 = opt.b1 * bj[2] + (1.0 - opt.b1) * g
+        v32 = opt.b2 * bj[3] + (1.0 - opt.b2) * g * g
+        stp = (m32 / c1) / (torch.sqrt(v32 / c2) + opt.eps)
+        return (bj[0] - g, bj[1] - TRAIN_LR * (stp + opt.weight_decay
+                                               * bj[1]), m32, v32)
+
+    rows = []
+    row = time_row(
+        "fused_update:tt", program, cheaper,
+        4 * (nb * k + 8 * nb * d_all) + core_bytes,
+        lambda: kfused.fused_update_buckets(op, yj, *bj, TRAIN_LR, c1, c2,
+                                            **khp),
+        lambda: kfused.fused_update_buckets_plain(op, yj, *bj, TRAIN_LR, c1,
+                                                  c2, **khp),
+        unfused_chain, shape_s, reps=10)
+    row["library_call"] = ("unfused chain: one torch.einsum of the whole "
+                           "reconstruct, then the epilogue in torch ops")
+    row["train"] = train_log
+    rows.append(row)
+    p_flops = theory.flops_project_dense_tt(k, dims, rank) * nb
+    dense = dense_operator_flops("tt", k, dims, rank) + 2 * nb * k * d_all
+    row = time_row(
+        "sweep_project:train", p_flops, dense,
+        4 * (nb * d_all + nb * k) + core_bytes,
+        lambda: _sweep.sweep_project(x, *cores, plan=pplan, scale=scale),
+        k1_plain,
+        lambda: dense_route(f"{lib_cores},n{letters}->nk", *cores, x),
+        shape_s + f" (plain in chunks of {chunk} buckets)", reps=10)
+    rows.append(row)
+    del buckets, bj, x, y, yj, params, grads, ef, ostate
+    torch.cuda.empty_cache()
+
+    # -- 11. the reference test's learning run ----------------------------
+    rcfg = reduced(get_config("llama3.2-3b"))
+    rmodel = build_model(rcfg)
+    rcomp = SketchCompressor(parse_compress_flag(
+        "tt:k=1024,rank=8,dims=4x8x16"))
+    rstep = steps.build_train_step(
+        rmodel, ShapeSpec("t", 32, 4, "train"), compressor=rcomp, opt=opt,
+        lr_fn=functools.partial(schedule.constant, peak_lr=3e-3),
+        fused_update=True, device=dev)
+    rstate = steps.init_train_state(
+        rmodel, torch.Generator(device=dev).manual_seed(0), opt=opt,
+        compressor=rcomp)
+    rdata = SyntheticLM(DataConfig(vocab=rcfg.vocab, seq_len=32,
+                                   global_batch=4))
+    rlosses = []
+    for i in range(8):
+        rstate, rmet = rstep(rstate, rdata.batch(i))
+        rlosses.append(float(rmet["loss"]))
+    log(f"reduced llama3.2-3b, {rcomp.cfg.family}:k={rcomp.cfg.k},rank="
+        f"{rcomp.cfg.rank},dims=4x8x16, lr 3e-3, 8 fused steps: losses "
+        f"{[round(x, 3) for x in rlosses]}")
+    if not rlosses[-1] < rlosses[0]:
+        raise AssertionError(f"reduced run did not learn: {rlosses}")
+    return rows
+
+
+def _leaf_names(tree, prefix=()):
+    """Key paths of a nested dict's leaves in sorted-key order."""
+    out = []
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            out += _leaf_names(tree[key], prefix + (key,))
+        else:
+            out.append(prefix + (key,))
+    return out
 
 
 def main() -> int:
@@ -397,7 +790,7 @@ def main() -> int:
 
     launches = {"sweep_project": 0, "sweep_reconstruct": 0,
                 "sweep_project_pipelined": 0, "carry_sweep_project": 0,
-                "carry_sweep_project_pipelined": 0}
+                "carry_sweep_project_pipelined": 0, "fused_update": 0}
     per_family = {}
     stores = {}
 
@@ -773,6 +1166,10 @@ def main() -> int:
     row.update({f"paper_{key}": paper[key] for key in (
         "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "program_bound_ms", "flops", "program_flops", "max_abs_err")})
+
+    del stores, paper_ref
+    torch.cuda.empty_cache()
+    rows += train_phases(dev, gen, errs, per_family, launches, time_row)
 
     for name in launches:
         total = sum(r["launches"] for r in rows

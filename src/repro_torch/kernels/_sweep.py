@@ -35,8 +35,9 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = {"sweep_project": "sweep_project.cu",
            "sweep_reconstruct": "sweep_reconstruct.cu",
-           "carry_sweep": "carry_sweep.cu"}
-_HEADERS = ("sweep_common.cuh",)
+           "carry_sweep": "carry_sweep.cu",
+           "fused_update": "fused_update.cu"}
+_HEADERS = ("sweep_common.cuh", "sweep_reconstruct.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,6 +53,12 @@ _ARGTYPES = {
     "sweep_reconstruct": [_P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I),
                           ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I,
                           ctypes.c_float, _P],
+    # y, scal, p, w, m, v, resid, w_out, m_out, v_out, m_scratch, cores,
+    # dims, ops, order, B, K, R, tile_m, tile_n, tile_k, scale, b1, 1-b1,
+    # b2, 1-b2, eps, wd, stream
+    "fused_update": [_P] * 11 + [ctypes.POINTER(_P), ctypes.POINTER(_I),
+                                 ctypes.POINTER(_I)] + [_I] * 7
+                    + [ctypes.c_float] * 7 + [_P],
 }
 _ARGTYPES["sweep_project_pipelined"] = _ARGTYPES["sweep_project"]
 _FNS: dict[str, ctypes._CFuncPtr] = {}

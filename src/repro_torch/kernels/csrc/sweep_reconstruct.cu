@@ -3,173 +3,38 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/_sweep.py::sweep_reconstruct
 // (_reconstruct_kernel) and runs the same program
-// (repro_torch/kernels/ops.py::_reconstruct_steps) in two launches:
-//  1. fold_m_kernel folds the trailing cores right-to-left into the
-//     batch-independent transfer block m (k, R, d2..dN), written once per call
-//     to a scratch buffer the wrapper allocates (the TPU kernel refolded it in
-//     VMEM for every grid step).
-//  2. recon_gemm_kernel grafts the sketch onto the leading core,
-//     h[(n,a), (k,u)] = y[n,k] g1[k,a,u], while it loads h's tiles, and
-//     computes the (B*d1, k*R) x (k*R, d2..dN) contraction. A block owns a
-//     (128 rows of (n, d1)) x (128 columns of d2..dN) output tile (grid x:
-//     column tiles, grid y: row tiles) and loops over
-//     the k*R depth inside the block — the TPU's k-innermost grid axis that
-//     accumulated in the revisited output block.
+// (repro_torch/kernels/ops.py::_reconstruct_steps) in two launches, whose
+// device code is in sweep_reconstruct.cuh (shared with K4, fused_update.cu):
+//  1. fold_m_kernel folds the trailing cores into the batch-independent
+//     transfer block m (k, R, d2..dN) once per call (the TPU kernel refolded
+//     it in VMEM for every grid step).
+//  2. recon_gemm_kernel computes the (B*d1, k*R) x (k*R, d2..dN) contraction
+//     with y grafted onto the leading core; here its epilogue stores the
+//     scaled tile. The loop over the k*R depth inside the block is the TPU's
+//     k-innermost grid axis that accumulated in the revisited output block.
 //
 // What bounds it on an H100: the contraction does 2*B*d1*k*R*prod(d2..dN)
 // flops, far more per byte than the card's fp32 ratio, so fp32 FMA issue
 // bounds it. Design answer, kept simple: a classic shared-memory tiled product
 // with an 8x8 register tile per thread (each shared load feeds eight FMAs),
 // IEEE fp32 FMAs only (no TF32, no tensor cores); wgmma/TMA are later work.
-#include <cstdint>
+#include "sweep_reconstruct.cuh"
 
-#include "sweep_common.cuh"
-
-#define MAXR 64  // bond rank held per thread by the fold (ops.py: MAX_RANK)
-#define BM 128   // ops.py: RECON_TILE
-#define BN 128
-#define BK 8
-
-struct FoldArgs {
-  const float* core[SWEEP_MAX_ORDER];
-  int dims[SWEEP_MAX_ORDER];
-  int ops[SWEEP_MAX_ORDER];  // ops[j]: opcode of transfer-block step j
-  int order, K, R;
-  long long T;               // prod(d2..dN)
-  float* m;                  // (K, R, T)
+struct StoreEpilogue {
+  float* out;
+  float scale;
+  __device__ void begin() {}
+  __device__ void operator()(long long off, float acc) const {
+    out[off] = acc * scale;
+  }
 };
-
-// One thread per (k, position in d2..dN): the R-vector m[k, :, t].
-__global__ void fold_m_kernel(FoldArgs a) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= static_cast<long long>(a.K) * a.T) return;
-  const int N = a.order, R = a.R;
-  const int kk = static_cast<int>(e / a.T);
-  const long long t = e - static_cast<long long>(kk) * a.T;
-  int digit[SWEEP_MAX_ORDER];
-  long long rem = t;
-  for (int m = N - 1; m >= 1; --m) {
-    digit[m] = static_cast<int>(rem % a.dims[m]);
-    rem /= a.dims[m];
-  }
-  float w[MAXR], w2[MAXR];
-  const int dN = a.dims[N - 1];
-  const float* gN = a.core[N - 1];
-  for (int u = 0; u < R; ++u)
-    w[u] = a.ops[0] == OP_M_INIT_TT
-               ? gN[(static_cast<size_t>(kk) * R + u) * dN + digit[N - 1]]
-               : gN[(static_cast<size_t>(kk) * dN + digit[N - 1]) * R + u];
-  for (int j = 1; j <= N - 2; ++j) {
-    const int m = N - 1 - j, d = a.dims[m];
-    const float* g = a.core[m];
-    if (a.ops[j] == OP_M_MIX_TT) {
-      for (int v = 0; v < R; ++v) {
-        const float* gv = g + ((static_cast<size_t>(kk) * R + v) * d + digit[m]) * R;
-        float s = 0.f;
-        for (int u = 0; u < R; ++u) s = fmaf(gv[u], w[u], s);
-        w2[v] = s;
-      }
-      for (int v = 0; v < R; ++v) w[v] = w2[v];
-    } else {  // OP_M_HAD_CP
-      const float* gv = g + (static_cast<size_t>(kk) * d + digit[m]) * R;
-      for (int r = 0; r < R; ++r) w[r] *= gv[r];
-    }
-  }
-  for (int v = 0; v < R; ++v) a.m[(static_cast<size_t>(kk) * R + v) * a.T + t] = w[v];
-}
-
-// out[(n,a), t] = scale * sum_q h[(n,a), q] m[q, t], q = (k, u), with
-// h[(n,a), (k,u)] = y[n,k] g1[k,a,u]. 256 threads, 8x8 outputs each: rows
-// ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns likewise with tx, so the
-// float4 shared loads of a warp stay conflict-free.
-__global__ void __launch_bounds__(256)
-recon_gemm_kernel(const float* __restrict__ y, const float* __restrict__ g1,
-                  const float* __restrict__ m, float* __restrict__ out, int B,
-                  int d1, int K, int R, long long T, float scale) {
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long M = static_cast<long long>(B) * d1;
-  const long long Q = static_cast<long long>(K) * R;
-  const long long row0 = static_cast<long long>(blockIdx.y) * BM;
-  const long long col0 = static_cast<long long>(blockIdx.x) * BN;
-  float acc[8][8] = {};
-  for (long long q0 = 0; q0 < Q; q0 += BK) {
-#pragma unroll
-    for (int i = 0; i < (BM * BK) / 256; ++i) {
-      const int e = tid + i * 256, r = e % BM, qq = e / BM;
-      const long long row = row0 + r, q = q0 + qq;
-      float v = 0.f;
-      if (row < M && q < Q) {
-        const long long n = row / d1, aa = row - n * d1;
-        const long long kq = q / R, u = q - kq * R;
-        v = y[n * K + kq] * g1[(kq * d1 + aa) * R + u];
-      }
-      As[qq][r] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < (BN * BK) / 256; ++i) {
-      const int e = tid + i * 256, c = e % BN, qq = e / BN;
-      const long long col = col0 + c, q = q0 + qq;
-      Bs[qq][c] = (col < T && q < Q) ? m[q * T + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int qq = 0; qq < BK; ++qq) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[qq][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[qq][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[qq][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[qq][64 + tx * 4]);
-      const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long row = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const long long col = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (col < T) out[row * T + col] = acc[i][j] * scale;
-    }
-  }
-}
 
 extern "C" int sweep_reconstruct_launch(const void* y, void* out, void* m_scratch,
                                         const void* const* cores, const int* dims,
                                         const int* ops, int order, int B, int K,
                                         int R, int tile_m, int tile_n, int tile_k,
                                         float scale, void* stream) {
-  // tile_*: the planner's product tile (ops.py: RECON_TILE), which must be
-  // the one this source was compiled with
-  if (order < 2 || order > SWEEP_MAX_ORDER || R < 1 || R > MAXR || tile_m != BM ||
-      tile_n != BN || tile_k != BK)
-    return static_cast<int>(cudaErrorInvalidValue);
-  FoldArgs a{};
-  a.T = 1;
-  for (int i = 0; i < order; ++i) {
-    a.core[i] = static_cast<const float*>(cores[i]);
-    a.dims[i] = dims[i];
-    if (i > 0) a.T *= dims[i];
-  }
-  for (int j = 0; j < order - 1; ++j) a.ops[j] = ops[j];
-  a.order = order; a.K = K; a.R = R;
-  a.m = static_cast<float*>(m_scratch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n_fold = static_cast<long long>(K) * a.T;
-  fold_m_kernel<<<static_cast<unsigned>((n_fold + 255) / 256), 256, 0, s>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(static_cast<unsigned>((a.T + BN - 1) / BN),
-            static_cast<unsigned>((static_cast<long long>(B) * dims[0] + BM - 1) / BM));
-  recon_gemm_kernel<<<grid, 256, 0, s>>>(static_cast<const float*>(y),
-                                         a.core[0], a.m, static_cast<float*>(out),
-                                         B, dims[0], K, R, a.T, scale);
-  return static_cast<int>(cudaGetLastError());
+  return recon_launch(y, m_scratch, cores, dims, ops, order, B, K, R, tile_m,
+                      tile_n, tile_k,
+                      StoreEpilogue{static_cast<float*>(out), scale}, stream);
 }

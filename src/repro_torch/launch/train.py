@@ -1,0 +1,85 @@
+"""Training launcher.
+
+Port of `repro/launch/train.py`: the CLI builds the UNFUSED step, like the
+reference's (`compress` -> `adamw.update` under `--compress`; the fused
+K4 step is `build_train_step(..., fused_update=True)`, which
+`chip_smoke.py` drives). Runs on the CUDA device unless `--device cpu`.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
+        --reduced --steps 20 --batch 8 --seq 64 \
+        --compress tt:k=1024,rank=8,dims=4x8x16 --device cpu
+
+The reference's `--mesh`, `--compress-sync` (the collective), `--ckpt-dir`,
+`--ckpt-every`, `--sketch-ef-ckpt` (checkpointing), `--crash-at` (fault
+injection) and `--monitor` (telemetry) wait for their slices (ROADMAP.md,
+queue 1 items 8, 10 and 11).
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+
+import torch
+
+from repro_torch.configs import get_config, list_archs, reduced
+from repro_torch.core.device import resolve_device
+from repro_torch.core.tree import tree_leaves
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import build_model
+from repro_torch.models.config import ShapeSpec
+from repro_torch.optim import schedule
+from repro_torch.optim.compress import SketchCompressor, parse_compress_flag
+from repro_torch.runtime import train_loop
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--reduced", action="store_true",
+                    help="CPU-sized smoke variant of the arch")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--compress", default=None,
+                    help="tt:k=...,rank=...[,dims=AxBxC][,order=N]")
+    ap.add_argument("--remat", default="nothing")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="'cpu' or a CUDA device (default: cuda)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    model = build_model(cfg)
+    shape = ShapeSpec("cli_train", args.seq, args.batch, "train")
+
+    compressor = None
+    if args.compress:
+        compressor = SketchCompressor(parse_compress_flag(args.compress))
+        print(f"[compress] {args.compress} "
+              f"shrinkage={compressor.cfg.shrinkage():.4f}")
+
+    lr_fn = functools.partial(schedule.cosine_with_warmup, peak_lr=args.lr,
+                              warmup_steps=args.warmup,
+                              total_steps=args.steps)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                  global_batch=args.batch, seed=args.seed))
+    step_fn = steps_lib.build_train_step(model, shape, lr_fn=lr_fn,
+                                         remat=args.remat,
+                                         compressor=compressor, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    state = steps_lib.init_train_state(model, gen, compressor=compressor)
+    state, final = train_loop.run(
+        step_fn, state, data, train_loop.LoopConfig(total_steps=args.steps))
+    n = sum(x.numel() for x in tree_leaves(state["params"]))
+    print(f"[train] finished at step {final} (params={n})")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

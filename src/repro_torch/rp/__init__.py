@@ -18,15 +18,15 @@ Quickstart::
     x_hat = rp.reconstruct(op, y)                  # unbiased adjoint
 """
 from . import families as _families  # noqa: F401  (registers built-ins)
-from .dispatch import (DispatchStats, current_stats, dispatch_breakdown,
-                       dispatch_stats, kernel_call_count, project,
-                       reconstruct)
+from .dispatch import (DispatchStats, count_kernel_dispatch, current_stats,
+                       dispatch_breakdown, dispatch_stats, kernel_call_count,
+                       project, reconstruct)
 from .many import project_many
 from .plan import (BACKENDS, CostLedger, ExecutionPlan, PlanCacheStats,
                    StructureSig, clear_plan_cache, execute_plan, explain,
                    group_signature, plan_cache_stats, plan_execution,
-                   pow2ceil, struct_in_rank, struct_signature, structure_tag,
-                   validate_backend, validate_pipeline)
+                   plan_update, pow2ceil, struct_in_rank, struct_signature,
+                   structure_tag, validate_backend, validate_pipeline)
 from .protocol import FormatMismatchError, ProjectorSpec, RPOperator
 from .registry import (get_family, list_families, make_projector,
                        register_family)
@@ -34,11 +34,11 @@ from .registry import (get_family, list_families, make_projector,
 __all__ = [
     "BACKENDS", "CostLedger", "DispatchStats", "ExecutionPlan",
     "FormatMismatchError", "PlanCacheStats", "ProjectorSpec", "RPOperator",
-    "StructureSig", "clear_plan_cache", "current_stats",
-    "dispatch_breakdown", "dispatch_stats", "execute_plan", "explain",
-    "get_family", "group_signature", "kernel_call_count", "list_families",
-    "make_projector", "plan_cache_stats", "plan_execution", "pow2ceil",
-    "project", "project_many", "reconstruct", "register_family",
-    "struct_in_rank", "struct_signature", "structure_tag",
-    "validate_backend", "validate_pipeline",
+    "StructureSig", "clear_plan_cache", "count_kernel_dispatch",
+    "current_stats", "dispatch_breakdown", "dispatch_stats", "execute_plan",
+    "explain", "get_family", "group_signature", "kernel_call_count",
+    "list_families", "make_projector", "plan_cache_stats", "plan_execution",
+    "plan_update", "pow2ceil", "project", "project_many", "reconstruct",
+    "register_family", "struct_in_rank", "struct_signature",
+    "structure_tag", "validate_backend", "validate_pipeline",
 ]

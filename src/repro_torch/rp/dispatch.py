@@ -86,6 +86,20 @@ def dispatch_breakdown() -> dict:
     return dict(_STATS.get().breakdown)
 
 
+def count_kernel_dispatch(family: str = "extern", structure: str = "extern",
+                          order: int = 0) -> None:
+    """Record one kernel dispatch on the context-local stats.
+
+    The hook for kernel wrappers that live OUTSIDE the project/reconstruct
+    dispatch matrix (the fused unsketch+EF+AdamW launch in
+    `optim.adamw.update_sketched`), so `kernel_call_count()` stays the one
+    count of kernel dispatches. The tags place the launch in the
+    per-(family, structure, route, order) `breakdown` under route
+    'kernel'; untagged calls land under ('extern', 'extern', 'kernel', 0).
+    """
+    _STATS.get().record(family, structure, "kernel", int(order))
+
+
 def _op_device(op) -> torch.device:
     return getattr(op, "device", torch.device("cpu"))
 

@@ -156,7 +156,8 @@ class ExecutionPlan:
     plan_id: str
     family: str
     structure: str
-    kind: str                      # 'project' | 'reconstruct'
+    kind: str                      # 'project' | 'reconstruct' |
+                                   # 'update' | 'update-unfused'
     order: int
     k: int
     batch: int
@@ -574,10 +575,72 @@ def explain(op, x, *, kind: str = "project", backend: str = "auto",
                           pipeline=pipeline)
 
 
+# ---------------------------------------------------------------------------
+# update (fused unsketch+EF+AdamW)
+# ---------------------------------------------------------------------------
+
+def plan_update(op_spec, batch: int, *, fused: bool = True) -> ExecutionPlan:
+    """The `ExecutionPlan` of one fused unsketch+EF+AdamW launch (K4) over
+    `batch` buckets, or of the UNFUSED reconstruct -> EF -> AdamW chain
+    when `fused=False` (the same reconstruct plan, nine extra dense passes
+    in the ledger). `cost.hbm_bytes` is the analytic traffic
+    (`fused_hbm_bytes` / `unfused_hbm_bytes`); `smem_bytes` the product
+    kernel's shared memory per block. Cached with the other plans."""
+    from repro_torch.kernels import fused_update as kfused
+
+    op_sig = _op_signature(op_spec)
+    if not op_sig.is_tn:
+        raise ValueError(
+            f"plan_update needs a tt/cp operator (the fused kernel IS the "
+            f"reconstruct sweep), got family {op_sig.family!r}")
+    sig = StructureSig(structure="sketch", batch=int(batch))
+    kind = "update" if fused else "update-unfused"
+    key = (op_sig, sig, kind, "kernel", "serial")
+    cached = _PLAN_CACHE.get(key)
+    if cached is not None:
+        _PLAN_CACHE.move_to_end(key)
+        _CACHE_STATS.hits += 1
+        return cached
+    f, k, dims, rank = op_sig.family, op_sig.k, op_sig.dims, op_sig.rank
+    fplan = kfused.plan_fused_update(f, k, int(batch), dims, rank)
+    hbm = (kfused.fused_hbm_bytes(fplan) if fused
+           else kfused.unfused_hbm_bytes(fplan))
+    per_item = (theory.flops_project_dense_tt(k, dims, max(1, rank))
+                if f == "tt"
+                else theory.flops_project_dense_cp(k, dims, max(1, rank)))
+    plan = ExecutionPlan(
+        plan_id=hashlib.blake2s(repr(key).encode(),
+                                digest_size=6).hexdigest(),
+        family=f, structure="sketch", kind=kind, order=len(dims), k=k,
+        batch=int(batch), dims=dims, rank=rank, in_rank=0, backend="kernel",
+        route="kernel" if fused else "torch",
+        kernel="fused_update" if fused else "unfused_chain",
+        pipeline="serial", device=op_sig.device, chunk=None,
+        chunk_policy="folded", tiles=(fplan.tk, fplan.tb, fplan.ba),
+        grid=fplan.grid,
+        rejected=((("torch", "fused path requested: the dense gradient "
+                    "estimate is never stored"),) if fused
+                  else (("kernel", "unfused chain requested for "
+                         "comparison"),)),
+        cost=CostLedger(
+            flops=int(batch) * int(per_item), hbm_bytes=int(hbm),
+            smem_bytes=int(fplan.smem_bytes),
+            params=_safe_params(f, k, dims, rank),
+            var_factor=float(theory.variance_factor(
+                f, N=len(dims), R=max(1, rank), D=_prod(dims)))))
+    _CACHE_STATS.builds += 1
+    _PLAN_CACHE[key] = plan
+    while len(_PLAN_CACHE) > _CACHE_CAP:
+        _PLAN_CACHE.popitem(last=False)
+        _CACHE_STATS.evictions += 1
+    return plan
+
+
 __all__ = [
     "BACKENDS", "CostLedger", "ExecutionPlan", "PlanCacheStats",
     "StructureSig", "clear_plan_cache", "dense_signature", "execute_plan",
     "explain", "group_signature", "plan_cache_stats", "plan_execution",
-    "pow2ceil", "sketch_signature", "struct_in_rank", "struct_signature",
-    "structure_tag", "validate_backend", "validate_pipeline",
+    "plan_update", "pow2ceil", "sketch_signature", "struct_in_rank",
+    "struct_signature", "structure_tag", "validate_backend",
+    "validate_pipeline",
 ]

@@ -1,5 +1,5 @@
-"""Card-only tests of the CUDA kernels K1/K2/K3/K5/K6 against their plain
-versions.
+"""Card-only tests of the CUDA kernels K1/K2/K3/K4/K5/K6 against their
+plain versions, and of the fused training step that runs K4.
 
 Marked `gpu`; the `cuda` fixture skips them where no CUDA device is
 present (decided inside the fixture, never at import or collection, so
@@ -18,7 +18,9 @@ import torch
 from repro_torch import kernels, rp
 from repro_torch.core import random_cp, random_tt, stack_ragged_cp, \
     stack_ragged_tt
+from repro_torch.core.tree import tree_leaves
 from repro_torch.kernels import _sweep, ops
+from repro_torch.kernels import fused_update as fused
 from repro_torch.kernels.struct import carry
 from repro_torch.kernels.struct import plan as splan
 from repro_torch.kernels.struct.ops import _in_operands, struct_rank
@@ -145,3 +147,87 @@ def test_mixed_server_ticks_launch_k1_and_k3(cuda):
     assert rep["ticks"] == st.kernel_calls
     assert _sweep.sweep_project.launches == dense
     assert carry.carry_sweep_project.launches == rep["ticks"] - dense > 0
+
+
+HP = dict(alpha=0.9, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+@pytest.mark.parametrize("family", ["tt", "cp"])
+@pytest.mark.parametrize("dims", SHAPES + [(16, 16, 8)],
+                         ids=lambda d: "x".join(map(str, d)))
+def test_k4_matches_plain_version(cuda, family, dims):
+    """Ragged k (37) and B (3); lr, c1, c2 as device scalars, float
+    arguments, or host 0-d tensors."""
+    k, rank, nb = 37, 3, 3
+    op, _ = _operands(family, dims, k, rank, cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    y = torch.randn((nb, k), generator=g, device=cuda)
+    p, w, m, v = (torch.randn((nb,) + dims, generator=g, device=cuda)
+                  for _ in range(4))
+    v = v.abs() * 1e-2
+    for lr, c1, c2 in ((1e-3, 0.3, 0.2),
+                       (torch.tensor(2e-3), torch.tensor(0.19),
+                        torch.tensor(0.0975))):
+        before = fused.fused_update_buckets.launches
+        got = fused.fused_update_buckets(op, y, p, w, m, v, lr, c1, c2, **HP)
+        ref = fused.fused_update_buckets_plain(
+            op, y, p, w, m, v, torch.as_tensor(lr, device=cuda),
+            torch.as_tensor(c1, device=cuda),
+            torch.as_tensor(c2, device=cuda), **HP)
+        torch.cuda.synchronize()
+        assert fused.fused_update_buckets.launches == before + 1
+        for a, b in zip(got, ref):
+            assert _rel(a, b) <= 1e-4
+
+
+def test_k4_refuses_what_it_does_not_take(cuda):
+    op, _ = _operands("tt", (16, 16, 8), 32, 2, cuda)
+    y = torch.zeros((2, 32), device=cuda)
+    dense = [torch.zeros((2, 16, 16, 8), device=cuda) for _ in range(4)]
+    with pytest.raises(ValueError, match="bucket operand"):
+        fused.fused_update_buckets(op, y, dense[0][:1], *dense[1:], 1e-3,
+                                   0.1, 0.1, **HP)
+    with pytest.raises(ValueError, match="operands on"):
+        fused.fused_update_buckets(op, y, dense[0].cpu(), *dense[1:], 1e-3,
+                                   0.1, 0.1, **HP)
+
+
+def test_fused_train_step_launches_k4_per_leaf(cuda):
+    """Reduced llama3.2-3b, two fused steps on the card: one K1 and one K4
+    launch per leaf (11 leaves) a step; equal to the unfused step."""
+    import functools
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import schedule
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compress import SketchCompressor
+    model = build_model(reduced(get_config("llama3.2-3b")))
+    comp = SketchCompressor(SketchConfig(family="tt", k=1024, rank=8,
+                                         bucket_elems=512, dims=(4, 8, 16)))
+    kw = dict(compressor=comp, opt=AdamWConfig(clip_norm=None), device=cuda,
+              lr_fn=functools.partial(schedule.constant, peak_lr=3e-3))
+    shape = ShapeSpec("t", 32, 4, "train")
+    fused_step = steps.build_train_step(model, shape, fused_update=True,
+                                        **kw)
+    unfused_step = steps.build_train_step(model, shape, **kw)
+    state = steps.init_train_state(
+        model, torch.Generator(device=cuda).manual_seed(0),
+        opt=kw["opt"], compressor=comp)
+    data = SyntheticLM(DataConfig(vocab=256, seq_len=32, global_batch=4))
+    for i in range(2):
+        kernels.reset_launch_counts()
+        new, met = fused_step(state, data.batch(i))
+        torch.cuda.synchronize()
+        assert fused.fused_update_buckets.launches == 11
+        assert _sweep.sweep_project.launches == 11
+        assert _sweep.sweep_reconstruct.launches == 0
+        ref, _ = unfused_step(state, data.batch(i))
+        for a, b in zip(tree_leaves(new["ef"]["residual"]),
+                        tree_leaves(ref["ef"]["residual"])):
+            assert _rel(a, b) <= 1e-4
+        assert math.isfinite(float(met["loss"]))
+        state = new

@@ -44,3 +44,39 @@ def test_checker_catches_forbidden_imports():
     src = "import jax.numpy as jnp\nfrom repro.core import theory\n"
     assert len(_forbidden(ast.parse(src))) == 2
     assert _forbidden(ast.parse("from .core import theory\n")) == []
+
+
+TRAINING_SLICE = ("core.sketch", "core.tree", "optim", "optim.adamw",
+                  "optim.compress", "optim.schedule",
+                  "kernels.fused_update", "models", "models.api",
+                  "models.config", "models.layers", "models.settings",
+                  "models.transformer", "configs", "configs.llama32_3b",
+                  "data", "data.pipeline", "launch.steps", "launch.train",
+                  "runtime", "runtime.spans", "runtime.train_loop")
+
+
+def test_training_slice_modules_are_checked():
+    names = {".".join(p.relative_to(REPO / "src").with_suffix("").parts)
+             .removesuffix(".__init__") for p in PORT_FILES}
+    assert {f"repro_torch.{m}" for m in TRAINING_SLICE} <= names
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    """Every module of the port imports in a process where `jax` and
+    `repro` cannot be imported at all (so no transitive import hides)."""
+    import subprocess
+    import sys
+    mods = sorted(".".join(p.relative_to(REPO / "src").with_suffix("").parts)
+                  .removesuffix(".__init__") for p in PORT_FILES)
+    code = ("import importlib, sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('imported', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={"PYTHONPATH": str(REPO / "src"),
+                              "PATH": "/usr/bin"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "imported" in out.stdout

@@ -135,7 +135,7 @@ def test_tile_constants_agree_with_the_cuda_sources():
     """The planner's tiling constants are the ones the kernels compile."""
     project = _defines("sweep_project.cu")
     assert (project["TBT"], project["XPAD"]) == (ops.TBT, ops.XPAD)
-    recon = _defines("sweep_reconstruct.cu")
+    recon = _defines("sweep_reconstruct.cuh")  # K2's and K4's device code
     assert recon["MAXR"] == ops.MAX_RANK
     assert (recon["BM"], recon["BN"], recon["BK"]) == ops.RECON_TILE
     assert _defines("sweep_common.cuh")["SWEEP_MAX_ORDER"] == ops.MAX_ORDER
