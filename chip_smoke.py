@@ -10,13 +10,15 @@ Phases (each raises on failure, so the script exits non-zero):
      memory and spill lines.
   3. hold K1 `sweep_project` and K2 `sweep_reconstruct` against their plain
      PyTorch versions on the card: TT and CP, orders 2-5, ragged small
-     shapes, and the serving shapes.
+     shapes, and the serving shapes; K1 twice on the same inputs must give
+     the same bits (its T groups are summed in a fixed order).
   3b. hold K3 `carry_sweep_project` and K6 `carry_sweep_project_pipelined`
      against their plain versions (four pairings x orders 2-8, k=37, B=3,
      ragged TT ranks, CP inputs with and without weights; K3 alone at one
      shape whose operator core row K6's planner refuses) and K5 `sweep_project_pipelined`
      (TT/CP x orders 2-5), each also at the serving shapes; K6 against K3
-     and K5 against K1 on the same inputs.
+     and K5 against K1 on the same inputs. Then K1, K2 and K5 on ragged
+     shapes: orders 2 and 8, B in {1, 3, 64}, k=37, ranks above 8.
   4. serve 1024 dense TT(5) requests through `SketchServer`
      (k=512, dims 64x64x64, max_batch=64, flush_us=1000) and check every
      tick launched K1 once; query the store.
@@ -33,9 +35,14 @@ Phases (each raises on failure, so the script exits non-zero):
   7. time K1 and K2 at the serving shapes (B=64) beside their bound, their
      plain versions and one `torch.einsum` of the whole contraction. The
      bound counts the flops of the cheaper of two routes to the same
-     function: the sweep program, or building the dense (k, prod(dims))
-     operator and one product with it; the sweep program's own bound is
-     printed beside it as `program_bound_ms`. Then K5 at the same shapes,
+     function: the kernel's own program, or building the dense (k,
+     prod(dims)) operator left to right and one product with it; the
+     kernel's own program's bound is printed beside it as
+     `program_bound_ms`. For K1 and K5 that program is the fold, the
+     operator tiles built once per batch tile, and the product
+     (`project_route_flops`); their rows also carry the bytes of the two
+     scratch buffers (m and the partials) and the device time of each of
+     their kernels from torch.profiler (`device_split_ms`). Then K5 at the same shapes,
      K3 and K6 at the four pairings (input rank 4), and K3 in the paper's
      regime (TT(5), k=512, dims 8^8, unit-norm rank-10 TT inputs), whose
      cheaper route is the carry program (each einsum step counted with the
@@ -52,13 +59,14 @@ Phases (each raises on failure, so the script exits non-zero):
      every loss finite; the device time per step, and its split into
      loss+grad, sketch and fused update from the CUDA events the counted
      steps record inside themselves (`runtime.spans`).
-  10. from that mid-trajectory state and one gradient: on every leaf, K4
-     and K1 (each launched on the whole leaf, as the step launches them)
-     against their plain versions in chunks of buckets, and K1 against
-     the sketch rows; the fused update against the unfused chain
+  10. from that mid-trajectory state and one gradient: on every leaf, K4,
+     K1 and K5 (each launched on the whole leaf, as the step launches K1
+     and K4) against their plain versions in chunks of buckets, K1 against
+     the sketch rows and K5 against K1; the fused update against the unfused chain
      (`compress` -> `adamw.update`: K1 + K2 + torch AdamW): residual, m'
      and v' within 1e-4 of their largest entry, w' within W_TOL_LR
-     learning rates; then K4 and K1 timed at the layers/w_gate leaf.
+     learning rates; then K4, K1 and K5 timed at the layers/w_gate leaf
+     (K5's numbers go into its TT row as `train_*`).
   11. the reference test's learning run on the card: reduced llama3.2-3b,
      `tt:k=1024,rank=8,dims=4x8x16`, constant lr 3e-3, 8 fused steps; the
      last loss must be below the first.
@@ -111,6 +119,8 @@ SMALL_CARRY_DIMS = {2: (12, 20), 3: (6, 10, 14), 4: (4, 6, 5, 7),
                     5: (3, 4, 5, 3, 6), 6: (3, 2, 4, 3, 2, 3),
                     7: (2, 3, 2, 3, 2, 2, 3), 8: (2,) * 8}
 PAIRINGS = (("tt", "tt"), ("tt", "cp"), ("cp", "tt"), ("cp", "cp"))
+RAGGED_PROJECT = (((12, 20), 11), ((2, 3, 3, 3, 3, 3, 3, 3), 9),
+                  ((5, 7), 25))
 
 
 def log(msg: str) -> None:
@@ -161,6 +171,32 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_split(fn, reps: int = 3) -> dict[str, float]:
+    """Device milliseconds per call of each kernel `fn()` launches, from
+    torch.profiler's CUDA activity over `reps` calls: K1's and K5's fold,
+    product and reduce, and the wrapper's layout copy of the leading core."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = (("fold_m_kernel", "fold"), ("project_gemm_kernel", "product"),
+             ("reduce_partials_kernel", "reduce"))
+    out = {"fold": 0.0, "product": 0.0, "reduce": 0.0, "layout": 0.0}
+    for ev in prof.key_averages():
+        t = (getattr(ev, "device_time_total", 0)
+             or getattr(ev, "cuda_time_total", 0))
+        if t:
+            key = next((k for n, k in names if n in ev.key), "layout")
+            out[key] += t / reps / 1e3
+    if not out["product"]:
+        raise AssertionError(f"the profiler saw no product kernel: {out}")
+    return out
+
+
 def dense_operator_flops(family: str, k: int, dims, rank: int) -> int:
     """Flops to build the dense (k, prod(dims)) operator from its cores,
     left to right: each TT step a product over one bond, each CP step a
@@ -171,6 +207,24 @@ def dense_operator_flops(family: str, k: int, dims, rank: int) -> int:
         total += (2 * k * prefix * rank * rank if family == "tt"
                   else k * prefix * rank)
     return total + 2 * k * math.prod(dims) * rank
+
+
+def project_route_flops(plan) -> int:
+    """Flops of K1's and K5's own program: the fold of the trailing cores
+    (the kernel refolds each column of m, N-2 steps of R*R multiply-adds
+    for TT, R products for CP), the operator tiles S = sum_u g1 m built
+    once per batch tile, and the (B, D) x (D, k) product."""
+    k, b, dims, r = plan.k, plan.b, plan.dims, plan.rank
+    d_all, trail = math.prod(dims), math.prod(dims[1:])
+    step = 2 * r * r if plan.family == "tt" else r
+    fold = k * trail * step * (len(dims) - 2)
+    return fold + 2 * k * d_all * r * plan.grid[1] + 2 * b * k * d_all
+
+
+def scratch_bytes(plan) -> int:
+    """Bytes of K1's and K5's two scratch buffers: m and the partials."""
+    return 4 * (math.prod(plan.m_scratch_shape)
+                + math.prod(plan.partial_shape))
 
 
 def kernel_operands(op, family):
@@ -250,7 +304,8 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
     """Phases 8-11: K4 against its plain version, the sketch-compressed
     training slice at full width, the fused update against the unfused
     chain, and the reduced learning run. Returns the K4 and K1 (training
-    shape) rows of the `kernels` line."""
+    shape) rows of the `kernels` line, and K5's numbers at the training
+    shape as `train_*` keys for its TT row."""
     import dataclasses
     import functools
 
@@ -466,7 +521,18 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
                     bj[0][i:e], *cores, steps=pplan.steps, scale=scale),),
                 nb, 4))
         check(f"K1 {tag} == the sketch rows of the step", got, yj)
-        del got
+        p5 = ops.plan_contraction("tt", "project", op.k, nb, op.in_dims,
+                                  op.rank, pipeline="double")
+        got5 = _sweep.sweep_project_pipelined(bj[0], *cores, plan=p5,
+                                              scale=scale)
+        errs["sweep_project_pipelined:train"] = max(
+            errs.get("sweep_project_pipelined:train", 0.0), hold_chunked(
+                [f"K5 {tag} (plain in chunks of 4)"], (got5,),
+                lambda i, e: (_sweep.sweep_project_pipelined_plain(
+                    bj[0][i:e], *cores, steps=p5.steps, ba=p5.ba,
+                    scale=scale),), nb, 4))
+        check(f"K5 vs K1 {tag}", got5, got)
+        del got, got5
         torch.cuda.empty_cache()
 
     # the fused update against the unfused chain, same state and gradient
@@ -545,16 +611,45 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
                            "reconstruct, then the epilogue in torch ops")
     row["train"] = train_log
     rows.append(row)
-    p_flops = theory.flops_project_dense_tt(k, dims, rank) * nb
+    p5plan = ops.plan_contraction("tt", "project", op.k, nb, op.in_dims,
+                                  op.rank, pipeline="double")
+
+    def k5_plain():
+        return torch.cat([_sweep.sweep_project_pipelined_plain(
+            x[i:i + chunk], *cores, steps=p5plan.steps, ba=p5plan.ba,
+            scale=scale) for i in range(0, nb, chunk)])
+
     dense = dense_operator_flops("tt", k, dims, rank) + 2 * nb * k * d_all
+    nbytes = 4 * (nb * d_all + nb * k) + core_bytes
+    lib = lambda: dense_route(f"{lib_cores},n{letters}->nk", *cores, x)  # noqa: E731
     row = time_row(
-        "sweep_project:train", p_flops, dense,
-        4 * (nb * d_all + nb * k) + core_bytes,
+        "sweep_project:train", project_route_flops(pplan), dense, nbytes,
         lambda: _sweep.sweep_project(x, *cores, plan=pplan, scale=scale),
-        k1_plain,
-        lambda: dense_route(f"{lib_cores},n{letters}->nk", *cores, x),
-        shape_s + f" (plain in chunks of {chunk} buckets)", reps=10)
+        k1_plain, lib, shape_s + f" (plain in chunks of {chunk} buckets)",
+        reps=10)
+    row["scratch_bytes"] = scratch_bytes(pplan)
+    row["sweep_program_flops"] = (theory.flops_project_dense_tt(k, dims, rank)
+                                  * nb)
+    row["device_split_ms"] = device_split(
+        lambda: _sweep.sweep_project(x, *cores, plan=pplan, scale=scale))
+    log("sweep_project:train device ms per call by kernel: " + ", ".join(
+        f"{key} {v:.3f}" for key, v in row["device_split_ms"].items()))
     rows.append(row)
+    # K5 at the same leaf: its numbers go into its TT row as train_*
+    k5 = time_row(
+        "sweep_project_pipelined:train", project_route_flops(p5plan), dense,
+        nbytes, lambda: _sweep.sweep_project_pipelined(
+            x, *cores, plan=p5plan, scale=scale),
+        k5_plain, lib, shape_s + f" (plain in chunks of {chunk} buckets)",
+        reps=10)
+    k5["scratch_bytes"] = scratch_bytes(p5plan)
+    k5["device_split_ms"] = device_split(
+        lambda: _sweep.sweep_project_pipelined(x, *cores, plan=p5plan,
+                                               scale=scale))
+    k5_row = {f"train_{key}": k5[key] for key in (
+        "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "program_bound_ms", "flops", "program_flops", "max_abs_err",
+        "scratch_bytes", "device_split_ms")}
     del buckets, bj, x, y, yj, params, grads, ef, ostate
     torch.cuda.empty_cache()
 
@@ -581,7 +676,7 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
         f"{[round(x, 3) for x in rlosses]}")
     if not rlosses[-1] < rlosses[0]:
         raise AssertionError(f"reduced run did not learn: {rlosses}")
-    return rows
+    return rows, k5_row
 
 
 def _leaf_names(tree, prefix=()):
@@ -654,6 +749,10 @@ def main() -> int:
         errs[key] = max(errs.get(key, 0.0),
                         check(f"K1 {family} {tag} dims={dims} k={k} "
                               f"R={rank} B={b}", got, ref))
+        if not torch.equal(got, _sweep.sweep_project(x, *cores, plan=pplan,
+                                                     scale=scale)):
+            raise AssertionError(f"K1 {family} {tag}: a second call on the "
+                                 "same inputs gave other bits")
         y = torch.randn((b, k), generator=gen, device=dev)
         rplan = ops.plan_contraction(family, "reconstruct", k, b, dims, rank)
         got = _sweep.sweep_reconstruct(y, *cores, plan=rplan, scale=scale)
@@ -749,7 +848,7 @@ def main() -> int:
         scale = 1.0 / math.sqrt(k)
         y5 = _sweep.sweep_project_pipelined(x, *cores, plan=p5, scale=scale)
         ref = _sweep.sweep_project_pipelined_plain(
-            x, *cores, steps=p5.steps, tg=p5.tg, scale=scale)
+            x, *cores, steps=p5.steps, ba=p5.ba, scale=scale)
         key = f"sweep_project_pipelined:{family}"
         what = f"{family} {tag} dims={dims} k={k} R={rank} B={b}"
         errs[key] = max(errs.get(key, 0.0), check(f"K5 {what}", y5, ref))
@@ -762,6 +861,13 @@ def main() -> int:
             hold_k5(family, dims, 37, 3, 3, f"order {order}")
         hold_k5(family, SLICE_DIMS, SLICE_K, SLICE_RANKS[family], 64,
                 "slice")
+        # ragged: orders 2 and 8, k = 37, T ragged against every chunk,
+        # ranks above 8, B in {1, 3, 64}
+        for dims, rank in RAGGED_PROJECT:
+            for b in (1, 3, 64):
+                hold(family, dims, 37, rank, b, "ragged")
+                hold_k5(family, dims, 37, rank, b, "ragged")
+    log("K1 gave the same bits on every second call")
     torch.cuda.empty_cache()
 
     # -- 4./5. serve dense traffic ----------------------------------------
@@ -1069,17 +1175,18 @@ def main() -> int:
                                       pipeline="double")
         rplan = ops.plan_contraction(family, "reconstruct", k, b, dims, rank)
         cases = [
-            ("sweep_project", p_flops, x_bytes + core_bytes + y_bytes,
+            ("sweep_project", project_route_flops(pplan),
+             x_bytes + core_bytes + y_bytes,
              lambda: _sweep.sweep_project(x, *cores, plan=pplan, scale=scale),
              lambda: _sweep.sweep_project_plain(x, *cores, steps=pplan.steps,
                                                 scale=scale),
              lambda: torch.einsum(p_spec, x, *cores)),
-            ("sweep_project_pipelined", p_flops,
+            ("sweep_project_pipelined", project_route_flops(p5plan),
              x_bytes + core_bytes + y_bytes,
              lambda: _sweep.sweep_project_pipelined(x, *cores, plan=p5plan,
                                                     scale=scale),
              lambda: _sweep.sweep_project_pipelined_plain(
-                 x, *cores, steps=p5plan.steps, tg=p5plan.tg, scale=scale),
+                 x, *cores, steps=p5plan.steps, ba=p5plan.ba, scale=scale),
              lambda: torch.einsum(p_spec, x, *cores)),
             ("sweep_reconstruct", r_flops, y_bytes + core_bytes + x_bytes,
              lambda: _sweep.sweep_reconstruct(y, *cores, plan=rplan,
@@ -1092,6 +1199,13 @@ def main() -> int:
         for name, program_flops, nbytes, kern, plain, library in cases:
             rows.append(time_row(f"{name}:{family}", program_flops, dense,
                                  nbytes, kern, plain, library, shape))
+            if name != "sweep_reconstruct":
+                plan = pplan if name == "sweep_project" else p5plan
+                rows[-1]["scratch_bytes"] = scratch_bytes(plan)
+                rows[-1]["sweep_program_flops"] = p_flops
+                rows[-1]["device_split_ms"] = split = device_split(kern)
+                log(f"{name}:{family} device ms per call by kernel: "
+                    + ", ".join(f"{key} {v:.3f}" for key, v in split.items()))
 
     # K3 and K6 at the four pairings on the serving shapes, input rank 4;
     # the cheaper route densifies the inputs, then the cheaper dense product
@@ -1169,7 +1283,11 @@ def main() -> int:
 
     del stores, paper_ref
     torch.cuda.empty_cache()
-    rows += train_phases(dev, gen, errs, per_family, launches, time_row)
+    train_rows, k5_train = train_phases(dev, gen, errs, per_family,
+                                        launches, time_row)
+    rows += train_rows
+    next(r for r in rows
+         if r["name"] == "sweep_project_pipelined:tt").update(k5_train)
 
     for name in launches:
         total = sum(r["launches"] for r in rows

@@ -29,7 +29,8 @@ from pathlib import Path
 
 import torch
 
-from .ops import MAX_ORDER, MAX_RANK, ContractionPlan, program_codes
+from .ops import (MAX_ORDER, MAX_RANK, ContractionPlan, _reconstruct_steps,
+                  program_codes)
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -37,17 +38,17 @@ SOURCES = {"sweep_project": "sweep_project.cu",
            "sweep_reconstruct": "sweep_reconstruct.cu",
            "carry_sweep": "carry_sweep.cu",
            "fused_update": "fused_update.cu"}
-_HEADERS = ("sweep_common.cuh", "sweep_reconstruct.cuh")
+_HEADERS = ("sweep_common.cuh", "sweep_fold.cuh", "sweep_reconstruct.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # x, y, cores, dims, ops, order, B, K, R, tk, tb, ba, tg, rch,
-    # smem_bytes, scale, stream (K5: the same)
-    "sweep_project": [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I),
-                      ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _I, ctypes.c_float, _P],
+    # x, y, m_scratch, part_scratch, cores, dims, fold ops, order, B, K, R,
+    # tile_m, tile_k, tile_a, tile_t, groups, m_slots, smem_bytes, scale,
+    # stream (K5: the same)
+    "sweep_project": [_P, _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I),
+                      ctypes.POINTER(_I)] + [_I] * 11 + [ctypes.c_float, _P],
     # y, out, m_scratch, cores, dims, ops, order, B, K, R, tile_m, tile_n,
     # tile_k, scale, stream
     "sweep_reconstruct": [_P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I),
@@ -155,14 +156,6 @@ def _cuda_only(a: torch.Tensor, name: str) -> None:
                          f"on CPU tensors), got a {a.device.type} tensor")
 
 
-def _row_chunk(rank: int) -> int:
-    """Bond rows per register tile of K1 (a template parameter 1..8): the
-    chunk that wastes the fewest padded rows, the larger one on ties."""
-    if rank <= 8:
-        return rank
-    return min(range(8, 0, -1), key=lambda c: -(-rank // c) * c - rank)
-
-
 def _pointers(tensors):
     return (_P * MAX_ORDER)(*[t.data_ptr() for t in tensors])
 
@@ -185,18 +178,74 @@ def sweep_project_plain(x: torch.Tensor, *cores: torch.Tensor, steps,
     return z * scale
 
 
+def sweep_project_tiled_plain(x: torch.Tensor, *cores: torch.Tensor,
+                              plan: ContractionPlan,
+                              scale: float) -> torch.Tensor:
+    """K1's and K5's schedule in torch ops, block by block: the fold
+    through the reconstruct program's m steps; for every (k tile, batch
+    tile, group) block, each T-chunk of the group, each slab of `ba`
+    leading indices, the operator tile S = sum_u g1 m built and contracted
+    with the input slab into the block's partial; then the partials summed
+    in group order. Ragged edges are clipped where the kernel masks them.
+    A check of the kernel's index arithmetic on the CPU; no path runs it.
+    """
+    m_steps = _reconstruct_steps(plan.family, plan.order)[0]
+    m = cores[-1]
+    if m_steps[0] is not None:
+        m = torch.einsum(m_steps[0], m)
+    for spec, g in zip(m_steps[1:], reversed(cores[1:-1])):
+        m = torch.einsum(spec, g, m)
+    m = m.reshape(plan.m_scratch_shape)
+    g1, d1, trail = cores[0], plan.dims[0], plan.trail
+    xf = x.reshape(plan.b, d1, trail)
+    n_k, n_b, groups = plan.grid
+    n_chunks = -(-trail // plan.tc)
+    cpg = -(-n_chunks // groups)
+    part = x.new_zeros(plan.partial_shape)
+    for bk in range(n_k):
+        k0, k1 = bk * plan.tk, min((bk + 1) * plan.tk, plan.k)
+        for bb in range(n_b):
+            n0, n1 = bb * plan.tb, min((bb + 1) * plan.tb, plan.b)
+            for g in range(groups):
+                acc = x.new_zeros((n1 - n0, k1 - k0))
+                for c in range(g * cpg, min((g + 1) * cpg, n_chunks)):
+                    t0, t1 = c * plan.tc, min((c + 1) * plan.tc, trail)
+                    m_chunk = m[k0:k1, :, t0:t1]
+                    for a0 in range(0, d1, plan.ba):
+                        a1 = min(a0 + plan.ba, d1)
+                        s = torch.einsum("iau,iut->iat", g1[k0:k1, a0:a1],
+                                         m_chunk)
+                        acc += torch.einsum("nat,iat->ni",
+                                            xf[n0:n1, a0:a1, t0:t1], s)
+                part[g, n0:n1, k0:k1] = acc
+    y = part[0]
+    for g in range(1, groups):
+        y = y + part[g]
+    return y * scale
+
+
 def _launch_project(entry: str, x, cores, plan: ContractionPlan,
                     scale: float) -> torch.Tensor:
-    """Launch K1 or K5 (same C signature) and return y (B, k)."""
+    """Launch K1 or K5 (same C signature: fold, product, reduce) and
+    return y (B, k)."""
     _cuda_only(x, entry)
     codes = program_codes(plan)
     y = torch.empty((plan.b, plan.k), device=x.device, dtype=torch.float32)
+    m = torch.empty(plan.m_scratch_shape, device=x.device,
+                    dtype=torch.float32)
+    part = torch.empty(plan.partial_shape, device=x.device,
+                       dtype=torch.float32)
+    # the leading core as (d1, R, k): a slab of it is rows of k-contiguous
+    # floats, which the kernel stages 16 bytes at a time
+    lead = cores[0].permute(1, 2, 0).contiguous()
     with torch.cuda.device(x.device):
         err = _launcher(entry, "sweep_project")(
-            x.data_ptr(), y.data_ptr(), _pointers(cores), _ints(plan.dims),
-            _ints(codes), plan.order, plan.b, plan.k, plan.rank, plan.tk,
-            plan.tb, plan.ba, plan.tg, _row_chunk(plan.rank), plan.smem_bytes,
-            float(scale), torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), y.data_ptr(), m.data_ptr(), part.data_ptr(),
+            _pointers((lead,) + tuple(cores[1:])), _ints(plan.dims),
+            _ints(codes), plan.order,
+            plan.b, plan.k, plan.rank, plan.tb, plan.tk, plan.ba, plan.tc,
+            plan.groups, plan.m_slots, plan.smem_bytes, float(scale),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed with CUDA error {err} "
                            f"(plan {plan})")
@@ -207,8 +256,9 @@ def sweep_project(x: torch.Tensor, *cores: torch.Tensor,
                   plan: ContractionPlan, scale: float) -> torch.Tensor:
     """K1: y = scale * sweep(x) for x (B, *dims) -> (B, k) float32.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (counted in `sweep_project.launches`) or raises.
+    A CPU tensor takes the plain version; a CUDA tensor launches the fold,
+    product and reduce kernels (counted once in `sweep_project.launches`)
+    or raises.
     """
     _check("project", x, cores, plan)
     if plan.pipeline != "serial":
@@ -230,17 +280,17 @@ sweep_project.launches = 0
 # ---------------------------------------------------------------------------
 
 def sweep_project_pipelined_plain(x: torch.Tensor, *cores: torch.Tensor,
-                                  steps, tg: int,
+                                  steps, ba: int,
                                   scale: float) -> torch.Tensor:
-    """K5's schedule with `torch.einsum`: the project program run on each
-    tile of `tg` leading indices (input rows and leading-core tile, the
-    two operands K5 double-buffers), the tiles' outputs summed."""
+    """K5's slabs with `torch.einsum`: the project program run on each
+    slab of `ba` leading indices (input rows and leading-core tile, the
+    operands K5 double-buffers), the slabs' outputs summed."""
     y = None
-    for a0 in range(0, x.shape[1], tg):
-        z = x[:, a0:a0 + tg]
+    for a0 in range(0, x.shape[1], ba):
+        z = x[:, a0:a0 + ba]
         for spec, g in zip(steps, reversed(cores[1:])):
             z = torch.einsum(spec, z, g)
-        z = torch.einsum(steps[-1], z, cores[0][:, a0:a0 + tg])
+        z = torch.einsum(steps[-1], z, cores[0][:, a0:a0 + ba])
         y = z if y is None else y + z
     return y * scale
 
@@ -248,9 +298,9 @@ def sweep_project_pipelined_plain(x: torch.Tensor, *cores: torch.Tensor,
 def sweep_project_pipelined(x: torch.Tensor, *cores: torch.Tensor,
                             plan: ContractionPlan,
                             scale: float) -> torch.Tensor:
-    """K5: K1's function, with the next chunk's input rows and
-    leading-core tile copied by cp.async into a second shared-memory slot
-    while the current chunk contracts. A CPU tensor takes the plain
+    """K5: K1's function, with the next slab's input rows and leading-core
+    tile (and the next chunk of m where two slots fit) copied by cp.async
+    into second shared-memory slots while the current slab contracts. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (counted in
     `sweep_project_pipelined.launches`) or raises."""
     _check("project", x, cores, plan)
@@ -259,7 +309,7 @@ def sweep_project_pipelined(x: torch.Tensor, *cores: torch.Tensor,
                          f"{plan.pipeline!r}")
     if x.device.type == "cpu":
         return sweep_project_pipelined_plain(x, *cores, steps=plan.steps,
-                                             tg=plan.tg, scale=scale)
+                                             ba=plan.ba, scale=scale)
     y = _launch_project("sweep_project_pipelined", x, cores, plan, scale)
     sweep_project_pipelined.launches += 1
     return y

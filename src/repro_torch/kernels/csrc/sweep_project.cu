@@ -2,74 +2,82 @@
 //   y[n,i] = scale * < S_i, X_n >,  S_i the i-th TT/CP row tensor.
 //
 // Replaces the Pallas TPU kernel repro/kernels/_sweep.py::sweep_project
-// (_project_kernel). The computation is the planner's einsum program
-// (repro_torch/kernels/ops.py::_project_steps), lowered to one opcode per
-// step: the rightmost mode is contracted first and the TT bond / CP rank is
-// carried between steps. The program is evaluated depth-first: for each
-// prefix (i_1, ..., i_{N-1}) of the input the first step gives the bond
-// vector z (R floats per batch row), which is folded into the next step's
-// accumulator at once; a level's accumulator is folded one step further
-// when its mode's index wraps. Every level thus holds one R-vector instead
-// of the whole (B, k, d1..d_{N-1}, R) intermediate, and the sum over d1 —
-// which the TPU grid carried across grid steps in the revisited output
-// block — is a loop inside the block: a block owns a (tk k-rows x tb batch
-// rows) output tile, its tg thread groups share the d1 loop (group g takes
-// every tg-th leading index), and the block sums the groups' partials in
-// shared memory and writes its tile once with the 1/sqrt(k) scale fused.
+// (_project_kernel), which evaluated the planner's mode-sweep program
+// (repro_torch/kernels/ops.py::_project_steps) on every batch row: 2*B*k*R*D
+// flops for D = prod(dims). On an H100 that is the wrong program. Here the
+// same function takes the dense-operator route, in three launches on the
+// caller's stream:
+//  1. fold_m_kernel (sweep_fold.cuh, K2's fold, unchanged) folds the trailing
+//     cores into the transfer block m (k, R, T), T = prod(d2..dN), once per
+//     call: the program of ops.py::_reconstruct_steps' m steps.
+//  2. project_gemm_kernel: the operator is S[i, a, t] = sum_u g1[i, a, u]
+//     m[i, u, t] (g1 the squeezed leading core), and y[n, i] = sum_{a,t}
+//     X[n, a, t] S[i, a, t] is one (B, D) x (D, k) product. A block owns
+//     (tile_m batch rows) x (tile_k k-rows) x (one group of T-chunks of
+//     tile_t columns). It stages each chunk m[k-tile, :, chunk] in shared
+//     memory once and keeps it while it walks the leading index, tile_a
+//     values (a slab) at a time: it stages X[n-tile, slab, chunk] and
+//     g1[k-tile, slab, :], builds the operator tile S[k-tile, slab, chunk] in
+//     shared memory (R FMAs an element, one float4 read of m feeding four
+//     leading indices), and accumulates the product in registers (TM x TN
+//     outputs a thread, float4 reads of S, as K2's product). It writes its
+//     partial tile to a (groups, B, k) scratch.
+//  3. reduce_partials_kernel sums the groups in a fixed order, scales, and
+//     writes y: no atomics, so a call gives the same bits every time.
+// Flops: the fold, 2*k*D*R per batch tile (the build) and 2*B*k*D (the
+// product): 8-18x fewer than the program at the shapes the port runs.
 //
-// What bounds it on an H100: the first step does 2*B*k*R*prod(dims) flops on
-// B*prod(dims) input floats, far above the card's fp32 flops-per-byte ratio,
-// so the kernel is bound by fp32 FMA issue, not memory. Its design answer,
-// kept simple: the block's k-rows of the last core sit in shared memory
-// (padded rows, conflict-free across k), each thread keeps a TBT x RCH
-// register tile so one shared load of the input feeds RCH FMAs and one of
-// the core feeds TBT, and all arithmetic is IEEE fp32 FMA (no TF32). Its
-// parallelism: B*k/TBT (batch, k) thread slots are too few to fill the card
-// at small B, so the planner adds thread groups along d1 until a call has
-// about 1024 threads per SM (or shared memory runs out).
+// What bounds it on an H100: the product does 2*B*k*D flops on B*D + k*R*T
+// input floats, above the card's fp32 flops-per-byte ratio, so fp32 FMA
+// issue bounds it. Design answer, kept simple: m is read from device memory
+// once per batch tile (the loop over a runs inside the block over the
+// resident chunk; a grid over a would re-read m d1 times), X once per
+// k-tile; the leading core is re-staged for every chunk, so the wrapper
+// hands it over transposed to (d1, R, k) and every operand is staged 16
+// bytes at a time where its rows allow; IEEE fp32 FMAs only (no TF32, no
+// tensor cores). The grid splits T into groups so that it holds at least
+// two blocks per SM at small batches.
 //
-// K5: sweep_project_pipelined — the same function and the same device sweep
-// code (PIPE = true below). Replaces repro/kernels/_sweep.py::
-// sweep_project_pipelined (_project_pipelined_kernel), which moved the d1
-// axis inside the kernel and double-buffered the input block and the
-// leading-core tile with explicit DMAs. K1 already loops over d1 inside
-// the block, but stages each chunk of input rows with plain loads between
-// two barriers, so the block idles while the chunk arrives. K5 keeps two
-// slots of the staged input and of the block's (tk, tg, R) leading-core
-// tile, and issues the cp.async copies of chunk i+1 into the other slot
-// before it contracts chunk i: the copies overlap the FMAs. What bounds it
-// is what bounds K1 (fp32 FMA issue); the second slots cost shared memory,
-// which the planner charges (ops.py::project_smem_bytes), so it may run
-// fewer thread groups than K1 at the same shape.
+// K5: sweep_project_pipelined — the same function and the same device code
+// (PIPE = true). Replaces repro/kernels/_sweep.py::sweep_project_pipelined
+// (_project_pipelined_kernel), which double-buffered the input and the
+// leading-core tile with explicit DMAs. K5 keeps two slots of the staged X
+// and g1 slab, and two of the m chunk where the planner finds room
+// (m_slots), and issues the cp.async copies of the next slab (and chunk)
+// before it computes the current one, so the copies overlap the FMAs. K1
+// stages with plain loads, a few in flight per thread.
 #include <cstdint>
 
-#include "sweep_common.cuh"
+#include "sweep_fold.cuh"
 
-#define TBT 4   // batch rows per thread (ops.py: TBT)
-#define XPAD 4  // floats between thread groups' input slabs (ops.py)
+#define PROJ_THREADS 256  // 16 x 16 threads; ops.py: PROJECT_THREADS
+#define STAGE_BATCH 4     // loads in flight per thread while K1 stages (2 beside
+                          // the 8 x 8 register tile, which would spill)
 
 struct ProjectArgs {
-  const float* x;                        // (B, d1, ..., dN)
-  float* y;                              // (B, K)
-  const float* core[SWEEP_MAX_ORDER];    // squeezed TT cores / CP factors
-  int dims[SWEEP_MAX_ORDER];
-  int ops[SWEEP_MAX_ORDER];              // ops[s]: opcode of step s
-  int order, B, K, R, ba;
-  long long n_prefix;                    // prod(d1..d_{N-1})
-  float scale;
+  const float* x;   // (B, d1, T)
+  const float* g1;  // the leading core transposed: (d1, R, K)
+  const float* m;   // (K, R, T), the fold's output
+  float* part;      // (groups, B, K)
+  int B, d1, K, R, tc, ac, m_slots, ms;  // ms: m row stride in shared memory
+  long long T, n_chunks, cpg;            // chunks per group
 };
 
-static __device__ inline long long up4(long long n) {
-  return (n + 3) / 4 * 4;
-}
-
-// One 4-byte asynchronous copy global -> shared; zero-fills dst when !valid
-// (src-size 0 reads nothing, but src must still be a mapped address).
 static __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                                  bool valid) {
+  // 4-byte asynchronous copy global -> shared; zero-fills dst when !valid
+  // (src-size 0 reads nothing, but src must still be a mapped address)
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = valid ? 4 : 0;
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(n));
+}
+static __device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                                  bool valid) {
+  // 16-byte asynchronous copy global -> shared (both 16-byte aligned)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(n));
 }
 static __device__ __forceinline__ void cp_async_commit() {
@@ -79,352 +87,401 @@ static __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-// A core element: through the read-only cache from device memory (GLOBAL),
-// or a plain load from K5's staged leading-core tile in shared memory.
-template <bool GLOBAL>
-static __device__ __forceinline__ float ld_core(const float* p) {
-  if (GLOBAL) return __ldg(p);
-  return *p;
-}
+// One piece of a staging copy: W floats from src to dst, dst's floats
+// `stride` apart; zeros where !ok.
+struct Piece {
+  const float* src;
+  float* dst;
+  int stride;
+  bool ok;
+};
+template <int V>
+struct Int {
+  static constexpr int value = V;
+};
 
-// Fold one level's accumulator (R x TBT, per-thread strided in shared
-// memory) through step `op` with the core's slice at mode index `idx`.
-template <bool GLOBAL>
-static __device__ __forceinline__ void fold(int op, const float* __restrict__ core,
-                                            int d, int idx, int kk, int R,
-                                            const float* src, float* dst,
-                                            float* yv, int stride) {
-  if (op == OP_MIX_TT) {
-    for (int v = 0; v < R; ++v) {
-      const float* g = core + ((static_cast<size_t>(kk) * R + v) * d + idx) * R;
-      float s[TBT] = {};
-      for (int u = 0; u < R; ++u) {
-        const float w = ld_core<GLOBAL>(g + u);
-#pragma unroll
-        for (int t = 0; t < TBT; ++t) s[t] = fmaf(src[(u * TBT + t) * stride], w, s[t]);
-      }
-#pragma unroll
-      for (int t = 0; t < TBT; ++t) dst[(v * TBT + t) * stride] += s[t];
-    }
-  } else if (op == OP_HAD_CP) {
-    const float* g = core + (static_cast<size_t>(kk) * d + idx) * R;
-    for (int u = 0; u < R; ++u) {
-      const float w = ld_core<GLOBAL>(g + u);
-#pragma unroll
-      for (int t = 0; t < TBT; ++t)
-        dst[(u * TBT + t) * stride] = fmaf(src[(u * TBT + t) * stride], w,
-                                           dst[(u * TBT + t) * stride]);
-    }
-  } else {  // OP_LAST
-    const float* g = core + (static_cast<size_t>(kk) * d + idx) * R;
-    for (int u = 0; u < R; ++u) {
-      const float w = ld_core<GLOBAL>(g + u);
-#pragma unroll
-      for (int t = 0; t < TBT; ++t) yv[t] = fmaf(src[(u * TBT + t) * stride], w, yv[t]);
-    }
+// n / d for 0 <= n < 2^22 without an integer division: the float quotient,
+// corrected by one either way.
+struct FastDiv {
+  int d;
+  float inv;
+  __device__ __forceinline__ int operator()(int n) const {
+    int q = __float2int_rz(__int2float_rz(n) * inv);
+    q -= q * d > n;
+    q += (q + 1) * d <= n;
+    return q;
   }
+};
+static __device__ __forceinline__ FastDiv fast_div(int d) { return {d, 1.f / d}; }
+
+static __host__ __device__ inline long long up4(long long n) { return (n + 3) / 4 * 4; }
+
+// Shared-memory layout in floats, each region a multiple of 4 (16 bytes):
+//   ms  m_slots x [BN][ms]          m[k0+i, u, t0+t] at i*ms + u*tc + t
+//   xs  xslots  x [ac*tc][BM+1]     X[n0+n, a0+al, t0+t] at (al*tc+t)*(BM+1)+n
+//   gs  xslots  x [ac*R][BN]        g1[k0+i, a0+al, u] at (al*R+u)*BN+i
+//   ss            [ac*tc][BN]       S[k0+i, a0+al, t0+t] at (al*tc+t)*BN+i
+// ms = R*tc padded to 4 (mod 32) floats, so the float4 reads of eight
+// consecutive k-rows fall in distinct banks (ops.py::project_smem_bytes).
+struct Layout {
+  long long m_slot, x_slot, g_slot, s_size, total;
+};
+static __host__ __device__ inline Layout layout(int BM, int BN, int R, int tc, int ac,
+                                                int ms, int m_slots, bool pipe) {
+  Layout l;
+  const int xslots = pipe ? 2 : 1;
+  l.m_slot = static_cast<long long>(BN) * ms;
+  l.x_slot = up4(static_cast<long long>(ac) * tc * (BM + 1));
+  l.g_slot = static_cast<long long>(ac) * R * BN;
+  l.s_size = static_cast<long long>(ac) * tc * BN;
+  l.total = m_slots * l.m_slot + xslots * (l.x_slot + l.g_slot) + l.s_size;
+  return l;
 }
 
-// The same fold for bond rows u0..u0+RCH of the first level, held in
-// registers (z) instead of shared memory.
-template <int RCH, bool GLOBAL>
-static __device__ __forceinline__ void fold_regs(int op, const float* __restrict__ core,
-                                                 int d, int idx, int kk, int R, int u0,
-                                                 const float (&z)[TBT][RCH], float* dst,
-                                                 float* yv, int stride) {
-  if (op == OP_MIX_TT) {
-    for (int v = 0; v < R; ++v) {
-      const float* g = core + ((static_cast<size_t>(kk) * R + v) * d + idx) * R + u0;
-      float s[TBT] = {};
+// grid = (k tiles, batch tiles, groups), PROJ_THREADS threads: thread (tx,
+// ty) = (tid % 16, tid / 16) owns batch rows ty*TM + {0..TM-1} and k columns
+// tx*4 + {0..3} (+ 64 + tx*4 + {0..3} when TN = 8).
+template <int TM, int TN, bool PIPE>
+__global__ void __launch_bounds__(PROJ_THREADS, 2) project_gemm_kernel(ProjectArgs a) {
+  constexpr int BM = 16 * TM, BN = 16 * TN, XS = BM + 1;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int R = a.R, tc = a.tc, ac = a.ac, d1 = a.d1;
+  const int k0 = blockIdx.x * BN, n0 = blockIdx.y * BM;
+  const long long c_begin = blockIdx.z * a.cpg;
+  const long long c_end = min(c_begin + a.cpg, a.n_chunks);
+  const Layout L = layout(BM, BN, R, tc, ac, a.ms, a.m_slots, PIPE);
+  float* ms = smem;
+  float* xs = ms + a.m_slots * L.m_slot;
+  float* gs = xs + (PIPE ? 2 : 1) * L.x_slot;
+  float* ss = gs + (PIPE ? 2 : 1) * L.g_slot;
+
+  // Staging. A copy moves n pieces of W floats (W = 4 where the rows of the
+  // source are multiples of 16 bytes, else 1); piece(e, W) gives piece e's
+  // source, its destination, the stride between its floats there (1:
+  // contiguous) and whether it lies inside the operands (else zeros). K1
+  // loads SB pieces into registers before it stores them, so their
+  // latencies overlap; K5 issues them as cp.async copies.
+  const int lt = __ffs(tc) - 1;
+  constexpr int SB = TM * TN >= 64 ? 2 : STAGE_BATCH;
+  auto copy = [&](auto width, int n, auto piece, const float* base) {
+    constexpr int W = decltype(width)::value;
+    for (int e0 = tid; e0 < n; e0 += PROJ_THREADS * SB) {
+      float v[SB][W];
+      Piece dst[SB];
 #pragma unroll
-      for (int u = 0; u < RCH; ++u) {
-        const float w = (u0 + u < R) ? ld_core<GLOBAL>(g + u) : 0.f;
+      for (int b = 0; b < SB; ++b) {
+        const int e = e0 + b * PROJ_THREADS;
+        if (e >= n) break;
+        dst[b] = piece(e, width);
+        const bool ok = dst[b].ok;
+        if (PIPE) {
+          if (W == 4 && dst[b].stride == 1) {
+            cp_async16(dst[b].dst, ok ? dst[b].src : base, ok);
+          } else {
 #pragma unroll
-        for (int t = 0; t < TBT; ++t) s[t] = fmaf(z[t][u], w, s[t]);
-      }
-#pragma unroll
-      for (int t = 0; t < TBT; ++t) dst[(v * TBT + t) * stride] += s[t];
-    }
-  } else {
-    const float* g = core + (static_cast<size_t>(kk) * d + idx) * R + u0;
-#pragma unroll
-    for (int u = 0; u < RCH; ++u) {
-      if (u0 + u < R) {
-        const float w = ld_core<GLOBAL>(g + u);
-#pragma unroll
-        for (int t = 0; t < TBT; ++t) {
-          if (op == OP_HAD_CP) {
-            float* a = dst + ((u0 + u) * TBT + t) * stride;
-            *a = fmaf(z[t][u], w, *a);
-          } else {  // OP_LAST
-            yv[t] = fmaf(z[t][u], w, yv[t]);
+            for (int w = 0; w < W; ++w)
+              cp_async4(dst[b].dst + w * dst[b].stride, ok ? dst[b].src + w : base, ok);
           }
+        } else if constexpr (W == 4) {
+          const float4 x = ok ? __ldg(reinterpret_cast<const float4*>(dst[b].src))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+          v[b][0] = x.x; v[b][1] = x.y; v[b][2] = x.z; v[b][3] = x.w;
+        } else {
+          v[b][0] = ok ? __ldg(dst[b].src) : 0.f;
         }
       }
-    }
-  }
-}
-
-// blockDim = (tb / TBT threads along the batch, tk threads along k, tg
-// thread groups along d1); grid = (ceil(K / tk), ceil(B / tb)). Group g
-// takes the leading indices g, g + tg, ...; the groups' partial outputs are
-// summed in shared memory before the block writes its tile once.
-// RCH: bond rows per register tile. PIPE: K5's double-buffered schedule.
-template <int RCH, bool PIPE>
-__global__ void sweep_project_kernel(ProjectArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  const int N = a.order, R = a.R, dN = a.dims[N - 1], d1 = a.dims[0];
-  const int ntb = blockDim.x, TK = blockDim.y, TG = blockDim.z, TB = ntb * TBT;
-  const int tn = threadIdx.x, tkl = threadIdx.y, grp = threadIdx.z;
-  const int ngrp = ntb * TK;                      // threads per group
-  const int tig = tkl * ntb + tn;                 // thread in group
-  const int tid = grp * ngrp + tig, nthr = ngrp * TG;
-  const int k0 = blockIdx.x * TK, b0 = blockIdx.y * TB;
-  const int kk = k0 + tkl;
-  const bool kval = kk < a.K;
-  const int gstride = R * dN + 1;
-  const int xstride = a.ba * dN * TB + XPAD;      // per group, padded
-                                                  // against bank conflicts
-  const long long xslot = up4(static_cast<long long>(TG) * xstride);
-  const long long cslot = up4(static_cast<long long>(TK) * TG * R);
-  float* gs = smem;                                         // [TK][R*dN (+1)]
-  float* xs = gs + up4(static_cast<long long>(TK) * gstride);   // [TG][ba][dN][TB]
-  // K5: a second input slot, then two slots of the leading-core tile
-  // cs[slot][TK][TG][R]
-  float* cs = xs + (PIPE ? 2 : 1) * xslot;
-  float* acc = cs + (PIPE ? 2 * cslot : 0);
-  // acc: level l (1..N-2), bond u, row t of this thread at
-  //      (((l-1)*R + u)*TBT + t)*nthr + tid
-  float* yred = acc + up4(static_cast<long long>(N - 2) * R * TBT * nthr);
-  // The launch sized shared memory by the planner's formula
-  // (ops.py::project_smem_bytes); should this layout ever outgrow it, the
-  // block writes NaN to its tile, which every check of the output refuses.
-  unsigned smem_have;
-  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(smem_have));
-  if (static_cast<size_t>(yred + TBT * nthr - smem) * sizeof(float) > smem_have) {
-    if (grp == 0 && kval)
-      for (int t = 0; t < TBT; ++t) {
-        const int n = b0 + tn * TBT + t;
-        if (n < a.B) a.y[static_cast<size_t>(n) * a.K + kk] = __int_as_float(0x7fc00000);
-      }
-    return;
-  }
-
-  // Stage this block's k-rows of the last core as gs[row][u*dN + c].
-  const float* gN = a.core[N - 1];
-  const bool tt_first = a.ops[0] == OP_FIRST_TT;
-  for (int e = tid; e < TK * R * dN; e += nthr) {
-    const int row = e / (R * dN), rem = e - row * (R * dN);
-    const int u = rem / dN, c = rem - u * dN;
-    const int kg = k0 + row;
-    float v = 0.f;
-    if (kg < a.K)
-      v = tt_first ? gN[(static_cast<size_t>(kg) * R + u) * dN + c]
-                   : gN[(static_cast<size_t>(kg) * dN + c) * R + u];
-    gs[row * gstride + rem] = v;
-  }
-  for (int e = 0; e < (N - 2) * R * TBT; ++e) acc[e * nthr + tid] = 0.f;
-
-  float yv[TBT] = {};
-  int digit[SWEEP_MAX_ORDER] = {};   // current prefix: indices of modes 0..N-2
-  const float* gk = gs + tkl * gstride;
-  const int lvl = R * TBT * nthr;    // floats per accumulator level
-  const long long n_sub = a.n_prefix / d1;        // prod(d2..d_{N-1})
-
-  // The block walks chunks i = (leading tile a0, prefix chunk p0), the
-  // prefix chunks of one leading tile in order (the digits wrap to 0 at
-  // the end of each leading tile).
-  const long long n_p = (n_sub + a.ba - 1) / a.ba;
-  const long long n_steps = (d1 + TG - 1) / TG * n_p;
-  const float* g0 = a.core[0];
-  // stage chunk i into `slot`: the input rows, and under PIPE the block's
-  // leading-core tile, each as 4-byte cp.async copies; else plain loads
-  auto stage = [&](long long i, int slot) {
-    const int a0 = static_cast<int>(i / n_p) * TG;
-    const long long p0 = (i % n_p) * a.ba;
-    const int np = static_cast<int>(min(static_cast<long long>(a.ba), n_sub - p0));
-    float* xd = xs + slot * xslot;
-    for (int e = tid; e < TG * np * TB * dN; e += nthr) {
-      const int c = e % dN, r1 = e / dN;
-      const int nl = r1 % TB, r2 = r1 / TB;
-      const int pp = r2 % np, g = r2 / np;
-      const int n = b0 + nl, ag = a0 + g;
-      const bool ok = n < a.B && ag < d1;
-      const float* src =
-          ok ? a.x + ((static_cast<size_t>(n) * d1 + ag) * n_sub + p0 + pp) * dN + c : a.x;
-      float* dst = xd + g * xstride + (pp * dN + c) * TB + nl;
-      if (PIPE) cp_async4(dst, src, ok);
-      else *dst = ok ? *src : 0.f;
-    }
-    if (PIPE) {
-      float* cd = cs + slot * cslot;
-      for (int e = tid; e < TK * TG * R; e += nthr) {
-        const int u = e % R, r1 = e / R;
-        const int g = r1 % TG, row = r1 / TG;
-        const int kg = k0 + row, ag = a0 + g;
-        const bool ok = kg < a.K && ag < d1;
-        cp_async4(cd + e, ok ? g0 + (static_cast<size_t>(kg) * d1 + ag) * R + u : g0, ok);
-      }
-      cp_async_commit();
-    }
-  };
-
-  if (PIPE) stage(0, 0);
-  for (long long i = 0; i < n_steps; ++i) {
-    const int slot = PIPE ? static_cast<int>(i & 1) : 0;
-    const int a0 = static_cast<int>(i / n_p) * TG;
-    const long long p0 = (i % n_p) * a.ba;
-    const int np = static_cast<int>(min(static_cast<long long>(a.ba), n_sub - p0));
-    const int ia = a0 + grp;
-    const bool aval = ia < d1;
-    digit[0] = ia;
-    if (PIPE) {
-      // chunk i+1 streams into the other slot while chunk i contracts (an
-      // empty group keeps the wait count right on the last chunk)
-      if (i + 1 < n_steps) stage(i + 1, slot ^ 1);
-      else cp_async_commit();
-      cp_async_wait1();      // this thread's copies of chunk i have landed
-      __syncthreads();       // ... and every other thread's
-    } else {
-      __syncthreads();       // previous chunk fully consumed
-      stage(i, 0);
-      __syncthreads();
-    }
-    // the leading core: K1 reads it from device memory at (kk, ia); K5 from
-    // its staged tile, row tkl of TK, column grp of TG
-    const float* lead = PIPE ? cs + slot * cslot : g0;
-    const int lead_k = PIPE ? tkl : kk, lead_d = PIPE ? TG : d1,
-              lead_i = PIPE ? grp : ia;
-    if (kval && aval) {
-      const float* xbase = xs + slot * xslot;
-      for (int pp = 0; pp < np; ++pp) {
-        const float* xp = xbase + grp * xstride + pp * dN * TB + tn * TBT;
-        // step 0 contracts the last mode, RCH bond rows at a time; step 1
-        // folds each chunk at once into level 1 (into y at order 2)
-        for (int u0 = 0; u0 < R; u0 += RCH) {
-          float z[TBT][RCH] = {};
-#pragma unroll 4
-          for (int c = 0; c < dN; ++c) {
-            const float4 xv = *reinterpret_cast<const float4*>(xp + c * TB);
-            const float xr[TBT] = {xv.x, xv.y, xv.z, xv.w};
+      if (!PIPE) {
 #pragma unroll
-            for (int u = 0; u < RCH; ++u) {
-              const float g = (u0 + u < R) ? gk[(u0 + u) * dN + c] : 0.f;
-#pragma unroll
-              for (int t = 0; t < TBT; ++t) z[t][u] = fmaf(xr[t], g, z[t][u]);
+        for (int b = 0; b < SB; ++b) {
+          if (e0 + b * PROJ_THREADS >= n) break;
+          if constexpr (W == 4) {
+            if (dst[b].stride == 1) {
+              *reinterpret_cast<float4*>(dst[b].dst) =
+                  make_float4(v[b][0], v[b][1], v[b][2], v[b][3]);
+              continue;
             }
           }
-          if (N == 2)
-            fold_regs<RCH, !PIPE>(a.ops[1], lead, lead_d, lead_i, lead_k, R, u0, z, acc + tid,
-                           yv, nthr);
-          else
-            fold_regs<RCH, true>(a.ops[1], a.core[N - 2], a.dims[N - 2], digit[N - 2], kk, R,
-                           u0, z, acc + tid, yv, nthr);
-        }
-        // steps 2..N-1: step s contracts mode m = N-1-s; level s-1 is
-        // complete once mode m+1 wrapped, and folds into level s (y at s=N-1)
-        for (int s = 2; s < N; ++s) {
-          const int m = N - 1 - s;
-          if (digit[m + 1] != a.dims[m + 1] - 1) break;
-          float* src = acc + (s - 2) * lvl + tid;
-          float* dst = s < N - 1 ? acc + (s - 1) * lvl + tid : nullptr;
-          if (m == 0)
-            fold<!PIPE>(a.ops[s], lead, lead_d, lead_i, lead_k, R, src, dst, yv, nthr);
-          else
-            fold<true>(a.ops[s], a.core[m], a.dims[m], digit[m], kk, R, src, dst, yv, nthr);
-          for (int e = 0; e < R * TBT; ++e) src[e * nthr] = 0.f;
-        }
-        for (int m = N - 2; m >= 1; --m) {   // next prefix, last mode fastest
-          if (++digit[m] < a.dims[m]) break;
-          digit[m] = 0;
+#pragma unroll
+          for (int w = 0; w < W; ++w) dst[b].dst[w * dst[b].stride] = v[b][w];
         }
       }
     }
-    if (PIPE) __syncthreads();   // slot consumed before chunk i+2 refills it
+  };
+  // m[k-tile, :, chunk c] into m slot `slot`: pieces (i, u, t), t fastest
+  const FastDiv by_r = fast_div(R);
+  const bool tvec = (a.T & 3) == 0, kvec = (a.K & 3) == 0;
+  auto stage_m = [&](long long c, int slot) {
+    float* d = ms + slot * L.m_slot;
+    const long long t0 = c * tc;
+    auto piece = [&](int e, auto width) {
+      constexpr int W = decltype(width)::value, lw = W == 4 ? 2 : 0;
+      const int row = e >> (lt - lw), t = (e & ((tc >> lw) - 1)) * W;
+      const int i = by_r(row), u = row - i * R;
+      return Piece{a.m + (static_cast<long long>(k0 + i) * R + u) * a.T + t0 + t,
+                   d + i * a.ms + u * tc + t, 1, k0 + i < a.K && t0 + t < a.T};
+    };
+    if (tvec) copy(Int<4>{}, (BN * R) << (lt - 2), piece, a.m);
+    else copy(Int<1>{}, (BN * R) << lt, piece, a.m);
+  };
+  // X[n-tile, a0 .. a0+ac, chunk c] (pieces (al, n, t), t fastest, stored
+  // transposed) and g1t[a0 .. a0+ac, :, k-tile] (pieces (al*R + u, i), i
+  // fastest) into slot `slot`
+  auto stage_slab = [&](long long c, int a0, int slot) {
+    float* xd = xs + slot * L.x_slot;
+    const long long t0 = c * tc;
+    auto xpiece = [&](int e, auto width) {
+      constexpr int W = decltype(width)::value, lw = W == 4 ? 2 : 0;
+      const int r = e >> (lt - lw), t = (e & ((tc >> lw) - 1)) * W;
+      const int n = r % BM, al = r / BM;
+      return Piece{a.x + (static_cast<long long>(n0 + n) * d1 + a0 + al) * a.T + t0 + t,
+                   xd + (al * tc + t) * XS + n, XS,
+                   n0 + n < a.B && a0 + al < d1 && t0 + t < a.T};
+    };
+    if (tvec) copy(Int<4>{}, (ac * BM) << (lt - 2), xpiece, a.x);
+    else copy(Int<1>{}, (ac * BM) << lt, xpiece, a.x);
+    float* gd = gs + slot * L.g_slot;
+    const int valid = min(ac, d1 - a0) * R;  // rows al*R + u inside d1
+    auto gpiece = [&](int e, auto width) {
+      constexpr int W = decltype(width)::value;
+      const int row = e / (BN / W), i = (e % (BN / W)) * W;
+      return Piece{a.g1 + (static_cast<long long>(a0) * R + row) * a.K + k0 + i,
+                   gd + row * BN + i, 1, row < valid && k0 + i < a.K};
+    };
+    if (kvec) copy(Int<4>{}, ac * R * (BN / 4), gpiece, a.g1);
+    else copy(Int<1>{}, ac * R * BN, gpiece, a.g1);
+  };
+
+  float acc[TM][TN] = {};
+  const int nsa = (d1 + ac - 1) / ac;  // slabs per chunk
+  const long long nslab = (c_end - c_begin) * nsa;
+  if (PIPE && nslab > 0) {
+    stage_m(c_begin, 0);
+    stage_slab(c_begin, 0, 0);
+    cp_async_commit();
   }
-  // sum the groups' partial outputs, then write the tile once
-  __syncthreads();
+  for (long long j = 0; j < nslab; ++j) {
+    const long long c = c_begin + j / nsa;
+    const int a0 = static_cast<int>(j % nsa) * ac;
+    const bool new_chunk = a0 == 0;
+    const int xslot = PIPE ? static_cast<int>(j & 1) : 0;
+    const int mslot = a.m_slots == 2 ? static_cast<int>((c - c_begin) & 1) : 0;
+    if (PIPE) {
+      // one m slot: chunk c's m streams in now, its slot free since the
+      // previous slab's closing barrier
+      if (a.m_slots == 1 && new_chunk && j > 0) {
+        stage_m(c, 0);
+        cp_async_commit();
+      }
+      // the next slab (and, with two m slots, its new chunk) streams into
+      // the other slots while this one computes; an empty group on the last
+      // slab keeps the wait count right
+      if (j + 1 < nslab) {
+        const long long cn = c_begin + (j + 1) / nsa;
+        const int an = static_cast<int>((j + 1) % nsa) * ac;
+        if (a.m_slots == 2 && an == 0) stage_m(cn, static_cast<int>((cn - c_begin) & 1));
+        stage_slab(cn, an, xslot ^ 1);
+      }
+      cp_async_commit();
+      cp_async_wait1();  // this thread's copies of slab j have landed
+      __syncthreads();   // ... and every other thread's
+    } else {
+      if (new_chunk) stage_m(c, 0);
+      stage_slab(c, a0, 0);
+      __syncthreads();
+    }
+    // the operator tile S[k-tile, slab, chunk]: a unit is four columns t of
+    // one k-row for up to four leading indices, so one float4 read of m
+    // feeds sixteen FMAs; k-rows across the lanes
+    {
+      const float* gsl = gs + xslot * L.g_slot;
+      const float* msl = ms + mslot * L.m_slot;
+      const int lq = lt - 2, nal = (ac + 3) / 4;
+      for (int e = tid; e < (nal * BN) << lq; e += PROJ_THREADS) {
+        const int i = e % BN, r = e / BN, q = r & ((1 << lq) - 1), al0 = (r >> lq) * 4;
+        const int na = min(4, ac - al0);
+        const float* gp = gsl + al0 * R * BN + i;
+        const float* mp = msl + i * a.ms + q * 4;
+        float4 s[4] = {};
+        for (int u = 0; u < R; ++u) {
+          const float4 mv = *reinterpret_cast<const float4*>(mp + u * tc);
 #pragma unroll
-  for (int t = 0; t < TBT; ++t) yred[tid * TBT + t] = yv[t];
-  __syncthreads();
-  if (grp != 0 || !kval) return;
+          for (int j = 0; j < 4; ++j) {
+            if (j < na) {
+              const float g = gp[(j * R + u) * BN];
+              s[j].x = fmaf(g, mv.x, s[j].x);
+              s[j].y = fmaf(g, mv.y, s[j].y);
+              s[j].z = fmaf(g, mv.z, s[j].z);
+              s[j].w = fmaf(g, mv.w, s[j].w);
+            }
+          }
+        }
 #pragma unroll
-  for (int t = 0; t < TBT; ++t) {
-    float s = 0.f;
-    for (int g = 0; g < TG; ++g) s += yred[(g * ngrp + tig) * TBT + t];
-    const int n = b0 + tn * TBT + t;
-    if (n < a.B) a.y[static_cast<size_t>(n) * a.K + kk] = s * a.scale;
+        for (int j = 0; j < 4; ++j) {
+          if (j < na) {
+            float* sp = ss + ((al0 + j) * tc + q * 4) * BN + i;
+            sp[0] = s[j].x;
+            sp[BN] = s[j].y;
+            sp[2 * BN] = s[j].z;
+            sp[3 * BN] = s[j].w;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // acc[n, i] += sum over the slab's (a, t) of X[n, a, t] S[i, a, t]
+    {
+      const float* xsl = xs + xslot * L.x_slot + ty * TM;
+      const float* ssl = ss + tx * 4;
+      const int depth = ac * tc;
+#pragma unroll 4
+      for (int q = 0; q < depth; ++q) {
+        float xr[TM], sr[TN];
+#pragma unroll
+        for (int r = 0; r < TM; ++r) xr[r] = xsl[q * XS + r];
+        const float4 s0 = *reinterpret_cast<const float4*>(ssl + q * BN);
+        sr[0] = s0.x; sr[1] = s0.y; sr[2] = s0.z; sr[3] = s0.w;
+        if constexpr (TN == 8) {
+          const float4 s1 = *reinterpret_cast<const float4*>(ssl + q * BN + 64);
+          sr[TN - 4] = s1.x; sr[TN - 3] = s1.y; sr[TN - 2] = s1.z; sr[TN - 1] = s1.w;
+        }
+#pragma unroll
+        for (int r = 0; r < TM; ++r)
+#pragma unroll
+          for (int jn = 0; jn < TN; ++jn) acc[r][jn] = fmaf(xr[r], sr[jn], acc[r][jn]);
+      }
+    }
+    __syncthreads();  // slots consumed before the next slab refills them
+  }
+  // this block's partial tile of group blockIdx.z (zeros for an empty group)
+  float* out = a.part + static_cast<long long>(blockIdx.z) * a.B * a.K;
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    const int n = n0 + ty * TM + r;
+    if (n >= a.B) continue;
+#pragma unroll
+    for (int jn = 0; jn < TN; ++jn) {
+      const int i = k0 + (jn < 4 ? tx * 4 + jn : 64 + tx * 4 + jn - 4);
+      if (i < a.K) out[static_cast<long long>(n) * a.K + i] = acc[r][jn];
+    }
   }
 }
 
-template <int RCH, bool PIPE>
-static cudaError_t launch_rch(const ProjectArgs& a, int tk, int tb, int tg,
-                              size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(sweep_project_kernel<RCH, PIPE>,
+// y[e] = scale * sum_g part[g, e] over e in (B, K), groups in order.
+__global__ void reduce_partials_kernel(const float* __restrict__ part, float* __restrict__ y,
+                                       int groups, long long BK, float scale) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= BK) return;
+  float s = 0.f;
+  for (int g = 0; g < groups; ++g) s += part[g * BK + e];
+  y[e] = s * scale;
+}
+
+template <int TM, int TN, bool PIPE>
+static cudaError_t launch_gemm(const ProjectArgs& a, int groups, size_t smem,
+                               cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(project_gemm_kernel<TM, TN, PIPE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 block(tb / TBT, tk, tg);
-  dim3 grid((a.K + tk - 1) / tk, (a.B + tb - 1) / tb);
-  sweep_project_kernel<RCH, PIPE><<<grid, block, smem, stream>>>(a);
+  dim3 grid((a.K + 16 * TN - 1) / (16 * TN), (a.B + 16 * TM - 1) / (16 * TM), groups);
+  project_gemm_kernel<TM, TN, PIPE><<<grid, PROJ_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <int TN, bool PIPE>
+static cudaError_t launch_tn(const ProjectArgs& a, int tm, int groups, size_t smem,
+                             cudaStream_t s) {
+  switch (tm) {
+    case 1: return launch_gemm<1, TN, PIPE>(a, groups, smem, s);
+    case 2: return launch_gemm<2, TN, PIPE>(a, groups, smem, s);
+    case 3: return launch_gemm<3, TN, PIPE>(a, groups, smem, s);
+    case 4: return launch_gemm<4, TN, PIPE>(a, groups, smem, s);
+    case 6: return launch_gemm<6, TN, PIPE>(a, groups, smem, s);
+    default: return launch_gemm<8, TN, PIPE>(a, groups, smem, s);
+  }
+}
+
 template <bool PIPE>
-static int project_launch(const void* x, void* y, const void* const* cores,
-                          const int* dims, const int* ops, int order, int B, int K,
-                          int R, int tk, int tb, int ba, int tg, int rch,
+static int project_launch(const void* x, void* y, void* m_scratch, void* part_scratch,
+                          const void* const* cores, const int* dims, const int* fold_ops,
+                          int order, int B, int K, int R, int tile_m, int tile_k,
+                          int tile_a, int tile_t, int groups, int m_slots,
                           int smem_bytes, float scale, void* stream) {
-  // smem_bytes: the planner's ContractionPlan.smem_bytes
-  // (ops.py::project_smem_bytes), the size of the regions the kernel lays out
-  if (order < 2 || order > SWEEP_MAX_ORDER || tb % TBT != 0 || rch < 1 || rch > 8 ||
-      tg < 1 || (tb / TBT) * tk * tg > 1024 || smem_bytes < 1)
+  // cores[0]: the leading core transposed to (d1, R, K), so a slab of it is
+  // rows of k contiguous in memory; the fold reads cores[1..N-1] as K2's.
+  // tile_*, groups, m_slots, smem_bytes: the planner's ContractionPlan
+  // (ops.py::plan_contraction, kind='project'); the layout it charged must
+  // be the one this source lays out
+  const int tm = tile_m / 16, tn = tile_k / 16;
+  if (order < 2 || order > SWEEP_MAX_ORDER || R < 1 || R > MAXR || B < 1 || K < 1 ||
+      tile_m % 16 != 0 || !(tm == 1 || tm == 2 || tm == 3 || tm == 4 || tm == 6 || tm == 8) ||
+      !(tn == 4 || tn == 8) || tile_k % 16 != 0 || tile_t < 4 || tile_t > 64 ||
+      (tile_t & (tile_t - 1)) != 0 ||
+      tile_a < 1 || tile_a > dims[0] || groups < 1 || m_slots < 1 || m_slots > (PIPE ? 2 : 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  FoldArgs f{};
+  f.T = 1;
+  for (int i = 0; i < order; ++i) {
+    f.core[i] = static_cast<const float*>(cores[i]);
+    f.dims[i] = dims[i];
+    if (i > 0) f.T *= dims[i];
+  }
+  for (int j = 0; j < order - 1; ++j) f.ops[j] = fold_ops[j];
+  f.order = order; f.K = K; f.R = R;
+  f.m = static_cast<float*>(m_scratch);
+
   ProjectArgs a{};
   a.x = static_cast<const float*>(x);
-  a.y = static_cast<float*>(y);
-  a.n_prefix = 1;
-  for (int i = 0; i < order; ++i) {
-    a.core[i] = static_cast<const float*>(cores[i]);
-    a.dims[i] = dims[i];
-    a.ops[i] = ops[i];
-    if (i < order - 1) a.n_prefix *= dims[i];
-  }
-  a.order = order; a.B = B; a.K = K; a.R = R; a.ba = ba; a.scale = scale;
-  const size_t smem = static_cast<size_t>(smem_bytes);
+  a.g1 = f.core[0];
+  a.m = f.m;
+  a.part = static_cast<float*>(part_scratch);
+  a.B = B; a.d1 = dims[0]; a.K = K; a.R = R; a.tc = tile_t; a.ac = tile_a;
+  a.m_slots = m_slots;
+  a.ms = R * tile_t + ((4 - (R * tile_t) % 32) + 32) % 32;
+  a.T = f.T;
+  a.n_chunks = (f.T + tile_t - 1) / tile_t;
+  a.cpg = (a.n_chunks + groups - 1) / groups;
+  const Layout l = layout(tile_m, tile_k, R, tile_t, tile_a, a.ms, m_slots, PIPE);
+  if (l.total * static_cast<long long>(sizeof(float)) != smem_bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (rch) {
-    case 1: err = launch_rch<1, PIPE>(a, tk, tb, tg, smem, s); break;
-    case 2: err = launch_rch<2, PIPE>(a, tk, tb, tg, smem, s); break;
-    case 3: err = launch_rch<3, PIPE>(a, tk, tb, tg, smem, s); break;
-    case 4: err = launch_rch<4, PIPE>(a, tk, tb, tg, smem, s); break;
-    case 5: err = launch_rch<5, PIPE>(a, tk, tb, tg, smem, s); break;
-    case 6: err = launch_rch<6, PIPE>(a, tk, tb, tg, smem, s); break;
-    case 7: err = launch_rch<7, PIPE>(a, tk, tb, tg, smem, s); break;
-    default: err = launch_rch<8, PIPE>(a, tk, tb, tg, smem, s); break;
-  }
-  return static_cast<int>(err);
+  const long long n_fold = static_cast<long long>(K) * f.T;
+  fold_m_kernel<<<static_cast<unsigned>((n_fold + 255) / 256), 256, 0, s>>>(f);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = static_cast<size_t>(smem_bytes);
+  err = tn == 8 ? launch_tn<8, PIPE>(a, tm, groups, smem, s)
+                : launch_tn<4, PIPE>(a, tm, groups, smem, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long bk = static_cast<long long>(B) * K;
+  reduce_partials_kernel<<<static_cast<unsigned>((bk + 255) / 256), 256, 0, s>>>(
+      a.part, static_cast<float*>(y), groups, bk, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K1
-extern "C" int sweep_project_launch(const void* x, void* y, const void* const* cores,
-                                    const int* dims, const int* ops, int order,
-                                    int B, int K, int R, int tk, int tb, int ba,
-                                    int tg, int rch, int smem_bytes, float scale,
-                                    void* stream) {
-  return project_launch<false>(x, y, cores, dims, ops, order, B, K, R, tk, tb, ba,
-                               tg, rch, smem_bytes, scale, stream);
+extern "C" int sweep_project_launch(const void* x, void* y, void* m_scratch,
+                                    void* part_scratch, const void* const* cores,
+                                    const int* dims, const int* fold_ops, int order, int B,
+                                    int K, int R, int tile_m, int tile_k, int tile_a,
+                                    int tile_t, int groups, int m_slots, int smem_bytes,
+                                    float scale, void* stream) {
+  return project_launch<false>(x, y, m_scratch, part_scratch, cores, dims, fold_ops, order,
+                               B, K, R, tile_m, tile_k, tile_a, tile_t, groups, m_slots,
+                               smem_bytes, scale, stream);
 }
 
 // K5: the same arguments; smem_bytes is the planner's 'double' figure
-extern "C" int sweep_project_pipelined_launch(const void* x, void* y,
-                                              const void* const* cores,
-                                              const int* dims, const int* ops,
-                                              int order, int B, int K, int R, int tk,
-                                              int tb, int ba, int tg, int rch,
-                                              int smem_bytes, float scale,
-                                              void* stream) {
-  return project_launch<true>(x, y, cores, dims, ops, order, B, K, R, tk, tb, ba, tg,
-                              rch, smem_bytes, scale, stream);
+extern "C" int sweep_project_pipelined_launch(const void* x, void* y, void* m_scratch,
+                                              void* part_scratch, const void* const* cores,
+                                              const int* dims, const int* fold_ops,
+                                              int order, int B, int K, int R, int tile_m,
+                                              int tile_k, int tile_a, int tile_t,
+                                              int groups, int m_slots, int smem_bytes,
+                                              float scale, void* stream) {
+  return project_launch<true>(x, y, m_scratch, part_scratch, cores, dims, fold_ops, order,
+                              B, K, R, tile_m, tile_k, tile_a, tile_t, groups, m_slots,
+                              smem_bytes, scale, stream);
 }

@@ -6,21 +6,23 @@ mode-sweep schedule: it emits the einsum program of the sweep — the SAME
 strings the reference planner emits (`_project_steps` /
 `_reconstruct_steps`), which tests diff against `repro` — plus tiles
 budgeted against Hopper's per-block shared memory, and `program_codes`
-lowers the program to the integer opcodes the CUDA kernels execute.
+lowers the fold that both directions run to the integer opcodes the CUDA
+kernels execute.
 
 Tiles, re-budgeted for the H100 (the TPU's 8 MiB VMEM budget and 128-lane
 tiles do not carry over):
 
-* project (K1): one block owns a (tk k-rows x tb batch rows) output tile
-  and loops over every prefix (d1, ..., d_{N-1}) of the input inside the
-  block; each thread carries `TBT` batch rows of one k-row, and `tg`
-  thread groups share the d1 loop. `ba` is the number of prefixes each
-  group stages in shared memory per step. Shared memory
-  holds the block's k-rows of the last core, the staged input and the
-  per-thread bond accumulators of every sweep level. Under
-  `pipeline='double'` (K5) the staged input and the block's tile of the
-  leading core have two slots each, so the next chunk streams in while
-  the current one contracts.
+* project (K1): the dense-operator route in three launches. The fold
+  writes the transfer block m (k, R, T = d2..dN) to a scratch buffer (the
+  reconstruct program's m steps, `program_codes`); a product kernel builds
+  the operator S[i, a, t] = sum_u g1[i, a, u] m[i, u, t] tile by tile in
+  shared memory and contracts it with the input; a reduce sums the
+  partials. A block owns a (tb batch rows x tk k-rows) tile and one of
+  `groups` runs of T-chunks of `tc` columns; it keeps each chunk of m
+  resident while it walks the leading index `ba` values (a slab) at a
+  time. Under `pipeline='double'` (K5) the staged input and leading-core
+  slab have two slots, and the m chunk `m_slots` (two where they fit),
+  so the next slab streams in while the current one contracts.
 * reconstruct (K2): a fold launch writes the batch-independent transfer
   block m (k, R, d2..dN) to a scratch buffer, then a tiled product kernel
   owns a (tb rows of (n, d1) x ba columns of d2..dN) output tile and loops
@@ -34,6 +36,7 @@ route. The kernels mask their own ragged edges, so nothing is padded.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -44,11 +47,9 @@ from repro_torch.core.tt_rp import TTRP
 
 # Per-block shared memory an H100 kernel may opt into (227 KB).
 SMEM_BUDGET_BYTES = 232_448
-# Streaming multiprocessors of an H100 SXM: the project planner shrinks
-# the batch and k tiles until the grid has a block per SM, then adds
-# thread groups along d1 up to BLOCK_THREADS threads per block.
+# Streaming multiprocessors of an H100 SXM: the project planner splits T
+# into groups until the grid holds two blocks per SM.
 H100_SMS = 132
-BLOCK_THREADS = 256
 
 # Mode axis letters of the einsum programs ('a' = leading mode).
 MODES = "abcdefgh"
@@ -56,10 +57,11 @@ MAX_ORDER = len(MODES)
 
 _FAMILIES = ("tt", "cp")
 _KINDS = ("project", "reconstruct")
-# 'serial': K1 stages each input chunk, then contracts it.
-# 'double': K5 copies chunk i+1 (input rows and the leading-core tile) into
-# a second shared-memory slot with cp.async while chunk i contracts
-# (project only); the planner charges the second slot.
+# 'serial': K1 stages each slab of the input, then contracts it.
+# 'double': K5 copies slab i+1 (input rows and the leading-core tile, and
+# the next chunk of m where two slots fit) into second shared-memory slots
+# with cp.async while slab i contracts (project only); the planner charges
+# the second slots.
 PIPELINES = ("serial", "double")
 
 
@@ -72,22 +74,25 @@ def validate_pipeline(pipeline: str) -> str:
                          f"{PIPELINES}")
     return pipeline
 
-# Batch rows each thread of the project kernel carries (csrc: TBT).
-TBT = 4
-# Floats of padding between the thread groups' staged inputs (csrc: XPAD).
-XPAD = 4
-# Bond ranks the kernels hold per thread (csrc: MAXR, reconstruct fold).
+# The project product kernel (csrc/sweep_project.cu): PROJECT_THREADS
+# threads as 16 x 16, each owning TM batch rows x TN k-rows, so a block
+# tile is 16*TM batch rows (TM in PROJECT_TM) x 16*TN k-rows (PROJECT_TILE_K).
+PROJECT_THREADS = 256
+PROJECT_TM = (1, 2, 3, 4, 6, 8)
+PROJECT_TILE_K = (128, 64)
+# T-chunk candidates (powers of 2 from 4: float4 reads of m), and the
+# product depth a slab (ba leading indices x tc columns) aims for between
+# barriers.
+PROJECT_TILE_T = (16, 8, 4)
+PROJECT_DEPTH = 64
+# Bond ranks the fold holds per thread (csrc/sweep_fold.cuh: MAXR); K1,
+# K5 and K2 share the fold.
 MAX_RANK = 64
 # Tile of the reconstruct product kernel (csrc: BM, BN, BK).
 RECON_TILE = (128, 128, 8)
 
-# Opcodes of the lowered program (csrc/sweep_common.cuh holds the same).
-OP_FIRST_TT, OP_FIRST_CP, OP_MIX_TT, OP_HAD_CP, OP_LAST = 1, 2, 3, 4, 5
+# Opcodes of the lowered fold (csrc/sweep_common.cuh holds the same).
 OP_M_INIT_TT, OP_M_INIT_CP, OP_M_MIX_TT, OP_M_HAD_CP = 6, 7, 8, 9
-
-
-def _pow2ceil(n: int) -> int:
-    return 1 << max(0, (int(n) - 1).bit_length())
 
 
 # ---------------------------------------------------------------------------
@@ -150,25 +155,6 @@ def _reconstruct_steps(family: str, order: int):
     return (tuple(m_steps), h_spec, out_spec)
 
 
-def _project_code(spec: str, order: int, s: int) -> int:
-    """Opcode of project step `s`, read off its einsum string."""
-    lhs, out = spec.split("->")
-    carry, core = lhs.split(",")
-    mode = MODES[order - 1 - s]
-    if s == 0 and carry == "n" + MODES[:order]:
-        if core == f"k{core[1]}{mode}" and core[1] in "uv":
-            return OP_FIRST_TT                    # core (k, R, dN)
-        if core == f"k{mode}r":
-            return OP_FIRST_CP                    # core (k, dN, R)
-    elif out == "nk" and mode == "a" and core == "ka" + carry[-1]:
-        return OP_LAST                            # core (k, d1, R)
-    elif len(core) == 4 and core == f"k{out[-1]}{mode}{carry[-1]}":
-        return OP_MIX_TT                          # core (k, Rout, d, Rin)
-    elif core == f"k{mode}r" and carry[-1] == out[-1] == "r":
-        return OP_HAD_CP                          # core (k, d, R)
-    raise ValueError(f"project step {s} {spec!r} has no kernel opcode")
-
-
 def _m_code(spec: str | None, order: int, j: int) -> int:
     """Opcode of transfer-block step `j` of the reconstruct program."""
     mode = MODES[order - 1 - j]
@@ -190,22 +176,23 @@ def _m_code(spec: str | None, order: int, j: int) -> int:
 
 
 def program_codes(plan: "ContractionPlan") -> tuple[int, ...]:
-    """Lower the plan's einsum program to the kernels' integer opcodes.
-
-    project: one opcode per step (step s contracts mode N-1-s).
-    reconstruct: one opcode per transfer-block step; the graft and the
-    final contraction are checked to be the fixed forms the product
-    kernel computes.
+    """The opcodes the kernels execute for the plan: the fold of the
+    trailing cores, one opcode per transfer-block step of the reconstruct
+    program of the plan's family and order. K1, K5 and K2 share it. For a
+    reconstruct plan the graft and the final contraction are checked to be
+    the fixed forms the product kernel computes; a project plan's steps
+    stay the reference's project program, which its plain version runs.
     """
     n = plan.order
     if plan.kind == "project":
-        return tuple(_project_code(s, n, i) for i, s in enumerate(plan.steps))
-    m_steps, h_spec, out_spec = plan.steps
-    carry = "r" if plan.family == "cp" else ("u" if n % 2 == 0 else "v")
-    if (h_spec != f"nk,ka{carry}->nak{carry}" or out_spec !=
-            f"nak{carry},k{carry}{MODES[1:n]}->na{MODES[1:n]}"):
-        raise ValueError(f"reconstruct program {plan.steps!r} has no kernel "
-                         "lowering")
+        m_steps = _reconstruct_steps(plan.family, n)[0]
+    else:
+        m_steps, h_spec, out_spec = plan.steps
+        carry = "r" if plan.family == "cp" else ("u" if n % 2 == 0 else "v")
+        if (h_spec != f"nk,ka{carry}->nak{carry}" or out_spec !=
+                f"nak{carry},k{carry}{MODES[1:n]}->na{MODES[1:n]}"):
+            raise ValueError(f"reconstruct program {plan.steps!r} has no "
+                             "kernel lowering")
     return tuple(_m_code(s, n, j) for j, s in enumerate(m_steps))
 
 
@@ -213,14 +200,22 @@ def program_codes(plan: "ContractionPlan") -> tuple[int, ...]:
 # the planner
 # ---------------------------------------------------------------------------
 
+class RankLimitError(ValueError):
+    """A bond rank above what the fold holds per thread (MAX_RANK)."""
+
+
 @dataclasses.dataclass(frozen=True)
 class ContractionPlan:
     """A fully-resolved mode-sweep schedule for one kernel launch.
 
-    `steps` is the einsum program the kernels execute (via
-    `program_codes`); `smem_bytes` the shared memory one block takes at
-    the chosen tiles, which the K1 launch allocates as is (see the module
-    docstring for what tk / tb / ba tile in each direction).
+    `steps` is the einsum program of the reference planner (via
+    `program_codes`); `smem_bytes` the shared memory one block of the
+    product kernel takes at the chosen tiles, which the launch allocates
+    as is. project: tk k-rows x tb batch rows per block, ba leading
+    indices per slab, tc columns of T = prod(d2..dN) per chunk, the chunks
+    split into `groups` runs (one per grid z), m_slots chunks of m
+    resident (K5: 2 where they fit). reconstruct: see the module
+    docstring.
     """
 
     family: str
@@ -234,7 +229,9 @@ class ContractionPlan:
     ba: int
     steps: tuple
     smem_bytes: int
-    tg: int = 1
+    tc: int = 0
+    groups: int = 1
+    m_slots: int = 1
     pipeline: str = "serial"
 
     @property
@@ -242,34 +239,121 @@ class ContractionPlan:
         return len(self.dims)
 
     @property
+    def trail(self) -> int:
+        """T = prod(d2..dN), the columns of the transfer block m."""
+        return _prod(self.dims[1:])
+
+    @property
     def grid(self) -> tuple[int, ...]:
-        """CUDA grid: (k tiles, batch tiles) for project; (d2..dN column
-        tiles, (n, d1) row tiles) for the reconstruct product."""
+        """CUDA grid: (k tiles, batch tiles, groups) for the project
+        product; (d2..dN column tiles, (n, d1) row tiles) for the
+        reconstruct product."""
         if self.kind == "project":
-            return (-(-self.k // self.tk), -(-self.b // self.tb))
-        return (-(-_prod(self.dims[1:]) // self.ba),
+            return (-(-self.k // self.tk), -(-self.b // self.tb), self.groups)
+        return (-(-self.trail // self.ba),
                 -(-(self.b * self.dims[0]) // self.tb))
 
+    @property
+    def m_scratch_shape(self) -> tuple[int, int, int]:
+        """The fold's output m (k, R, T), a scratch of K1, K5 and K2."""
+        return (self.k, self.rank, self.trail)
 
-def project_smem_bytes(tk: int, tb: int, ba: int, tg: int,
-                       dims: tuple[int, ...], rank: int,
-                       pipeline: str = "serial") -> int:
-    """Dynamic shared memory of one K1/K5 block (csrc/sweep_project.cu):
-    the last core's tk rows (padded by one float per row against bank
-    conflicts), `ba` staged input prefixes per thread group (padded by
-    XPAD floats per group), the bond accumulators of the N-2 interior sweep
-    levels and one output slot per thread for the group reduction; each
-    region 16-byte aligned. 'double' (K5) holds two slots of the staged
-    input and two of the block's (tk, tg, rank) leading-core tile."""
-    def up4(n):
-        return -(-n // 4) * 4
-    last = dims[-1]
-    nthr = tb // TBT * tk * tg
-    slots = 2 if pipeline == "double" else 1
-    lead = 2 * up4(tk * tg * rank) if pipeline == "double" else 0
-    return 4 * (up4(tk * (rank * last + 1))
-                + slots * up4(tg * (ba * last * tb + XPAD)) + lead
-                + up4((len(dims) - 2) * rank * TBT * nthr) + TBT * nthr)
+    @property
+    def partial_shape(self) -> tuple[int, int, int]:
+        """The project product's partial sums (groups, B, k), a scratch of
+        K1 and K5 that the reduce launch sums in group order."""
+        return (self.groups, self.b, self.k)
+
+
+def _up4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def m_row_stride(rank: int, tc: int) -> int:
+    """Floats between two k-rows of the staged m chunk: R*tc padded to 4
+    (mod 32), so the float4 reads of eight consecutive k-rows fall in
+    distinct banks (csrc: ProjectArgs.ms)."""
+    return rank * tc + (4 - rank * tc % 32) % 32
+
+
+def project_smem_bytes(tb: int, tk: int, ba: int, tc: int, rank: int,
+                       pipeline: str = "serial", m_slots: int = 1) -> int:
+    """Dynamic shared memory of one K1/K5 product block
+    (csrc/sweep_project.cu, `layout`): `m_slots` chunks of m (tk rows of
+    `m_row_stride` floats), the input slab (ba*tc rows of tb+1 floats) and
+    the leading-core slab (ba*R rows of tk floats), each with a second
+    slot under 'double', and the operator tile (ba*tc rows of tk floats);
+    each region 16-byte aligned."""
+    xslots = 2 if pipeline == "double" else 1
+    return 4 * (m_slots * tk * m_row_stride(rank, tc)
+                + xslots * (_up4(ba * tc * (tb + 1)) + ba * rank * tk)
+                + ba * tc * tk)
+
+
+def _groups(n_chunks: int, tiles: int) -> int:
+    """Groups of T-chunks (grid z) for `tiles` (k, batch) tiles: at least
+    two blocks per SM where T has the chunks, at most four waves of them,
+    every group non-empty, and of those the split with the fewest
+    chunk-steps on the busiest SM (the grid's waves of 2 * H100_SMS blocks
+    times the chunks per block), then the fewest blocks (partials)."""
+    slots = 2 * H100_SMS
+    need = min(n_chunks, -(-slots // tiles))
+    best = None
+    for per in range(1, -(-n_chunks // need) + 1):
+        groups = -(-n_chunks // per)
+        blocks = tiles * groups
+        key = (-(-blocks // slots) * per, blocks)
+        if (groups >= need and (blocks <= 4 * slots or groups == need)
+                and (best is None or key < best[0])):
+            best = (key, groups)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_project(k: int, b: int, dims: tuple[int, ...], r: int, budget: int,
+                  pipeline: str) -> dict:
+    """Tiles of the K1/K5 product kernel.
+
+    The batch tile is the smallest 16*TM holding the batch (TM in
+    PROJECT_TM; larger batches take several tiles of 128 rows). Then the
+    first (tc, tk) of PROJECT_TILE_T x PROJECT_TILE_K, wide chunks first
+    (tc no wider than T needs), whose block fits two to an SM, else one
+    within `budget`, with ba = PROJECT_DEPTH // tc leading indices per
+    slab (at most d1), cut until it fits. Wide chunks come first because
+    the leading-core slab is staged again for every chunk. K5 ('double') charges its second slots, and keeps two
+    m chunks where they fit the same limit. Then T's chunks split into
+    groups until the grid holds two blocks per SM.
+    """
+    d1, trail = dims[0], _prod(dims[1:])
+    tm = next((t for t in PROJECT_TM if 16 * t >= b), PROJECT_TM[-1])
+    tb = 16 * tm
+    tc_max = _up4(trail)
+    double = pipeline == "double"
+    for limit in (budget // 2 - 1024, budget):   # two blocks an SM, then one
+        for tc in PROJECT_TILE_T:
+            for tk in PROJECT_TILE_K:
+                if tc > tc_max and tc != PROJECT_TILE_T[-1]:
+                    continue
+                ba = max(1, min(d1, PROJECT_DEPTH // tc))
+
+                def smem(m_slots=1):
+                    return project_smem_bytes(tb, tk, ba, tc, r, pipeline,
+                                              m_slots)
+
+                while ba > 1 and smem() > limit:
+                    ba -= 1
+                if smem() > limit:
+                    continue
+                m_slots = 2 if double and smem(2) <= limit else 1
+                tiles = -(-k // tk) * -(-b // tb)
+                return dict(tk=tk, tb=tb, ba=ba, tc=tc,
+                            groups=_groups(-(-trail // tc), tiles),
+                            m_slots=m_slots, smem_bytes=smem(m_slots))
+    raise ValueError(
+        f"plan_contraction(project): dims={dims}, rank={r} need "
+        f"{project_smem_bytes(tb, PROJECT_TILE_K[-1], 1, 4, r, pipeline)} "
+        f"bytes of shared memory at the smallest tiling, over the "
+        f"{budget}-byte block budget")
 
 
 def plan_contraction(family: str, kind: str, k: int, b: int,
@@ -278,13 +362,9 @@ def plan_contraction(family: str, kind: str, k: int, b: int,
                      pipeline: str = "serial") -> ContractionPlan:
     """Plan a mode-sweep kernel launch for order N = len(dims).
 
-    project: at most 32 k-rows with their last-core rows within 48 KB of
-    shared memory; the smallest power-of-two batch tile holding the batch
-    (at most 16 rows); the batch tile, then tk (floor 4), halved until the
-    grid has a block per SM; thread groups along d1 up to
-    BLOCK_THREADS threads per block; then ba, tg, tk and tb shrink until
-    two blocks fit one SM's shared memory, or at least one fits `budget`. A shape whose single k-row of the last core cannot fit
-    raises: the kernel stages that row whole.
+    project: the K1/K5 tiles of `_plan_project`; a bond rank above
+    MAX_RANK raises RankLimitError (the fold holds a rank-vector per
+    thread, as K2's does).
     reconstruct: the fixed RECON_TILE product tile; the transfer block
     lives in device memory, so shared memory does not depend on shape.
     `pipeline='double'` (project only) charges K5's second slots.
@@ -307,65 +387,32 @@ def plan_contraction(family: str, kind: str, k: int, b: int,
     r = max(1, int(rank))
     b = max(1, int(b))
     if kind == "project":
-        tk = 32
-        while tk > 1 and 4 * tk * (r * dims[-1] + 1) > 48 * 1024:
-            tk //= 2
-        tb = TBT * min(8, _pow2ceil(-(-b // TBT)))
-
-        def blocks():
-            return -(-k // tk) * -(-b // tb)
-
-        while tb > TBT and blocks() < H100_SMS:
-            tb //= 2
-        while tk > 4 and blocks() < H100_SMS:
-            tk //= 2
-        tg = max(1, min(dims[0], BLOCK_THREADS // (tk * tb // TBT)))
-        ba = min(8, _prod(dims[1:-1]))
-
-        def smem():
-            return project_smem_bytes(tk, tb, ba, tg, dims, r, pipeline)
-
-        # two blocks per SM where possible, then the hard block budget
-        for limit in (budget // 2, budget):
-            while smem() > limit and (ba > 1 or tg > 1 or tk > 1
-                                      or tb > TBT):
-                if ba > 1:
-                    ba //= 2
-                elif tg > 1:
-                    tg //= 2
-                elif tk > 1:
-                    tk //= 2
-                else:
-                    tb //= 2
-        nbytes = smem()
-        if nbytes > budget:
-            raise ValueError(
-                f"plan_contraction(project): dims={dims}, rank={r} need "
-                f"{nbytes} bytes of shared memory at the smallest tiling, "
-                f"over the {budget}-byte block budget: one k-row of the "
-                "last core (rank x last mode) must fit; use a smaller last "
-                "mode")
+        if r > MAX_RANK:
+            raise RankLimitError(
+                f"plan_contraction(project): rank {r} exceeds MAX_RANK="
+                f"{MAX_RANK}, the bond rank the fold holds per thread")
+        tiles = _plan_project(int(k), b, dims, r, budget, pipeline)
         steps = _project_steps(family, order)
     else:
         tb, ba, tk = RECON_TILE
-        tg = 1
-        nbytes = 4 * tk * (tb + ba)
+        tiles = dict(tk=tk, tb=tb, ba=ba, smem_bytes=4 * tk * (tb + ba))
         steps = _reconstruct_steps(family, order)
     return ContractionPlan(family=family, kind=kind, k=int(k), b=b, dims=dims,
-                           rank=r, tk=tk, tb=tb, ba=ba, steps=steps,
-                           smem_bytes=nbytes, tg=tg, pipeline=pipeline)
+                           rank=r, steps=steps, pipeline=pipeline, **tiles)
 
 
 def sweep_hbm_bytes(plan: ContractionPlan) -> int:
     """Analytic device-memory traffic of one batched sweep call, following
     the kernels' schedules.
 
-    project: each block streams its batch rows of x once (so x is read
-    once per k tile) and reads its k-rows of every core once; K5 copies
-    the same tiles, only earlier.
-    reconstruct: the fold reads the trailing cores and writes m; the
-    product reads the sketch and leading core once per column tile, m once
-    per row tile, and writes the output once.
+    Both directions fold first: the fold reads the trailing cores and
+    writes m. project: each block reads its chunks of m once (so m is read
+    once per batch tile), its input rows once (x once per k tile) and its
+    k-rows of the leading core once per chunk, and writes its partial
+    tile; the reduce reads the partials and writes y. K5 copies the same
+    tiles, only earlier. reconstruct: the product reads the sketch and
+    leading core once per column tile, m once per row tile, and writes the
+    output once.
     """
     k, b, dims, r = plan.k, plan.b, plan.dims, plan.rank
     x_total = 4 * b * _prod(dims)
@@ -376,13 +423,16 @@ def sweep_hbm_bytes(plan: ContractionPlan) -> int:
                   + 4 * k * r * dims[-1])
     else:
         c_rest = sum(4 * k * d * r for d in dims[1:])
+    m_total = 4 * k * r * plan.trail
+    fold = c_rest + m_total
     if plan.kind == "project":
-        nk, nb = plan.grid
-        return nk * x_total + nb * (c1 + c_rest) + y_total
-    m_total = 4 * k * r * _prod(dims[1:])
+        nk, nb, groups = plan.grid
+        n_chunks = -(-plan.trail // plan.tc)
+        partials = 4 * groups * b * k
+        return (fold + nb * m_total + nk * x_total + nb * n_chunks * c1
+                + 2 * partials + y_total)
     n_cols, n_rows = plan.grid
-    return (c_rest + m_total                                  # fold
-            + n_cols * (y_total + c1) + n_rows * m_total + x_total)
+    return (fold + n_cols * (y_total + c1) + n_rows * m_total + x_total)
 
 
 # ---------------------------------------------------------------------------
@@ -485,8 +535,9 @@ def cp_reconstruct(op: CPRP, y: torch.Tensor) -> torch.Tensor:
     return _sweep_reconstruct("cp", op, op.factors, y)
 
 
-__all__ = ["ContractionPlan", "MAX_ORDER", "PIPELINES", "SMEM_BUDGET_BYTES",
-           "cp_project", "cp_reconstruct", "kernel_order_supported",
-           "plan_contraction", "program_codes", "sweep_hbm_bytes",
+__all__ = ["ContractionPlan", "MAX_ORDER", "PIPELINES", "RankLimitError",
+           "SMEM_BUDGET_BYTES", "cp_project", "cp_reconstruct",
+           "kernel_order_supported", "plan_contraction", "program_codes",
+           "sweep_hbm_bytes",
            "tt_cores_squeezed", "tt_project", "tt_reconstruct",
            "validate_pipeline"]

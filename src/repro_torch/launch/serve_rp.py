@@ -9,14 +9,17 @@ operator-cache hit rate, one kernel dispatch per tick (asserted against
     PYTHONPATH=src python -m repro_torch.launch.serve_rp --family tt \
         --k 512 --dims 64 64 64 --rank 5 --requests 256 --max-batch 64
 
-`--trace-out/--metrics-out/--distortion` wait for the telemetry slice,
-`--prewarm/--save-manifest` for the cache manifest.
+`--backend` takes the port's names for the reference's routes: 'kernel'
+for 'pallas', 'torch' for 'xla'. `--trace-out/--metrics-out/--distortion`
+wait for the telemetry slice, `--prewarm/--save-manifest` for the cache
+manifest.
 """
 from __future__ import annotations
 
 import argparse
 
 from repro_torch import rp
+from repro_torch.rp.plan import BACKENDS
 from repro_torch.serve import (ServeConfig, SketchServer, SketchStore,
                                replay, synth_trace)
 
@@ -34,8 +37,11 @@ def main(argv=None) -> int:
     ap.add_argument("--mix", type=float, nargs=3, default=[1.0, 1.0, 1.0],
                     metavar=("DENSE", "TT", "CP"),
                     help="relative payload-structure weights")
+    ap.add_argument("--mean-gap-us", type=float, default=200.0)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--flush-us", type=float, default=1_000.0)
+    ap.add_argument("--cache-capacity", type=int, default=8)
+    ap.add_argument("--backend", default="auto", choices=BACKENDS)
     ap.add_argument("--top-m", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -44,12 +50,14 @@ def main(argv=None) -> int:
 
     spec = rp.ProjectorSpec(family=args.family, k=args.k,
                             dims=tuple(args.dims), rank=args.rank)
-    cfg = ServeConfig(max_batch=args.max_batch, flush_us=args.flush_us)
+    cfg = ServeConfig(max_batch=args.max_batch, flush_us=args.flush_us,
+                      cache_capacity=args.cache_capacity,
+                      backend=args.backend)
     store = SketchStore(spec, device=args.device)
     server = SketchServer(cfg, store, device=args.device)
     pool = [(spec, s) for s in range(args.pool)]
     trace = synth_trace(args.requests, pool, mix=tuple(args.mix),
-                        seed=args.seed)
+                        mean_gap_us=args.mean_gap_us, seed=args.seed)
     with rp.dispatch_stats() as st:
         report = replay(server, trace)
     if st.kernel_calls not in (0, report["ticks"]):

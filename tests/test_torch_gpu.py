@@ -91,10 +91,51 @@ def test_k5_matches_plain_version_and_k1(cuda, family, dims):
                               pipeline="double")
     got = _sweep.sweep_project_pipelined(x, *cores, plan=p5, scale=0.5)
     ref = _sweep.sweep_project_pipelined_plain(x, *cores, steps=p5.steps,
-                                               tg=p5.tg, scale=0.5)
+                                               ba=p5.ba, scale=0.5)
     assert _rel(got, ref) <= 1e-4
     assert _rel(got, _sweep.sweep_project(x, *cores, plan=p1,
                                           scale=0.5)) <= 1e-4
+
+
+RAGGED = [((12, 20), 11), ((2, 3, 3, 3, 3, 3, 3, 3), 9), ((5, 7), 25)]
+
+
+@pytest.mark.parametrize("family", ["tt", "cp"])
+@pytest.mark.parametrize("case", RAGGED,
+                         ids=lambda c: "x".join(map(str, c[0])) + f"-R{c[1]}")
+@pytest.mark.parametrize("b", [1, 3, 64])
+def test_k1_k5_ragged_shapes_match_plain_version(cuda, family, case, b):
+    """Orders 2 and 8, k = 37 (a ragged k tile), T ragged against every
+    chunk, ranks above 8, B in {1, 3, 64}: K1 and K5 against the plain
+    program and each other."""
+    dims, rank = case
+    k = 37
+    _, cores = _operands(family, dims, k, rank, cuda)
+    x = torch.randn((b,) + dims, generator=torch.Generator(
+        device=cuda).manual_seed(5), device=cuda)
+    p1 = ops.plan_contraction(family, "project", k, b, dims, rank)
+    p5 = ops.plan_contraction(family, "project", k, b, dims, rank,
+                              pipeline="double")
+    ref = _sweep.sweep_project_plain(x, *cores, steps=p1.steps, scale=0.5)
+    y1 = _sweep.sweep_project(x, *cores, plan=p1, scale=0.5)
+    y5 = _sweep.sweep_project_pipelined(x, *cores, plan=p5, scale=0.5)
+    assert _rel(y1, ref) <= 1e-4 and _rel(y5, ref) <= 1e-4
+    assert _rel(y5, y1) <= 1e-4
+
+
+@pytest.mark.parametrize("family", ["tt", "cp"])
+def test_k1_gives_the_same_bits_every_call(cuda, family):
+    """No atomics: the partials of the T groups are summed in group order,
+    so two calls on the same inputs agree bit for bit (serving shape)."""
+    dims, k, rank = (64, 64, 64), 512, 5 if family == "tt" else 25
+    _, cores = _operands(family, dims, k, rank, cuda)
+    x = torch.randn((64,) + dims, generator=torch.Generator(
+        device=cuda).manual_seed(6), device=cuda)
+    plan = ops.plan_contraction(family, "project", k, 64, dims, rank)
+    assert plan.groups > 1
+    first = _sweep.sweep_project(x, *cores, plan=plan, scale=1.0)
+    again = _sweep.sweep_project(x, *cores, plan=plan, scale=1.0)
+    assert torch.equal(first, again)
 
 
 CARRY_SHAPES = SHAPES + [(2, 3, 2, 3, 2, 2, 3), (2,) * 8, (8, 128, 64)]

@@ -55,9 +55,12 @@ def test_planner_program_matches_reference(family, kind, order):
     got = ops.plan_contraction(family, kind, 64, 5, dims, 3)
     want = jops.plan_contraction(family, kind, 64, 5, dims, 3)
     assert got.steps == want.steps
-    # and the program lowers to kernel opcodes, one per (transfer) step
+    # and both directions lower to the fold's opcodes, one per
+    # transfer-block step of the reconstruct program
     codes = ops.program_codes(got)
-    assert len(codes) == (order if kind == "project" else order - 1)
+    assert len(codes) == order - 1
+    assert codes == ops.program_codes(ops.plan_contraction(
+        family, "reconstruct", 64, 5, dims, 3))
 
 
 @pytest.mark.parametrize("family", ["tt", "cp"])
@@ -106,16 +109,75 @@ def test_every_planned_tile_fits_shared_memory(family, dims):
             plan = ops.plan_contraction(family, kind, k, b, dims, rank)
             assert plan.smem_bytes <= ops.SMEM_BUDGET_BYTES
             if kind == "project":
-                assert plan.tb % ops.TBT == 0
-                assert plan.tk * plan.tb // ops.TBT * plan.tg <= 1024
-                assert 1 <= plan.tg <= dims[0]
+                assert plan.tb in [16 * t for t in ops.PROJECT_TM]
+                assert plan.tk in ops.PROJECT_TILE_K
+                assert plan.tc in ops.PROJECT_TILE_T
+                assert 1 <= plan.ba <= dims[0] and plan.m_slots == 1
                 assert plan.smem_bytes == ops.project_smem_bytes(
-                    plan.tk, plan.tb, plan.ba, plan.tg, dims, rank)
+                    plan.tb, plan.tk, plan.ba, plan.tc, rank)
+                # every group holds a chunk of T; the grid fills the card
+                # twice over unless T runs out of chunks first
+                n_chunks = -(-plan.trail // plan.tc)
+                per = -(-n_chunks // plan.groups)
+                assert (plan.groups - 1) * per < n_chunks
+                nk, nb, groups = plan.grid
+                assert nk * nb * groups >= min(2 * ops.H100_SMS,
+                                               nk * nb * n_chunks)
+                # the batch tile is the smallest that holds the batch
+                assert plan.tb >= min(b, 128) and (plan.tb == 16
+                                                   or plan.tb - 16 < b)
 
 
 def test_planner_refuses_a_last_core_row_too_big_for_shared_memory():
+    """The fold holds a rank-vector per thread: a rank above MAX_RANK is
+    refused with a typed error; a shape whose smallest tiling outgrows the
+    block budget raises too."""
+    with pytest.raises(ops.RankLimitError, match="MAX_RANK"):
+        ops.plan_contraction("cp", "project", 64, 4, (2, 8192),
+                             ops.MAX_RANK + 1)
+    assert issubclass(ops.RankLimitError, ValueError)
+    ops.plan_contraction("cp", "project", 64, 4, (2, 8192), ops.MAX_RANK)
     with pytest.raises(ValueError, match="shared memory"):
-        ops.plan_contraction("cp", "project", 64, 4, (2, 8192), 16)
+        ops.plan_contraction("cp", "project", 64, 4, (2, 8192), 16,
+                             budget=16 * 1024)
+
+
+# (dims, B, k, rank): T = prod(d2..dN) ragged against every T-chunk, B
+# against the batch tiles (1, 3, 17 in 32 rows, 70 in 96), k against the
+# k tiles (130: two tiles, the second of 2 rows), ranks above 8
+TILED_CASES = {2: ((12, 20), 3, 37, 3), 3: ((6, 10, 14), 1, 130, 12),
+               4: ((4, 6, 5, 7), 70, 37, 3),
+               8: ((2, 3, 3, 3, 3, 3, 3, 3), 17, 37, 9)}
+
+
+@pytest.mark.parametrize("family", ["tt", "cp"])
+@pytest.mark.parametrize("order", sorted(TILED_CASES))
+@pytest.mark.parametrize("pipeline", ["serial", "double"])
+def test_tiled_schedule_matches_reference_and_plain(family, order, pipeline):
+    """K1's / K5's block schedule (fold, k tiles, batch tiles, T groups and
+    chunks, slabs of the leading index, operator tiles, partials reduced in
+    group order) emulated in torch ops, against the reference's
+    interpret-mode kernel and the plain program: within 1e-5 of max|ref|
+    (fp32, other summation order)."""
+    dims, b, k, rank = TILED_CASES[order]
+    jop, top = _pair(family, dims, k=k, rank=rank, seed=order)
+    cores = [c.contiguous() for c in (ops.tt_cores_squeezed(top)
+                                      if family == "tt" else top.factors)]
+    x = np.random.default_rng(order).standard_normal((b,) + dims,
+                                                     dtype=np.float32)
+    plan = ops.plan_contraction(family, "project", k, b, dims, rank,
+                                pipeline=pipeline)
+    assert plan.trail % plan.tc and plan.grid[2] > 1   # ragged, split
+    got = _sweep.sweep_project_tiled_plain(torch.from_numpy(x), *cores,
+                                           plan=plan, scale=1 / math.sqrt(k))
+    jproj = jops.tt_project if family == "tt" else jops.cp_project
+    want = np.asarray(jproj(jop, jnp.asarray(x)))
+    plain = _sweep.sweep_project_plain(torch.from_numpy(x), *cores,
+                                       steps=plan.steps,
+                                       scale=1 / math.sqrt(k)).numpy()
+    for ref in (want, plain):
+        err = np.abs(got.numpy() - ref).max() / np.abs(ref).max()
+        assert got.shape == ref.shape and err <= 1e-5
 
 
 def test_opcodes_agree_with_the_cuda_header():
@@ -123,7 +185,7 @@ def test_opcodes_agree_with_the_cuda_header():
     enum = dict((n, int(v)) for n, v in re.findall(r"(OP_\w+) = (\d+)",
                                                    header))
     assert enum == {n: getattr(ops, n) for n in enum}
-    assert len(enum) == 9
+    assert len(enum) == 4
 
 
 def _defines(source: str) -> dict[str, int]:
@@ -134,17 +196,27 @@ def _defines(source: str) -> dict[str, int]:
 def test_tile_constants_agree_with_the_cuda_sources():
     """The planner's tiling constants are the ones the kernels compile."""
     project = _defines("sweep_project.cu")
-    assert (project["TBT"], project["XPAD"]) == (ops.TBT, ops.XPAD)
+    assert project["PROJ_THREADS"] == ops.PROJECT_THREADS
+    text = (pathlib.Path(_sweep.CSRC) / "sweep_project.cu").read_text()
+    assert {int(v) for v in re.findall(r"tm == (\d+)", text)} == set(
+        ops.PROJECT_TM)
+    assert {16 * int(v) for v in re.findall(r"tn == (\d+)", text)} == set(
+        ops.PROJECT_TILE_K)
+    assert _defines("sweep_fold.cuh")["MAXR"] == ops.MAX_RANK  # the fold
     recon = _defines("sweep_reconstruct.cuh")  # K2's and K4's device code
-    assert recon["MAXR"] == ops.MAX_RANK
     assert (recon["BM"], recon["BN"], recon["BK"]) == ops.RECON_TILE
     assert _defines("sweep_common.cuh")["SWEEP_MAX_ORDER"] == ops.MAX_ORDER
 
 
-def test_row_chunk_covers_rank_with_least_waste():
-    assert [_sweep._row_chunk(r) for r in (1, 5, 8)] == [1, 5, 8]
-    assert _sweep._row_chunk(25) == 5
-    assert _sweep._row_chunk(16) == 8
+@pytest.mark.parametrize("rank", [1, 3, 5, 8, 12, 25, 64])
+@pytest.mark.parametrize("tc", [4, 8, 16])
+def test_m_row_stride_spreads_float4_reads_across_banks(rank, tc):
+    """Eight consecutive k-rows of the staged m chunk start in eight
+    distinct 16-byte bank groups, so a quarter-warp's float4 reads of the
+    operator build do not conflict; the padding stays under 32 floats."""
+    ms = ops.m_row_stride(rank, tc)
+    assert ms % 32 == 4 and rank * tc <= ms < rank * tc + 32
+    assert len({(i * ms // 4) % 8 for i in range(8)}) == 8
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -172,7 +244,7 @@ def test_wrappers_check_layouts():
 
 def test_hbm_ledger_counts_each_operand():
     p = ops.plan_contraction("tt", "project", 512, 64, (64, 64, 64), 5)
-    nk, nb = p.grid
+    nk, nb, _ = p.grid
     x = 4 * 64 * 64 ** 3
     assert ops.sweep_hbm_bytes(p) >= nk * x + 4 * 64 * 512
     r = ops.plan_contraction("tt", "reconstruct", 512, 64, (64, 64, 64), 5)

@@ -116,9 +116,12 @@ def test_double_plans_charge_the_second_slot(family, dims):
         p5 = ops.plan_contraction(family, "project", k, b, dims, rank,
                                   pipeline="double")
         assert p5.pipeline == "double" and p5.smem_bytes <= 232_448
-        args = (p5.tk, p5.tb, p5.ba, p5.tg, dims, rank)
-        assert p5.smem_bytes == ops.project_smem_bytes(*args, "double")
+        args = (p5.tb, p5.tk, p5.ba, p5.tc, rank)
+        assert p5.smem_bytes == ops.project_smem_bytes(*args, "double",
+                                                       p5.m_slots)
         assert p5.smem_bytes > ops.project_smem_bytes(*args)
+        if p5.m_slots == 2:     # the second m chunk fits beside the rest
+            assert p5.smem_bytes <= ops.SMEM_BUDGET_BYTES // 2 - 1024
         if (family, dims, rank) == ("tt", (8, 128, 64), 25):
             # one k-row of the interior TT(25) core is 320 KB: K6, which
             # holds a k-tile's operator cores in shared memory, refuses it

@@ -173,11 +173,40 @@ def test_default_device_is_cuda_and_raises_without_it(entry, monkeypatch):
         _no_cuda_calls()[entry]()
 
 
-def test_serve_rp_cli_runs_on_cpu(capsys):
+def test_serve_rp_cli_runs_on_cpu(capsys, monkeypatch):
     assert serve_rp.main(["--device", "cpu", "--requests", "24",
                           "--max-batch", "4", "--family", "cp"]) == 0
     out = capsys.readouterr().out
     assert "24/24 requests" in out and "top-5 of sketch 0: ids [0," in out
+    assert "einsum-routed" in out          # 'auto' on the CPU
+    # --mean-gap-us, --cache-capacity and --backend reach the trace and the
+    # server: the arrival gaps, the cache's capacity (a pool of 3 seeds
+    # through one slot evicts) and the route ('kernel' runs the kernels'
+    # plain versions on the CPU, one dispatch per tick)
+    seen = {}
+    make_trace, make_server = serve_rp.synth_trace, serve_rp.SketchServer
+
+    def trace(*a, **kw):
+        seen["trace"] = make_trace(*a, **kw)
+        return seen["trace"]
+
+    def server(*a, **kw):
+        seen["server"] = make_server(*a, **kw)
+        return seen["server"]
+
+    monkeypatch.setattr(serve_rp, "synth_trace", trace)
+    monkeypatch.setattr(serve_rp, "SketchServer", server)
+    assert serve_rp.main(["--device", "cpu", "--requests", "24",
+                          "--max-batch", "4", "--pool", "3",
+                          "--mean-gap-us", "5000", "--cache-capacity", "1",
+                          "--backend", "kernel"]) == 0
+    out = capsys.readouterr().out
+    t = np.array([ev.t_us for ev in seen["trace"]])
+    assert np.mean(np.diff(t)) > 1000.0    # the default gap is 200 us
+    srv = seen["server"]
+    assert srv.cache.capacity == 1 and srv.cache.stats.evictions > 0
+    assert srv.cfg.backend == "kernel"
+    assert "kernel dispatches — one per tick" in out
 
 
 def test_server_refuses_structured_payloads_and_foreign_stores():
