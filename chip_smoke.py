@@ -10,8 +10,9 @@ Phases (each raises on failure, so the script exits non-zero):
      memory and spill lines.
   3. hold K1 `sweep_project` and K2 `sweep_reconstruct` against their plain
      PyTorch versions on the card: TT and CP, orders 2-5, ragged small
-     shapes, and the serving shapes; K1 twice on the same inputs must give
-     the same bits (its T groups are summed in a fixed order).
+     shapes, and the serving shapes; K1 and K2 twice on the same inputs
+     must give the same bits (K1 sums its T groups in a fixed order, K2
+     each element in one thread).
   3b. hold K3 `carry_sweep_project` and K6 `carry_sweep_project_pipelined`
      against their plain versions (four pairings x orders 2-8, k=37, B=3,
      ragged TT ranks, CP inputs with and without weights; K3 alone at one
@@ -38,19 +39,22 @@ Phases (each raises on failure, so the script exits non-zero):
      function: the kernel's own program, or building the dense (k,
      prod(dims)) operator left to right and one product with it; the
      kernel's own program's bound is printed beside it as
-     `program_bound_ms`. For K1 and K5 that program is the fold, the
+     `program_bound_ms`. For K1, K5 and K2 that program is the fold, the
      operator tiles built once per batch tile, and the product
-     (`project_route_flops`); their rows also carry the bytes of the two
-     scratch buffers (m and the partials) and the device time of each of
-     their kernels from torch.profiler (`device_split_ms`). Then K5 at the same shapes,
+     (`route_flops`; the reference's program as `sweep_program_flops`);
+     their rows also carry the bytes of the scratch buffers (m, and K1's
+     and K5's partials) and the device time of each of their kernels from
+     torch.profiler (`device_split_ms`). Then K5 at the same shapes,
      K3 and K6 at the four pairings (input rank 4), and K3 in the paper's
      regime (TT(5), k=512, dims 8^8, unit-norm rank-10 TT inputs), whose
      cheaper route is the carry program (each einsum step counted with the
      operands' true bonds) against densifying the input and the cheapest
      dense product.
   8. hold K4 `fused_update_buckets` against its plain version: TT/CP at
-     orders 2-5 (ragged k and B) and the reference test's TT(2), k=128,
-     dims (16, 16, 8).
+     orders 2-5 (ragged k and B), at orders 2 and 8 with ranks 9-25, B=130
+     (two batch tiles) and d1 and T ragged against K4's tiles, and the
+     reference test's TT(2), k=128, dims (16, 16, 8); each twice, for the
+     same bits.
   9. train llama3.2-3b at its published widths, cut to 2 layers, sequence
      4096, batch 2, with sketch-compressed gradients (`tt:k=1024,rank=8,
      order=4`: 571 buckets of 32^4) through `build_train_step(...,
@@ -65,8 +69,9 @@ Phases (each raises on failure, so the script exits non-zero):
      the sketch rows and K5 against K1; the fused update against the unfused chain
      (`compress` -> `adamw.update`: K1 + K2 + torch AdamW): residual, m'
      and v' within 1e-4 of their largest entry, w' within W_TOL_LR
-     learning rates; then K4, K1 and K5 timed at the layers/w_gate leaf
-     (K5's numbers go into its TT row as `train_*`).
+     learning rates; then K4, K1 and K5 timed at the layers/w_gate leaf,
+     each with its fold / product split (K5's numbers go into its TT row
+     as `train_*`), and K4 twice there for the same bits.
   11. the reference test's learning run on the card: reduced llama3.2-3b,
      `tt:k=1024,rank=8,dims=4x8x16`, constant lr 3e-3, 8 fused steps; the
      last loss must be below the first.
@@ -173,8 +178,10 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def device_split(fn, reps: int = 3) -> dict[str, float]:
     """Device milliseconds per call of each kernel `fn()` launches, from
-    torch.profiler's CUDA activity over `reps` calls: K1's and K5's fold,
-    product and reduce, and the wrapper's layout copy of the leading core."""
+    torch.profiler's CUDA activity over `reps` calls: the fold and the
+    product of K1, K5, K2 and K4, K1's and K5's reduce, and the wrapper's
+    other kernels ('layout': the layout copy of the leading core, and K4's
+    array of lr, c1 and c2)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -184,16 +191,17 @@ def device_split(fn, reps: int = 3) -> dict[str, float]:
             fn()
         torch.cuda.synchronize()
     names = (("fold_m_kernel", "fold"), ("project_gemm_kernel", "product"),
+             ("recon_gemm_kernel", "product"),
              ("reduce_partials_kernel", "reduce"))
-    out = {"fold": 0.0, "product": 0.0, "reduce": 0.0, "layout": 0.0}
+    out = {"fold": 0.0, "product": 0.0}
     for ev in prof.key_averages():
         t = (getattr(ev, "device_time_total", 0)
              or getattr(ev, "cuda_time_total", 0))
         if t:
             key = next((k for n, k in names if n in ev.key), "layout")
-            out[key] += t / reps / 1e3
-    if not out["product"]:
-        raise AssertionError(f"the profiler saw no product kernel: {out}")
+            out[key] = out.get(key, 0.0) + t / reps / 1e3
+    if not out["product"] or not out["fold"]:
+        raise AssertionError(f"the profiler saw no fold or product: {out}")
     return out
 
 
@@ -209,11 +217,12 @@ def dense_operator_flops(family: str, k: int, dims, rank: int) -> int:
     return total + 2 * k * math.prod(dims) * rank
 
 
-def project_route_flops(plan) -> int:
-    """Flops of K1's and K5's own program: the fold of the trailing cores
-    (the kernel refolds each column of m, N-2 steps of R*R multiply-adds
-    for TT, R products for CP), the operator tiles S = sum_u g1 m built
-    once per batch tile, and the (B, D) x (D, k) product."""
+def route_flops(plan) -> int:
+    """Flops of the dense-operator route that K1, K5, K2 and K4 run: the
+    fold of the trailing cores (the kernel refolds each column of m, N-2
+    steps of R*R multiply-adds for TT, R products for CP), the operator
+    tiles S = sum_u g1 m built once per batch tile (grid axis 1 of the
+    plan, both kinds), and the (B, D) x (D, k) product or its adjoint."""
     k, b, dims, r = plan.k, plan.b, plan.dims, plan.rank
     d_all, trail = math.prod(dims), math.prod(dims[1:])
     step = 2 * r * r if plan.family == "tt" else r
@@ -221,10 +230,23 @@ def project_route_flops(plan) -> int:
     return fold + 2 * k * d_all * r * plan.grid[1] + 2 * b * k * d_all
 
 
+def graft_flops(plan) -> int:
+    """Flops of the reference's reconstruct program: the fold, the graft
+    h = y g1 and the (B*d1, k*R) x (k*R, d2..dN) product."""
+    k, b, dims, r = plan.k, plan.b, plan.dims, plan.rank
+    trail = math.prod(dims[1:])
+    step = 2 * r * r if plan.family == "tt" else r
+    fold = k * trail * step * (len(dims) - 2)
+    return 2 * b * dims[0] * k * r * trail + fold + b * dims[0] * k * r
+
+
 def scratch_bytes(plan) -> int:
-    """Bytes of K1's and K5's two scratch buffers: m and the partials."""
-    return 4 * (math.prod(plan.m_scratch_shape)
-                + math.prod(plan.partial_shape))
+    """Bytes of the kernels' scratch buffers: m, and for K1 and K5 the
+    partials."""
+    n = math.prod(plan.m_scratch_shape)
+    if plan.kind == "project":
+        n += math.prod(plan.partial_shape)
+    return 4 * n
 
 
 def kernel_operands(op, family):
@@ -286,18 +308,16 @@ def struct_einsum_spec(op_family: str, in_family: str, order: int) -> str:
     return ",".join(t for pair in zip(ops_, ins) for t in pair) + "->nk"
 
 
-def fused_flops(family: str, k: int, dims, rank: int, nb: int):
-    """(program, cheaper) flops of K4 on nb buckets: the reconstruct
-    program (fold, graft, the (nb*d1, k*R) x (k*R, d2..dN) product) or the
-    dense (k, prod(dims)) operator and one product, each plus the
-    epilogue's 18 operations an element."""
-    trail, d_all = math.prod(dims[1:]), math.prod(dims)
-    inner = (2 * k * rank * rank if family == "tt" else k * rank)
-    fold = inner * trail * (len(dims) - 2)
-    program = (2 * nb * dims[0] * k * rank * trail + fold
-               + nb * dims[0] * k * rank)
-    cheaper = dense_operator_flops(family, k, dims, rank) + 2 * nb * k * d_all
-    return program + 18 * nb * d_all, cheaper + 18 * nb * d_all
+def fused_flops(plan):
+    """(program, cheaper) flops of K4 under its plan: the kernel's route
+    (`route_flops`: the fold, the operator tiles once per batch tile, the
+    product) or the dense (k, prod(dims)) operator built left to right and
+    one product, each plus the epilogue's 18 operations an element."""
+    d_all = math.prod(plan.dims)
+    cheaper = (dense_operator_flops(plan.family, plan.k, plan.dims,
+                                    plan.rank) + 2 * plan.b * plan.k * d_all)
+    epilogue = 18 * plan.b * d_all
+    return route_flops(plan) + epilogue, cheaper + epilogue
 
 
 def train_phases(dev, gen, errs, per_family, launches, time_row):
@@ -340,6 +360,10 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
         got = kfused.fused_update_buckets(op, y, p, w, m, v, *scal, **hp)
         ref = kfused.fused_update_buckets_plain(op, y, p, w, m, v, *scal,
                                                 **hp)
+        again = kfused.fused_update_buckets(op, y, p, w, m, v, *scal, **hp)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K4 {family} {tag}: a second call on the "
+                                 "same inputs gave other bits")
         worst = 0.0
         for name, a, b in zip(("resid", "w'", "m'", "v'"), got, ref):
             worst = max(worst, check(f"K4 {family} {tag} dims={dims} k={k} "
@@ -352,7 +376,13 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
     for family in ("tt", "cp"):
         for order, dims in SMALL_DIMS.items():
             hold_k4(family, dims, 37, 3, 3, f"order {order}")
+        # ragged against every tile: d1 against the slab, T against the
+        # chunk (and not a multiple of 4), k against the depth chunk, B
+        # across two batch tiles, ranks above 8
+        for dims, rank in RAGGED_PROJECT:
+            hold_k4(family, dims, 37, rank, 130, "ragged")
     hold_k4("tt", (16, 16, 8), 128, 2, 3, "reference test shape")
+    log("K4 gave the same bits on every second call")
 
     # -- 9. the training slice at full width, 2 layers --------------------
     cfg = dataclasses.replace(get_config("llama3.2-3b"),
@@ -580,7 +610,8 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
     lib_cores = "kau,kubv,kvcw,kwd"
     shape_s = (f"layers/w_gate B={nb} k={k} dims={'x'.join(map(str, dims))} "
                f"TT(R={rank})")
-    program, cheaper = fused_flops("tt", k, dims, rank, nb)
+    fplan = kfused.plan_fused_update("tt", k, nb, dims, rank)
+    program, cheaper = fused_flops(fplan)
     scale_a = alpha / math.sqrt(k)
 
     def dense_route(spec, *operands):
@@ -610,6 +641,19 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
     row["library_call"] = ("unfused chain: one torch.einsum of the whole "
                            "reconstruct, then the epilogue in torch ops")
     row["train"] = train_log
+    row["scratch_bytes"] = scratch_bytes(fplan)
+    row["sweep_program_flops"] = graft_flops(fplan) + 18 * nb * d_all
+
+    def k4():
+        return kfused.fused_update_buckets(op, yj, *bj, TRAIN_LR, c1, c2,
+                                           **khp)
+
+    row["device_split_ms"] = device_split(k4)
+    log("fused_update:tt device ms per call by kernel: " + ", ".join(
+        f"{key} {v:.3f}" for key, v in row["device_split_ms"].items()))
+    if not all(torch.equal(a, b) for a, b in zip(k4(), k4())):
+        raise AssertionError("K4 at layers/w_gate: a second call on the "
+                             "same inputs gave other bits")
     rows.append(row)
     p5plan = ops.plan_contraction("tt", "project", op.k, nb, op.in_dims,
                                   op.rank, pipeline="double")
@@ -623,7 +667,7 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
     nbytes = 4 * (nb * d_all + nb * k) + core_bytes
     lib = lambda: dense_route(f"{lib_cores},n{letters}->nk", *cores, x)  # noqa: E731
     row = time_row(
-        "sweep_project:train", project_route_flops(pplan), dense, nbytes,
+        "sweep_project:train", route_flops(pplan), dense, nbytes,
         lambda: _sweep.sweep_project(x, *cores, plan=pplan, scale=scale),
         k1_plain, lib, shape_s + f" (plain in chunks of {chunk} buckets)",
         reps=10)
@@ -637,7 +681,7 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
     rows.append(row)
     # K5 at the same leaf: its numbers go into its TT row as train_*
     k5 = time_row(
-        "sweep_project_pipelined:train", project_route_flops(p5plan), dense,
+        "sweep_project_pipelined:train", route_flops(p5plan), dense,
         nbytes, lambda: _sweep.sweep_project_pipelined(
             x, *cores, plan=p5plan, scale=scale),
         k5_plain, lib, shape_s + f" (plain in chunks of {chunk} buckets)",
@@ -762,6 +806,10 @@ def main() -> int:
         errs[key] = max(errs.get(key, 0.0),
                         check(f"K2 {family} {tag} dims={dims} k={k} "
                               f"R={rank} B={b}", got, ref))
+        if not torch.equal(got, _sweep.sweep_reconstruct(
+                y, *cores, plan=rplan, scale=scale)):
+            raise AssertionError(f"K2 {family} {tag}: a second call on the "
+                                 "same inputs gave other bits")
         torch.cuda.synchronize()
 
     for family in ("tt", "cp"):
@@ -867,7 +915,7 @@ def main() -> int:
             for b in (1, 3, 64):
                 hold(family, dims, 37, rank, b, "ragged")
                 hold_k5(family, dims, 37, rank, b, "ragged")
-    log("K1 gave the same bits on every second call")
+    log("K1 and K2 gave the same bits on every second call")
     torch.cuda.empty_cache()
 
     # -- 4./5. serve dense traffic ----------------------------------------
@@ -1146,7 +1194,6 @@ def main() -> int:
         y = store.get(range(b))
         core_bytes = 4 * sum(c.numel() for c in cores)
         x_bytes, y_bytes = 4 * x.numel(), 4 * y.numel()
-        trail = math.prod(dims[1:])
         letters = "abcdefgh"[:len(dims)]
         n_modes = len(dims)
         if family == "tt":
@@ -1156,14 +1203,9 @@ def main() -> int:
                         for i in range(1, n_modes - 1)]
                      + [f"k{bonds[n_modes - 2]}{letters[-1]}"])
             p_flops = theory.flops_project_dense_tt(k, dims, rank) * b
-            fold = 2 * k * rank * rank * trail * (n_modes - 2)
         else:
             terms = [f"k{c}r" for c in letters]
             p_flops = theory.flops_project_dense_cp(k, dims, rank) * b
-            fold = k * rank * trail * (n_modes - 2)
-        # the (B*d1, k*R) x (k*R, d2..dN) product, the fold, the graft
-        r_flops = (2 * b * dims[0] * k * rank * trail + fold
-                   + b * dims[0] * k * rank)
         # the cheaper route at small B: the dense (k, prod(dims)) operator,
         # then one (B, D) x (D, k) product either way
         dense = (dense_operator_flops(family, k, dims, rank)
@@ -1175,20 +1217,21 @@ def main() -> int:
                                       pipeline="double")
         rplan = ops.plan_contraction(family, "reconstruct", k, b, dims, rank)
         cases = [
-            ("sweep_project", project_route_flops(pplan),
+            ("sweep_project", route_flops(pplan),
              x_bytes + core_bytes + y_bytes,
              lambda: _sweep.sweep_project(x, *cores, plan=pplan, scale=scale),
              lambda: _sweep.sweep_project_plain(x, *cores, steps=pplan.steps,
                                                 scale=scale),
              lambda: torch.einsum(p_spec, x, *cores)),
-            ("sweep_project_pipelined", project_route_flops(p5plan),
+            ("sweep_project_pipelined", route_flops(p5plan),
              x_bytes + core_bytes + y_bytes,
              lambda: _sweep.sweep_project_pipelined(x, *cores, plan=p5plan,
                                                     scale=scale),
              lambda: _sweep.sweep_project_pipelined_plain(
                  x, *cores, steps=p5plan.steps, ba=p5plan.ba, scale=scale),
              lambda: torch.einsum(p_spec, x, *cores)),
-            ("sweep_reconstruct", r_flops, y_bytes + core_bytes + x_bytes,
+            ("sweep_reconstruct", route_flops(rplan),
+             y_bytes + core_bytes + x_bytes,
              lambda: _sweep.sweep_reconstruct(y, *cores, plan=rplan,
                                               scale=scale),
              lambda: _sweep.sweep_reconstruct_plain(
@@ -1196,16 +1239,18 @@ def main() -> int:
              lambda: torch.einsum(r_spec, y, *cores)),
         ]
         shape = f"B={b} k={k} dims={'x'.join(map(str, dims))} R={rank}"
+        plans = {"sweep_project": pplan, "sweep_project_pipelined": p5plan,
+                 "sweep_reconstruct": rplan}
         for name, program_flops, nbytes, kern, plain, library in cases:
             rows.append(time_row(f"{name}:{family}", program_flops, dense,
                                  nbytes, kern, plain, library, shape))
-            if name != "sweep_reconstruct":
-                plan = pplan if name == "sweep_project" else p5plan
-                rows[-1]["scratch_bytes"] = scratch_bytes(plan)
-                rows[-1]["sweep_program_flops"] = p_flops
-                rows[-1]["device_split_ms"] = split = device_split(kern)
-                log(f"{name}:{family} device ms per call by kernel: "
-                    + ", ".join(f"{key} {v:.3f}" for key, v in split.items()))
+            plan = plans[name]
+            rows[-1]["scratch_bytes"] = scratch_bytes(plan)
+            rows[-1]["sweep_program_flops"] = (
+                graft_flops(plan) if name == "sweep_reconstruct" else p_flops)
+            rows[-1]["device_split_ms"] = split = device_split(kern)
+            log(f"{name}:{family} device ms per call by kernel: "
+                + ", ".join(f"{key} {v:.3f}" for key, v in split.items()))
 
     # K3 and K6 at the four pairings on the serving shapes, input rank 4;
     # the cheaper route densifies the inputs, then the cheaper dense product

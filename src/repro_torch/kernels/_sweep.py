@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import math
 import os
 import shutil
 import subprocess
@@ -38,7 +37,8 @@ SOURCES = {"sweep_project": "sweep_project.cu",
            "sweep_reconstruct": "sweep_reconstruct.cu",
            "carry_sweep": "carry_sweep.cu",
            "fused_update": "fused_update.cu"}
-_HEADERS = ("sweep_common.cuh", "sweep_fold.cuh", "sweep_reconstruct.cuh")
+_HEADERS = ("sweep_common.cuh", "sweep_fold.cuh", "sweep_stage.cuh",
+            "sweep_reconstruct.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,16 +49,16 @@ _ARGTYPES = {
     # stream (K5: the same)
     "sweep_project": [_P, _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I),
                       ctypes.POINTER(_I)] + [_I] * 11 + [ctypes.c_float, _P],
-    # y, out, m_scratch, cores, dims, ops, order, B, K, R, tile_m, tile_n,
-    # tile_k, scale, stream
+    # y, out, m_scratch, cores, dims, ops, order, B, K, R, tile_m, tile_k,
+    # tile_a, tile_t, smem_bytes, scale, stream
     "sweep_reconstruct": [_P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I),
-                          ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I,
-                          ctypes.c_float, _P],
+                          ctypes.POINTER(_I)] + [_I] * 9
+                         + [ctypes.c_float, _P],
     # y, scal, p, w, m, v, resid, w_out, m_out, v_out, m_scratch, cores,
-    # dims, ops, order, B, K, R, tile_m, tile_n, tile_k, scale, b1, 1-b1,
-    # b2, 1-b2, eps, wd, stream
+    # dims, ops, order, B, K, R, tile_m, tile_k, tile_a, tile_t,
+    # smem_bytes, scale, b1, 1-b1, b2, 1-b2, eps, wd, stream
     "fused_update": [_P] * 11 + [ctypes.POINTER(_P), ctypes.POINTER(_I),
-                                 ctypes.POINTER(_I)] + [_I] * 7
+                                 ctypes.POINTER(_I)] + [_I] * 9
                     + [ctypes.c_float] * 7 + [_P],
 }
 _ARGTYPES["sweep_project_pipelined"] = _ARGTYPES["sweep_project"]
@@ -178,6 +178,18 @@ def sweep_project_plain(x: torch.Tensor, *cores: torch.Tensor, steps,
     return z * scale
 
 
+def _fold_plain(cores, plan: ContractionPlan) -> torch.Tensor:
+    """The transfer block m (k, R, T): the reconstruct program's m steps,
+    the fold that K1, K5, K2 and K4 launch."""
+    m_steps = _reconstruct_steps(plan.family, plan.order)[0]
+    m = cores[-1]
+    if m_steps[0] is not None:
+        m = torch.einsum(m_steps[0], m)
+    for spec, g in zip(m_steps[1:], reversed(cores[1:-1])):
+        m = torch.einsum(spec, g, m)
+    return m.reshape(plan.m_scratch_shape)
+
+
 def sweep_project_tiled_plain(x: torch.Tensor, *cores: torch.Tensor,
                               plan: ContractionPlan,
                               scale: float) -> torch.Tensor:
@@ -189,13 +201,7 @@ def sweep_project_tiled_plain(x: torch.Tensor, *cores: torch.Tensor,
     in group order. Ragged edges are clipped where the kernel masks them.
     A check of the kernel's index arithmetic on the CPU; no path runs it.
     """
-    m_steps = _reconstruct_steps(plan.family, plan.order)[0]
-    m = cores[-1]
-    if m_steps[0] is not None:
-        m = torch.einsum(m_steps[0], m)
-    for spec, g in zip(m_steps[1:], reversed(cores[1:-1])):
-        m = torch.einsum(spec, g, m)
-    m = m.reshape(plan.m_scratch_shape)
+    m = _fold_plain(cores, plan)
     g1, d1, trail = cores[0], plan.dims[0], plan.trail
     xf = x.reshape(plan.b, d1, trail)
     n_k, n_b, groups = plan.grid
@@ -336,13 +342,76 @@ def sweep_reconstruct_plain(y: torch.Tensor, *cores: torch.Tensor, steps,
     return torch.einsum(out_spec, h, m) * scale
 
 
+def sweep_reconstruct_tiled_plain(y: torch.Tensor, *cores: torch.Tensor,
+                                  plan: ContractionPlan, scale: float,
+                                  epilogue=None):
+    """K2's and K4's schedule in torch ops, block by block: the fold; for
+    every (slab, batch tile, T-chunk) block in launch order (slab fastest),
+    each k-chunk's operator tile S = sum_u g1 m built from the leading-core
+    slab and the chunk of m and contracted with the sketch rows into the
+    block's accumulator; then the epilogue. `epilogue(index, g)` gets each
+    finished tile g = scale * acc and its `index`, three slices (batch
+    rows, leading indices, columns of T) into the (B, d1, T) view of the
+    output; the default, K2's, stores it, and the function then returns
+    the (B, *dims) output (None under another epilogue). Ragged edges are
+    clipped where the kernel masks them. A check of the kernel's index
+    arithmetic on the CPU; no path runs it.
+    """
+    m = _fold_plain(cores, plan)
+    g1, d1, trail = cores[0], plan.dims[0], plan.trail
+    out = None
+    if epilogue is None:
+        out = y.new_empty((plan.b, d1, trail))
+
+        def epilogue(index, g):
+            out[index] = g
+    n_slabs, n_b, n_chunks = plan.grid
+    for c in range(n_chunks):
+        t0, t1 = c * plan.tc, min((c + 1) * plan.tc, trail)
+        for bb in range(n_b):
+            n0, n1 = bb * plan.tb, min((bb + 1) * plan.tb, plan.b)
+            for sl in range(n_slabs):
+                a0, a1 = sl * plan.ba, min((sl + 1) * plan.ba, d1)
+                acc = y.new_zeros((n1 - n0, a1 - a0, t1 - t0))
+                for k0 in range(0, plan.k, plan.tk):
+                    k1 = min(k0 + plan.tk, plan.k)
+                    s = torch.einsum("iau,iut->iat", g1[k0:k1, a0:a1],
+                                     m[k0:k1, :, t0:t1])
+                    acc += torch.einsum("ni,iat->nat", y[n0:n1, k0:k1], s)
+                epilogue((slice(n0, n1), slice(a0, a1), slice(t0, t1)),
+                         acc * scale)
+    return None if out is None else out.reshape((plan.b,) + plan.dims)
+
+
+def _launch_reconstruct(entry: str, head, cores, plan: ContractionPlan,
+                        tail) -> None:
+    """Launch K2 or K4 (the fold, then the operator-tile product) with the
+    plan's tiles: entry(*head, m scratch, cores, dims, opcodes, order, B,
+    K, R, tiles, smem_bytes, *tail, stream)."""
+    codes = program_codes(plan)
+    device = cores[0].device
+    m = torch.empty(plan.m_scratch_shape, device=device, dtype=torch.float32)
+    # the leading core as (d1, R, k): a slab of it is rows of k-contiguous
+    # floats, which the kernel stages 16 bytes at a time
+    lead = cores[0].permute(1, 2, 0).contiguous()
+    with torch.cuda.device(device):
+        err = _launcher(entry)(
+            *head, m.data_ptr(), _pointers((lead,) + tuple(cores[1:])),
+            _ints(plan.dims), _ints(codes), plan.order, plan.b, plan.k,
+            plan.rank, plan.tb, plan.tk, plan.ba, plan.tc, plan.smem_bytes,
+            *tail, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed with CUDA error {err} "
+                           f"(plan {plan})")
+
+
 def sweep_reconstruct(y: torch.Tensor, *cores: torch.Tensor,
                       plan: ContractionPlan, scale: float) -> torch.Tensor:
     """K2: x_hat = scale * adjoint(y) for y (B, k) -> (B, *dims) float32.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the fold
-    and product kernels (counted once in `sweep_reconstruct.launches`) or
-    raises.
+    and the operator-tile product (counted once in
+    `sweep_reconstruct.launches`) or raises.
     """
     _check("reconstruct", y, cores, plan)
     if y.device.type == "cpu":
@@ -352,21 +421,10 @@ def sweep_reconstruct(y: torch.Tensor, *cores: torch.Tensor,
     if plan.rank > MAX_RANK:
         raise ValueError(f"sweep_reconstruct holds bond ranks up to "
                          f"{MAX_RANK} per thread, got rank {plan.rank}")
-    codes = program_codes(plan)
-    trail = math.prod(plan.dims[1:])
-    m = torch.empty((plan.k, plan.rank, trail), device=y.device,
-                    dtype=torch.float32)
     out = torch.empty((plan.b,) + plan.dims, device=y.device,
                       dtype=torch.float32)
-    with torch.cuda.device(y.device):
-        err = _launcher("sweep_reconstruct")(
-            y.data_ptr(), out.data_ptr(), m.data_ptr(), _pointers(cores),
-            _ints(plan.dims), _ints(codes), plan.order, plan.b, plan.k,
-            plan.rank, plan.tb, plan.ba, plan.tk, float(scale),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sweep_reconstruct launch failed with CUDA "
-                           f"error {err} (plan {plan})")
+    _launch_reconstruct("sweep_reconstruct", (y.data_ptr(), out.data_ptr()),
+                        cores, plan, (float(scale),))
     sweep_reconstruct.launches += 1
     return out
 

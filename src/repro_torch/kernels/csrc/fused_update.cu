@@ -14,20 +14,22 @@
 //
 // Design: K2's two launches (sweep_reconstruct.cuh) with a new epilogue in
 // place of the store. fold_m_kernel writes the transfer block m once per
-// call; recon_gemm_kernel keeps each (128 x 128) output tile in registers
-// across the whole k*R depth, so the finished tile IS g, and the epilogue
-// reads p, w, m, v at the tile's dense offsets (contiguous along the column
-// tile, as K2's store is) and writes the four outputs. g is never stored.
+// call; recon_gemm_kernel builds the operator tiles S = sum_u g1 m in shared
+// memory and keeps each (16*TM batch rows x 128 columns) output tile in
+// registers across the whole k depth, so the finished tile IS g, and the
+// epilogue reads p, w, m, v at each element's dense offset and writes the
+// four outputs. g is never stored.
 // lr, c1 and c2 change every step, so they are read from a small float32
 // device array (the TPU kernel's s_ref) and never force a host sync; b1, b2,
 // eps, wd and the scale are plain arguments. The ragged edges are masked, as
 // in K2; nothing is padded.
 //
-// What bounds it on an H100: the product, 2*nb*d1*k*R*prod(d2..dN) fp32
-// flops, as K2; the epilogue adds 8 dense passes (32 bytes per element),
-// small beside the product at the shapes the trainer gives it. The epilogue
-// math is IEEE fp32: sqrtf and true division (nvcc's defaults without fast
-// math), because the AdamW step amplifies relative error where v' is small.
+// What bounds it on an H100: the product, 2*nb*k*prod(dims) fp32 flops, and
+// the build of the operator tiles, 2*k*prod(dims)*R a batch tile, as K2; the
+// epilogue adds 8 dense passes (32 bytes per element), small beside the
+// product at the shapes the trainer gives it. The epilogue math is IEEE
+// fp32: sqrtf and true division (nvcc's defaults without fast math), because
+// the AdamW step amplifies relative error where v' is small.
 #include "sweep_reconstruct.cuh"
 
 struct FusedEpilogue {
@@ -67,7 +69,8 @@ extern "C" int fused_update_launch(const void* y, const void* scal, const void* 
                                    void* v2_out, void* m_scratch,
                                    const void* const* cores, const int* dims,
                                    const int* ops, int order, int B, int K, int R,
-                                   int tile_m, int tile_n, int tile_k, float scale,
+                                   int tile_m, int tile_k, int tile_a, int tile_t,
+                                   int smem_bytes, float scale,
                                    float b1, float omb1, float b2, float omb2,
                                    float eps, float wd, void* stream) {
   FusedEpilogue epi{static_cast<const float*>(p), static_cast<const float*>(w),
@@ -77,5 +80,5 @@ extern "C" int fused_update_launch(const void* y, const void* scal, const void* 
                     static_cast<const float*>(scal), scale, b1, omb1, b2, omb2,
                     eps, wd, 0.f, 0.f, 0.f};
   return recon_launch(y, m_scratch, cores, dims, ops, order, B, K, R, tile_m,
-                      tile_n, tile_k, epi, stream);
+                      tile_k, tile_a, tile_t, smem_bytes, epi, stream);
 }

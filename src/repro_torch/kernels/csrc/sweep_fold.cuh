@@ -2,10 +2,9 @@
 //   m[k, :, (i2..iN)] = G_2[k, :, i2, :] ... G_N[k, :, iN]   (TT)
 //   m[k, r, (i2..iN)] = A_2[k, i2, r] ... A_N[k, iN, r]       (CP),
 // the program of ops.py::_reconstruct_steps' m_steps lowered to opcodes.
-// Shared by the reconstruct sweep (K2, K4: sweep_reconstruct.cuh), which
-// grafts the sketch onto the leading core against m, and the project sweep
-// (K1, K5: sweep_project.cu), which builds the operator tiles
-// S[k, a, t] = sum_u g1[k, a, u] m[k, u, t] from it.
+// Shared by the project sweep (K1, K5: sweep_project.cu) and the
+// reconstruct sweep (K2, K4: sweep_reconstruct.cuh), which both build the
+// operator tiles S[k, a, t] = sum_u g1[k, a, u] m[k, u, t] from it.
 #pragma once
 
 #include <cstdint>

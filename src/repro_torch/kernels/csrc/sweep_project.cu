@@ -49,6 +49,7 @@
 #include <cstdint>
 
 #include "sweep_fold.cuh"
+#include "sweep_stage.cuh"
 
 #define PROJ_THREADS 256  // 16 x 16 threads; ops.py: PROJECT_THREADS
 #define STAGE_BATCH 4     // loads in flight per thread while K1 stages (2 beside
@@ -62,59 +63,6 @@ struct ProjectArgs {
   int B, d1, K, R, tc, ac, m_slots, ms;  // ms: m row stride in shared memory
   long long T, n_chunks, cpg;            // chunks per group
 };
-
-static __device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                                 bool valid) {
-  // 4-byte asynchronous copy global -> shared; zero-fills dst when !valid
-  // (src-size 0 reads nothing, but src must still be a mapped address)
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(n));
-}
-static __device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                                  bool valid) {
-  // 16-byte asynchronous copy global -> shared (both 16-byte aligned)
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(n));
-}
-static __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-static __device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// One piece of a staging copy: W floats from src to dst, dst's floats
-// `stride` apart; zeros where !ok.
-struct Piece {
-  const float* src;
-  float* dst;
-  int stride;
-  bool ok;
-};
-template <int V>
-struct Int {
-  static constexpr int value = V;
-};
-
-// n / d for 0 <= n < 2^22 without an integer division: the float quotient,
-// corrected by one either way.
-struct FastDiv {
-  int d;
-  float inv;
-  __device__ __forceinline__ int operator()(int n) const {
-    int q = __float2int_rz(__int2float_rz(n) * inv);
-    q -= q * d > n;
-    q += (q + 1) * d <= n;
-    return q;
-  }
-};
-static __device__ __forceinline__ FastDiv fast_div(int d) { return {d, 1.f / d}; }
-
-static __host__ __device__ inline long long up4(long long n) { return (n + 3) / 4 * 4; }
 
 // Shared-memory layout in floats, each region a multiple of 4 (16 bytes):
 //   ms  m_slots x [BN][ms]          m[k0+i, u, t0+t] at i*ms + u*tc + t
@@ -156,57 +104,13 @@ __global__ void __launch_bounds__(PROJ_THREADS, 2) project_gemm_kernel(ProjectAr
   float* gs = xs + (PIPE ? 2 : 1) * L.x_slot;
   float* ss = gs + (PIPE ? 2 : 1) * L.g_slot;
 
-  // Staging. A copy moves n pieces of W floats (W = 4 where the rows of the
-  // source are multiples of 16 bytes, else 1); piece(e, W) gives piece e's
-  // source, its destination, the stride between its floats there (1:
-  // contiguous) and whether it lies inside the operands (else zeros). K1
-  // loads SB pieces into registers before it stores them, so their
-  // latencies overlap; K5 issues them as cp.async copies.
+  // Staging (stage_copy, sweep_stage.cuh): K1 loads SB pieces into
+  // registers before it stores them, so their latencies overlap; K5 issues
+  // them as cp.async copies.
   const int lt = __ffs(tc) - 1;
   constexpr int SB = TM * TN >= 64 ? 2 : STAGE_BATCH;
   auto copy = [&](auto width, int n, auto piece, const float* base) {
-    constexpr int W = decltype(width)::value;
-    for (int e0 = tid; e0 < n; e0 += PROJ_THREADS * SB) {
-      float v[SB][W];
-      Piece dst[SB];
-#pragma unroll
-      for (int b = 0; b < SB; ++b) {
-        const int e = e0 + b * PROJ_THREADS;
-        if (e >= n) break;
-        dst[b] = piece(e, width);
-        const bool ok = dst[b].ok;
-        if (PIPE) {
-          if (W == 4 && dst[b].stride == 1) {
-            cp_async16(dst[b].dst, ok ? dst[b].src : base, ok);
-          } else {
-#pragma unroll
-            for (int w = 0; w < W; ++w)
-              cp_async4(dst[b].dst + w * dst[b].stride, ok ? dst[b].src + w : base, ok);
-          }
-        } else if constexpr (W == 4) {
-          const float4 x = ok ? __ldg(reinterpret_cast<const float4*>(dst[b].src))
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-          v[b][0] = x.x; v[b][1] = x.y; v[b][2] = x.z; v[b][3] = x.w;
-        } else {
-          v[b][0] = ok ? __ldg(dst[b].src) : 0.f;
-        }
-      }
-      if (!PIPE) {
-#pragma unroll
-        for (int b = 0; b < SB; ++b) {
-          if (e0 + b * PROJ_THREADS >= n) break;
-          if constexpr (W == 4) {
-            if (dst[b].stride == 1) {
-              *reinterpret_cast<float4*>(dst[b].dst) =
-                  make_float4(v[b][0], v[b][1], v[b][2], v[b][3]);
-              continue;
-            }
-          }
-#pragma unroll
-          for (int w = 0; w < W; ++w) dst[b].dst[w * dst[b].stride] = v[b][w];
-        }
-      }
-    }
+    stage_copy<PROJ_THREADS, SB, PIPE>(width, tid, n, piece, base);
   };
   // m[k-tile, :, chunk c] into m slot `slot`: pieces (i, u, t), t fastest
   const FastDiv by_r = fast_div(R);
@@ -290,44 +194,17 @@ __global__ void __launch_bounds__(PROJ_THREADS, 2) project_gemm_kernel(ProjectAr
       stage_slab(c, a0, 0);
       __syncthreads();
     }
-    // the operator tile S[k-tile, slab, chunk]: a unit is four columns t of
-    // one k-row for up to four leading indices, so one float4 read of m
-    // feeds sixteen FMAs; k-rows across the lanes
-    {
-      const float* gsl = gs + xslot * L.g_slot;
-      const float* msl = ms + mslot * L.m_slot;
-      const int lq = lt - 2, nal = (ac + 3) / 4;
-      for (int e = tid; e < (nal * BN) << lq; e += PROJ_THREADS) {
-        const int i = e % BN, r = e / BN, q = r & ((1 << lq) - 1), al0 = (r >> lq) * 4;
-        const int na = min(4, ac - al0);
-        const float* gp = gsl + al0 * R * BN + i;
-        const float* mp = msl + i * a.ms + q * 4;
-        float4 s[4] = {};
-        for (int u = 0; u < R; ++u) {
-          const float4 mv = *reinterpret_cast<const float4*>(mp + u * tc);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (j < na) {
-              const float g = gp[(j * R + u) * BN];
-              s[j].x = fmaf(g, mv.x, s[j].x);
-              s[j].y = fmaf(g, mv.y, s[j].y);
-              s[j].z = fmaf(g, mv.z, s[j].z);
-              s[j].w = fmaf(g, mv.w, s[j].w);
-            }
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (j < na) {
-            float* sp = ss + ((al0 + j) * tc + q * 4) * BN + i;
-            sp[0] = s[j].x;
-            sp[BN] = s[j].y;
-            sp[2 * BN] = s[j].z;
-            sp[3 * BN] = s[j].w;
-          }
-        }
-      }
-    }
+    // the operator tile S[k-tile, slab, chunk], stored (a, t)-major with
+    // the k-rows contiguous
+    build_operator_tile<BN, PROJ_THREADS>(
+        gs + xslot * L.g_slot, ms + mslot * L.m_slot, a.ms, R, tc, lt, ac, tid,
+        [&](int i, int al, int t, float4 s) {
+          float* sp = ss + (al * tc + t) * BN + i;
+          sp[0] = s.x;
+          sp[BN] = s.y;
+          sp[2 * BN] = s.z;
+          sp[3 * BN] = s.w;
+        });
     __syncthreads();
     // acc[n, i] += sum over the slab's (a, t) of X[n, a, t] S[i, a, t]
     {

@@ -2,22 +2,23 @@
 //   x_hat[n, i1, ..., iN] = scale * sum_k y[n,k] S_k[i1, ..., iN].
 //
 // Replaces the Pallas TPU kernel repro/kernels/_sweep.py::sweep_reconstruct
-// (_reconstruct_kernel) and runs the same program
-// (repro_torch/kernels/ops.py::_reconstruct_steps) in two launches, whose
-// device code is in sweep_reconstruct.cuh (shared with K4, fused_update.cu):
+// (_reconstruct_kernel), which grafted the sketch onto the leading core and
+// ran the (B*d1, k*R) x (k*R, d2..dN) contraction of the reference's program
+// (repro_torch/kernels/ops.py::_reconstruct_steps), 2*B*k*R*D flops. Here the
+// same function takes the dense-operator route in two launches, whose device
+// code is in sweep_reconstruct.cuh (shared with K4, fused_update.cu):
 //  1. fold_m_kernel folds the trailing cores into the batch-independent
 //     transfer block m (k, R, d2..dN) once per call (the TPU kernel refolded
 //     it in VMEM for every grid step).
-//  2. recon_gemm_kernel computes the (B*d1, k*R) x (k*R, d2..dN) contraction
-//     with y grafted onto the leading core; here its epilogue stores the
-//     scaled tile. The loop over the k*R depth inside the block is the TPU's
-//     k-innermost grid axis that accumulated in the revisited output block.
+//  2. recon_gemm_kernel builds the operator tiles S[k, a, t] = sum_u
+//     g1[k, a, u] m[k, u, t] in shared memory, once per batch tile, and
+//     accumulates the (B, k) x (k, D) product in registers over the whole
+//     depth (the TPU's k-innermost grid axis, which accumulated in the
+//     revisited output block); here its epilogue stores the scaled element.
+// 2*k*D*R flops per batch tile for the build and 2*B*k*D for the product.
 //
-// What bounds it on an H100: the contraction does 2*B*d1*k*R*prod(d2..dN)
-// flops, far more per byte than the card's fp32 ratio, so fp32 FMA issue
-// bounds it. Design answer, kept simple: a classic shared-memory tiled product
-// with an 8x8 register tile per thread (each shared load feeds eight FMAs),
-// IEEE fp32 FMAs only (no TF32, no tensor cores); wgmma/TMA are later work.
+// What bounds it on an H100: fp32 FMA issue (the product's flops per byte are
+// far above the card's ratio); the design answers in sweep_reconstruct.cuh.
 #include "sweep_reconstruct.cuh"
 
 struct StoreEpilogue {
@@ -32,9 +33,10 @@ struct StoreEpilogue {
 extern "C" int sweep_reconstruct_launch(const void* y, void* out, void* m_scratch,
                                         const void* const* cores, const int* dims,
                                         const int* ops, int order, int B, int K,
-                                        int R, int tile_m, int tile_n, int tile_k,
-                                        float scale, void* stream) {
+                                        int R, int tile_m, int tile_k, int tile_a,
+                                        int tile_t, int smem_bytes, float scale,
+                                        void* stream) {
   return recon_launch(y, m_scratch, cores, dims, ops, order, B, K, R, tile_m,
-                      tile_n, tile_k,
+                      tile_k, tile_a, tile_t, smem_bytes,
                       StoreEpilogue{static_cast<float*>(out), scale}, stream);
 }

@@ -9,9 +9,9 @@ step runs, per dense leaf,
 
 which writes the dense reconstruction g_hat to device memory and then
 streams every dense operand again. K4 (`csrc/fused_update.cu`) fuses the
-chain into ONE call per leaf: K2's fold and tiled product
+chain into ONE call per leaf: K2's fold and operator-tile product
 (`csrc/sweep_reconstruct.cuh`), whose output tile stays in registers over
-the whole k*R depth, with an epilogue that reads p, w, m, v at the tile's
+the whole k depth, with an epilogue that reads p, w, m, v at the tile's
 offsets and writes
 
     resid = p - g_hat                         (error feedback)
@@ -41,13 +41,13 @@ from repro_torch.core.formats import _prod
 from repro_torch.core.tt_rp import TTRP
 
 from .ops import (MAX_ORDER, MAX_RANK, ContractionPlan, kernel_order_supported,
-                  plan_contraction, program_codes, sweep_hbm_bytes,
-                  tt_cores_squeezed)
+                  plan_contraction, sweep_hbm_bytes, tt_cores_squeezed)
 
 
 def plan_fused_update(family: str, k: int, b: int, dims: tuple[int, ...],
                       rank: int) -> ContractionPlan:
-    """Reconstruct-sweep plan for the fused launch.
+    """Reconstruct-sweep plan for the fused launch: K2's tiles (batch
+    tile, depth chunk, slab of leading indices, chunk of T) and grid.
 
     The reference charged the eight dense tiles its TPU kernel kept in
     VMEM against the sweep's budget and iterated to a fixed point. The
@@ -115,6 +115,14 @@ def fused_update_buckets_plain(op, y, p, w, m, v, lr, c1, c2, *,
     plan = plan_fused_update(family, op.k, y.shape[0], op.in_dims, op.rank)
     g = sweep_reconstruct_plain(y, *cores, steps=plan.steps,
                                 scale=float(alpha) / math.sqrt(op.k))
+    return update_epilogue(g, p, w, m, v, lr, c1, c2, b1=b1, b2=b2, eps=eps,
+                           weight_decay=weight_decay)
+
+
+def update_epilogue(g, p, w, m, v, lr, c1, c2, *, b1: float, b2: float,
+                    eps: float, weight_decay: float):
+    """K4's epilogue on the reconstruction g and the dense operands at the
+    same elements: (resid, w_new, m_new, v_new)."""
     m32 = b1 * m + (1.0 - b1) * g
     v32 = b2 * v + (1.0 - b2) * g * g
     step = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)
@@ -177,24 +185,15 @@ def fused_update_buckets(op, y, p, w, m, v, lr, c1, c2, *, alpha: float,
     if plan.rank > MAX_RANK:
         raise ValueError(f"fused_update holds bond ranks up to {MAX_RANK} "
                          f"per thread, got rank {plan.rank}")
-    from ._sweep import _ints, _launcher, _pointers
-    codes = program_codes(plan)
+    from ._sweep import _launch_reconstruct
     scal = _scalars(lr, c1, c2, y.device)
     outs = tuple(torch.empty_like(p) for _ in range(4))
-    mblk = torch.empty((plan.k, plan.rank, _prod(plan.dims[1:])),
-                       device=y.device, dtype=torch.float32)
-    with torch.cuda.device(y.device):
-        err = _launcher("fused_update")(
-            y.data_ptr(), scal.data_ptr(), *(t.data_ptr() for t in dense),
-            *(t.data_ptr() for t in outs), mblk.data_ptr(), _pointers(cores),
-            _ints(plan.dims), _ints(codes), plan.order, plan.b, plan.k,
-            plan.rank, plan.tb, plan.ba, plan.tk,
-            float(alpha) / math.sqrt(op.k), float(b1), float(1.0 - b1),
-            float(b2), float(1.0 - b2), float(eps), float(weight_decay),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_update launch failed with CUDA error "
-                           f"{err} (plan {plan})")
+    _launch_reconstruct(
+        "fused_update", (y.data_ptr(), scal.data_ptr(),
+                         *(t.data_ptr() for t in dense + outs)),
+        cores, plan, (float(alpha) / math.sqrt(op.k), float(b1),
+                      float(1.0 - b1), float(b2), float(1.0 - b2),
+                      float(eps), float(weight_decay)))
     fused_update_buckets.launches += 1
     return outs
 
@@ -209,4 +208,4 @@ def reset_launch_counts() -> None:
 
 __all__ = ["fused_hbm_bytes", "fused_update_buckets",
            "fused_update_buckets_plain", "plan_fused_update",
-           "reset_launch_counts", "unfused_hbm_bytes"]
+           "reset_launch_counts", "unfused_hbm_bytes", "update_epilogue"]

@@ -23,10 +23,14 @@ tiles do not carry over):
   time. Under `pipeline='double'` (K5) the staged input and leading-core
   slab have two slots, and the m chunk `m_slots` (two where they fit),
   so the next slab streams in while the current one contracts.
-* reconstruct (K2): a fold launch writes the batch-independent transfer
-  block m (k, R, d2..dN) to a scratch buffer, then a tiled product kernel
-  owns a (tb rows of (n, d1) x ba columns of d2..dN) output tile and loops
-  over the k*R depth in steps of tk.
+* reconstruct (K2, K4): the same route backwards, in two launches. The
+  fold writes m (k, R, T) to a scratch buffer; a product kernel owns an
+  output tile of tb batch rows x a slab of `ba` leading indices x a chunk
+  of `tc` columns of T (ba * tc = RECON_TILE_N), walks the depth k in
+  chunks of tk, builds the operator tile S[k-chunk, slab, chunk] in shared
+  memory and accumulates the (B, k) x (k, D) product in registers. Its
+  blocks run slab fastest, then batch tile, then chunk, so the blocks that
+  read one chunk of m run together and L2 serves the repeats.
 
 The wrappers (`tt_project` / `cp_project` and the adjoints) handle single
 vs batched inputs and layout conversion from the operator containers for
@@ -86,10 +90,21 @@ PROJECT_TILE_K = (128, 64)
 PROJECT_TILE_T = (16, 8, 4)
 PROJECT_DEPTH = 64
 # Bond ranks the fold holds per thread (csrc/sweep_fold.cuh: MAXR); K1,
-# K5 and K2 share the fold.
+# K5, K2 and K4 share the fold.
 MAX_RANK = 64
-# Tile of the reconstruct product kernel (csrc: BM, BN, BK).
-RECON_TILE = (128, 128, 8)
+# The reconstruct product kernel (csrc/sweep_reconstruct.cuh, K2 and K4):
+# RECON_THREADS threads as 16 x 16, each owning TM batch rows x 8 columns,
+# so a block tile is 16*TM batch rows (TM in RECON_TM) x RECON_TILE_N
+# output columns (a slab of ba leading indices x a chunk of tc columns of
+# T, ba * tc = RECON_TILE_N, tc a power of 2 in RECON_TILE_T); the depth k
+# goes in chunks of tk (RECON_TILE_K). The operator tile's rows are
+# RECON_S_STRIDE floats apart.
+RECON_THREADS = 256
+RECON_TM = (1, 2, 3, 4, 6, 8)
+RECON_TILE_N = 128
+RECON_TILE_K = (64, 32, 16)
+RECON_TILE_T = (4, 8, 16, 32, 64, 128)
+RECON_S_STRIDE = 132
 
 # Opcodes of the lowered fold (csrc/sweep_common.cuh holds the same).
 OP_M_INIT_TT, OP_M_INIT_CP, OP_M_MIX_TT, OP_M_HAD_CP = 6, 7, 8, 9
@@ -178,10 +193,11 @@ def _m_code(spec: str | None, order: int, j: int) -> int:
 def program_codes(plan: "ContractionPlan") -> tuple[int, ...]:
     """The opcodes the kernels execute for the plan: the fold of the
     trailing cores, one opcode per transfer-block step of the reconstruct
-    program of the plan's family and order. K1, K5 and K2 share it. For a
-    reconstruct plan the graft and the final contraction are checked to be
-    the fixed forms the product kernel computes; a project plan's steps
-    stay the reference's project program, which its plain version runs.
+    program of the plan's family and order. K1, K5, K2 and K4 share it.
+    For a reconstruct plan the program's graft and final contraction are
+    checked to be the fixed forms whose function the operator-tile product
+    computes; a plan's steps stay the reference's program, which the plain
+    versions run.
     """
     n = plan.order
     if plan.kind == "project":
@@ -214,8 +230,9 @@ class ContractionPlan:
     as is. project: tk k-rows x tb batch rows per block, ba leading
     indices per slab, tc columns of T = prod(d2..dN) per chunk, the chunks
     split into `groups` runs (one per grid z), m_slots chunks of m
-    resident (K5: 2 where they fit). reconstruct: see the module
-    docstring.
+    resident (K5: 2 where they fit). reconstruct: tb batch rows x a slab
+    of ba leading indices x a chunk of tc columns of T per block, the
+    depth k in chunks of tk.
     """
 
     family: str
@@ -245,17 +262,19 @@ class ContractionPlan:
 
     @property
     def grid(self) -> tuple[int, ...]:
-        """CUDA grid: (k tiles, batch tiles, groups) for the project
-        product; (d2..dN column tiles, (n, d1) row tiles) for the
-        reconstruct product."""
+        """The product kernel's blocks. project: the CUDA grid (k tiles,
+        batch tiles, groups). reconstruct: (slabs of ba leading indices,
+        batch tiles, T-chunks), launched as one linear grid of their
+        product with the slab fastest, then the batch tile."""
         if self.kind == "project":
             return (-(-self.k // self.tk), -(-self.b // self.tb), self.groups)
-        return (-(-self.trail // self.ba),
-                -(-(self.b * self.dims[0]) // self.tb))
+        return (-(-self.dims[0] // self.ba), -(-self.b // self.tb),
+                -(-self.trail // self.tc))
 
     @property
     def m_scratch_shape(self) -> tuple[int, int, int]:
-        """The fold's output m (k, R, T), a scratch of K1, K5 and K2."""
+        """The fold's output m (k, R, T), a scratch of K1, K5, K2 and
+        K4."""
         return (self.k, self.rank, self.trail)
 
     @property
@@ -309,6 +328,12 @@ def _groups(n_chunks: int, tiles: int) -> int:
     return best[1]
 
 
+def _batch_tile(b: int, tms: tuple[int, ...]) -> int:
+    """The smallest 16*TM rows (TM in `tms`) that hold the batch, at most
+    the largest."""
+    return 16 * next((t for t in tms if 16 * t >= b), tms[-1])
+
+
 @functools.lru_cache(maxsize=1024)
 def _plan_project(k: int, b: int, dims: tuple[int, ...], r: int, budget: int,
                   pipeline: str) -> dict:
@@ -325,8 +350,7 @@ def _plan_project(k: int, b: int, dims: tuple[int, ...], r: int, budget: int,
     groups until the grid holds two blocks per SM.
     """
     d1, trail = dims[0], _prod(dims[1:])
-    tm = next((t for t in PROJECT_TM if 16 * t >= b), PROJECT_TM[-1])
-    tb = 16 * tm
+    tb = _batch_tile(b, PROJECT_TM)
     tc_max = _up4(trail)
     double = pipeline == "double"
     for limit in (budget // 2 - 1024, budget):   # two blocks an SM, then one
@@ -356,6 +380,55 @@ def _plan_project(k: int, b: int, dims: tuple[int, ...], r: int, budget: int,
         f"{budget}-byte block budget")
 
 
+def recon_smem_bytes(tb: int, tk: int, ba: int, tc: int, rank: int) -> int:
+    """Dynamic shared memory of one K2/K4 product block
+    (csrc/sweep_reconstruct.cuh, `recon_smem_floats`): the sketch chunk
+    (tk rows of tb+1 floats), the leading-core slab (ba*R rows of tk
+    floats), the chunk of m (tk rows of `m_row_stride` floats) and the
+    operator tile (tk rows of RECON_S_STRIDE floats)."""
+    return 4 * (_up4(tk * (tb + 1)) + tk * ba * rank
+                + tk * m_row_stride(rank, tc) + tk * RECON_S_STRIDE)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_reconstruct(k: int, b: int, dims: tuple[int, ...], r: int,
+                      budget: int) -> dict:
+    """Tiles of the K2/K4 product kernel.
+
+    The batch tile is the smallest 16*TM holding the batch, up to 128 rows
+    (larger batches take several tiles): the operator tile is built once
+    per batch tile, so the build costs R/tb of the product. The chunk
+    width tc (ba = RECON_TILE_N // tc leading
+    indices a slab) comes first by the fewest blocks (the least masked
+    waste at the ragged edges of d1 and T), then by the fewest floats
+    staged per output column (1/ba + 1/tc: the chunk of m is staged for
+    each slab, the leading-core slab for each chunk), then the wider chunk;
+    the first that fits takes the deepest tk of RECON_TILE_K that fits
+    (fewer barriers a block). Fitting means two blocks to an SM where any
+    tiling does, else one within `budget`.
+    """
+    d1, trail = dims[0], _prod(dims[1:])
+    tb = _batch_tile(b, RECON_TM)
+
+    def key(tc):
+        ba = RECON_TILE_N // tc
+        return (-(-d1 // ba) * -(-trail // tc), 1 / ba + 1 / tc, -tc)
+
+    for limit in (budget // 2 - 1024, budget):   # two blocks an SM, then one
+        for tc in sorted(RECON_TILE_T, key=key):
+            ba = RECON_TILE_N // tc
+            for tk in RECON_TILE_K:
+                smem = recon_smem_bytes(tb, tk, ba, tc, r)
+                if smem <= limit:
+                    return dict(tk=tk, tb=tb, ba=ba, tc=tc, smem_bytes=smem)
+    least = min(recon_smem_bytes(tb, RECON_TILE_K[-1], RECON_TILE_N // tc,
+                                 tc, r) for tc in RECON_TILE_T)
+    raise ValueError(
+        f"plan_contraction(reconstruct): dims={dims}, rank={r} need "
+        f"{least} bytes of shared memory at the smallest tiling, over the "
+        f"{budget}-byte block budget")
+
+
 def plan_contraction(family: str, kind: str, k: int, b: int,
                      dims: tuple[int, ...], rank: int, *,
                      budget: int = SMEM_BUDGET_BYTES,
@@ -364,9 +437,9 @@ def plan_contraction(family: str, kind: str, k: int, b: int,
 
     project: the K1/K5 tiles of `_plan_project`; a bond rank above
     MAX_RANK raises RankLimitError (the fold holds a rank-vector per
-    thread, as K2's does).
-    reconstruct: the fixed RECON_TILE product tile; the transfer block
-    lives in device memory, so shared memory does not depend on shape.
+    thread, as K2's and K4's does; their wrappers refuse such a rank at
+    launch, so a reconstruct plan still serves the plain version on the
+    CPU). reconstruct: the K2/K4 tiles of `_plan_reconstruct`.
     `pipeline='double'` (project only) charges K5's second slots.
     """
     if kind not in _KINDS:
@@ -394,8 +467,7 @@ def plan_contraction(family: str, kind: str, k: int, b: int,
         tiles = _plan_project(int(k), b, dims, r, budget, pipeline)
         steps = _project_steps(family, order)
     else:
-        tb, ba, tk = RECON_TILE
-        tiles = dict(tk=tk, tb=tb, ba=ba, smem_bytes=4 * tk * (tb + ba))
+        tiles = _plan_reconstruct(int(k), b, dims, r, budget)
         steps = _reconstruct_steps(family, order)
     return ContractionPlan(family=family, kind=kind, k=int(k), b=b, dims=dims,
                            rank=r, steps=steps, pipeline=pipeline, **tiles)
@@ -410,9 +482,13 @@ def sweep_hbm_bytes(plan: ContractionPlan) -> int:
     once per batch tile), its input rows once (x once per k tile) and its
     k-rows of the leading core once per chunk, and writes its partial
     tile; the reduce reads the partials and writes y. K5 copies the same
-    tiles, only earlier. reconstruct: the product reads the sketch and
-    leading core once per column tile, m once per row tile, and writes the
-    output once.
+    tiles, only earlier. reconstruct: every block stages its chunk of m,
+    its rows of the sketch and its slab of the leading core over the whole
+    depth, so the blocks read m d1/ba times per batch tile and the sketch
+    and the leading core once per chunk. The blocks that share a chunk of
+    m run together (slab fastest, then batch tile), and the sketch and the
+    leading core are small beside L2, so L2 serves those repeats: each is
+    counted once from device memory, beside the output written once.
     """
     k, b, dims, r = plan.k, plan.b, plan.dims, plan.rank
     x_total = 4 * b * _prod(dims)
@@ -431,8 +507,7 @@ def sweep_hbm_bytes(plan: ContractionPlan) -> int:
         partials = 4 * groups * b * k
         return (fold + nb * m_total + nk * x_total + nb * n_chunks * c1
                 + 2 * partials + y_total)
-    n_cols, n_rows = plan.grid
-    return (fold + n_cols * (y_total + c1) + n_rows * m_total + x_total)
+    return fold + m_total + y_total + c1 + x_total
 
 
 # ---------------------------------------------------------------------------

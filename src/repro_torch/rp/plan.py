@@ -171,7 +171,8 @@ class ExecutionPlan:
     device: str
     chunk: int | None
     chunk_policy: str              # 'n/a' | 'folded' | 'honored'
-    tiles: tuple | None            # (tk, tb, ba) / (tk, tb)
+    tiles: tuple | None            # dense sweep and update: (tk, tb, ba,
+                                   # tc); carry sweep: (tk, tb)
     grid: tuple | None
     rejected: tuple                # ((route, reason), ...)
     cost: CostLedger
@@ -412,7 +413,8 @@ def _build_plan(op_sig: _OpSig, sig: StructureSig, kind: str, backend: str,
         if route == "kernel":
             kplan = kops.plan_contraction(f, kind, k, b, dims, rank,
                                           pipeline=pipeline)
-            tiles, grid = (kplan.tk, kplan.tb, kplan.ba), kplan.grid
+            tiles = (kplan.tk, kplan.tb, kplan.ba, kplan.tc)
+            grid = kplan.grid
             smem = kplan.smem_bytes
             hbm = kops.sweep_hbm_bytes(kplan)
         else:
@@ -616,7 +618,8 @@ def plan_update(op_spec, batch: int, *, fused: bool = True) -> ExecutionPlan:
         route="kernel" if fused else "torch",
         kernel="fused_update" if fused else "unfused_chain",
         pipeline="serial", device=op_sig.device, chunk=None,
-        chunk_policy="folded", tiles=(fplan.tk, fplan.tb, fplan.ba),
+        chunk_policy="folded",
+        tiles=(fplan.tk, fplan.tb, fplan.ba, fplan.tc),
         grid=fplan.grid,
         rejected=((("torch", "fused path requested: the dense gradient "
                     "estimate is never stored"),) if fused

@@ -29,6 +29,7 @@ from repro_torch.serve import (ServeConfig, SketchServer, SketchStore,
 
 pytestmark = pytest.mark.gpu
 SHAPES = [(12, 20), (6, 10, 14), (4, 6, 5, 7), (3, 4, 5, 3, 6)]
+HP = dict(alpha=0.9, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
 
 
 @pytest.fixture
@@ -138,6 +139,60 @@ def test_k1_gives_the_same_bits_every_call(cuda, family):
     assert torch.equal(first, again)
 
 
+@pytest.mark.parametrize("family", ["tt", "cp"])
+@pytest.mark.parametrize("case", RAGGED,
+                         ids=lambda c: "x".join(map(str, c[0])) + f"-R{c[1]}")
+@pytest.mark.parametrize("b", [1, 3, 130])
+def test_k2_k4_ragged_shapes_match_plain_version(cuda, family, case, b):
+    """Orders 2 and 8, k = 37 (a ragged depth chunk), d1 ragged against
+    the slab and T against the chunk (T not a multiple of 4 at (5, 7) and
+    order 8), ranks above 8, B in {1, 3, 130} (130: two batch tiles, the
+    second of 2 rows): K2 and K4 against their plain versions."""
+    dims, rank = case
+    k = 37
+    op, cores = _operands(family, dims, k, rank, cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    y = torch.randn((b, k), generator=g, device=cuda)
+    plan = ops.plan_contraction(family, "reconstruct", k, b, dims, rank)
+    got = _sweep.sweep_reconstruct(y, *cores, plan=plan, scale=0.5)
+    ref = _sweep.sweep_reconstruct_plain(y, *cores, steps=plan.steps,
+                                         scale=0.5)
+    assert _rel(got, ref) <= 1e-4
+    p, w, m, v = (torch.randn((b,) + dims, generator=g, device=cuda)
+                  for _ in range(4))
+    v = v.abs() * 1e-2
+    got = fused.fused_update_buckets(op, y, p, w, m, v, 1e-3, 0.3, 0.2,
+                                     **HP)
+    ref = fused.fused_update_buckets_plain(op, y, p, w, m, v, 1e-3, 0.3,
+                                           0.2, **HP)
+    for a, r in zip(got, ref):
+        assert _rel(a, r) <= 1e-4
+
+
+@pytest.mark.parametrize("family", ["tt", "cp"])
+def test_k2_k4_give_the_same_bits_every_call(cuda, family):
+    """Each output element is summed by one thread in one order: two
+    calls on the same inputs agree bit for bit (K2 at the serving shape,
+    K4 at a leaf of 48 buckets of 32^3)."""
+    dims, k, rank = (64, 64, 64), 512, 5 if family == "tt" else 25
+    _, cores = _operands(family, dims, k, rank, cuda)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    y = torch.randn((64, k), generator=g, device=cuda)
+    plan = ops.plan_contraction(family, "reconstruct", k, 64, dims, rank)
+    first = _sweep.sweep_reconstruct(y, *cores, plan=plan, scale=1.0)
+    assert torch.equal(first, _sweep.sweep_reconstruct(y, *cores, plan=plan,
+                                                       scale=1.0))
+    dims, k, nb = (32, 32, 32), 1024, 48
+    op, _ = _operands(family, dims, k, 8, cuda)
+    y = torch.randn((nb, k), generator=g, device=cuda)
+    dense = [torch.randn((nb,) + dims, generator=g, device=cuda)
+             for _ in range(4)]
+    dense[3] = dense[3].abs()
+    first = fused.fused_update_buckets(op, y, *dense, 1e-3, 0.3, 0.2, **HP)
+    again = fused.fused_update_buckets(op, y, *dense, 1e-3, 0.3, 0.2, **HP)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 CARRY_SHAPES = SHAPES + [(2, 3, 2, 3, 2, 2, 3), (2,) * 8, (8, 128, 64)]
 
 
@@ -190,16 +245,19 @@ def test_mixed_server_ticks_launch_k1_and_k3(cuda):
     assert carry.carry_sweep_project.launches == rep["ticks"] - dense > 0
 
 
-HP = dict(alpha=0.9, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
-
 
 @pytest.mark.parametrize("family", ["tt", "cp"])
 @pytest.mark.parametrize("dims", SHAPES + [(16, 16, 8)],
                          ids=lambda d: "x".join(map(str, d)))
-def test_k4_matches_plain_version(cuda, family, dims):
-    """Ragged k (37) and B (3); lr, c1, c2 as device scalars, float
-    arguments, or host 0-d tensors."""
-    k, rank, nb = 37, 3, 3
+@pytest.mark.parametrize("k,rank", [(37, 3), (64, 11)],
+                         ids=["k37-R3", "k64-R11"])
+def test_k4_matches_plain_version(cuda, family, dims, k, rank):
+    """Ragged B (3); k = 37 (a ragged depth chunk; the sketch and the
+    leading core staged 4 bytes at a time) and k = 64 with rank 11 (16
+    bytes at a time); m is staged 4 bytes at a time where T is not a
+    multiple of 4 ((4, 6, 5, 7), (3, 4, 5, 3, 6)); lr, c1, c2 as device
+    scalars, float arguments, or host 0-d tensors."""
+    nb = 3
     op, _ = _operands(family, dims, k, rank, cuda)
     g = torch.Generator(device=cuda).manual_seed(4)
     y = torch.randn((nb, k), generator=g, device=cuda)

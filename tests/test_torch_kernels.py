@@ -126,6 +126,54 @@ def test_every_planned_tile_fits_shared_memory(family, dims):
                 # the batch tile is the smallest that holds the batch
                 assert plan.tb >= min(b, 128) and (plan.tb == 16
                                                    or plan.tb - 16 < b)
+            else:
+                assert plan.tb in [16 * t for t in ops.RECON_TM]
+                assert plan.tb >= min(b, 128) and (plan.tb == 16
+                                                   or plan.tb - 16 < b)
+                assert plan.tk in ops.RECON_TILE_K
+                assert plan.tc in ops.RECON_TILE_T
+                assert plan.ba * plan.tc == ops.RECON_TILE_N
+                assert plan.smem_bytes == ops.recon_smem_bytes(
+                    plan.tb, plan.tk, plan.ba, plan.tc, rank)
+                # the grid covers the output once: slabs x batch tiles x
+                # chunks, none of them empty
+                n_slabs, n_b, n_chunks = plan.grid
+                assert (n_slabs - 1) * plan.ba < dims[0] <= n_slabs * plan.ba
+                assert (n_b - 1) * plan.tb < b <= n_b * plan.tb
+                assert ((n_chunks - 1) * plan.tc < plan.trail
+                        <= n_chunks * plan.tc)
+
+
+@pytest.mark.parametrize("rank", [1, 5, 8, 25, 64])
+@pytest.mark.parametrize("b", [1, 48, 376])
+def test_reconstruct_plans_fit_and_prefer_two_blocks_an_sm(rank, b):
+    """Every reconstruct plan up to MAX_RANK fits the block budget, two
+    blocks an SM where any tiling does; the chunk and slab take the fewest
+    blocks, then the squarest ba x tc."""
+    for dims in [(32, 32, 32, 32), (64, 64, 64), (2, 3, 3, 3, 3, 3, 3, 3),
+                 (12, 20), (256, 1024)]:
+        plan = ops.plan_contraction("tt", "reconstruct", 1024, b, dims, rank)
+        assert plan.smem_bytes <= ops.SMEM_BUDGET_BYTES
+        def smem(tk, tc):
+            return ops.recon_smem_bytes(plan.tb, tk, ops.RECON_TILE_N // tc,
+                                        tc, rank)
+
+        half = ops.SMEM_BUDGET_BYTES // 2 - 1024
+        limit = ops.SMEM_BUDGET_BYTES
+        if any(smem(tk, tc) <= half for tk in ops.RECON_TILE_K
+               for tc in ops.RECON_TILE_T):
+            limit = half
+        assert plan.smem_bytes <= limit
+        # no chunk width that fits the same limit at this depth takes
+        # fewer blocks
+        blocks = math.prod(plan.grid[::2])
+        for tc in ops.RECON_TILE_T:
+            if smem(plan.tk, tc) <= limit:
+                ba = ops.RECON_TILE_N // tc
+                assert blocks <= -(-dims[0] // ba) * -(-plan.trail // tc)
+    w_gate = ops.plan_contraction("tt", "reconstruct", 1024, 48,
+                                  (32, 32, 32, 32), 8)
+    assert (w_gate.ba, w_gate.tc, w_gate.tb) == (8, 16, 48)
 
 
 def test_planner_refuses_a_last_core_row_too_big_for_shared_memory():
@@ -148,6 +196,46 @@ def test_planner_refuses_a_last_core_row_too_big_for_shared_memory():
 TILED_CASES = {2: ((12, 20), 3, 37, 3), 3: ((6, 10, 14), 1, 130, 12),
                4: ((4, 6, 5, 7), 70, 37, 3),
                8: ((2, 3, 3, 3, 3, 3, 3, 3), 17, 37, 9)}
+
+
+# (dims, B, k, rank) for the reconstruct schedule: d1 ragged against the
+# slabs and T against the chunks at every order, B against the batch tiles
+# (3 in 16 rows, 130 in two tiles of 128, the second of 2 rows, 70 in 96,
+# 17 in 32), k against the depth chunks (37: the second chunk of 5 rows;
+# 130), ranks above 8
+RECON_TILED_CASES = {2: ((12, 20), 3, 37, 3), 3: ((6, 10, 14), 130, 37, 12),
+                     4: ((7, 6, 5, 7), 70, 130, 3),
+                     8: ((5, 3, 3, 2, 2, 2, 2, 2), 17, 37, 9)}
+
+
+@pytest.mark.parametrize("family", ["tt", "cp"])
+@pytest.mark.parametrize("order", sorted(RECON_TILED_CASES))
+def test_reconstruct_tiled_schedule_matches_reference_and_plain(family,
+                                                               order):
+    """K2's block schedule (fold, slabs x batch tiles x T-chunks, depth
+    chunks, operator tiles built from the leading-core slab and the chunk
+    of m, the product into each block's tile) emulated in torch ops,
+    against the reference's interpret-mode kernel and the plain program:
+    within 1e-5 of max|ref| (fp32, other summation order)."""
+    dims, b, k, rank = RECON_TILED_CASES[order]
+    jop, top = _pair(family, dims, k=k, rank=rank, seed=order)
+    cores = [c.contiguous() for c in (ops.tt_cores_squeezed(top)
+                                      if family == "tt" else top.factors)]
+    y = np.random.default_rng(order).standard_normal((b, k),
+                                                     dtype=np.float32)
+    plan = ops.plan_contraction(family, "reconstruct", k, b, dims, rank)
+    assert plan.trail % plan.tc and dims[0] % plan.ba and k % plan.tk
+    assert math.prod(plan.grid) > 1
+    got = _sweep.sweep_reconstruct_tiled_plain(
+        torch.from_numpy(y), *cores, plan=plan, scale=1 / math.sqrt(k))
+    jrec = jops.tt_reconstruct if family == "tt" else jops.cp_reconstruct
+    want = np.asarray(jrec(jop, jnp.asarray(y)))
+    plain = _sweep.sweep_reconstruct_plain(torch.from_numpy(y), *cores,
+                                           steps=plan.steps,
+                                           scale=1 / math.sqrt(k)).numpy()
+    for ref in (want, plain):
+        err = np.abs(got.numpy() - ref).max() / np.abs(ref).max()
+        assert got.shape == ref.shape and err <= 1e-5
 
 
 @pytest.mark.parametrize("family", ["tt", "cp"])
@@ -204,7 +292,21 @@ def test_tile_constants_agree_with_the_cuda_sources():
         ops.PROJECT_TILE_K)
     assert _defines("sweep_fold.cuh")["MAXR"] == ops.MAX_RANK  # the fold
     recon = _defines("sweep_reconstruct.cuh")  # K2's and K4's device code
-    assert (recon["BM"], recon["BN"], recon["BK"]) == ops.RECON_TILE
+    assert recon["RECON_THREADS"] == ops.RECON_THREADS
+    assert recon["RECON_BN"] == ops.RECON_TILE_N
+    assert recon["RECON_SS"] == ops.RECON_S_STRIDE
+    text = (pathlib.Path(_sweep.CSRC) / "sweep_reconstruct.cuh").read_text()
+    assert {int(v) for v in re.findall(r"tm == (\d+)", text)} == set(
+        ops.RECON_TM)
+    assert {int(v) for v in re.findall(r"case (\d+): return recon_gemm<",
+                                       text)} == set(ops.RECON_TM) - {8}
+    assert {int(v) for v in re.findall(r"tile_k == (\d+)", text)} == set(
+        ops.RECON_TILE_K)
+    assert {int(v) for v in re.findall(r"recon_tm<(\d+)>", text)} == set(
+        ops.RECON_TILE_K)
+    # the chunk widths: powers of 2 from 4 up to the tile's columns
+    assert ops.RECON_TILE_T == tuple(4 << i for i in range(
+        int(math.log2(ops.RECON_TILE_N // 4)) + 1))
     assert _defines("sweep_common.cuh")["SWEEP_MAX_ORDER"] == ops.MAX_ORDER
 
 

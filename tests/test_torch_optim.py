@@ -9,6 +9,8 @@ reference's own tolerance, 3e-5 (float32 on both sides, different
 summation order); two chained steps at 2e-4, as the reference's
 `test_update_sketched_chained_steps`.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,8 +28,8 @@ from repro_torch.core import from_numpy_operator, random_tt
 from repro_torch.core.sketch import PytreeSketcher, SketchConfig, \
     SketchMonitor
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.kernels import _sweep, ops
 from repro_torch.kernels import fused_update as fused
-from repro_torch.kernels import ops
 from repro_torch.optim import adamw, schedule
 from repro_torch.optim.compress import (SketchCompressor,
                                         _balanced_pow2_dims,
@@ -188,6 +190,61 @@ def test_fused_plain_matches_reference_kernel(family, dims):
         _close(g, r)
 
 
+# (dims, nb, k, rank): ragged as tests/test_torch_kernels.py's
+# RECON_TILED_CASES (d1 against the slabs, T against the chunks, nb
+# against the batch tiles, 130 in two, k against the depth chunks, ranks
+# above 8)
+FUSED_TILED_CASES = {2: ((12, 20), 3, 37, 3), 3: ((6, 10, 14), 130, 37, 12),
+                     4: ((7, 6, 5, 7), 17, 130, 3),
+                     8: ((5, 3, 3, 2, 2, 2, 2, 2), 17, 37, 9)}
+
+
+@pytest.mark.parametrize("family", ["tt", "cp"])
+@pytest.mark.parametrize("order", sorted(FUSED_TILED_CASES))
+def test_fused_tiled_schedule_matches_reference_and_plain(family, order):
+    """K4's block schedule: K2's (`sweep_reconstruct_tiled_plain`) with
+    the EF + AdamW epilogue applied to each finished tile at its elements,
+    against the reference's interpret-mode kernel and the plain version:
+    every output within 1e-5 of its max|ref| (fp32, other summation
+    order)."""
+    dims, nb, k, rank = FUSED_TILED_CASES[order]
+    jop = jrp.make_projector(jrp.ProjectorSpec(
+        family=family, k=k, dims=dims, rank=rank), jax.random.PRNGKey(order))
+    op = _carry(family, jop)
+    rng = np.random.default_rng(order)
+    y = rng.standard_normal((nb, k)).astype(np.float32)
+    p, w, m, v = (rng.standard_normal((nb,) + dims).astype(np.float32)
+                  for _ in range(4))
+    v = np.abs(v)
+    lr, c1, c2 = 1e-3, 0.1, 0.05
+    want = jfused.fused_update_buckets(
+        jop, jnp.asarray(y), *(jnp.asarray(a) for a in (p, w, m, v)),
+        jnp.float32(lr), jnp.float32(c1), jnp.float32(c2), **HP,
+        interpret=True)
+    plain = fused.fused_update_buckets_plain(
+        op, torch.tensor(y), *(torch.tensor(a) for a in (p, w, m, v)),
+        lr, c1, c2, **HP)
+    plan = fused.plan_fused_update(family, k, nb, dims, rank)
+    dense = [torch.tensor(a).reshape(nb, dims[0], -1) for a in (p, w, m, v)]
+    outs = [torch.full_like(dense[0], float("nan")) for _ in range(4)]
+    hp = {key: HP[key] for key in ("b1", "b2", "eps", "weight_decay")}
+
+    def epilogue(index, g):
+        vals = fused.update_epilogue(g, *(d[index] for d in dense), lr, c1,
+                                     c2, **hp)
+        for out, val in zip(outs, vals):
+            out[index] = val
+
+    cores = ops.tt_cores_squeezed(op) if family == "tt" else op.factors
+    assert _sweep.sweep_reconstruct_tiled_plain(
+        torch.tensor(y), *(c.contiguous() for c in cores), plan=plan,
+        scale=HP["alpha"] / math.sqrt(k), epilogue=epilogue) is None
+    for got, ref_j, ref_p in zip(outs, want, plain):
+        got = got.reshape((nb,) + dims).numpy()
+        for ref in (np.asarray(ref_j), ref_p.numpy()):
+            assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
 @pytest.mark.parametrize("family", ["tt", "cp"])
 def test_plan_fused_update_and_ledgers(family):
     dims, k, b, rank = (64, 16, 16), 128, 8, 2
@@ -212,7 +269,8 @@ def test_plan_fused_update_and_ledgers(family):
                                               "unfused_chain", "torch")
     assert up.cost.hbm_bytes == fused.fused_hbm_bytes(plan)
     assert un.cost.hbm_bytes == fused.unfused_hbm_bytes(plan)
-    assert up.tiles == (plan.tk, plan.tb, plan.ba) and up.grid == plan.grid
+    assert up.tiles == (plan.tk, plan.tb, plan.ba, plan.tc)
+    assert up.grid == plan.grid
     assert rp.plan_update(spec, b) is up
     assert rp.plan_cache_stats().hits == 1
     jplan = jrp.plan_update(jrp.ProjectorSpec(family=family, k=k, dims=dims,
