@@ -15,11 +15,14 @@ Phases (each raises on failure, so the script exits non-zero):
      each element in one thread).
   3b. hold K3 `carry_sweep_project` and K6 `carry_sweep_project_pipelined`
      against their plain versions (four pairings x orders 2-8, k=37, B=3,
-     ragged TT ranks, CP inputs with and without weights; K3 alone at one
-     shape whose operator core row K6's planner refuses) and K5 `sweep_project_pipelined`
-     (TT/CP x orders 2-5), each also at the serving shapes; K6 against K3
-     and K5 against K1 on the same inputs. Then K1, K2 and K5 on ragged
-     shapes: orders 2 and 8, B in {1, 3, 64}, k=37, ranks above 8.
+     ragged TT ranks, CP inputs with and without weights; the serving
+     shapes at B=8 and B=64, each twice for the same bits; bond 16 and
+     input ranks 17-24; K3 alone at two shapes whose operator core rows
+     K6's planner refuses, one of them staged in chunks of bond rows) and K5
+     `sweep_project_pipelined` (TT/CP x orders 2-5, and the serving
+     shapes); K6 against K3 and K5 against K1 on the same inputs. Then K1,
+     K2 and K5 on ragged shapes: orders 2 and 8, B in {1, 3, 64}, k=37,
+     ranks above 8.
   4. serve 1024 dense TT(5) requests through `SketchServer`
      (k=512, dims 64x64x64, max_batch=64, flush_us=1000) and check every
      tick launched K1 once; query the store.
@@ -27,8 +30,10 @@ Phases (each raises on failure, so the script exits non-zero):
   5b. serve the reference's mixed dense/TT/CP traffic (`mix=(1, 1, 1)`,
      input ranks 2, 3, 4): 1024 requests under TT(5), 256 under CP(25);
      K1 launches must equal the dense ticks, K3 launches the TT and CP
-     ticks, `kernel_call_count` all ticks; served sketches are checked
-     against the plain versions on the same operator.
+     ticks, `kernel_call_count` all ticks; each K3 launch's batch bucket
+     is read off its tick's size (the B=8 rows of phase 7 take the B=8
+     launches); served
+     sketches are checked against the plain versions on the same operator.
   6. reconstruct 64 stored sketches of each through `rp.reconstruct` (K2).
   6b. `rp.project(op, x, pipeline="double")` on a B=64 dense batch (K5) and
      on B=64 batched TT and CP inputs (K6), for both operators; launch
@@ -45,11 +50,15 @@ Phases (each raises on failure, so the script exits non-zero):
      their rows also carry the bytes of the scratch buffers (m, and K1's
      and K5's partials) and the device time of each of their kernels from
      torch.profiler (`device_split_ms`). Then K5 at the same shapes,
-     K3 and K6 at the four pairings (input rank 4), and K3 in the paper's
-     regime (TT(5), k=512, dims 8^8, unit-norm rank-10 TT inputs), whose
-     cheaper route is the carry program (each einsum step counted with the
-     operands' true bonds) against densifying the input and the cheapest
-     dense product.
+     K3 and K6 at the four pairings (input rank 4, B=64), K3 at a serve
+     tick's B=8 bucket (rows `...:b8`, with each bound of its own and the
+     share of a mixed serve's structured tick), and K3 in the paper's
+     regime (TT(5), k=512, dims 8^8, unit-norm rank-10 TT inputs; twice for
+     the same bits), whose cheaper route is the carry program (each einsum
+     step counted with the operands' true bonds) against densifying the
+     input and the cheapest dense product; every K3/K6 row also carries
+     the kernel's device time from torch.profiler (`device_split_ms`), the
+     wrapper's host microseconds per call (`host_us`) and the plan's tiles.
   8. hold K4 `fused_update_buckets` against its plain version: TT/CP at
      orders 2-5 (ragged k and B), at orders 2 and 8 with ranks 9-25, B=130
      (two batch tiles) and d1 and T ragged against K4's tiles, and the
@@ -176,12 +185,20 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_split(fn, reps: int = 3) -> dict[str, float]:
+SWEEP_KERNELS = (("fold_m_kernel", "fold"), ("project_gemm_kernel", "product"),
+                 ("recon_gemm_kernel", "product"),
+                 ("reduce_partials_kernel", "reduce"))
+CARRY_KERNELS = (("carry_k3", "carry"), ("carry_k6", "carry"))
+
+
+def device_split(fn, reps: int = 3, names=SWEEP_KERNELS,
+                 need=("fold", "product")) -> dict[str, float]:
     """Device milliseconds per call of each kernel `fn()` launches, from
-    torch.profiler's CUDA activity over `reps` calls: the fold and the
-    product of K1, K5, K2 and K4, K1's and K5's reduce, and the wrapper's
-    other kernels ('layout': the layout copy of the leading core, and K4's
-    array of lr, c1 and c2)."""
+    torch.profiler's CUDA activity over `reps` calls, keyed by `names`
+    (kernel name part -> key): the fold and the product of K1, K5, K2 and
+    K4, K1's and K5's reduce; K3's and K6's one kernel ('carry'); and the
+    wrapper's other kernels ('layout': the layout copy of the leading
+    core, and K4's array of lr, c1 and c2)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -190,19 +207,30 @@ def device_split(fn, reps: int = 3) -> dict[str, float]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    names = (("fold_m_kernel", "fold"), ("project_gemm_kernel", "product"),
-             ("recon_gemm_kernel", "product"),
-             ("reduce_partials_kernel", "reduce"))
-    out = {"fold": 0.0, "product": 0.0}
+    out = {key: 0.0 for key in need}
     for ev in prof.key_averages():
         t = (getattr(ev, "device_time_total", 0)
              or getattr(ev, "cuda_time_total", 0))
         if t:
             key = next((k for n, k in names if n in ev.key), "layout")
             out[key] = out.get(key, 0.0) + t / reps / 1e3
-    if not out["product"] or not out["fold"]:
-        raise AssertionError(f"the profiler saw no fold or product: {out}")
+    if not all(out[key] for key in need):
+        raise AssertionError(f"the profiler saw no {need}: {out}")
     return out
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Host microseconds per call of `fn()` (the wrapper's checks, plan
+    lookups and launch, not waiting for the card)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def dense_operator_flops(family: str, k: int, dims, rank: int) -> int:
@@ -839,42 +867,63 @@ def main() -> int:
         return xb
 
     def hold_carry(of, inf, dims, k, r_op, ranks, b, tag, weights=False,
-                   double=True):
+                   double=True, twice=False):
         op = rp.make_projector(rp.ProjectorSpec(of, k, dims, r_op), seed=9,
                                device=dev)
         xb = struct_batch(inf, dims, ranks, b, weights)
         cores, n_op = struct_operands(op, of, xb, inf)
         r_in = struct.struct_rank(xb)
-        p3 = splan.plan_carry_sweep(of, inf, k, b, dims, r_op, r_in)
         scale = 1.0 / math.sqrt(k)
-        ref = carry.carry_sweep_project_plain(*cores, n_op=n_op,
-                                              program=p3.program, scale=scale)
-        got = [("carry_sweep_project", "K3", carry.carry_sweep_project(
-            *cores, n_op=n_op, plan=p3, scale=scale))]
+        kernels_ = [("carry_sweep_project", "K3", "serial",
+                     carry.carry_sweep_project)]
         if double:
-            p6 = splan.plan_carry_sweep(of, inf, k, b, dims, r_op, r_in,
-                                        pipeline="double")
-            got.append(("carry_sweep_project_pipelined", "K6",
-                        carry.carry_sweep_project_pipelined(
-                            *cores, n_op=n_op, plan=p6, scale=scale)))
+            kernels_.append(("carry_sweep_project_pipelined", "K6", "double",
+                             carry.carry_sweep_project_pipelined))
+        ref = None
         what = (f"{of}x{inf} {tag} dims={dims} k={k} R={r_op} "
                 f"ranks={ranks} B={b}{' weighted' if weights else ''}")
-        for key, name, y in got:
+        got = []
+        for key, name, pipeline, fn in kernels_:
+            plan = splan.plan_carry_sweep(of, inf, k, b, dims, r_op, r_in,
+                                          pipeline=pipeline)
+            if ref is None:
+                ref = carry.carry_sweep_project_plain(
+                    *cores, n_op=n_op, program=plan.program, scale=scale)
+            y = fn(*cores, n_op=n_op, plan=plan, scale=scale)
             key = f"{key}:{of}x{inf}"
             errs[key] = max(errs.get(key, 0.0),
                             check(f"{name} {what}", y, ref))
+            if twice and not torch.equal(y, fn(*cores, n_op=n_op, plan=plan,
+                                               scale=scale)):
+                raise AssertionError(f"{name} {what}: a second call on the "
+                                     "same inputs gave other bits")
+            got.append(y)
         if double:
-            check(f"K6 vs K3 {what}", got[1][2], got[0][2])
+            check(f"K6 vs K3 {what}", got[1], got[0])
         torch.cuda.synchronize()
 
     for of, inf in PAIRINGS:
         for order, dims in SMALL_CARRY_DIMS.items():
             hold_carry(of, inf, dims, 37, 3, (2, 3, 4), 3, f"order {order}",
                        weights=inf == "cp" and order % 2 == 0)
-        hold_carry(of, inf, SLICE_DIMS, SLICE_K, SLICE_RANKS[of], (4,), 64,
-                   "slice")
-    # a TT(25) interior core row of 320 KB: K3 reads it through the caches;
-    # K6, which holds a k-tile's operator cores in shared memory, refuses it
+        # the serving shapes: a serve tick's B=8 bucket and B=64, each
+        # twice for the same bits
+        for b in (8, 64):
+            hold_carry(of, inf, SLICE_DIMS, SLICE_K, SLICE_RANKS[of], (4,),
+                       b, "slice", twice=True)
+        # bonds of any size are more register tiles: TT(16)/CP(16) on
+        # rank-16 inputs, and rank 17-24 inputs
+        hold_carry(of, inf, (8, 8, 8), 37, 16, (16,), 3, "bond 16",
+                   twice=True)
+        hold_carry(of, inf, (6, 5, 7), 37, SLICE_RANKS[of], (17, 20, 24), 5,
+                   "input ranks 17-24", twice=True)
+    log("K3 and K6 gave the same bits on every second call")
+    # a TT(180) operator: one value of d of its interior core row does not
+    # fit twice in a block, so K3 stages it 155 bond rows a chunk
+    hold_carry("tt", "tt", (3, 3, 3), 8, 180, (2, 3, 4), 3,
+               "operator bond 180", double=False)
+    # a TT(25) interior core row of 320 KB: K3 stages it a few values of d
+    # at a time; K6, which holds a k-tile's operator cores whole, refuses it
     try:
         splan.plan_carry_sweep("tt", "tt", 37, 3, (8, 128, 64), 25, 4,
                                pipeline="double")
@@ -926,6 +975,7 @@ def main() -> int:
             super().__init__(*a, **kw)
             self.tick_events = []
             self.tick_structures = []
+            self.tick_sizes = []
 
         def tick(self, now, *, force=False):
             s = torch.cuda.Event(enable_timing=True)
@@ -936,6 +986,7 @@ def main() -> int:
             e.record()
             if n:
                 self.tick_events.append((s, e))
+                self.tick_sizes.append(n)
                 after = rp.dispatch_breakdown()
                 self.tick_structures.append(next(
                     key[1] for key, c in after.items()
@@ -981,7 +1032,7 @@ def main() -> int:
             f"{report['occupancy_mean']:.3f} cache hit rate="
             f"{report['cache']['hit_rate']:.4f} wall={report['wall_s']:.3f}s"
             f" device ms/tick mean={sum(dev_ms) / len(dev_ms):.3f} "
-            f"max={max(dev_ms):.3f}")
+            f"median={statistics.median(dev_ms):.3f} max={max(dev_ms):.3f}")
         # served sketches agree with the operator's einsum route
         op = server.cache.get(spec, 0)
         rows = [r for r in server.done if r.rid < 8]
@@ -1013,6 +1064,9 @@ def main() -> int:
         return CPTensor(tuple(f.to(dev) for f in x.factors),
                         None if x.weights is None else x.weights.to(dev))
 
+    from repro_torch.rp.plan import pow2ceil
+    tick_ms = {}
+
     def serve_mixed(family, n_requests):
         spec = rp.ProjectorSpec(family=family, k=SLICE_K, dims=SLICE_DIMS,
                                 rank=SLICE_RANKS[family])
@@ -1040,13 +1094,26 @@ def main() -> int:
             raise AssertionError(
                 f"mixed {family}: ticks {ticks} {by}, K1 launches {k1}, K3 "
                 f"launches {k3}, kernel_call_count {st.kernel_calls}")
+        # the batch bucket of each K3 launch: a tick of n items is padded
+        # to pow2ceil(n, 8) (rp/many.py); launches at the B=8 bucket go to
+        # the B=8 rows of phase 7, any larger bucket to the B=64 rows
+        k3_batches = [pow2ceil(n, 8) for n, t in zip(
+            server.tick_sizes, server.tick_structures) if t != "dense"]
+        buckets = {b: k3_batches.count(b) for b in sorted(set(k3_batches))}
+        structured = [t for t in server.tick_structures if t != "dense"]
         for inf in ("tt", "cp"):
-            per_family[f"carry_sweep_project:{family}x{inf}"] = by[inf]
+            small = sum(b <= 8 for b, t in zip(k3_batches, structured)
+                        if t == inf)
+            per_family[f"carry_sweep_project:{family}x{inf}:b8"] = small
+            per_family[f"carry_sweep_project:{family}x{inf}"] = (
+                by[inf] - small)
+        log(f"mixed {family}: K3 launches by batch bucket {buckets}")
         launches["carry_sweep_project"] += k3
         ms = {t: [] for t in by}
         for (s, e), t in zip(server.tick_events, server.tick_structures):
             ms[t].append(s.elapsed_time(e))
-        per_tick = ", ".join(f"{t} {by[t]} ticks {sum(v) / len(v):.3f} ms"
+        per_tick = ", ".join(f"{t} {by[t]} ticks {sum(v) / len(v):.3f} ms "
+                             f"(median {statistics.median(v):.3f})"
                              for t, v in ms.items())
         log(f"serve mixed {family.upper()}(R={spec.rank}) k={spec.k} dims="
             f"{spec.dims}: {n_requests} requests, {ticks} ticks ({by}); K1 "
@@ -1057,19 +1124,8 @@ def main() -> int:
             f"rate={report['cache']['hit_rate']:.4f} wall="
             f"{report['wall_s']:.3f}s; device ms/tick by structure: "
             f"{per_tick}")
-        # K3 alone at a tick's usual shape (B=8 bucket, input rank 4): the
-        # rest of a structured tick's device time is the host waiting
+        tick_ms[family] = {t: sum(v) / len(v) for t, v in ms.items()}
         op = server.cache.get(spec, 0)
-        for inf in ("tt", "cp"):
-            xb = struct_batch(inf, op.in_dims, (4,), 8)
-            cores, n_op = struct_operands(op, family, xb, inf)
-            plan = splan.plan_carry_sweep(family, inf, op.k, 8, op.in_dims,
-                                          op.rank, 4)
-            k3_ms = cuda_ms(lambda: carry.carry_sweep_project(
-                *cores, n_op=n_op, plan=plan, scale=1.0), reps=20)
-            log(f"K3 alone {family}x{inf} B=8 input rank 4: {k3_ms:.3f} ms "
-                f"of {sum(ms[inf]) / len(ms[inf]):.3f} device ms per {inf} "
-                "tick")
         # served sketches against the plain versions on the same operator
         for tag in ("dense", "tt", "cp"):
             rows = [r for r in server.done
@@ -1252,41 +1308,76 @@ def main() -> int:
             log(f"{name}:{family} device ms per call by kernel: "
                 + ", ".join(f"{key} {v:.3f}" for key, v in split.items()))
 
-    # K3 and K6 at the four pairings on the serving shapes, input rank 4;
-    # the cheaper route densifies the inputs, then the cheaper dense product
-    for of in ("tt", "cp"):
-        op, _ = stores[of]
-        dims, k, rank, b = op.in_dims, op.k, op.rank, 64
-        scale = 1.0 / math.sqrt(k)
+    # K3 and K6 at the four pairings on the serving shapes, input rank 4,
+    # at B=64 and (K3) at a serve tick's B=8 bucket; the cheaper route
+    # densifies the inputs, then the cheaper dense product
+    def carry_row(key, of, inf, cores, n_op, b, kern, plan, shape, scale):
+        """A K3/K6 row: time, bound, plain and einsum (`time_row`), the
+        kernel's device time from the profiler and the host time per
+        call."""
+        op_, dims = stores[of][0], SLICE_DIMS
+        k, rank = op_.k, op_.rank
         dense_product = min(
             b * (theory.flops_project_dense_tt(k, dims, rank) if of == "tt"
                  else theory.flops_project_dense_cp(k, dims, rank)),
             dense_operator_flops(of, k, dims, rank)
             + 2 * b * k * math.prod(dims))
+        inter = [t for pair in zip(cores[:n_op], cores[n_op:]) for t in pair]
+        spec = struct_einsum_spec(of, inf, len(dims))
+        run = lambda: kern(*cores, n_op=n_op, plan=plan, scale=scale)  # noqa: E731
+        row = time_row(
+            key, carry_flops(of, inf, cores, n_op),
+            b * densify_flops(inf, dims, 4) + dense_product,
+            4 * (sum(c.numel() for c in cores) + b * k), run,
+            lambda: carry.carry_sweep_project_plain(
+                *cores, n_op=n_op, program=plan.program, scale=scale),
+            lambda: torch.einsum(spec, *inter), shape)
+        row["device_split_ms"] = device_split(run, names=CARRY_KERNELS,
+                                              need=("carry",))
+        row["host_us"] = host_us(run)
+        row["tiles"] = {f: getattr(plan, f) for f in (
+            "tk", "tb", "tps", "tpd", "dc", "uc", "ro", "ri", "smem_bytes")}
+        log(f"{key} {shape}: device {row['device_split_ms']['carry']:.4f} ms "
+            f"(profiler), host {row['host_us']:.1f} us a call, tiles "
+            f"{row['tiles']}")
+        return row
+
+    for of in ("tt", "cp"):
+        op, _ = stores[of]
+        dims, k, rank = op.in_dims, op.k, op.rank
+        scale = 1.0 / math.sqrt(k)
         for inf in ("tt", "cp"):
-            xb = struct_batch(inf, dims, (4,), b)
-            cores, n_op = struct_operands(op, of, xb, inf)
-            inter = [t for pair in zip(cores[:n_op], cores[n_op:])
-                     for t in pair]
-            spec = struct_einsum_spec(of, inf, len(dims))
-            program_flops = carry_flops(of, inf, cores, n_op)
-            cheaper = b * densify_flops(inf, dims, 4) + dense_product
-            nbytes = 4 * (sum(c.numel() for c in cores) + b * k)
-            shape = (f"B={b} k={k} dims={'x'.join(map(str, dims))} R={rank} "
-                     f"input {inf.upper()} rank 4")
-            for name, pipeline, kern in (
-                    ("carry_sweep_project", "serial",
-                     carry.carry_sweep_project),
-                    ("carry_sweep_project_pipelined", "double",
-                     carry.carry_sweep_project_pipelined)):
-                plan = splan.plan_carry_sweep(of, inf, k, b, dims, rank, 4,
-                                              pipeline=pipeline)
-                rows.append(time_row(
-                    f"{name}:{of}x{inf}", program_flops, cheaper, nbytes,
-                    lambda: kern(*cores, n_op=n_op, plan=plan, scale=scale),
-                    lambda: carry.carry_sweep_project_plain(
-                        *cores, n_op=n_op, program=plan.program, scale=scale),
-                    lambda: torch.einsum(spec, *inter), shape))
+            for b, names in ((64, (("carry_sweep_project", "serial",
+                                    carry.carry_sweep_project),
+                                   ("carry_sweep_project_pipelined",
+                                    "double",
+                                    carry.carry_sweep_project_pipelined))),
+                             (8, (("carry_sweep_project", "serial",
+                                   carry.carry_sweep_project),))):
+                xb = struct_batch(inf, dims, (4,), b)
+                cores, n_op = struct_operands(op, of, xb, inf)
+                shape = (f"B={b} k={k} dims={'x'.join(map(str, dims))} "
+                         f"R={rank} input {inf.upper()} rank 4")
+                for name, pipeline, kern in names:
+                    plan = splan.plan_carry_sweep(of, inf, k, b, dims, rank,
+                                                  4, pipeline=pipeline)
+                    key = f"{name}:{of}x{inf}" + (":b8" if b == 8 else "")
+                    if b == 8:
+                        errs[key] = check(
+                            f"K3 {of}x{inf} B=8 serving shape",
+                            kern(*cores, n_op=n_op, plan=plan, scale=scale),
+                            carry.carry_sweep_project_plain(
+                                *cores, n_op=n_op, program=plan.program,
+                                scale=scale))
+                    rows.append(carry_row(key, of, inf, cores, n_op, b, kern,
+                                          plan, shape, scale))
+                if b == 8:
+                    dev_ms = rows[-1]["device_split_ms"]["carry"]
+                    tick = tick_ms[of][inf]
+                    rows[-1]["tick_ms"] = tick
+                    log(f"K3 {of}x{inf} B=8: {dev_ms:.4f} device ms of the "
+                        f"{tick:.3f} device ms of a mixed serve's {inf} "
+                        f"tick ({100 * dev_ms / tick:.1f}%)")
 
     # K3 in the paper's regime: TT(5), k=512, dims 8^8, unit-norm rank-10 TT
     # inputs (a dense item would be 16.7 M floats); the numbers go into the
@@ -1303,10 +1394,14 @@ def main() -> int:
     paper_ref = carry.carry_sweep_project_plain(*cores, n_op=n_op,
                                                 program=plan.program,
                                                 scale=scale)
+    paper_run = lambda: carry.carry_sweep_project(  # noqa: E731
+        *cores, n_op=n_op, plan=plan, scale=scale)
+    paper_y = paper_run()
     paper_err = check(f"K3 paper regime dims={dims} k={k} R={rank} input "
-                      "rank 10", carry.carry_sweep_project(
-                          *cores, n_op=n_op, plan=plan, scale=scale),
-                      paper_ref)
+                      "rank 10", paper_y, paper_ref)
+    if not torch.equal(paper_y, paper_run()):
+        raise AssertionError("K3 paper regime: a second call on the same "
+                             "inputs gave other bits")
     cheaper = (b * densify_flops("tt", dims, 10)
                + min(b * theory.flops_project_dense_tt(k, dims, rank),
                      dense_operator_flops("tt", k, dims, rank)
@@ -1314,17 +1409,21 @@ def main() -> int:
     errs["carry_sweep_project:paper"] = paper_err
     paper = time_row(
         "carry_sweep_project:paper", carry_flops("tt", "tt", cores, n_op),
-        cheaper, 4 * (sum(c.numel() for c in cores) + b * k),
-        lambda: carry.carry_sweep_project(*cores, n_op=n_op, plan=plan,
-                                          scale=scale),
+        cheaper, 4 * (sum(c.numel() for c in cores) + b * k), paper_run,
         lambda: carry.carry_sweep_project_plain(
             *cores, n_op=n_op, program=plan.program, scale=scale),
         lambda: torch.einsum(spec, *inter),
         f"B={b} k={k} dims=8^8 R={rank} input TT rank 10 (unit norm)")
+    paper["device_split_ms"] = device_split(paper_run, names=CARRY_KERNELS,
+                                            need=("carry",))
+    paper["host_us"] = host_us(paper_run)
+    log(f"K3 paper regime: device {paper['device_split_ms']['carry']:.4f} "
+        f"ms (profiler), host {paper['host_us']:.1f} us a call")
     row = next(r for r in rows if r["name"] == "carry_sweep_project:ttxtt")
     row.update({f"paper_{key}": paper[key] for key in (
         "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-        "program_bound_ms", "flops", "program_flops", "max_abs_err")})
+        "program_bound_ms", "flops", "program_flops", "max_abs_err",
+        "device_split_ms", "host_us")})
 
     del stores, paper_ref
     torch.cuda.empty_cache()

@@ -11,11 +11,16 @@ Beside each kernel sits its plain PyTorch version: the planner's carry
 program run step by step with `torch.einsum`, exactly the Pallas kernel
 body (K6's version sweeps the batch tile by tile, as the kernel does). A
 wrapper takes the plain version only for tensors on the CPU; for a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. `carry_sweep_tiled_plain` runs
+the kernels' own schedule in torch ops (tiles, chunks of d and of
+operator rows, threads per pair, padded register tiles, the exchanges
+between a pair's threads), a CPU check of their index arithmetic that no
+path runs.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -168,34 +173,199 @@ def carry_sweep_project_pipelined_plain(*cores: torch.Tensor, n_op: int,
     return torch.cat(tiles) * scale
 
 
+def _as_rows(t: torch.Tensor, family: str, n: int, order: int):
+    """A squeezed core (rows leading) as [rows][a][d][c]."""
+    if family == "cp" or n == 0:
+        return t[:, None]
+    return t[..., None] if n == order - 1 else t
+
+
+# What the emulation reads past a core's bonds: finite and not zero, as
+# what a kernel thread reads there, so that only the carry's zero entries
+# past the bonds can cancel it.
+_PAST_BONDS = 7.0
+
+
+def _padded(t: torch.Tensor, a: int, c: int) -> torch.Tensor:
+    """[rows][a0][d][c0] grown to [rows][a][d][c], `_PAST_BONDS` past the
+    bonds."""
+    out = t.new_full((t.shape[0], max(a, t.shape[1]), t.shape[2],
+                      max(c, t.shape[3])), _PAST_BONDS)
+    out[:, :t.shape[1], :, :t.shape[3]] = t
+    return out
+
+
+def carry_sweep_tiled_plain(*cores: torch.Tensor, n_op: int,
+                            plan: CarryPlan, scale: float) -> torch.Tensor:
+    """K3's (serial plans) or K6's (double plans) schedule in torch ops.
+
+    Block by block (tk k-rows x tb items; K6 walks the batch tiles inside
+    a k tile), mode by mode, chunk by chunk (K3: dc values of d, and of an
+    interior TT operator core uc bond rows; K6: the whole mode), each
+    pair's tps tile threads x tpd d-parts accumulate their output tiles
+    (ro x ri of the padded carry; a tile thread owns tiles tps apart) over
+    the d values they own (a d-part owns every tpd-th value of a chunk),
+    contracting the carry tiles the pairing reads, on cores padded to the
+    carry with `_PAST_BONDS` past the bonds. At the end of a mode the
+    partial tiles are summed in d-part order into the carry, the entries
+    past the bonds set to zero (CP x CP's Hadamard applied), and the last
+    mode's partial outputs summed in thread order. Ragged edges are
+    clipped where the kernels mask them. A check of the kernels' index
+    arithmetic on the CPU; no path runs it.
+    """
+    op_cores, in_cores = cores[:n_op], cores[n_op:]
+    n, of, inf = plan.order, plan.op_family, plan.in_family
+    rp, fp = plan.nv * plan.ro, plan.nf * plan.ri
+    bonds = in_bonds(inf, in_cores, n)
+    ops_, ins = [], []
+    for m in range(n):
+        first, last = m == 0, m == n - 1
+        ops_.append(_padded(_as_rows(op_cores[m], of, m, n),
+                            1 if of == "cp" or first else rp,
+                            1 if of == "tt" and last else rp))
+        ins.append(_padded(_as_rows(in_cores[m], inf, m, n),
+                           1 if inf == "cp" or first else fp,
+                           1 if inf == "tt" and last else fp))
+    y = cores[0].new_zeros((plan.b, plan.k))
+    for k0 in range(0, plan.k, plan.tk):
+        ks = slice(k0, min(k0 + plan.tk, plan.k))
+        for b0 in range(0, plan.b, plan.tb):
+            bs = slice(b0, min(b0 + plan.tb, plan.b))
+            y[bs, ks] = _tile(plan, [g[ks] for g in ops_],
+                              [x[bs] for x in ins], bonds).T * scale
+    return y
+
+
+def _tile(plan, ops_, ins, bonds):
+    """One block's pairs, as `carry_sweep_tiled_plain` describes: the
+    (tk', tb') outputs of its k-rows `ops_` and items `ins`."""
+    n, r, of, inf = plan.order, plan.r_op, plan.op_family, plan.in_family
+    ro, ri, nv, nf = plan.ro, plan.ri, plan.nv, plan.nf
+    tps, tpd = plan.tps, plan.tpd
+    nk, nb = ops_[0].shape[0], ins[0].shape[0]
+    c = ops_[0].new_zeros((nk, nb, nv * ro, nf * ri))
+    rows = [slice(v * ro, (v + 1) * ro) for v in range(nv)]
+    cols = [slice(f * ri, (f + 1) * ri) for f in range(nf)]
+    for m in range(n):
+        g_all, x_all, dm = ops_[m], ins[m], plan.dims[m]
+        kind = "first" if m == 0 else "last" if m == n - 1 else "mix"
+        length = dm if plan.pipeline == "double" else min(plan.dc, dm)
+        uc = (plan.uc if plan.pipeline == "serial" and of == "tt"
+              and kind == "mix" else nv * ro)
+        part = {}                     # (tile, d-part) -> partial tile
+        ys = [0.0] * plan.tpp         # thread -> partial output
+        for d0 in range(0, dm, length):
+            dlen = min(length, dm - d0)
+            for u0 in range(0, r, uc):
+                us = range(u0 // ro, min(nv, -(-min(u0 + uc, r) // ro)))
+                for j in range(plan.tpp):
+                    ot, p = divmod(j, tpd)
+                    ds = torch.arange(d0 + p, d0 + dlen, tpd)
+                    g, x = g_all[:, :, ds], x_all[:, :, ds]
+                    for o in range(ot, plan.n_tiles, tps):
+                        vr, fc = rows[o // nf], cols[o % nf]
+                        if kind == "last":
+                            ys[j] = ys[j] + _last(of, inf, c[:, :, vr, fc], g,
+                                                  x, vr, fc)
+                            continue
+                        t = _mix(of, inf, kind, c, g, x, vr, fc,
+                                 [rows[u] for u in us], cols)
+                        part[o, p] = (t if (o, p) not in part
+                                      else part[o, p] + t)
+        if kind == "last":
+            y = ys[0]
+            for j in range(1, plan.tpp):
+                y = y + ys[j]
+            return y
+        new = torch.zeros_like(c)
+        for o in range(plan.n_tiles):
+            s = part[o, 0]
+            for p in range(1, tpd):
+                s = s + part[o, p]
+            new[:, :, rows[o // nf], cols[o % nf]] = s
+        if kind == "mix" and (of, inf) == ("cp", "cp"):
+            new = c * new
+        keep = ((torch.arange(nv * ro) < r)[:, None]
+                & (torch.arange(nf * ri) < bonds[m + 1])[None, :])
+        c = torch.where(keep, new, 0.0)
+    raise AssertionError("unreachable: the last mode returns")
+
+
+def _mix(of, inf, kind, c, g, x, vr, fc, urows, cols):
+    """A thread's partial output tile (rows vr, columns fc) over its d
+    values in a first or interior mode, from the carry tiles it reads
+    (urows: the operator rows staged in this chunk)."""
+    if kind == "first" or (of, inf) == ("cp", "cp"):
+        return torch.einsum("kdv,bdf->kbvf", g[:, 0, :, vr], x[:, 0, :, fc])
+    t = 0.0
+    if (of, inf) == ("tt", "tt"):
+        for ur in urows:
+            for ec in cols:
+                t = t + torch.einsum("kbue,kudv,bedf->kbvf", c[:, :, ur, ec],
+                                     g[:, ur, :, vr], x[:, ec, :, fc])
+    elif of == "tt":
+        for ur in urows:
+            t = t + torch.einsum("kbup,kudv,bdp->kbvp", c[:, :, ur, fc],
+                                 g[:, ur, :, vr], x[:, 0, :, fc])
+    else:
+        for ec in cols:
+            t = t + torch.einsum("kbre,bedf,kdr->kbrf", c[:, :, vr, ec],
+                                 x[:, ec, :, fc], g[:, 0, :, vr])
+    return t
+
+
+def _last(of, inf, c, g, x, vr, fc):
+    """A thread's partial output over its d values in the last mode, from
+    carry tile (vr, fc)."""
+    if of == "tt":
+        xe = (x[:, fc, :, 0] if inf == "tt"
+              else x[:, 0, :, fc].transpose(1, 2))
+        return torch.einsum("kbue,kud,bed->kb", c, g[:, vr, :, 0], xe)
+    if inf == "tt":
+        return torch.einsum("kbre,bed,kdr->kb", c, x[:, fc, :, 0],
+                            g[:, 0, :, vr])
+    return torch.einsum("kbrp,kdr,bdp->kb", c, g[:, 0, :, vr],
+                        x[:, 0, :, fc])
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# op, in, y, dims, codes, rin, order, B, K, R, op_tt, in_tt, tk, tb,
-# smem_bytes, scale, stream
+# op, in, y, dims, codes, rin, tiles (tk, tb, tps, tpd, dc, uc, ro, ri,
+# r_in, smem_bytes), order, B, K, R, op_tt, in_tt, scale, stream
 _ARGTYPES = [ctypes.POINTER(_P), ctypes.POINTER(_P), _P, ctypes.POINTER(_I),
-             ctypes.POINTER(_I), ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I,
-             _I, _I, _I, ctypes.c_float, _P]
+             ctypes.POINTER(_I), ctypes.POINTER(_I), ctypes.POINTER(_I),
+             _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+
+
+@functools.lru_cache(maxsize=256)
+def _lowered(plan: CarryPlan, bonds: tuple[int, ...]):
+    """The launch's constant arguments, built once per (plan, bonds): the
+    ctypes arrays of dims, opcodes, input bonds and tiles, and the scalar
+    ints."""
+    def ints(vs, n):
+        return (_I * n)(*[int(v) for v in vs])
+
+    return (ints(plan.dims, MAX_ORDER), ints(carry_codes(plan), MAX_ORDER),
+            ints(bonds, MAX_ORDER + 1),
+            ints((plan.tk, plan.tb, plan.tps, plan.tpd, plan.dc, plan.uc,
+                  plan.ro, plan.ri, plan.r_in, plan.smem_bytes), 10),
+            (plan.order, plan.b, plan.k, plan.r_op,
+             int(plan.op_family == "tt"), int(plan.in_family == "tt")))
 
 
 def _launch(entry: str, cores, n_op: int, plan: CarryPlan, bonds,
             scale: float) -> torch.Tensor:
     x0 = cores[n_op]
     _cuda_only(x0, entry)
-    codes = carry_codes(plan)
+    dims, codes, rin, tiles, scalars = _lowered(plan, tuple(bonds))
     y = torch.empty((plan.b, plan.k), device=x0.device, dtype=torch.float32)
 
     def ptrs(ts):
         return (_P * MAX_ORDER)(*[t.data_ptr() for t in ts])
 
-    def ints(vs, n=MAX_ORDER):
-        return (_I * n)(*[int(v) for v in vs])
-
     with torch.cuda.device(x0.device):
         err = _launcher(entry, "carry_sweep", _ARGTYPES)(
-            ptrs(cores[:n_op]), ptrs(cores[n_op:]), y.data_ptr(),
-            ints(plan.dims), ints(codes), ints(bonds, MAX_ORDER + 1),
-            plan.order, plan.b, plan.k, plan.r_op,
-            int(plan.op_family == "tt"), int(plan.in_family == "tt"),
-            plan.tk, plan.tb, plan.smem_bytes, float(scale),
+            ptrs(cores[:n_op]), ptrs(cores[n_op:]), y.data_ptr(), dims,
+            codes, rin, tiles, *scalars, float(scale),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed with CUDA error {err} "

@@ -14,37 +14,57 @@ strings verbatim (the CPU tests diff them):
   cp x tt     c,x -> t;  t,f -> c                          (b, k, R, R~)
   cp x cp     f,a -> t;  c * t (Hadamard on the bond)      (b, k, R, R~)
 
-`plan_carry_sweep` picks the CUDA tiles, budgeted against one block's
-shared memory (the TPU's 8 MiB VMEM budget and 128-lane k tile do not carry
-over). A block runs one warp per (item, k-row) pair, tk k-rows x tb items:
+`plan_carry_sweep` picks the CUDA schedule, budgeted against one block's
+shared memory and one thread's registers (the TPU's 8 MiB VMEM budget and
+128-lane k tile do not carry over). A block owns tk k-rows x tb items:
 
-* serial (K3, grid (B/tb, k/tk)): the block stages mode by mode its
-  items' input core n; its warps read their k-rows of the operator cores
-  through the caches (staging them per mode was slower on an H100 at
-  every serving shape). Shared memory holds the largest input mode and
-  every warp's carry region.
-* double (K6, grid (k/tk,)): the k-tile's operator cores stay resident for
-  every mode, and the input cores of a batch tile (all modes) have two
-  slots, the next tile streaming in while the current one runs. A shape
-  whose operator cores do not fit even at tk = tb = 1 (a large interior
-  TT core) is refused; K3 runs it.
+* a pair's carry is cut into nv x nf register tiles of ro operator-bond
+  rows x ri input-bond columns (`CARRY_TILES`, the list
+  csrc/carry_sweep.cu compiles), nv = ceil(R / ro), nf = ceil(R~ / ri).
+  It sits in shared memory between modes; a thread loads the carry tiles
+  it contracts into registers once per chunk of d and accumulates one
+  output tile there. A bond of any size is more tiles: the pair's tps
+  tile threads own the output tiles tps apart (one each where tps =
+  nv * nf; past CARRY_THREADS a thread walks several, its partials kept
+  in shared memory between chunks).
+* tpd threads split each mode's d range; their partial tiles meet in
+  shared memory at the end of the mode, summed in a fixed order, as do
+  the partial outputs of the last mode.
+* serial (K3, grid (B/tb, k/tk)): mode by mode, chunk by chunk of dc
+  values of d, the block stages its k-rows of operator core n and its
+  items' input core n into one of two slots (16-byte `cp.async` where a
+  row allows it) while the other slot's chunk computes.
+* double (K6, grid (k/tk,)): the k-tile's operator cores stay resident
+  for every mode, and the input cores of a batch tile (all modes) have
+  two slots, the next tile streaming in while the current one runs. A
+  shape whose operator cores do not fit even at tk = tb = 1 (a large
+  interior TT core) is refused; K3 runs it.
 
-A warp's carry region holds the carry and its successor (R_op * R_in
-floats each) and, for tt x tt only, one d-slice of the temp (R_in * R_op):
-the kernels fuse each mode's two steps over d, so the mode axis the
-program's temp keeps (bkedv, bkrdf) is never formed.
+Each mode's two einsum steps are fused over d, so the mode axis the
+program's temp keeps (bkedv, bkrdf) is never formed. Carry entries past
+the true bonds are held at zero, so a thread may read a core's columns
+past its bonds (into the padded row stride, `row_extent`; rows are
+clamped) without a guard.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 from ..ops import H100_SMS, MAX_ORDER, SMEM_BUDGET_BYTES, validate_pipeline
 
 _FAMILIES = ("tt", "cp")
-# Warps per block the planner aims for: serial (K3) and double (K6).
-K3_WARPS = 16
-K6_WARPS = 16
+# Register tiles (ro, ri) the kernels are compiled for
+# (csrc/carry_sweep.cu's CARRY_TILES holds the same list): ro operator-bond
+# rows x ri input-bond columns of the carry. (5, 4) holds the serving
+# shapes' carry whole (TT(5) x rank 4) or a fifth of it (CP(25)); (8, 8)
+# takes larger bonds in fewer tiles.
+CARRY_TILES = ((5, 4), (8, 8))
+CARRY_THREADS = 256        # most threads a block (the kernels' launch bound)
+CARRY_TARGET_THREADS = 32_768   # threads a launch aims for: 8 warps an SM
+MAX_TPD = 8                # most threads splitting one pair's d range
+DC_CHOICES = (64, 32, 16, 8, 4, 2, 1)  # K3's d chunks, deepest first
 
 
 def _require_family(name: str, value: str) -> None:
@@ -107,8 +127,12 @@ class CarryPlan:
     """A fully-resolved carry-sweep schedule for one structured launch.
 
     `program` is the einsum step tuple the kernels execute (lowered by
-    `carry.carry_codes`); `smem_bytes` the shared memory one block takes at
-    the chosen `(tk, tb)` tiles, which the launch allocates as is.
+    `carry.carry_codes`); `smem_bytes` the shared memory one block takes,
+    which the launch allocates as is. A block owns `tk` k-rows x `tb`
+    items; each pair's carry is `n_tiles` register tiles `(ro, ri)`, run by
+    `tps` tile threads x `tpd` d-parts; K3 stages `dc` values of d a chunk,
+    and of an interior TT operator core `uc` bond rows a chunk (a multiple
+    of ro; every row unless one value of d outgrows the block).
     """
 
     op_family: str
@@ -123,15 +147,68 @@ class CarryPlan:
     program: tuple
     smem_bytes: int
     pipeline: str = "serial"
+    ro: int = 5
+    ri: int = 4
+    tps: int = 1
+    tpd: int = 1
+    dc: int = 4
+    uc: int = 5
 
     @property
     def order(self) -> int:
         return len(self.dims)
 
     @property
+    def nv(self) -> int:
+        """Register tiles along the operator bond."""
+        return -(-self.r_op // self.ro)
+
+    @property
+    def nf(self) -> int:
+        """Register tiles along the input bond."""
+        return -(-self.r_in // self.ri)
+
+    @property
+    def n_tiles(self) -> int:
+        """Register tiles of one pair's carry."""
+        return self.nv * self.nf
+
+    @property
+    def single(self) -> bool:
+        """Each tile thread owns one output tile (else several, their
+        partials kept in shared memory between chunks of d)."""
+        return self.tps == self.n_tiles
+
+    @property
+    def tpp(self) -> int:
+        """Threads per (item, k-row) pair."""
+        return self.tps * self.tpd
+
+    @property
+    def threads(self) -> int:
+        """Threads per block."""
+        return self.tk * self.tb * self.tpp
+
+    @property
     def warps(self) -> int:
-        """Warps per block: one per (item, k-row) pair of the tile."""
-        return self.tk * self.tb
+        """Warps per block (the last one may be partial)."""
+        return -(-self.threads // 32)
+
+    @property
+    def carry_stride(self) -> int:
+        """Floats between two pairs' carries in shared memory: the padded
+        (nv*ro, nf*ri) carry, odd so that a warp's pairs hit 32 banks."""
+        return self.n_tiles * self.ro * self.ri | 1
+
+    @property
+    def xbuf_floats(self) -> int:
+        """Floats of one pair's exchange buffer, where its partial tiles
+        meet: a tile's ro*ri floats (odd stride) for every tile and
+        d-part, where a pair has more than one d-part or a thread more
+        than one tile; else 0."""
+        if self.single and self.tpd == 1:
+            return 0
+        return self.n_tiles * self.tpd * (self.ro * self.ri | 1)
 
     @property
     def grid(self) -> tuple[int, ...]:
@@ -170,94 +247,246 @@ def _up4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def carry_smem_bytes(op_family: str, in_family: str, dims: tuple[int, ...],
-                     r_op: int, r_in: int, tk: int, tb: int,
-                     pipeline: str = "serial") -> int:
-    """Dynamic shared memory of one K3/K6 block (csrc/carry_sweep.cu),
-    each region 16-byte aligned.
+def row_extent(a: int, length: int, c: int, cr: int) -> int:
+    """Floats one staged row of a core chunk [a][length][c] spans when it
+    is read at columns < cr (the register tile's bound, which may pass the
+    bond c; rows are clamped to the bond a)."""
+    return a * length * c + max(0, cr - c)
 
-    serial (K3): tb items of the largest input mode and tk*tb warp carry
-    regions.
-    double (K6): tk rows of every operator mode, two slots of tb items of
-    every input mode, and the warp carry regions.
-    A warp's region: carry + successor (r_op*r_in each) and, for tt x tt,
-    one d-slice of the temp (r_in*r_op).
+
+def row_stride(extent: int) -> int:
+    """Distance between two staged rows: a multiple of 4 floats (16-byte
+    copies), moved off a multiple of 32 (rows in different banks)."""
+    s = _up4(extent)
+    return s + 4 if s % 32 == 0 else s
+
+
+def u_chunked(plan: CarryPlan, n: int) -> bool:
+    """Whether K3 stages mode n's operator core `uc` bond rows a chunk."""
+    return plan.op_family == "tt" and 0 < n < plan.order - 1
+
+
+def core_bounds(plan: CarryPlan, side: str, n: int) -> tuple[int, int, int]:
+    """(a, c, cr) of mode n's operator (`side` 'op') or input ('in') core
+    row: its bonds a x c around d and the columns the kernels read (the
+    padded carry's)."""
+    first, last = n == 0, n == plan.order - 1
+    if side == "op":
+        family, rank, cols = plan.op_family, plan.r_op, plan.nv * plan.ro
+    else:
+        family, rank, cols = plan.in_family, plan.r_in, plan.nf * plan.ri
+    if family == "cp":
+        return 1, rank, cols
+    return 1 if first else rank, 1 if last else rank, 1 if last else cols
+
+
+def stage_strides(plan: CarryPlan, length_of,
+                  rows: int | None = None) -> tuple[list[int], list[int]]:
+    """Row strides of every mode's operator and input rows, each mode's
+    chunk `length_of(d)` values of d long and (`rows`) an interior TT
+    operator core's that many bond rows."""
+    ops_, ins = [], []
+    for m, d in enumerate(plan.dims):
+        a, c, cr = core_bounds(plan, "op", m)
+        if rows is not None and u_chunked(plan, m):
+            a = min(a, rows)
+        ops_.append(row_stride(row_extent(a, length_of(d), c, cr)))
+        a, c, cr = core_bounds(plan, "in", m)
+        ins.append(row_stride(row_extent(a, length_of(d), c, cr)))
+    return ops_, ins
+
+
+def carry_smem_bytes(plan: CarryPlan) -> int:
+    """Dynamic shared memory of one K3/K6 block (csrc/carry_sweep.cu),
+    each region a multiple of 16 bytes.
+
+    serial (K3): two slots, each tk operator rows and tb input rows of one
+    chunk of dc values of d (and uc bond rows; the row strides the widest
+    mode's).
+    double (K6): tk operator rows of every mode (whole d), two slots of tb
+    input rows of every mode.
+    Both: then each pair's carry (`carry_stride`) and exchange buffer
+    (`xbuf_floats`).
     """
-    op_modes = _mode_elems(op_family, dims, r_op)
-    in_modes = _mode_elems(in_family, dims, r_in)
-    cm = r_op * r_in
-    warp = 2 * cm + (cm if (op_family, in_family) == ("tt", "tt") else 0)
-    carries = _up4(tk * tb * warp)
-    if pipeline == "double":
-        return 4 * (_up4(tk * sum(op_modes)) + 2 * _up4(tb * sum(in_modes))
-                     + carries)
-    return 4 * (_up4(tb * max(in_modes)) + carries)
+    pairs = plan.tk * plan.tb
+    held = (_up4(pairs * plan.carry_stride)
+            + (_up4(pairs * plan.xbuf_floats) if plan.xbuf_floats else 0))
+    if plan.pipeline == "double":
+        ops_, ins = stage_strides(plan, lambda d: d)
+        resident = sum(_up4(plan.tk * s) for s in ops_)
+        slot = sum(_up4(plan.tb * s) for s in ins)
+        return 4 * (resident + 2 * slot + held)
+    ops_, ins = stage_strides(plan, lambda d: min(plan.dc, d), plan.uc)
+    slot = _up4(plan.tk * max(ops_)) + _up4(plan.tb * max(ins))
+    return 4 * (2 * slot + held)
+
+
+def tile_work(op_family: str, in_family: str, r_op: int, r_in: int,
+              tile: tuple[int, int]) -> int:
+    """FMAs a pair's threads issue per value of d in an interior mode
+    under the register tile (ro, ri), padding included: every output tile
+    walks the carry tiles it contracts (TT x TT: all of them; TT x CP: its
+    column; CP x TT: its row; CP x CP: none)."""
+    ro, ri = tile
+    nv, nf = -(-r_op // ro), -(-r_in // ri)
+    if op_family == "tt" and in_family == "tt":
+        return (nv * nf) ** 2 * ro * ri * (ro + ri)
+    if op_family == "tt":
+        return nv * nv * nf * ro * ri * (ro + 1)
+    if in_family == "tt":
+        return nv * nf * nf * ro * ri * (ri + 1)
+    return nv * nf * ro * ri
+
+
+def _tile(op_family: str, in_family: str, r_op: int,
+          r_in: int) -> tuple[int, int]:
+    """The compiled register tile with the least padded work per pair
+    (`tile_work`; the first listed on a tie)."""
+    return min(CARRY_TILES, key=lambda t: tile_work(op_family, in_family,
+                                                      r_op, r_in, t))
+
+
+def _pow2floor(n: int) -> int:
+    return 1 << (max(1, int(n)).bit_length() - 1)
 
 
 def plan_carry_sweep(op_family: str, in_family: str, k: int, b: int,
                      dims: tuple[int, ...], r_op: int, r_in: int, *,
                      budget: int = SMEM_BUDGET_BYTES,
                      pipeline: str = "serial") -> CarryPlan:
+    """Plan a carry-sweep kernel launch for order N = len(dims) (see
+    `_plan`). Plans are cached: `struct_project` plans every serve tick,
+    and a plan is a pure function of its arguments."""
+    validate_pipeline(pipeline)
+    return _plan(op_family, in_family, int(k), max(1, int(b)),
+                 tuple(int(d) for d in dims), max(1, int(r_op)),
+                 max(1, int(r_in)), int(budget), pipeline)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(op_family: str, in_family: str, k: int, b: int,
+          dims: tuple[int, ...], r_op: int, r_in: int, budget: int,
+          pipeline: str) -> CarryPlan:
     """Plan a carry-sweep kernel launch for order N = len(dims).
 
-    serial (K3): K3_WARPS k-rows of one item a block (on an H100 the
-    fastest of the splits of 8 or 16 warps tried).
-    double (K6): the grid is k tiles only, so tk is the largest power of
-    two <= 8 that still gives a block per SM (132 blocks at k=512 need
-    tk <= 2; with fewer k-rows than that, tk = 1); tb fills the block up
-    to K6_WARPS warps (no more items than the batch holds).
-    Then tb, and after it tk, halve until two blocks fit one SM's shared
-    memory, or at least one fits `budget`; what still does not fit raises.
+    * The register tile: the compiled one with the least padded work
+      (`_tile`); the pair's carry is n_tiles of them, and tps = n_tiles
+      tile threads own one each (at most CARRY_THREADS; past that a thread
+      owns several).
+    * tpd doubles (up to MAX_TPD, while each d-part keeps 2 values of the
+      widest mode and the pair CARRY_THREADS threads) until the launch has
+      CARRY_TARGET_THREADS threads: a B=8 serve tick at k=512 splits each
+      TT(5) pair 8 ways; at B=64 a thread runs a whole pair (or tile).
+    * A block holds the power of two <= CARRY_THREADS // (tps*tpd) pairs
+      (32 for CP(25)'s 5 tiles: smaller blocks, more of them an SM, were
+      faster on an H100 than 48 pairs). K3: tb the largest
+      power of two <= sqrt(2 * pairs) (at most the batch), tk the rest;
+      its chunk as `_plan_serial` picks it, tb and then tk halving where
+      none fits `budget`. K6: `_plan_double`.
+    * What still does not fit raises: K3 only where one value of d of a
+      k-row's operator core does not fit beside the pair's carry.
     """
-    dims = tuple(int(d) for d in dims)
     program = _carry_program(op_family, in_family, len(dims))  # validates
-    validate_pipeline(pipeline)
-    r_op, r_in = max(1, int(r_op)), max(1, int(r_in))
-    k, b = int(k), max(1, int(b))
+    ro, ri = _tile(op_family, in_family, r_op, r_in)
+    tps = min(-(-r_op // ro) * -(-r_in // ri), CARRY_THREADS)
+
+    def deepen(tpd, enough):
+        while (tpd < MAX_TPD and not enough(tpd) and 4 * tpd <= max(dims)
+               and 2 * tps * tpd <= CARRY_THREADS):
+            tpd *= 2
+        return tpd
+
+    base = CarryPlan(op_family=op_family, in_family=in_family, k=k, b=b,
+                     dims=dims, r_op=r_op, r_in=r_in, tk=1, tb=1,
+                     program=program, smem_bytes=0, pipeline=pipeline,
+                     ro=ro, ri=ri, tps=tps, tpd=1, dc=DC_CHOICES[-1],
+                     uc=-(-r_op // ro) * ro)
     if pipeline == "double":
-        tk = 8
-        while tk > 1 and -(-k // tk) < H100_SMS:
-            tk //= 2
-        tb = min(K6_WARPS // tk, 1 << (b - 1).bit_length())
+        plan = _plan_double(base, deepen, budget)
     else:
-        tk, tb = K3_WARPS, 1
-
-    def smem() -> int:
-        return carry_smem_bytes(op_family, in_family, dims, r_op, r_in, tk,
-                                tb, pipeline)
-
-    for limit in (budget // 2, budget):
-        while smem() > limit and (tb > 1 or tk > 1):
-            if tb > 1:
-                tb //= 2
-            else:
-                tk //= 2
-    nbytes = smem()
-    if nbytes > budget:
+        tpd = deepen(1, lambda t: k * b * tps * t >= CARRY_TARGET_THREADS)
+        pairs = _pow2floor(CARRY_THREADS // (tps * tpd))
+        tb = max(1, min(b, _pow2floor(math.isqrt(2 * pairs))))
+        plan = _plan_serial(dataclasses.replace(
+            base, tpd=tpd, tb=tb, tk=max(1, min(k, pairs // tb))), budget)
+    if plan is None:
+        nbytes = carry_smem_bytes(base)
         held = ("its operator cores, " if pipeline == "double" else "")
         raise ValueError(
             f"plan_carry_sweep: {op_family} x {in_family} dims={dims}, "
             f"r_op={r_op}, r_in={r_in}, pipeline={pipeline!r} need {nbytes} "
             f"bytes of shared memory for one (item, k-row) pair ({held}"
             f"input cores and carry), over the {budget}-byte block budget")
-    return CarryPlan(op_family=op_family, in_family=in_family, k=k, b=b,
-                     dims=dims, r_op=r_op, r_in=r_in, tk=tk, tb=tb,
-                     program=program, smem_bytes=nbytes, pipeline=pipeline)
+    return dataclasses.replace(plan, smem_bytes=carry_smem_bytes(plan))
+
+
+def _plan_serial(plan: CarryPlan, budget: int) -> CarryPlan | None:
+    """K3: the deepest chunk, up to 32 values a d-part (64 when tpd > 1),
+    that fits the block's shared memory; tb, then tk, halve where none
+    fits, then the pair's d-parts go, and last an interior TT operator
+    core is staged fewer bond rows a chunk (uc). On an H100 at the serving shapes, 32-value chunks beat 16-value
+    ones at B=64 even where they leave room for one block an SM, and beat
+    64-value ones (K3 at CP(25)); at a B=8 tick, whose pairs split over
+    8 or 2 d-parts, 64-value chunks were the fastest."""
+    deepest = 32 if plan.tpd == 1 else 64
+    while True:
+        for dc in (c for c in DC_CHOICES if c <= deepest):
+            fit = dataclasses.replace(plan, dc=dc)
+            if carry_smem_bytes(fit) <= budget:
+                return fit
+        if plan.tb > 1:
+            plan = dataclasses.replace(plan, tb=plan.tb // 2)
+        elif plan.tk > 1:
+            plan = dataclasses.replace(plan, tk=plan.tk // 2)
+        elif plan.tpd > 1:      # the exchange buffer goes
+            plan = dataclasses.replace(plan, tpd=1)
+            deepest = 32
+        elif plan.uc > plan.ro and plan.order > 2 and plan.op_family == "tt":
+            plan = dataclasses.replace(plan, uc=plan.uc - plan.ro)
+        else:
+            return None
+
+
+def _plan_double(plan: CarryPlan, deepen, budget: int) -> CarryPlan | None:
+    """K6: tk the power of two at or above k / 132 (about a block per SM;
+    at most 8), tb the most items (a power of two, at most 32, the batch
+    and what CARRY_THREADS leaves) whose two slots fit beside the resident
+    operator rows in `budget`; then tpd doubles until the
+    block has CARRY_THREADS threads (full blocks beat a grid of more,
+    smaller ones on an H100 at the serving shapes). Where one pair does
+    not fit, its d-parts (and their exchange buffer) go."""
+    room = max(1, CARRY_THREADS // plan.tps)        # pairs a block holds
+    tk = max(1, min(8, _pow2floor(room),
+                    1 << (max(1, plan.k // H100_SMS) - 1).bit_length()))
+    tb = min(32, 1 << (plan.b - 1).bit_length(), _pow2floor(room // tk))
+    while True:
+        trial = dataclasses.replace(plan, tk=tk, tb=tb)
+        tpd = deepen(1, lambda t: tk * tb * plan.tps * t * 2
+                     > CARRY_THREADS)
+        trial = dataclasses.replace(trial, tpd=tpd)
+        if carry_smem_bytes(trial) <= budget:
+            return trial
+        if tb > 1:
+            tb //= 2
+        elif tk > 1:
+            tk //= 2
+        else:
+            trial = dataclasses.replace(trial, tpd=1)
+            return trial if carry_smem_bytes(trial) <= budget else None
 
 
 def struct_hbm_bytes(plan: CarryPlan) -> int:
     """Analytic device-memory traffic of one carry-sweep launch, following
-    the kernels' schedules: every block reads its k-rows of the operator
-    cores and its items' input cores once, so under K3's (k, batch) grid
-    the operator is read once per batch tile and the inputs once per k
-    tile; under K6's (k,) grid the operator once and the inputs once per
-    k tile. Each output is written once."""
+    the kernels' schedules: every block stages its k-rows of the operator
+    cores and its items' input cores once (K3 chunk by chunk), so under
+    K3's (batch, k) grid the operator is read once per batch tile and the
+    inputs once per k tile; under K6's (k,) grid the operator once and the
+    inputs once per k tile. Each output is written once."""
     nk = -(-plan.k // plan.tk)
     nb = 1 if plan.pipeline == "double" else -(-plan.b // plan.tb)
     op_bytes = 4 * plan.k * _core_elems(plan.op_family, plan.dims, plan.r_op)
     in_bytes = 4 * plan.b * _core_elems(plan.in_family, plan.dims, plan.r_in)
     return nb * op_bytes + nk * in_bytes + 4 * plan.b * plan.k
-
 
 def carry_program_flops(program, op_shapes, in_shapes) -> int:
     """Flops of a carry program on operands of the given shapes (operator

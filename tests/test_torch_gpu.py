@@ -10,6 +10,7 @@ every pytest-xdist worker collects the same tests). On the card run:
 Tolerance: max|kernel - plain| / max|plain| <= 1e-4 — both fp32, summed in
 different orders.
 """
+import dataclasses
 import math
 
 import pytest
@@ -203,7 +204,8 @@ CARRY_SHAPES = SHAPES + [(2, 3, 2, 3, 2, 2, 3), (2,) * 8, (8, 128, 64)]
 def test_k3_k6_match_plain_version(cuda, pair, dims):
     """Ragged ranks (2, 3, 4), k not a multiple of the tile, B = 3; in the
     (8, 128, 64) TT(25) case one k-row of an operator core is 320 KB: K3
-    reads it through the caches and K6's planner refuses it."""
+    stages it a few values of d at a time (five (5, 4) register tiles a
+    pair) and K6's planner refuses it."""
     of, inf = pair
     k, b = 37, 3
     rank = 25 if dims == (8, 128, 64) else 3
@@ -230,6 +232,142 @@ def test_k3_k6_match_plain_version(cuda, pair, dims):
                                       struct_rank(xb), pipeline=pipeline)
         assert _rel(fn(*cores, n_op=len(opc), plan=plan, scale=0.25),
                     ref) <= 1e-4
+
+
+def _carry_case(of, inf, dims, k, r_op, ranks, b, device, seed=2):
+    """Operator cores then input cores (rank-ragged) and the count of
+    operator cores."""
+    op = rp.make_projector(rp.ProjectorSpec(of, k, dims, r_op), 3,
+                           device=device)
+    opc = ops.tt_cores_squeezed(op) if of == "tt" else op.factors
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = random_tt if inf == "tt" else random_cp
+    st = stack_ragged_tt if inf == "tt" else stack_ragged_cp
+    xb = st([mk(g, dims, ranks[i % len(ranks)]) for i in range(b)])
+    cores = [c.contiguous() for c in (*opc, *_in_operands(inf, xb))]
+    return cores, len(opc), struct_rank(xb)
+
+
+def _split(plan):
+    """`plan` with each pair on 2 d-parts of threads and, where its carry
+    has more than one register tile, half as many tile threads as tiles
+    (a thread owns two), an interior TT operator core staged one tile of
+    bond rows a chunk, ragged 5 x 2 tiles and 4-value d chunks."""
+    p = dataclasses.replace(plan, tps=max(1, plan.n_tiles // 2), tpd=2,
+                            tk=5, tb=2, dc=4, uc=plan.ro)
+    return dataclasses.replace(p, smem_bytes=splan.carry_smem_bytes(p))
+
+
+@pytest.mark.parametrize("pair", [("tt", "tt"), ("tt", "cp"), ("cp", "tt"),
+                                  ("cp", "cp")], ids="x".join)
+@pytest.mark.parametrize("b", [1, 3, 8, 64, 130])
+def test_k3_k6_ragged_batches_match_plain_version(cuda, pair, b):
+    """k = 37 (ragged against every k tile), B in {1, 3, 8, 64, 130}
+    (ragged against every batch tile), TT ranks 2-4 per item, rank-5
+    operators: K3 and K6 under the planner's plans and under plans that
+    split each pair over 2 d-parts of threads, against the plain
+    version."""
+    of, inf = pair
+    dims = (4, 6, 5, 7)
+    cores, n_op, r_in = _carry_case(of, inf, dims, 37, 5, (2, 3, 4), b, cuda)
+    ref = carry.carry_sweep_project_plain(
+        *cores, n_op=n_op, program=splan._carry_program(of, inf, 4),
+        scale=0.25)
+    for pipeline, fn in (("serial", carry.carry_sweep_project),
+                         ("double", carry.carry_sweep_project_pipelined)):
+        plan = splan.plan_carry_sweep(of, inf, 37, b, dims, 5, r_in,
+                                      pipeline=pipeline)
+        for p in (plan, _split(plan)):
+            assert _rel(fn(*cores, n_op=n_op, plan=p, scale=0.25),
+                        ref) <= 1e-4
+
+
+@pytest.mark.parametrize("pair", [("tt", "tt"), ("cp", "tt")], ids="x".join)
+@pytest.mark.parametrize("r_op", [3, 5])
+def test_k3_k6_order8_rank10_inputs_match_plain_version(cuda, pair, r_op):
+    """Order 8 with rank-10 TT inputs (the paper's regime at small k and
+    B): three (5, 4) register tiles a pair."""
+    of, inf = pair
+    dims = (3, 2, 3, 2, 3, 2, 3, 2)
+    cores, n_op, r_in = _carry_case(of, inf, dims, 37, r_op, (10,), 5, cuda)
+    assert r_in == 10
+    ref = carry.carry_sweep_project_plain(
+        *cores, n_op=n_op, program=splan._carry_program(of, inf, 8),
+        scale=0.5)
+    for pipeline, fn in (("serial", carry.carry_sweep_project),
+                         ("double", carry.carry_sweep_project_pipelined)):
+        plan = splan.plan_carry_sweep(of, inf, 37, 5, dims, r_op, r_in,
+                                      pipeline=pipeline)
+        assert plan.nf * plan.ri >= 10 and plan.n_tiles > 1
+        assert _rel(fn(*cores, n_op=n_op, plan=plan, scale=0.5),
+                    ref) <= 1e-4
+
+
+@pytest.mark.parametrize("pair", [("tt", "tt"), ("tt", "cp"), ("cp", "tt"),
+                                  ("cp", "cp")], ids="x".join)
+@pytest.mark.parametrize("r_op,ranks", [(16, (16,)), (9, (17, 20, 24))],
+                         ids=["bond16", "inputs17-24"])
+def test_k3_k6_take_any_bond(cuda, pair, r_op, ranks):
+    """Carries of several register tiles (bond-16 operators on rank-16
+    inputs; bond-9 operators on inputs of ranks 17-24), k = 37, B = 5,
+    under the planner's plans and under `_split` (two tiles a tile
+    thread, a TT operator's interior core one tile of bond rows a chunk),
+    against the plain version, twice for the same bits."""
+    of, inf = pair
+    dims = (4, 6, 5)
+    cores, n_op, r_in = _carry_case(of, inf, dims, 37, r_op, ranks, 5, cuda)
+    ref = carry.carry_sweep_project_plain(
+        *cores, n_op=n_op, program=splan._carry_program(of, inf, 3),
+        scale=0.25)
+    for pipeline, fn in (("serial", carry.carry_sweep_project),
+                         ("double", carry.carry_sweep_project_pipelined)):
+        plan = splan.plan_carry_sweep(of, inf, 37, 5, dims, r_op, r_in,
+                                      pipeline=pipeline)
+        assert plan.n_tiles > 1
+        for p in (plan, _split(plan)):
+            y = fn(*cores, n_op=n_op, plan=p, scale=0.25)
+            assert _rel(y, ref) <= 1e-4
+            assert torch.equal(y, fn(*cores, n_op=n_op, plan=p, scale=0.25))
+
+
+@pytest.mark.parametrize("of", ["tt", "cp"])
+def test_k3_stages_a_large_tt_core_in_row_chunks(cuda, of):
+    """A bond-180 operator: one value of d of a TT operator's interior
+    core row does not fit twice in a block, so K3 stages it a chunk of
+    bond rows at a time (a CP operator of the same bond needs no
+    chunks)."""
+    dims = (3, 3, 3)
+    cores, n_op, r_in = _carry_case(of, "tt", dims, 8, 180, (2, 3, 4), 3,
+                                    cuda)
+    plan = splan.plan_carry_sweep(of, "tt", 8, 3, dims, 180, r_in)
+    assert (plan.uc < 180) == (of == "tt")
+    ref = carry.carry_sweep_project_plain(
+        *cores, n_op=n_op, program=plan.program, scale=0.5)
+    assert _rel(carry.carry_sweep_project(*cores, n_op=n_op, plan=plan,
+                                          scale=0.5), ref) <= 1e-4
+
+
+@pytest.mark.parametrize("pair", [("tt", "tt"), ("tt", "cp"), ("cp", "tt"),
+                                  ("cp", "cp")], ids="x".join)
+@pytest.mark.parametrize("b", [8, 64])
+def test_k3_k6_give_the_same_bits_every_call(cuda, pair, b):
+    """The serving shapes (TT(5) / CP(25), k=512, dims 64^3, rank-4
+    inputs) at a serve tick's B=8 and at B=64: the partials of a pair's
+    threads are summed in a fixed order, so two calls agree bit for bit."""
+    of, inf = pair
+    r_op = 5 if of == "tt" else 25
+    cores, n_op, r_in = _carry_case(of, inf, (64, 64, 64), 512, r_op, (4,),
+                                    b, cuda, seed=9)
+    for pipeline, fn in (("serial", carry.carry_sweep_project),
+                         ("double", carry.carry_sweep_project_pipelined)):
+        plan = splan.plan_carry_sweep(of, inf, 512, b, (64, 64, 64), r_op,
+                                      r_in, pipeline=pipeline)
+        first = fn(*cores, n_op=n_op, plan=plan, scale=1.0)
+        assert torch.equal(first, fn(*cores, n_op=n_op, plan=plan,
+                                     scale=1.0))
+        ref = carry.carry_sweep_project_plain(
+            *cores, n_op=n_op, program=plan.program, scale=1.0)
+        assert _rel(first, ref) <= 1e-4
 
 
 def test_mixed_server_ticks_launch_k1_and_k3(cuda):

@@ -4,13 +4,16 @@ The double-buffered kernels K5 (`sweep_project_pipelined`, dense inputs)
 and K6 (`carry_sweep_project_pipelined`, TT/CP-format inputs) run their
 plain versions on CPU tensors — the CUDA kernels run only on the card
 (tests/test_torch_gpu.py, chip_smoke.py) — and are held against the
-reference's pipelined Pallas kernels in interpret mode. Also: the typed
+reference's pipelined Pallas kernels in interpret mode, as is K6's tile
+schedule emulated in torch ops (`carry_sweep_tiled_plain`). Also: the typed
 `pipeline=` errors, the planners' charge for the second slot, and the
 routing of `rp.project(..., pipeline='double')`.
 
 Tolerance rtol=1e-5, atol=1e-5: float32 on both sides, the same
 contraction program summed in different orders.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +31,8 @@ from repro_torch.kernels import _sweep, ops
 from repro_torch.kernels import struct
 from repro_torch.kernels.struct import plan as splan
 
-from test_torch_struct import PAIRINGS, _items, _stack
+from test_torch_struct import (PAIRINGS, _items, _stack,
+                               check_tiled_schedule)
 
 RTOL = ATOL = 1e-5
 ORDER_SHAPES = {2: (8, 8), 3: (4, 8, 8), 4: (4, 4, 4, 8), 5: (2, 3, 4, 3, 4)}
@@ -74,6 +78,16 @@ def test_k6_matches_reference_pipelined_kernel(pair, order):
     want = jstruct.struct_project(jop, jb, interpret=True, pipeline="double")
     _close(struct.struct_project(top, tb, pipeline="double"), want)
     _close(struct.struct_project(top, tb[1], pipeline="double"), want[1])
+
+
+@pytest.mark.parametrize("pair", PAIRINGS, ids="x".join)
+@pytest.mark.parametrize("order", [2, 3, 4, 5])
+def test_k6_tiled_schedule_matches_reference_pipelined_kernel(pair, order):
+    """K6's schedule (`carry_sweep_tiled_plain` on double plans: batch
+    tiles inside a k tile, whole modes) against the reference's
+    interpret-mode pipelined kernel, B in {1, 3, 8}, with the planner's
+    plan and one that splits each pair over threads."""
+    check_tiled_schedule(pair, order, "double")
 
 
 def _message(fn):
@@ -129,11 +143,12 @@ def test_double_plans_charge_the_second_slot(family, dims):
                 splan.plan_carry_sweep(family, "tt", k, b, dims, rank, 4,
                                        pipeline="double")
             continue
-        # K6 holds every operator mode and two input slots; K3 one mode
+        # K6 holds every operator mode whole and two input slots of every
+        # mode; K3 with the same tiles two slots of one chunk of one mode
         p6 = splan.plan_carry_sweep(family, "tt", k, b, dims, rank, 4,
                                     pipeline="double")
-        same = splan.carry_smem_bytes(family, "tt", dims, rank, 4, p6.tk,
-                                      p6.tb, "serial")
+        same = splan.carry_smem_bytes(dataclasses.replace(p6,
+                                                          pipeline="serial"))
         assert p6.smem_bytes > same and p6.smem_bytes <= 232_448
 
 

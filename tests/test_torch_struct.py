@@ -7,15 +7,20 @@
   tests/test_torch_pipeline.py) — what the wrapper runs on CPU tensors;
   the CUDA kernels run only on the card (tests/test_torch_gpu.py,
   chip_smoke.py) — are held against `repro.kernels.struct.struct_project`
-  with its Pallas kernels in interpret mode.
+  with its Pallas kernels in interpret mode, as is the kernels' tile
+  schedule emulated in torch ops (`carry_sweep_tiled_plain`).
 * The containers, rank padding and the rp layer (`project`,
   `project_many`, `group_signature`, dispatch counts) against `repro`.
 
 Operators are sampled in JAX and carried across; structured inputs are
 drawn with numpy and built on both sides from the same arrays.
 Tolerance rtol=1e-5, atol=1e-5: float32 on both sides with the same
-contraction program, summed in different orders.
+contraction program, summed in different orders. The tile schedule, which
+splits each mode's sum over d between threads, is held at rtol=1e-5 and
+atol=1e-5 of the largest output (its rank-5 operators give outputs up to
+about 20).
 """
+import dataclasses
 import pathlib
 import re
 
@@ -64,13 +69,13 @@ def _np_tt(rng, dims, ranks):
                                 dtype=np.float32) for n, d in enumerate(dims)]
 
 
-def _items(family, dims, n, seed, weights=False):
-    """n structured items of ragged ranks (2, 3, 4 cycled) as
+def _items(family, dims, n, seed, weights=False, ranks=(2, 3, 4)):
+    """n structured items of ragged ranks (`ranks` cycled) as
     (reference item, port item) pairs from the same numpy arrays."""
     rng = np.random.default_rng(seed)
     out = []
     for i in range(n):
-        r = (2, 3, 4)[i % 3]
+        r = ranks[i % len(ranks)]
         if family == "tt":
             cores = _np_tt(rng, dims, [1] + [r] * (len(dims) - 1) + [1])
             out.append((jf.TTTensor(tuple(jnp.asarray(c) for c in cores)),
@@ -112,7 +117,6 @@ def test_carry_lowering_refuses_unknown_strings():
     plan = splan.plan_carry_sweep("tt", "tt", 8, 2, (4, 4, 4), 2, 2)
     bad = list(plan.program)
     bad[1] = ("t", "bkue,kudv->bkdev", "c", "g1")
-    import dataclasses
     with pytest.raises(ValueError, match="no kernel opcode"):
         carry.carry_codes(dataclasses.replace(plan, program=tuple(bad)))
     with pytest.raises(ValueError, match="no kernel lowering"):
@@ -124,6 +128,12 @@ def test_carry_opcodes_agree_with_the_cuda_source():
     enum = {n: int(v) for n, v in re.findall(r"(C_\w+) = (\d+)", text)}
     assert enum == {n: getattr(carry, n) for n in enum} and len(enum) == 9
     assert "carry_sweep" in _sweep.SOURCES
+    # the register tiles compiled are the planner's, and so is the bound
+    line = re.search(r"#define CARRY_TILES\(X\)(.*?)\n", text).group(1)
+    got = tuple(tuple(int(v) for v in t.split(","))
+                for t in re.findall(r"X\(([\d, ]+)\)", line))
+    assert got == splan.CARRY_TILES
+    assert f"#define CARRY_THREADS {splan.CARRY_THREADS}" in text
 
 
 SHAPES = [(64, 64, 64), (8,) * 8, (128, 128), (16, 32, 24), (4, 6, 4, 8, 4),
@@ -133,22 +143,50 @@ SHAPES = [(64, 64, 64), (8,) * 8, (128, 128), (16, 32, 24), (4, 6, 4, 8, 4),
 @pytest.mark.parametrize("pipeline", ["serial", "double"])
 @pytest.mark.parametrize("dims", SHAPES, ids=lambda d: "x".join(map(str, d)))
 def test_every_carry_plan_fits_shared_memory(pipeline, dims):
+    """Every plan fits one block's shared memory and CARRY_THREADS, cuts
+    the carry into compiled register tiles that cover both bonds, owns
+    each tile by one tile thread, and sizes its layout by
+    `carry_smem_bytes`."""
     for pair in PAIRINGS:
         for k, b, r_op, r_in in [(512, 8, 5, 4), (512, 64, 25, 4),
                                  (512, 64, 5, 10), (37, 3, 3, 4),
-                                 (1000, 300, 8, 8)]:
+                                 (1000, 300, 8, 8), (64, 4, 16, 16),
+                                 (37, 5, 5, 17)]:
             plan = splan.plan_carry_sweep(*pair, k, b, dims, r_op, r_in,
                                           pipeline=pipeline)
             assert plan.smem_bytes <= 232_448
-            assert plan.smem_bytes == splan.carry_smem_bytes(
-                *pair, dims, r_op, r_in, plan.tk, plan.tb, pipeline)
-            assert 1 <= plan.warps <= 32
+            assert plan.smem_bytes == splan.carry_smem_bytes(plan)
+            assert (plan.ro, plan.ri) in splan.CARRY_TILES
+            assert plan.nv * plan.ro >= r_op and plan.nf * plan.ri >= r_in
+            assert 1 <= plan.tps <= plan.n_tiles
+            assert plan.single == (plan.tps == plan.n_tiles)
+            assert plan.threads == plan.tk * plan.tb * plan.tpp <= 256
+            assert 1 <= plan.warps <= 8 and plan.tpd <= splan.MAX_TPD
             assert len(plan.grid) == (1 if pipeline == "double" else 2)
+            assert plan.dc in splan.DC_CHOICES
+            assert plan.uc % plan.ro == 0 and plan.uc >= min(plan.ro, r_op)
 
 
 def test_carry_planner_refuses_a_pair_too_big_for_shared_memory():
+    """K3 stages a few values of d (and of an interior TT operator core a
+    few bond rows) at a time and cuts a large carry into more register
+    tiles, so what it refuses is a carry that outgrows a block's shared
+    memory; K6 refuses operator cores that outgrow it."""
+    # a 256 x 256 carry is 256 KB
     with pytest.raises(ValueError, match="shared memory"):
-        splan.plan_carry_sweep("tt", "tt", 64, 4, (4096, 4096), 16, 16)
+        splan.plan_carry_sweep("tt", "tt", 64, 4, (4, 4, 4), 256, 256)
+    with pytest.raises(ValueError, match="shared memory"):
+        splan.plan_carry_sweep("tt", "tt", 64, 4, (4096, 4096), 8, 8,
+                               pipeline="double")
+    assert splan.plan_carry_sweep("tt", "tt", 64, 4, (4096, 4096), 8,
+                                  8).smem_bytes <= 232_448
+    # TT(16) x TT(16): four (8, 8) tiles a pair
+    plan = splan.plan_carry_sweep("tt", "tt", 64, 4, (8, 8), 16, 16)
+    assert (plan.ro, plan.ri, plan.n_tiles, plan.tps) == (8, 8, 4, 4)
+    plan = splan.plan_carry_sweep("cp", "tt", 64, 4, (8, 8), 5, 17)
+    assert plan.nf * plan.ri >= 17 and plan.single
+    assert splan.plan_carry_sweep("cp", "cp", 64, 4, (8, 8), 64,
+                                  16).n_tiles == 16
     with pytest.raises(ValueError, match="order"):
         splan.plan_carry_sweep("tt", "tt", 64, 4, (4,) * 9, 2, 2)
     with pytest.raises(ValueError, match="pipeline"):
@@ -157,18 +195,38 @@ def test_carry_planner_refuses_a_pair_too_big_for_shared_memory():
 
 
 def test_k6_plan_keeps_a_block_per_sm_at_k512():
+    """K6 at the serving shape: about a block per SM (k / 4 = 128 of the
+    132) and a full block of threads; its traffic counts the operator once
+    and the inputs once per k tile, K3's the operator once per batch tile.
+    K3 at a serve tick's B=8 splits each pair over threads to put 8 warps
+    an SM on the card; at B=64 a thread runs a whole pair."""
     plan = splan.plan_carry_sweep("tt", "tt", 512, 64, (64, 64, 64), 5, 4,
                                   pipeline="double")
-    assert plan.grid[0] >= 132 and plan.tk * plan.tb <= 16
-    assert struct.struct_hbm_bytes(plan) < struct.struct_hbm_bytes(
-        splan.plan_carry_sweep("tt", "tt", 512, 64, (64, 64, 64), 5, 4))
+    assert plan.grid[0] >= 128 and plan.threads == 256
+    serial = splan.plan_carry_sweep("tt", "tt", 512, 64, (64, 64, 64), 5, 4)
+    op_floats, in_floats = 64 * 5 + 5 * 64 * 5 + 5 * 64, 64 * 4 * (1 + 4 + 1)
+    assert struct.struct_hbm_bytes(plan) == 4 * (
+        512 * op_floats + plan.grid[0] * 64 * in_floats + 64 * 512)
+    assert struct.struct_hbm_bytes(serial) == 4 * (
+        serial.grid[0] * 512 * op_floats + serial.grid[1] * 64 * in_floats
+        + 64 * 512)
+    assert serial.tpp == 1 and (serial.ro, serial.ri, serial.n_tiles) == (
+        5, 4, 1)
+    for of, r_op in (("tt", 5), ("cp", 25)):
+        for inf in ("tt", "cp"):
+            tick = splan.plan_carry_sweep(of, inf, 512, 8, (64, 64, 64),
+                                          r_op, 4)
+            assert tick.tpp > 1
+            assert 512 * 8 * tick.tpp >= splan.CARRY_TARGET_THREADS
+            assert tick.grid[0] * tick.grid[1] >= 128
 
 
 def test_k6_planner_refuses_an_operator_row_too_big_for_shared_memory():
     # one k-row of the interior TT(25) core over a mode of 128 is 320 KB:
-    # K3 reads it through the caches, K6 would hold it in shared memory
+    # K3 stages it a few values of d at a time, K6 would hold it whole
     dims = (8, 128, 64)
-    assert splan.plan_carry_sweep("tt", "tt", 37, 3, dims, 25, 4).tk >= 1
+    plan = splan.plan_carry_sweep("tt", "tt", 37, 3, dims, 25, 4)
+    assert plan.dc < 128 and (plan.ro, plan.ri, plan.tps) == (5, 4, 5)
     with pytest.raises(ValueError, match="operator cores"):
         splan.plan_carry_sweep("tt", "tt", 37, 3, dims, 25, 4,
                                pipeline="double")
@@ -265,6 +323,116 @@ def test_carry_sweep_matches_reference_kernels(pair, order, pipeline="serial"):
     want = jstruct.struct_project(jop, jb, interpret=True, pipeline=pipeline)
     _close(struct.struct_project(top, tb, pipeline=pipeline), want)
     _close(struct.struct_project(top, tb[2], pipeline=pipeline), want[2])
+
+
+def split_plan(plan):
+    """`plan` re-tiled so that each pair runs on 2 d-parts of threads and,
+    where its carry has more than one register tile, half as many tile
+    threads as tiles (a thread owns two), an interior TT operator core
+    staged one tile of bond rows a chunk, in ragged 5 x 2 tiles and
+    4-value d chunks."""
+    split = dataclasses.replace(plan, tps=max(1, plan.n_tiles // 2), tpd=2,
+                                tk=5, tb=2, dc=4, uc=plan.ro)
+    assert split.tpp >= 2 and (split.n_tiles == 1 or not split.single)
+    return dataclasses.replace(split,
+                               smem_bytes=splan.carry_smem_bytes(split))
+
+
+def check_tiled_schedule(pair, order, pipeline, rank=5, ranks=(2, 3, 4),
+                         dims=None, k=37, batches=(1, 3, 8)):
+    """The kernels' schedule (`carry_sweep_tiled_plain`) against the
+    reference's interpret-mode kernel: TT/CP operators of `rank` (5), `k`
+    (37), B in `batches` ({1, 3, 8}: the first items of one batch of 8,
+    inputs of the ranks `ranks` cycled, CP weights on even orders), dims
+    `dims` (those of ORDER_SHAPES[order]), under the planner's plan and
+    under `split_plan`."""
+    from repro_torch.kernels.ops import tt_cores_squeezed
+    from repro_torch.kernels.struct.ops import _in_operands
+    of, inf = pair
+    dims = dims or ORDER_SHAPES[order]
+    jop, top = _op_pair(of, dims, k=k, rank=rank, seed=order)
+    items = _items(inf, dims, 8, seed=order + 30, weights=order % 2 == 0,
+                   ranks=ranks)
+    want = np.asarray(jstruct.struct_project(jop, _stack(inf, items)[0],
+                                             interpret=True,
+                                             pipeline=pipeline))
+    opc = tt_cores_squeezed(top) if of == "tt" else top.factors
+    for b in batches:
+        xb = _stack(inf, items[:b])[1]
+        cores = [c.contiguous() for c in (*opc, *_in_operands(inf, xb))]
+        plan = splan.plan_carry_sweep(of, inf, k, b, dims, rank,
+                                      struct.struct_rank(xb),
+                                      pipeline=pipeline)
+        for p in (plan, split_plan(plan)):
+            got = carry.carry_sweep_tiled_plain(*cores, n_op=len(opc),
+                                                plan=p, scale=k ** -0.5)
+            np.testing.assert_allclose(
+                got.numpy(), want[:b], rtol=RTOL,
+                atol=ATOL * float(np.abs(want[:b]).max()))
+
+
+@pytest.mark.parametrize("pair", PAIRINGS, ids="x".join)
+@pytest.mark.parametrize("order", [2, 3, 4, 5])
+def test_carry_tiled_schedule_matches_reference_kernels(pair, order):
+    """K3's schedule; tests/test_torch_pipeline.py runs K6's."""
+    check_tiled_schedule(pair, order, "serial")
+
+
+@pytest.mark.parametrize("pipeline", ["serial", "double"])
+@pytest.mark.parametrize("pair", PAIRINGS, ids="x".join)
+@pytest.mark.parametrize("rank,ranks", [(16, (16,)), (9, (17, 20, 24))],
+                         ids=["bond16", "inputs17-24"])
+def test_carry_tiled_schedule_takes_any_bond(pipeline, pair, rank, ranks):
+    """A carry of several register tiles: operators of bond 16 on rank-16
+    inputs, and of bond 9 on inputs of ranks 17-24, at order 3 (dims
+    2 x 3 x 4), k = 7, B = 3, under the planner's plan and under
+    `split_plan` (two tiles a tile thread, and a TT operator's interior
+    core staged one tile of bond rows a chunk)."""
+    check_tiled_schedule(pair, 3, pipeline, rank=rank, ranks=ranks,
+                         dims=(2, 3, 4), k=7, batches=(3,))
+
+
+def _warp_per_pair_bytes(of, inf, dims, r_op, r_in, pipeline):
+    """Shared memory of a schedule that runs one warp a pair with its
+    carry, successor (and TT x TT's temp) in shared memory: K3 with one
+    item's whole input mode, K6 with a k-row's operator cores and two
+    slots of one item's input cores."""
+    def modes(family, rank):
+        if family == "cp":
+            return [d * rank for d in dims]
+        n = len(dims)
+        return [(1 if i == 0 else rank) * d * (1 if i == n - 1 else rank)
+                for i, d in enumerate(dims)]
+
+    cm = r_op * r_in
+    carries = -(-(3 if (of, inf) == ("tt", "tt") else 2) * cm // 4) * 4
+    up4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    if pipeline == "double":
+        return 4 * (up4(sum(modes(of, r_op))) + 2 * up4(sum(modes(inf, r_in)))
+                    + carries)
+    return 4 * (up4(max(modes(inf, r_in))) + carries)
+
+
+@pytest.mark.parametrize("pipeline", ["serial", "double"])
+@pytest.mark.parametrize("pair", PAIRINGS, ids="x".join)
+def test_carry_planner_takes_every_bond_a_warp_per_pair_fits(pipeline, pair):
+    """No bond is refused for want of a register tile: wherever one warp a
+    pair with its carry in shared memory would fit one block, the planner
+    plans the launch (K3 cuts a large carry into more tiles and stages a
+    large interior TT core a few bond rows a chunk)."""
+    planned = 0
+    for dims in [(8, 8), (64, 64, 64), (8, 128, 64), (2,) * 8, (16, 16, 16),
+                 (300, 7), (3, 5, 7, 9)]:
+        for r_op in (1, 5, 16, 17, 25, 33, 64, 100, 160, 200):
+            for r_in in (1, 4, 10, 17, 24, 32, 64, 100):
+                if _warp_per_pair_bytes(*pair, dims, r_op, r_in,
+                                        pipeline) > 232_448:
+                    continue
+                plan = splan.plan_carry_sweep(*pair, 64, 4, dims, r_op, r_in,
+                                              pipeline=pipeline)
+                assert plan.smem_bytes <= 232_448
+                planned += 1
+    assert planned > 200
 
 
 def test_carry_wrappers_refuse_what_the_kernels_do_not_take():
