@@ -84,6 +84,40 @@ Phases (each raises on failure, so the script exits non-zero):
   11. the reference test's learning run on the card: reduced llama3.2-3b,
      `tt:k=1024,rank=8,dims=4x8x16`, constant lr 3e-3, 8 fused steps; the
      last loss must be below the first.
+  12. the paper's Fig. 1 (`benchmarks/distortion.py`'s three cases: d=15,
+     N=3; d=3, N=12; d=3, N=25; a unit-norm rank-10 TT input each; k in
+     {16, 64, 256, 1024}; TT(2/5/10), CP(4/25/100), Gaussian at the small
+     case, very-sparse at the medium case for k <= 256; 20 operators a
+     row, seeds 1000+t) through `rp.make_projector` and `rp.project` with
+     the default backend: the mean and std distortion table with each
+     operator's parameter count; K3 launches and `kernel_call_count` equal
+     the small case's TT/CP projections, the order-12 and order-25 rows
+     take the torch route, the baselines densify the TT input; every
+     row's mean below 3 sqrt(c/k) (c the Thm-1 variance factor, 2 for
+     Gaussian, very-sparse's worst case and its exact value on this
+     input); every one of the 24 shapes K3 ran at (6 operators x 4 ks,
+     B=1) held against its plain version on the same 20 operators; K3 at
+     TT(10) and CP(100), k=1024, B=1 and B=64, twice each for the same
+     bits; the streamed Gaussian against its materialized matrix (project
+     and reconstruct, D=3375); a B=64 batch of small-case inputs timed
+     through `rp.project` a map at k=1024; one `kernels` row a K3 shape,
+     timed at B=1 with its launches queued behind a sleep kernel (at
+     k=1024 TT(10) and CP(100) also the profiler's device time, the host
+     time and the B=64 batch, as `b64_*`).
+  13. telemetry (`repro_torch.obs`): the dense TT(5) replay (1024
+     requests, k=512, 64^3) through `launch/serve_rp.main` with
+     `--trace-out`, `--metrics-out` and `--distortion 0.5 0.05`
+     (`required_k` 391 <= 512): one `serve.tick` span per tick, each
+     holding one kernel-route `rp.project` span, a queue-delay histogram
+     of 1024 requests, no alert; the same at k=16 raises one
+     `distortion.alert`; `obs_report` over both captures; the mixed
+     replay under `obs.capture`: dispatch spans == K1 + K3 launches; two
+     full-width train steps through `runtime.train_loop.run` under capture
+     (two `train.step` spans, each holding the sketcher's `rp.project`
+     spans and the three `train.*` part spans); the host us of a B=8 K3
+     dispatch with obs disabled and enabled beside K3's wrapper, and the
+     disabled bundle (span + counter + histogram) within 5% of the
+     wrapper's host time.
 Then it prints the `kernels` JSON line, the card's name and power limit,
 and as its last line `{"ok": true, "device": {...}}`.
 """
@@ -183,6 +217,51 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_queued(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device milliseconds of `fn()` over `reps` calls queued behind a
+    sleep kernel (CUDA events): the card runs the calls back to back, so a
+    small launch is timed without the host's time between launches. The
+    sleep grows until it outlasts the host's queueing."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    cycles = 10_000_000
+    while True:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if ev[0].elapsed_time(ev[1]) > 1.2 * host_ms:
+            return ev[1].elapsed_time(ev[2]) / reps
+        if cycles > 1_000_000_000:
+            raise AssertionError(f"the host took {host_ms:.1f} ms to queue "
+                                 f"{reps} calls, longer than the sleep")
+        cycles *= 4
+
+
+def cuda_ms_each(fn, reps: int) -> list[float]:
+    """Device milliseconds of each of `reps` back-to-back calls of `fn()`,
+    an event pair around each (after one warm-up call)."""
+    import torch
+    fn()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in pairs]
 
 
 SWEEP_KERNELS = (("fold_m_kernel", "fold"), ("project_gemm_kernel", "product"),
@@ -348,6 +427,43 @@ def fused_flops(plan):
     return route_flops(plan) + epilogue, cheaper + epilogue
 
 
+def train_slice(dev):
+    """Phase 9's training slice: llama3.2-3b at its published widths cut
+    to TRAIN_LAYERS layers, its train_4k sequence, TRAIN_BATCH, the
+    TRAIN_COMPRESS compressor, the fused step and a fresh train state.
+    Returns (model, cfg, shape, comp, opt, step_fn, state, data)."""
+    import dataclasses
+    import functools
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw, schedule
+    from repro_torch.optim.compress import (SketchCompressor,
+                                            parse_compress_flag)
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              n_layers=TRAIN_LAYERS)
+    model = build_model(cfg)
+    shape = ShapeSpec("train_4k", cfg.shape("train_4k").seq_len,
+                      TRAIN_BATCH, "train")
+    comp = SketchCompressor(parse_compress_flag(TRAIN_COMPRESS))
+    opt = adamw.AdamWConfig(clip_norm=None)
+    lr_fn = functools.partial(schedule.constant, peak_lr=TRAIN_LR)
+    step_fn = steps.build_train_step(model, shape, compressor=comp,
+                                     opt=opt, lr_fn=lr_fn, fused_update=True,
+                                     device=dev)
+    state = steps.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(0), opt=opt,
+        compressor=comp)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
+                                  global_batch=shape.global_batch, seed=0))
+    return model, cfg, shape, comp, opt, step_fn, state, data
+
+
 def train_phases(dev, gen, errs, per_family, launches, time_row):
     """Phases 8-11: K4 against its plain version, the sketch-compressed
     training slice at full width, the fused update against the unfused
@@ -413,23 +529,8 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
     log("K4 gave the same bits on every second call")
 
     # -- 9. the training slice at full width, 2 layers --------------------
-    cfg = dataclasses.replace(get_config("llama3.2-3b"),
-                              n_layers=TRAIN_LAYERS)
-    model = build_model(cfg)
-    shape = ShapeSpec("train_4k", cfg.shape("train_4k").seq_len,
-                      TRAIN_BATCH, "train")
-    comp = SketchCompressor(parse_compress_flag(TRAIN_COMPRESS))
-    opt = adamw.AdamWConfig(clip_norm=None)
-    lr_fn = functools.partial(schedule.constant, peak_lr=TRAIN_LR)
-    step_fn = steps.build_train_step(model, shape, compressor=comp,
-                                     opt=opt, lr_fn=lr_fn, fused_update=True,
-                                     device=dev)
     t0 = time.perf_counter()
-    state = steps.init_train_state(
-        model, torch.Generator(device=dev).manual_seed(0), opt=opt,
-        compressor=comp)
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
-                                  global_batch=shape.global_batch, seed=0))
+    model, cfg, shape, comp, opt, step_fn, state, data = train_slice(dev)
     batches = [data.batch(i) for i in range(TRAIN_STEPS + 2)]
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
@@ -485,7 +586,7 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
         f"{TRAIN_STEPS} steps, K2 launches {counts[2]}; peak memory "
         f"{peak:.1f} GiB")
     # the split of each counted step, from the spans it recorded
-    parts = ("loss_grad", "sketch", "fused_update")
+    parts = ("train.loss_grad", "train.sketch", "train.fused_update")
     recorded = [name for name, _, _ in marks]
     if recorded != list(parts) * TRAIN_STEPS:
         raise AssertionError(f"train: spans {recorded}, expected {parts} a "
@@ -749,6 +850,473 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
     if not rlosses[-1] < rlosses[0]:
         raise AssertionError(f"reduced run did not learn: {rlosses}")
     return rows, k5_row
+
+
+# the paper's Fig. 1 (benchmarks/distortion.py): three cases of unit-norm
+# rank-10 TT inputs, k in FIG1_KS, TT/CP ranks, Gaussian at the small case
+# and very-sparse at the medium case (k <= 256), operator seeds 1000+t
+FIG1_CASES = {"small": (15, 3), "medium": (3, 12), "high": (3, 25)}
+FIG1_KS = (16, 64, 256, 1024)
+FIG1_TT_RANKS = (2, 5, 10)
+FIG1_CP_RANKS = (4, 25, 100)
+FIG1_TRIALS = 20
+FIG1_BATCH = 64
+# phase 13's distortion target: required_k("tt", 3, rank=5) = 391 <= 512
+OBS_EPS, OBS_DELTA = 0.5, 0.05
+
+
+def fig1_maps(case: str, k: int) -> list[tuple[str, int]]:
+    """(family, rank) of every map Fig. 1 runs in `case` at `k`."""
+    out = ([("tt", r) for r in FIG1_TT_RANKS]
+           + [("cp", r) for r in FIG1_CP_RANKS])
+    if case == "small":
+        out.append(("gaussian", 1))
+    if case == "medium" and k <= 256:
+        out.append(("sparse", 1))
+    return out
+
+
+def fig1_key(family: str, rank: int, k: int) -> str:
+    """The `kernels` row of K3 at one of Fig. 1's small-case shapes."""
+    return f"carry_sweep_project:fig1:{family}{rank}xtt:k{k}"
+
+
+def map_name(family: str, rank: int) -> str:
+    return {"gaussian": "Gaussian", "sparse": "VerySparse"}.get(
+        family, f"{family.upper()}({rank})")
+
+
+def fig1_phase(dev, errs, per_family, launches, time_row):
+    """Phase 12: the paper's Fig. 1 on the card through `rp.project` with
+    the default backend; its checks, K3 at every small-case shape against
+    its plain version, the streamed Gaussian against its matrix, and a
+    B=64 batch timed per map. Returns the K3 rows of the `kernels` line,
+    one a shape K3 ran at (B=1, rank-10 TT input)."""
+    import torch
+    from repro_torch import kernels, rp
+    from repro_torch.core import BatchedTTTensor, random_tt, theory
+    from repro_torch.kernels import _sweep
+    from repro_torch.kernels.struct import carry
+    from repro_torch.kernels.struct import plan as splan
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    inputs = {case: random_tt(gen, (d,) * n, 10, norm="unit")
+              for case, (d, n) in FIG1_CASES.items()}
+    single = BatchedTTTensor.stack([inputs["small"]])
+
+    def k3_plain(op, family):
+        """K3's plain version on the small case's input, as `rp.project`
+        launches K3 on it (B=1, input rank 10)."""
+        cores, n_op = struct_operands(op, family, single, "tt")
+        plan = splan.plan_carry_sweep(family, "tt", op.k, 1, op.in_dims,
+                                      op.rank, 10)
+        return carry.carry_sweep_project_plain(
+            *cores, n_op=n_op, program=plan.program,
+            scale=1.0 / math.sqrt(op.k))[0]
+
+    table, held = [], {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with rp.dispatch_stats() as st:
+        for case, (d, n) in FIG1_CASES.items():
+            dims, x = (d,) * n, inputs[case]
+            for k in FIG1_KS:
+                for family, rank in fig1_maps(case, k):
+                    spec = rp.ProjectorSpec(family, k, dims, rank)
+                    ys, refs = [], []
+                    for t in range(FIG1_TRIALS):
+                        op = rp.make_projector(spec, 1000 + t, device=dev)
+                        ys.append(rp.project(op, x))
+                        if case == "small" and family in ("tt", "cp"):
+                            refs.append(k3_plain(op, family))
+                    ys = torch.stack(ys)
+                    if refs:
+                        held[(family, rank, k)] = (ys, torch.stack(refs))
+                    dist = (ys.double().square().sum(-1) - 1.0).abs().cpu()
+                    table.append(dict(
+                        case=case, map=map_name(family, rank),
+                        family=family, rank=rank, k=k,
+                        mean=float(dist.mean()),
+                        std=float(dist.std(correction=0)),
+                        params=theory.params_rp(family, k, dims, rank)))
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = _sweep.sweep_project.launches
+    k3 = carry.carry_sweep_project.launches
+    n_small = len(FIG1_KS) * (len(FIG1_TT_RANKS) + len(FIG1_CP_RANKS)) \
+        * FIG1_TRIALS
+    if k3 != n_small or st.kernel_calls != n_small or k1 != 0:
+        raise AssertionError(
+            f"fig1: K3 launches {k3}, K1 launches {k1}, kernel_call_count "
+            f"{st.kernel_calls}; expected {n_small} K3 launches, the small "
+            "case's TT/CP projections")
+    bd = st.breakdown_table()
+    calls = {(r["family"], r["structure"], r["route"], r["order"]):
+             r["calls"] for r in bd}
+    per_op = len(FIG1_KS) * len(FIG1_TT_RANKS) * FIG1_TRIALS
+    want = {}
+    for family in ("tt", "cp"):
+        for case, (_, n) in FIG1_CASES.items():
+            route = "kernel" if case == "small" else "torch"
+            want[(family, "tt", route, n)] = per_op
+    want[("gaussian", "dense", "torch", 1)] = len(FIG1_KS) * FIG1_TRIALS
+    want[("sparse", "dense", "torch", 1)] = FIG1_TRIALS * sum(
+        k <= 256 for k in FIG1_KS)
+    if calls != want:
+        raise AssertionError(f"fig1: dispatch breakdown {bd}, expected "
+                             f"{want}")
+    log(f"fig1: {len(table)} rows, {sum(want.values())} projections in "
+        f"{wall:.1f}s (K3's plain versions included); K3 launches {k3} == "
+        f"kernel_call_count {st.kernel_calls} == the small case's TT/CP "
+        f"projections; breakdown {bd}")
+    # every shape K3 ran at: its 20 sketches against its plain version's
+    small_d, small_n = FIG1_CASES["small"]
+    for (family, rank, k), (ys, refs) in held.items():
+        key = fig1_key(family, rank, k)
+        errs[key] = check(
+            f"K3 fig1 {map_name(family, rank)} x TT rank 10 dims="
+            f"{small_d}^{small_n} k={k} B=1, {FIG1_TRIALS} operators", ys,
+            refs)
+        per_family[key] = FIG1_TRIALS
+    # every row's mean distortion against 3 sqrt(c / k): E|Z| <= sqrt(Var)
+    # (Jensen) and Var <= c / k (Thm 1; 2/k for Gaussian; very-sparse's
+    # worst case, and its exact value on this input)
+    x4 = float(inputs["medium"].full().double().pow(4).sum())
+    for row in table:
+        d, n = FIG1_CASES[row["case"]]
+        big_d = d ** n
+        c = theory.variance_factor(row["family"], N=n, R=row["rank"],
+                                   D=big_d)
+        limit = 3.0 * math.sqrt(c / row["k"])
+        row["limit"] = limit
+        extra = ""
+        if row["family"] == "sparse":
+            s = math.sqrt(big_d)
+            c_x = 2.0 + (s - 3.0) * x4
+            row["limit_exact"] = 3.0 * math.sqrt(c_x / row["k"])
+            limit = min(limit, row["limit_exact"])
+            extra = (f", exact on this input {row['limit_exact']:.4f} "
+                     f"(c = 2 + (s-3) sum x^4 = {c_x:.3f})")
+        log(f"fig1 {row['case']} {row['map']} k={row['k']}: mean "
+            f"{row['mean']:.4f} std {row['std']:.4f}, params "
+            f"{row['params']}; limit 3 sqrt(c/k) = {row['limit']:.4f} "
+            f"(c = {c:.4g}){extra}")
+        if not row["mean"] <= limit:
+            raise AssertionError(f"fig1: {row} above its limit {limit}")
+    launches["carry_sweep_project"] += k3
+
+    # K3 at the small case's k=1024: the Fig. 1 input (B=1, as the
+    # projections above launch it) and a B=64 batch of unit-norm rank-10
+    # TT inputs, TT(10) and CP(100), twice each for the same bits
+    dims, k = (small_d,) * small_n, FIG1_KS[-1]
+    scale = 1.0 / math.sqrt(k)
+    batch = BatchedTTTensor.stack([random_tt(gen, dims, 10, norm="unit")
+                                   for _ in range(FIG1_BATCH)])
+    ops_ = {family: rp.make_projector(rp.ProjectorSpec(family, k, dims, r),
+                                      1000, device=dev)
+            for family, r in (("tt", FIG1_TT_RANKS[-1]),
+                              ("cp", FIG1_CP_RANKS[-1]))}
+    for of, op in ops_.items():
+        key = fig1_key(of, op.rank, k)
+        for xb in (single, batch):
+            cores, n_op = struct_operands(op, of, xb, "tt")
+            plan = splan.plan_carry_sweep(of, "tt", k, xb.batch, dims,
+                                          op.rank, 10)
+            got = carry.carry_sweep_project(*cores, n_op=n_op, plan=plan,
+                                            scale=scale)
+            ref = carry.carry_sweep_project_plain(
+                *cores, n_op=n_op, program=plan.program, scale=scale)
+            errs[key] = max(errs[key], check(
+                f"K3 fig1 {of.upper()}({op.rank}) x TT rank 10 dims={dims} "
+                f"k={k} B={xb.batch}", got, ref))
+            if not torch.equal(got, carry.carry_sweep_project(
+                    *cores, n_op=n_op, plan=plan, scale=scale)):
+                raise AssertionError(f"K3 fig1 {of} B={xb.batch}: a second "
+                                     "call on the same inputs gave other "
+                                     "bits")
+    # the streamed Gaussian against its materialized matrix at D = 3375
+    gop = rp.make_projector(rp.ProjectorSpec("gaussian", k, dims), 1000,
+                            device=dev)
+    a = gop.materialize()
+    xd = batch.full().reshape(FIG1_BATCH, -1)
+    y = rp.project(gop, xd)
+    check(f"Gaussian streamed project vs materialize() @ x, D={xd.shape[1]}"
+          f" k={k} B={FIG1_BATCH}", y, xd @ a.T)
+    check(f"Gaussian streamed reconstruct vs materialize().T @ y, "
+          f"D={xd.shape[1]} k={k}", rp.reconstruct(gop, y), y @ a)
+    del a, xd, y
+
+    # a B=64 batch of small-case inputs a map at k=1024 through rp.project
+    fig1_ms = {}
+    for family, rank in fig1_maps("small", k):
+        op = (ops_[family] if family in ops_ and rank == ops_[family].rank
+              else rp.make_projector(rp.ProjectorSpec(family, k, dims, rank),
+                                     1000, device=dev))
+        fig1_ms[map_name(family, rank)] = cuda_ms(
+            lambda: rp.project(op, batch), reps=10)
+    log(f"fig1 small case, B={FIG1_BATCH} k={k}, device ms per rp.project "
+        "call (CUDA events): " + ", ".join(f"{name} {ms:.4f}"
+                                           for name, ms in fig1_ms.items()))
+
+    def k3_row(of, op, xb, key, timer, shape):
+        """`time_row` of K3 for operator `op` on the rank-10 TT batch `xb`;
+        also the plan's tiles, and the call timed."""
+        b, kk = xb.batch, op.k
+        cores, n_op = struct_operands(op, of, xb, "tt")
+        plan = splan.plan_carry_sweep(of, "tt", kk, b, dims, op.rank, 10)
+        inter = [t for pair in zip(cores[:n_op], cores[n_op:])
+                 for t in pair]
+        spec = struct_einsum_spec(of, "tt", small_n)
+        dense_flops = (theory.flops_project_dense_tt(kk, dims, op.rank)
+                       if of == "tt"
+                       else theory.flops_project_dense_cp(kk, dims, op.rank))
+        cheaper = (b * densify_flops("tt", dims, 10)
+                   + min(b * dense_flops,
+                         dense_operator_flops(of, kk, dims, op.rank)
+                         + 2 * b * kk * math.prod(dims)))
+        sc = 1.0 / math.sqrt(kk)
+        run = lambda: carry.carry_sweep_project(  # noqa: E731
+            *cores, n_op=n_op, plan=plan, scale=sc)
+        row = time_row(
+            key, carry_flops(of, "tt", cores, n_op), cheaper,
+            4 * (sum(c.numel() for c in cores) + b * kk), run,
+            lambda: carry.carry_sweep_project_plain(
+                *cores, n_op=n_op, program=plan.program, scale=sc),
+            lambda: torch.einsum(spec, *inter), shape, timer=timer)
+        row["tiles"] = {f: getattr(plan, f) for f in (
+            "tk", "tb", "tps", "tpd", "dc", "uc", "ro", "ri", "smem_bytes")}
+        return row, run
+
+    # one row a shape the path launched K3 at (B=1, each shape's 20
+    # launches), timed with the launches queued behind a sleep kernel so
+    # that the host's launch time drops out; at k=1024 also the profiler's
+    # device time, the wrapper's host time and the B=64 batch
+    rows = []
+    for family, rank, kk in held:
+        key = fig1_key(family, rank, kk)
+        op = rp.make_projector(rp.ProjectorSpec(family, kk, dims, rank),
+                               1000, device=dev)
+        row, run = k3_row(
+            family, op, single, key, cuda_ms_queued,
+            f"B=1 k={kk} dims=15^3 {map_name(family, rank)} input TT rank "
+            "10 (unit norm), as rp.project launches it in Fig. 1; ms, "
+            "plain_ms and library_ms are device times of calls queued "
+            "behind a sleep kernel (CUDA events)")
+        if kk == k and rank == ops_[family].rank:
+            row["device_split_ms"] = device_split(run, reps=10,
+                                                  names=CARRY_KERNELS,
+                                                  need=("carry",))
+            row["host_us"] = host_us(run)
+            b64, run64 = k3_row(
+                family, ops_[family], batch, key, cuda_ms,
+                f"B={FIG1_BATCH} k={k} dims=15^3 {map_name(family, rank)} "
+                "input TT rank 10 (unit norm); not a shape the path "
+                "launches: the batch timed beside the Gaussian")
+            b64["device_split_ms"] = device_split(run64, reps=10,
+                                                  names=CARRY_KERNELS,
+                                                  need=("carry",))
+            b64["host_us"] = host_us(run64)
+            b64["ms_each"] = cuda_ms_each(run64, reps=20)
+            row.update({f"b64_{f}": b64[f] for f in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "program_bound_ms", "flops", "program_flops",
+                "device_split_ms", "host_us", "ms_each", "tiles")})
+            row["b64_rp_project_ms"] = fig1_ms[map_name(family, rank)]
+            row["fig1_rp_project_ms"] = fig1_ms
+            log(f"{key}: B=1 device {row['device_split_ms']['carry']:.4f} "
+                f"ms (profiler), host {row['host_us']:.1f} us a call; B="
+                f"{FIG1_BATCH} device {b64['device_split_ms']['carry']:.4f} "
+                f"ms (profiler), per call (CUDA events) min "
+                f"{min(b64['ms_each']):.4f} median "
+                f"{statistics.median(b64['ms_each']):.4f} max "
+                f"{max(b64['ms_each']):.4f}, tiles {b64['tiles']}; "
+                f"Gaussian streamed at the same batch "
+                f"{fig1_ms['Gaussian']:.4f} ms")
+        rows.append(row)
+    log("fig1 K3 at B=1, device ms (queued) / plain ms / bound ms a shape: "
+        + "; ".join(f"{r['name'].split(':', 2)[2]} {r['ms']:.4f} / "
+                    f"{r['plain_ms']:.4f} / {r['bound_ms']:.5f}"
+                    for r in rows))
+    print(json.dumps({"fig1": table}))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _inside(outer: dict, inner: dict) -> bool:
+    """Whether trace event `inner` lies within span `outer` on its lane."""
+    return (inner["tid"] == outer["tid"] and inner["ts"] >= outer["ts"]
+            and inner["ts"] + inner.get("dur", 0.0)
+            <= outer["ts"] + outer["dur"] + 1e-3)
+
+
+def obs_phase(dev):
+    """Phase 13: the telemetry layer at the serving shapes and on the
+    full-width train loop, and the disabled path's host cost."""
+    import torch
+    from repro_torch import kernels, obs, rp
+    from repro_torch.core import BatchedTTTensor, random_tt
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import _sweep
+    from repro_torch.kernels import fused_update as kfused
+    from repro_torch.kernels.struct import carry
+    from repro_torch.kernels.struct import plan as splan
+    from repro_torch.launch import obs_report, serve_rp
+    from repro_torch.runtime import train_loop
+    from repro_torch.serve import (ServeConfig, SketchServer, SketchStore,
+                                   replay, synth_trace)
+
+    out = REPO / "build" / "chip_smoke_obs"
+    out.mkdir(parents=True, exist_ok=True)
+    k_req = obs.required_k("tt", 3, rank=SLICE_RANKS["tt"], eps=OBS_EPS,
+                           delta=OBS_DELTA)
+    if k_req > SLICE_K:
+        raise AssertionError(f"required_k {k_req} > k={SLICE_K}")
+
+    def serve_cli(k, tag):
+        trace_p, metrics_p = out / f"{tag}.trace.json", out / f"{tag}.jsonl"
+        args = ["--family", "tt", "--k", str(k), "--dims",
+                *map(str, SLICE_DIMS), "--rank", str(SLICE_RANKS["tt"]),
+                "--requests", "1024", "--mix", "1", "0", "0", "--max-batch",
+                "64", "--flush-us", "1000", "--device", str(dev),
+                "--trace-out", str(trace_p), "--metrics-out", str(metrics_p),
+                "--distortion", str(OBS_EPS), str(OBS_DELTA)]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        if serve_rp.main(args) != 0:
+            raise AssertionError(f"serve_rp {tag} failed")
+        torch.cuda.synchronize()
+        k1 = _sweep.sweep_project.launches
+        events = obs_report.load_trace(trace_p)
+        ticks = [e for e in events
+                 if e["ph"] == "X" and e["name"] == "serve.tick"]
+        projs = [e for e in events
+                 if e["ph"] == "X" and e["name"] == "rp.project"]
+        inside = [[p for p in projs if _inside(t, p)] for t in ticks]
+        if (k1 != len(ticks) or len(projs) != len(ticks)
+                or any(len(ps) != 1 for ps in inside)
+                or any(p["args"]["backend"] != "kernel" for p in projs)):
+            raise AssertionError(
+                f"serve_rp {tag}: {len(ticks)} serve.tick spans, "
+                f"{len(projs)} rp.project spans, K1 launches {k1}; expected "
+                "one kernel-route rp.project span inside each tick")
+        rows = obs.read_jsonl(metrics_p)
+        hist = next(r for r in rows if r["name"] == "serve/queue_delay_us")
+        done = next(r for r in rows if r["name"] == "serve/requests_done")
+        alerts = [r for r in rows if r["name"] == "distortion.alert"]
+        if hist["count"] != 1024 or done["value"] != 1024:
+            raise AssertionError(f"serve_rp {tag}: histogram count "
+                                 f"{hist['count']}, requests_done "
+                                 f"{done['value']}; expected 1024")
+        log(f"serve_rp {tag} k={k}: {len(ticks)} serve.tick spans, each "
+            f"with one kernel-route rp.project span; K1 launches {k1}; "
+            f"queue-delay histogram n={hist['count']} p50={hist['p50']:.0f} "
+            f"p99={hist['p99']:.0f} us; {len(alerts)} distortion alert(s)")
+        obs_report.main(["--trace", str(trace_p), "--metrics",
+                         str(metrics_p)])
+        return alerts
+
+    if serve_cli(SLICE_K, "tt5_k512"):
+        raise AssertionError(f"a distortion alert fired at k={SLICE_K} >= "
+                             f"required_k {k_req}")
+    alerts = serve_cli(16, "tt5_k16")
+    if len(alerts) != 1 or alerts[0]["k"] != 16:
+        raise AssertionError(f"k=16: alerts {alerts}; expected one")
+    log(f"distortion target eps={OBS_EPS} delta={OBS_DELTA}: required_k "
+        f"{k_req}; silent at k={SLICE_K}, one alert at k=16 (out-rate "
+        f"{alerts[0]['out_rate']:.3f}, k_required "
+        f"{alerts[0]['k_required']})")
+
+    # the mixed replay under capture: a dispatch span per K1/K3 launch
+    spec = rp.ProjectorSpec("tt", SLICE_K, SLICE_DIMS, SLICE_RANKS["tt"])
+    server = SketchServer(ServeConfig(max_batch=64, flush_us=1000.0),
+                          SketchStore(spec, device=dev), device=dev)
+    trace = synth_trace(1024, [(spec, 0)], mix=(1.0, 1.0, 1.0),
+                        ranks=(2, 3, 4), mean_gap_us=200.0, seed=0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with obs.capture() as ctx, rp.dispatch_stats() as st:
+        report = replay(server, trace)
+        torch.cuda.synchronize()
+    k1 = _sweep.sweep_project.launches
+    k3 = carry.carry_sweep_project.launches
+    events = ctx.tracer.events()
+    projs = [e for e in events if e["name"] == "rp.project"]
+    ticks = [e for e in events if e["name"] == "serve.tick"]
+    if not (len(projs) == k1 + k3 == len(ticks) == report["ticks"]
+            == st.kernel_calls) or k1 == 0 or k3 == 0:
+        raise AssertionError(
+            f"mixed replay: {len(projs)} rp.project spans, {len(ticks)} "
+            f"ticks spans, K1 {k1} + K3 {k3} launches, {report['ticks']} "
+            "ticks")
+    log(f"mixed replay under capture: {len(projs)} rp.project spans == K1 "
+        f"{k1} + K3 {k3} launches == {report['ticks']} ticks")
+    del server, trace, ctx
+
+    # two full-width train steps through the train loop under capture
+    model, _, _, _, _, step_fn, state, data = train_slice(dev)
+    n_leaves = len(tree_leaves(state["params"]))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with obs.capture() as ctx:
+        state, final = train_loop.run(
+            step_fn, state, data,
+            train_loop.LoopConfig(total_steps=2, log_every=1), log=log)
+        torch.cuda.synchronize()
+    counts = (_sweep.sweep_project.launches,
+              kfused.fused_update_buckets.launches)
+    events = ctx.tracer.events()
+    steps_ = [e for e in events if e["name"] == "train.step"]
+    per_step = [{name: sum(1 for e in events
+                           if e["name"] == name and _inside(s, e))
+                 for name in ("rp.project", "train.loss_grad",
+                              "train.sketch", "train.fused_update")}
+                for s in steps_]
+    want = {"rp.project": n_leaves, "train.loss_grad": 1,
+            "train.sketch": 1, "train.fused_update": 1}
+    if (len(steps_) != 2 or any(p != want for p in per_step)
+            or counts != (2 * n_leaves, 2 * n_leaves)):
+        raise AssertionError(f"train loop: {len(steps_)} train.step spans "
+                             f"holding {per_step}, (K1, K4) launches "
+                             f"{counts}; expected 2 steps of {want}")
+    log(f"train loop under capture: 2 train.step spans "
+        f"({[round(s['dur'] / 1e3, 1) for s in steps_]} host ms), each "
+        f"holding {want}; (K1, K4) launches {counts}")
+    del model, state, step_fn, ctx, events
+    torch.cuda.empty_cache()
+
+    # the disabled path's host cost beside K3's wrapper at a mixed tick's
+    # B=8 call (TT(5), k=512, 64^3, rank-4 TT inputs)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    op = rp.make_projector(spec, 0, device=dev)
+    xb = BatchedTTTensor.stack([random_tt(gen, SLICE_DIMS, 4)
+                                for _ in range(8)])
+    cores, n_op = struct_operands(op, "tt", xb, "tt")
+    plan = splan.plan_carry_sweep("tt", "tt", SLICE_K, 8, SLICE_DIMS,
+                                  SLICE_RANKS["tt"], 4)
+    scale = 1.0 / math.sqrt(SLICE_K)
+    wrapper_us = host_us(lambda: carry.carry_sweep_project(
+        *cores, n_op=n_op, plan=plan, scale=scale), reps=200)
+    off_us = host_us(lambda: rp.project(op, xb), reps=200)
+    with obs.capture():
+        on_us = host_us(lambda: rp.project(op, xb), reps=200)
+    loops = 20000
+    t0 = time.perf_counter()
+    for _ in range(loops):
+        with obs.span("obs/bench", family="tt", structure="dense"):
+            pass
+        obs.counter("obs/bench_c").inc(0)
+        obs.histogram("obs/bench_h").observe(1.0)
+    bundle_us = (time.perf_counter() - t0) / loops * 1e6
+    frac = bundle_us / wrapper_us
+    log(f"host us a call at a mixed tick's B=8 K3 dispatch: rp.project "
+        f"with obs disabled {off_us:.1f}, enabled {on_us:.1f}; K3's wrapper "
+        f"{wrapper_us:.1f}; the disabled bundle (span + counter + "
+        f"histogram) {bundle_us:.3f} us = {100 * frac:.2f}% of the "
+        "wrapper's (limit 5%)")
+    if frac > 0.05:
+        raise AssertionError(f"disabled obs costs {100 * frac:.2f}% of "
+                             "K3's wrapper host time, over 5%")
 
 
 def _leaf_names(tree, prefix=()):
@@ -1209,15 +1777,15 @@ def main() -> int:
     rows = []
 
     def time_row(key, program_flops, cheaper_flops, nbytes, kern, plain,
-                 library, shape, reps=20):
-        """Time one kernel beside its plain version and one torch.einsum;
-        the bound takes the cheaper of the program's and the other route's
-        flops."""
+                 library, shape, reps=20, timer=cuda_ms):
+        """Time one kernel beside its plain version and one torch.einsum
+        (with `timer`); the bound takes the cheaper of the program's and
+        the other route's flops."""
         name = key.split(":")[0]
-        ms = cuda_ms(kern, reps=reps)
-        plain_ms = cuda_ms(plain, reps=5, warmup=1)
+        ms = timer(kern, reps=reps)
+        plain_ms = timer(plain, reps=5, warmup=1)
         torch.cuda.empty_cache()
-        library_ms = cuda_ms(library, reps=5, warmup=1)
+        library_ms = timer(library, reps=5, warmup=1)
         torch.cuda.empty_cache()
         flops = min(program_flops, cheaper_flops)
         t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -1432,6 +2000,12 @@ def main() -> int:
     rows += train_rows
     next(r for r in rows
          if r["name"] == "sweep_project_pipelined:tt").update(k5_train)
+
+    # -- 12. the paper's Fig. 1 -------------------------------------------
+    rows += fig1_phase(dev, errs, per_family, launches, time_row)
+
+    # -- 13. telemetry at the serving shapes and on the train loop --------
+    obs_phase(dev)
 
     for name in launches:
         total = sum(r["launches"] for r in rows

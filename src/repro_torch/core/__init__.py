@@ -1,10 +1,12 @@
 """repro_torch.core — the paper's two maps (Definitions 1 & 2) in PyTorch.
 
-Counterpart of `repro.core`: `TTRP`/`CPRP` with their
-samplers, the TT/CP containers, flat-vector tensorization and a copy of the
-Thm-1/2 theory. `from_numpy_operator` carries the reference package's
-operator parameters across, so both packages compute the same map;
-`from_numpy_tt` / `from_numpy_cp` do the same for structured inputs.
+Counterpart of `repro.core`: `TTRP`/`CPRP` with their samplers, the
+paper's baselines `GaussianRP`/`VerySparseRP`, the TRP helpers, the TT/CP
+containers with their inner products and `tt_svd`, flat-vector
+tensorization, the pytree sketcher and a copy of the Thm-1/2 theory.
+`from_numpy_operator` carries the reference package's operator parameters
+across (for the baselines, its blocks), so both packages compute the same
+map; `from_numpy_tt` / `from_numpy_cp` do the same for structured inputs.
 """
 from __future__ import annotations
 
@@ -12,31 +14,51 @@ import numpy as np
 import torch
 
 from . import theory
-from .cp_rp import CPRP, sample_cp_rp
+from .baselines import GaussianRP, VerySparseRP
+from .cp_rp import CPRP, sample_cp_rp, trp_average, trp_project
 from .device import resolve_device
 from .formats import (STRUCT_TYPES, BatchedCPTensor, BatchedTTTensor,
-                      CPTensor, TTTensor, auto_dims, pad_cp_rank, pad_tt_rank,
-                      pad_to_tensorizable, random_cp, random_tt,
-                      stack_ragged_cp, stack_ragged_tt, tensorize)
+                      CPTensor, TTTensor, auto_dims, cp_inner, dense_inner,
+                      pad_cp_rank, pad_tt_rank, pad_to_tensorizable,
+                      random_cp, random_tt, stack_ragged_cp, stack_ragged_tt,
+                      tensorize, tt_cp_inner, tt_inner, tt_svd)
+from .sketch import PytreeSketcher, SketchConfig, SketchMonitor
 from .tt_rp import TTRP, sample_tt_rp
 
+_NDIM = {"tt": 4, "cp": 3, "gaussian": 2, "sparse": 2}
 
-def from_numpy_operator(family: str, arrays, device) -> TTRP | CPRP:
+
+def from_numpy_operator(family: str, arrays, device, *,
+                        dim: int | None = None):
     """Build the port's operator from the reference's parameters.
 
-    family : 'tt' (arrays are `TTRP.cores`, each (k, r, d, r')) or 'cp'
-             (arrays are `CPRP.factors`, each (k, d, R)).
+    family : 'tt' (arrays are `TTRP.cores`, each (k, r, d, r')), 'cp'
+             (`CPRP.factors`, each (k, d, R)), or 'gaussian' / 'sparse'
+             (the reference's blocks `_block_mat(b)`, each (block, k),
+             b = 0, 1, ...; `dim` is the operator's D).
     arrays : the parameters as numpy arrays (float32).
     """
     ts = tuple(torch.tensor(np.asarray(a, np.float32), device=device)
                for a in arrays)
-    want = {"tt": 4, "cp": 3}.get(family)
+    want = _NDIM.get(family)
     if want is None:
-        raise ValueError(f"unknown family {family!r}; expected 'tt' or 'cp'")
+        raise ValueError(f"unknown family {family!r}; expected one of "
+                         f"{tuple(_NDIM)}")
     if not ts or any(t.ndim != want for t in ts):
         raise ValueError(f"{family} parameters must be {want}-d arrays, got "
                          f"shapes {[tuple(t.shape) for t in ts]}")
-    return TTRP(ts) if family == "tt" else CPRP(ts)
+    if family == "tt":
+        return TTRP(ts)
+    if family == "cp":
+        return CPRP(ts)
+    block, k = ts[0].shape
+    if dim is None or -(-int(dim) // block) != len(ts):
+        raise ValueError(f"{len(ts)} blocks of {block} rows need dim in "
+                         f"({(len(ts) - 1) * block}, {len(ts) * block}], "
+                         f"got {dim}")
+    cls = GaussianRP if family == "gaussian" else VerySparseRP
+    return cls(seed=0, k=int(k), dim=int(dim), block=int(block),
+               device=device, blocks=ts)
 
 
 def from_numpy_tt(cores, device) -> TTTensor:
@@ -63,8 +85,11 @@ def from_numpy_cp(factors, weights, device) -> CPTensor:
 
 
 __all__ = ["BatchedCPTensor", "BatchedTTTensor", "CPRP", "CPTensor",
-           "STRUCT_TYPES", "TTRP", "TTTensor", "auto_dims", "from_numpy_cp",
-           "from_numpy_operator", "from_numpy_tt", "pad_cp_rank",
-           "pad_to_tensorizable", "pad_tt_rank", "random_cp", "random_tt",
-           "resolve_device", "sample_cp_rp", "sample_tt_rp",
-           "stack_ragged_cp", "stack_ragged_tt", "tensorize", "theory"]
+           "GaussianRP", "PytreeSketcher", "STRUCT_TYPES", "SketchConfig",
+           "SketchMonitor", "TTRP", "TTTensor", "VerySparseRP", "auto_dims",
+           "cp_inner", "dense_inner", "from_numpy_cp", "from_numpy_operator",
+           "from_numpy_tt", "pad_cp_rank", "pad_to_tensorizable",
+           "pad_tt_rank", "random_cp", "random_tt", "resolve_device",
+           "sample_cp_rp", "sample_tt_rp", "stack_ragged_cp",
+           "stack_ragged_tt", "tensorize", "theory", "trp_average",
+           "trp_project", "tt_cp_inner", "tt_inner", "tt_svd"]

@@ -393,6 +393,75 @@ def random_cp(generator: torch.Generator, dims: Sequence[int], rank: int, *,
     return t
 
 
+# ---------------------------------------------------------------------------
+# Inner products (never materialize the dense tensor)
+# ---------------------------------------------------------------------------
+
+def tt_inner(a: TTTensor, b: TTTensor) -> torch.Tensor:
+    """<A, B> for TT tensors in O(N d R_a R_b (R_a + R_b))."""
+    if a.dims != b.dims:
+        raise ValueError(f"dims differ: {a.dims} != {b.dims}")
+    carry = a.cores[0].new_ones((1, 1))  # (ra, rb)
+    for ca, cb in zip(a.cores, b.cores):
+        tmp = torch.einsum("ab,adc->bdc", carry, ca)      # (rb, d, ra')
+        carry = torch.einsum("bdc,bde->ce", tmp, cb)      # (ra', rb')
+    return carry.reshape(())
+
+
+def _weights(t: CPTensor) -> torch.Tensor:
+    return (t.weights if t.weights is not None
+            else t.factors[0].new_ones((t.rank,)))
+
+
+def cp_inner(a: CPTensor, b: CPTensor) -> torch.Tensor:
+    """<A, B> for CP tensors in O(N d R_a R_b)."""
+    if a.dims != b.dims:
+        raise ValueError(f"dims differ: {a.dims} != {b.dims}")
+    acc = a.factors[0].new_ones((a.rank, b.rank))
+    for fa, fb in zip(a.factors, b.factors):
+        acc = acc * (fa.T @ fb)
+    return torch.einsum("a,ab,b->", _weights(a), acc, _weights(b))
+
+
+def tt_cp_inner(a: TTTensor, b: CPTensor) -> torch.Tensor:
+    """<TT, CP> in O(N d R_tt^2 R_cp)."""
+    if a.dims != b.dims:
+        raise ValueError(f"dims differ: {a.dims} != {b.dims}")
+    carry = a.cores[0].new_ones((1, b.rank))  # (r_tt, R_cp)
+    for core, fac in zip(a.cores, b.factors):
+        carry = torch.einsum("rp,rds,dp->sp", carry, core, fac)
+    return torch.einsum("sp,p->", carry, _weights(b))  # s == 1
+
+
+def dense_inner(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.vdot(a.reshape(-1), b.reshape(-1))
+
+
+# ---------------------------------------------------------------------------
+# TT-SVD: dense -> TT (used to tensorize real data)
+# ---------------------------------------------------------------------------
+
+def tt_svd(x: torch.Tensor, max_rank: int) -> TTTensor:
+    """Deterministic TT-SVD (Oseledets 2011) with a rank cap. Small inputs
+    only. The cores are fixed up to the signs of the singular vectors."""
+    dims = tuple(x.shape)
+    N = len(dims)
+    cores = []
+    r_prev = 1
+    mat = x.reshape(r_prev * dims[0], -1)
+    for n in range(N - 1):
+        u, s, vt = torch.linalg.svd(mat, full_matrices=False)
+        r = min(max_rank, u.shape[1])
+        u, s, vt = u[:, :r], s[:r], vt[:r, :]
+        cores.append(u.reshape(r_prev, dims[n], r))
+        mat = s[:, None] * vt
+        r_prev = r
+        if n < N - 2:
+            mat = mat.reshape(r_prev * dims[n + 1], -1)
+    cores.append(mat.reshape(r_prev, dims[-1], 1))
+    return TTTensor(tuple(cores))
+
+
 def tensorize(vec: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
     """Reshape a flat vector of size prod(dims) into an order-N tensor."""
     if vec.numel() != _prod(dims):

@@ -77,6 +77,15 @@ class SketchConfig:
         from repro_torch import rp
         return rp.make_projector(self.spec(), seed, device=device)
 
+    def operator_params(self) -> int:
+        from . import theory
+        try:
+            return theory.params_rp(self.family, self.k, self.dims,
+                                    self.rank)
+        except KeyError:
+            # externally registered family: count a sampled instance
+            return self.operator(0, device="cpu").num_params()
+
 
 def _device(tree) -> torch.device:
     for leaf in tree_leaves(tree):
@@ -155,10 +164,16 @@ class PytreeSketcher:
         """
         from repro_torch import rp
         op = self.cfg.operator(seed, _device(tree))
+        flat_op = len(op.in_dims) == 1  # gaussian/sparse contract flat
         ys = []
         for leaf, nb, is_struct in zip(tree_leaves(tree), self._nb,
                                        self._struct):
-            x = leaf if is_struct else self._leaf_to_buckets(leaf, nb)
+            if is_struct:
+                x = leaf
+            else:
+                x = self._leaf_to_buckets(leaf, nb)
+                if flat_op:
+                    x = x.reshape(nb, -1)
             y = rp.project(op, x, backend=self.cfg.backend)
             ys.append(y.reshape(nb, self.cfg.k))
         return torch.cat(ys, dim=0)
@@ -181,6 +196,11 @@ class PytreeSketcher:
             out.append(self._leaf_from_buckets(buckets, size, shape, dtype))
             off += nb
         return tree_unflatten(self._treedef, out)
+
+    def roundtrip(self, tree: Any, seed: int) -> tuple[Any, torch.Tensor]:
+        """Returns (reconstruction, sketch)."""
+        y = self.sketch(tree, seed)
+        return self.unsketch(y, seed), y
 
     # -- accounting -------------------------------------------------------
     def sketch_bytes(self) -> int:

@@ -10,6 +10,11 @@ Batched-core layout: cores[n] has shape (k, r_{n-1}, d_n, r_n), r_0 = r_N = 1
 are (`repro_torch.core.from_numpy_operator`). These einsum paths are the
 plain route (`backend='torch'`); the mode-sweep kernels live in
 `repro_torch.kernels`.
+
+  project(X)       dense input    O(k R d^N)
+  project_tt(X)    TT(R~) input   O(k N d R R~ (R + R~))
+  project_cp(X)    CP(R~) input   (carry k x R x R~)
+  reconstruct(y)   adjoint        unbiased x_hat = sum_i y_i S_i / sqrt(k)
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from typing import Sequence
 
 import torch
 
-from .formats import _prod
+from .formats import CPTensor, TTTensor, _prod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +61,10 @@ class TTRP:
     def num_params(self) -> int:
         return sum(_prod(c.shape) for c in self.cores)
 
+    def row(self, i: int) -> TTTensor:
+        """The i-th row of the implicit projection matrix, as a TT tensor."""
+        return TTTensor(tuple(c[i] for c in self.cores))
+
     def project(self, x: torch.Tensor) -> torch.Tensor:
         """Project dense input(s). x: (*batch, d1, ..., dN) -> (*batch, k)."""
         N = self.order
@@ -72,6 +81,33 @@ class TTRP:
             c = torch.einsum("...dkr,ksdr->...ks", c, self.cores[n])
         y = torch.einsum("...dkr,kdr->...k", c, self.cores[0][:, 0, :, :])
         return y * scale
+
+    def _check_dims(self, x) -> None:
+        if tuple(x.dims) != self.dims:
+            raise ValueError(f"input dims {tuple(x.dims)} != operator dims "
+                             f"{self.dims}")
+
+    def project_tt(self, x: TTTensor) -> torch.Tensor:
+        """Project an input given in TT format: O(k N d R R~ (R + R~))."""
+        self._check_dims(x)
+        carry = x.cores[0].new_ones((self.k, 1, 1))  # (k, r_rp, r_x)
+        for g, xc in zip(self.cores, x.cores):
+            tmp = torch.einsum("kab,kads->kbds", carry, g)
+            carry = torch.einsum("kbds,bde->kse", tmp, xc)
+        return carry[:, 0, 0] / math.sqrt(self.k)
+
+    def project_cp(self, x: CPTensor) -> torch.Tensor:
+        """Project an input given in CP format."""
+        self._check_dims(x)
+        carry = x.factors[0].new_ones((self.k, 1, x.rank))  # (k, r_rp, R~)
+        for g, f in zip(self.cores, x.factors):
+            tmp = torch.einsum("kap,kads->kpds", carry, g)
+            carry = torch.einsum("kpds,dp->ksp", tmp, f)
+        w = (x.weights if x.weights is not None
+             else x.factors[0].new_ones((x.rank,)))
+        # the boundary carry is (k, r_N = 1, R~): contract it directly
+        y = torch.einsum("kp,p->k", carry[:, 0, :], w)
+        return y / math.sqrt(self.k)
 
     def reconstruct(self, y: torch.Tensor, *,
                     chunk: int | None = None) -> torch.Tensor:

@@ -16,7 +16,8 @@ from .fused_update import (fused_hbm_bytes, fused_update_buckets,
                            fused_update_buckets_plain, plan_fused_update,
                            unfused_hbm_bytes)
 from .ops import (MAX_ORDER, PIPELINES, ContractionPlan, cp_project,
-                  cp_reconstruct, kernel_order_supported, plan_contraction,
+                  cp_reconstruct, kernel_order_supported, pick_tiles,
+                  plan_contraction,
                   program_codes, sweep_hbm_bytes, tt_cores_squeezed,
                   tt_project, tt_reconstruct, validate_pipeline)
 
@@ -35,7 +36,7 @@ def reset_launch_counts() -> None:
 __all__ = ["MAX_ORDER", "PIPELINES", "ContractionPlan", "cp_project",
            "cp_reconstruct", "fused_hbm_bytes", "fused_update_buckets",
            "fused_update_buckets_plain", "kernel_order_supported",
-           "plan_contraction", "plan_fused_update",
+           "pick_tiles", "plan_contraction", "plan_fused_update",
            "program_codes", "ref", "reset_launch_counts", "sweep_hbm_bytes",
            "tt_cores_squeezed", "tt_project", "tt_reconstruct",
            "unfused_hbm_bytes", "validate_pipeline"]

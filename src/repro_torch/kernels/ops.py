@@ -510,6 +510,17 @@ def sweep_hbm_bytes(plan: ContractionPlan) -> int:
     return fold + m_total + y_total + c1 + x_total
 
 
+def pick_tiles(k: int, b: int, dims: tuple[int, ...], rank: int, *,
+               kind: str = "project", family: str = "tt",
+               budget: int = SMEM_BUDGET_BYTES) -> tuple[int, int, int, int]:
+    """(tk, tb, ba, tc) of an order-N mode-sweep launch under a block's
+    shared-memory budget — the tile view of `plan_contraction`, kept as the
+    stable public selector (the reference's returns the TPU planner's
+    (tk, tb, ba))."""
+    plan = plan_contraction(family, kind, k, b, dims, rank, budget=budget)
+    return plan.tk, plan.tb, plan.ba, plan.tc
+
+
 # ---------------------------------------------------------------------------
 # operator-container layouts
 # ---------------------------------------------------------------------------
@@ -612,7 +623,7 @@ def cp_reconstruct(op: CPRP, y: torch.Tensor) -> torch.Tensor:
 
 __all__ = ["ContractionPlan", "MAX_ORDER", "PIPELINES", "RankLimitError",
            "SMEM_BUDGET_BYTES", "cp_project", "cp_reconstruct",
-           "kernel_order_supported", "plan_contraction", "program_codes",
-           "sweep_hbm_bytes",
+           "kernel_order_supported", "pick_tiles", "plan_contraction",
+           "program_codes", "sweep_hbm_bytes",
            "tt_cores_squeezed", "tt_project", "tt_reconstruct",
            "validate_pipeline"]

@@ -10,15 +10,22 @@ operator-cache hit rate, one kernel dispatch per tick (asserted against
         --k 512 --dims 64 64 64 --rank 5 --requests 256 --max-batch 64
 
 `--backend` takes the port's names for the reference's routes: 'kernel'
-for 'pallas', 'torch' for 'xla'. `--trace-out/--metrics-out/--distortion`
-wait for the telemetry slice, `--prewarm/--save-manifest` for the cache
+for 'pallas', 'torch' for 'xla'. With `--trace-out trace.json
+--metrics-out metrics.jsonl` the replay runs under an enabled
+`repro_torch.obs` session: the trace opens in ui.perfetto.dev (per-tick
+serve spans over the rp dispatch spans they contain), the JSONL carries
+the queue-delay histogram and request counters, and
+`python -m repro_torch.launch.obs_report` renders both. `--distortion EPS
+DELTA` streams each dense request's distortion through a
+`DistortionMonitor`. `--prewarm/--save-manifest` wait for the cache
 manifest.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 
-from repro_torch import rp
+from repro_torch import obs, rp
 from repro_torch.rp.plan import BACKENDS
 from repro_torch.serve import (ServeConfig, SketchServer, SketchStore,
                                replay, synth_trace)
@@ -46,6 +53,16 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device; default CUDA (fails without it)")
+    ap.add_argument("--trace-out", default=None, metavar="JSON",
+                    help="record the replay under repro_torch.obs and "
+                         "export the Chrome/Perfetto trace here")
+    ap.add_argument("--metrics-out", default=None, metavar="JSONL",
+                    help="write the obs metrics snapshot (counters, queue-"
+                         "delay histogram, events) here as JSONL")
+    ap.add_argument("--distortion", type=float, nargs=2, default=None,
+                    metavar=("EPS", "DELTA"),
+                    help="stream dense-request distortion through a "
+                         "DistortionMonitor at this (eps, delta) target")
     args = ap.parse_args(argv)
 
     spec = rp.ProjectorSpec(family=args.family, k=args.k,
@@ -58,7 +75,14 @@ def main(argv=None) -> int:
     pool = [(spec, s) for s in range(args.pool)]
     trace = synth_trace(args.requests, pool, mix=tuple(args.mix),
                         mean_gap_us=args.mean_gap_us, seed=args.seed)
-    with rp.dispatch_stats() as st:
+    mon = (obs.DistortionMonitor(eps=args.distortion[0],
+                                 delta=args.distortion[1])
+           if args.distortion else None)
+    cap = (obs.capture(trace_path=args.trace_out,
+                       metrics_path=args.metrics_out, distortion=mon)
+           if (args.trace_out or args.metrics_out or mon)
+           else contextlib.nullcontext())
+    with cap, rp.dispatch_stats() as st:
         report = replay(server, trace)
     if st.kernel_calls not in (0, report["ticks"]):
         raise RuntimeError(f"{st.kernel_calls} kernel dispatches for "
@@ -77,6 +101,17 @@ def main(argv=None) -> int:
           f"{c['evictions']} evictions, regen {c['regen_s']:.2f}s")
     print(f"[serve_rp] store: {report['store_size']} sketches "
           f"({report['store_bytes'] / 1024:.1f} KiB)")
+    if args.trace_out:
+        print(f"[serve_rp] wrote Perfetto trace to {args.trace_out} "
+              "(open in ui.perfetto.dev)")
+    if args.metrics_out:
+        print(f"[serve_rp] wrote obs metrics to {args.metrics_out}")
+    if mon is not None:
+        for row in mon.summary():
+            print(f"[serve_rp] distortion {row['family']}/N={row['order']}"
+                  f"/k={row['k']}: mean {row['mean_distortion']:.3f}, "
+                  f"out-rate {row['out_rate']:.3f} @ eps={row['eps']} "
+                  f"(alerted={row['alerted']})")
     # nearest stored neighbours of the first sketch: its own id comes back
     # first, at distance ~0
     if len(store) > 1:

@@ -98,7 +98,7 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
         params = state["params"]
         metrics = {}
         new_state = dict(state)
-        with span("loss_grad"):
+        with span("train.loss_grad"):
             loss, grads = loss_and_grads(params, batch)
         lr = lr_fn(state["opt"]["count"])
         if fused_update:

@@ -9,10 +9,11 @@ K4 step is `build_train_step(..., fused_update=True)`, which
         --reduced --steps 20 --batch 8 --seq 64 \
         --compress tt:k=1024,rank=8,dims=4x8x16 --device cpu
 
-The reference's `--mesh`, `--compress-sync` (the collective), `--ckpt-dir`,
-`--ckpt-every`, `--sketch-ef-ckpt` (checkpointing), `--crash-at` (fault
-injection) and `--monitor` (telemetry) wait for their slices (ROADMAP.md,
-queue 1 items 8, 10 and 11).
+`--monitor` prints the O(k) sketch telemetry (parameter norm and drift
+through a fixed TT sketch) every 10 steps. The reference's `--mesh`,
+`--compress-sync` (the collective), `--ckpt-dir`, `--ckpt-every`,
+`--sketch-ef-ckpt` (checkpointing) and `--crash-at` (fault injection)
+wait for their slices (ROADMAP.md, queue 1 items 10 and 11).
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ import torch
 
 from repro_torch.configs import get_config, list_archs, reduced
 from repro_torch.core.device import resolve_device
+from repro_torch.core.sketch import (PytreeSketcher, SketchConfig,
+                                     SketchMonitor)
 from repro_torch.core.tree import tree_leaves
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.launch import steps as steps_lib
@@ -49,6 +52,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="'cpu' or a CUDA device (default: cuda)")
+    ap.add_argument("--monitor", action="store_true",
+                    help="O(k) sketch telemetry: param norm/drift per log")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -74,8 +79,23 @@ def main(argv=None) -> int:
                                          compressor=compressor, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     state = steps_lib.init_train_state(model, gen, compressor=compressor)
+    on_metrics = None
+    if args.monitor:
+        mon_cfg = SketchConfig(family="tt", k=256, rank=2,
+                               bucket_elems=4 * 8 * 16, dims=(4, 8, 16),
+                               fresh_per_step=False)
+        monitor = SketchMonitor(PytreeSketcher(mon_cfg, state["params"]),
+                                seed=17)
+
+        def on_metrics(step, metrics, live_state):
+            if step % 10 == 0:
+                m = monitor.update(live_state["params"])
+                print(f"   [monitor] step {step} "
+                      f"sketch_norm={float(m['sketch_norm']):.4f} "
+                      f"drift={float(m['sketch_drift']):.5f}")
     state, final = train_loop.run(
-        step_fn, state, data, train_loop.LoopConfig(total_steps=args.steps))
+        step_fn, state, data, train_loop.LoopConfig(total_steps=args.steps),
+        on_metrics=on_metrics)
     n = sum(x.numel() for x in tree_leaves(state["params"]))
     print(f"[train] finished at step {final} (params={n})")
     return 0

@@ -132,7 +132,7 @@ def update_sketched(params, grads, ef_state, opt_state, lr,
                      grads, ef_state["residual"])
     op = compressor.cfg.operator(seed, tree_leaves(p_fed)[0].device)
     alpha = compressor.cfg.shrinkage()
-    with span("sketch"):
+    with span("train.sketch"):
         y = sk.sketch(p_fed, seed)                  # (n_buckets, k)
     count = opt_state["count"] + 1
     c1, c2 = _corrections(count, cfg)
@@ -140,7 +140,7 @@ def update_sketched(params, grads, ef_state, opt_state, lr,
     new_w, new_m, new_v, new_r = [], [], [], []
     off = 0
     fused_hbm = 0
-    with span("fused_update"):
+    with span("train.fused_update"):
         for pe, w, m, v, nb, size, shape in zip(
                 tree_leaves(p_fed), flat_w, tree_leaves(opt_state["m"]),
                 tree_leaves(opt_state["v"]), sk._nb, sk._sizes, sk._shapes):

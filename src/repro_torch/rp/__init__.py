@@ -6,7 +6,8 @@ points `project` / `reconstruct` / `project_many`, each resolving through
 a cached `ExecutionPlan` (`repro_torch.rp.plan`) that routes dense
 inputs, TT/CP-format inputs and sketches of TT/CP operators to the
 hand-written CUDA kernels on the card ('auto' | 'kernel' | 'torch';
-`pipeline='double'` for the double-buffered projections).
+`pipeline='double'` for the double-buffered projections). The paper's
+baselines ('gaussian', 'sparse') stream blocks of their (k, D) matrix.
 
 Quickstart::
 
@@ -19,8 +20,8 @@ Quickstart::
 """
 from . import families as _families  # noqa: F401  (registers built-ins)
 from .dispatch import (DispatchStats, count_kernel_dispatch, current_stats,
-                       dispatch_breakdown, dispatch_stats, kernel_call_count,
-                       project, reconstruct)
+                       dispatch_breakdown, dispatch_stats, force_kernel,
+                       kernel_call_count, project, reconstruct)
 from .many import project_many
 from .plan import (BACKENDS, CostLedger, ExecutionPlan, PlanCacheStats,
                    StructureSig, clear_plan_cache, execute_plan, explain,
@@ -36,7 +37,7 @@ __all__ = [
     "FormatMismatchError", "PlanCacheStats", "ProjectorSpec", "RPOperator",
     "StructureSig", "clear_plan_cache", "count_kernel_dispatch",
     "current_stats", "dispatch_breakdown", "dispatch_stats", "execute_plan",
-    "explain", "get_family", "group_signature", "kernel_call_count",
+    "explain", "force_kernel", "get_family", "group_signature", "kernel_call_count",
     "list_families", "make_projector", "plan_cache_stats", "plan_execution",
     "plan_update", "pow2ceil", "project", "project_many", "reconstruct",
     "register_family", "struct_in_rank", "struct_signature",

@@ -8,11 +8,16 @@ and every execution resolves through a cached
 every kernel decision is behind the plan layer.
 
 Instrumentation is CONTEXT-LOCAL: a `DispatchStats` object held in a
-`contextvars.ContextVar` carries the kernel-dispatch counter and the
-per-(family, structure, route, order) `breakdown`; `dispatch_stats()`
-installs a fresh one for a dynamic scope. PyTorch runs eagerly, so a
-kernel-route dispatch is one kernel-wrapper call. The `repro.obs` spans
-wait for the telemetry slice.
+`contextvars.ContextVar` carries the kernel-dispatch counter, the
+per-(family, structure, route, order) `breakdown` and the force-kernel
+depth; `dispatch_stats()` installs a fresh one for a dynamic scope, and
+`force_kernel()` is depth-counted so nesting composes. PyTorch runs
+eagerly, so a kernel-route dispatch is one kernel-wrapper call.
+
+Every dispatch also opens a `repro_torch.obs` span (`rp.project` /
+`rp.reconstruct`, tagged family/structure/order/backend/pipeline with the
+RESOLVED route plus the `plan` id) — a shared no-op when telemetry is
+disabled, so the hot path pays one module-global read.
 """
 from __future__ import annotations
 
@@ -23,8 +28,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.cp_rp import CPRP
-from repro_torch.core.formats import STRUCT_TYPES, _prod
+from repro_torch.core.formats import (STRUCT_TYPES, BatchedCPTensor,
+                                      BatchedTTTensor, _prod)
 from repro_torch.core.tt_rp import TTRP
 
 from . import plan as _plan
@@ -37,13 +44,20 @@ class DispatchStats:
 
     kernel_calls : `project`/`reconstruct` dispatches that routed to a
                    kernel in this context.
+    force_depth  : nesting depth of active `force_kernel()` scopes; > 0
+                   lets 'auto' take the kernel route on the CPU.
     breakdown    : per-(family, structure, route, order) dispatch counts,
                    both routes; kernel_calls equals the sum of the
                    route == 'kernel' entries.
     """
 
     kernel_calls: int = 0
+    force_depth: int = 0
     breakdown: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def force_kernel(self) -> bool:
+        return self.force_depth > 0
 
     def record(self, family: str, structure: str, route: str,
                order: int) -> None:
@@ -52,6 +66,12 @@ class DispatchStats:
         self.breakdown[key] = self.breakdown.get(key, 0) + 1
         if route == "kernel":
             self.kernel_calls += 1
+
+    def breakdown_table(self) -> list[dict]:
+        """The breakdown as sorted JSON-able rows (telemetry sinks)."""
+        return [{"family": f, "structure": s, "route": r, "order": n,
+                 "calls": c}
+                for (f, s, r, n), c in sorted(self.breakdown.items())]
 
 
 _ROOT_STATS = DispatchStats()
@@ -78,6 +98,21 @@ def dispatch_stats():
         yield stats
     finally:
         _STATS.reset(token)
+
+
+@contextlib.contextmanager
+def force_kernel():
+    """Let `backend='auto'` take the kernel route on the CPU, where the
+    kernel wrappers run their plain versions (on CUDA 'auto' already
+    picks the kernel). The counterpart of the reference's
+    `force_pallas()`: depth-counted on the context-local stats, so nested
+    scopes compose and restore."""
+    stats = _STATS.get()
+    stats.force_depth += 1
+    try:
+        yield
+    finally:
+        stats.force_depth -= 1
 
 
 def dispatch_breakdown() -> dict:
@@ -152,11 +187,14 @@ def _coerce_dense(op: RPOperator, x) -> torch.Tensor:
         f"operator in_dims={dims} (flat size {size})")
 
 
-def _run_planned(eplan, op, x) -> torch.Tensor:
+def _run_planned(span_name: str, eplan, op, x) -> torch.Tensor:
     """Record one dispatch on the context stats and execute the plan."""
     _STATS.get().record(eplan.family, eplan.structure, eplan.route,
                         eplan.order)
-    return _plan.execute_plan(eplan, op, x)
+    with obs.span(span_name, family=eplan.family, structure=eplan.structure,
+                  order=eplan.order, backend=eplan.route,
+                  pipeline=eplan.pipeline, plan=eplan.plan_id):
+        return _plan.execute_plan(eplan, op, x)
 
 
 def _check_struct_dims(op: RPOperator, x) -> None:
@@ -166,23 +204,36 @@ def _check_struct_dims(op: RPOperator, x) -> None:
             f"in_dims {tuple(op.in_dims)}")
 
 
+def _project_dense(op: RPOperator, x, backend: str,
+                   pipeline: str) -> torch.Tensor:
+    xt = _coerce_dense(op, x)
+    eplan = _plan.plan_execution(op, _plan.dense_signature(op, xt),
+                                 backend=backend, pipeline=pipeline)
+    return _run_planned("rp.project", eplan, op, xt)
+
+
 def _project_struct(op: RPOperator, x, backend: str,
                     pipeline: str) -> torch.Tensor:
     """Structured (TT/CP-format) input(s), single or batched: TT/CP
     operators project in the compressed domain — the carry-sweep kernels
     on the kernel route, their einsum oracles otherwise; a batched
-    container is ONE dispatch either way. Densifying for flat-vector
-    families waits with those families, so any other operator raises."""
+    container is ONE dispatch either way. Flat-vector families
+    (gaussian/sparse) densify first: `(D,)` for one input, `(B, D)` for a
+    batched container — only viable at small prod(dims), the regime the
+    paper could run those baselines in."""
     if not isinstance(op, (TTRP, CPRP)):
-        raise TypeError(f"structured inputs project with a TT/CP operator, "
-                        f"got {type(op).__name__}")
+        full = x.full()
+        if isinstance(x, (BatchedTTTensor, BatchedCPTensor)):
+            return _project_dense(op, full.reshape(full.shape[0], -1),
+                                  backend, pipeline)
+        return _project_dense(op, full.reshape(-1), backend, pipeline)
     _check_struct_dims(op, x)
     if x.device != _op_device(op):
         raise FormatMismatchError(f"input on {x.device}, operator on "
                                   f"{_op_device(op)}")
     eplan = _plan.plan_execution(op, _plan.struct_signature(op, x),
                                  backend=backend, pipeline=pipeline)
-    return _run_planned(eplan, op, x)
+    return _run_planned("rp.project", eplan, op, x)
 
 
 def project(op: RPOperator, x, *, backend: str = "auto",
@@ -191,8 +242,9 @@ def project(op: RPOperator, x, *, backend: str = "auto",
 
     x may be a dense array `(*batch, *op.in_dims)`, a flat vector or a
     `(*batch, D)` stack of them (short vectors zero-padded), a `TTTensor` /
-    `CPTensor` (compressed-domain projection, never densified), or a
-    `BatchedTTTensor` / `BatchedCPTensor` (a whole batch in ONE dispatch).
+    `CPTensor` (compressed-domain projection under TT/CP operators,
+    densified under the flat families), or a `BatchedTTTensor` /
+    `BatchedCPTensor` (a whole batch in ONE dispatch).
 
     `pipeline='double'` selects the double-buffered kernels on the kernel
     route (K5 for dense inputs, K6 for structured ones); same results to
@@ -203,10 +255,7 @@ def project(op: RPOperator, x, *, backend: str = "auto",
     _plan.validate_pipeline(pipeline)
     if isinstance(x, STRUCT_TYPES):
         return _project_struct(op, x, backend, pipeline)
-    xt = _coerce_dense(op, x)
-    eplan = _plan.plan_execution(op, _plan.dense_signature(op, xt),
-                                 backend=backend, pipeline=pipeline)
-    return _run_planned(eplan, op, xt)
+    return _project_dense(op, x, backend, pipeline)
 
 
 def reconstruct(op: RPOperator, y, *, chunk: int | None = None,
@@ -224,4 +273,4 @@ def reconstruct(op: RPOperator, y, *, chunk: int | None = None,
             f"sketch shape {tuple(y.shape)} does not end in k = {op.k}")
     eplan = _plan.plan_execution(op, _plan.sketch_signature(op, y, chunk),
                                  kind="reconstruct", backend=backend)
-    return _run_planned(eplan, op, y)
+    return _run_planned("rp.reconstruct", eplan, op, y)

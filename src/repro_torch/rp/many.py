@@ -74,13 +74,17 @@ def _flat_payload(op: RPOperator, x) -> torch.Tensor:
         "project_many takes one payload per sketch row")
 
 
-def _dense_batch(op: RPOperator, xs, b_pad: int) -> torch.Tensor:
+def stack_dense(op: RPOperator, xs, *, bucket: bool = True) -> torch.Tensor:
+    """Dense single payloads -> the `(B_pad, prod(in_dims))` float32 batch
+    on the operator's device that `project_many` dispatches (one copy;
+    `B_pad` is `pow2ceil(B, 8)` when bucketing, else `B`; pad rows zero)."""
     dev = _op_device(op)
     flats = [_flat_payload(op, x) for x in xs]
     if all(f.device.type == "cpu" for f in flats):
         xb = torch.stack(flats).to(dev, torch.float32)   # one host->device copy
     else:
         xb = torch.stack([f.to(dev, torch.float32) for f in flats])
+    b_pad = pow2ceil(len(flats), 8) if bucket else len(flats)
     if b_pad > len(flats):
         xb = torch.nn.functional.pad(xb, (0, 0, 0, b_pad - len(flats)))
     return xb
@@ -125,7 +129,7 @@ def project_many(op: RPOperator, inputs, *, backend: str = "auto",
     for tag, (idxs, xs) in groups.items():
         b_pad = pow2ceil(len(xs), 8) if bucket else len(xs)
         if tag == "dense":
-            xb = _dense_batch(op, xs, b_pad)
+            xb = stack_dense(op, xs, bucket=bucket)
         elif tag == "tt":
             xb = stack_ragged_tt(xs)
             if bucket:

@@ -16,6 +16,8 @@ Dispatch matrix (input format x operator family -> route):
                                         per batched call | batched einsum
                                         oracles (`kernels.struct.ref`)
   order outside [2, MAX_ORDER] x any    einsum, even under 'kernel'
+  dense/flat x gaussian/sparse          streamed blocks (`core.baselines`)
+  (Batched)TT/CP x gaussian/sparse      densified, then the dense row
 
 Backend policy (`backend='auto' | 'kernel' | 'torch'`, standing in for
 the reference's 'auto' | 'pallas' | 'xla'):
@@ -25,7 +27,9 @@ the reference's 'auto' | 'pallas' | 'xla'):
              the hand-written kernels, on a CPU operator they run the
              kernels' plain versions (the CPU counterpart of interpret mode).
 * 'auto'   — the kernel for every tt/cp operator of a supported order on a
-             CUDA device; the einsum path on the CPU.
+             CUDA device; the einsum path on the CPU unless
+             `rp.force_kernel()` is active (then the plain versions run).
+             The force depth is part of the cache key.
 
 `pipeline='serial' | 'double'` picks the double-buffered kernels K5/K6 on
 the kernel route; the einsum route has nothing to pipeline and ignores it
@@ -46,6 +50,7 @@ from collections import OrderedDict
 import torch
 
 from repro_torch.core import theory
+from repro_torch.core.baselines import GaussianRP, VerySparseRP
 from repro_torch.core.cp_rp import CPRP
 from repro_torch.core.formats import (STRUCT_TYPES, BatchedCPTensor,
                                       BatchedTTTensor, CPTensor, TTTensor,
@@ -142,6 +147,9 @@ class CostLedger:
     params: int
     var_factor: float
 
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
@@ -178,6 +186,11 @@ class ExecutionPlan:
     cost: CostLedger
     carry_bytes: int = 0           # structured rows: the (B, k, R·R~)
                                    # bond state replacing dense sweep temps
+
+    def as_dict(self) -> dict:
+        out = dataclasses.asdict(self)
+        out["cost"] = self.cost.as_dict()
+        return out
 
     def describe(self) -> str:
         """Markdown block for `rp.explain`."""
@@ -225,6 +238,18 @@ class PlanCacheStats:
     hits: int = 0
     evictions: int = 0
 
+    @property
+    def lookups(self) -> int:
+        return self.builds + self.hits
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hits / self.lookups if self.lookups else 0.0
+
+    def as_dict(self) -> dict:
+        return {"builds": self.builds, "hits": self.hits,
+                "evictions": self.evictions, "hit_rate": self.hit_rate}
+
 
 _PLAN_CACHE: "OrderedDict[tuple, ExecutionPlan]" = OrderedDict()
 _CACHE_STATS = PlanCacheStats()
@@ -245,7 +270,8 @@ def clear_plan_cache() -> None:
 # signatures
 # ---------------------------------------------------------------------------
 
-_FAMILY_BY_TYPE = {TTRP: "tt", CPRP: "cp"}
+_FAMILY_BY_TYPE = {TTRP: "tt", CPRP: "cp", GaussianRP: "gaussian",
+                   VerySparseRP: "sparse"}
 _TN_FAMILIES = ("tt", "cp")
 
 
@@ -329,8 +355,14 @@ def group_signature(op, payloads, *, bucket: bool = True) -> StructureSig:
 # the resolver
 # ---------------------------------------------------------------------------
 
-def _resolve_route(backend: str, *, supported: bool,
-                   on_cuda: bool) -> tuple[str, tuple]:
+def _force_kernel_active() -> bool:
+    # local import: dispatch imports this module at module level
+    from . import dispatch
+    return dispatch.current_stats().force_kernel
+
+
+def _resolve_route(backend: str, *, supported: bool, on_cuda: bool,
+                   force: bool) -> tuple[str, tuple]:
     """(route, rejected) under the backend policy."""
     if not supported:
         return "torch", (("kernel", "no mode-sweep kernel for this "
@@ -345,8 +377,12 @@ def _resolve_route(backend: str, *, supported: bool,
     if on_cuda:
         return "kernel", (("torch", "'auto' on a CUDA device selects the "
                            "kernel"),)
+    if force:
+        return "kernel", (("torch", "'auto' under force_kernel() takes the "
+                           "kernel route (its plain versions on the CPU)"),)
     return "torch", (("kernel", "'auto' on the CPU takes the einsum route; "
-                      "backend='kernel' runs the kernels' plain versions"),)
+                      "backend='kernel' or force_kernel() runs the kernels' "
+                      "plain versions"),)
 
 
 def _safe_params(family: str, k: int, dims: tuple, rank: int) -> int:
@@ -370,7 +406,7 @@ def _kernel_name(sig: StructureSig, kind: str, route: str,
 
 
 def _build_plan(op_sig: _OpSig, sig: StructureSig, kind: str, backend: str,
-                pipeline: str, key: tuple) -> ExecutionPlan:
+                pipeline: str, force: bool, key: tuple) -> ExecutionPlan:
     # local import: the kernels package is not a module-level dependency
     # of the rp layer
     from repro_torch.kernels import ops as kops
@@ -380,7 +416,8 @@ def _build_plan(op_sig: _OpSig, sig: StructureSig, kind: str, backend: str,
     order, b = len(dims), int(sig.batch)
     supported = op_sig.is_tn and kops.kernel_order_supported(order)
     route, rejected = _resolve_route(backend, supported=supported,
-                                     on_cuda=op_sig.device == "cuda")
+                                     on_cuda=op_sig.device == "cuda",
+                                     force=force)
     params = _safe_params(f, k, dims, rank)
     var = float(theory.variance_factor(f, N=order, R=max(1, rank),
                                        D=_prod(dims)))
@@ -409,6 +446,7 @@ def _build_plan(op_sig: _OpSig, sig: StructureSig, kind: str, backend: str,
                         else theory.flops_project_dense_cp(k, dims,
                                                            max(1, rank)))
         else:
+            # flat-vector families: 2 flops per stored parameter per item
             per_item = 2 * params
         if route == "kernel":
             kplan = kops.plan_contraction(f, kind, k, b, dims, rank,
@@ -443,7 +481,9 @@ def plan_execution(op_spec, structure_sig: StructureSig | None = None, *,
                    device: str | None = None) -> ExecutionPlan:
     """Resolve (or fetch from the LRU cache) the `ExecutionPlan` for one
     execution of `op_spec` (an operator, or a `ProjectorSpec` planned for
-    `device`) against `structure_sig` (defaults to one dense payload)."""
+    `device`) against `structure_sig` (defaults to one dense payload).
+    Whether a `force_kernel()` scope is active in this context is part of
+    the cache key."""
     validate_backend(backend)
     validate_pipeline(pipeline)
     if kind not in ("project", "reconstruct"):
@@ -459,13 +499,14 @@ def plan_execution(op_spec, structure_sig: StructureSig | None = None, *,
         raise ValueError(
             f"structured ({sig.structure!r}) execution plans exist for "
             f"tt/cp operators only, got family {op_sig.family!r}")
-    key = (op_sig, sig, kind, backend, pipeline)
+    force = _force_kernel_active()
+    key = (op_sig, sig, kind, backend, pipeline, force)
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
         _PLAN_CACHE.move_to_end(key)
         _CACHE_STATS.hits += 1
         return cached
-    plan = _build_plan(op_sig, sig, kind, backend, pipeline, key)
+    plan = _build_plan(op_sig, sig, kind, backend, pipeline, force, key)
     _CACHE_STATS.builds += 1
     _PLAN_CACHE[key] = plan
     while len(_PLAN_CACHE) > _CACHE_CAP:
@@ -547,7 +588,8 @@ def _exec_reconstruct(plan: ExecutionPlan, op, y):
             return kern(op, y)
         out = kern(op, y.reshape(-1, op.k))
         return out.reshape(y.shape[:-1] + tuple(op.in_dims))
-    if y.ndim == 1:
+    if y.ndim == 1 or plan.family not in _TN_FAMILIES:
+        # the flat families' streamed adjoint takes a batch of sketches
         return op.reconstruct(y, chunk=plan.chunk)
     rows = [op.reconstruct(r, chunk=plan.chunk) for r in y.reshape(-1, op.k)]
     return torch.stack(rows).reshape(y.shape[:-1] + tuple(op.in_dims))
@@ -563,14 +605,22 @@ def explain(op, x, *, kind: str = "project", backend: str = "auto",
     """The `ExecutionPlan` that `rp.project` / `rp.reconstruct` would
     resolve for `(op, x)`, with its rejected alternatives. Pure: nothing
     executes, but the plan lands in the cache the dispatch reads. `x` may
-    be anything `project` takes, or for kind='reconstruct' a sketch."""
+    be anything `project` takes, or for kind='reconstruct' a sketch.
+    Mirrors dispatch: a structured input under a flat-vector operator
+    densifies, so it is explained as the dense plan it executes."""
     if kind == "reconstruct":
         y = torch.as_tensor(x)
         return plan_execution(op, sketch_signature(op, y, chunk),
                               kind="reconstruct", backend=backend)
     if isinstance(x, STRUCT_TYPES):
-        return plan_execution(op, struct_signature(op, x), backend=backend,
-                              pipeline=pipeline)
+        if _op_signature(op).is_tn:
+            return plan_execution(op, struct_signature(op, x),
+                                  backend=backend, pipeline=pipeline)
+        batch = (int(x.batch)
+                 if isinstance(x, (BatchedTTTensor, BatchedCPTensor)) else 1)
+        return plan_execution(op, StructureSig(structure="dense",
+                                               batch=batch),
+                              backend=backend, pipeline=pipeline)
     from .dispatch import _coerce_dense
     xt = _coerce_dense(op, x)
     return plan_execution(op, dense_signature(op, xt), backend=backend,

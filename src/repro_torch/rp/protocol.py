@@ -1,7 +1,8 @@
 """The single projector protocol every RP family implements.
 
 Port of `repro/rp/protocol.py`. `RPOperator` is structural — the port's
-`TTRP` / `CPRP` conform without inheriting from anything here.
+`TTRP` / `CPRP` and the baselines `GaussianRP` / `VerySparseRP` conform
+without inheriting from anything here.
 `ProjectorSpec` is the declarative description a registry factory turns
 into a sampled operator.
 """
@@ -28,7 +29,8 @@ class RPOperator(Protocol):
     """Structural interface of a sampled random-projection operator.
 
     k            : embedding dimension (rows of the implicit map).
-    in_dims      : input mode sizes `(d_1, ..., d_N)`.
+    in_dims      : input mode sizes; `(D,)` for flat-vector operators,
+                   `(d_1, ..., d_N)` for tensorized ones.
     num_params() : stored parameter count (the paper's memory axis).
     project(x)   : dense input `(*batch, *in_dims) -> (*batch, k)`.
     reconstruct(y, *, chunk): unbiased adjoint `(k,) -> in_dims`.
@@ -55,10 +57,11 @@ class RPOperator(Protocol):
 class ProjectorSpec:
     """Declarative description of a projector; `make_projector` samples it.
 
-    family  : registered family name ('tt', 'cp').
+    family  : registered family name ('tt', 'cp', 'gaussian', 'sparse').
     k       : embedding dimension.
-    dims    : input mode sizes.
-    rank    : structural rank R.
+    dims    : input mode sizes. Flat-vector families contract over
+              prod(dims), so a tensorized `dims` is valid for every family.
+    rank    : structural rank R (ignored by the flat families).
     dtype   : parameter dtype.
     backend : execution backend for dense inputs, 'auto' | 'kernel' |
               'torch' (see `repro_torch.rp.plan`).

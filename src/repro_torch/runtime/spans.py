@@ -1,9 +1,12 @@
 """Named spans inside the train step, recorded only when a caller asks.
 
 The step brackets its parts with `span(name)`: the loss and gradient
-(`launch/steps.py`), the sketch and the fused update
-(`optim/adamw.py::update_sketched`). Outside `record`, a span does
-nothing. Inside it, each span takes two markers from the caller's
+(`train.loss_grad`, `launch/steps.py`), the sketch and the fused update
+(`train.sketch`, `train.fused_update`, `optim/adamw.py::update_sketched`).
+Each span is also a `repro_torch.obs` span of the same name, so one name
+shows in the device-time split below and in an exported trace (nested
+under `train.step`). With telemetry off and outside `record`, a span does
+nothing. Inside `record`, each span takes two markers from the caller's
 factory, calls `.record()` on the first before its block and on the
 second after it, and appends `(name, start, end)` to the list `record`
 yields. On the card the factory is
@@ -17,6 +20,8 @@ from __future__ import annotations
 
 import contextlib
 from typing import Callable, Iterator
+
+from repro_torch import obs
 
 _marks: list | None = None
 _marker: Callable | None = None
@@ -37,14 +42,15 @@ def record(marker: Callable) -> Iterator[list]:
 
 @contextlib.contextmanager
 def span(name: str) -> Iterator[None]:
-    if _marks is None:
+    with obs.span(name):
+        if _marks is None:
+            yield
+            return
+        marks, start, end = _marks, _marker(), _marker()
+        start.record()
         yield
-        return
-    marks, start, end = _marks, _marker(), _marker()
-    start.record()
-    yield
-    end.record()
-    marks.append((name, start, end))
+        end.record()
+        marks.append((name, start, end))
 
 
 __all__ = ["record", "span"]

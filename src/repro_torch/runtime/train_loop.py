@@ -1,9 +1,11 @@
 """The training loop: data by step, the step function, the log lines.
 
 Port of the step loop of `repro/runtime/train_loop.py`. Every batch is a
-pure function of (seed, step), so a run is reproducible. Checkpointing,
-restore, the watchdog, SIGTERM handling and the telemetry spans wait for
-their slices (ROADMAP.md, queue 1 items 8 and 10): a `ckpt_dir` raises.
+pure function of (seed, step), so a run is reproducible. Each step runs
+under a `train.step` span (`repro_torch.obs`; a no-op when telemetry is
+off). Checkpointing, restore, the watchdog with its straggler events,
+SIGTERM handling and the resume events wait for their slice (ROADMAP.md,
+queue 1 item 10): a `ckpt_dir` raises.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import obs
 from repro_torch.data import SyntheticLM
 
 
@@ -24,10 +27,12 @@ class LoopConfig:
 
 
 def run(step_fn: Callable, state: Any, data: SyntheticLM, cfg: LoopConfig, *,
-        log: Callable[[str], None] = print) -> tuple[Any, int]:
+        log: Callable[[str], None] = print,
+        on_metrics: Callable[..., None] | None = None) -> tuple[Any, int]:
     """Runs step_fn(state, batch) -> (state, metrics) for steps
     0..total_steps-1; logs the 0-d metrics every `log_every` steps and at
-    the last. Returns (final_state, final_step)."""
+    the last. `on_metrics(step, metrics, state)` receives the post-step
+    state. Returns (final_state, final_step)."""
     if cfg.ckpt_dir:
         raise NotImplementedError(
             "checkpointing is not ported yet (ROADMAP.md, queue 1 item 10); "
@@ -35,7 +40,10 @@ def run(step_fn: Callable, state: Any, data: SyntheticLM, cfg: LoopConfig, *,
     t_start = time.time()
     step = 0
     for step in range(cfg.total_steps):
-        state, metrics = step_fn(state, data.batch(step))
+        with obs.span("train.step", step=step):
+            state, metrics = step_fn(state, data.batch(step))
+        if on_metrics is not None:
+            on_metrics(step, metrics, state)
         if step % cfg.log_every == 0 or step == cfg.total_steps - 1:
             scal = {k: float(v) for k, v in metrics.items()
                     if isinstance(v, (float, int)) or (

@@ -12,18 +12,22 @@ microseconds), so latency percentiles are a deterministic function of the
 trace and the flush policy. Operators, dispatch and store live on one
 device (`device=None` means CUDA). Payloads are dense arrays or TT/CP
 tensors; each lane holds one structure, so a tick is one dense (K1) or
-one carry-sweep (K3) launch on the card. The telemetry spans and the
-distortion monitor wait for the telemetry slice; the manifest for a later
-one.
+one carry-sweep (K3) launch on the card. Each tick opens a `serve.tick`
+span, records the `serve/queue_delay_us` histogram and the
+`serve/requests_done` counter, and feeds an enabled `DistortionMonitor`
+with its dense payloads (`repro_torch.obs`; all no-ops when telemetry is
+off). The cache manifest waits for a later slice.
 """
 from __future__ import annotations
 
 import collections
 
 import numpy as np
+import torch
 
-from repro_torch import rp
+from repro_torch import obs, rp
 from repro_torch.core.formats import CPTensor, TTTensor
+from repro_torch.rp.many import stack_dense
 
 from .batcher import DynamicBatcher, SketchRequest
 from .cache import OperatorCache
@@ -80,26 +84,54 @@ class SketchServer:
         if got is None:
             return 0
         key, batch = got
-        op = self.cache.get(key.spec, key.seed)
-        payloads = [r.payload for r in batch]
-        # pre-plan the coalesced dispatch: the same group signature
-        # project_many buckets on, so the tick executes a cached plan
-        self.cache.plan_for(op, payloads, backend=self.cfg.backend)
-        ys = rp.project_many(op, payloads, backend=self.cfg.backend)
-        self.ticks += 1
-        self.occupancy.append(len(batch) / self.cfg.max_batch)
-        ingest = (self.store is not None and self.cfg.ingest
-                  and key.spec == self.store.spec)
-        ids = self.store.add(ys) if ingest else None
-        for i, req in enumerate(batch):
-            req.sketch = ys[i]
-            req.t_done = float(now)
-            if ids is not None:
-                req.store_id = int(ids[i])
-            req.payload = None  # the engine's point: drop the original
-            self._lat_window.append(req.latency_us)
-        self.done.extend(batch)
-        return len(batch)
+        with obs.span("serve.tick", batch=len(batch),
+                      family=key.spec.family, k=key.spec.k,
+                      structure=key.structure, seed=key.seed,
+                      tick=self.ticks) as sp:
+            op = self.cache.get(key.spec, key.seed)
+            payloads = [r.payload for r in batch]
+            # pre-plan the coalesced dispatch: the same group signature
+            # project_many buckets on, so the tick executes a cached plan
+            eplan = self.cache.plan_for(op, payloads,
+                                        backend=self.cfg.backend)
+            sp.set(plan=eplan.plan_id, route=eplan.route)
+            mon = obs.get_distortion()
+            x_norm2 = None
+            if mon is not None and key.structure == "dense":
+                # the lane's one batch as project_many would stack it: its
+                # squared norms and its sketches come off the same copy
+                xd = stack_dense(op, payloads)
+                x_norm2 = xd[:len(batch)].double().square().sum(-1)
+                ys = rp.project(op, xd, backend=self.cfg.backend
+                                )[:len(batch)]
+            else:
+                ys = rp.project_many(op, payloads, backend=self.cfg.backend)
+            norms = None
+            if x_norm2 is not None:
+                # one device->host copy a tick
+                norms = torch.stack([x_norm2, ys.double().square().sum(-1)]
+                                    ).cpu().tolist()
+            self.ticks += 1
+            self.occupancy.append(len(batch) / self.cfg.max_batch)
+            ingest = (self.store is not None and self.cfg.ingest
+                      and key.spec == self.store.spec)
+            ids = self.store.add(ys) if ingest else None
+            delay_hist = obs.histogram("serve/queue_delay_us")
+            for i, req in enumerate(batch):
+                req.sketch = ys[i]
+                req.t_done = float(now)
+                if ids is not None:
+                    req.store_id = int(ids[i])
+                req.payload = None  # the engine's point: drop the original
+                self._lat_window.append(req.latency_us)
+                delay_hist.observe(req.latency_us)
+                if norms is not None:
+                    mon.observe_norms(key.spec.family, len(key.spec.dims),
+                                      key.spec.k, norms[0][i], norms[1][i],
+                                      rank=key.spec.rank)
+            self.done.extend(batch)
+            obs.counter("serve/requests_done").inc(len(batch))
+            return len(batch)
 
     def drain(self, now: float) -> int:
         """Flush everything still queued (end of trace), lane by lane at

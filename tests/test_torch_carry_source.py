@@ -244,3 +244,30 @@ def test_carry_source_stages_a_large_tt_core_in_row_chunks(lib):
     ref = carry.carry_sweep_project_plain(*cores, n_op=n_op,
                                           program=plan.program, scale=1.0)
     assert _rel(_run(lib, cores, n_op, plan, 1.0), ref) <= 1e-4
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("of,r_op", [("tt", 10), ("cp", 100)],
+                         ids=["tt10", "cp100"])
+def test_carry_source_at_fig1_small_case_shapes(lib, of, r_op, b):
+    """The paper's Fig. 1 small case: modes of 15 (not a multiple of the
+    4 floats of a 16-byte copy), TT(10) and CP(100) operators (60 register
+    tiles a pair) on unit-norm rank-10 TT inputs, K3 under the planner's
+    plan and two splits within a block's CARRY_THREADS: half as many tile
+    threads as tiles over 2 d-parts, one bond-row tile a chunk, ragged
+    2- and 3-value d chunks, at k = 6."""
+    dims = (15, 15, 15)
+    cores, n_op, r_in = _case(of, "tt", dims, 6, r_op, (10,), b, seed=11)
+    ref = carry.carry_sweep_project_plain(
+        *cores, n_op=n_op, program=splan._carry_program(of, "tt", 3),
+        scale=0.5)
+    plan = splan.plan_carry_sweep(of, "tt", 6, b, dims, r_op, r_in)
+    plans = [plan]
+    for tk, dc in ((1, 2), (2, 3)):
+        p = dataclasses.replace(plan, tps=max(1, plan.n_tiles // 2), tpd=2,
+                                tk=tk, tb=1, dc=dc, uc=plan.ro)
+        assert p.tk * p.tb * p.tps * p.tpd <= splan.CARRY_THREADS
+        plans.append(dataclasses.replace(
+            p, smem_bytes=splan.carry_smem_bytes(p)))
+    for p in plans:
+        assert _rel(_run(lib, cores, n_op, p, 0.5), ref) <= 1e-4, p

@@ -347,6 +347,43 @@ def test_k3_stages_a_large_tt_core_in_row_chunks(cuda, of):
                                           scale=0.5), ref) <= 1e-4
 
 
+@pytest.mark.parametrize("of,r_op", [("tt", 10), ("cp", 100)],
+                         ids=["tt10", "cp100"])
+@pytest.mark.parametrize("b", [1, 64])
+def test_k3_fig1_small_case_shapes(cuda, of, r_op, b):
+    """The paper's Fig. 1 small case on the card: modes of 15, k=1024,
+    TT(10) / CP(100) operators on unit-norm rank-10 TT inputs, K3 against
+    its plain version, twice for the same bits."""
+    dims = (15, 15, 15)
+    cores, n_op, r_in = _carry_case(of, "tt", dims, 1024, r_op, (10,), b,
+                                    cuda, seed=13)
+    plan = splan.plan_carry_sweep(of, "tt", 1024, b, dims, r_op, r_in)
+    y = carry.carry_sweep_project(*cores, n_op=n_op, plan=plan, scale=1.0)
+    ref = carry.carry_sweep_project_plain(*cores, n_op=n_op,
+                                          program=plan.program, scale=1.0)
+    assert _rel(y, ref) <= 1e-4
+    assert torch.equal(y, carry.carry_sweep_project(*cores, n_op=n_op,
+                                                    plan=plan, scale=1.0))
+
+
+@pytest.mark.parametrize("family", ["gaussian", "sparse"])
+def test_flat_baselines_stream_their_matrix_on_the_card(cuda, family):
+    """The streamed baselines regenerate each block bitwise on the card:
+    project and reconstruct against the materialized matrix, over three
+    blocks with a ragged last one (fp32, TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = rp.ProjectorSpec(family, 64, (7, 9, 11))
+    op = rp.make_projector(spec, 5, device=cuda)
+    op = dataclasses.replace(op, block=300)
+    a = op.materialize()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((4, 693), generator=g, device=cuda)
+    y = rp.project(op, x)
+    assert _rel(y, x @ a.T) <= 1e-5
+    assert _rel(rp.reconstruct(op, y), y @ a) <= 1e-5
+    assert torch.equal(y, rp.project(op, x))
+
+
 @pytest.mark.parametrize("pair", [("tt", "tt"), ("tt", "cp"), ("cp", "tt"),
                                   ("cp", "cp")], ids="x".join)
 @pytest.mark.parametrize("b", [8, 64])

@@ -12,6 +12,7 @@ Tolerance rtol=1e-5, atol=1e-5: float32 on both sides with the same
 contraction program; the sum order differs between torch and the Pallas
 interpreter, which moves results by a few ulps of the partial sums.
 """
+import json
 import math
 import pathlib
 import re
@@ -396,8 +397,9 @@ def test_auto_route_takes_the_kernel_on_cuda_and_torch_on_cpu():
 
 def test_structured_rows_raise_not_implemented():
     """The structured rows are ported: they plan the carry sweep. What they
-    still refuse is a non-TT/CP operator (densifying waits with the
-    gaussian/sparse families) and batched containers in project_many."""
+    still refuse is an operator of no registered family (it has no
+    `project` to densify into, so it raises AttributeError, as the
+    reference does) and batched containers in project_many."""
     from repro_torch.core import BatchedTTTensor, TTTensor
     _, top = _pair("tt", (4, 8, 8))
     tt = TTTensor(tuple(torch.zeros(s) for s in [(1, 4, 2), (2, 8, 2),
@@ -410,10 +412,26 @@ def test_structured_rows_raise_not_implemented():
     class Foreign:
         k, in_dims = 20, (4, 8, 8)
 
-    with pytest.raises(TypeError, match="TT/CP operator"):
+    with pytest.raises(AttributeError, match="project"):
         rp.project(Foreign(), tt)
     with pytest.raises(rp.FormatMismatchError, match="batched containers"):
         rp.project_many(top, [BatchedTTTensor.stack([tt])])
+
+
+def test_structured_rows_plan_the_carry_and_flat_families_densify():
+    """A flat family (gaussian) densifies a structured input on the torch
+    route, as the reference does: the same sketch as the dense input's
+    (exact: the same matrix and the same product)."""
+    from repro_torch.core import TTTensor
+    g = np.random.default_rng(3)
+    tt = TTTensor(tuple(torch.from_numpy(g.standard_normal(s).astype(
+        np.float32)) for s in [(1, 4, 2), (2, 8, 2), (2, 8, 1)]))
+    gop = rp.make_projector(rp.ProjectorSpec("gaussian", 20, (4, 8, 8)), 0,
+                            device="cpu")
+    with rp.dispatch_stats() as st:
+        y = rp.project(gop, tt)
+    assert st.breakdown == {("gaussian", "dense", "torch", 1): 1}
+    assert torch.equal(y, rp.project(gop, tt.full().reshape(-1)))
 
 
 def test_plan_cache_hits_and_explain():
@@ -469,6 +487,102 @@ def test_projector_spec_roundtrip_and_for_flat():
     flat = rp.ProjectorSpec.for_flat("tt", 1000, 32)
     assert flat.dims == jrp.ProjectorSpec.for_flat("tt", 1000, 32).dims
     assert math.prod(flat.dims) >= 1000
-    assert rp.list_families() == ("cp", "tt")
+    assert rp.list_families() == jrp.list_families()
+    assert rp.get_family("dense") is rp.get_family("gaussian")
     with pytest.raises(KeyError):
-        rp.get_family("gaussian")
+        rp.get_family("fourier")
+
+
+def test_force_kernel_nests_and_restores():
+    """force_kernel is depth-counted on the context-local stats, as the
+    reference's force_pallas: nested scopes compose, the flag drops only
+    when the last scope exits, and under it 'auto' on the CPU takes the
+    kernel route (the plain versions), with the same numbers."""
+    _, top = _pair("tt", (4, 8, 8))
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (3, 4, 8, 8), dtype=np.float32))
+    with rp.dispatch_stats() as stats:
+        assert not stats.force_kernel
+        y_auto = rp.project(top, x)
+        with rp.force_kernel():
+            with rp.force_kernel():
+                assert stats.force_depth == 2 and stats.force_kernel
+            assert stats.force_kernel
+            y_forced = rp.project(top, x)
+            assert rp.explain(top, x).route == "kernel"
+        assert not stats.force_kernel and stats.force_depth == 0
+        assert rp.explain(top, x).route == "torch"
+        assert stats.breakdown == {("tt", "dense", "torch", 3): 1,
+                                   ("tt", "dense", "kernel", 3): 1}
+        assert stats.kernel_calls == 1
+    _close(y_forced, y_auto.numpy())
+
+
+def test_dispatch_breakdown_table_matches_reference():
+    """The same dispatches through both packages land the same
+    breakdown rows (the port's 'kernel'/'torch' for 'pallas'/'xla'), a
+    flat family under order 1."""
+    dims = (4, 8, 8)
+    jop, top = _pair("tt", dims)
+    jg = jrp.make_projector(jrp.ProjectorSpec("gaussian", 20, dims),
+                            jax.random.PRNGKey(1))
+    tg = rp.make_projector(rp.ProjectorSpec("gaussian", 20, dims), 1,
+                           device="cpu")
+    x = np.random.default_rng(3).standard_normal(dims, dtype=np.float32)
+    with jrp.dispatch_stats() as jst:
+        y = jrp.project(jop, x, backend="pallas")
+        jrp.project(jop, x, backend="xla")
+        jrp.project(jg, x, backend="xla")
+        jrp.reconstruct(jop, y, backend="xla")
+    with rp.dispatch_stats() as st:
+        y = rp.project(top, torch.from_numpy(x), backend="kernel")
+        rp.project(top, torch.from_numpy(x), backend="torch")
+        rp.project(tg, torch.from_numpy(x), backend="torch")
+        rp.reconstruct(top, y, backend="torch")
+    names = {"pallas": "kernel", "xla": "torch"}
+    want = [dict(r, route=names[r["route"]])
+            for r in jst.breakdown_table()]
+    assert sorted(st.breakdown_table(), key=str) == sorted(want, key=str)
+    assert st.kernel_calls == jst.kernel_calls == 1
+
+
+def test_plan_views_match_reference():
+    """PlanCacheStats.lookups / hit_rate / as_dict, CostLedger.as_dict and
+    ExecutionPlan.as_dict carry the reference's fields (the port's ledger
+    counts shared memory where the reference counts VMEM and wire bytes,
+    and its plan names the device)."""
+    rp.clear_plan_cache()
+    _, top = _pair("cp", (4, 8, 8))
+    x = torch.zeros(8, 4, 8, 8)
+    plan = rp.explain(top, x, backend="kernel")
+    rp.project(top, x, backend="kernel")
+    stats = rp.plan_cache_stats()
+    assert (stats.lookups, stats.hit_rate) == (2, 0.5)
+    assert stats.as_dict() == {"builds": 1, "hits": 1, "evictions": 0,
+                               "hit_rate": 0.5}
+    jstats = jrp.plan_cache_stats()
+    assert set(stats.as_dict()) == set(jstats.as_dict())
+    d = plan.as_dict()
+    jplan = jrp.plan_execution(jrp.ProjectorSpec("cp", 20, (4, 8, 8), 3),
+                               jrp.StructureSig("dense", 8),
+                               backend="pallas")
+    jd = jplan.as_dict()
+    assert set(d) == set(jd) | {"device"}
+    assert set(d["cost"]) == (set(jd["cost"]) - {"vmem_bytes", "wire_bytes"}
+                              | {"smem_bytes"})
+    assert d["cost"] == plan.cost.as_dict() and d["tiles"] == plan.tiles
+    assert (d["cost"]["flops"], d["cost"]["params"]) == (
+        jd["cost"]["flops"], jd["cost"]["params"])
+    json.dumps(d)
+
+
+@pytest.mark.parametrize("kind", ["project", "reconstruct"])
+@pytest.mark.parametrize("family", ["tt", "cp"])
+def test_pick_tiles_is_the_planner_tile_view(family, kind):
+    """pick_tiles returns the Hopper planner's (tk, tb, ba, tc) under the
+    shared-memory budget (not the reference's VMEM budget)."""
+    dims, k, b, rank = (64, 64, 64), 512, 64, 5
+    plan = ops.plan_contraction(family, kind, k, b, dims, rank)
+    assert ops.pick_tiles(k, b, dims, rank, kind=kind, family=family) == (
+        plan.tk, plan.tb, plan.ba, plan.tc)
+    assert plan.smem_bytes <= ops.SMEM_BUDGET_BYTES

@@ -220,7 +220,8 @@ def test_step_spans_bracket_the_fused_parts():
         state, _ = unfused(state, data.batch(2))
     state, _ = fused(state, data.batch(3))
     assert [name for name, _, _ in marks] == (
-        ["loss_grad", "sketch", "fused_update"] * 2 + ["loss_grad"])
+        ["train.loss_grad", "train.sketch", "train.fused_update"] * 2
+        + ["train.loss_grad"])
     assert n_fused == 6 and spans._marks is None
     ticks = [t for _, s, e in marks for t in (s.tick, e.tick)]
     assert ticks == sorted(ticks)
