@@ -17,8 +17,9 @@ serve spans over the rp dispatch spans they contain), the JSONL carries
 the queue-delay histogram and request counters, and
 `python -m repro_torch.launch.obs_report` renders both. `--distortion EPS
 DELTA` streams each dense request's distortion through a
-`DistortionMonitor`. `--prewarm/--save-manifest` wait for the cache
-manifest.
+`DistortionMonitor`. `--save-manifest PATH` writes the operator cache's
+registry after the replay, and `--prewarm MANIFEST` regenerates a prior
+run's operators before it, so the restarted server's first requests hit.
 """
 from __future__ import annotations
 
@@ -53,6 +54,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device; default CUDA (fails without it)")
+    ap.add_argument("--prewarm", default=None, metavar="MANIFEST",
+                    help="warm the operator cache from a prior run's "
+                         "--save-manifest file before replay (operators "
+                         "regenerate bitwise from (spec, seed))")
+    ap.add_argument("--save-manifest", default=None, metavar="PATH",
+                    help="after replay, write the cache registry (spec "
+                         "dicts + seeds, no operator bytes) for --prewarm")
     ap.add_argument("--trace-out", default=None, metavar="JSON",
                     help="record the replay under repro_torch.obs and "
                          "export the Chrome/Perfetto trace here")
@@ -75,6 +83,9 @@ def main(argv=None) -> int:
     pool = [(spec, s) for s in range(args.pool)]
     trace = synth_trace(args.requests, pool, mix=tuple(args.mix),
                         mean_gap_us=args.mean_gap_us, seed=args.seed)
+    if args.prewarm:
+        n = server.prewarm(args.prewarm)
+        print(f"[serve_rp] prewarmed {n} operators from {args.prewarm}")
     mon = (obs.DistortionMonitor(eps=args.distortion[0],
                                  delta=args.distortion[1])
            if args.distortion else None)
@@ -101,6 +112,10 @@ def main(argv=None) -> int:
           f"{c['evictions']} evictions, regen {c['regen_s']:.2f}s")
     print(f"[serve_rp] store: {report['store_size']} sketches "
           f"({report['store_bytes'] / 1024:.1f} KiB)")
+    if args.save_manifest:
+        n = server.save_manifest(args.save_manifest)
+        print(f"[serve_rp] wrote {n}-entry cache manifest to "
+              f"{args.save_manifest}")
     if args.trace_out:
         print(f"[serve_rp] wrote Perfetto trace to {args.trace_out} "
               "(open in ui.perfetto.dev)")

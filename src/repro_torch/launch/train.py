@@ -10,10 +10,13 @@ K4 step is `build_train_step(..., fused_update=True)`, which
         --compress tt:k=1024,rank=8,dims=4x8x16 --device cpu
 
 `--monitor` prints the O(k) sketch telemetry (parameter norm and drift
-through a fixed TT sketch) every 10 steps. The reference's `--mesh`,
-`--compress-sync` (the collective), `--ckpt-dir`, `--ckpt-every`,
-`--sketch-ef-ckpt` (checkpointing) and `--crash-at` (fault injection)
-wait for their slices (ROADMAP.md, queue 1 items 10 and 11).
+through a fixed TT sketch) every 10 steps. `--ckpt-dir` checkpoints every
+`--ckpt-every` steps and resumes from the newest verified checkpoint;
+`--sketch-ef-ckpt` (with `--compress`) writes the error-feedback tree as
+a (seed, spec, sketch) record; `--crash-at N` raises once at step N (a
+rerun resumes from the last checkpoint). The
+reference's `--mesh` and `--compress-sync` wait for the collective
+(ROADMAP.md, queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.models.config import ShapeSpec
 from repro_torch.optim import schedule
 from repro_torch.optim.compress import SketchCompressor, parse_compress_flag
 from repro_torch.runtime import train_loop
+from repro_torch.runtime.resilience import FaultInjector
 
 
 def main(argv=None) -> int:
@@ -46,10 +50,19 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--compress", default=None,
                     help="tt:k=...,rank=...[,dims=AxBxC][,order=N]")
     ap.add_argument("--remat", default="nothing")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sketch-ef-ckpt", action="store_true",
+                    help="checkpoint the error-feedback tree as a (seed, "
+                         "spec, sketch) record instead of its dense bytes "
+                         "(requires --compress; the operator is regenerated "
+                         "from the saved seed on restore)")
+    ap.add_argument("--crash-at", type=int, default=None,
+                    help="fault injection (tests): raise at this step once")
     ap.add_argument("--device", default=None,
                     help="'cpu' or a CUDA device (default: cuda)")
     ap.add_argument("--monitor", action="store_true",
@@ -93,9 +106,25 @@ def main(argv=None) -> int:
                 print(f"   [monitor] step {step} "
                       f"sketch_norm={float(m['sketch_norm']):.4f} "
                       f"drift={float(m['sketch_drift']):.5f}")
-    state, final = train_loop.run(
-        step_fn, state, data, train_loop.LoopConfig(total_steps=args.steps),
-        on_metrics=on_metrics)
+    ef_codec = None
+    if args.sketch_ef_ckpt:
+        if compressor is None or "ef" not in state:
+            raise ValueError(
+                "--sketch-ef-ckpt needs error-feedback state: pass "
+                "--compress so the train state carries an 'ef' tree")
+        from repro_torch.ckpt import SketchedTreeCodec
+        ef_codec = SketchedTreeCodec(compressor.cfg, state["ef"])
+        print(f"[ckpt] sketched EF records: "
+              f"{ef_codec.dense_bytes()} -> {ef_codec.sketch_bytes()} "
+              f"bytes ({ef_codec.compression_ratio():.1f}x)")
+    loop_cfg = train_loop.LoopConfig(
+        total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every)
+    injector = (FaultInjector({args.crash_at})
+                if args.crash_at is not None else None)
+    state, final = train_loop.run(step_fn, state, data, loop_cfg,
+                                  injector=injector, on_metrics=on_metrics,
+                                  ef_codec=ef_codec)
     n = sum(x.numel() for x in tree_leaves(state["params"]))
     print(f"[train] finished at step {final} (params={n})")
     return 0

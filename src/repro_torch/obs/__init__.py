@@ -33,15 +33,18 @@ Wired call sites (all behind the disabled fast path):
                        order, backend, pipeline, plan)
   serve.engine       — per-tick spans, queue-delay histograms, distortion
                        feed for dense payloads
-  runtime.train_loop — per-step spans (`train.step`)
+  runtime.train_loop — per-step spans (`train.step`), the
+                       `train.straggler`, `ckpt.resume` and
+                       `ckpt.fallback` events
   runtime.spans      — the train step's parts (`train.loss_grad`,
                        `train.sketch`, `train.fused_update`) as nested spans
+  ckpt.checkpointer  — `ckpt.save` (on the async writer's own thread),
+                       `ckpt.verify`, `ckpt.restore` spans
 
 The port runs eagerly, so dispatch spans fire on every call, including
 every step of a train loop (the reference's jitted step dispatches once,
-at trace time). The straggler/resume events and the `ckpt.*` spans wait
-for the watchdog and the checkpointer, the wire-byte gauges for the
-collective.
+at trace time). The wire-byte gauges wait for the collective (ROADMAP.md,
+queue 1 item 11).
 """
 from __future__ import annotations
 

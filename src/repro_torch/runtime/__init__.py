@@ -1,6 +1,7 @@
-"""repro_torch.runtime — the training loop (port of `repro.runtime`'s
-step loop; checkpointing and fault tolerance wait for ROADMAP.md queue 1
-item 10)."""
+"""repro_torch.runtime — the fault-tolerant training loop (port of
+`repro.runtime`): `train_loop` (checkpoints, resume with fallback, the
+watchdog, SIGTERM-safe shutdown) and `resilience` (the watchdog, retry
+and backoff, injectable I/O faults, the restart supervisor)."""
 from .train_loop import LoopConfig, run
 
 __all__ = ["LoopConfig", "run"]

@@ -4,8 +4,9 @@ Port of `repro/serve/cache.py`. An operator is a few small random cores
 fully determined by (spec, seed, device) — `rp.make_projector` draws them
 from a `torch.Generator` seeded with `seed` on the cache's device — so a
 hit means zero regeneration and an evicted entry re-materializes
-bitwise-identical later. The manifest / prewarm registry waits for a later
-slice.
+bitwise-identical later. That makes the cache's `manifest()` (specs and
+seeds, never operator bytes) a complete registry: `prewarm` regenerates
+it after a restart, so the first request of each lane hits.
 
 `plan_for(op, payloads)` resolves the `ExecutionPlan` a coalesced tick will
 dispatch (via `rp.group_signature`) and pins it next to the operators.
@@ -25,6 +26,7 @@ class CacheStats:
     hits: int = 0
     misses: int = 0
     evictions: int = 0
+    prewarmed: int = 0       # entries sampled by prewarm(), not by a get()
     regen_s: float = 0.0     # cumulative operator-sampling wall time
 
     @property
@@ -37,8 +39,8 @@ class CacheStats:
 
     def as_dict(self) -> dict:
         return {"hits": self.hits, "misses": self.misses,
-                "evictions": self.evictions, "regen_s": self.regen_s,
-                "hit_rate": self.hit_rate}
+                "evictions": self.evictions, "prewarmed": self.prewarmed,
+                "regen_s": self.regen_s, "hit_rate": self.hit_rate}
 
 
 class OperatorCache:
@@ -70,8 +72,13 @@ class OperatorCache:
             self.stats.hits += 1
             return op
         self.stats.misses += 1
+        return self._sample(key)
+
+    def _sample(self, key: tuple) -> rp.RPOperator:
+        """Sample the operator of (spec, seed) into the cache (timed into
+        `stats.regen_s`), evicting least-recently-used entries."""
         t0 = time.perf_counter()
-        op = rp.make_projector(spec, int(seed), device=self.device)
+        op = rp.make_projector(key[0], key[1], device=self.device)
         self.stats.regen_s += time.perf_counter() - t0
         self._entries[key] = op
         while len(self._entries) > self.capacity:
@@ -96,3 +103,32 @@ class OperatorCache:
     def plans(self) -> dict:
         """plan_id -> pinned `ExecutionPlan` (see `plan_for`)."""
         return dict(self._plans)
+
+    # -- restart warm-up: the cache's contents as a manifest of specs -----
+    def manifest(self) -> list[dict]:
+        """JSON-able registry of the cached operators, LRU-first: each
+        entry {"spec": ProjectorSpec.to_dict(), "seed": int}."""
+        return [{"spec": spec.to_dict(), "seed": seed}
+                for spec, seed in self._entries]
+
+    def prewarm(self, manifest: list[dict]) -> int:
+        """Re-materialize a `manifest()`'s operators bitwise-identical on
+        this cache's device.
+
+        Sampling counts into `stats.prewarmed` and `stats.regen_s`, NOT
+        into misses — a prewarmed entry's first `get` is a hit. Entries go
+        in in manifest order (LRU-first), so recency survives the restart;
+        an entry already cached is only refreshed. Returns the number of
+        operators sampled.
+        """
+        sampled = 0
+        for entry in manifest:
+            spec = rp.ProjectorSpec.from_dict(entry["spec"])
+            key = (spec, int(entry["seed"]))
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                continue
+            self._sample(key)
+            self.stats.prewarmed += 1
+            sampled += 1
+        return sampled

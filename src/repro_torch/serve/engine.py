@@ -16,11 +16,14 @@ one carry-sweep (K3) launch on the card. Each tick opens a `serve.tick`
 span, records the `serve/queue_delay_us` histogram and the
 `serve/requests_done` counter, and feeds an enabled `DistortionMonitor`
 with its dense payloads (`repro_torch.obs`; all no-ops when telemetry is
-off). The cache manifest waits for a later slice.
+off). `save_manifest` / `prewarm` carry the operator cache's registry
+across a restart (specs and seeds only).
 """
 from __future__ import annotations
 
 import collections
+import json
+import pathlib
 
 import numpy as np
 import torch
@@ -157,6 +160,29 @@ class SketchServer:
         if self.store is None:
             raise ValueError("this server has no sketch store attached")
         return self.store.pairwise(ids_a, ids_b, delta=delta)
+
+    # -- restart warm-up -------------------------------------------------
+    def save_manifest(self, path) -> int:
+        """Write the operator cache's registry (spec dicts + seeds) to
+        `path` as JSON — no operator bytes. Returns #entries written."""
+        entries = self.cache.manifest()
+        pathlib.Path(path).write_text(
+            json.dumps({"version": 1, "entries": entries}, indent=1))
+        return len(entries)
+
+    def prewarm(self, source) -> int:
+        """Warm the operator cache from a `save_manifest` file (or an
+        already-loaded manifest list): every operator is regenerated
+        bitwise-identical from its (spec, seed) on this server's device.
+        Returns the number of operators sampled."""
+        if isinstance(source, (list, tuple)):
+            return self.cache.prewarm(list(source))
+        doc = json.loads(pathlib.Path(source).read_text())
+        entries = doc.get("entries") if isinstance(doc, dict) else doc
+        if not isinstance(entries, list):
+            raise ValueError(
+                f"prewarm manifest {source} has no 'entries' list")
+        return self.cache.prewarm(entries)
 
     def stats(self) -> dict:
         """Serving report: windowed latency percentiles (last

@@ -505,3 +505,60 @@ def test_fused_train_step_launches_k4_per_leaf(cuda):
             assert _rel(a, b) <= 1e-4
         assert math.isfinite(float(met["loss"]))
         state = new
+
+
+def test_k2_at_a_training_leaf_matches_plain_version(cuda):
+    """K2 at the training slice's leaf shape (TT(8), k=1024, 32^4), as the
+    sketched checkpoint codec launches it on restore: 6 buckets against
+    the plain version in chunks of 2, and the same bits twice."""
+    dims, k, rank, b = (32, 32, 32, 32), 1024, 8, 6
+    _, cores = _operands("tt", dims, k, rank, cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    y = torch.randn((b, k), generator=g, device=cuda)
+    plan = ops.plan_contraction("tt", "reconstruct", k, b, dims, rank)
+    scale = 1.0 / math.sqrt(k)
+    got = _sweep.sweep_reconstruct(y, *cores, plan=plan, scale=scale)
+    ref = torch.cat([_sweep.sweep_reconstruct_plain(
+        y[i:i + 2], *cores, steps=plan.steps, scale=scale)
+        for i in range(0, b, 2)])
+    assert _rel(got, ref) <= 1e-4
+    assert torch.equal(got, _sweep.sweep_reconstruct(y, *cores, plan=plan,
+                                                     scale=scale))
+
+
+def test_async_checkpointer_roundtrips_cuda_tensors(cuda, tmp_path):
+    """CUDA leaves (fp32, bf16, int64) through the pinned side-stream
+    snapshot and back onto the card bit for bit, and the sketched codec's
+    record through K1 (encode) and K2 (decode)."""
+    from repro_torch.ckpt import SketchedTreeCodec, checkpointer
+    from repro_torch.core.sketch import SketchConfig
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": torch.randn((300, 70), generator=g, device=cuda),
+            "h": torch.randn((33,), generator=g, device=cuda).bfloat16(),
+            "n": torch.arange(5, device=cuda),
+            "c": torch.tensor(7, dtype=torch.int64)}
+    ck = checkpointer.AsyncCheckpointer(tmp_path, keep=2)
+    ck.save(1, tree)
+    # the snapshot holds the saved tensors, so dropping the caller's
+    # references cannot let the allocator reuse them mid-copy
+    saved = {k: v.clone() for k, v in tree.items()}
+    tree = {k: v + 1 if k != "h" else v for k, v in tree.items()}
+    ck.save(2, tree)           # reuses the pinned buffers
+    ck.close()
+    for step, want_tree in ((1, saved), (2, tree)):
+        got, _ = checkpointer.restore(tmp_path, tree, step=step)
+        for key, want in want_tree.items():
+            assert got[key].device == want.device
+            assert torch.equal(got[key], want), (step, key)
+    codec = SketchedTreeCodec(SketchConfig(family="tt", k=128, rank=2,
+                                           dims=(4, 8, 16),
+                                           bucket_elems=512),
+                              {"w": tree["w"]})
+    kernels.reset_launch_counts()
+    rec = codec.encode({"w": tree["w"]}, step=3)
+    dec = codec.decode(rec)
+    torch.cuda.synchronize()
+    assert _sweep.sweep_project.launches == 1
+    assert _sweep.sweep_reconstruct.launches == 1
+    assert dec["w"].device == tree["w"].device
+    assert torch.equal(dec["w"], codec.decode(rec)["w"])

@@ -55,10 +55,17 @@ TRAINING_SLICE = ("core.sketch", "core.tree", "optim", "optim.adamw",
                   "runtime", "runtime.spans", "runtime.train_loop")
 
 
-def test_training_slice_modules_are_checked():
+CKPT_SLICE = ("ckpt", "ckpt.checkpointer", "ckpt.sketched", "ckpt.elastic",
+              "runtime.resilience", "serve.cache", "serve.engine",
+              "launch.serve_rp")
+
+
+@pytest.mark.parametrize("slice_", [TRAINING_SLICE, CKPT_SLICE],
+                         ids=["training", "ckpt"])
+def test_training_slice_modules_are_checked(slice_):
     names = {".".join(p.relative_to(REPO / "src").with_suffix("").parts)
              .removesuffix(".__init__") for p in PORT_FILES}
-    assert {f"repro_torch.{m}" for m in TRAINING_SLICE} <= names
+    assert {f"repro_torch.{m}" for m in slice_} <= names
 
 
 def test_port_imports_with_jax_and_reference_blocked():

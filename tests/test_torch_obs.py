@@ -9,8 +9,10 @@ The same span and observation sequence through both packages gives the
 same Chrome events and JSONL rows, timestamps, durations and thread ids
 aside (the schema test). Distortion streams come from the reference's own
 operator carried across (`from_numpy_operator`), projected by both
-packages on the same numpy inputs. The reference's straggler and
-checkpoint-resume cases wait for the port's watchdog and checkpointer.
+packages on the same numpy inputs. The watchdog's straggler events and
+the checkpointer's `ckpt.*` spans with the resume/fallback events are
+compared with the reference's for the same sequence (a fake monotonic
+clock for the step times).
 """
 import json
 import math
@@ -456,9 +458,10 @@ def test_dispatch_spans_carry_the_resolved_route():
 
 def test_shared_timeline_serve_plus_train(tmp_path):
     """One session spanning a serve replay and an 8-step sketch-compressed
-    train run exports one trace where rp dispatch spans, serve tick spans
-    and train steps share the timeline, plus parseable JSONL metrics (the
-    reference's case, less its checkpoint spans)."""
+    train run with async checkpoints exports one trace where rp dispatch
+    spans, serve tick spans, train steps and ckpt saves share the timeline
+    (ckpt saves on the writer thread's own lane), plus parseable JSONL
+    metrics (the reference's case)."""
     from repro_torch.core.sketch import SketchConfig
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.optim import AdamWConfig, adamw
@@ -493,13 +496,20 @@ def test_shared_timeline_serve_plus_train(tmp_path):
         train_loop.run(step_fn, state,
                        SyntheticLM(DataConfig(vocab=16, seq_len=8,
                                               global_batch=2)),
-                       train_loop.LoopConfig(total_steps=8),
+                       train_loop.LoopConfig(total_steps=8,
+                                             ckpt_dir=str(tmp_path / "ck"),
+                                             ckpt_every=4),
                        log=lambda s: None)
     evs = json.loads(tp.read_text())["traceEvents"]
     names = {e["name"] for e in evs}
     assert {"rp.project", "rp.reconstruct", "serve.tick",
-            "train.step"} <= names
+            "train.step", "ckpt.save"} <= names
     assert len({e["pid"] for e in evs}) == 1
+    saves = [e for e in evs if e["name"] == "ckpt.save"]
+    assert [e["args"]["step"] for e in saves] == [4, 8]
+    assert all(e["args"]["n_arrays"] == 5 for e in saves)  # w, m, v, count, ef
+    step_tids = {e["tid"] for e in evs if e["name"] == "train.step"}
+    assert step_tids.isdisjoint(e["tid"] for e in saves)
     steps = [e for e in evs if e["name"] == "train.step"]
     assert [e["args"]["step"] for e in steps] == list(range(8))
     tick = next(e for e in evs if e["name"] == "serve.tick")
@@ -632,3 +642,117 @@ def test_train_cli_monitor_runs_on_cpu():
     assert out.returncode == 0, out.stderr[-2000:]
     assert "[monitor] step 0 sketch_norm=" in out.stdout
     assert "drift=0.00000" in out.stdout
+
+
+def test_straggler_events_match_the_reference(monkeypatch):
+    """The same step times (a fake monotonic clock) through both loops:
+    the same `train.straggler` events, the same `[straggler]` log lines,
+    one trace instant each, one `train.step` span a step."""
+    from repro.data import DataConfig as JDataConfig
+    from repro.data import SyntheticLM as JSyntheticLM
+    from repro.runtime import train_loop as jloop
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.runtime import train_loop
+
+    dts = [0.02, 0.021, 0.019, 0.022, 0.02, 0.018, 0.021, 0.02, 0.25,
+           0.021, 0.019, 0.02]
+    clock = {"t": 0.0, "i": 0}
+    monkeypatch.setattr(time, "monotonic", lambda: clock["t"])
+
+    def tick():
+        clock["t"] += dts[clock["i"]]
+        clock["i"] += 1
+
+    def port_step(state, batch):
+        tick()
+        return state + 1, {"loss": torch.zeros(())}
+
+    def ref_step(state, batch):
+        tick()
+        return state + 1, {"loss": jax.numpy.zeros(())}
+
+    got = {}
+    for name, pkg, loop, step, data in (
+            ("port", obs, train_loop, port_step,
+             SyntheticLM(DataConfig(vocab=16, seq_len=8, global_batch=2))),
+            ("ref", jobs, jloop, ref_step,
+             JSyntheticLM(JDataConfig(vocab=16, seq_len=8, global_batch=2)))):
+        clock.update(t=100.0, i=0)
+        logs = []
+        ctx = pkg.enable()
+        try:
+            loop.run(step, 0, data, loop.LoopConfig(total_steps=12),
+                     log=logs.append)
+        finally:
+            pkg.disable()
+        evs = [{k: v for k, v in e.items() if k != "time"}
+               for e in ctx.metrics.events]
+        instants = [e for e in ctx.tracer.events() if e["ph"] == "i"]
+        spans = [e["args"]["step"] for e in ctx.tracer.events()
+                 if e["name"] == "train.step"]
+        got[name] = (evs, [ln for ln in logs if ln.startswith("[straggler]")],
+                     [(e["name"], e["args"]) for e in instants], spans)
+    assert got["port"] == got["ref"]
+    evs, lines = got["port"][:2]
+    assert any(e["step"] == 8 and e["zscore"] > 4.0 for e in evs)
+    assert len(evs) == len(lines) and got["port"][3] == list(range(12))
+
+
+def test_resume_and_fallback_events_and_ckpt_spans_match_the_reference(
+        tmp_path):
+    """[resume]/[fallback] keep their log strings and land as events; the
+    restore span carries the fallback; the ckpt.save/verify/restore spans
+    and the events have the reference's names and attributes."""
+    from repro.ckpt import checkpointer as jck
+    from repro.data import DataConfig as JDataConfig
+    from repro.data import SyntheticLM as JSyntheticLM
+    from repro.runtime import train_loop as jloop
+    from repro.runtime.resilience import flip_byte
+    from repro_torch.ckpt import checkpointer
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.runtime import train_loop
+
+    runs = {}
+    for name, pkg, loop, ck, w0, add, data in (
+            ("port", obs, train_loop, checkpointer, torch.zeros(()),
+             lambda w: w + 1.0,
+             SyntheticLM(DataConfig(vocab=16, seq_len=8, global_batch=2))),
+            ("ref", jobs, jloop, jck, jax.numpy.zeros(()),
+             lambda w: w + 1.0,
+             JSyntheticLM(JDataConfig(vocab=16, seq_len=8,
+                                      global_batch=2)))):
+        d = tmp_path / name
+
+        def step_fn(state, batch, add=add):
+            return {"w": add(state["w"])}, {"loss": state["w"] * 0}
+
+        loop.run(step_fn, {"w": w0}, data, loop.LoopConfig(
+            total_steps=8, ckpt_dir=str(d), ckpt_every=2, async_ckpt=False),
+            log=lambda s: None)
+        flip_byte(d / f"step_{8:010d}" / "arr_0.npy")   # corrupt newest
+        logs = []
+        ctx = pkg.enable()
+        try:
+            state, _ = loop.run(step_fn, {"w": w0}, data, loop.LoopConfig(
+                total_steps=10, ckpt_dir=str(d), ckpt_every=5,
+                async_ckpt=False), log=logs.append)
+        finally:
+            pkg.disable()
+        evs = [{k: v for k, v in e.items() if k not in ("time", "dir")}
+               for e in ctx.metrics.events]
+        spans = [(e["name"], {k: v for k, v in e["args"].items()
+                              if k not in ("path", "depth", "dir")})
+                 for e in ctx.tracer.events()
+                 if e["name"].startswith("ckpt.")]
+        runs[name] = (evs, spans, [ln.replace(str(d), "D") for ln in logs
+                                   if ln.startswith("[resume]")],
+                      float(state["w"]), ck.latest_step(d))
+    assert runs["port"] == runs["ref"]
+    evs, spans, lines, w, latest = runs["port"]
+    assert [e["name"] for e in evs] == ["ckpt.fallback", "ckpt.resume"]
+    assert evs[0]["step_requested"] == 8 and evs[0]["step_restored"] == 6
+    restore = next(a for n, a in spans if n == "ckpt.restore")
+    assert restore == {"step": 6, "fallback_from": 8}
+    assert [n for n, _ in spans].count("ckpt.verify") == 2
+    assert [a["step"] for n, a in spans if n == "ckpt.save"] == [10]
+    assert len(lines) == 2 and w == 10.0 and latest == 10

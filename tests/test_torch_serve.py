@@ -12,6 +12,8 @@ percentiles must be equal; stored sketches agree to rtol=1e-5,
 atol=1e-5 (float32 on both sides, different summation order); query ids
 and the JL bounds must be equal.
 """
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -258,3 +260,99 @@ def test_store_typed_errors_and_query_tiling():
         serve.ServeConfig(flush_us=0)
     with pytest.raises(ValueError, match="backend"):
         serve.ServeConfig(backend="xla")
+
+
+# ---------------------------------------------------------------------------
+# the cache manifest (restart warm-up from a spec registry)
+# ---------------------------------------------------------------------------
+
+def _manifest_specs():
+    kw_a = dict(family="tt", k=64, dims=(4, 8, 8), rank=2)
+    kw_b = dict(family="cp", k=32, dims=(8, 8), rank=2)
+    return ((jrp.ProjectorSpec(**kw_a), rp.ProjectorSpec(**kw_a)),
+            (jrp.ProjectorSpec(**kw_b), rp.ProjectorSpec(**kw_b)))
+
+
+def test_cache_manifest_prewarm_matches_the_reference():
+    """The reference's test_cache_manifest_prewarm_bitwise_and_stats
+    through both caches: the same manifest JSON for the same gets, the
+    same prewarm counts, LRU order and evictions, and operators
+    regenerated bit for bit on the cache's device."""
+    (ja, a), (jb, b) = _manifest_specs()
+    gets = [(0, 3), (1, 9), (0, 3), (0, 5)]
+    caches = {"ref": jserve.OperatorCache(capacity=4),
+              "port": serve.OperatorCache(capacity=4, device="cpu")}
+    specs = {"ref": (ja, jb), "port": (a, b)}
+    for name, cache in caches.items():
+        for i, seed in gets:
+            cache.get(specs[name][i], seed=seed)
+    man = caches["port"].manifest()
+    assert json.dumps(man) == json.dumps(caches["ref"].manifest())
+    assert [e["seed"] for e in man] == [9, 3, 5]       # LRU-first
+    for name, fresh in (("ref", lambda c: jserve.OperatorCache(capacity=c)),
+                        ("port", lambda c: serve.OperatorCache(
+                            capacity=c, device="cpu"))):
+        warm = fresh(4)
+        assert warm.prewarm(man) == 3
+        st = warm.stats
+        assert (st.prewarmed, st.misses, st.hits) == (3, 0, 0)
+        assert set(st.as_dict()) == set(caches["ref"].stats.as_dict())
+        assert json.dumps(warm.manifest()) == json.dumps(man)
+        warm.get(specs[name][0], seed=3)
+        assert (warm.stats.hits, warm.stats.misses) == (1, 0)
+        # idempotent: a second prewarm samples nothing, refreshes recency
+        assert warm.prewarm(man) == 0 and warm.stats.prewarmed == 3
+        assert [e["seed"] for e in warm.manifest()] == [9, 3, 5]
+        tiny = fresh(1)
+        assert tiny.prewarm(man) == 3
+        assert tiny.stats.evictions == 2 and len(tiny) == 1
+        assert tiny.manifest()[0]["seed"] == 5
+    again = serve.OperatorCache(capacity=4, device="cpu")
+    again.prewarm(man)
+    for spec, seed in caches["port"].keys():
+        got, want = again.get(spec, seed), caches["port"].get(spec, seed)
+        arrays = "cores" if spec.family == "tt" else "factors"
+        assert all(torch.equal(x, y) for x, y in zip(
+            getattr(got, arrays), getattr(want, arrays)))
+
+
+def test_server_prewarms_from_the_reference_manifest_file(tmp_path):
+    """A manifest the reference's `save_manifest` wrote warms the port's
+    server: the first request of the lane hits; the port writes the same
+    file; a file without 'entries' raises the reference's ValueError."""
+    (ja, a), _ = _manifest_specs()
+    x = np.zeros((4 * 8 * 8,), np.float32)
+    jsrv = jserve.SketchServer(jserve.ServeConfig())
+    jsrv.submit(x, ja, seed=1, now=0.0)
+    jsrv.tick(1.0, force=True)
+    path = tmp_path / "ops.json"
+    assert jsrv.save_manifest(path) == 1
+    srv = serve.SketchServer(serve.ServeConfig(), device="cpu")
+    assert srv.prewarm(path) == 1
+    srv.submit(x, a, seed=1, now=0.0)
+    srv.tick(1.0, force=True)
+    assert (srv.cache.stats.hits, srv.cache.stats.misses) == (1, 0)
+    ours = tmp_path / "ours.json"
+    assert srv.save_manifest(ours) == 1
+    assert json.loads(ours.read_text()) == json.loads(path.read_text())
+    assert b"cores" not in ours.read_bytes()      # specs only, no weights
+    srv2 = serve.SketchServer(serve.ServeConfig(), device="cpu")
+    assert srv2.prewarm(json.loads(ours.read_text())["entries"]) == 1
+    bad = tmp_path / "bad.json"
+    bad.write_text('{"version": 1}')
+    for server in (srv2, jsrv):
+        with pytest.raises(ValueError, match="entries"):
+            server.prewarm(bad)
+
+
+def test_serve_rp_cli_save_manifest_and_prewarm(tmp_path, capsys):
+    path = tmp_path / "m.json"
+    argv = ["--device", "cpu", "--requests", "24", "--max-batch", "4",
+            "--pool", "2"]
+    assert serve_rp.main(argv + ["--save-manifest", str(path)]) == 0
+    out = capsys.readouterr().out
+    assert f"wrote 2-entry cache manifest to {path}" in out
+    assert serve_rp.main(argv + ["--prewarm", str(path)]) == 0
+    out = capsys.readouterr().out
+    assert f"prewarmed 2 operators from {path}" in out
+    assert " / 0 misses" in out

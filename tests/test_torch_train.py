@@ -240,7 +240,7 @@ def test_train_cli_runs_on_cpu():
     assert "[train] finished at step 2 (params=78144)" in out.stdout
 
 
-def test_train_loop_logs_and_refuses_checkpoints():
+def test_train_loop_logs_and_refuses_checkpoints(tmp_path):
     from repro_torch.runtime import train_loop
     model = build_model(reduced(get_config("llama3.2-3b")))
     data = SyntheticLM(DataConfig(vocab=256, seq_len=16, global_batch=2))
@@ -258,6 +258,12 @@ def test_train_loop_logs_and_refuses_checkpoints():
     assert [ln.split()[1] for ln in lines[:-1]] == ["0", "2"]
     assert "grad_norm=" in lines[0] and "loss=" in lines[0]
     assert lines[-1].startswith("[done] steps 0..2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a checkpoint of another tree is refused with the typed error
+    from repro_torch.ckpt import CheckpointError
+    ck = str(tmp_path / "ck")
+    train_loop.run(lambda s, b: (s, {"loss": torch.zeros(())}),
+                   {"w": torch.zeros(3)}, data, train_loop.LoopConfig(
+                       total_steps=1, ckpt_dir=ck), log=lines.append)
+    with pytest.raises(CheckpointError, match="tree structure"):
         train_loop.run(step_fn, state, data, train_loop.LoopConfig(
-            total_steps=1, ckpt_dir="ck"))
+            total_steps=4, ckpt_dir=ck), log=lines.append)
