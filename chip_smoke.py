@@ -149,8 +149,36 @@ Phases (each raises on failure, so the script exits non-zero):
      one state first for the same bits) within rtol = atol = 1e-6 of the
      uninterrupted run, and a flipped byte in its newest checkpoint: one
      `ckpt.fallback` to the previous verified step.
-Then it prints the `kernels` JSON line, the card's name and power limit,
-and as its last line `{"ok": true, "device": {...}}`.
+  15. the cross-pod sketch collective on phase 9's 11 leaf shapes (571
+     buckets of `tt:k=1024,rank=8,order=4`), the operator drawn on every
+     rank from the compressor's seed. 15a: NCCL at world size 1 (a
+     `("pod",)` mesh of one): `compress_collective` under both syncs equal
+     to `compress` bit for bit, one all_reduce of 2,338,816 B under
+     sketch-mean. 15b: two spawned ranks on the card joined by gloo (CUDA
+     tensors; the kernels were built in phase 2): each takes its row of a
+     seeded (2, ...) tree, rank 0 runs `compress_per_pod` on the whole
+     tree; `compress_collective` under both syncs and both wires: fp32
+     within rtol = atol = 2e-5 of `compress_per_pod`, int8 within 0.12
+     (relative) of fp32 and the same bits twice, both ranks the same
+     bits, the collective ledger's bytes equal to `wire_bytes` (2,338,816
+     / 586,988 / 2,381,377,536 / 595,344,428); `project_sharded` and
+     `reconstruct_sharded` at w_gate over a `("data",)` mesh of 2 against
+     the whole K1/K2 within TOL; the collectives alone (host ms). 15c: the
+     pod train step (`build_train_step(mesh=(pod=2))`, one row of the
+     global batch 2 a pod, seq 4096): sketch-mean fp32 (a warm-up, 3
+     counted), sketch-mean int8 (3), local-mean fp32 (1); every loss
+     finite, the params' digest all-gathered and equal after every step;
+     device ms a step and its parts (`train.loss_grad`,
+     `train.compress`, `train.update`), the collective's host ms, the
+     peak memory (two layers when about 64 GB are free, else one). 15d:
+     `torch.distributed.run --standalone --nproc-per-node 2 -m
+     repro_torch.launch.train --reduced --mesh 2x1x1 --dist-backend gloo
+     ... --compress-sync sketch-mean --steps 20`: the last logged loss
+     below the first. K1's and K2's launches in these runs go into their
+     training rows.
+Then it prints the `collective` JSON line (phase 15's numbers), the
+`kernels` JSON line, the card's name and power limit, and as its last
+line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -301,31 +329,54 @@ SWEEP_KERNELS = (("fold_m_kernel", "fold"), ("project_gemm_kernel", "product"),
 CARRY_KERNELS = (("carry_k3", "carry"), ("carry_k6", "carry"))
 
 
-def device_split(fn, reps: int = 3, names=SWEEP_KERNELS,
+def device_split(row: dict, fn, reps: int = 3, names=SWEEP_KERNELS,
                  need=("fold", "product")) -> dict[str, float]:
     """Device milliseconds per call of each kernel `fn()` launches, from
     torch.profiler's CUDA activity over `reps` calls, keyed by `names`
     (kernel name part -> key): the fold and the product of K1, K5, K2 and
     K4, K1's and K5's reduce; K3's and K6's one kernel ('carry'); and the
     wrapper's other kernels ('layout': the layout copy of the leading
-    core, and K4's array of lr, c1 and c2)."""
+    core, and K4's array of lr, c1 and c2). Stored in `row` as
+    `device_split_ms`, beside `profile_windows`, the windows it took.
+
+    A window whose kernel records the profiler lost is taken again, at
+    most twice: one that recorded the calls' `cudaLaunchKernel` but not
+    one kernel. On the H100 with torch 2.11 the profiler does that to
+    about 0.2% of windows of 3 short calls, to torch's own kernels as to
+    the port's, and to fewer with 2 ms of host time at both ends of the
+    window, which it therefore has (`tools/profiler_window_probe.py`). A
+    window that recorded no launch, or kernels but not the named ones,
+    fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {key: 0.0 for key in need}
-    for ev in prof.key_averages():
-        t = (getattr(ev, "device_time_total", 0)
-             or getattr(ev, "cuda_time_total", 0))
-        if t:
-            key = next((k for n, k in names if n in ev.key), "layout")
-            out[key] = out.get(key, 0.0) + t / reps / 1e3
+    for windows in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+        out = {key: 0.0 for key in need}
+        for ev in prof.key_averages():
+            t = (getattr(ev, "device_time_total", 0)
+                 or getattr(ev, "cuda_time_total", 0))
+            if t:
+                key = next((k for n, k in names if n in ev.key), "layout")
+                out[key] = out.get(key, 0.0) + t / reps / 1e3
+        if any(out.values()):
+            break
+        launched = {e.name() for e in prof.profiler.kineto_results.events()}
+        if "cudaLaunchKernel" not in launched:
+            raise AssertionError(f"the profiler recorded no launch in a "
+                                 f"window of {reps} calls: {launched}")
+        log(f"the profiler lost the kernel records of a window of {reps} "
+            f"calls (it recorded their launches); window {windows + 1}")
     if not all(out[key] for key in need):
         raise AssertionError(f"the profiler saw no {need}: {out}")
+    row["device_split_ms"] = out
+    row["profile_windows"] = windows
     return out
 
 
@@ -808,7 +859,7 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
         return kfused.fused_update_buckets(op, yj, *bj, TRAIN_LR, c1, c2,
                                            **khp)
 
-    row["device_split_ms"] = device_split(k4)
+    device_split(row, k4)
     log("fused_update:tt device ms per call by kernel: " + ", ".join(
         f"{key} {v:.3f}" for key, v in row["device_split_ms"].items()))
     if not all(torch.equal(a, b) for a, b in zip(k4(), k4())):
@@ -834,8 +885,8 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
     row["scratch_bytes"] = scratch_bytes(pplan)
     row["sweep_program_flops"] = (theory.flops_project_dense_tt(k, dims, rank)
                                   * nb)
-    row["device_split_ms"] = device_split(
-        lambda: _sweep.sweep_project(x, *cores, plan=pplan, scale=scale))
+    device_split(
+        row, lambda: _sweep.sweep_project(x, *cores, plan=pplan, scale=scale))
     log("sweep_project:train device ms per call by kernel: " + ", ".join(
         f"{key} {v:.3f}" for key, v in row["device_split_ms"].items()))
     rows.append(row)
@@ -847,13 +898,12 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
         k5_plain, lib, shape_s + f" (plain in chunks of {chunk} buckets)",
         reps=10)
     k5["scratch_bytes"] = scratch_bytes(p5plan)
-    k5["device_split_ms"] = device_split(
-        lambda: _sweep.sweep_project_pipelined(x, *cores, plan=p5plan,
-                                               scale=scale))
+    device_split(k5, lambda: _sweep.sweep_project_pipelined(
+        x, *cores, plan=p5plan, scale=scale))
     k5_row = {f"train_{key}": k5[key] for key in (
         "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "program_bound_ms", "flops", "program_flops", "max_abs_err",
-        "scratch_bytes", "device_split_ms")}
+        "scratch_bytes", "device_split_ms", "profile_windows")}
     # K2 at the same leaf (K1's adjoint, the same flops and bytes): what
     # the sketched checkpoint codec launches a leaf on restore (phase 14)
     rplan = ops.plan_contraction("tt", "reconstruct", op.k, nb, op.in_dims,
@@ -882,7 +932,7 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
         shape_s + f" (plain in chunks of {chunk} buckets)", reps=10)
     row["scratch_bytes"] = scratch_bytes(rplan)
     row["sweep_program_flops"] = graft_flops(rplan)
-    row["device_split_ms"] = device_split(k2)
+    device_split(row, k2)
     row["same_bits_twice"] = True
     log("sweep_reconstruct:train device ms per call by kernel: " + ", ".join(
         f"{key} {v:.3f}" for key, v in row["device_split_ms"].items())
@@ -1169,24 +1219,23 @@ def fig1_phase(dev, errs, per_family, launches, time_row):
             "plain_ms and library_ms are device times of calls queued "
             "behind a sleep kernel (CUDA events)")
         if kk == k and rank == ops_[family].rank:
-            row["device_split_ms"] = device_split(run, reps=10,
-                                                  names=CARRY_KERNELS,
-                                                  need=("carry",))
+            device_split(row, run, reps=10, names=CARRY_KERNELS,
+                         need=("carry",))
             row["host_us"] = host_us(run)
             b64, run64 = k3_row(
                 family, ops_[family], batch, key, cuda_ms,
                 f"B={FIG1_BATCH} k={k} dims=15^3 {map_name(family, rank)} "
                 "input TT rank 10 (unit norm); not a shape the path "
                 "launches: the batch timed beside the Gaussian")
-            b64["device_split_ms"] = device_split(run64, reps=10,
-                                                  names=CARRY_KERNELS,
-                                                  need=("carry",))
+            device_split(b64, run64, reps=10, names=CARRY_KERNELS,
+                         need=("carry",))
             b64["host_us"] = host_us(run64)
             b64["ms_each"] = cuda_ms_each(run64, reps=20)
             row.update({f"b64_{f}": b64[f] for f in (
                 "shape", "ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "program_bound_ms", "flops", "program_flops",
-                "device_split_ms", "host_us", "ms_each", "tiles")})
+                "device_split_ms", "profile_windows", "host_us",
+                "ms_each", "tiles")})
             row["b64_rp_project_ms"] = fig1_ms[map_name(family, rank)]
             row["fig1_rp_project_ms"] = fig1_ms
             log(f"{key}: B=1 device {row['device_split_ms']['carry']:.4f} "
@@ -1738,6 +1787,611 @@ def _reduced_crash_restart(dev, ckdir):
                 "max_excess": worst}
     finally:
         torch.use_deterministic_algorithms(deterministic)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the cross-pod sketch collective
+# ---------------------------------------------------------------------------
+
+POD_STEP = 7          # the compressor step (operator seed) of 15a and 15b
+POD_TOL = 2e-5        # collective vs compress_per_pod at fp32, rtol = atol
+                      # (the reference's tests/test_shard.py:147-148)
+INT8_BUDGET = 0.12    # int8 vs fp32, relative (tests/test_compress.py:272)
+POD_SYNCS = ("sketch-mean", "local-mean")
+WIRE_BYTES = {("sketch-mean", "fp32"): 2_338_816,
+              ("sketch-mean", "int8"): 586_988,
+              ("local-mean", "fp32"): 2_381_377_536,
+              ("local-mean", "int8"): 595_344_428}
+POD_GB_A_RANK = 32.0  # 15c's rough peak a rank: params, m, v, EF, the
+                      # unfused transients, a batch-1 activation peak
+POD_TIMEOUT = 420.0   # seconds a spawned pair of ranks may take
+
+
+def seeded_tree(shapes, rows, dev, salt: int, *, stack: bool):
+    """A float32 tree shaped like `shapes` (a nested dict of shapes), row p
+    of `rows` drawn leaf by leaf (sorted keys) from a generator seeded by
+    (salt, p), so a rank draws its own row alone, bit for bit the row of
+    the stack. `stack=False` takes one row and gives no leading dim."""
+    import torch
+    gens = [torch.Generator(device=dev).manual_seed(1_000_003 * salt + p)
+            for p in rows]
+
+    def fill(node):
+        out = {}
+        for key in sorted(node):
+            if isinstance(node[key], dict):
+                out[key] = fill(node[key])
+                continue
+            parts = [torch.randn(node[key], generator=g, device=dev)
+                     for g in gens]
+            out[key] = torch.stack(parts) if stack else parts[0]
+            del parts
+        return out
+    return fill(shapes)
+
+
+class _HostMark:
+    """A host-clock stand-in for a CUDA event (a CPU rehearsal)."""
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end) -> float:
+        return (end.t - self.t) * 1e3
+
+
+def _mark(dev):
+    import torch
+    return (torch.cuda.Event(enable_timing=True) if dev.type == "cuda"
+            else _HostMark())
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _empty_tree(shapes, dev):
+    import torch
+    return {k: _empty_tree(v, dev) if isinstance(v, dict)
+            else torch.empty(v, device=dev) for k, v in shapes.items()}
+
+
+def bits_digest(tree) -> list[int]:
+    """A digest of a float32 tree's bits: per leaf, the sum of its int32
+    words and their sum weighted by position (mod 65521), wrapping in
+    int64. Equal trees give equal digests; ranks compare digests."""
+    import torch
+    from repro_torch.core.tree import tree_leaves
+    out = []
+    for leaf in tree_leaves(tree):
+        words = leaf.contiguous().view(-1).view(torch.int32)
+        s1 = s2 = 0
+        for lo in range(0, words.numel(), 1 << 24):
+            w = words[lo:lo + (1 << 24)].to(torch.int64)
+            idx = torch.arange(lo, lo + w.numel(), device=w.device) % 65521
+            s1 = (s1 + int(w.sum())) % (1 << 62)
+            s2 = (s2 + int((w * (idx + 1)).sum())) % (1 << 62)
+        out += [s1, s2]
+    return out
+
+
+def _worst_close(got, want) -> float:
+    """max over elements of |got - want| / (POD_TOL + POD_TOL |want|): at
+    most 1 when assert_allclose(rtol=atol=POD_TOL) holds."""
+    return float(((got - want).abs() / (POD_TOL + POD_TOL * want.abs())
+                  ).max())
+
+
+def _rel_norm(a, b) -> float:
+    import torch
+    return float(torch.linalg.norm((a - b).reshape(-1))
+                 / max(float(torch.linalg.norm(a.reshape(-1))), 1e-30))
+
+
+def _pod_ranks(task: str, shapes, extra: dict) -> list[dict]:
+    """Run `task` on two gloo ranks that share the card; each rank's
+    result dict comes back as JSON. A rank that fails fails the phase."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{task}_")
+    ctx = mp.start_processes(_pod_rank, args=(2, tmp, task, shapes, extra),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + POD_TIMEOUT
+    while not ctx.join(timeout=2.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"phase 15 {task}: the ranks did not end "
+                                 f"within {POD_TIMEOUT:.0f} s")
+    return [json.loads(Path(tmp, f"{task}_{r}.json").read_text())
+            for r in range(2)]
+
+
+def _pod_rank(rank, world, tmp, task, shapes, extra):
+    """One spawned rank: join the gloo group through a file store, run
+    `task`, write its numbers."""
+    import os
+    # two ranks share one card: expandable segments keep each rank's
+    # cache from fragmenting into blocks the other cannot use
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            world_size=world, rank=rank)
+    try:
+        res = {"collective": _pod_collective,
+               "train": _pod_train}[task](rank, shapes, extra)
+        Path(tmp, f"{task}_{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _pod_collective(rank, shapes, extra):
+    """15b on one rank: compress_collective under both syncs and wires on
+    this rank's row, against compress_per_pod (rank 0 runs it on the
+    whole tree and hands rank 1 its residual row), the ledger against
+    wire_bytes, the same bits on both ranks and twice under int8; then
+    project_sharded / reconstruct_sharded at w_gate over ("data",) and the
+    standalone collectives' host ms."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels, rp
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import _sweep
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compress import (SketchCompressor,
+                                            parse_compress_flag)
+    from repro_torch.rp import shard
+
+    dev = torch.device(extra["device"])
+    mesh = make_mesh((2,), ("pod",), device=dev, backend="gloo")
+    group = mesh.group("pod")
+    cfg = parse_compress_flag(TRAIN_COMPRESS)
+    res = {"rank": rank, "device": str(mesh.device)}
+    # -- the oracle: compress_per_pod on the whole (2, ...) tree ----------
+    per_pod, resid_row = {}, None
+    if rank == 0:
+        g_all = seeded_tree(shapes, [0, 1], dev, 1, stack=True)
+        e_all = tree_map(lambda t: 0.1 * t,
+                         seeded_tree(shapes, [0, 1], dev, 2, stack=True))
+        for sync in POD_SYNCS:
+            out, st, _ = SketchCompressor(cfg, sync=sync).compress_per_pod(
+                g_all, {"residual": e_all}, step=POD_STEP)
+            per_pod[sync] = out
+            resid_pp = st["residual"]
+        del g_all, e_all
+        resid_row = tree_map(lambda t: t[0].clone(), resid_pp)
+        for leaf in tree_leaves(resid_pp):
+            dist.broadcast(leaf[1].contiguous(), 0, group=group.pg)
+        del resid_pp
+        _free(dev)  # the oracle's peak stays cached otherwise
+    else:
+        resid_row = _empty_tree(shapes, dev)
+        for leaf in tree_leaves(resid_row):
+            dist.broadcast(leaf, 0, group=group.pg)
+    g = seeded_tree(shapes, [rank], dev, 1, stack=False)
+    e = tree_map(lambda t: 0.1 * t,
+                 seeded_tree(shapes, [rank], dev, 2, stack=False))
+    # -- the collective, every (sync, wire) ------------------------------
+    # (kept between runs: the fp32 run's g and residual, for int8; digests
+    # stand in for the other runs' bits, to keep two ranks on one card)
+    launches = {"sweep_project": 0, "sweep_reconstruct": 0}
+    runs = {}
+    for sync in POD_SYNCS:
+        fp32 = None
+        for wire in ("fp32", "int8"):
+            comp = SketchCompressor(cfg, sync=sync, wire=wire)
+            digests = []
+            for rep in range(2 if wire == "int8" else 1):
+                shard.collective_ledger().reset()
+                kernels.reset_launch_counts()
+                _sync(dev)
+                t0 = time.perf_counter()
+                out, st, met = comp.compress_collective(
+                    g, {"residual": e}, step=POD_STEP, mesh=mesh)
+                _sync(dev)
+                wall = time.perf_counter() - t0
+                launches["sweep_project"] += _sweep.sweep_project.launches
+                launches["sweep_reconstruct"] += (
+                    _sweep.sweep_reconstruct.launches)
+                resid = st["residual"]
+                digests.append(bits_digest(out))
+                if rep == 0 and wire == "int8":
+                    rel_g = max(_rel_norm(a, b) for a, b in zip(
+                        tree_leaves(fp32[0]), tree_leaves(out)))
+                    rel_resid = max(_rel_norm(a, b) for a, b in zip(
+                        tree_leaves(fp32[1]), tree_leaves(resid)))
+                if rep == 0 and wire == "fp32":
+                    fp32 = (out, resid)
+                del out, st
+            led = shard.collective_ledger()
+            sk = comp._sketcher(g)
+            run = {"wire_bytes": comp.wire_bytes(sk),
+                   "metric": float(met["wire_bytes"]),
+                   "ledger_bytes": led.bytes(tag="compress", axes="pod"),
+                   "ledger": led.table(),
+                   "host_s_call": wall,
+                   "collective_host_s": led.seconds(tag="compress"),
+                   "launches_k1": _sweep.sweep_project.launches,
+                   "launches_k2": _sweep.sweep_reconstruct.launches,
+                   "leaves": len(sk._nb), "buckets": sk.n_buckets,
+                   "digest": digests[-1]}
+            if wire == "int8":
+                run.update(same_bits_twice=digests[0] == digests[1],
+                           rel_g=rel_g, rel_resid=rel_resid)
+            else:
+                run["worst_resid"] = max(_worst_close(a, b) for a, b in zip(
+                    tree_leaves(fp32[1]), tree_leaves(resid_row)))
+                if rank == 0:
+                    run["worst_g"] = max(_worst_close(a, b) for a, b in zip(
+                        tree_leaves(fp32[0]), tree_leaves(per_pod[sync])))
+                    del per_pod[sync]
+            if dev.type == "cuda":
+                run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                torch.cuda.reset_peak_memory_stats()
+            runs[f"{sync}/{wire}"] = run
+            del resid
+            _free(dev)
+        del fp32
+    res["runs"] = runs
+    res["launches"] = launches
+    del per_pod, resid_row
+    # -- project_sharded / reconstruct_sharded at w_gate ------------------
+    dmesh = make_mesh((2,), ("data",), device=dev, backend="gloo")
+    sk = SketchCompressor(cfg)._sketcher(g)
+    names = ["/".join(k) for k in _leaf_names(g)]
+    j = names.index("layers/w_gate")
+    leaf = tree_leaves(g)[j]
+    x = sk._leaf_to_buckets(leaf, sk._nb[j])
+    op = cfg.operator(SketchCompressor(cfg)._key(POD_STEP), dev)
+    whole = rp.project(op, x)
+    kernels.reset_launch_counts()
+    block = shard.project_sharded(op, x, mesh=dmesh, spec=(("data",),))
+    back = shard.reconstruct_sharded(op, whole, mesh=dmesh,
+                                     spec=(("data",),))
+    _sync(dev)
+    sharded_launches = (_sweep.sweep_project.launches,
+                        _sweep.sweep_reconstruct.launches)
+    n = x.shape[0] // 2
+    lo, hi = rank * n, (rank + 1) * n
+    recon_whole = rp.reconstruct(op, whole[lo:hi])
+    res["sharded"] = {
+        "buckets": int(x.shape[0]), "block": list(block.shape),
+        "launches": list(sharded_launches),
+        "project_rel": rel_err(block, whole[lo:hi])[1],
+        "reconstruct_rel": rel_err(back, recon_whole)[1]}
+    launches["sweep_project"] += sharded_launches[0]
+    launches["sweep_reconstruct"] += sharded_launches[1]
+    del x, whole, block, back, recon_whole
+    # -- the collectives alone, host ms (synchronized around) -------------
+    y = torch.randn((sum(sk._nb), cfg.k), device=dev)
+    dense = tree_leaves(g)[max(range(len(sk._nb)),
+                               key=lambda i: sk._nb[i])]
+    timing = {}
+    for name, fn in (
+            ("sketch fp32 all_reduce", lambda: shard.all_reduce(y, group)),
+            ("sketch int8 scale max + all_reduce", lambda: shard.all_reduce(
+                shard.quantize_for_psum(y, group, 2)[0], group)),
+            (f"dense leaf {list(dense.shape)} fp32 all_reduce",
+             lambda: shard.all_reduce(dense, group))):
+        times = []
+        for _ in range(3):
+            _sync(dev)
+            t0 = time.perf_counter()
+            fn()
+            _sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        timing[name] = times
+    res["collective_ms"] = timing
+    return res
+
+
+def _pod_train(rank, shapes, extra):
+    """15c on one rank: the pod train step at phase 9's widths (pod=2,
+    one row a pod): sketch-mean fp32 (a warm-up and 3 counted steps),
+    sketch-mean int8 (3), local-mean fp32 (1); each step's loss, device
+    ms and parts, the collective's host ms, the params' digest (ranks
+    compare), the K1/K2 launches; then the peak memory."""
+    import dataclasses
+    import functools
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import _sweep
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw, schedule
+    from repro_torch.optim.compress import (SketchCompressor,
+                                            parse_compress_flag)
+    from repro_torch.rp import shard
+    from repro_torch.runtime import spans
+
+    dev = torch.device(extra["device"])
+    mesh = make_mesh((2, 1, 1), ("pod", "data", "model"), device=dev,
+                     backend="gloo")
+    cfg = dataclasses.replace(extra["cfg"], n_layers=extra["layers"])
+    model = build_model(cfg)
+    shape = ShapeSpec("train_4k", extra["seq"], 2, "train")
+    opt = adamw.AdamWConfig(clip_norm=None)
+    lr_fn = functools.partial(schedule.constant, peak_lr=TRAIN_LR)
+    scfg = parse_compress_flag(TRAIN_COMPRESS)
+    state = steps.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(0), opt=opt,
+        compressor=SketchCompressor(scfg))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
+                                  global_batch=2, seed=0))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    plan = [("sketch-mean", "fp32", 1, 3), ("sketch-mean", "int8", 0, 3),
+            ("local-mean", "fp32", 0, 1)]
+    out, i = [], 0
+    for sync, wire, warm, counted in plan:
+        step_fn = steps.build_train_step(
+            model, shape, mesh=mesh, opt=opt, lr_fn=lr_fn,
+            compressor=SketchCompressor(scfg, sync=sync, wire=wire))
+        for n in range(warm + counted):
+            batch = data.batch(i)
+            i += 1
+            shard.collective_ledger().reset()
+            kernels.reset_launch_counts()
+            s_ev, e_ev = _mark(dev), _mark(dev)
+            with spans.record(lambda: _mark(dev)) as marks:
+                s_ev.record()
+                state, met = step_fn(state, batch)
+                e_ev.record()
+            _sync(dev)
+            led = shard.collective_ledger()
+            row = {"sync": sync, "wire": wire, "warm_up": n < warm,
+                   "loss": float(met["loss"]),
+                   "step_ms": s_ev.elapsed_time(e_ev),
+                   "parts_ms": {name: s.elapsed_time(e)
+                                for name, s, e in marks},
+                   "collective_host_ms": 1e3 * led.seconds(tag="compress"),
+                   "loss_host_ms": 1e3 * led.seconds(tag="loss"),
+                   "wire_bytes": float(met["wire_bytes"]),
+                   "ledger_bytes": led.bytes(tag="compress"),
+                   "launches_k1": _sweep.sweep_project.launches,
+                   "launches_k2": _sweep.sweep_reconstruct.launches,
+                   "param_digest": bits_digest(state["params"])}
+            # the params' digest, all-gathered: the same bits on both pods
+            mine = torch.tensor(row["param_digest"], device=dev)
+            both = shard.all_gather(mine[None], mesh.group("pod"),
+                                    tag="check")
+            if not torch.equal(both[0], both[1]):
+                raise AssertionError(f"15c step {i}: the pods' params "
+                                     "differ after the step")
+            out.append(row)
+    return {"rank": rank, "layers": extra["layers"], "steps": out,
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if dev.type == "cuda" else None)}
+
+
+def _cli_losses(text: str) -> list[float]:
+    return [float(line.split("loss=")[1].split()[0])
+            for line in text.splitlines()
+            if line.startswith("step ") and "loss=" in line]
+
+
+def _free(dev) -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def pod_phase(dev) -> dict:
+    """Phase 15: the cross-pod sketch collective on the card. 15a: NCCL at
+    world size 1; 15b: compress_collective on two gloo ranks sharing the
+    card; 15c: the pod train step at full width; 15d: the train CLI under
+    torch.distributed.run. Returns the numbers of the `collective` line,
+    with the K1/K2 launches of the phase under `launches`."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import _sweep
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compress import (SketchCompressor,
+                                            parse_compress_flag)
+    from repro_torch.rp import shard
+    from repro_torch.rp.plan import collective_wire_bytes
+
+    t_phase = time.perf_counter()
+    model, arch, shape, comp, _, _, state, _ = train_slice(dev)
+    shapes = tree_map(lambda t: tuple(t.shape), state["params"])
+    sk = comp._sketcher(state["params"])
+    del model, state
+    _free(dev)
+    cfg = parse_compress_flag(TRAIN_COMPRESS)
+    launches = {"sweep_project": 0, "sweep_reconstruct": 0}
+    expect = {(sync, wire): collective_wire_bytes(
+        sync=sync, wire=wire, sketch_bytes=sk.sketch_bytes(),
+        dense_bytes=sk.dense_bytes(), n_buckets=sk.n_buckets,
+        n_leaves=len(sk._nb)) for sync in POD_SYNCS
+        for wire in ("fp32", "int8")}
+    if expect != WIRE_BYTES:
+        raise AssertionError(f"phase 15: the slice's wire bytes {expect} "
+                             f"are not the expected {WIRE_BYTES}")
+    numbers = {"leaves": len(sk._nb), "buckets": sk.n_buckets,
+               "params": sk.n, "wire_bytes_expected": {
+                   f"{s}/{w}": b for (s, w), b in WIRE_BYTES.items()}}
+
+    # -- 15a: NCCL, world size 1 ------------------------------------------
+    mesh = make_mesh((1,), ("pod",), device=dev)
+    if dev.type == "cuda" and dist.get_backend() != "nccl":
+        raise AssertionError(f"15a: the mesh runs {mesh.backend!r}, not NCCL")
+    g = seeded_tree(shapes, [0], dev, 1, stack=False)
+    e = tree_map(lambda t: 0.1 * t, seeded_tree(shapes, [0], dev, 2,
+                                                stack=False))
+    a = {}
+    for sync in POD_SYNCS:
+        c = SketchCompressor(cfg, sync=sync)
+        want, wst, _ = c.compress(g, {"residual": e}, step=POD_STEP)
+        c.compress_collective(g, {"residual": e}, step=POD_STEP, mesh=mesh)
+        shard.collective_ledger().reset()
+        kernels.reset_launch_counts()
+        got, gst, met = c.compress_collective(g, {"residual": e},
+                                              step=POD_STEP, mesh=mesh)
+        _sync(dev)
+        k1, k2 = (_sweep.sweep_project.launches,
+                  _sweep.sweep_reconstruct.launches)
+        launches["sweep_project"] += k1
+        launches["sweep_reconstruct"] += k2
+        same = all(torch.equal(x, y) for x, y in zip(
+            tree_leaves((got, gst)), tree_leaves((want, wst))))
+        led = shard.collective_ledger()
+        rows = [r for r in led.table() if r["tag"] == "compress"]
+        a[sync] = {"equal_to_compress": same, "ledger": led.table(),
+                   "wire_bytes": float(met["wire_bytes"]),
+                   "launches_k1": k1, "launches_k2": k2}
+        log(f"15a NCCL world 1 {sync}: compress_collective == compress bit "
+            f"for bit: {same}; ledger {rows}; K1 {k1}, K2 {k2} launches")
+        if not same:
+            raise AssertionError(f"15a {sync}: compress_collective on one "
+                                 "pod is not compress bit for bit")
+        if sync == "sketch-mean" and [(r["op"], r["calls"], r["bytes"])
+                                      for r in rows] != [
+                ("all_reduce", 1, WIRE_BYTES["sketch-mean", "fp32"])]:
+            raise AssertionError(f"15a: ledger {rows}, expected one "
+                                 "all_reduce of 2,338,816 B")
+        n_leaves = len(sk._nb)
+        if (k1, k2) != (n_leaves, n_leaves * (2 if sync == "sketch-mean"
+                                              else 1)):
+            raise AssertionError(f"15a {sync}: K1/K2 launches {(k1, k2)}")
+        del want, wst, got, gst
+    numbers["15a"] = a
+    dist.destroy_process_group()
+    del g, e, mesh
+    _free(dev)
+
+    # -- 15b: gloo, two ranks on the card ---------------------------------
+    if dev.type == "cuda":
+        free, total = torch.cuda.mem_get_info()
+        log(f"15b: {free / 1e9:.1f} GB free of {total / 1e9:.1f} GB; this "
+            f"process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    ranks = _pod_ranks("collective", shapes, {"device": str(dev)})
+    b = {"seconds": time.perf_counter() - t0, "ranks": ranks}
+    for r in ranks:
+        for name in launches:
+            launches[name] += r["launches"][name]
+        for key, run in r["runs"].items():
+            sync, wire = key.split("/")
+            want = WIRE_BYTES[sync, wire]
+            log(f"15b rank {r['rank']} {key}: ledger {run['ledger_bytes']} "
+                f"B, wire_bytes {run['wire_bytes']} (expected {want}); "
+                f"peak {run.get('peak_gib', 0.0):.1f} GiB; "
+                f"call {1e3 * run['host_s_call']:.1f} ms host, of which "
+                f"collectives {1e3 * run['collective_host_s']:.1f} ms; K1 "
+                f"{run['launches_k1']}, K2 {run['launches_k2']}; "
+                + (f"int8/fp32 rel g {run['rel_g']:.4f} resid "
+                   f"{run['rel_resid']:.4f}, same bits twice "
+                   f"{run['same_bits_twice']}" if wire == "int8" else
+                   f"vs compress_per_pod worst |d|/(atol+rtol|ref|): resid "
+                   f"{run['worst_resid']:.3g}" + (
+                       f", g {run['worst_g']:.3g}" if "worst_g" in run
+                       else "")))
+            if not run["ledger_bytes"] == run["wire_bytes"] == want:
+                raise AssertionError(f"15b {key}: ledger bytes "
+                                     f"{run['ledger_bytes']} != wire_bytes "
+                                     f"{run['wire_bytes']} / {want}")
+            if wire == "fp32" and (run["worst_resid"] > 1 or run.get(
+                    "worst_g", 0.0) > 1):
+                raise AssertionError(f"15b {key}: collective off "
+                                     "compress_per_pod beyond 2e-5")
+            if wire == "int8" and not (
+                    run["rel_g"] < INT8_BUDGET and run["rel_resid"]
+                    < INT8_BUDGET and run["same_bits_twice"]):
+                raise AssertionError(f"15b {key}: int8 off budget or bits")
+            if run["digest"] != ranks[0]["runs"][key]["digest"]:
+                raise AssertionError(f"15b {key}: the ranks' bits differ")
+        sh = r["sharded"]
+        log(f"15b rank {r['rank']} sharded w_gate ({sh['buckets']} buckets "
+            f"over data=2, block {sh['block']}): project rel "
+            f"{sh['project_rel']:.3e}, reconstruct rel "
+            f"{sh['reconstruct_rel']:.3e}, (K1, K2) {sh['launches']}; "
+            f"collectives alone (host ms): {r['collective_ms']}")
+        if max(sh["project_rel"], sh["reconstruct_rel"]) > TOL or sh[
+                "launches"] != [1, 1]:
+            raise AssertionError(f"15b sharded: {sh}")
+    numbers["15b"] = b
+
+    # -- 15c: the pod train step at full width ----------------------------
+    _free(dev)
+    free, total = (torch.cuda.mem_get_info() if dev.type == "cuda"
+                   else (float("inf"), float("inf")))
+    layers = arch.n_layers
+    if free / 1e9 < 2 * POD_GB_A_RANK:
+        layers = 1
+    log(f"15c: {free / 1e9:.1f} GB free of {total / 1e9:.1f} GB; two ranks "
+        f"need about {2 * POD_GB_A_RANK:.0f} GB at {arch.n_layers} layers: "
+        f"running {layers} layer(s)")
+    t0 = time.perf_counter()
+    ranks = _pod_ranks("train", shapes, {"layers": layers,
+                                         "device": str(dev), "cfg": arch,
+                                         "seq": shape.seq_len})
+    c = {"seconds": time.perf_counter() - t0, "layers": layers,
+         "free_gb_before": free / 1e9, "ranks": ranks}
+    for r in ranks:
+        for row in r["steps"]:
+            launches["sweep_project"] += row["launches_k1"]
+            launches["sweep_reconstruct"] += row["launches_k2"]
+        log(f"15c rank {r['rank']}: peak {r['peak_gib']} GiB; steps "
+            + "; ".join(
+                f"{s['sync']}/{s['wire']}{' (warm-up)' if s['warm_up'] else ''}"
+                f" loss {s['loss']:.4f} {s['step_ms']:.1f} ms ("
+                + ", ".join(f"{k} {v:.1f}" for k, v in s["parts_ms"].items())
+                + f"), collective host {s['collective_host_ms']:.1f} ms, "
+                f"K1 {s['launches_k1']} K2 {s['launches_k2']}"
+                for s in r["steps"]))
+    for i, (s0, s1) in enumerate(zip(ranks[0]["steps"], ranks[1]["steps"])):
+        if s0["param_digest"] != s1["param_digest"]:
+            raise AssertionError(f"15c step {i}: the ranks' params differ")
+        if not all(math.isfinite(s["loss"]) for s in (s0, s1)):
+            raise AssertionError(f"15c step {i}: a loss is not finite")
+        if s0["wire_bytes"] != s0["ledger_bytes"]:
+            raise AssertionError(f"15c step {i}: ledger {s0['ledger_bytes']}"
+                                 f" != wire_bytes {s0['wire_bytes']}")
+    numbers["15c"] = c
+
+    # -- 15d: the CLI on two ranks ----------------------------------------
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+           "--arch", "llama3.2-3b", "--reduced", "--mesh", "2x1x1",
+           "--dist-backend", "gloo", "--compress",
+           "tt:k=1024,rank=8,dims=4x8x16", "--compress-sync", "sketch-mean",
+           "--steps", "20"] + (["--device", "cpu"] if dev.type == "cpu"
+                               else [])
+    env = dict(__import__("os").environ, PYTHONPATH=str(SRC))
+    done = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=POD_TIMEOUT)
+    losses = _cli_losses(done.stdout)
+    log(f"15d: {' '.join(cmd[2:])}: exit {done.returncode} in "
+        f"{time.perf_counter() - t0:.1f}s; logged losses {losses}")
+    if done.returncode != 0:
+        raise AssertionError(f"15d: the CLI failed:\n{done.stdout[-3000:]}"
+                             f"\n{done.stderr[-3000:]}")
+    if len(losses) < 2 or not losses[-1] < losses[0]:
+        raise AssertionError(f"15d: the loss did not fall: {losses}")
+    numbers["15d"] = {"losses": losses,
+                      "seconds": time.perf_counter() - t0}
+    numbers["launches"] = launches
+    numbers["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15 took {numbers['seconds']:.1f}s; K1/K2 launches "
+        f"{launches}")
+    return numbers
 
 
 def _leaf_names(tree, prefix=()):
@@ -2293,7 +2947,7 @@ def main() -> int:
             rows[-1]["scratch_bytes"] = scratch_bytes(plan)
             rows[-1]["sweep_program_flops"] = (
                 graft_flops(plan) if name == "sweep_reconstruct" else p_flops)
-            rows[-1]["device_split_ms"] = split = device_split(kern)
+            split = device_split(rows[-1], kern)
             log(f"{name}:{family} device ms per call by kernel: "
                 + ", ".join(f"{key} {v:.3f}" for key, v in split.items()))
 
@@ -2321,8 +2975,7 @@ def main() -> int:
             lambda: carry.carry_sweep_project_plain(
                 *cores, n_op=n_op, program=plan.program, scale=scale),
             lambda: torch.einsum(spec, *inter), shape)
-        row["device_split_ms"] = device_split(run, names=CARRY_KERNELS,
-                                              need=("carry",))
+        device_split(row, run, names=CARRY_KERNELS, need=("carry",))
         row["host_us"] = host_us(run)
         row["tiles"] = {f: getattr(plan, f) for f in (
             "tk", "tb", "tps", "tpd", "dc", "uc", "ro", "ri", "smem_bytes")}
@@ -2403,8 +3056,7 @@ def main() -> int:
             *cores, n_op=n_op, program=plan.program, scale=scale),
         lambda: torch.einsum(spec, *inter),
         f"B={b} k={k} dims=8^8 R={rank} input TT rank 10 (unit norm)")
-    paper["device_split_ms"] = device_split(paper_run, names=CARRY_KERNELS,
-                                            need=("carry",))
+    device_split(paper, paper_run, names=CARRY_KERNELS, need=("carry",))
     paper["host_us"] = host_us(paper_run)
     log(f"K3 paper regime: device {paper['device_split_ms']['carry']:.4f} "
         f"ms (profiler), host {paper['host_us']:.1f} us a call")
@@ -2412,7 +3064,7 @@ def main() -> int:
     row.update({f"paper_{key}": paper[key] for key in (
         "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "program_bound_ms", "flops", "program_flops", "max_abs_err",
-        "device_split_ms", "host_us")})
+        "device_split_ms", "profile_windows", "host_us")})
 
     del stores, paper_ref
     torch.cuda.empty_cache()
@@ -2434,13 +3086,23 @@ def main() -> int:
         next(r for r in rows if r["name"] == key)["launches"] += n
         launches[key.split(":")[0]] += n
 
+    # -- 15. the cross-pod sketch collective -------------------------------
+    pod = pod_phase(dev)
+    for name, n in pod["launches"].items():
+        next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
+        launches[name] += n
+
     for name in launches:
         total = sum(r["launches"] for r in rows
                     if r["name"].split(":")[0] == name)
         if total != launches[name]:
             raise AssertionError(f"{name}: per-family launches {total} != "
                                  f"counter {launches[name]}")
+    retaken = {f"{r['name']}:{key}": n for r in rows for key, n in r.items()
+               if key.endswith("profile_windows") and n > 1}
+    log(f"profiler windows taken again (row: windows): {retaken or 'none'}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"collective": pod}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,9 +15,10 @@ the error-feedback residual, one row per pod, whose meaning is additive:
 `resume_elastic` reads the manifest of the newest VERIFIED checkpoint,
 rebuilds the sketched-EF codec from the saved meta when there is one
 (the operator drawn again from the SAVED seed), and respecs the pod dim
-to the new count. The bucket layout of a new mesh
-(`launch/sharding.py::bucket_specs`) is the collective's and waits for it
-(ROADMAP.md, queue 1 item 11): a `mesh` raises.
+to the new count. On a new mesh the codec decodes with that mesh's
+bucket layout (`launch/sharding.py::bucket_specs`): each rank
+reconstructs its block of every leaf's buckets and the blocks are
+gathered, so the state equals what `mesh=None` returns.
 """
 from __future__ import annotations
 
@@ -91,13 +92,9 @@ def resume_elastic(directory: str | os.PathLike, example_state: Any, *,
     sketched-EF codec meta come from the manifest (written by
     `runtime/train_loop.py`). Tensors land on `device`, else on each
     example leaf's device (`checkpointer.restore`); a sketched EF decodes
-    on `device`, else on the example EF's device, else on CUDA. Returns
-    (state, step).
+    on `device`, else on the example EF's device, else on CUDA, split
+    over `mesh`'s data axes when a mesh is given. Returns (state, step).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "resume_elastic onto a mesh needs the collective's bucket "
-            "layout (ROADMAP.md, queue 1 item 11); pass mesh=None")
     directory = os.fspath(directory)
     if step is None:
         step = checkpointer.newest_verified_step(directory)
@@ -124,8 +121,13 @@ def resume_elastic(directory: str | os.PathLike, example_state: Any, *,
             dtype=leaf.dtype, device="meta"), new_ef)
     codec = None
     if sk_meta is not None:
+        bucket_spec = None
+        if mesh is not None:
+            from repro_torch.launch.sharding import bucket_specs
+            bucket_spec = bucket_specs(mesh)
         codec = SketchedTreeCodec.from_meta(
-            sk_meta, old_ef_shapes, device=_codec_device(new_ef, device))
+            sk_meta, old_ef_shapes, device=_codec_device(new_ef, device),
+            mesh=mesh, bucket_spec=bucket_spec)
     saved_example = dict(example_state)
     saved_example["ef"] = codec.record_shapes() if codec else old_ef_shapes
     restored, step = checkpointer.restore(directory, saved_example, step,

@@ -15,14 +15,21 @@ On the card `encode` is one K1 launch a leaf (`PytreeSketcher.sketch`)
 and `decode` one K2 launch a leaf (`PytreeSketcher.unsketch`); a CPU
 tree takes the plain route.
 
-On-disk record: {"y": (n_buckets, k) float32 sketch, "seed": int64 base
-key, "step": int64 step}. `meta()` goes into the checkpoint manifest's
-`extra`, so a restarted job rebuilds the codec with `from_meta`. The
-operator seed of a step is `base_key * 1_000_003 + step` (the
-compressor's rule, `optim/compress.py`): torch cannot replay JAX's
-`fold_in`, so a record is read back by the package that wrote it. The
-mesh and bucket-layout options wait for the collective (ROADMAP.md,
-queue 1 item 11).
+On-disk record: {"y": (n_buckets, k) float32 sketch, "seed": int64
+tagged base key, "step": int64 step}. `meta()` goes into the checkpoint
+manifest's `extra`, so a restarted job rebuilds the codec with
+`from_meta`. The operator seed of a step is `base_key * 1_000_003 + step`
+(the compressor's rule, `optim/compress.py`), while the reference draws
+its operators with JAX's `fold_in`, which torch cannot replay: a record
+decodes only in the package that wrote it. So the record's seed carries
+this package's tag above the base key (the reference's `seed !=
+base_key` check refuses it), `meta()` names the generator, and `decode`
+/ `from_meta` refuse a record or meta without the tag, naming the
+package that wrote it. Dense checkpoints cross packages as before.
+
+With a mesh (`mesh=`, `bucket_spec=`) the sketcher splits each leaf's
+buckets over the spec's axes (`core/sketch.py`); the record is the same
+canonical `(n_buckets, k)` sketch on every layout.
 """
 from __future__ import annotations
 
@@ -40,6 +47,22 @@ from .checkpointer import CheckpointError
 #: SketchCompressor's 0x5EED, so the checkpoint operator and the
 #: gradient-compression operator of one step are independent draws.
 CKPT_KEY = 0xCC11
+
+#: the generator a record's operators come from, in `meta()`
+GENERATOR = "repro_torch"
+#: a port record's seed is `_SEED_TAG | base_key`: the tag sits above the
+#: 48 bits a base key may use
+_SEED_TAG = 0x7254 << 48
+_KEY_BITS = (1 << 48) - 1
+
+
+def _foreign(what: str, writer: str) -> CheckpointError:
+    return CheckpointError(
+        f"sketched {what} was written by the package {writer!r}, whose "
+        f"operators come from another generator than {GENERATOR}'s "
+        "(base_key * 1_000_003 + step): decoding it here would give noise "
+        f"of the right size; restore it with {writer!r}, or checkpoint the "
+        "error feedback dense to cross packages")
 
 
 def _codec_device(example_tree, device) -> torch.device:
@@ -66,11 +89,16 @@ class SketchedTreeCodec:
     """
 
     def __init__(self, cfg: SketchConfig, example_tree: Any, *,
-                 base_key: int = CKPT_KEY, device=None):
+                 base_key: int = CKPT_KEY, device=None, mesh=None,
+                 bucket_spec=None):
+        if not 0 <= int(base_key) <= _KEY_BITS:
+            raise ValueError(f"base_key {int(base_key):#x} must fit in 48 "
+                             "bits (the record's seed tags the bits above)")
         self.cfg = cfg
         self.base_key = int(base_key)
         self.device = _codec_device(example_tree, device)
-        self._sk = PytreeSketcher(cfg, example_tree)
+        self._sk = PytreeSketcher(cfg, example_tree, mesh=mesh,
+                                  bucket_spec=bucket_spec)
 
     def key_for(self, step) -> int:
         """The operator seed of `step` (the compressor's rule)."""
@@ -83,13 +111,18 @@ class SketchedTreeCodec:
         """tree -> self-describing record (never the dense tree); the
         seed and step are host int64 scalars."""
         y = self._sk.sketch(tree, self.key_for(step))
-        return {"y": y, "seed": torch.tensor(self.base_key, dtype=torch.int64),
+        return {"y": y, "seed": torch.tensor(_SEED_TAG | self.base_key,
+                                             dtype=torch.int64),
                 "step": torch.tensor(int(step), dtype=torch.int64)}
 
     def decode(self, record: dict) -> Any:
         """record -> dense unbiased estimate; operator regenerated from the
         record's saved seed (no operator bytes were ever on disk)."""
         seed = int(record["seed"])
+        if seed & ~_KEY_BITS != _SEED_TAG:
+            raise _foreign(f"record (seed {seed:#x}, no {GENERATOR} tag)",
+                           "repro")
+        seed &= _KEY_BITS
         if seed != self.base_key:
             raise CheckpointError(
                 f"sketched record was written with base key {seed:#x} but "
@@ -122,19 +155,25 @@ class SketchedTreeCodec:
                 "bucket_elems": self.cfg.bucket_elems,
                 "fresh_per_step": self.cfg.fresh_per_step,
                 "base_key": self.base_key,
-                "n_buckets": self._sk.n_buckets}
+                "n_buckets": self._sk.n_buckets,
+                "generator": GENERATOR}
 
     @classmethod
-    def from_meta(cls, meta: dict, example_tree: Any, *,
-                  device=None) -> "SketchedTreeCodec":
-        """Rebuild the codec a checkpoint was written with."""
+    def from_meta(cls, meta: dict, example_tree: Any, *, device=None,
+                  mesh=None, bucket_spec=None) -> "SketchedTreeCodec":
+        """Rebuild the codec a checkpoint was written with (on a new mesh
+        too: the sketch values are layout-free). A meta without this
+        package's generator tag is refused."""
+        writer = meta.get("generator", "repro")
+        if writer != GENERATOR:
+            raise _foreign("meta", writer)
         cfg = SketchConfig(family=meta["family"], k=int(meta["k"]),
                            rank=int(meta["rank"]),
                            dims=tuple(int(d) for d in meta["dims"]),
                            bucket_elems=int(meta["bucket_elems"]),
                            fresh_per_step=bool(meta["fresh_per_step"]))
         return cls(cfg, example_tree, base_key=int(meta["base_key"]),
-                   device=device)
+                   device=device, mesh=mesh, bucket_spec=bucket_spec)
 
     # -- accounting (the checkpoint-size story) ---------------------------
     def sketch_bytes(self) -> int:
@@ -147,4 +186,4 @@ class SketchedTreeCodec:
         return self.dense_bytes() / max(1, self.sketch_bytes())
 
 
-__all__ = ["CKPT_KEY", "SketchedTreeCodec"]
+__all__ = ["CKPT_KEY", "GENERATOR", "SketchedTreeCodec"]

@@ -12,7 +12,8 @@ Trees are nested dicts of tensors, flattened in sorted-key order
 sketch agree with the reference leaf for leaf.
 
 Used by:
-  * optim/compress.py — error-feedback gradient compression,
+  * optim/compress.py — error-feedback gradient compression, and the
+                        cross-pod compressed all-reduce,
   * optim/adamw.py    — the fused unsketch+EF+AdamW step (K4),
   * SketchMonitor     — O(k) per-step parameter-drift telemetry.
 """
@@ -106,13 +107,22 @@ class PytreeSketcher:
 
     The same operator is shared across buckets and leaves (disjoint
     coordinates keep per-bucket estimates unbiased; sharing keeps operator
-    memory O(kNdR^2) regardless of model size). The mesh and bucket-layout
-    options of the reference wait for the collective (ROADMAP queue 1
-    item 11).
+    memory O(kNdR^2) regardless of model size).
+
+    Mesh: with `mesh` (a `launch.mesh.Mesh`) and optionally `bucket_spec`
+    (entry 0 names the axes of the bucket dim; default `bucket_pspec` a
+    leaf), each rank projects and unsketches its block of a leaf's
+    buckets and one all_gather a leaf puts the blocks back together, so
+    `sketch` and `unsketch` return what they return without a mesh. A
+    leaf whose bucket count the axes do not divide runs whole on every
+    rank.
     """
 
-    def __init__(self, cfg: SketchConfig, example_tree: Any):
+    def __init__(self, cfg: SketchConfig, example_tree: Any, *,
+                 mesh=None, bucket_spec=None):
         self.cfg = cfg
+        self.mesh = mesh
+        self.bucket_spec = bucket_spec
         leaves, treedef = tree_flatten(example_tree)
         self._treedef = treedef
         self._struct = [_is_struct_leaf(x) for x in leaves]
@@ -139,61 +149,114 @@ class PytreeSketcher:
         self.n = sum(self._sizes)
         self.n_buckets = sum(self._nb)
 
-    # -- per-leaf shaping -------------------------------------------------
-    def _leaf_to_buckets(self, leaf, nb: int) -> torch.Tensor:
-        """(nb, *dims) float32 buckets of `leaf`, zero-padded at the end.
-        A contiguous float32 leaf that fills its buckets exactly comes
-        back as a view, without a copy."""
-        flat = leaf.reshape(-1).to(torch.float32)
-        pad = nb * self.cfg.bucket_elems - flat.numel()
-        if pad:
-            flat = torch.cat([flat, flat.new_zeros(pad)])
-        return flat.reshape((nb,) + self.cfg.dims)
+    # -- bucket-axis split over the mesh -----------------------------------
+    def _leaf_spec(self, nb: int):
+        """The spec that splits a batch of `nb` buckets over the mesh, or
+        None: no mesh, or axes that do not divide nb."""
+        if self.mesh is None:
+            return None
+        from repro_torch.rp.shard import bucket_pspec, shard_entry
+        spec = (self.bucket_spec if self.bucket_spec is not None
+                else bucket_pspec(self.mesh, nb))
+        _, _, size = shard_entry(self.mesh, spec)
+        return spec if size > 1 and nb % size == 0 else None
 
-    def _leaf_from_buckets(self, buckets, size: int, shape, dtype):
-        return buckets.reshape(-1)[:size].reshape(shape).to(dtype)
+    def _project(self, op, buckets):
+        from repro_torch import rp
+        from repro_torch.rp import shard
+        spec = self._leaf_spec(buckets.shape[0])
+        if spec is None:
+            return rp.project(op, buckets, backend=self.cfg.backend)
+        block = shard.project_sharded(op, buckets, mesh=self.mesh, spec=spec,
+                                      backend=self.cfg.backend)
+        return shard.gather_blocks(block, self.mesh, spec, tag="sketch")
+
+    def _reconstruct(self, op, y):
+        from repro_torch import rp
+        from repro_torch.rp import shard
+        spec = self._leaf_spec(y.shape[0])
+        if spec is None:
+            return rp.reconstruct(op, y, backend=self.cfg.backend)
+        block = shard.reconstruct_sharded(op, y, mesh=self.mesh, spec=spec,
+                                          backend=self.cfg.backend)
+        return shard.gather_blocks(block, self.mesh, spec, tag="unsketch")
+
+    # -- per-leaf shaping -------------------------------------------------
+    def _leaf_to_buckets(self, leaf, nb: int, rows: int = 1) -> torch.Tensor:
+        """`(rows * nb, *dims)` float32 buckets of `leaf`, read as `rows`
+        rows, each bucketized on its own and zero-padded at its end. A
+        contiguous float32 leaf that fills its buckets exactly comes back
+        as a view, without a copy."""
+        flat = leaf.reshape(rows, -1).to(torch.float32)
+        pad = nb * self.cfg.bucket_elems - flat.shape[1]
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(rows, pad)], dim=1)
+        return flat.reshape((rows * nb,) + self.cfg.dims)
+
+    @staticmethod
+    def _leaf_from_buckets(buckets, size: int, shape, dtype, npod=None):
+        lead = () if npod is None else (npod,)
+        out = buckets.reshape(npod or 1, -1)[:, :size]
+        return out.reshape(lead + tuple(shape)).to(dtype)
 
     # -- sketch / unsketch -----------------------------------------------
-    def sketch(self, tree: Any, seed: int) -> torch.Tensor:
+    def sketch(self, tree: Any, seed: int, *, npod: int | None = None
+               ) -> torch.Tensor:
         """tree -> (n_buckets, k) sketch (buckets concatenated over leaves).
 
         All buckets of a leaf go through ONE batched `rp.project` call (one
-        K1 launch on the card); a structured leaf is projected in the
-        compressed domain, a batched container counting one bucket per
-        item — still one dispatch per leaf.
+        K1 launch on the card; on a mesh, one a rank on its block, then
+        one all_gather); a structured leaf is projected in the compressed
+        domain, a batched container counting one bucket per item — still
+        one dispatch per leaf. With `npod`, every leaf is dense and
+        carries a leading pod dim of that size (`compress_per_pod`): each
+        pod's row is bucketized on its own, the pods are folded into the
+        leaf's bucket batch (still one dispatch a leaf), and the result is
+        `(npod, n_buckets, k)`.
         """
         from repro_torch import rp
+        if npod is not None and any(self._struct):
+            raise ValueError("a sketch with a pod dim takes dense leaves "
+                             "only")
         op = self.cfg.operator(seed, _device(tree))
+        rows = 1 if npod is None else npod
         flat_op = len(op.in_dims) == 1  # gaussian/sparse contract flat
         ys = []
         for leaf, nb, is_struct in zip(tree_leaves(tree), self._nb,
                                        self._struct):
             if is_struct:
-                x = leaf
+                y = rp.project(op, leaf, backend=self.cfg.backend)
             else:
-                x = self._leaf_to_buckets(leaf, nb)
+                x = self._leaf_to_buckets(leaf, nb, rows)
                 if flat_op:
-                    x = x.reshape(nb, -1)
-            y = rp.project(op, x, backend=self.cfg.backend)
-            ys.append(y.reshape(nb, self.cfg.k))
-        return torch.cat(ys, dim=0)
+                    x = x.reshape(rows * nb, -1)
+                y = self._project(op, x)
+            ys.append(y.reshape(rows, nb, self.cfg.k))
+        y = torch.cat(ys, dim=1)
+        return y[0] if npod is None else y
 
     def unsketch(self, y: torch.Tensor, seed: int) -> Any:
         """(n_buckets, k) -> unbiased tree estimate (same seed as sketch).
 
-        One batched `rp.reconstruct` per leaf (one K2 launch on the card).
-        Structured leaves come back as DENSE estimates (`(*dims)`, or
-        `(B, *dims)` for a batched container).
+        One batched `rp.reconstruct` per leaf (one K2 launch on the card;
+        on a mesh, one a rank on its block, then one all_gather of the
+        dense blocks). Structured leaves come back as DENSE estimates
+        (`(*dims)`, or `(B, *dims)` for a batched container). A
+        `(npod, n_buckets, k)` sketch (`sketch(npod=)`) comes back as
+        leaves `(npod, *shape)`, every pod in the leaf's one dispatch.
         """
-        from repro_torch import rp
         op = self.cfg.operator(seed, y.device)
+        npod = int(y.shape[0]) if y.ndim == 3 else None
+        rows = npod or 1
+        y = y.reshape(rows, self.n_buckets, self.cfg.k)
         out = []
         off = 0
         for nb, size, shape, dtype in zip(self._nb, self._sizes,
                                           self._shapes, self._dtypes):
-            buckets = rp.reconstruct(op, y[off:off + nb],
-                                     backend=self.cfg.backend)
-            out.append(self._leaf_from_buckets(buckets, size, shape, dtype))
+            buckets = self._reconstruct(
+                op, y[:, off:off + nb].reshape(rows * nb, self.cfg.k))
+            out.append(self._leaf_from_buckets(buckets, size, shape, dtype,
+                                               npod))
             off += nb
         return tree_unflatten(self._treedef, out)
 

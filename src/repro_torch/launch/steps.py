@@ -1,8 +1,8 @@
-"""The train-step builder and the train state, on one device.
+"""The train-step builder and the train state.
 
-Port of the single-device part of `repro/launch/steps.py`. The reference
-jits a pjit-sharded step and returns it in a bundle with its shardings;
-the port runs eagerly on one device, so `build_train_step` returns the
+Port of `repro/launch/steps.py`'s train step. The reference jits a
+pjit-sharded step and returns it in a bundle with its shardings; the
+port runs eagerly, one process a rank, so `build_train_step` returns the
 step function itself, `fn(state, batch) -> (state, metrics)`, which
 returns a new state (the caller drops the old one; the reference donates
 it). Branches:
@@ -11,13 +11,21 @@ it). Branches:
 * `compressor=`: `compressor.compress` (sketch: one K1 launch per leaf;
   unsketch: one K2 launch per leaf) -> `adamw.update`;
 * `compressor=` and `fused_update=True`: `adamw.update_sketched` — one K1
-  and one K4 launch per leaf, the dense gradient estimate never stored.
+  and one K4 launch per leaf, the dense gradient estimate never stored;
+* a `mesh=` with a 'pod' axis: rank p takes its pod's rows of the global
+  batch, and its loss and gradient are synced across pods — with a
+  compressor by `compress_collective` (one K1 and two or one K2 launches
+  a leaf and the sketch's or the dense leaves' mean), without one by one
+  dense all_reduce of the whole gradient — then `adamw.update`. Each rank
+  holds its own pod's EF residual, without a pod dim.
 
-The mesh, the pod-collective branch and the prefill/serve steps wait for
-their slices (ROADMAP.md, queue 1 items 11 and 12).
+`data` or `model` axes above 1 (FSDP/TP) wait for the model's
+`param_axes` (ROADMAP.md, queue 1 item 12.7); the prefill/serve steps
+for item 12.3.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable
 
@@ -41,6 +49,7 @@ def _policy(cfg: ArchConfig) -> dict:
 
 
 def build_train_step(model: Model, shape: ShapeSpec, *,
+                     mesh=None,
                      opt: AdamWConfig | None = None,
                      lr_fn: Callable | None = None,
                      remat: str = "nothing",
@@ -50,11 +59,25 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
                      compute_dtype=None) -> Callable:
     """`fused_update=True` swaps the compress -> adamw.update chain for
     `adamw.update_sketched` (one fused unsketch+EF+AdamW launch per leaf);
-    it needs a compressor and `AdamWConfig(clip_norm=None)`.
-    `compute_dtype=None` takes the config's policy (bf16 compute under
-    'mixed' and 'lean'); `device=None` means CUDA."""
+    it needs a compressor, no pod axis, and `AdamWConfig(clip_norm=None)`.
+    `mesh` (a `launch.mesh.Mesh`) with a 'pod' axis builds the pod branch
+    on the mesh's device. `compute_dtype=None` takes the config's policy
+    (bf16 compute under 'mixed' and 'lean'); `device=None` means CUDA."""
     cfg = model.cfg
     pol = _policy(cfg)
+    npod, group = 1, None
+    if mesh is not None:
+        wide = {a: n for a, n in mesh.shape.items()
+                if a in ("data", "model") and n > 1}
+        if wide:
+            raise NotImplementedError(
+                f"mesh axes {wide} above 1 shard params and batch within a "
+                "pod (FSDP/TP), which needs the model's param_axes "
+                "(ROADMAP.md, queue 1 item 12.7); run a (pod, 1, 1) mesh")
+        if "pod" in mesh.axis_names:
+            group = mesh.group("pod")
+            npod = group.size
+        device = mesh.device if device is None else device
     dev = resolve_device(device)
     compute_dtype = compute_dtype or pol["compute_dtype"]
     opt = opt or AdamWConfig(moment_dtype=pol["moment_dtype"])
@@ -67,11 +90,24 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
                 "fused_update=True needs a compressor: the fused kernel IS "
                 "the unsketch — without sketch compression there is "
                 "nothing to fuse; pass compressor= or drop fused_update")
+        if group is not None:
+            raise ValueError(
+                "fused_update=True is wired for the single-pod roundtrip "
+                "branch; the pod-collective branch syncs sketches across "
+                "pods before the optimizer and keeps the unfused update — "
+                "run without a 'pod' mesh axis or drop fused_update")
         if opt.clip_norm is not None:
             raise ValueError(
                 "fused_update=True fuses AdamW into the unsketch kernel, "
                 "which never materializes the dense gradient estimate to "
                 "clip; construct AdamWConfig(clip_norm=None)")
+    if compressor is not None and mesh is not None:
+        compressor = dataclasses.replace(
+            compressor, pod_axis="pod" if group is not None else None,
+            mesh=mesh)
+    if shape.global_batch % npod:
+        raise ValueError(f"global batch {shape.global_batch} does not split "
+                         f"into {npod} pods' rows")
     want = (shape.global_batch, shape.seq_len)
 
     def loss_and_grads(params, batch):
@@ -93,8 +129,49 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
             out[k] = t
         return out
 
+    def pod_step(state, batch):
+        """The pod branch: this pod's rows, the synced gradient, AdamW."""
+        from repro_torch.rp import shard
+        params = state["params"]
+        metrics = {}
+        new_state = dict(state)
+        per = shape.global_batch // npod
+        rows = {k: v.narrow(0, group.index * per, per)
+                for k, v in batch.items()}
+        with span("train.loss_grad"):
+            loss, grads = loss_and_grads(params, rows)
+            loss = shard.all_reduce(loss.reshape(1), group,
+                                    tag="loss")[0] / npod
+        count = state["opt"]["count"]
+        with span("train.compress"):
+            if compressor is not None:
+                grads, new_state["ef"], cmet = (
+                    compressor.compress_collective(grads, state["ef"],
+                                                   step=count))
+                metrics.update(cmet)
+            else:   # the uncompressed baseline: one dense all_reduce
+                leaves, treedef = tree_flatten(grads)
+                flat = shard.all_reduce(torch.cat(
+                    [g.reshape(-1) for g in leaves]), group,
+                    tag="grad") / npod
+                grads = tree_unflatten(treedef, [
+                    t.view_as(g) for t, g in zip(
+                        flat.split([g.numel() for g in leaves]), leaves)])
+        lr = lr_fn(count)
+        with span("train.update"):
+            new_p, new_opt, omet = adamw.update(params, grads,
+                                                state["opt"], lr, opt)
+        metrics.update(omet)
+        metrics["loss"] = loss
+        metrics["lr"] = lr
+        new_state["params"] = new_p
+        new_state["opt"] = new_opt
+        return new_state, metrics
+
     def train_step(state, batch):
         batch = on_device(batch)
+        if group is not None:
+            return pod_step(state, batch)
         params = state["params"]
         metrics = {}
         new_state = dict(state)

@@ -40,11 +40,15 @@ Wired call sites (all behind the disabled fast path):
                        `train.sketch`, `train.fused_update`) as nested spans
   ckpt.checkpointer  — `ckpt.save` (on the async writer's own thread),
                        `ckpt.verify`, `ckpt.restore` spans
+  optim.compress     — the cross-pod formulations' gauge
+                       `rp/wire_bytes_per_step` and counter
+                       `rp/collective_traces`
 
 The port runs eagerly, so dispatch spans fire on every call, including
 every step of a train loop (the reference's jitted step dispatches once,
-at trace time). The wire-byte gauges wait for the collective (ROADMAP.md,
-queue 1 item 11).
+at trace time); for the same reason `rp/collective_traces` counts every
+call of `compress_per_pod` / `compress_collective`, where the
+reference's counts jit traces.
 """
 from __future__ import annotations
 

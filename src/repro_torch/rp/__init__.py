@@ -8,6 +8,10 @@ inputs, TT/CP-format inputs and sketches of TT/CP operators to the
 hand-written CUDA kernels on the card ('auto' | 'kernel' | 'torch';
 `pipeline='double'` for the double-buffered projections). The paper's
 baselines ('gaussian', 'sparse') stream blocks of their (k, D) matrix.
+Mesh-aware entry points (`project_sharded` / `reconstruct_sharded` /
+`sketch_tree_sharded` / `bucket_pspec`, `rp.shard`) split the bucket axis
+over a `launch.mesh.Mesh`: one dispatch a rank on its block, the operator
+drawn again on every rank.
 
 Quickstart::
 
@@ -24,18 +28,25 @@ from .dispatch import (DispatchStats, count_kernel_dispatch, current_stats,
                        kernel_call_count, project, reconstruct)
 from .many import project_many
 from .plan import (BACKENDS, CostLedger, ExecutionPlan, PlanCacheStats,
-                   StructureSig, clear_plan_cache, execute_plan, explain,
+                   StructureSig, clear_plan_cache, collective_wire_bytes,
+                   execute_plan, explain,
                    group_signature, plan_cache_stats, plan_execution,
                    plan_update, pow2ceil, struct_in_rank, struct_signature,
                    structure_tag, validate_backend, validate_pipeline)
 from .protocol import FormatMismatchError, ProjectorSpec, RPOperator
+from .shard import (bucket_pspec, dequantize_psum, project_sharded,
+                    quantize_for_psum, reconstruct_sharded,
+                    sketch_tree_sharded)
 from .registry import (get_family, list_families, make_projector,
                        register_family)
 
 __all__ = [
-    "BACKENDS", "CostLedger", "DispatchStats", "ExecutionPlan",
+    "BACKENDS", "CostLedger", "bucket_pspec", "dequantize_psum",
+    "project_sharded", "quantize_for_psum", "reconstruct_sharded",
+    "sketch_tree_sharded", "DispatchStats", "ExecutionPlan",
     "FormatMismatchError", "PlanCacheStats", "ProjectorSpec", "RPOperator",
-    "StructureSig", "clear_plan_cache", "count_kernel_dispatch",
+    "StructureSig", "clear_plan_cache", "collective_wire_bytes",
+    "count_kernel_dispatch",
     "current_stats", "dispatch_breakdown", "dispatch_stats", "execute_plan",
     "explain", "force_kernel", "get_family", "group_signature", "kernel_call_count",
     "list_families", "make_projector", "plan_cache_stats", "plan_execution",

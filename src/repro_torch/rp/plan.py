@@ -137,6 +137,8 @@ class CostLedger:
                  einsum route reports the one-pass lower bound (inputs +
                  operator + outputs).
     smem_bytes : the kernel's dynamic shared memory per block (0 on torch).
+    wire_bytes : collective payload bytes (0 for a local dispatch; the
+                 compressed all-reduce's ledger is `collective_wire_bytes`).
     params     : operator parameter count (the paper's memory axis).
     var_factor : Thm-1 variance factor of the family at this order/rank.
     """
@@ -144,6 +146,7 @@ class CostLedger:
     flops: int
     hbm_bytes: int
     smem_bytes: int
+    wire_bytes: int
     params: int
     var_factor: float
 
@@ -215,7 +218,8 @@ class ExecutionPlan:
             lines.append(f"* chunk: {self.chunk} ({self.chunk_policy})")
         lines += [
             f"* cost: flops={c.flops} hbm_bytes={c.hbm_bytes} "
-            f"smem_bytes={c.smem_bytes} params={c.params} "
+            f"smem_bytes={c.smem_bytes} wire_bytes={c.wire_bytes} "
+            f"params={c.params} "
             f"var_factor={c.var_factor:.2f}",
             "",
             "rejected alternatives:",
@@ -471,7 +475,8 @@ def _build_plan(op_sig: _OpSig, sig: StructureSig, kind: str, backend: str,
         chunk=sig.chunk, chunk_policy=chunk_policy, tiles=tiles, grid=grid,
         rejected=rejected,
         cost=CostLedger(flops=int(b * per_item), hbm_bytes=int(hbm),
-                        smem_bytes=int(smem), params=params, var_factor=var),
+                        smem_bytes=int(smem), wire_bytes=0, params=params,
+                        var_factor=var),
         carry_bytes=int(carry))
 
 
@@ -677,7 +682,7 @@ def plan_update(op_spec, batch: int, *, fused: bool = True) -> ExecutionPlan:
                          "comparison"),)),
         cost=CostLedger(
             flops=int(batch) * int(per_item), hbm_bytes=int(hbm),
-            smem_bytes=int(fplan.smem_bytes),
+            smem_bytes=int(fplan.smem_bytes), wire_bytes=0,
             params=_safe_params(f, k, dims, rank),
             var_factor=float(theory.variance_factor(
                 f, N=len(dims), R=max(1, rank), D=_prod(dims)))))
@@ -689,9 +694,25 @@ def plan_update(op_spec, batch: int, *, fused: bool = True) -> ExecutionPlan:
     return plan
 
 
+def collective_wire_bytes(*, sync: str, wire: str, sketch_bytes: int,
+                          dense_bytes: int, n_buckets: int,
+                          n_leaves: int) -> int:
+    """Per-step pod-link payload of the compressed all-reduce, the plan
+    layer's wire ledger (`SketchCompressor.wire_bytes` reads it):
+    'sketch-mean' syncs the (nb, k) sketch, 'local-mean' the dense tree;
+    int8 payloads carry their float32 scales (one per bucket row under
+    'sketch-mean', one per leaf under 'local-mean')."""
+    payload = sketch_bytes if sync == "sketch-mean" else dense_bytes
+    if wire == "fp32":
+        return int(payload)
+    scales = n_buckets if sync == "sketch-mean" else n_leaves
+    return int(payload) // 4 + 4 * int(scales)
+
+
 __all__ = [
     "BACKENDS", "CostLedger", "ExecutionPlan", "PlanCacheStats",
-    "StructureSig", "clear_plan_cache", "dense_signature", "execute_plan",
+    "StructureSig", "clear_plan_cache", "collective_wire_bytes",
+    "dense_signature", "execute_plan",
     "explain", "group_signature", "plan_cache_stats", "plan_execution",
     "plan_update", "pow2ceil", "sketch_signature", "struct_in_rank",
     "struct_signature", "structure_tag", "validate_backend",

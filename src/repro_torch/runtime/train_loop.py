@@ -39,8 +39,9 @@ class LoopConfig:
     log_every: int = 10
     keep_ckpts: int = 3
     async_ckpt: bool = True
-    # recorded in every manifest's `extra` so `ckpt.resume_elastic` knows
-    # the pod count the EF state was written with
+    # the mesh's pod count (1 without a pod axis), recorded in every
+    # manifest's `extra` so `ckpt.resume_elastic` knows the pod count the
+    # EF state was written with
     npod: int = 1
     # corruption handling on resume: verify checksums and fall back to the
     # newest checkpoint that passes (False restores blind)
@@ -78,8 +79,16 @@ def run(step_fn: Callable, state: Any, data: SyntheticLM, cfg: LoopConfig, *,
     state["ef"]) persists the error-feedback tree as a (seed, spec,
     sketch) record and reconstructs it deterministically on restore.
     `on_metrics(step, metrics, state)` receives the post-step state.
-    Returns (final_state, final_step).
+    Returns (final_state, final_step). Checkpoints of a pod mesh
+    (`cfg.npod > 1`: each rank holds its own pod's EF row) wait for
+    ROADMAP.md queue 1 item 11.1 and are refused.
     """
+    if cfg.ckpt_dir and cfg.npod > 1:
+        raise NotImplementedError(
+            f"checkpoints on a mesh of {cfg.npod} pods need each rank's EF "
+            "row gathered into the (npod, ...) layout and handed back on "
+            "restore (ROADMAP.md, queue 1 item 11.1); run without ckpt_dir "
+            "or on one pod")
     start = 0
     if cfg.ckpt_dir:
         latest = checkpointer.latest_step(cfg.ckpt_dir)

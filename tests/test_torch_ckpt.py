@@ -452,7 +452,10 @@ def test_codec_matches_the_reference_on_its_operator(tmp_path, ckpt_ops):
     jrec = jcodec.encode(_j(ef), step=9)
     rec = codec.encode(_t(ef), step=9)
     assert set(rec) == set(jrec) == {"y", "seed", "step"}
-    assert int(rec["seed"]) == int(jrec["seed"]) == CKPT_KEY
+    # the port tags its seed above the base key (the reference stores it
+    # bare), so neither package decodes the other's record
+    assert int(jrec["seed"]) == CKPT_KEY
+    assert int(rec["seed"]) == (0x7254 << 48) | CKPT_KEY
     assert int(rec["step"]) == 9 and rec["y"].shape == (5, SK["k"])
     assert _rel(rec["y"], jrec["y"]) <= TOL
     # decode the REFERENCE's sketch with both: the same estimate
@@ -470,12 +473,87 @@ def test_codec_matches_the_reference_on_its_operator(tmp_path, ckpt_ops):
     _assert_tree_equal(codec.decode(back), d1)
     codec2 = SketchedTreeCodec.from_meta(codec.meta(), _meta(_t(ef)),
                                          device="cpu")
-    assert codec2.meta() == codec.meta() == {
-        k: v for k, v in jcodec.meta().items()}
+    assert codec2.meta() == codec.meta() == {**jcodec.meta(),
+                                             "generator": "repro_torch"}
     _assert_tree_equal(codec2.decode(rec), d1)
     assert codec.sketch_bytes() == jcodec.sketch_bytes()
     assert codec.dense_bytes() == jcodec.dense_bytes()
     assert codec.compression_ratio() == jcodec.compression_ratio()
+
+
+def test_sketched_records_refuse_the_other_package(tmp_path):
+    """A sketched EF record (and its meta) written by either package is
+    refused by the other, through the disk: the operators come from
+    different generators, so a decode would give noise of the right
+    size. The reference refuses the port's record by its own seed check."""
+    ef = _np_ef()
+    jcodec = JCodec(JSketchConfig(**SK), jax.eval_shape(lambda: _j(ef)))
+    codec = SketchedTreeCodec(SketchConfig(**SK), _meta(_t(ef)),
+                              device="cpu")
+    jck.save(tmp_path / "j", 5, jcodec.encode(_j(ef), step=5),
+             extra={"sketched_ef": jcodec.meta()})
+    back, _ = checkpointer.restore(tmp_path / "j", codec.record_shapes())
+    with pytest.raises(CheckpointError, match="written by the package "
+                                              "'repro'"):
+        codec.decode(back)
+    jmeta = checkpointer.read_manifest(tmp_path / "j", 5)["extra"][
+        "sketched_ef"]
+    with pytest.raises(CheckpointError, match="'repro'"):
+        SketchedTreeCodec.from_meta(jmeta, _meta(_t(ef)), device="cpu")
+    # the port's record through the reference's own checks
+    checkpointer.save(tmp_path / "p", 6, codec.encode(_t(ef), step=6),
+                      extra={"sketched_ef": codec.meta()})
+    jback, _ = jck.restore(tmp_path / "p", jcodec.record_shapes())
+    with pytest.raises(jck.CheckpointError, match="base key"):
+        jcodec.decode(jback)
+    assert jck.read_manifest(tmp_path / "p", 6)["extra"]["sketched_ef"][
+        "generator"] == "repro_torch"
+    # a record without the tag names its writer; the base key and shape
+    # checks still hold under the tag
+    with pytest.raises(CheckpointError, match="'repro'"):
+        codec.decode({"y": back["y"], "seed": torch.tensor(CKPT_KEY),
+                      "step": back["step"]})
+
+
+def test_dense_ef_checkpoints_cross_both_ways(tmp_path):
+    state = {"params": _np_ef(seed=2), "ef": _np_ef(npod=2, seed=3)}
+    checkpointer.save(tmp_path / "p", 3, _t(state), extra={"npod": 2})
+    got, _ = jck.restore(tmp_path / "p", jax.eval_shape(lambda: _j(state)))
+    _assert_tree_equal(_t(jax.tree.map(np.asarray, got)), state)
+    jck.save(tmp_path / "j", 4, _j(state), extra={"npod": 2})
+    got, _ = checkpointer.restore(tmp_path / "j", _meta(_t(state)))
+    _assert_tree_equal(got, state)
+
+
+def test_resume_elastic_on_a_mesh_equals_no_mesh(tmp_path):
+    """resume_elastic(mesh=) on two gloo ranks: each decodes its block of
+    every leaf's buckets and the blocks are gathered; the state equals
+    what mesh=None gives."""
+    from torch_dist_workers import run_ranks
+    old, new = 4, 2
+    state = {"params": _t(_np_ef(seed=2)), "ef": _t(_np_ef(npod=old, seed=3))}
+    codec = SketchedTreeCodec(SketchConfig(**SK), state["ef"])
+    to_save = dict(state)
+    to_save["ef"] = codec.encode(state["ef"], step=8)
+    checkpointer.save(tmp_path / "ck", 8, to_save,
+                      extra={"npod": old, "sketched_ef": codec.meta()})
+    example = {"params": {k: (tuple(v.shape), "float32")
+                          for k, v in state["params"].items()},
+               "ef": {k: ((new,) + tuple(v.shape[1:]), "float32")
+                      for k, v in state["ef"].items()}}
+    out = run_ranks("resume", 2, tmp_path / "ranks",
+                    {"dir": str(tmp_path / "ck"), "example": example,
+                     "new": new}, shape=(2,), names=("data",))
+    for o in out:
+        assert o["step"] == 8
+        _assert_tree_equal(o["mesh"]["params"], state["params"])
+        for key in o["plain"]["ef"]:
+            np.testing.assert_allclose(o["mesh"]["ef"][key].numpy(),
+                                       o["plain"]["ef"][key].numpy(),
+                                       rtol=1e-6, atol=1e-6)
+    # the w leaf (4 buckets) splits over the two ranks, b (1) does not
+    assert SketchedTreeCodec(SketchConfig(**SK), state["ef"])._sk._nb == [
+        1, 4 * old]
 
 
 def test_codec_typed_errors_and_seed_rule():
@@ -545,8 +623,6 @@ def test_resume_elastic_sketched_onto_fewer_pods(tmp_path):
     example = {"params": _meta(state["params"]),
                "ef": tree_map(lambda x: torch.empty(
                    (new,) + tuple(x.shape[1:]), device="meta"), state["ef"])}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        resume_elastic(tmp_path, example, npod_new=new, mesh=object())
     got, step = resume_elastic(tmp_path, example, npod_new=new, device="cpu")
     assert step == 8
     _assert_tree_equal(got["params"], state["params"])

@@ -562,3 +562,51 @@ def test_async_checkpointer_roundtrips_cuda_tensors(cuda, tmp_path):
     assert _sweep.sweep_reconstruct.launches == 1
     assert dec["w"].device == tree["w"].device
     assert torch.equal(dec["w"], codec.decode(rec)["w"])
+
+
+def test_compress_collective_on_one_nccl_pod_equals_compress(cuda):
+    """A ("pod",) mesh of one over NCCL: compress_collective under both
+    syncs and both wires launches K1 once and K2 once or twice a leaf,
+    and at fp32 equals compress bit for bit; the ledger holds one
+    all_reduce of the sketch under sketch-mean fp32."""
+    import torch.distributed as dist
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compress import SketchCompressor
+    from repro_torch.rp import shard
+    cfg = SketchConfig(family="tt", k=128, rank=2, dims=(4, 8, 16),
+                       bucket_elems=512)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    grads = {"w": torch.randn((300, 70), generator=g, device=cuda),
+             "b": torch.randn((33,), generator=g, device=cuda)}
+    state = {"residual": {k: 0.1 * v for k, v in grads.items()}}
+    mesh = make_mesh((1,), ("pod",), device=cuda)
+    try:
+        assert dist.get_backend() == "nccl"
+        for sync in ("sketch-mean", "local-mean"):
+            for wire in ("fp32", "int8"):
+                comp = SketchCompressor(cfg, sync=sync, wire=wire)
+                want = comp.compress(grads, state, step=2)
+                comp.compress_collective(grads, state, step=2, mesh=mesh)
+                shard.collective_ledger().reset()
+                kernels.reset_launch_counts()
+                got = comp.compress_collective(grads, state, step=2,
+                                               mesh=mesh)
+                torch.cuda.synchronize()
+                assert _sweep.sweep_project.launches == 2
+                assert _sweep.sweep_reconstruct.launches == (
+                    4 if sync == "sketch-mean" else 2)
+                if wire == "fp32":
+                    for a, b in zip(tree_leaves(got[:2]),
+                                    tree_leaves(want[:2])):
+                        assert torch.equal(a, b)
+                rows = shard.collective_ledger().table()
+                assert sum(r["bytes"] for r in rows) == float(
+                    got[2]["wire_bytes"])
+                if (sync, wire) == ("sketch-mean", "fp32"):
+                    sk = comp._sketcher(grads)
+                    assert sk.n_buckets == 43
+                    assert [(r["calls"], r["bytes"]) for r in rows] == [
+                        (1, sk.sketch_bytes())]
+    finally:
+        dist.destroy_process_group()

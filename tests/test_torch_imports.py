@@ -60,8 +60,13 @@ CKPT_SLICE = ("ckpt", "ckpt.checkpointer", "ckpt.sketched", "ckpt.elastic",
               "launch.serve_rp")
 
 
-@pytest.mark.parametrize("slice_", [TRAINING_SLICE, CKPT_SLICE],
-                         ids=["training", "ckpt"])
+COLLECTIVE_SLICE = ("launch.mesh", "launch.sharding", "rp.shard",
+                    "optim.compress", "launch.steps", "launch.train")
+
+
+@pytest.mark.parametrize("slice_", [TRAINING_SLICE, CKPT_SLICE,
+                                    COLLECTIVE_SLICE],
+                         ids=["training", "ckpt", "collective"])
 def test_training_slice_modules_are_checked(slice_):
     names = {".".join(p.relative_to(REPO / "src").with_suffix("").parts)
              .removesuffix(".__init__") for p in PORT_FILES}

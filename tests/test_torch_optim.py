@@ -367,19 +367,22 @@ def test_compress_matches_reference(carried_ops):
         _close(met[key], jmet[key], 1e-5)
     sk = comp._sketcher(grads)
     assert comp._sketcher(grads) is sk  # memoized
-    assert comp.wire_bytes(sk) == sk.sketch_bytes()
+    # the default sync is the reference's 'local-mean': dense bytes
+    assert comp.wire_bytes(sk) == jcomp.wire_bytes(
+        jcomp._sketcher(jg)) == sk.dense_bytes()
     assert comp.compression_ratio(params) == pytest.approx(
         jcomp.compression_ratio(jp))
 
 
 @pytest.mark.parametrize("family,rank", [("tt", 2), ("cp", 5)])
 def test_compressor_wire_bytes_match_reference(family, rank):
-    """The payload a worker sends is the fp32 sketch: the reference's
-    ledger for its sketch-mean fp32 wire."""
+    """Under sketch-mean fp32 the payload a worker sends is the fp32
+    sketch, as in the reference's ledger."""
     kw = dict(family=family, k=128, rank=rank, dims=(16, 16, 8),
               bucket_elems=2048)
     shapes = {"w": (3000,), "b": (100, 7)}
-    comp = SketchCompressor(SketchConfig(**kw))
+    comp = SketchCompressor(SketchConfig(**kw), sync="sketch-mean",
+                            wire="fp32")
     jcomp = jcompress.SketchCompressor(jsketch.SketchConfig(**kw),
                                        sync="sketch-mean", wire="fp32")
     sk = comp._sketcher(_to_torch(_np_tree(0, shapes)))
