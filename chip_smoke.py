@@ -176,9 +176,43 @@ Phases (each raises on failure, so the script exits non-zero):
      ... --compress-sync sketch-mean --steps 20`: the last logged loss
      below the first. K1's and K2's launches in these runs go into their
      training rows.
+  16. pod-mesh checkpoints at phase 9's widths on two gloo ranks sharing
+     the card (the free disk checked first: a dense-EF checkpoint is
+     about 11.9 GB). 16a: the pod train loop (`runtime.train_loop.run`
+     with `mesh=`, sketch-mean fp32, global batch 2, seq 4096) for 4
+     steps uninterrupted, then with dense-EF checkpoints every 2 steps
+     (async, rank 0 writes the EF rows gathered into the `(2, ...)`
+     layout) and a crash at step 3 on both ranks under
+     `run_with_restarts`: params, m, v and both EF rows after the restart
+     bit-equal to the uninterrupted run; the gather's host ms and bytes,
+     rank 0's save host-blocking ms, the bytes on disk. 16b: one more
+     step whose save writes a sketched record of the stacked rows
+     (`SketchedTreeCodec.for_pod_rows`, K1 on rank 0); the record
+     restored through K2 twice on each rank (the stacked decode: the same
+     bits twice and on both ranks) and through `resume_pod_rank`. 16c:
+     the 2-pod dense checkpoint restored onto one pod of an NCCL mesh of
+     world size 1: the EF equals the fixed-order sum of the two rows bit
+     for bit. K1's and K2's launches go into their training rows.
+  17. LM serving at full width: llama3.2-3b (28 layers, slots 8, 16
+     requests) and then gemma2-9b (42 layers, slots 4, 8 requests; llama
+     freed first), random fp32 weights from a seeded generator, prompts
+     of 64-128 tokens from a seeded numpy generator, 32 generated tokens
+     each, `max_seq` 512: `SlotServer.run` timed (decode ms a step at
+     B = slots by CUDA events, the server's prefill ms a prompt token,
+     generated tokens/s, peak memory), the model's one-forward prefill
+     of the longest prompt; the batched prefill's greedy tokens against a
+     token-by-token loop bit for bit (the first `slots` requests cut to
+     16 prompt tokens, 8 generated); `decode_step` logits against the
+     forward's at fp32 on one 32-token sequence (rtol = atol = 2e-3),
+     and the server's own bf16 step's logits on that sequence against
+     the same forward (within 3e-2 of the largest |logit|, the greedy
+     tokens equal wherever the forward's top two are further apart); the
+     server's cache starts empty, and its graphed step equals the eager
+     `decode_step` bit for bit.
 Then it prints the `collective` JSON line (phase 15's numbers), the
-`kernels` JSON line, the card's name and power limit, and as its last
-line `{"ok": true, "device": {...}}`.
+`pod_ckpt` and `lm_serve` lines (phases 16 and 17), the `kernels` JSON
+line, the card's name and power limit, and as its last line
+`{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -336,7 +370,8 @@ def device_split(row: dict, fn, reps: int = 3, names=SWEEP_KERNELS,
     (kernel name part -> key): the fold and the product of K1, K5, K2 and
     K4, K1's and K5's reduce; K3's and K6's one kernel ('carry'); and the
     wrapper's other kernels ('layout': the layout copy of the leading
-    core, and K4's array of lr, c1 and c2). Stored in `row` as
+    core, and K4's array of lr, c1 and c2). `names=None` sums every
+    kernel under 'all' (pass `need=("all",)`). Stored in `row` as
     `device_split_ms`, beside `profile_windows`, the windows it took.
 
     A window whose kernel records the profiler lost is taken again, at
@@ -363,7 +398,8 @@ def device_split(row: dict, fn, reps: int = 3, names=SWEEP_KERNELS,
             t = (getattr(ev, "device_time_total", 0)
                  or getattr(ev, "cuda_time_total", 0))
             if t:
-                key = next((k for n, k in names if n in ev.key), "layout")
+                key = ("all" if names is None else
+                       next((k for n, k in names if n in ev.key), "layout"))
                 out[key] = out.get(key, 0.0) + t / reps / 1e3
         if any(out.values()):
             break
@@ -1904,7 +1940,7 @@ def _pod_ranks(task: str, shapes, extra: dict) -> list[dict]:
         if time.monotonic() > deadline:
             for p in ctx.processes:
                 p.kill()
-            raise AssertionError(f"phase 15 {task}: the ranks did not end "
+            raise AssertionError(f"the ranks of {task!r} did not end "
                                  f"within {POD_TIMEOUT:.0f} s")
     return [json.loads(Path(tmp, f"{task}_{r}.json").read_text())
             for r in range(2)]
@@ -1925,8 +1961,8 @@ def _pod_rank(rank, world, tmp, task, shapes, extra):
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
                             world_size=world, rank=rank)
     try:
-        res = {"collective": _pod_collective,
-               "train": _pod_train}[task](rank, shapes, extra)
+        res = {"collective": _pod_collective, "train": _pod_train,
+               "ckpt": _pod_ckpt}[task](rank, shapes, extra)
         Path(tmp, f"{task}_{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -2392,6 +2428,516 @@ def pod_phase(dev) -> dict:
     log(f"phase 15 took {numbers['seconds']:.1f}s; K1/K2 launches "
         f"{launches}")
     return numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 16: pod-mesh checkpoints
+# ---------------------------------------------------------------------------
+
+POD_CKPT_STEPS = 4    # 16a: steps of a run; saves every 2, a crash at 3
+
+
+def _pod_ckpt(rank, shapes, extra):
+    """16a-b on one rank of the (pod=2) mesh at phase 9's widths: the pod
+    train loop uninterrupted, then with dense-EF checkpoints every 2 steps
+    and a crash at step 3 on both ranks, restarted from the directory;
+    the digests of params, m, v and this rank's EF row after both. Then
+    one more step whose save writes a sketched record of the stacked rows
+    (K1 on rank 0), the record restored through K2 twice (the stacked
+    decode's digest) and through `resume_pod_rank` (this rank's row)."""
+    import dataclasses
+    import functools
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.ckpt import (SketchedTreeCodec, checkpointer,
+                                  resume_elastic, resume_pod_rank)
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import _sweep
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw, schedule
+    from repro_torch.optim.compress import (SketchCompressor,
+                                            parse_compress_flag)
+    from repro_torch.rp import shard
+    from repro_torch.runtime import train_loop
+    from repro_torch.runtime.resilience import FaultInjector, run_with_restarts
+
+    dev = torch.device(extra["device"])
+    mesh = make_mesh((2, 1, 1), ("pod", "data", "model"), device=dev,
+                     backend="gloo")
+    cfg = dataclasses.replace(extra["cfg"], n_layers=extra["layers"])
+    model = build_model(cfg)
+    shape = ShapeSpec("train_4k", extra["seq"], 2, "train")
+    opt = adamw.AdamWConfig(clip_norm=None)
+    comp = SketchCompressor(parse_compress_flag(TRAIN_COMPRESS),
+                            sync="sketch-mean")
+    step_fn = steps.build_train_step(
+        model, shape, mesh=mesh, opt=opt, compressor=comp,
+        lr_fn=functools.partial(schedule.constant, peak_lr=TRAIN_LR))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
+                                  global_batch=2, seed=0))
+
+    def fresh():
+        return steps.init_train_state(
+            model, torch.Generator(device=dev).manual_seed(0), opt=opt,
+            compressor=comp)
+
+    def digests(state):
+        return {"params": bits_digest(state["params"]),
+                "m": bits_digest(state["opt"]["m"]),
+                "v": bits_digest(state["opt"]["v"]),
+                "ef": bits_digest(state["ef"])}
+
+    quiet = lambda *_: None  # noqa: E731
+    res = {"rank": rank, "layers": extra["layers"]}
+    kernels.reset_launch_counts()
+    plain, _ = train_loop.run(step_fn, fresh(), data, train_loop.LoopConfig(
+        total_steps=POD_CKPT_STEPS, npod=2, log_every=100), mesh=mesh,
+        log=quiet)
+    res["plain"] = digests(plain)
+    del plain
+    _free(dev)
+
+    # -- 16a: dense EF, a crash at step 3 on both ranks, the restart -----
+    save_ms, final = [], {}
+    async_save = checkpointer.AsyncCheckpointer.save
+
+    def timed_save(self, step, tree, extra=None):
+        t0 = time.perf_counter()
+        async_save(self, step, tree, extra)
+        save_ms.append((step, (time.perf_counter() - t0) * 1e3))
+
+    def attempt(injector):
+        final["state"], step = train_loop.run(
+            step_fn, fresh(), data, train_loop.LoopConfig(
+                total_steps=POD_CKPT_STEPS, ckpt_dir=extra["dense_dir"],
+                ckpt_every=2, keep_ckpts=1, npod=2, log_every=100),
+            injector=injector, mesh=mesh, log=quiet)
+        return step
+
+    shard.collective_ledger().reset()
+    checkpointer.AsyncCheckpointer.save = timed_save
+    t0 = time.perf_counter()
+    try:
+        report = run_with_restarts(attempt, max_restarts=1,
+                                   injector=FaultInjector({3}))
+    finally:
+        checkpointer.AsyncCheckpointer.save = async_save
+    if not report.completed:
+        raise AssertionError(f"16a: the checkpointed run did not complete: "
+                             f"{report}")
+    _sync(dev)
+    led = shard.collective_ledger()
+    res.update(
+        restart_s=time.perf_counter() - t0, restarts=report.restarts,
+        final_step=report.final_step, resumed=digests(final["state"]),
+        save_host_ms=save_ms,
+        gather_host_ms=1e3 * led.seconds(tag="pod_rows"),
+        gather_calls=led.calls(tag="pod_rows"),
+        gather_bytes=led.bytes(tag="pod_rows"))
+    # 16c's expected EF on one pod: the fixed-order sum of the two rows
+    rows = shard.gather_pod_rows(final["state"]["ef"], mesh)
+    if rank == 0:
+        path = Path(extra["dense_dir"]) / f"step_{POD_CKPT_STEPS:010d}"
+        res["disk_bytes"] = sum(f.stat().st_size for f in path.iterdir())
+        res["ef_sum"] = bits_digest(tree_map(lambda t: t[0] + t[1], rows))
+    del rows
+
+    # -- 16b: a sketched record of the stacked rows, restored through K2 --
+    codec = SketchedTreeCodec.for_pod_rows(comp.cfg, final["state"]["ef"], 2)
+    state, _ = train_loop.run(step_fn, final.pop("state"), data,
+                              train_loop.LoopConfig(
+                                  total_steps=1, ckpt_dir=extra["sk_dir"],
+                                  ckpt_every=1, npod=2, async_ckpt=False,
+                                  log_every=100),
+                              ef_codec=codec, mesh=mesh, log=quiet)
+    # params and moments restore onto the host (meta examples), the EF
+    # decodes on the card
+    example = tree_map(lambda t: torch.empty(
+        tuple(t.shape), dtype=t.dtype, device="meta"), state)
+    example["ef"] = tree_map(lambda t: torch.empty(
+        (2,) + tuple(t.shape), device="meta"), state["ef"])
+    del state
+    _free(dev)
+    k2 = _sweep.sweep_reconstruct.launches
+    whole = []
+    for _ in range(2):
+        got, _ = resume_elastic(extra["sk_dir"], example, npod_new=2,
+                                ef_device=dev)
+        whole.append(bits_digest(got["ef"]))
+        mine = bits_digest(tree_map(lambda t: t[rank], got["ef"]))
+        del got
+        _free(dev)
+    example["ef"] = tree_map(lambda t: torch.empty(t.shape[1:], device=dev),
+                             example["ef"])
+    row, _ = resume_pod_rank(extra["sk_dir"], example, mesh)
+    res.update(sk_decodes=whole,
+               sk_row_is_the_decodes=bits_digest(row["ef"]) == mine,
+               sk_k2_a_restore=(_sweep.sweep_reconstruct.launches - k2) // 3,
+               launches={"sweep_project": _sweep.sweep_project.launches,
+                         "sweep_reconstruct":
+                             _sweep.sweep_reconstruct.launches},
+               peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if dev.type == "cuda" else None))
+    return res
+
+
+def pod_ckpt_phase(dev) -> dict:
+    """Phase 16: pod-mesh checkpoints. 16a-b on two gloo ranks sharing
+    the card (`_pod_ckpt`); 16c in this process: the 2-pod checkpoint
+    restored onto one pod of an NCCL mesh, its EF's digest that of the
+    fixed-order sum of the two rows (computed by rank 0 from the rows it
+    gathered). Returns the numbers of the `pod_ckpt` line, with the
+    K1/K2 launches of the phase under `launches`."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt import resume_pod_rank
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    model, arch, shape, comp, _, _, state, _ = train_slice(dev)
+    shapes = tree_map(lambda t: tuple(t.shape), state["params"])
+    p_bytes = 4 * sum(t.numel() for t in tree_leaves(state["params"]))
+    del model, state
+    _free(dev)
+    ckpt_bytes = 5 * p_bytes    # params, m, v and two EF rows
+    root = tempfile.gettempdir()
+    free_disk = shutil.disk_usage(root).free
+    need = 2.1 * ckpt_bytes + 3 * p_bytes
+    log(f"phase 16: {free_disk / 1e9:.2f} GB free under {root}; a dense-EF "
+        f"pod checkpoint takes about {ckpt_bytes / 1e9:.2f} GB, the phase "
+        f"needs {need / 1e9:.2f} GB")
+    if free_disk < need:
+        raise AssertionError(f"phase 16 needs {need / 1e9:.2f} GB free "
+                             f"under {root}, {free_disk / 1e9:.2f} GB there")
+    free, total = (torch.cuda.mem_get_info() if dev.type == "cuda"
+                   else (float("inf"), float("inf")))
+    layers = arch.n_layers if free / 1e9 >= 2 * POD_GB_A_RANK + 10 else 1
+    log(f"16a: {free / 1e9:.1f} GB free of {total / 1e9:.1f} GB: running "
+        f"{layers} layer(s)")
+    dense_dir, sk_dir = tempfile.mkdtemp(), tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        ranks = _pod_ranks("ckpt", shapes, {
+            "layers": layers, "device": str(dev), "cfg": arch,
+            "seq": shape.seq_len, "dense_dir": dense_dir, "sk_dir": sk_dir})
+        numbers = {"layers": layers, "ranks_s": time.perf_counter() - t0,
+                   "ranks": ranks}
+        launches = {"sweep_project": 0, "sweep_reconstruct": 0}
+        for r in ranks:
+            for name in launches:
+                launches[name] += r["launches"][name]
+            log(f"16a rank {r['rank']}: restarts {r['restarts']}, final "
+                f"step {r['final_step']}, crash-restart digests equal to "
+                f"the uninterrupted run: "
+                f"{ {k: r['resumed'][k] == r['plain'][k] for k in r['plain']} }"
+                f"; gather {r['gather_calls']} calls, {r['gather_bytes']} "
+                f"B, {r['gather_host_ms']:.1f} ms host; save host-blocking "
+                f"ms {r['save_host_ms']}; run {r['restart_s']:.1f} s; peak "
+                f"{r['peak_gib']} GiB")
+            if (r["restarts"], r["final_step"]) != (1, POD_CKPT_STEPS) or \
+                    r["resumed"] != r["plain"]:
+                raise AssertionError(f"16a rank {r['rank']}: the crash-"
+                                     "restart is not the uninterrupted run")
+            log(f"16b rank {r['rank']}: the stacked record decoded twice "
+                f"the same bits {r['sk_decodes'][0] == r['sk_decodes'][1]}"
+                f"; resume_pod_rank's row is the decode's row "
+                f"{r['sk_row_is_the_decodes']}; K2 launches a restore "
+                f"{r['sk_k2_a_restore']}")
+            if r["sk_decodes"][0] != r["sk_decodes"][1] or not r[
+                    "sk_row_is_the_decodes"]:
+                raise AssertionError("16b: two decodes of the record gave "
+                                     "other bits, or the rank's row is not "
+                                     "its row of the decode")
+        if ranks[0]["sk_decodes"][0] != ranks[1]["sk_decodes"][0]:
+            raise AssertionError("16b: the ranks decoded the record to "
+                                 "other bits")
+        if ranks[0]["plain"]["params"] != ranks[1]["plain"]["params"]:
+            raise AssertionError("16a: the pods' params differ")
+        if not all(r["launches"][n] > 0 for r in ranks for n in launches):
+            raise AssertionError(f"16: a rank launched no K1 or K2: "
+                                 f"{[r['launches'] for r in ranks]}")
+        numbers["disk_bytes"] = ranks[0]["disk_bytes"]
+        log(f"16a: the step-{POD_CKPT_STEPS} checkpoint holds "
+            f"{ranks[0]['disk_bytes']} B")
+
+        # -- 16c: the 2-pod checkpoint onto one pod (NCCL, world 1) -------
+        t0 = time.perf_counter()
+        mesh = make_mesh((1,), ("pod",), device=dev)
+        if dev.type == "cuda" and dist.get_backend() != "nccl":
+            raise AssertionError(f"16c: the mesh runs {mesh.backend!r}")
+        rows = _empty_tree(shapes, "meta")
+        example = {"params": rows, "opt": {
+            "m": rows, "v": rows,
+            "count": torch.empty((), dtype=torch.int64, device="meta")},
+            "ef": {"residual": _empty_tree(shapes, dev)}}
+        got, step = resume_pod_rank(dense_dir, example, mesh)
+        exact = bits_digest(got["ef"]) == ranks[0]["ef_sum"]
+        numbers["16c"] = {"step": step, "exact": exact,
+                          "seconds": time.perf_counter() - t0}
+        log(f"16c: the 2-pod checkpoint on one NCCL pod: step {step}, EF "
+            f"equal to the fixed-order sum of the two rows bit for bit: "
+            f"{exact} ({numbers['16c']['seconds']:.1f} s)")
+        dist.destroy_process_group()
+        if not exact or step != POD_CKPT_STEPS:
+            raise AssertionError("16c: the elastic restore is not the sum "
+                                 "of the rows")
+        del got, example
+        _free(dev)
+    finally:
+        shutil.rmtree(dense_dir, ignore_errors=True)
+        shutil.rmtree(sk_dir, ignore_errors=True)
+    numbers["launches"] = launches
+    numbers["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16 took {numbers['seconds']:.1f}s; K1/K2 launches "
+        f"{launches}")
+    return numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 17: LM serving at full width
+# ---------------------------------------------------------------------------
+
+# (arch, slots, requests) at full depth and width
+LM_CASES = (("llama3.2-3b", 8, 16), ("gemma2-9b", 4, 8))
+LM_MAX_SEQ = 512
+LM_PROMPT = (64, 128)  # prompt lengths, drawn from a seeded generator
+LM_GEN = 32
+LM_CHECK_SEQ = 32      # decode against forward at fp32 on one sequence
+LM_LOOP_PROMPT = 16    # the batched-prefill check's prompt length
+LM_DEC_TOL = 2e-3      # decode against forward (the reference's tolerance)
+LM_BF16_TOL = 3e-2     # the server's bf16 decode against the fp32 forward,
+                       # of the largest |logit| (the CPU tests' bf16 bound)
+
+
+def _lm_case(dev, arch: str, slots: int, n_req: int) -> dict:
+    """One model of phase 17 (see `lm_phase`); every tensor it makes is
+    freed when it returns."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.serve import Request, SlotServer
+    from repro_torch.models import build_model, transformer
+
+    t_case = time.perf_counter()
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=int(n)) for n in
+               rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, n_req)]
+
+    # -- the timed serve ----------------------------------------------
+    srv = SlotServer(model, slots=slots, max_seq=LM_MAX_SEQ, eos=None,
+                     max_gen=LM_GEN, device=dev, params=params)
+    feed, steps_ms = [], []
+    feed_prompt, step = srv._feed_prompt, srv.step
+
+    def timed_feed(slot, req):
+        t0 = time.perf_counter()
+        feed_prompt(slot, req)          # ends in a host sync
+        feed.append((len(req.prompt), time.perf_counter() - t0))
+
+    def timed_step():
+        s, e = _mark(dev), _mark(dev)
+        s.record()
+        step()                          # ends in a host sync
+        e.record()
+        _sync(dev)
+        steps_ms.append(s.elapsed_time(e))
+
+    srv._feed_prompt, srv.step = timed_feed, timed_step
+    _sync(dev)
+    t0 = time.perf_counter()
+    done = srv.run([Request(i, p) for i, p in enumerate(prompts)])
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    gen = sum(len(r.generated) for r in done)
+    prompt_tokens = sum(n for n, _ in feed)
+    if len(done) != n_req or gen != n_req * LM_GEN:
+        raise AssertionError(f"17 {arch}: {len(done)} of {n_req} requests, "
+                             f"{gen} tokens generated")
+    row = {"layers": cfg.n_layers, "params": n_params, "slots": slots,
+           "requests": n_req, "max_seq": LM_MAX_SEQ,
+           "prompt_tokens": prompt_tokens, "generated_tokens": gen,
+           "wall_s": wall, "tokens_per_s": gen / wall,
+           "all_tokens_per_s": (gen + prompt_tokens) / wall,
+           "decode_steps": len(steps_ms),
+           "decode_ms_median": statistics.median(steps_ms),
+           "decode_ms_min": min(steps_ms),
+           "prefill_ms_a_token": 1e3 * sum(s for _, s in feed)
+           / prompt_tokens}
+    del srv, feed_prompt, step, timed_feed, timed_step
+    _free(dev)
+
+    # -- one decode step at B = slots: eager against the captured graph --
+    graphed = SlotServer(model, slots=slots, max_seq=LM_MAX_SEQ, eos=None,
+                         max_gen=1, device=dev, params=params)
+    cache = model.init_cache(slots, LM_MAX_SEQ, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tok = torch.randint(1, cfg.vocab, (slots,), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos = torch.arange(slots, dtype=torch.int32, device=dev) + LM_PROMPT[0]
+    if not all(torch.equal(graphed.cache[key], cache[key]) for key in cache):
+        raise AssertionError(f"17 {arch}: the server's cache does not start "
+                             "empty")
+    run_e = lambda: model.decode_step(params, cache, tok, pos)[0]  # noqa: E731
+    run_g = lambda: graphed._step(params, graphed.cache, tok, pos)[0]  # noqa: E731
+    row["graph_equals_eager"] = bool(torch.equal(run_e(), run_g()))
+    if not row["graph_equals_eager"]:
+        raise AssertionError(f"17 {arch}: the server's decode step's logits "
+                             "differ from the eager step's")
+    if dev.type == "cuda":
+        row["eager_decode_ms"] = cuda_ms(run_e, 10)
+        row["graph_decode_ms"] = cuda_ms(run_g, 10)
+        row["device_busy_ms"] = device_split(row, run_e, reps=5, names=None,
+                                             need=("all",))["all"]
+        row["eager_idle_share"] = 1 - row["device_busy_ms"] / row[
+            "eager_decode_ms"]
+        log(f"17 {arch}: one decode step at B={slots}: eager "
+            f"{row['eager_decode_ms']:.2f} ms, CUDA graph "
+            f"{row['graph_decode_ms']:.2f} ms (the same bits), the kernels' "
+            f"device time {row['device_busy_ms']:.2f} ms (profiler): the "
+            f"eager step leaves the card idle "
+            f"{100 * row['eager_idle_share']:.1f}% of its time")
+    del graphed, cache, run_e, run_g
+    _free(dev)
+
+    # -- the model's one-forward prefill of the longest prompt ----------
+    toks = torch.tensor(max(prompts, key=len)[None], device=dev)
+    model.prefill(params, toks, LM_MAX_SEQ)
+    s, e = _mark(dev), _mark(dev)
+    s.record()
+    model.prefill(params, toks, LM_MAX_SEQ)
+    e.record()
+    _sync(dev)
+    row["one_forward_prefill_ms_a_token"] = s.elapsed_time(e) / toks.shape[1]
+
+    # -- the batched prefill against a token-by-token loop --------------
+    def serve_check(feed_loop):
+        srv = SlotServer(model, slots=slots, max_seq=LM_MAX_SEQ, eos=None,
+                         max_gen=8, device=dev, params=params)
+        if feed_loop:
+            def loop_feed(slot, req):
+                logits = None
+                for t in req.prompt:
+                    tok = srv.cur_tok.copy()
+                    tok[slot] = t
+                    logits, srv.cache = srv._step(
+                        srv.params, srv.cache, torch.tensor(tok, device=dev),
+                        torch.tensor(srv.pos, device=dev))
+                    srv.pos[slot] += 1
+                srv.cur_tok[slot] = int(torch.argmax(logits[slot]))
+            srv._feed_prompt = loop_feed
+        got = srv.run([Request(i, p[:LM_LOOP_PROMPT])
+                       for i, p in enumerate(prompts[:slots])])
+        return {r.rid: r.generated for r in got}
+
+    fast, loop = serve_check(False), serve_check(True)
+    row["batched_prefill_equals_loop"] = fast == loop
+    log(f"17 {arch}: batched prefill vs token loop on {slots} requests of "
+        f"{LM_LOOP_PROMPT} prompt tokens, 8 generated: "
+        f"{'equal' if fast == loop else 'DIFFERENT'}")
+    if fast != loop:
+        raise AssertionError(f"17 {arch}: the batched prefill's greedy "
+                             f"tokens differ from the loop's: {fast} vs "
+                             f"{loop}")
+    _free(dev)
+
+    # -- decode against the forward at fp32 ---------------------------
+    seq = torch.tensor(prompts[0][None, :LM_CHECK_SEQ], device=dev)
+    cache = model.init_cache(1, LM_CHECK_SEQ, dtype=torch.float32,
+                             device=dev)
+    dec = []
+    for t in range(LM_CHECK_SEQ):
+        lg, cache = model.decode_step(
+            params, cache, seq[:, t],
+            torch.full((1,), t, dtype=torch.int32, device=dev),
+            compute_dtype=torch.float32)
+        dec.append(lg)
+    dec = torch.stack(dec, 1)
+    with torch.inference_mode():
+        h = transformer.forward_hidden(cfg, params, seq,
+                                       compute_dtype=torch.float32,
+                                       remat="none")
+        full = transformer._logits(cfg, params, h)
+    worst = float(((dec - full).abs() / (LM_DEC_TOL + LM_DEC_TOL
+                                         * full.abs())).max())
+    row["decode_vs_forward_worst"] = worst
+    row["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if dev.type == "cuda" else None)
+    row["seconds"] = time.perf_counter() - t_case
+    log(f"17 {arch}: decode vs forward at fp32 over {LM_CHECK_SEQ} tokens: "
+        f"worst |d|/(atol+rtol|ref|) {worst:.3g} (rtol = atol = "
+        f"{LM_DEC_TOL})")
+    if not worst <= 1.0:
+        raise AssertionError(f"17 {arch}: decode off the forward")
+
+    # -- the server's bf16 decode (the timed path) against that forward --
+    one = SlotServer(model, slots=1, max_seq=LM_MAX_SEQ, eos=None,
+                     max_gen=1, device=dev, params=params)
+    served = []
+    for t in range(LM_CHECK_SEQ):
+        lg, one.cache = one._step(
+            one.params, one.cache, seq[:, t].to(torch.int32),
+            torch.full((1,), t, dtype=torch.int32, device=dev))
+        served.append(lg.clone())
+    served = torch.stack(served, 1)
+    top = float(full.abs().max())
+    top2 = torch.topk(full, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > LM_BF16_TOL * top
+    row["served_bf16_vs_forward"] = float((served - full).abs().max()) / top
+    row["served_greedy_clear"] = int(clear.sum())
+    row["served_greedy_agree"] = int(
+        (served.argmax(-1) == full.argmax(-1))[clear].sum())
+    log(f"17 {arch}: the server's bf16 decode vs the fp32 forward over "
+        f"{LM_CHECK_SEQ} tokens: max |d| {row['served_bf16_vs_forward']:.3g} "
+        f"of the largest |logit| {top:.3g} (bound {LM_BF16_TOL}); greedy "
+        f"tokens equal at {row['served_greedy_agree']} of the "
+        f"{row['served_greedy_clear']} positions whose top two are further "
+        f"apart than the bound")
+    if not (row["served_bf16_vs_forward"] <= LM_BF16_TOL
+            and row["served_greedy_agree"] == row["served_greedy_clear"]):
+        raise AssertionError(f"17 {arch}: the server's bf16 decode is off "
+                             "the fp32 forward")
+    del one, served
+    log(f"17 {arch} ({cfg.n_layers} layers, {n_params} params): {n_req} "
+        f"requests, {prompt_tokens} prompt + {gen} generated tokens in "
+        f"{wall:.2f} s ({row['tokens_per_s']:.1f} generated tokens/s); "
+        f"decode {row['decode_ms_median']:.2f} ms a step at B={slots} "
+        f"(median of {len(steps_ms)}, min {row['decode_ms_min']:.2f}); the "
+        f"server's prefill {row['prefill_ms_a_token']:.2f} ms a prompt "
+        f"token, one forward {row['one_forward_prefill_ms_a_token']:.3f} "
+        f"ms a token; peak {row['peak_gib']} GiB; {row['seconds']:.1f} s")
+    return row
+
+
+def lm_phase(dev) -> dict:
+    """Phase 17: `SlotServer` at full width, llama3.2-3b (28 layers) then
+    gemma2-9b (42 layers; llama's tensors freed first): the timed serve,
+    the batched prefill against a token-by-token loop (bit for bit),
+    decode against the forward at fp32, the server's bf16 decode against
+    the same forward; the numbers of the `lm_serve` line."""
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, slots, n_req in LM_CASES:
+        out[arch] = _lm_case(dev, arch, slots, n_req)
+        _free(dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 17 took {out['seconds']:.1f}s")
+    return out
 
 
 def _leaf_names(tree, prefix=()):
@@ -3092,6 +3638,15 @@ def main() -> int:
         next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
         launches[name] += n
 
+    # -- 16. pod-mesh checkpoints ------------------------------------------
+    pod_ckpt = pod_ckpt_phase(dev)
+    for name, n in pod_ckpt["launches"].items():
+        next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
+        launches[name] += n
+
+    # -- 17. LM serving at full width --------------------------------------
+    lm = lm_phase(dev)
+
     for name in launches:
         total = sum(r["launches"] for r in rows
                     if r["name"].split(":")[0] == name)
@@ -3103,6 +3658,8 @@ def main() -> int:
     log(f"profiler windows taken again (row: windows): {retaken or 'none'}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"collective": pod}))
+    print(json.dumps({"pod_ckpt": pod_ckpt}))
+    print(json.dumps({"lm_serve": lm}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

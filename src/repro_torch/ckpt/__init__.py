@@ -12,16 +12,17 @@ Port of `repro/ckpt`:
     one K2 launch a leaf to decode, on the card).
   * `respec_pod_ef` / `resume_elastic` — restore onto a different pod
     count: exact contiguous-group sums where the pod count divides,
-    total-preserving redistribution otherwise.
+    total-preserving redistribution otherwise; `resume_pod_rank` restores
+    onto one rank of a pod mesh, which keeps its own pod's EF row.
 """
 from . import checkpointer
 from .checkpointer import (AsyncCheckpointer, CheckpointError,
                            CorruptionError, sweep_tmp, verify)
-from .elastic import respec_pod_ef, resume_elastic
+from .elastic import respec_pod_ef, resume_elastic, resume_pod_rank
 from .sketched import CKPT_KEY, SketchedTreeCodec
 
 __all__ = [
     "AsyncCheckpointer", "CKPT_KEY", "CheckpointError", "CorruptionError",
     "SketchedTreeCodec", "checkpointer", "respec_pod_ef", "resume_elastic",
-    "sweep_tmp", "verify",
+    "resume_pod_rank", "sweep_tmp", "verify",
 ]

@@ -19,6 +19,13 @@ to the new count. On a new mesh the codec decodes with that mesh's
 bucket layout (`launch/sharding.py::bucket_specs`): each rank
 reconstructs its block of every leaf's buckets and the blocks are
 gathered, so the state equals what `mesh=None` returns.
+
+`resume_pod_rank` restores onto one rank of a pod mesh, whose EF is its
+own pod's row: every rank reads the same directory (the ranks share one
+filesystem, and the params and optimizer moments, most of the bytes, are
+needed whole on every rank anyway, so nothing needs to cross the pod
+link), respecs the saved rows to the mesh's pod count and keeps its row
+(`rp.shard.scatter_pod_rows`).
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 
 from . import checkpointer
 from .checkpointer import CheckpointError
@@ -83,7 +90,7 @@ def _pod_stripped(shape: tuple, npod: int) -> tuple:
 
 def resume_elastic(directory: str | os.PathLike, example_state: Any, *,
                    npod_new: int, mesh=None, step: int | None = None,
-                   device=None) -> tuple[Any, int]:
+                   device=None, ef_device=None) -> tuple[Any, int]:
     """Restore the newest verified checkpoint onto `npod_new` pods.
 
     `example_state` describes the NEW job's state tree ({"params", "opt"[,
@@ -93,9 +100,11 @@ def resume_elastic(directory: str | os.PathLike, example_state: Any, *,
     `runtime/train_loop.py`). Tensors land on `device`, else on each
     example leaf's device (`checkpointer.restore`); a sketched EF decodes
     on `device`, else on the example EF's device, else on CUDA, split
-    over `mesh`'s data axes when a mesh is given. Returns (state, step).
+    over `mesh`'s data axes when a mesh is given; `ef_device` puts the EF
+    (dense or decoded) on that device instead. Returns (state, step).
     """
     directory = os.fspath(directory)
+    verified = step is None
     if step is None:
         step = checkpointer.newest_verified_step(directory)
         if step is None:
@@ -109,7 +118,8 @@ def resume_elastic(directory: str | os.PathLike, example_state: Any, *,
     has_ef = isinstance(example_state, dict) and "ef" in example_state
     if not has_ef:
         return checkpointer.restore(directory, example_state, step,
-                                    device=device)
+                                    device=device,
+                                    verify_integrity=not verified)
 
     # the SAVED tree's ef is shaped for npod_old (and possibly sketched):
     # rebuild that example from the new job's, pod dim swapped
@@ -126,20 +136,52 @@ def resume_elastic(directory: str | os.PathLike, example_state: Any, *,
             from repro_torch.launch.sharding import bucket_specs
             bucket_spec = bucket_specs(mesh)
         codec = SketchedTreeCodec.from_meta(
-            sk_meta, old_ef_shapes, device=_codec_device(new_ef, device),
+            sk_meta, old_ef_shapes,
+            device=_codec_device(new_ef, ef_device or device),
             mesh=mesh, bucket_spec=bucket_spec)
     saved_example = dict(example_state)
     saved_example["ef"] = codec.record_shapes() if codec else old_ef_shapes
+    # a step picked by newest_verified_step was just verified
     restored, step = checkpointer.restore(directory, saved_example, step,
-                                          device=device)
+                                          device=device,
+                                          verify_integrity=not verified)
     if codec:
         ef_old = codec.decode(restored["ef"])
     else:   # the dense rows go where the new job's EF lives
         ef_old = tree_map(
-            lambda got, want: got.to(checkpointer._leaf_device(want, device)),
-            restored["ef"], new_ef)
+            lambda got, want: got.to(checkpointer._leaf_device(
+                want, ef_device or device)), restored["ef"], new_ef)
     restored["ef"] = respec_pod_ef(ef_old, npod_old, npod_new)
     return restored, step
 
 
-__all__ = ["respec_pod_ef", "resume_elastic"]
+def resume_pod_rank(directory: str | os.PathLike, example_state: Any,
+                    mesh) -> tuple[Any, int]:
+    """Restore the newest verified checkpoint onto this rank of `mesh`,
+    whose 'pod' axis has `npod` ranks.
+
+    `example_state` is this rank's state ({"params", "opt"[, "ef"]}, its
+    EF leaves this pod's row, without a pod dim). Every rank reads the
+    directory, respecs the saved EF rows to `npod` (`respec_pod_ef`, as
+    `resume_elastic` does; a sketched record decodes whole on every rank,
+    the operator drawn from the saved seed) and keeps its own row. The
+    tensors land on the example leaves' devices. Returns (state, step).
+    """
+    from repro_torch.rp.shard import scatter_pod_rows
+    npod = mesh.group("pod").size
+    if not (isinstance(example_state, dict) and "ef" in example_state):
+        return resume_elastic(directory, example_state, npod_new=npod)
+    rows = example_state["ef"]
+    ef_device = next(leaf.device for leaf in tree_leaves(rows))
+    example = dict(example_state)
+    example["ef"] = tree_map(lambda leaf: torch.empty(
+        ((npod,) if npod > 1 else ()) + tuple(leaf.shape), dtype=leaf.dtype,
+        device="meta"), rows)
+    restored, step = resume_elastic(directory, example, npod_new=npod,
+                                    ef_device=ef_device)
+    if npod > 1:
+        restored["ef"] = scatter_pod_rows(restored["ef"], mesh)
+    return restored, step
+
+
+__all__ = ["respec_pod_ef", "resume_elastic", "resume_pod_rank"]

@@ -30,6 +30,15 @@ package that wrote it. Dense checkpoints cross packages as before.
 With a mesh (`mesh=`, `bucket_spec=`) the sketcher splits each leaf's
 buckets over the spec's axes (`core/sketch.py`); the record is the same
 canonical `(n_buckets, k)` sketch on every layout.
+
+On a pod mesh each rank holds its own pod's EF row, and the record is
+the one the reference writes for the stacked `(npod, ...)` tree:
+`for_pod_rows` builds the codec over that stacked example (its
+`n_buckets` and `meta()` are the stacked tree's), the train loop gathers
+the rows onto rank 0, which encodes them (one K1 launch a leaf over npod
+times the buckets), and every rank decodes the whole record on restore
+and keeps its row (the same bits on every rank: the operator comes from
+the record's seed).
 """
 from __future__ import annotations
 
@@ -39,7 +48,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.sketch import PytreeSketcher, SketchConfig
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import tree_leaves, tree_map
 
 from .checkpointer import CheckpointError
 
@@ -174,6 +183,17 @@ class SketchedTreeCodec:
                            fresh_per_step=bool(meta["fresh_per_step"]))
         return cls(cfg, example_tree, base_key=int(meta["base_key"]),
                    device=device, mesh=mesh, bucket_spec=bucket_spec)
+
+    @classmethod
+    def for_pod_rows(cls, cfg: SketchConfig, row_tree: Any, npod: int
+                     ) -> "SketchedTreeCodec":
+        """The codec of a pod mesh's EF: over the stacked `(npod, ...)`
+        example of `row_tree` (one rank's row), on `row_tree`'s device."""
+        def stacked(leaf):
+            return torch.empty((npod,) + tuple(leaf.shape), dtype=leaf.dtype,
+                               device="meta")
+        return cls(cfg, tree_map(stacked, row_tree),
+                   device=_codec_device(row_tree, None))
 
     # -- accounting (the checkpoint-size story) ---------------------------
     def sketch_bytes(self) -> int:

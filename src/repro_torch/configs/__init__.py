@@ -2,8 +2,9 @@
 
 `get_config(name)` -> full ArchConfig;  `reduced(cfg)` -> CPU-smoke variant
 of the same family (small widths/layers/experts, tiny vocab). The dense
-decoder's llama3.2-3b is registered; the other nine configurations wait
-with their model families (ROADMAP.md, queue 1 item 12).
+decoders are registered: llama3.2-3b, deepseek-67b, qwen1.5-110b and
+gemma2-9b. The other six configurations wait with their model families
+(ROADMAP.md, queue 1 items 12.4-12.6).
 """
 from __future__ import annotations
 
@@ -11,9 +12,13 @@ import dataclasses
 
 from repro_torch.models.config import ArchConfig, ShapeSpec
 
-from . import llama32_3b
+from . import deepseek_67b, gemma2_9b, llama32_3b, qwen15_110b
 
-ARCHS: dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in (llama32_3b,)}
+ARCHS: dict[str, ArchConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (
+        deepseek_67b, qwen15_110b, gemma2_9b, llama32_3b,
+    )
+}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,4 +1,6 @@
-"""repro_torch.data — the synthetic LM stream (copy of `repro.data`'s)."""
+"""repro_torch.data — the synthetic LM stream and the byte tokenizer
+(copies of `repro.data`'s)."""
 from .pipeline import DataConfig, SyntheticLM
+from .tokenizer import ByteTokenizer
 
-__all__ = ["DataConfig", "SyntheticLM"]
+__all__ = ["ByteTokenizer", "DataConfig", "SyntheticLM"]

@@ -1,9 +1,9 @@
-"""The train-step builder and the train state.
+"""The step builders (train, prefill, serve) and the train state.
 
-Port of `repro/launch/steps.py`'s train step. The reference jits a
-pjit-sharded step and returns it in a bundle with its shardings; the
-port runs eagerly, one process a rank, so `build_train_step` returns the
-step function itself, `fn(state, batch) -> (state, metrics)`, which
+Port of `repro/launch/steps.py`. The reference jits pjit-sharded steps
+and returns each in a bundle with its shardings; the port runs eagerly,
+one process a rank, so each builder returns the step function itself.
+`build_train_step` gives `fn(state, batch) -> (state, metrics)`, which
 returns a new state (the caller drops the old one; the reference donates
 it). Branches:
 
@@ -19,9 +19,14 @@ it). Branches:
   dense all_reduce of the whole gradient — then `adamw.update`. Each rank
   holds its own pod's EF residual, without a pod dim.
 
-`data` or `model` axes above 1 (FSDP/TP) wait for the model's
-`param_axes` (ROADMAP.md, queue 1 item 12.7); the prefill/serve steps
-for item 12.3.
+`build_prefill_step` gives `fn(params, batch) -> logits` (the last
+token's, float32) and `build_serve_step` `fn(params, cache, token, pos)
+-> (next_tok int32, cache)`, one greedy decode step that writes the
+cache in place; both run under `torch.inference_mode` on one device, in
+the policy's compute dtype (bf16; the 'lean' policy's params are bf16
+too). `data` or `model` axes above 1 (FSDP/TP) wait for the model's
+`param_axes` (ROADMAP.md, queue 1 item 12.7), and with them the mesh
+arguments of the prefill and serve steps.
 """
 from __future__ import annotations
 
@@ -200,6 +205,48 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
     return train_step
 
 
+def build_prefill_step(model: Model, shape: ShapeSpec) -> Callable:
+    """`fn(params, batch) -> (B, V) float32` logits of the prompt's last
+    token (`batch["tokens"]` of the shape's (global_batch, seq_len)), as
+    the reference's prefill step: no final softcap."""
+    cfg = model.cfg
+    compute_dtype = _policy(cfg)["compute_dtype"]
+    want = (shape.global_batch, shape.seq_len)
+
+    @torch.inference_mode()
+    def prefill_step(params, batch):
+        tokens = torch.as_tensor(batch["tokens"]).to(params["embed"].device)
+        if tuple(tokens.shape) != want:
+            raise ValueError(f"batch['tokens'] has shape "
+                             f"{tuple(tokens.shape)}, the step was built "
+                             f"for {want}")
+        h = model.mod.forward_hidden(cfg, params, tokens,
+                                     compute_dtype=compute_dtype)
+        unembed = (params["embed"].T if cfg.tie_embeddings
+                   else params["unembed"])
+        return h[:, -1, :].to(torch.float32) @ unembed.to(torch.float32)
+
+    return prefill_step
+
+
+def build_serve_step(model: Model, shape: ShapeSpec) -> Callable:
+    """`fn(params, cache, token, pos) -> (next_tok (B,) int32, cache)`:
+    one decode step of the shape's global_batch sequences against a
+    cache of its seq_len (`model.init_cache`), written in place, and the
+    greedy next token."""
+    compute_dtype = _policy(model.cfg)["compute_dtype"]
+
+    def serve_step(params, cache, token, pos):
+        if token.shape != (shape.global_batch,):
+            raise ValueError(f"token has shape {tuple(token.shape)}, the "
+                             f"step was built for ({shape.global_batch},)")
+        logits, cache = model.decode_step(params, cache, token, pos,
+                                          compute_dtype=compute_dtype)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    return serve_step
+
+
 def init_train_state(model: Model, generator: torch.Generator, *,
                      opt: AdamWConfig | None = None,
                      compressor=None) -> dict:
@@ -240,4 +287,5 @@ def from_numpy_state(model: Model, state: dict, *, device=None) -> dict:
     return out
 
 
-__all__ = ["build_train_step", "from_numpy_state", "init_train_state"]
+__all__ = ["build_prefill_step", "build_serve_step", "build_train_step",
+           "from_numpy_state", "init_train_state"]

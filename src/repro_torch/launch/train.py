@@ -14,7 +14,9 @@ through a fixed TT sketch) every 10 steps. `--ckpt-dir` checkpoints every
 `--ckpt-every` steps and resumes from the newest verified checkpoint;
 `--sketch-ef-ckpt` (with `--compress`) writes the error-feedback tree as
 a (seed, spec, sketch) record; `--crash-at N` raises once at step N (a
-rerun resumes from the last checkpoint).
+rerun resumes from the last checkpoint). On a pod mesh the checkpoint
+holds every pod's EF row in the reference's `(npod, ...)` layout, written
+by rank 0, and a rerun on another pod count respecs the rows.
 
 Compressed cross-pod sync over ranks launched by torchrun (`--mesh
 PODxDATAxMODEL`, the product the world size; `--compress-sync` picks the
@@ -170,17 +172,15 @@ def main(argv=None) -> int:
             raise ValueError(
                 "--sketch-ef-ckpt needs error-feedback state: pass "
                 "--compress so the train state carries an 'ef' tree")
-        if npod > 1:
-            raise NotImplementedError(
-                f"--sketch-ef-ckpt on a mesh of {npod} pods: each rank holds "
-                "its own pod's EF row, and a record of the pod axis waits for "
-                "pod-mesh checkpoints (ROADMAP.md, queue 1 item 11.1); run "
-                "on one pod")
         from repro_torch.ckpt import SketchedTreeCodec
         from repro_torch.launch.sharding import bucket_specs
-        ef_codec = SketchedTreeCodec(
-            compressor.cfg, state["ef"], mesh=mesh,
-            bucket_spec=bucket_specs(mesh) if mesh is not None else None)
+        if npod > 1:    # the record of the stacked (npod, ...) rows
+            ef_codec = SketchedTreeCodec.for_pod_rows(
+                compressor.cfg, state["ef"], npod)
+        else:
+            ef_codec = SketchedTreeCodec(
+                compressor.cfg, state["ef"], mesh=mesh,
+                bucket_spec=bucket_specs(mesh) if mesh is not None else None)
         say(f"[ckpt] sketched EF records: "
             f"{ef_codec.dense_bytes()} -> {ef_codec.sketch_bytes()} "
             f"bytes ({ef_codec.compression_ratio():.1f}x)")
@@ -191,7 +191,8 @@ def main(argv=None) -> int:
                 if args.crash_at is not None else None)
     state, final = train_loop.run(step_fn, state, data, loop_cfg,
                                   injector=injector, log=say,
-                                  on_metrics=on_metrics, ef_codec=ef_codec)
+                                  on_metrics=on_metrics, ef_codec=ef_codec,
+                                  mesh=mesh)
     n = sum(x.numel() for x in tree_leaves(state["params"]))
     say(f"[train] finished at step {final} (params={n})")
     if mesh is not None:

@@ -1,7 +1,7 @@
-"""Family dispatch: one surface (init / loss / input specs) over the model
-families. Port of `repro/models/api.py`; the dense decoder is ported, the
-other families raise until their slice lands (ROADMAP.md, queue 1 item
-12).
+"""Family dispatch: one surface (init / loss / decode / cache / input
+specs) over the model families. Port of `repro/models/api.py`; the dense
+decoder is ported, the other families raise until their slice lands
+(ROADMAP.md, queue 1 item 12.6).
 """
 from __future__ import annotations
 
@@ -34,12 +34,27 @@ class Model:
     def loss_fn(self, params, batch, **kw):
         return self.mod.loss_fn(self.cfg, params, batch, **kw)
 
+    def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16, *,
+                   device=None) -> dict:
+        return self.mod.init_cache(self.cfg, batch, max_seq, dtype,
+                                   device=device)
+
+    def decode_step(self, params, cache, token, pos, **kw):
+        """(logits (B, V) float32, cache), the cache written in place."""
+        return self.mod.decode_step(self.cfg, params, cache, token, pos, **kw)
+
+    def prefill(self, params, tokens, max_seq, **kw):
+        if self.cfg.family == "decoder":
+            return transformer.prefill(self.cfg, params, tokens, max_seq,
+                                       **kw)
+        raise NotImplementedError(f"prefill helper for {self.cfg.family}")
+
 
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.family in _WAITING:
         raise NotImplementedError(
             f"the {cfg.family!r} model family is not ported yet (ROADMAP.md, "
-            "queue 1 item 12)")
+            "queue 1 item 12.6)")
     if cfg.family not in _FAMILIES:
         raise KeyError(f"unknown model family {cfg.family!r}")
     return Model(cfg, _FAMILIES[cfg.family])
@@ -47,19 +62,21 @@ def build_model(cfg: ArchConfig) -> Model:
 
 def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict[str, Any]:
     """Stand-ins for every model input of this cell: tensors on the
-    'meta' device (shape and dtype, no storage)."""
+    'meta' device (shape and dtype, no storage). A decode cell is one new
+    token a sequence against a `seq_len` cache."""
     B, S = shape.global_batch, shape.seq_len
-    if shape.kind not in ("train", "prefill"):
-        raise NotImplementedError(
-            f"{shape.kind!r} inputs need the KV cache of the LM server, not "
-            "ported yet (ROADMAP.md, queue 1 item 12)")
     if cfg.mrope_sections is not None or cfg.family == "encdec":
         raise NotImplementedError("multimodal inputs are not ported yet "
-                                  "(ROADMAP.md, queue 1 item 12)")
-    batch = {"tokens": torch.empty((B, S), dtype=torch.int32, device="meta")}
+                                  "(ROADMAP.md, queue 1 item 12.5)")
+
+    def meta(*dims):
+        return torch.empty(dims, dtype=torch.int32, device="meta")
+    if shape.kind == "decode":
+        return {"token": meta(B), "pos": meta(B),
+                "cache": build_model(cfg).init_cache(B, S, device="meta")}
+    batch = {"tokens": meta(B, S)}
     if shape.kind == "train":
-        batch["labels"] = torch.empty((B, S), dtype=torch.int32,
-                                      device="meta")
+        batch["labels"] = meta(B, S)
     return batch
 
 

@@ -1,6 +1,6 @@
 """Shared model layers of the dense decoder: RMSNorm, softcap, RoPE,
-GQA attention (dense, or chunked with an online softmax), SwiGLU and the
-chunked cross-entropy.
+GQA attention (dense, or chunked with an online softmax), SwiGLU, GeGLU
+and the chunked cross-entropy.
 
 Port of the dense-path functions of `repro/models/layers.py`, as plain
 torch ops that follow the reference's math and layouts: activations are
@@ -185,6 +185,12 @@ def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def geglu(x, w_gate, w_up, w_down):
+    """Gemma's gated MLP: tanh-approximate GELU, as `jax.nn.gelu`'s
+    default."""
+    return (F.gelu(x @ w_gate, approximate="tanh") * (x @ w_up)) @ w_down
+
+
 # ---------------------------------------------------------------------------
 # Loss
 # ---------------------------------------------------------------------------
@@ -223,5 +229,5 @@ def chunked_ce_loss(h: torch.Tensor, unembed: torch.Tensor,
     return tot / torch.clamp(cnt, min=1.0)
 
 
-__all__ = ["NEG_INF", "apply_rope", "attention", "chunked_ce_loss", "remat",
-           "rms_norm", "soft_cap", "swiglu"]
+__all__ = ["NEG_INF", "apply_rope", "attention", "chunked_ce_loss", "geglu",
+           "remat", "rms_norm", "soft_cap", "swiglu"]

@@ -16,8 +16,13 @@ of names (`bucket_pspec`, `shard_entry`). A spec that shards over nothing
 (or a bucket count the axes do not divide, in the whole-tree entry point)
 takes the plain dispatch.
 
+Each rank of a pod mesh holds its own pod's error-feedback row, without
+a pod dim. A checkpoint holds the reference's `(npod, ...)` layout:
+`gather_pod_rows` stacks the rows on the pod group's first rank, and
+`scatter_pod_rows` hands each rank its row of a restored stack.
+
 Every collective of the port goes through the wrappers at the end of
-this module (`all_reduce`, `all_gather`). Each records its call, op,
+this module (`all_reduce`, `all_gather`, `gather`). Each records its call, op,
 dtype, axes, a tag naming its purpose and its payload bytes (the
 tensor this rank contributes) in the process's `CollectiveLedger`, which
 tests and `chip_smoke.py` read: the port's counterpart of the reference's
@@ -27,10 +32,13 @@ the group's size, on every backend alike.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
 
 from .dispatch import project, reconstruct
 
@@ -139,6 +147,65 @@ def sketch_tree_sharded(cfg, tree, seed, *, mesh, spec=None):
     from repro_torch.core.sketch import PytreeSketcher
     return PytreeSketcher(cfg, tree, mesh=mesh, bucket_spec=spec).sketch(
         tree, seed)
+
+
+# ---------------------------------------------------------------------------
+# pod rows: the (npod, ...) checkpoint layout of per-pod state
+# ---------------------------------------------------------------------------
+
+# (pod group axes, structure digest) pairs the pod group already agreed on
+_AGREED: set = set()
+
+
+def _agree_one_tree(tree, group, what: str) -> None:
+    """On the first call with a tree structure, all-gather a digest of its
+    (shape, dtype)s over `group` and refuse a mismatch: gloo hangs on a
+    collective over tensors of different sizes."""
+    desc = repr([(tuple(x.shape), str(x.dtype))
+                 for x in tree_leaves(tree)]).encode()
+    digest = int.from_bytes(hashlib.blake2b(desc, digest_size=7).digest(),
+                            "little")
+    if (group.axes, digest) in _AGREED:
+        return
+    mine = torch.tensor([digest], dtype=torch.int64,
+                        device=tree_leaves(tree)[0].device)
+    every = all_gather(mine, group, tag="digest").tolist()
+    if len(set(every)) != 1:
+        raise ValueError(
+            f"{what} needs one tree per pod, the same leaf shapes and dtypes "
+            f"on every rank of {group.axes}; the ranks' digests differ: "
+            f"{every} (this rank's tree: {desc.decode()[:300]})")
+    _AGREED.add((group.axes, digest))
+
+
+def gather_pod_rows(tree, mesh):
+    """Every rank's tree (its pod's row, no pod dim) stacked into the
+    reference's `(npod, ...)` layout, in mesh order over the 'pod' axis,
+    on the pod group's first rank (one gather a leaf). Returns the
+    stacked tree there and None on the other ranks."""
+    group = mesh.group("pod")
+    _agree_one_tree(tree, group, "gather_pod_rows")
+    leaves, treedef = tree_flatten(tree)
+    out = [gather(leaf, group, tag="pod_rows") for leaf in leaves]
+    return tree_unflatten(treedef, out) if group.index == 0 else None
+
+
+def scatter_pod_rows(tree, mesh):
+    """This rank's row of a stacked `(npod, ...)` tree, for each leaf a
+    copy of row `mesh.group('pod').index` (so the stack can be freed).
+    Every rank holds the stack: each restores it from the same
+    checkpoint directory (`ckpt.elastic.resume_pod_rank`), so no bytes
+    cross ranks here."""
+    group = mesh.group("pod")
+    _agree_one_tree(tree, group, "scatter_pod_rows")
+    leaves, treedef = tree_flatten(tree)
+    for leaf in leaves:
+        if leaf.ndim == 0 or leaf.shape[0] != group.size:
+            raise ValueError(
+                f"scatter_pod_rows: a leaf of shape {tuple(leaf.shape)} has "
+                f"no leading pod dim of the mesh's {group.size} pods")
+    return tree_unflatten(treedef, [leaf[group.index].clone()
+                                    for leaf in leaves])
 
 
 # ---------------------------------------------------------------------------
@@ -274,8 +341,24 @@ def all_gather(x, group, *, tag: str = "collective"):
     return torch.cat(out, dim=0) if src.ndim else torch.stack(out)
 
 
+def gather(x, group, *, tag: str = "collective"):
+    """Every rank's `x` (one shape on all) stacked along a new dim 0 in
+    the group's rank order on the group's first rank, which gets the
+    stack; the other ranks get None."""
+    src = x.detach().contiguous()
+    first = dist.get_process_group_ranks(group.pg)[0]
+    out = (torch.empty((group.size,) + tuple(src.shape), dtype=src.dtype,
+                       device=src.device) if group.index == 0 else None)
+    t0 = time.perf_counter()
+    dist.gather(src, list(out.unbind(0)) if out is not None else None,
+                dst=first, group=group.pg)
+    _LEDGER.record(tag, "gather", None, x.dtype, group.axes,
+                   x.numel() * x.element_size(), time.perf_counter() - t0)
+    return out
+
+
 __all__ = ["CollectiveLedger", "all_gather",
            "all_reduce", "bucket_pspec", "collective_ledger",
-           "dequantize_psum", "gather_blocks", "project_sharded",
-           "quantize_for_psum", "reconstruct_sharded", "shard_entry",
-           "sketch_tree_sharded"]
+           "dequantize_psum", "gather", "gather_blocks", "gather_pod_rows",
+           "project_sharded", "quantize_for_psum", "reconstruct_sharded",
+           "scatter_pod_rows", "shard_entry", "sketch_tree_sharded"]

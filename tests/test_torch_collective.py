@@ -36,6 +36,7 @@ import torch
 from repro import rp as jrp
 from repro.configs import get_config as jget_config
 from repro.configs import reduced as jreduced
+from repro.ckpt.sketched import SketchedTreeCodec as JCodec
 from repro.core.sketch import SketchConfig as JSketchConfig
 from repro.models import build_model as jbuild_model
 from repro.optim import adamw as jadamw
@@ -360,18 +361,27 @@ def test_train_cli_on_two_ranks():
 
 
 def test_train_cli_refuses_sketched_ef_records_on_a_pod_mesh(tmp_path):
-    """Each rank of a pod mesh holds only its own pod's EF row, so a
-    sketched EF record of the pod axis waits for pod-mesh checkpoints:
-    `--sketch-ef-ckpt` on a `2x1x1` mesh raises on every rank before a
-    step runs."""
+    """Each rank of a pod mesh holds only its own pod's EF row. The
+    refusal of `--sketch-ef-ckpt` on a `2x1x1` mesh is gone: the ranks
+    gather their rows, and rank 0 writes one sketched record of the
+    stacked `(2, ...)` tree (its manifest's `n_buckets` is the stacked
+    tree's) with the pod count."""
+    from repro_torch.ckpt import checkpointer
     from torch_dist_workers import run_ranks
     argv = ["--arch", "llama3.2-3b", "--reduced", "--mesh", "2x1x1",
             "--dist-backend", "gloo", "--device", "cpu", "--steps", "1",
             "--batch", "2", "--seq", "16", "--compress",
-            "tt:k=64,dims=4x8x16", "--sketch-ef-ckpt"]
+            "tt:k=64,dims=4x8x16", "--sketch-ef-ckpt", "--ckpt-dir",
+            str(tmp_path / "ck")]
     out = run_ranks("cli", 2, tmp_path, {"argv": argv}, shape=(2,),
                     names=("pod",))
-    for o in out:
-        assert o["error"].startswith("NotImplementedError: --sketch-ef-ckpt "
-                                     "on a mesh of 2 pods"), o
-        assert "queue 1 item 11.1" in o["error"]
+    assert [o["error"] for o in out] == [None, None]
+    extra = checkpointer.read_manifest(tmp_path / "ck", 1)["extra"]
+    assert extra["npod"] == 2
+    codec = JCodec(JSketchConfig(family="tt", k=64, dims=(4, 8, 16),
+                                 bucket_elems=512),
+                   jax.eval_shape(lambda: jax.tree.map(
+                       lambda x: jnp.zeros((2,) + x.shape), jbuild_model(
+                           jreduced(jget_config("llama3.2-3b"))).init(
+                           jax.random.PRNGKey(0)))))
+    assert extra["sketched_ef"]["n_buckets"] == codec.meta()["n_buckets"]

@@ -1,5 +1,7 @@
 """Card-only tests of the CUDA kernels K1/K2/K3/K4/K5/K6 against their
-plain versions, and of the fused training step that runs K4.
+plain versions, of the fused training step that runs K4, and of the LM
+decode path on the card (the in-place cache, the slot server's CUDA
+graph).
 
 Marked `gpu`; the `cuda` fixture skips them where no CUDA device is
 present (decided inside the fixture, never at import or collection, so
@@ -610,3 +612,97 @@ def test_compress_collective_on_one_nccl_pod_equals_compress(cuda):
                         (1, sk.sketch_bytes())]
     finally:
         dist.destroy_process_group()
+
+
+def test_decode_on_the_card_matches_forward(cuda):
+    """The reduced gemma2-9b (windows, softcaps, post-block norms, GeGLU)
+    on the card: token-by-token decode through the in-place cache equals
+    the full forward at fp32 within the reference's 2e-3, and the bf16
+    cache holds each written position."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model, transformer
+    model = build_model(reduced(get_config("gemma2-9b")))
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, model.cfg.vocab, (2, 24), generator=g,
+                         device=cuda)
+    cache = model.init_cache(2, 24, dtype=torch.float32, device=cuda)
+    dec = []
+    for t in range(24):
+        lg, cache = model.decode_step(
+            params, cache, toks[:, t],
+            torch.full((2,), t, dtype=torch.int32, device=cuda),
+            compute_dtype=torch.float32)
+        dec.append(lg)
+    h = transformer.forward_hidden(model.cfg, params, toks,
+                                   compute_dtype=torch.float32, remat="none")
+    full = transformer._logits(model.cfg, params, h)
+    torch.testing.assert_close(torch.stack(dec, 1), full, rtol=2e-3,
+                               atol=2e-3)
+    assert cache["pos"][:, :, :24].tolist() == [[list(range(24))] * 2] * 2
+
+
+def test_slot_server_on_the_card_prefill_matches_token_loop(cuda):
+    """The batched whole-prompt prefill against the token-by-token loop
+    on the card: the same greedy tokens, bit for bit."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import Request, SlotServer
+    from repro_torch.models import build_model
+    model = build_model(reduced(get_config("llama3.2-3b")))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 256, size=(6 + i % 3,)) for i in range(4)]
+
+    def run(feed_loop):
+        srv = SlotServer(model, slots=2, max_seq=32, eos=None, max_gen=5,
+                         device=cuda)
+        if feed_loop:
+            def loop_feed(slot, req):
+                logits = None
+                for t in req.prompt:
+                    tok = srv.cur_tok.copy()
+                    tok[slot] = t
+                    logits, srv.cache = srv._step(
+                        srv.params, srv.cache, torch.tensor(tok, device=cuda),
+                        torch.tensor(srv.pos, device=cuda))
+                    srv.pos[slot] += 1
+                srv.cur_tok[slot] = int(torch.argmax(logits[slot]))
+            srv._feed_prompt = loop_feed
+        done = srv.run([Request(i, p) for i, p in enumerate(prompts)])
+        return {r.rid: r.generated for r in done}
+
+    assert run(False) == run(True)
+
+
+def test_slot_server_on_the_card_graph_equals_eager(cuda):
+    """The server's decode step, captured as a CUDA graph, against the
+    eager `decode_step` fed the same calls on a fresh cache of its own
+    (the server starts from `init_cache`'s state): the same logits bit
+    for bit at every call."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import Request, SlotServer
+    from repro_torch.models import build_model
+    model = build_model(reduced(get_config("gemma2-9b")))
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 256, size=(5 + i % 4,)) for i in range(5)]
+    srv = SlotServer(model, slots=2, max_seq=32, eos=None, max_gen=6,
+                     device=cuda, params=params)
+    fresh = model.init_cache(2, 32, device=cuda)
+    assert all(torch.equal(srv.cache[key], fresh[key]) for key in fresh)
+    calls, step = [], srv._step
+
+    def recorded(p, cache, tok, pos):
+        logits, cache = step(p, cache, tok, pos)
+        calls.append((tok.clone(), pos.clone(), logits.clone()))
+        return logits, cache
+    srv._step = recorded
+    assert len(srv.run([Request(i, p) for i, p in enumerate(prompts)])) == 5
+    cache = model.init_cache(2, 32, device=cuda)
+    zero = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    for tok, pos, logits in calls:
+        assert torch.equal(model.decode_step(params, cache, tok, pos)[0],
+                           logits)
+    with pytest.raises(ValueError, match="captured with"):
+        step(params, cache, zero, zero)

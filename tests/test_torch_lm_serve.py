@@ -1,0 +1,165 @@
+"""The port's LM slot server (`repro_torch.launch.serve`) against repro's.
+
+The counterparts of the reference's three slot-server tests (the batched
+whole-prompt prefill bit-identical to a token-by-token loop, the empty
+prompt refused, every request served through reused slots); the port's
+server on the reference server's own parameters (`srv.params` carried
+across as numpy), each decode step's logits within BF16_TOL of the
+largest reference logit (bf16 compute on both sides; see
+`tests/test_torch_decode.py`) and the greedy tokens equal wherever the
+reference's top two logits lie further apart than that; `ByteTokenizer`
+round trips; and the CLI on the CPU.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs import reduced as jreduced
+from repro.data.tokenizer import ByteTokenizer as JByteTokenizer
+from repro.launch import serve as jserve
+from repro.models import build_model as jbuild_model
+from repro_torch.configs import get_config, reduced
+from repro_torch.data import ByteTokenizer
+from repro_torch.launch import serve
+from repro_torch.launch.serve import Request, SlotServer
+from repro_torch.models import build_model
+from repro_torch.models.transformer import from_numpy_params
+
+BF16_TOL = 3e-2
+
+
+def _model():
+    return build_model(reduced(get_config("llama3.2-3b")))
+
+
+def test_slot_server_batched_prefill_matches_token_loop():
+    """The batched whole-prompt prefill reproduces the token-by-token
+    decode-path prefill: the same greedy tokens for every request, bit
+    for bit (both paths run the same decode step on the same inputs)."""
+    model = _model()
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=(6 + i % 3,))
+               for i in range(4)]
+
+    def run(feed_loop):
+        srv = SlotServer(model, slots=2, max_seq=32, eos=None, max_gen=5,
+                         device="cpu")
+        if feed_loop:
+            def _loop_feed(slot, req):
+                logits = None
+                for t in req.prompt:
+                    tok = srv.cur_tok.copy()
+                    tok[slot] = t
+                    logits, srv.cache = srv._step(
+                        srv.params, srv.cache, torch.tensor(tok),
+                        torch.tensor(srv.pos))
+                    srv.pos[slot] += 1
+                srv.cur_tok[slot] = int(torch.argmax(logits[slot]))
+            srv._feed_prompt = _loop_feed
+        done = srv.run([Request(i, p) for i, p in enumerate(prompts)])
+        return {r.rid: r.generated for r in done}
+
+    fast = run(feed_loop=False)
+    ref = run(feed_loop=True)
+    assert fast == ref
+    assert all(len(v) == 5 for v in fast.values())
+
+
+def test_slot_server_rejects_empty_prompt():
+    srv = SlotServer(_model(), slots=1, max_seq=16, eos=None, max_gen=2,
+                     device="cpu")
+    with pytest.raises(ValueError, match="empty prompt"):
+        srv.submit(Request(0, np.zeros((0,), np.int64)))
+
+
+def test_slot_server_serves_all_requests():
+    model = _model()
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(1, model.cfg.vocab, size=(4,)))
+            for i in range(5)]
+    srv = SlotServer(model, slots=2, max_seq=32, eos=None, max_gen=6,
+                     device="cpu")
+    done = srv.run(reqs)
+    assert len(done) == 5
+    assert all(len(r.generated) == 6 for r in done)
+    assert all(r.done for r in done)
+
+
+def test_slot_server_steps_match_reference_server():
+    """The same requests through the reference's SlotServer and the
+    port's, on the reference server's parameters. The two servers make
+    the same sequence of decode calls (the schedule depends on the prompt
+    lengths and max_gen only), and the port's call i is fed the tokens
+    and positions of the reference's call i, so a near tie that flips a
+    greedy token cannot make the runs drift apart. Every call's logits
+    lie within BF16_TOL of the largest reference logit, and the port's
+    greedy token equals the reference's wherever the reference's top two
+    logits are further apart than that."""
+    jcfg = jreduced(jget_config("llama3.2-3b"))
+    jsrv = jserve.SlotServer(jbuild_model(jcfg), slots=2, max_seq=32,
+                             eos=None, max_gen=6)
+    model = _model()
+    params = from_numpy_params(model.cfg, jax.tree.map(np.asarray,
+                                                       jsrv.params),
+                               device="cpu")
+    srv = SlotServer(model, slots=2, max_seq=32, eos=None, max_gen=6,
+                     device="cpu", params=params)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, jcfg.vocab, size=(3 + i % 4,))
+               for i in range(5)]
+    jrec, rec = [], []
+    jstep, step = jsrv._step, srv._step
+
+    def jwrapped(p, cache, tok, pos):
+        logits, cache = jstep(p, cache, tok, pos)
+        # copies: on the CPU a jax array may alias the server's numpy
+        # buffers, which the server updates after the call
+        jrec.append((np.array(tok), np.array(pos),
+                     np.array(logits, np.float32)))
+        return logits, cache
+
+    def wrapped(p, cache, tok, pos):
+        jt, jp, _ = jrec[len(rec)]
+        logits, cache = step(p, cache, torch.tensor(jt), torch.tensor(jp))
+        rec.append(logits.numpy())
+        return logits, cache
+
+    jsrv._step, srv._step = jwrapped, wrapped
+    jdone = jsrv.run([jserve.Request(i, p) for i, p in enumerate(prompts)])
+    done = srv.run([Request(i, p) for i, p in enumerate(prompts)])
+    assert len(done) == len(jdone) == 5 and len(rec) == len(jrec) == 39
+    clear_steps = 0
+    for (_, _, jl), lg in zip(jrec, rec):
+        top = float(np.abs(jl).max())
+        np.testing.assert_allclose(lg, jl, rtol=0, atol=BF16_TOL * top)
+        top2 = np.sort(jl, axis=-1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > BF16_TOL * top
+        np.testing.assert_array_equal(lg.argmax(-1)[clear],
+                                      jl.argmax(-1)[clear])
+        clear_steps += int(clear.any())
+    assert clear_steps > 0
+
+
+@pytest.mark.parametrize("text", ["hello, world", "", "ümlaut ✓ 漢字",
+                                  "tabs\tand\nnewlines"])
+def test_byte_tokenizer_round_trips(text):
+    tok, jtok = ByteTokenizer(), JByteTokenizer()
+    ids = tok.encode(text)
+    np.testing.assert_array_equal(ids, jtok.encode(text))
+    assert ids.dtype == np.int32
+    assert tok.decode(ids) == jtok.decode(ids) == text
+    with_specials = np.concatenate([[tok.bos], ids, [tok.eos]])
+    assert tok.decode(with_specials) == text
+    assert (tok.vocab_size, tok.bos, tok.eos) == (258, 256, 257)
+
+
+def test_serve_cli_on_the_cpu(capsys):
+    assert serve.main(["--arch", "gemma2-9b", "--reduced", "--slots", "2",
+                       "--requests", "3", "--prompt-len", "4", "--gen", "4",
+                       "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[serve] completed 3/3 requests" in out
+    assert out.count("-> 4 tokens") == 3

@@ -53,14 +53,16 @@ def _batch(seq=32, batch=4, seed=0, step=0):
 
 
 def test_configs_match_reference():
-    assert list_archs() == ["llama3.2-3b"]
-    for full in (True, False):
-        want = jget_config("llama3.2-3b")
-        got = get_config("llama3.2-3b")
-        if not full:
-            want, got = jreduced(want), reduced(got)
-        assert dataclasses.asdict(got) == dataclasses.asdict(want)
-        assert got.param_count() == want.param_count()
+    assert list_archs() == ["deepseek-67b", "gemma2-9b", "llama3.2-3b",
+                            "qwen1.5-110b"]
+    for name in list_archs():
+        for full in (True, False):
+            want = jget_config(name)
+            got = get_config(name)
+            if not full:
+                want, got = jreduced(want), reduced(got)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            assert got.param_count() == want.param_count()
     # the slice's depth cut: 2 layers at the published widths
     two = dataclasses.replace(get_config("llama3.2-3b"), n_layers=2)
     assert two.param_count() == 595_344_384
@@ -211,7 +213,7 @@ def test_unported_families_and_features_raise():
     for family in ("ssm", "hybrid", "encdec"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(cfg, family=family))
-    for change in (dict(moe=MoESpec(4, 2, 64)), dict(post_norm=True),
+    for change in (dict(moe=MoESpec(4, 2, 64)), dict(mlp="gelu"),
                    dict(mrope_sections=(2, 3, 3))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(cfg, **change)).init(
@@ -221,5 +223,13 @@ def test_unported_families_and_features_raise():
             for k, v in specs.items()} == {
         "tokens": ((4, 32), torch.int32, "meta"),
         "labels": ((4, 32), torch.int32, "meta")}
-    with pytest.raises(NotImplementedError, match="KV cache"):
-        input_specs(cfg, ShapeSpec("d", 32, 4, "decode"))
+    specs = input_specs(cfg, ShapeSpec("d", 32, 4, "decode"))
+    assert {k: (tuple(v.shape), v.dtype, v.device.type)
+            for k, v in specs.items() if k != "cache"} == {
+        "token": ((4,), torch.int32, "meta"),
+        "pos": ((4,), torch.int32, "meta")}
+    assert {k: (tuple(v.shape), v.dtype, v.device.type)
+            for k, v in specs["cache"].items()} == {
+        "k": ((2, 4, 2, 32, 16), torch.bfloat16, "meta"),
+        "v": ((2, 4, 2, 32, 16), torch.bfloat16, "meta"),
+        "pos": ((2, 4, 32), torch.int32, "meta")}

@@ -79,7 +79,8 @@ def _rank_main(rank, world, store, shape, names, scenario, payload, tmp):
             res = {"__error__": traceback.format_exc()}
         torch.save(res, os.path.join(tmp, f"{scenario}_{rank}.pt"))
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():   # the train CLI destroys it itself
+            dist.destroy_process_group()
 
 
 def carry_ops(ops: dict) -> None:
@@ -260,9 +261,113 @@ def cli_scenario(mesh, pl):
     os.environ["WORLD_SIZE"] = str(dist.get_world_size())
     try:
         train.main(pl["argv"])
-    except (NotImplementedError, ValueError) as err:
+    except (NotImplementedError, ValueError, RuntimeError) as err:
         return {"error": f"{type(err).__name__}: {err}"}
     return {"error": None}
+
+
+def _pod_setup(mesh, pl):
+    """The reduced llama3.2-3b pod step (sketch-mean, fp32 compute) and
+    its initial state (the payload's params and moments, a zero EF row),
+    with the payload's operators carried across."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import schedule
+    from repro_torch.optim.compress import SketchCompressor
+    carry_ops(pl["ops"])
+    npod = mesh.shape["pod"]
+    model = build_model(reduced(get_config("llama3.2-3b")))
+    comp = SketchCompressor(SketchConfig(**pl["cfg"]), sync="sketch-mean")
+    step_fn = steps.build_train_step(
+        model, ShapeSpec("t", pl["seq"], npod, "train"), mesh=mesh,
+        compressor=comp, device="cpu", compute_dtype=torch.float32,
+        lr_fn=functools.partial(schedule.constant, peak_lr=1e-2))
+    data = SyntheticLM(DataConfig(vocab=256, seq_len=pl["seq"],
+                                  global_batch=npod))
+
+    def fresh():
+        state = steps.from_numpy_state(model, pl["state"], device="cpu")
+        state["ef"] = comp.init_state(state["params"])
+        return state
+    return comp, step_fn, data, fresh
+
+
+def _leaves(state):
+    from repro_torch.core.tree import tree_leaves
+    return {part: [t.clone() for t in tree_leaves(state[part])]
+            for part in ("params", "opt", "ef")}
+
+
+def pod_ckpt_scenario(mesh, pl):
+    """The pod train loop twice from one state: uninterrupted, and with
+    checkpoints every 2 steps and a crash (on every rank) at
+    `crash_at`, restarted from the directory; with `sketched`, the EF
+    goes as one record of the stacked rows (`for_pod_rows`). Returns
+    both final states' leaves, the restart report, and this rank's EF row
+    restored twice from the final checkpoint; with `resume_dir`, also
+    `resume_pod_rank` of that directory's checkpoint onto this mesh
+    (this rank's step and EF row)."""
+    from repro_torch.ckpt import SketchedTreeCodec, resume_pod_rank
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.runtime import train_loop
+    from repro_torch.runtime.resilience import FaultInjector, \
+        run_with_restarts
+    comp, step_fn, data, fresh = _pod_setup(mesh, pl)
+    npod, total = mesh.shape["pod"], pl["steps"]
+    plain, _ = train_loop.run(step_fn, fresh(), data, train_loop.LoopConfig(
+        total_steps=total, npod=npod, log_every=100), mesh=mesh,
+        log=lambda *_: None)
+    codec = (SketchedTreeCodec.for_pod_rows(comp.cfg, fresh()["ef"], npod)
+             if pl["sketched"] else None)
+    final = {}
+
+    def attempt(injector):
+        final["state"], step = train_loop.run(
+            step_fn, fresh(), data, train_loop.LoopConfig(
+                total_steps=total, ckpt_dir=pl["dir"], ckpt_every=2,
+                npod=npod, log_every=100, async_ckpt=pl["async"]),
+            injector=injector, ef_codec=codec, mesh=mesh,
+            log=lambda *_: None)
+        return step
+
+    report = run_with_restarts(attempt, max_restarts=1,
+                               injector=FaultInjector({pl["crash_at"]}))
+    restored = [resume_pod_rank(pl["dir"], fresh(), mesh)[0]["ef"]
+                for _ in range(2)]
+    out = {"plain": _leaves(plain), "resumed": _leaves(final["state"]),
+           "restarts": report.restarts, "final_step": report.final_step,
+           "restored_ef": [[t.clone() for t in tree_leaves(r)]
+                           for r in restored]}
+    if pl.get("resume_dir"):
+        state, step = resume_pod_rank(pl["resume_dir"], fresh(), mesh)
+        out["elastic"] = (step, tree_leaves(state["ef"]))
+    return out
+
+
+def pod_sigterm_scenario(mesh, pl):
+    """SIGTERM to one rank alone inside step 1: every rank saves at step
+    2 and leaves the loop. Returns the final step and this rank's EF
+    row."""
+    import signal
+    from repro_torch.runtime import train_loop
+    _, step_fn, data, fresh = _pod_setup(mesh, pl)
+
+    def step(state, batch):
+        if mesh.rank == pl["signalled"] and int(state["opt"]["count"]) == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return step_fn(state, batch)
+
+    logs = []
+    state, final = train_loop.run(
+        step, fresh(), data, train_loop.LoopConfig(
+            total_steps=pl["steps"], ckpt_dir=pl["dir"], ckpt_every=100,
+            npod=mesh.shape["pod"], log_every=100, async_ckpt=False),
+        mesh=mesh, log=logs.append)
+    return {"final_step": final, "ef": _leaves(state)["ef"], "logs": logs}
 
 
 def _meta(tree):
@@ -274,4 +379,5 @@ def _meta(tree):
 
 SCENARIOS = {"shard": shard_scenario, "collective": collective_scenario,
              "train": train_scenario, "resume": resume_scenario,
-             "cli": cli_scenario}
+             "cli": cli_scenario, "pod_ckpt": pod_ckpt_scenario,
+             "pod_sigterm": pod_sigterm_scenario}
