@@ -209,9 +209,38 @@ Phases (each raises on failure, so the script exits non-zero):
      tokens equal wherever the forward's top two are further apart); the
      server's cache starts empty, and its graphed step equals the eager
      `decode_step` bit for bit.
+  18. MoE and M-RoPE serving at their published widths (each model freed
+     before the next; random weights from seed 0 at the policy's dtype;
+     prompts of 32-64 tokens, shorter than phase 17's because the server
+     feeds a prompt one token a step; 32 generated tokens; `max_seq`
+     512): mixtral-8x22b cut from 56 layers to 4 (56 are 141e9
+     parameters, which one card cannot hold; 4 are 10,418,903,040, 41.7
+     GB fp32), 4 slots, 8 requests; arctic-480b cut from 35 layers to 2
+     under its 'lean' policy (27,681,131,520 parameters drawn in bf16,
+     55.4 GB), 4 slots, 4 requests. Each through phase 17's checks: the
+     timed graphed server, graph = eager and batched prefill = token loop
+     bit for bit, decode against the forward at fp32 (mixtral; arctic's
+     fp32 forward would need a 54 GB fp32 copy of a layer), the server's
+     bf16 step against the bf16 forward within 3e-2 of the largest
+     |logit|; the checks against the forward on a copy of the config
+     whose capacity factor is num_experts / top_k (at the published 1.25
+     the forward drops over-capacity tokens and decode never does).
+     Then qwen2-vl-2b at full width and depth (28 layers, 1,543,714,304
+     fp32 parameters; not through `SlotServer`, which, as the
+     reference's, feeds no positions3): `apply_mrope` at (t, t, t) equal
+     to `apply_rope`; `build_prefill_step` on 4 sequences of 1024 tokens,
+     each with one image of 256 seeded patch embeddings (a 16 x 16 grid
+     at token 16; positions3 (t, t, t) for text, (16, 16 + row, 16 +
+     col) for the image, text after it from 32 on), finite logits that
+     the patches move, ms and tokens/s; `prefill` of 4 text prompts of
+     64 tokens and 32 eager `build_serve_step`s with positions3 (ms a
+     step, tokens/s, device time and idle share); decode against the
+     forward at fp32 over 32 tokens whose positions3 differ across the
+     sections (a 4 x 4 image's at token 8). The numbers join the
+     `lm_serve` line, one entry an arch.
 Then it prints the `collective` JSON line (phase 15's numbers), the
-`pod_ckpt` and `lm_serve` lines (phases 16 and 17), the `kernels` JSON
-line, the card's name and power limit, and as its last line
+`pod_ckpt` and `lm_serve` lines (phases 16, 17 and 18), the `kernels`
+JSON line, the card's name and power limit, and as its last line
 `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -2718,26 +2747,54 @@ LM_BF16_TOL = 3e-2     # the server's bf16 decode against the fp32 forward,
                        # of the largest |logit| (the CPU tests' bf16 bound)
 
 
-def _lm_case(dev, arch: str, slots: int, n_req: int) -> dict:
-    """One model of phase 17 (see `lm_phase`); every tensor it makes is
-    freed when it returns."""
+def _lm_case(dev, arch: str, slots: int, n_req: int, *,
+             layers: int | None = None, prompt=LM_PROMPT,
+             phase: str = "17") -> dict:
+    """One model of phase 17 (see `lm_phase`) or of phase 18's MoE part
+    (`layers` cuts the depth; `moe_phase`); every tensor it makes is
+    freed when it returns. The parameters are drawn at the policy's
+    dtype (fp32, 'lean' bf16). Under 'lean' the decode-against-forward
+    check runs at bf16 (the served step against the bf16 forward): an
+    fp32 forward would cast a layer's weights to fp32. An MoE model's
+    checks against the forward run on a copy of its config whose
+    capacity factor is num_experts / top_k: at the published factor the
+    forward drops tokens over an expert's capacity, and decode never
+    does (the two legitimately differ). An MoE model's served bf16 step
+    is held against the bf16 forward: against the fp32 forward every
+    router logit differs by about 2^-9 of its size, enough to swap a
+    near-tied second and third expert at some (token, layer), which
+    moves that token's hidden state by a whole expert's output; at bf16
+    the two programs differ only where two product shapes round
+    differently. An fp32 MoE model's served step is also read against
+    the fp32 forward (max |d| and greedy agreement where the top two
+    logits are clearly apart, as for a dense model), which shows how
+    large that effect is; the reading is recorded, not held to a
+    bound."""
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import steps
     from repro_torch.launch.serve import Request, SlotServer
     from repro_torch.models import build_model, transformer
 
     t_case = time.perf_counter()
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = build_model(cfg)
+    pol = steps._policy(cfg)
+    lean = pol["param_dtype"] != torch.float32
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        dtype=pol["param_dtype"])
     n_params = sum(t.numel() for t in tree_leaves(params))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab, size=int(n)) for n in
-               rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, n_req)]
+               rng.integers(prompt[0], prompt[1] + 1, n_req)]
 
     # -- the timed serve ----------------------------------------------
     srv = SlotServer(model, slots=slots, max_seq=LM_MAX_SEQ, eos=None,
@@ -2767,9 +2824,12 @@ def _lm_case(dev, arch: str, slots: int, n_req: int) -> dict:
     gen = sum(len(r.generated) for r in done)
     prompt_tokens = sum(n for n, _ in feed)
     if len(done) != n_req or gen != n_req * LM_GEN:
-        raise AssertionError(f"17 {arch}: {len(done)} of {n_req} requests, "
+        raise AssertionError(f"{phase} {arch}: {len(done)} of {n_req} requests, "
                              f"{gen} tokens generated")
-    row = {"layers": cfg.n_layers, "params": n_params, "slots": slots,
+    row = {"layers": cfg.n_layers,
+           "layers_published": get_config(arch).n_layers, "params": n_params,
+           "param_dtype": str(pol["param_dtype"]).removeprefix("torch."),
+           "slots": slots,
            "requests": n_req, "max_seq": LM_MAX_SEQ,
            "prompt_tokens": prompt_tokens, "generated_tokens": gen,
            "wall_s": wall, "tokens_per_s": gen / wall,
@@ -2789,15 +2849,15 @@ def _lm_case(dev, arch: str, slots: int, n_req: int) -> dict:
     g = torch.Generator(device=dev).manual_seed(1)
     tok = torch.randint(1, cfg.vocab, (slots,), generator=g, device=dev,
                         dtype=torch.int32)
-    pos = torch.arange(slots, dtype=torch.int32, device=dev) + LM_PROMPT[0]
+    pos = torch.arange(slots, dtype=torch.int32, device=dev) + prompt[0]
     if not all(torch.equal(graphed.cache[key], cache[key]) for key in cache):
-        raise AssertionError(f"17 {arch}: the server's cache does not start "
+        raise AssertionError(f"{phase} {arch}: the server's cache does not start "
                              "empty")
     run_e = lambda: model.decode_step(params, cache, tok, pos)[0]  # noqa: E731
     run_g = lambda: graphed._step(params, graphed.cache, tok, pos)[0]  # noqa: E731
     row["graph_equals_eager"] = bool(torch.equal(run_e(), run_g()))
     if not row["graph_equals_eager"]:
-        raise AssertionError(f"17 {arch}: the server's decode step's logits "
+        raise AssertionError(f"{phase} {arch}: the server's decode step's logits "
                              "differ from the eager step's")
     if dev.type == "cuda":
         row["eager_decode_ms"] = cuda_ms(run_e, 10)
@@ -2806,7 +2866,7 @@ def _lm_case(dev, arch: str, slots: int, n_req: int) -> dict:
                                              need=("all",))["all"]
         row["eager_idle_share"] = 1 - row["device_busy_ms"] / row[
             "eager_decode_ms"]
-        log(f"17 {arch}: one decode step at B={slots}: eager "
+        log(f"{phase} {arch}: one decode step at B={slots}: eager "
             f"{row['eager_decode_ms']:.2f} ms, CUDA graph "
             f"{row['graph_decode_ms']:.2f} ms (the same bits), the kernels' "
             f"device time {row['device_busy_ms']:.2f} ms (profiler): the "
@@ -2847,45 +2907,62 @@ def _lm_case(dev, arch: str, slots: int, n_req: int) -> dict:
 
     fast, loop = serve_check(False), serve_check(True)
     row["batched_prefill_equals_loop"] = fast == loop
-    log(f"17 {arch}: batched prefill vs token loop on {slots} requests of "
+    log(f"{phase} {arch}: batched prefill vs token loop on {slots} requests of "
         f"{LM_LOOP_PROMPT} prompt tokens, 8 generated: "
         f"{'equal' if fast == loop else 'DIFFERENT'}")
     if fast != loop:
-        raise AssertionError(f"17 {arch}: the batched prefill's greedy "
+        raise AssertionError(f"{phase} {arch}: the batched prefill's greedy "
                              f"tokens differ from the loop's: {fast} vs "
                              f"{loop}")
     _free(dev)
 
-    # -- decode against the forward at fp32 ---------------------------
+    # -- decode against the forward at fp32 ('lean': the forward at bf16)
+    ccfg = cfg if cfg.moe is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    row["check_capacity_factor"] = (None if cfg.moe is None
+                                    else ccfg.moe.capacity_factor)
     seq = torch.tensor(prompts[0][None, :LM_CHECK_SEQ], device=dev)
-    cache = model.init_cache(1, LM_CHECK_SEQ, dtype=torch.float32,
-                             device=dev)
-    dec = []
-    for t in range(LM_CHECK_SEQ):
-        lg, cache = model.decode_step(
-            params, cache, seq[:, t],
-            torch.full((1,), t, dtype=torch.int32, device=dev),
-            compute_dtype=torch.float32)
-        dec.append(lg)
-    dec = torch.stack(dec, 1)
-    with torch.inference_mode():
-        h = transformer.forward_hidden(cfg, params, seq,
-                                       compute_dtype=torch.float32,
-                                       remat="none")
-        full = transformer._logits(cfg, params, h)
-    worst = float(((dec - full).abs() / (LM_DEC_TOL + LM_DEC_TOL
-                                         * full.abs())).max())
-    row["decode_vs_forward_worst"] = worst
+
+    def forward(dtype):
+        with torch.inference_mode():
+            h = transformer.forward_hidden(ccfg, params, seq,
+                                           compute_dtype=dtype, remat="none")
+            return transformer._logits(ccfg, params, h)
+    row["decode_vs_forward_worst"] = None
+    if not lean:
+        full = forward(torch.float32)
+        cache = model.init_cache(1, LM_CHECK_SEQ, dtype=torch.float32,
+                                 device=dev)
+        dec = []
+        for t in range(LM_CHECK_SEQ):
+            lg, cache = model.decode_step(
+                params, cache, seq[:, t],
+                torch.full((1,), t, dtype=torch.int32, device=dev),
+                compute_dtype=torch.float32)
+            dec.append(lg)
+        dec = torch.stack(dec, 1)
+        worst = float(((dec - full).abs() / (LM_DEC_TOL + LM_DEC_TOL
+                                             * full.abs())).max())
+        row["decode_vs_forward_worst"] = worst
+        log(f"{phase} {arch}: decode vs forward at fp32 over "
+            f"{LM_CHECK_SEQ} tokens: worst |d|/(atol+rtol|ref|) "
+            f"{worst:.3g} (rtol = atol = {LM_DEC_TOL})")
+        if not worst <= 1.0:
+            raise AssertionError(f"{phase} {arch}: decode off the forward")
+        del cache, dec
+    fwd_dtype = (torch.float32 if not lean and cfg.moe is None
+                 else torch.bfloat16)
+    full32 = full if not lean and cfg.moe is not None else None
+    if fwd_dtype != torch.float32:
+        full = forward(fwd_dtype)
+    row["forward_dtype"] = str(fwd_dtype).removeprefix("torch.")
     row["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
                        if dev.type == "cuda" else None)
     row["seconds"] = time.perf_counter() - t_case
-    log(f"17 {arch}: decode vs forward at fp32 over {LM_CHECK_SEQ} tokens: "
-        f"worst |d|/(atol+rtol|ref|) {worst:.3g} (rtol = atol = "
-        f"{LM_DEC_TOL})")
-    if not worst <= 1.0:
-        raise AssertionError(f"17 {arch}: decode off the forward")
 
     # -- the server's bf16 decode (the timed path) against that forward --
+    # (the server's step runs at full capacity whatever the factor)
     one = SlotServer(model, slots=1, max_seq=LM_MAX_SEQ, eos=None,
                      max_gen=1, device=dev, params=params)
     served = []
@@ -2895,14 +2972,31 @@ def _lm_case(dev, arch: str, slots: int, n_req: int) -> dict:
             torch.full((1,), t, dtype=torch.int32, device=dev))
         served.append(lg.clone())
     served = torch.stack(served, 1)
-    top = float(full.abs().max())
-    top2 = torch.topk(full, 2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > LM_BF16_TOL * top
-    row["served_bf16_vs_forward"] = float((served - full).abs().max()) / top
-    row["served_greedy_clear"] = int(clear.sum())
-    row["served_greedy_agree"] = int(
-        (served.argmax(-1) == full.argmax(-1))[clear].sum())
-    log(f"17 {arch}: the server's bf16 decode vs the fp32 forward over "
+
+    def against(ref):
+        """(max |d| over the largest |logit|, positions whose top two
+        logits are further apart than the bound, greedy agreement there,
+        the largest |logit|)"""
+        top = float(ref.abs().max())
+        top2 = torch.topk(ref, 2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > LM_BF16_TOL * top
+        return (float((served - ref).abs().max()) / top, int(clear.sum()),
+                int((served.argmax(-1) == ref.argmax(-1))[clear].sum()), top)
+    (row["served_bf16_vs_forward"], row["served_greedy_clear"],
+     row["served_greedy_agree"], top) = against(full)
+    if full32 is not None:
+        (row["served_bf16_vs_fp32_forward"], row["served_greedy_clear_fp32"],
+         row["served_greedy_agree_fp32"], top32) = against(full32)
+        log(f"{phase} {arch}: the server's bf16 decode vs the float32 "
+            f"forward (a reading, no bound): max |d| "
+            f"{row['served_bf16_vs_fp32_forward']:.3g} of the largest "
+            f"|logit| {top32:.3g}; greedy tokens equal at "
+            f"{row['served_greedy_agree_fp32']} of the "
+            f"{row['served_greedy_clear_fp32']} positions whose top two are "
+            f"further apart than {LM_BF16_TOL}")
+        del full32
+    log(f"{phase} {arch}: the server's bf16 decode vs the "
+        f"{row['forward_dtype']} forward over "
         f"{LM_CHECK_SEQ} tokens: max |d| {row['served_bf16_vs_forward']:.3g} "
         f"of the largest |logit| {top:.3g} (bound {LM_BF16_TOL}); greedy "
         f"tokens equal at {row['served_greedy_agree']} of the "
@@ -2910,10 +3004,13 @@ def _lm_case(dev, arch: str, slots: int, n_req: int) -> dict:
         f"apart than the bound")
     if not (row["served_bf16_vs_forward"] <= LM_BF16_TOL
             and row["served_greedy_agree"] == row["served_greedy_clear"]):
-        raise AssertionError(f"17 {arch}: the server's bf16 decode is off "
-                             "the fp32 forward")
+        raise AssertionError(f"{phase} {arch}: the server's bf16 decode is off "
+                             "the forward")
     del one, served
-    log(f"17 {arch} ({cfg.n_layers} layers, {n_params} params): {n_req} "
+    if cfg.moe is not None:
+        row["moe_ffn_vs_dense"] = _moe_vs_dense(dev, cfg, params, slots,
+                                                f"{phase} {arch}")
+    log(f"{phase} {arch} ({cfg.n_layers} layers, {n_params} params): {n_req} "
         f"requests, {prompt_tokens} prompt + {gen} generated tokens in "
         f"{wall:.2f} s ({row['tokens_per_s']:.1f} generated tokens/s); "
         f"decode {row['decode_ms_median']:.2f} ms a step at B={slots} "
@@ -2922,6 +3019,51 @@ def _lm_case(dev, arch: str, slots: int, n_req: int) -> dict:
         f"token, one forward {row['one_forward_prefill_ms_a_token']:.3f} "
         f"ms a token; peak {row['peak_gib']} GiB; {row['seconds']:.1f} s")
     return row
+
+
+def _moe_vs_dense(dev, cfg, params, slots: int, tag: str) -> float:
+    """Layer 0's FFN as the served step runs it (`transformer._ffn` on
+    the weights cast to bf16, at full capacity, on `slots` tokens)
+    against each token's own top-k experts evaluated one by one at fp32
+    from the same bf16 weights (and arctic's dense residual): the
+    dispatch's index arithmetic at the published expert count, held
+    within LM_BF16_TOL of the largest |output|. The routing is the
+    reference's (fp32 logits from the bf16 router). Returns max |d| over
+    the largest |output|."""
+    import torch
+    from repro_torch.models import transformer
+    lp = {k: t[0].to(torch.bfloat16) for k, t in params["layers"].items()
+          if k in ("router", "we_gate", "we_up", "we_down", "w_gate",
+                   "w_up", "w_down")}
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((slots, 1, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+    with torch.inference_mode():
+        got = transformer._ffn(cfg, lp, x, full_capacity=True)[:, 0]
+        xf = x[:, 0].float()
+        vals, ids = torch.topk(xf @ lp["router"].float(), cfg.moe.top_k,
+                               dim=-1, sorted=True)
+        gates = torch.softmax(vals, dim=-1)
+        want = torch.zeros_like(xf)
+        for t in range(slots):
+            for j in range(cfg.moe.top_k):
+                e = int(ids[t, j])
+                h = (torch.nn.functional.silu(xf[t] @ lp["we_gate"][e].float())
+                     * (xf[t] @ lp["we_up"][e].float()))
+                want[t] += gates[t, j] * (h @ lp["we_down"][e].float())
+        if cfg.moe.dense_residual_ff:
+            want += (torch.nn.functional.silu(xf @ lp["w_gate"].float())
+                     * (xf @ lp["w_up"].float())) @ lp["w_down"].float()
+    top = float(want.abs().max())
+    err = float((got.float() - want).abs().max()) / top
+    log(f"{tag}: layer 0's MoE FFN (bf16, full capacity, {slots} tokens, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}) vs each "
+        f"token's experts one by one at fp32: max |d| {err:.3g} of the "
+        f"largest |output| {top:.3g} (bound {LM_BF16_TOL})")
+    if not err <= LM_BF16_TOL:
+        raise AssertionError(f"{tag}: the MoE dispatch is off the per-token "
+                             "experts")
+    return err
 
 
 def lm_phase(dev) -> dict:
@@ -2937,6 +3079,260 @@ def lm_phase(dev) -> dict:
         _free(dev)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 17 took {out['seconds']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: MoE and M-RoPE serving at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers, slots, requests) at the published widths, depth cut:
+# mixtral's 56 layers are 141e9 parameters and arctic's 35 are 482e9,
+# which one 80 GB card cannot hold; 4 layers of mixtral are 10.4e9 (41.7
+# GB fp32), 2 of arctic 27.7e9 (55.4 GB bf16, its 'lean' policy)
+MOE_CASES = (("mixtral-8x22b", 4, 4, 8), ("arctic-480b", 2, 4, 4))
+MOE_PROMPT = (32, 64)  # shorter than phase 17's: the server feeds a prompt
+                       # one token a step
+VLM_ARCH = "qwen2-vl-2b"   # full width and full depth (28 layers)
+VLM_BATCH = 4
+VLM_SEQ = 1024
+VLM_IMAGE = (16, 16, 16)   # one image a sequence: offset, rows, cols
+VLM_PROMPT = 64            # the text prompt of prefill + the serve steps
+
+
+def _mrope_positions(batch: int, seq: int, image=None):
+    """Qwen2-VL's positions3 (3, batch, seq) int32: text at (t, t, t); an
+    image of rows x cols patches at token offset o at (t0, t0 + row,
+    t0 + col), t0 the position it starts at; the text after it resumes
+    at t0 + max(rows, cols)."""
+    import numpy as np
+    out = np.zeros((3, batch, seq), np.int32)
+    t = i = 0
+    while i < seq:
+        if image is not None and i == image[0]:
+            _, rows, cols = image
+            r, c = np.divmod(np.arange(rows * cols), cols)
+            out[:, :, i:i + rows * cols] = np.stack(
+                [np.full_like(r, t), t + r, t + c])[:, None, :]
+            i += rows * cols
+            t += max(rows, cols)
+            continue
+        out[:, :, i] = t
+        t, i = t + 1, i + 1
+    return out
+
+
+def _vlm_case(dev) -> dict:
+    """qwen2-vl-2b at full width and depth (random fp32 weights, seed 0):
+    `build_prefill_step` on VLM_BATCH sequences of VLM_SEQ tokens, each
+    holding one image of 256 seeded patch embeddings (a 16 x 16 grid at
+    token 16; Qwen2-VL's positions3: text at (t, t, t), the image at (16,
+    16 + row, 16 + col), the text after it from 32 on); `prefill` of a
+    text prompt and LM_GEN greedy `build_serve_step`s with positions3;
+    decode against the forward at fp32 over LM_CHECK_SEQ tokens whose
+    positions3 differ across the three sections; `apply_mrope` at (t, t,
+    t) equal to `apply_rope` on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model, layers, transformer
+    from repro_torch.models.config import ShapeSpec
+
+    t_case = time.perf_counter()
+    cfg = get_config(VLM_ARCH)
+    model = build_model(cfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    row = {"layers": cfg.n_layers, "params": n_params,
+           "param_dtype": "float32", "batch": VLM_BATCH, "seq": VLM_SEQ,
+           "image": {"offset": VLM_IMAGE[0], "rows": VLM_IMAGE[1],
+                     "cols": VLM_IMAGE[2]}}
+
+    # -- M-RoPE at (t, t, t) is RoPE, on the card -----------------------
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((2, 64, cfg.n_heads, cfg.hd), generator=g, device=dev)
+    t = torch.randint(0, 4096, (2, 64), generator=g, device=dev)
+    row["mrope_equals_rope"] = bool(torch.equal(
+        layers.apply_mrope(x, t.expand(3, 2, 64),
+                           sections=cfg.mrope_sections, theta=cfg.rope_theta),
+        layers.apply_rope(x, t, theta=cfg.rope_theta)))
+    log(f"18 {VLM_ARCH}: apply_mrope at (t, t, t) vs apply_rope: "
+        f"{'equal' if row['mrope_equals_rope'] else 'DIFFERENT'}")
+    if not row["mrope_equals_rope"]:
+        raise AssertionError("18: M-RoPE at equal sections is not RoPE")
+
+    # -- the prefill step on image + text sequences ---------------------
+    off, rows_, cols = VLM_IMAGE
+    n_patch = rows_ * cols
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(1, cfg.vocab, (VLM_BATCH, VLM_SEQ)).astype(np.int32)
+    batch = {
+        "tokens": torch.tensor(tokens, device=dev),
+        "positions3": torch.tensor(_mrope_positions(VLM_BATCH, VLM_SEQ,
+                                                    VLM_IMAGE), device=dev),
+        "patches": torch.tensor(rng.standard_normal(
+            (VLM_BATCH, n_patch, cfg.d_model)).astype(np.float32),
+            device=dev),
+        "patch_positions": torch.arange(off, off + n_patch, device=dev,
+                                        dtype=torch.int32).expand(
+                                            VLM_BATCH, n_patch)}
+    p3 = batch["positions3"][:, 0]
+    if not (p3[:, off + n_patch - 1].tolist() == [off, off + rows_ - 1,
+                                                   off + cols - 1]
+            and int(p3[0, off + n_patch]) == off + max(rows_, cols)):
+        raise AssertionError(f"18: positions3 off the Qwen2-VL layout: "
+                             f"{p3[:, off - 1:off + n_patch + 2].tolist()}")
+    pstep = steps.build_prefill_step(model, ShapeSpec(
+        "prefill_1k", VLM_SEQ, VLM_BATCH, "prefill"))
+    logits = pstep(params, batch)
+    if not (tuple(logits.shape) == (VLM_BATCH, cfg.vocab)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"18: the prefill step's logits: "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    no_img = pstep(params, {"tokens": batch["tokens"],
+                            "positions3": batch["positions3"]})
+    row["patches_move_logits"] = float((logits - no_img).abs().max())
+    if not row["patches_move_logits"] > 0:
+        raise AssertionError("18: the patch embeddings left the logits as "
+                             "they were")
+    s, e = _mark(dev), _mark(dev)
+    s.record()
+    for _ in range(3):
+        pstep(params, batch)
+    e.record()
+    _sync(dev)
+    ms = s.elapsed_time(e) / 3
+    row["prefill_step_ms"] = ms
+    row["prefill_step_tokens_per_s"] = VLM_BATCH * VLM_SEQ / (ms / 1e3)
+    log(f"18 {VLM_ARCH}: build_prefill_step on {VLM_BATCH} x {VLM_SEQ} "
+        f"tokens ({n_patch} patches a sequence): {ms:.2f} ms "
+        f"({row['prefill_step_tokens_per_s']:.0f} tokens/s); the patches "
+        f"move the last logits by up to {row['patches_move_logits']:.3g}")
+    del batch, logits, no_img
+    _free(dev)
+
+    # -- prefill a text prompt, then greedy serve steps with positions3 --
+    prompt = torch.tensor(rng.integers(1, cfg.vocab, (VLM_BATCH,
+                                                      VLM_PROMPT)),
+                          device=dev)
+    text3 = lambda t0, n: torch.arange(  # noqa: E731
+        t0, t0 + n, device=dev, dtype=torch.int32).expand(3, VLM_BATCH, n)
+    model.prefill(params, prompt, LM_MAX_SEQ, positions3=text3(0, VLM_PROMPT))
+    s, e = _mark(dev), _mark(dev)
+    s.record()
+    lg, cache = model.prefill(params, prompt, LM_MAX_SEQ,
+                              positions3=text3(0, VLM_PROMPT))
+    e.record()
+    _sync(dev)
+    row["one_forward_prefill_ms_a_token"] = s.elapsed_time(e) / (
+        VLM_BATCH * VLM_PROMPT)
+    serve = steps.build_serve_step(model, ShapeSpec(
+        "decode", LM_MAX_SEQ, VLM_BATCH, "decode"))
+    tok = torch.argmax(lg, dim=-1).to(torch.int32)
+    steps_ms, generated = [], [tok]
+    _sync(dev)
+    t0 = time.perf_counter()
+    for i in range(LM_GEN):
+        at = VLM_PROMPT + i
+        s, e = _mark(dev), _mark(dev)
+        s.record()
+        tok, cache = serve(params, cache, tok,
+                           torch.full((VLM_BATCH,), at, dtype=torch.int32,
+                                      device=dev),
+                           positions3=text3(at, 1))
+        e.record()
+        generated.append(tok)
+        _sync(dev)
+        steps_ms.append(s.elapsed_time(e))
+    wall = time.perf_counter() - t0
+    gen = torch.stack(generated[1:], 1)
+    if not (tuple(gen.shape) == (VLM_BATCH, LM_GEN)
+            and bool(((gen >= 0) & (gen < cfg.vocab)).all())):
+        raise AssertionError(f"18: the serve steps' tokens: {gen.shape}")
+    row.update({"prompt_tokens": VLM_BATCH * VLM_PROMPT,
+                "generated_tokens": VLM_BATCH * LM_GEN,
+                "decode_steps": LM_GEN, "wall_s": wall,
+                "tokens_per_s": VLM_BATCH * LM_GEN / wall,
+                "decode_ms_median": statistics.median(steps_ms),
+                "decode_ms_min": min(steps_ms)})
+    if dev.type == "cuda":
+        pos = torch.full((VLM_BATCH,), VLM_PROMPT + LM_GEN,
+                         dtype=torch.int32, device=dev)
+        run_e = lambda: serve(params, cache, tok, pos,  # noqa: E731
+                              positions3=text3(VLM_PROMPT + LM_GEN, 1))[0]
+        row["eager_decode_ms"] = cuda_ms(run_e, 10)
+        row["device_busy_ms"] = device_split(row, run_e, reps=5, names=None,
+                                             need=("all",))["all"]
+        row["eager_idle_share"] = 1 - row["device_busy_ms"] / row[
+            "eager_decode_ms"]
+    log(f"18 {VLM_ARCH}: prefill of {VLM_BATCH} x {VLM_PROMPT} text tokens "
+        f"{row['one_forward_prefill_ms_a_token']:.3f} ms a token, then "
+        f"{LM_GEN} eager serve steps at B={VLM_BATCH}: "
+        f"{row['decode_ms_median']:.2f} ms a step (median), "
+        f"{row['tokens_per_s']:.1f} generated tokens/s; the kernels' device "
+        f"time {row.get('device_busy_ms', float('nan')):.2f} ms a step, "
+        f"idle {100 * row.get('eager_idle_share', float('nan')):.1f}%")
+    del cache, lg
+    _free(dev)
+
+    # -- decode against the forward at fp32, sections differing ---------
+    seq = torch.tensor(rng.integers(1, cfg.vocab, (1, LM_CHECK_SEQ)),
+                       device=dev)
+    chk3 = torch.tensor(_mrope_positions(1, LM_CHECK_SEQ, (8, 4, 4)),
+                        device=dev)
+    cache = model.init_cache(1, LM_CHECK_SEQ, dtype=torch.float32,
+                             device=dev)
+    dec = []
+    for t in range(LM_CHECK_SEQ):
+        lg, cache = model.decode_step(
+            params, cache, seq[:, t],
+            torch.full((1,), t, dtype=torch.int32, device=dev),
+            positions3=chk3[:, :, t:t + 1], compute_dtype=torch.float32)
+        dec.append(lg)
+    dec = torch.stack(dec, 1)
+    with torch.inference_mode():
+        h = transformer.forward_hidden(cfg, params, seq, positions3=chk3,
+                                       compute_dtype=torch.float32,
+                                       remat="none")
+        full = transformer._logits(cfg, params, h)
+    worst = float(((dec - full).abs() / (LM_DEC_TOL + LM_DEC_TOL
+                                         * full.abs())).max())
+    row["decode_vs_forward_worst"] = worst
+    log(f"18 {VLM_ARCH}: decode vs forward at fp32 over {LM_CHECK_SEQ} "
+        f"tokens (a 4 x 4 image's positions3 at token 8): worst "
+        f"|d|/(atol+rtol|ref|) {worst:.3g} (rtol = atol = {LM_DEC_TOL})")
+    if not worst <= 1.0:
+        raise AssertionError(f"18 {VLM_ARCH}: decode off the forward")
+    row["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if dev.type == "cuda" else None)
+    row["seconds"] = time.perf_counter() - t_case
+    log(f"18 {VLM_ARCH} ({cfg.n_layers} layers, {n_params} params): peak "
+        f"{row['peak_gib']} GiB; {row['seconds']:.1f} s")
+    return row
+
+
+def moe_phase(dev) -> dict:
+    """Phase 18: mixtral-8x22b (4 of 56 layers, fp32) and arctic-480b (2
+    of 35 layers, bf16 under 'lean') at their published widths through
+    the graphed `SlotServer`, as phase 17 serves its models (`_lm_case`);
+    then qwen2-vl-2b at full width and depth through the prefill and
+    serve steps (`_vlm_case`). Each model is freed before the next. The
+    numbers join the `lm_serve` line, one entry an arch."""
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, layers, slots, n_req in MOE_CASES:
+        out[arch] = _lm_case(dev, arch, slots, n_req, layers=layers,
+                             prompt=MOE_PROMPT, phase="18")
+        _free(dev)
+    out[VLM_ARCH] = _vlm_case(dev)
+    _free(dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 18 took {out['seconds']:.1f}s")
     return out
 
 
@@ -3646,6 +4042,11 @@ def main() -> int:
 
     # -- 17. LM serving at full width --------------------------------------
     lm = lm_phase(dev)
+
+    # -- 18. MoE and M-RoPE serving at full width --------------------------
+    moe = moe_phase(dev)
+    lm.update({arch: row for arch, row in moe.items() if arch != "seconds"})
+    lm["seconds_phase18"] = moe["seconds"]
 
     for name in launches:
         total = sum(r["launches"] for r in rows

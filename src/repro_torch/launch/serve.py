@@ -194,6 +194,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if cfg.mrope_sections is not None:
+        ap.error(f"{args.arch} rotates by M-RoPE positions (3, B, S), which "
+                 "the slot server does not feed; serve it through "
+                 "launch.steps.build_serve_step(...)(..., positions3=)")
     if args.reduced:
         cfg = reduced(cfg)
     model = build_model(cfg)

@@ -20,13 +20,18 @@ it). Branches:
   holds its own pod's EF residual, without a pod dim.
 
 `build_prefill_step` gives `fn(params, batch) -> logits` (the last
-token's, float32) and `build_serve_step` `fn(params, cache, token, pos)
--> (next_tok int32, cache)`, one greedy decode step that writes the
-cache in place; both run under `torch.inference_mode` on one device, in
-the policy's compute dtype (bf16; the 'lean' policy's params are bf16
-too). `data` or `model` axes above 1 (FSDP/TP) wait for the model's
+token's, float32) and `build_serve_step` `fn(params, cache, token, pos,
+positions3=None) -> (next_tok int32, cache)`, one greedy decode step
+that writes the cache in place; both run under `torch.inference_mode` on
+one device, in the policy's compute dtype (bf16; the 'lean' policy's
+params are bf16 too, and no step makes an fp32 copy of them). Every
+step passes the batch's `positions3`, `patches` and `patch_positions`
+(qwen2-vl) through, the last left on the host, where the model checks
+them. `data` or `model` axes above 1 (FSDP/TP) wait for the model's
 `param_axes` (ROADMAP.md, queue 1 item 12.7), and with them the mesh
-arguments of the prefill and serve steps.
+arguments of the prefill and serve steps and the reference's MoE
+dispatch groups (`moe_groups_for`, one group a data shard): every step
+dispatches the MoE FFN in one group.
 """
 from __future__ import annotations
 
@@ -127,7 +132,9 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
     def on_device(batch):
         out = {}
         for k, v in batch.items():
-            t = torch.as_tensor(v).to(dev)
+            t = torch.as_tensor(v)
+            if k != "patch_positions":
+                t = t.to(dev)
             if k in ("tokens", "labels") and tuple(t.shape) != want:
                 raise ValueError(f"batch[{k!r}] has shape {tuple(t.shape)}, "
                                  f"the step was built for {want}")
@@ -141,7 +148,9 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
         metrics = {}
         new_state = dict(state)
         per = shape.global_batch // npod
-        rows = {k: v.narrow(0, group.index * per, per)
+        # positions3 (3, B, S) holds the batch on its dim 1
+        rows = {k: v.narrow(1 if k == "positions3" else 0,
+                            group.index * per, per)
                 for k, v in batch.items()}
         with span("train.loss_grad"):
             loss, grads = loss_and_grads(params, rows)
@@ -207,21 +216,28 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
 
 def build_prefill_step(model: Model, shape: ShapeSpec) -> Callable:
     """`fn(params, batch) -> (B, V) float32` logits of the prompt's last
-    token (`batch["tokens"]` of the shape's (global_batch, seq_len)), as
-    the reference's prefill step: no final softcap."""
+    token (`batch["tokens"]` of the shape's (global_batch, seq_len), and
+    qwen2-vl's `positions3`, `patches` and `patch_positions`), as the
+    reference's prefill step: no final softcap."""
     cfg = model.cfg
     compute_dtype = _policy(cfg)["compute_dtype"]
     want = (shape.global_batch, shape.seq_len)
 
     @torch.inference_mode()
     def prefill_step(params, batch):
-        tokens = torch.as_tensor(batch["tokens"]).to(params["embed"].device)
+        dev = params["embed"].device
+        tokens = torch.as_tensor(batch["tokens"]).to(dev)
         if tuple(tokens.shape) != want:
             raise ValueError(f"batch['tokens'] has shape "
                              f"{tuple(tokens.shape)}, the step was built "
                              f"for {want}")
+        extra = {k: torch.as_tensor(batch[k]).to(dev) for k in (
+            "positions3", "patches") if k in batch}
+        if "patch_positions" in batch:
+            extra["patch_positions"] = torch.as_tensor(
+                batch["patch_positions"])
         h = model.mod.forward_hidden(cfg, params, tokens,
-                                     compute_dtype=compute_dtype)
+                                     compute_dtype=compute_dtype, **extra)
         unembed = (params["embed"].T if cfg.tie_embeddings
                    else params["unembed"])
         return h[:, -1, :].to(torch.float32) @ unembed.to(torch.float32)
@@ -230,17 +246,19 @@ def build_prefill_step(model: Model, shape: ShapeSpec) -> Callable:
 
 
 def build_serve_step(model: Model, shape: ShapeSpec) -> Callable:
-    """`fn(params, cache, token, pos) -> (next_tok (B,) int32, cache)`:
-    one decode step of the shape's global_batch sequences against a
-    cache of its seq_len (`model.init_cache`), written in place, and the
-    greedy next token."""
+    """`fn(params, cache, token, pos, positions3=None) -> (next_tok (B,)
+    int32, cache)`: one decode step of the shape's global_batch sequences
+    against a cache of its seq_len (`model.init_cache`), written in
+    place, and the greedy next token; an M-RoPE config passes
+    `positions3` (3, B, 1)."""
     compute_dtype = _policy(model.cfg)["compute_dtype"]
 
-    def serve_step(params, cache, token, pos):
+    def serve_step(params, cache, token, pos, positions3=None):
         if token.shape != (shape.global_batch,):
             raise ValueError(f"token has shape {tuple(token.shape)}, the "
                              f"step was built for ({shape.global_batch},)")
         logits, cache = model.decode_step(params, cache, token, pos,
+                                          positions3=positions3,
                                           compute_dtype=compute_dtype)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 

@@ -1,7 +1,8 @@
 """Family dispatch: one surface (init / loss / decode / cache / input
-specs) over the model families. Port of `repro/models/api.py`; the dense
-decoder is ported, the other families raise until their slice lands
-(ROADMAP.md, queue 1 item 12.6).
+specs) over the model families. Port of `repro/models/api.py`; the
+decoder family (dense, MoE, qwen2-vl's M-RoPE and patches) is ported, the
+other families raise until their slice lands (ROADMAP.md, queue 1 item
+12.6).
 """
 from __future__ import annotations
 
@@ -65,18 +66,26 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict[str, Any]:
     'meta' device (shape and dtype, no storage). A decode cell is one new
     token a sequence against a `seq_len` cache."""
     B, S = shape.global_batch, shape.seq_len
-    if cfg.mrope_sections is not None or cfg.family == "encdec":
-        raise NotImplementedError("multimodal inputs are not ported yet "
-                                  "(ROADMAP.md, queue 1 item 12.5)")
+    if cfg.family == "encdec":
+        raise NotImplementedError("audio-frame inputs are not ported yet "
+                                  "(ROADMAP.md, queue 1 item 12.6)")
 
-    def meta(*dims):
-        return torch.empty(dims, dtype=torch.int32, device="meta")
+    def meta(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
     if shape.kind == "decode":
-        return {"token": meta(B), "pos": meta(B),
-                "cache": build_model(cfg).init_cache(B, S, device="meta")}
+        batch = {"token": meta(B), "pos": meta(B),
+                 "cache": build_model(cfg).init_cache(B, S, device="meta")}
+        if cfg.mrope_sections is not None:
+            batch["positions3"] = meta(3, B, 1)
+        return batch
     batch = {"tokens": meta(B, S)}
     if shape.kind == "train":
         batch["labels"] = meta(B, S)
+    if cfg.mrope_sections is not None:
+        batch["positions3"] = meta(3, B, S)
+        batch["patches"] = meta(B, cfg.num_patches, cfg.d_model,
+                                dtype=torch.float32)
+        batch["patch_positions"] = meta(B, cfg.num_patches)
     return batch
 
 

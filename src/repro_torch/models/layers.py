@@ -1,8 +1,8 @@
-"""Shared model layers of the dense decoder: RMSNorm, softcap, RoPE,
-GQA attention (dense, or chunked with an online softmax), SwiGLU, GeGLU
-and the chunked cross-entropy.
+"""Shared model layers of the decoder: RMSNorm, softcap, RoPE and
+Qwen2-VL's M-RoPE, GQA attention (dense, or chunked with an online
+softmax), SwiGLU, GeGLU and the chunked cross-entropy.
 
-Port of the dense-path functions of `repro/models/layers.py`, as plain
+Port of the decoder's functions of `repro/models/layers.py`, as plain
 torch ops that follow the reference's math and layouts: activations are
 (B, S, H, dh), attention scores and logits are float32, norms and RoPE
 compute in float32 and cast back to the input dtype. Every function takes
@@ -11,6 +11,7 @@ parameter dict.
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -61,15 +62,40 @@ def _rope_angles(positions: torch.Tensor, head_dim: int,
     return positions.to(torch.float32)[..., None] * freqs  # (..., half)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
-               theta: float = 10000.0) -> torch.Tensor:
-    """x: (B, S, H, dh); positions: (B, S). Rotate-half (llama) convention."""
-    angles = _rope_angles(positions, x.shape[-1], theta)  # (B, S, half)
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, dh) rotated by angles (B, S, dh // 2), rotate-half."""
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (B, S, H, dh); positions: (B, S). Rotate-half (llama) convention."""
+    return _rotate(x, _rope_angles(positions, x.shape[-1], theta))
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, *,
+                sections=(16, 24, 24), theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.
+
+    x: (B, S, H, dh); positions3: (3, B, S) temporal/height/width ids.
+    Frequency slots are partitioned into `sections` (sum == dh//2); slot j in
+    section c rotates by positions3[c].
+    """
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"half the head dim, {half}")
+    angles = _rope_angles(positions3, x.shape[-1], theta)  # (3, B, S, half)
+    j = torch.arange(half, device=x.device)
+    # slot j's section, from the section ends (no host read: graph-safe)
+    sec = sum(((j >= end).to(torch.int64)
+               for end in itertools.accumulate(sections[:-1])),
+              torch.zeros_like(j))
+    return _rotate(x, angles[sec, :, :, j].movedim(0, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -229,5 +255,6 @@ def chunked_ce_loss(h: torch.Tensor, unembed: torch.Tensor,
     return tot / torch.clamp(cnt, min=1.0)
 
 
-__all__ = ["NEG_INF", "apply_rope", "attention", "chunked_ce_loss", "geglu",
-           "remat", "rms_norm", "soft_cap", "swiglu"]
+__all__ = ["NEG_INF", "apply_mrope", "apply_rope", "attention",
+           "chunked_ce_loss", "geglu", "remat", "rms_norm", "soft_cap",
+           "swiglu"]

@@ -1,14 +1,16 @@
 """The port's KV-cache decode path against repro's.
 
 The dense decoders (llama3.2-3b, gemma2-9b, qwen1.5-110b, deepseek-67b)
-in their reduced form, each from the reference's own parameters carried
-across as numpy: `cache_len`, `init_cache`, `prefill` and a run of
+and the MoE decoders (mixtral-8x22b; arctic-480b under its 'lean'
+policy, its parameters carried across as bf16) in their reduced form,
+each from the reference's own parameters carried across as numpy: `cache_len`, `init_cache`, `prefill` and a run of
 `decode_step`s (per-row positions, the cache written in place) against
 the reference's at fp32 compute within rtol = atol = 1e-4; the same at
 bf16 compute within BF16_TOL of the largest logit (the two programs
 round their bf16 intermediates in other places); decode against the
 port's own full forward at the reference's decode tolerance 2e-3
-(`tests/test_models_correctness.py`); a ring buffer past its window;
+(`tests/test_models_correctness.py`); a ring buffer past its window
+(and mixtral's, the reference's `test_swa_ring_buffer_beyond_window`);
 gemma2's loss; the prefill and serve steps against the reference's
 mesh-free composition; and the configs field by field.
 """
@@ -32,7 +34,8 @@ from repro_torch.models import build_model, transformer
 from repro_torch.models.config import ShapeSpec
 from repro_torch.models.transformer import from_numpy_params
 
-ARCHS = ["llama3.2-3b", "gemma2-9b", "qwen1.5-110b", "deepseek-67b"]
+ARCHS = ["llama3.2-3b", "gemma2-9b", "qwen1.5-110b", "deepseek-67b",
+         "mixtral-8x22b", "arctic-480b"]
 TOL = 1e-4        # fp32 compute, the port against the reference
 DEC_TOL = 2e-3    # decode against the full forward (the reference's)
 BF16_TOL = 3e-2   # bf16 compute, of the largest |logit|: about four bf16
@@ -40,12 +43,17 @@ BF16_TOL = 3e-2   # bf16 compute, of the largest |logit|: about four bf16
 
 
 def _pair(name, **change):
-    """(reference model, port model, reference params, port params)."""
+    """(reference model, port model, reference params, port params); the
+    'lean' policy's parameters in bf16 on both sides."""
     jcfg = dataclasses.replace(jreduced(jget_config(name)), **change)
     cfg = dataclasses.replace(reduced(get_config(name)), **change)
     jm, m = jbuild_model(jcfg), build_model(cfg)
-    jp = jm.init(jax.random.PRNGKey(0))
-    p = from_numpy_params(cfg, jax.tree.map(np.asarray, jp), device="cpu")
+    lean = cfg.policy == "lean"
+    jp = jm.init(jax.random.PRNGKey(0),
+                 dtype=jnp.bfloat16 if lean else jnp.float32)
+    p = from_numpy_params(cfg, jax.tree.map(
+        lambda a: np.asarray(a.astype(jnp.float32)), jp), device="cpu",
+        dtype=torch.bfloat16 if lean else torch.float32)
     return jm, m, jp, p
 
 
@@ -138,7 +146,8 @@ def test_prefill_and_decode_match_reference_fp32(name):
     _prefill_then_decode(name, torch.float32, TOL)
 
 
-@pytest.mark.parametrize("name", ["llama3.2-3b", "gemma2-9b"])
+@pytest.mark.parametrize("name", ["llama3.2-3b", "gemma2-9b",
+                                  "mixtral-8x22b", "arctic-480b"])
 def test_prefill_and_decode_match_reference_bf16(name):
     pc, jc = _prefill_then_decode(name, torch.bfloat16, BF16_TOL)
     assert pc["k"].dtype == torch.bfloat16
@@ -175,7 +184,16 @@ def test_ring_buffer_past_the_window():
     """A dense decoder whose every layer has window 8: the cache holds 8
     slots, and 20 decode steps wrap it twice. Each step's logits equal
     the reference's, and the forward's under the same window."""
-    jm, m, jp, p = _pair("llama3.2-3b", window_pattern=(8,))
+    _ring_buffer(*_pair("llama3.2-3b", window_pattern=(8,)))
+
+
+def test_mixtral_ring_buffer_past_the_window():
+    """Reduced mixtral's sliding window is 8 (its MoE FFN in every
+    layer): the same 20 steps through its 8-slot ring."""
+    _ring_buffer(*_pair("mixtral-8x22b"))
+
+
+def _ring_buffer(jm, m, jp, p):
     assert transformer.cache_len(m.cfg, 64) == 8
     toks = _tokens(m.cfg, 2, 20, seed=3)
     jc = jm.init_cache(2, 64, dtype=jnp.float32)

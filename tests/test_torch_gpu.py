@@ -1,7 +1,7 @@
 """Card-only tests of the CUDA kernels K1/K2/K3/K4/K5/K6 against their
 plain versions, of the fused training step that runs K4, and of the LM
 decode path on the card (the in-place cache, the slot server's CUDA
-graph).
+graph, the MoE dispatch on CUDA and inside that graph).
 
 Marked `gpu`; the `cuda` fixture skips them where no CUDA device is
 present (decided inside the fixture, never at import or collection, so
@@ -706,3 +706,55 @@ def test_slot_server_on_the_card_graph_equals_eager(cuda):
                            logits)
     with pytest.raises(ValueError, match="captured with"):
         step(params, cache, zero, zero)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, dtype, tol):
+    """`moe_ffn` on CUDA tensors (top-k, the cumulative-sum ranks, the
+    scatter with its trash row, the batched experts, the gather) against
+    the same call on the CPU, at the published capacity factor 1.25 where
+    pairs drop, in 2 groups; within `tol` of the largest |output|."""
+    from repro_torch.models import moe
+    from repro_torch.models.config import MoESpec
+    spec = MoESpec(num_experts=8, top_k=2, d_ff_expert=64)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((96, 32), generator=g)
+    ws = [torch.randn(s, generator=g) * w for s, w in (
+        ((32, 8), 1.0), ((8, 32, 64), 0.2), ((8, 32, 64), 0.2),
+        ((8, 64, 32), 0.2))]
+    args = [t.to(dtype) for t in [x] + ws]
+    want = moe.moe_ffn(*args, spec, groups=2).float()
+    got = moe.moe_ffn(*(t.to(cuda) for t in args), spec, groups=2)
+    assert got.dtype == dtype and got.device.type == "cuda"
+    assert float((got.float().cpu() - want).abs().max()) <= tol * float(
+        want.abs().max())
+
+
+def test_moe_slot_server_on_the_card_graph_equals_eager(cuda):
+    """Reduced mixtral's decode step (the MoE dispatch at full capacity)
+    captured as the server's CUDA graph against the eager `decode_step`
+    fed the same calls on a fresh cache: the same logits bit for bit, so
+    the dispatch captures (no host read inside it)."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import Request, SlotServer
+    from repro_torch.models import build_model
+    model = build_model(reduced(get_config("mixtral-8x22b")))
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 256, size=(5 + i % 4,)) for i in range(5)]
+    srv = SlotServer(model, slots=2, max_seq=32, eos=None, max_gen=6,
+                     device=cuda, params=params)
+    calls, step = [], srv._step
+
+    def recorded(p, cache, tok, pos):
+        logits, cache = step(p, cache, tok, pos)
+        calls.append((tok.clone(), pos.clone(), logits.clone()))
+        return logits, cache
+    srv._step = recorded
+    assert len(srv.run([Request(i, p) for i, p in enumerate(prompts)])) == 5
+    cache = model.init_cache(2, 32, device=cuda)
+    for tok, pos, logits in calls:
+        assert torch.equal(model.decode_step(params, cache, tok, pos)[0],
+                           logits)

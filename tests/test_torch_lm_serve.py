@@ -89,6 +89,16 @@ def test_slot_server_serves_all_requests():
 
 
 def test_slot_server_steps_match_reference_server():
+    _steps_match_reference_server("llama3.2-3b")
+
+
+def test_mixtral_slot_server_steps_match_reference_server():
+    """The same, for reduced mixtral: its MoE FFN at full capacity in
+    every decode step, and its 8-token sliding window."""
+    _steps_match_reference_server("mixtral-8x22b")
+
+
+def _steps_match_reference_server(name):
     """The same requests through the reference's SlotServer and the
     port's, on the reference server's parameters. The two servers make
     the same sequence of decode calls (the schedule depends on the prompt
@@ -98,10 +108,10 @@ def test_slot_server_steps_match_reference_server():
     lie within BF16_TOL of the largest reference logit, and the port's
     greedy token equals the reference's wherever the reference's top two
     logits are further apart than that."""
-    jcfg = jreduced(jget_config("llama3.2-3b"))
+    jcfg = jreduced(jget_config(name))
     jsrv = jserve.SlotServer(jbuild_model(jcfg), slots=2, max_seq=32,
                              eos=None, max_gen=6)
-    model = _model()
+    model = build_model(reduced(get_config(name)))
     params = from_numpy_params(model.cfg, jax.tree.map(np.asarray,
                                                        jsrv.params),
                                device="cpu")

@@ -53,8 +53,9 @@ def _batch(seq=32, batch=4, seed=0, step=0):
 
 
 def test_configs_match_reference():
-    assert list_archs() == ["deepseek-67b", "gemma2-9b", "llama3.2-3b",
-                            "qwen1.5-110b"]
+    assert list_archs() == ["arctic-480b", "deepseek-67b", "gemma2-9b",
+                            "llama3.2-3b", "mixtral-8x22b", "qwen1.5-110b",
+                            "qwen2-vl-2b"]
     for name in list_archs():
         for full in (True, False):
             want = jget_config(name)
@@ -67,7 +68,7 @@ def test_configs_match_reference():
     two = dataclasses.replace(get_config("llama3.2-3b"), n_layers=2)
     assert two.param_count() == 595_344_384
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("mixtral-8x22b")
+        get_config("mamba2-1.3b")
 
 
 @pytest.mark.parametrize("seed,step,shard,shards",
@@ -213,11 +214,16 @@ def test_unported_families_and_features_raise():
     for family in ("ssm", "hybrid", "encdec"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(cfg, family=family))
-    for change in (dict(moe=MoESpec(4, 2, 64)), dict(mlp="gelu"),
-                   dict(mrope_sections=(2, 3, 3))):
+    for change in (dict(mlp="gelu"), dict(norm="ln")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(cfg, **change)).init(
                 torch.Generator().manual_seed(0))
+    # MoE and M-RoPE are ported: they build and carry their leaves
+    for change, leaf in ((dict(moe=MoESpec(4, 2, 64)), "we_gate"),
+                         (dict(mrope_sections=(2, 3, 3)), "wq")):
+        params = build_model(dataclasses.replace(cfg, **change)).init(
+            torch.Generator().manual_seed(0))
+        assert leaf in params["layers"]
     specs = input_specs(cfg, ShapeSpec("t", 32, 4, "train"))
     assert {k: (tuple(v.shape), v.dtype, v.device.type)
             for k, v in specs.items()} == {

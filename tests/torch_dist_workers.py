@@ -243,6 +243,31 @@ def train_scenario(mesh, pl):
     return res
 
 
+def vlm_pod_scenario(mesh, pl):
+    """The reduced qwen2-vl pod step without a compressor (one dense
+    all_reduce of the gradient): each rank takes its pod's rows of the
+    payload's global batch, positions3 on its dim 1; one step from the
+    payload's state at fp32 compute; the loss, params, m and v."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import schedule
+    model = build_model(reduced(get_config("qwen2-vl-2b")))
+    B, S = pl["batch"]["tokens"].shape
+    state = steps.from_numpy_state(model, pl["state"], device="cpu")
+    step_fn = steps.build_train_step(
+        model, ShapeSpec("t", S, B, "train"), mesh=mesh, device="cpu",
+        lr_fn=functools.partial(schedule.constant, peak_lr=pl["lr"]),
+        compute_dtype=torch.float32)
+    state, met = step_fn(state, pl["batch"])
+    return {"loss": float(met["loss"]),
+            **{k: [t.clone() for t in tree_leaves(tree)] for k, tree in (
+                ("params", state["params"]), ("m", state["opt"]["m"]),
+                ("v", state["opt"]["v"]))}}
+
+
 def resume_scenario(mesh, pl):
     """resume_elastic of one checkpoint with and without the mesh."""
     from repro_torch.ckpt import resume_elastic
@@ -380,4 +405,5 @@ def _meta(tree):
 SCENARIOS = {"shard": shard_scenario, "collective": collective_scenario,
              "train": train_scenario, "resume": resume_scenario,
              "cli": cli_scenario, "pod_ckpt": pod_ckpt_scenario,
-             "pod_sigterm": pod_sigterm_scenario}
+             "pod_sigterm": pod_sigterm_scenario,
+             "vlm_pod": vlm_pod_scenario}
