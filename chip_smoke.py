@@ -238,8 +238,25 @@ Phases (each raises on failure, so the script exits non-zero):
      forward at fp32 over 32 tokens whose positions3 differ across the
      sections (a 4 x 4 image's at token 8). The numbers join the
      `lm_serve` line, one entry an arch.
+  19. The SSM, hybrid and encoder-decoder families at full width and
+     depth (random fp32 weights, seed 0; bf16 compute): mamba2-1.3b (48
+     layers) and recurrentgemma-2b (26) through the graphed `SlotServer`,
+     8 slots, 16 requests of 32-64 prompt tokens, 32 greedy tokens each,
+     `max_seq` 512: the server's cache right after the capture equals
+     `init_cache`; the timed serve (phase 17's numbers); the first and the
+     last request (the last in a slot an earlier one used) served alone in
+     fresh servers give the full run's tokens at every position whose top
+     two logits are further apart than 3e-2 of the largest (the
+     comparison stops at a near tie); graph = eager bit for bit; decode
+     against the fp32 forward on 2 x 32 tokens (rtol = atol = 2e-3);
+     `build_prefill_step` on 4 x 1024 tokens (mamba2 through the chunked
+     SSD, chunk 256). Then whisper-medium (24 + 24 layers): `encode` of 4
+     x 1500 seeded frame embeddings, `build_cross_cache`, 32 greedy eager
+     `build_serve_step`s (ms a step, device time and idle share); decode
+     against `decode_hidden` at fp32 on 2 x 32 tokens; `build_prefill_step`
+     with frames on 4 x 448 tokens. The numbers join the `lm_serve` line.
 Then it prints the `collective` JSON line (phase 15's numbers), the
-`pod_ckpt` and `lm_serve` lines (phases 16, 17 and 18), the `kernels`
+`pod_ckpt` and `lm_serve` lines (phases 16 to 19), the `kernels`
 JSON line, the card's name and power limit, and as its last line
 `{"ok": true, "device": {...}}`.
 """
@@ -3336,6 +3353,401 @@ def moe_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: SSM, hybrid and encoder-decoder serving at full width
+# ---------------------------------------------------------------------------
+
+# (arch, slots, requests) at full width and depth, through the graphed
+# server: mamba2-1.3b's 48 layers (1,343,740,928 fp32 params) and
+# recurrentgemma-2b's 26 (2,894,574,080)
+REC_CASES = (("mamba2-1.3b", 8, 16), ("recurrentgemma-2b", 8, 16))
+REC_PROMPT = (32, 64)      # as phase 18's: the server feeds one token a step
+REC_ALONE = (0, -1)        # requests served again alone in fresh servers:
+                           # the first and the last (which takes a slot an
+                           # earlier request used)
+REC_CHECK_BATCH = 2        # decode against the fp32 forward: B = 2, S = 32
+REC_PREFILL = (4, 1024)    # build_prefill_step: batch x tokens
+WHISPER_ARCH = "whisper-medium"  # 24 + 24 layers, 758,469,632 fp32 params
+WHISPER_BATCH = 4
+WHISPER_CTX = 448          # Whisper's decoder context: the prefill's tokens
+                           # and the serve cache's length
+
+
+def _rec_case(dev, arch: str, slots: int, n_req: int) -> dict:
+    """One recurrent model of phase 19 (see `rec_phase`); every tensor it
+    makes is freed when it returns."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import Request, SlotServer
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+
+    t_case = time.perf_counter()
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=int(n)) for n in
+               rng.integers(REC_PROMPT[0], REC_PROMPT[1] + 1, n_req)]
+
+    # -- the timed serve ----------------------------------------------
+    srv = SlotServer(model, slots=slots, max_seq=LM_MAX_SEQ, eos=None,
+                     max_gen=LM_GEN, device=dev, params=params)
+    fresh = model.init_cache(slots, LM_MAX_SEQ, device=dev)
+    row = {"cache_after_capture_is_init": all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(srv.cache),
+                                          tree_leaves(fresh)))}
+    if not row["cache_after_capture_is_init"]:
+        raise AssertionError(f"19 {arch}: the server's cache after the "
+                             "capture is not init_cache's")
+    del fresh
+    feed, steps_ms = [], []
+    feed_prompt, step = srv._feed_prompt, srv.step
+
+    def timed_feed(slot, req):
+        t0 = time.perf_counter()
+        feed_prompt(slot, req)          # ends in a host sync
+        feed.append((len(req.prompt), time.perf_counter() - t0))
+
+    def timed_step():
+        s, e = _mark(dev), _mark(dev)
+        s.record()
+        step()                          # ends in a host sync
+        e.record()
+        _sync(dev)
+        steps_ms.append(s.elapsed_time(e))
+
+    srv._feed_prompt, srv.step = timed_feed, timed_step
+    _sync(dev)
+    t0 = time.perf_counter()
+    done = srv.run([Request(i, p) for i, p in enumerate(prompts)])
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    full = {r.rid: r.generated for r in done}
+    gen = sum(len(g) for g in full.values())
+    prompt_tokens = sum(n for n, _ in feed)
+    if len(done) != n_req or gen != n_req * LM_GEN:
+        raise AssertionError(f"19 {arch}: {len(done)} of {n_req} requests, "
+                             f"{gen} tokens generated")
+    row.update({"layers": cfg.n_layers, "params": n_params,
+                "param_dtype": "float32", "slots": slots, "requests": n_req,
+                "max_seq": LM_MAX_SEQ, "prompt_tokens": prompt_tokens,
+                "generated_tokens": gen, "wall_s": wall,
+                "tokens_per_s": gen / wall,
+                "all_tokens_per_s": (gen + prompt_tokens) / wall,
+                "decode_steps": len(steps_ms),
+                "decode_ms_median": statistics.median(steps_ms),
+                "decode_ms_min": min(steps_ms),
+                "prefill_ms_a_token": 1e3 * sum(s for _, s in feed)
+                / prompt_tokens})
+    del srv, feed_prompt, step, timed_feed, timed_step
+    _free(dev)
+
+    # -- isolation: requests served alone in fresh servers --------------
+    # (the same tokens wherever the alone run's top two logits are
+    # further apart than LM_BF16_TOL of the largest; after a near tie the
+    # two runs may part, so the comparison stops there)
+    row["isolation"] = {}
+    for rid in (r % n_req for r in REC_ALONE):
+        one = SlotServer(model, slots=slots, max_seq=LM_MAX_SEQ, eos=None,
+                         max_gen=LM_GEN, device=dev, params=params)
+        calls, step = [], one._step
+
+        def recorded(p, cache, tok, pos, step=step, calls=calls):
+            logits, cache = step(p, cache, tok, pos)
+            calls.append(logits[0].float().clone())   # alone: slot 0
+            return logits, cache
+        one._step = recorded
+        alone = one.run([Request(rid, prompts[rid])])[0].generated
+        S = len(prompts[rid])
+        clear = equal = 0
+        stopped_at = None
+        for k, (a, b) in enumerate(zip(alone, full[rid])):
+            lg = calls[S + k]
+            top2 = torch.topk(lg, 2).values
+            is_clear = float(top2[0] - top2[1]) > LM_BF16_TOL * float(
+                lg.abs().max())
+            if a != b:
+                if is_clear:
+                    raise AssertionError(
+                        f"19 {arch}: request {rid} alone gives token {a} "
+                        f"at {k}, the full run {b}, a clear position")
+                stopped_at = k
+                break
+            clear += is_clear
+            equal += 1
+        row["isolation"][str(rid)] = {"equal": equal, "clear": clear,
+                                      "stopped_at_near_tie": stopped_at,
+                                      "tokens": len(alone)}
+        log(f"19 {arch}: request {rid} served alone in a fresh server: "
+            f"{equal} of {len(alone)} tokens equal to the full run's "
+            f"({clear} of them clear)"
+            + ("" if stopped_at is None else
+               f"; a near tie at {stopped_at}, compared no further"))
+        if equal < LM_GEN // 2 and stopped_at is None:
+            raise AssertionError(f"19 {arch}: isolation compared too few "
+                                 "tokens")
+        del one, calls, step, recorded
+        _free(dev)
+
+    # -- one decode step at B = slots: eager against the captured graph --
+    graphed = SlotServer(model, slots=slots, max_seq=LM_MAX_SEQ, eos=None,
+                         max_gen=1, device=dev, params=params)
+    cache = model.init_cache(slots, LM_MAX_SEQ, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tok = torch.randint(1, cfg.vocab, (slots,), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos = torch.arange(slots, dtype=torch.int32, device=dev) + REC_PROMPT[0]
+    run_e = lambda: model.decode_step(params, cache, tok, pos)[0]  # noqa: E731
+    run_g = lambda: graphed._step(params, graphed.cache, tok, pos)[0]  # noqa: E731
+    row["graph_equals_eager"] = bool(torch.equal(run_e(), run_g()))
+    if not row["graph_equals_eager"]:
+        raise AssertionError(f"19 {arch}: the server's decode step's logits "
+                             "differ from the eager step's")
+    if dev.type == "cuda":
+        row["eager_decode_ms"] = cuda_ms(run_e, 10)
+        row["graph_decode_ms"] = cuda_ms(run_g, 10)
+        row["device_busy_ms"] = device_split(row, run_e, reps=5, names=None,
+                                             need=("all",))["all"]
+        row["eager_idle_share"] = 1 - row["device_busy_ms"] / row[
+            "eager_decode_ms"]
+        log(f"19 {arch}: one decode step at B={slots}: eager "
+            f"{row['eager_decode_ms']:.2f} ms, CUDA graph "
+            f"{row['graph_decode_ms']:.2f} ms (the same bits), the kernels' "
+            f"device time {row['device_busy_ms']:.2f} ms (profiler): the "
+            f"eager step leaves the card idle "
+            f"{100 * row['eager_idle_share']:.1f}% of its time")
+    del graphed, cache, run_e, run_g
+    _free(dev)
+
+    # -- decode against the forward at fp32 -----------------------------
+    seq = torch.tensor(np.stack([p[:LM_CHECK_SEQ] for p in
+                                 prompts[:REC_CHECK_BATCH]]), device=dev)
+    with torch.inference_mode():
+        h = model.mod.forward_hidden(cfg, params, seq,
+                                     compute_dtype=torch.float32,
+                                     remat="none")
+        full32 = h @ params["embed"].T
+    cache = model.init_cache(REC_CHECK_BATCH, LM_CHECK_SEQ,
+                             dtype=torch.float32, device=dev)
+    dec = torch.stack([model.decode_step(
+        params, cache, seq[:, t],
+        torch.full((REC_CHECK_BATCH,), t, dtype=torch.int32, device=dev),
+        compute_dtype=torch.float32)[0] for t in range(LM_CHECK_SEQ)], 1)
+    worst = float(((dec - full32).abs() / (LM_DEC_TOL + LM_DEC_TOL
+                                           * full32.abs())).max())
+    row["decode_vs_forward_worst"] = worst
+    log(f"19 {arch}: decode vs forward at fp32, B={REC_CHECK_BATCH} over "
+        f"{LM_CHECK_SEQ} tokens: worst |d|/(atol+rtol|ref|) {worst:.3g} "
+        f"(rtol = atol = {LM_DEC_TOL})")
+    if not worst <= 1.0:
+        raise AssertionError(f"19 {arch}: decode off the forward")
+    del cache, dec, h, full32
+    _free(dev)
+
+    # -- the prefill step over long prompts -----------------------------
+    B, S = REC_PREFILL
+    pstep = steps.build_prefill_step(model, ShapeSpec(
+        "prefill_1k", S, B, "prefill"))
+    batch = {"tokens": torch.tensor(rng.integers(1, cfg.vocab, (B, S)),
+                                    device=dev)}
+    logits = pstep(params, batch)
+    if not (tuple(logits.shape) == (B, cfg.vocab)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"19 {arch}: the prefill step's logits: "
+                             f"{tuple(logits.shape)}")
+    s, e = _mark(dev), _mark(dev)
+    s.record()
+    pstep(params, batch)
+    e.record()
+    _sync(dev)
+    row["prefill_step_ms"] = s.elapsed_time(e)
+    row["prefill_step_tokens_per_s"] = B * S / (row["prefill_step_ms"] / 1e3)
+    log(f"19 {arch}: build_prefill_step on {B} x {S} tokens"
+        + (f" (the chunked SSD, chunk {cfg.ssm_chunk})"
+           if cfg.family == "ssm" else "")
+        + f": {row['prefill_step_ms']:.2f} ms "
+        f"({row['prefill_step_tokens_per_s']:.0f} tokens/s)")
+    del batch, logits
+    row["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if dev.type == "cuda" else None)
+    row["seconds"] = time.perf_counter() - t_case
+    log(f"19 {arch} ({cfg.n_layers} layers, {n_params} params): {n_req} "
+        f"requests, {prompt_tokens} prompt + {gen} generated tokens in "
+        f"{wall:.2f} s ({row['tokens_per_s']:.1f} generated tokens/s); "
+        f"decode {row['decode_ms_median']:.2f} ms a step at B={slots} "
+        f"(median of {len(steps_ms)}, min {row['decode_ms_min']:.2f}); the "
+        f"server's prefill {row['prefill_ms_a_token']:.2f} ms a prompt "
+        f"token; peak {row['peak_gib']} GiB; {row['seconds']:.1f} s")
+    return row
+
+
+def _whisper_case(dev) -> dict:
+    """whisper-medium at full width and depth (random fp32 weights, seed
+    0): `encode` of WHISPER_BATCH x 1500 seeded frame embeddings,
+    `build_cross_cache`, LM_GEN greedy eager `build_serve_step`s; decode
+    against `decode_hidden`'s fp32 forward; `build_prefill_step` with
+    frames on WHISPER_BATCH x WHISPER_CTX tokens."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model, whisper
+    from repro_torch.models.config import ShapeSpec
+
+    t_case = time.perf_counter()
+    cfg = get_config(WHISPER_ARCH)
+    model = build_model(cfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(g)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    B, Se = WHISPER_BATCH, cfg.encoder_seq
+    frames = torch.randn((B, Se, cfg.d_model), generator=g, device=dev)
+    row = {"layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+           "params": n_params, "param_dtype": "float32", "batch": B,
+           "frames": Se, "max_seq": WHISPER_CTX}
+
+    def timed(fn):
+        s, e = _mark(dev), _mark(dev)
+        s.record()
+        out = fn()
+        e.record()
+        _sync(dev)
+        return out, s.elapsed_time(e)
+
+    # -- encode, the cross K/V, LM_GEN greedy serve steps ----------------
+    with torch.inference_mode():
+        whisper.encode(cfg, params, frames)          # warm-up
+        enc, row["encode_ms"] = timed(
+            lambda: whisper.encode(cfg, params, frames))
+    if not (tuple(enc.shape) == (B, Se, cfg.d_model)
+            and bool(torch.isfinite(enc).all())):
+        raise AssertionError(f"19 {WHISPER_ARCH}: the encoder output")
+    cache = model.init_cache(B, WHISPER_CTX, device=dev)
+    _, row["cross_cache_ms"] = timed(
+        lambda: whisper.build_cross_cache(cfg, params, enc, cache))
+    serve = steps.build_serve_step(model, ShapeSpec(
+        "decode", WHISPER_CTX, B, "decode"))
+    tok = torch.randint(1, cfg.vocab, (B,), generator=g, device=dev,
+                        dtype=torch.int32)
+    steps_ms, generated = [], []
+    _sync(dev)
+    t0 = time.perf_counter()
+    for i in range(LM_GEN):
+        pos = torch.full((B,), i, dtype=torch.int32, device=dev)
+        (tok, cache), ms = timed(lambda: serve(params, cache, tok, pos))
+        steps_ms.append(ms)
+        generated.append(tok)
+    wall = time.perf_counter() - t0
+    gen = torch.stack(generated, 1)
+    if not (tuple(gen.shape) == (B, LM_GEN)
+            and bool(((gen >= 0) & (gen < cfg.vocab)).all())):
+        raise AssertionError(f"19 {WHISPER_ARCH}: the serve steps' tokens")
+    row.update({"generated_tokens": B * LM_GEN, "decode_steps": LM_GEN,
+                "wall_s": wall, "tokens_per_s": B * LM_GEN / wall,
+                "decode_ms_median": statistics.median(steps_ms),
+                "decode_ms_min": min(steps_ms)})
+    if dev.type == "cuda":
+        pos = torch.full((B,), LM_GEN, dtype=torch.int32, device=dev)
+        run_e = lambda: serve(params, cache, tok, pos)[0]  # noqa: E731
+        row["eager_decode_ms"] = cuda_ms(run_e, 10)
+        row["device_busy_ms"] = device_split(row, run_e, reps=5, names=None,
+                                             need=("all",))["all"]
+        row["eager_idle_share"] = 1 - row["device_busy_ms"] / row[
+            "eager_decode_ms"]
+    log(f"19 {WHISPER_ARCH}: encode {B} x {Se} frames {row['encode_ms']:.2f} "
+        f"ms, the cross K/V {row['cross_cache_ms']:.2f} ms, then {LM_GEN} "
+        f"eager serve steps at B={B}: {row['decode_ms_median']:.2f} ms a "
+        f"step (median), {row['tokens_per_s']:.1f} generated tokens/s; the "
+        f"kernels' device time {row.get('device_busy_ms', float('nan')):.2f}"
+        f" ms a step, idle "
+        f"{100 * row.get('eager_idle_share', float('nan')):.1f}%")
+    del cache, enc, gen, generated
+    _free(dev)
+
+    # -- decode against decode_hidden at fp32 ---------------------------
+    n = REC_CHECK_BATCH
+    seq = torch.randint(1, cfg.vocab, (n, LM_CHECK_SEQ), generator=g,
+                        device=dev)
+    with torch.inference_mode():
+        enc32 = whisper.encode(cfg, params, frames[:n],
+                               compute_dtype=torch.float32, remat="none")
+        h = whisper.decode_hidden(cfg, params, seq, enc32,
+                                  compute_dtype=torch.float32, remat="none")
+        full32 = h @ params["embed"].T
+    cache = whisper.build_cross_cache(
+        cfg, params, enc32, model.init_cache(n, LM_CHECK_SEQ,
+                                             dtype=torch.float32, device=dev),
+        compute_dtype=torch.float32)
+    dec = torch.stack([model.decode_step(
+        params, cache, seq[:, t],
+        torch.full((n,), t, dtype=torch.int32, device=dev),
+        compute_dtype=torch.float32)[0] for t in range(LM_CHECK_SEQ)], 1)
+    worst = float(((dec - full32).abs() / (LM_DEC_TOL + LM_DEC_TOL
+                                           * full32.abs())).max())
+    row["decode_vs_forward_worst"] = worst
+    log(f"19 {WHISPER_ARCH}: decode vs decode_hidden at fp32, B={n} over "
+        f"{LM_CHECK_SEQ} tokens: worst |d|/(atol+rtol|ref|) {worst:.3g} "
+        f"(rtol = atol = {LM_DEC_TOL})")
+    if not worst <= 1.0:
+        raise AssertionError(f"19 {WHISPER_ARCH}: decode off the forward")
+    del cache, dec, h, full32, enc32
+    _free(dev)
+
+    # -- the prefill step with frames -----------------------------------
+    pstep = steps.build_prefill_step(model, ShapeSpec(
+        "prefill_448", WHISPER_CTX, B, "prefill"))
+    batch = {"tokens": torch.randint(1, cfg.vocab, (B, WHISPER_CTX),
+                                     generator=g, device=dev),
+             "frames": frames}
+    logits = pstep(params, batch)
+    if not (tuple(logits.shape) == (B, cfg.vocab)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"19 {WHISPER_ARCH}: the prefill step's "
+                             f"logits: {tuple(logits.shape)}")
+    _, row["prefill_step_ms"] = timed(lambda: pstep(params, batch))
+    row["prefill_step_tokens_per_s"] = B * WHISPER_CTX / (
+        row["prefill_step_ms"] / 1e3)
+    row["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if dev.type == "cuda" else None)
+    row["seconds"] = time.perf_counter() - t_case
+    log(f"19 {WHISPER_ARCH}: build_prefill_step with frames on {B} x "
+        f"{WHISPER_CTX} tokens: {row['prefill_step_ms']:.2f} ms "
+        f"({row['prefill_step_tokens_per_s']:.0f} tokens/s); "
+        f"{cfg.encoder_layers} + {cfg.n_layers} layers, {n_params} params; "
+        f"peak {row['peak_gib']} GiB; {row['seconds']:.1f} s")
+    return row
+
+
+def rec_phase(dev) -> dict:
+    """Phase 19: mamba2-1.3b and recurrentgemma-2b at full width and depth
+    through the graphed `SlotServer` (the timed serve, the cache after
+    the capture equal to init_cache, two requests served alone in fresh
+    servers against the full run, graph = eager, decode against the fp32
+    forward, the prefill step on 4 x 1024 tokens); then whisper-medium
+    through `encode`, `build_cross_cache` and the serve and prefill
+    steps (`_whisper_case`). Each model is freed before the next. The
+    numbers join the `lm_serve` line, one entry an arch."""
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, slots, n_req in REC_CASES:
+        out[arch] = _rec_case(dev, arch, slots, n_req)
+        _free(dev)
+    out[WHISPER_ARCH] = _whisper_case(dev)
+    _free(dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 19 took {out['seconds']:.1f}s")
+    return out
+
+
 def _leaf_names(tree, prefix=()):
     """Key paths of a nested dict's leaves in sorted-key order."""
     out = []
@@ -4047,6 +4459,11 @@ def main() -> int:
     moe = moe_phase(dev)
     lm.update({arch: row for arch, row in moe.items() if arch != "seconds"})
     lm["seconds_phase18"] = moe["seconds"]
+
+    # -- 19. SSM, hybrid and encoder-decoder serving at full width ---------
+    rec = rec_phase(dev)
+    lm.update({arch: row for arch, row in rec.items() if arch != "seconds"})
+    lm["seconds_phase19"] = rec["seconds"]
 
     for name in launches:
         total = sum(r["launches"] for r in rows

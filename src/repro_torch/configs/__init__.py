@@ -1,12 +1,12 @@
 """Architecture registry (port of `repro/configs`).
 
 `get_config(name)` -> full ArchConfig;  `reduced(cfg)` -> CPU-smoke variant
-of the same family (small widths/layers/experts, tiny vocab). The decoder
-family is registered: the dense llama3.2-3b, deepseek-67b, qwen1.5-110b
-and gemma2-9b, the MoE mixtral-8x22b and arctic-480b, and qwen2-vl-2b
-(M-RoPE, patch embeddings). The other three configurations (mamba2-1.3b,
-recurrentgemma-2b, whisper-medium) wait with their model families
-(ROADMAP.md, queue 1 item 12.6).
+of the same family (small widths/layers/experts, tiny vocab). All ten of
+the reference's architectures are registered: the dense decoders
+llama3.2-3b, deepseek-67b, qwen1.5-110b and gemma2-9b, the MoE decoders
+mixtral-8x22b and arctic-480b, qwen2-vl-2b (M-RoPE, patch embeddings),
+the SSM mamba2-1.3b, the RG-LRU hybrid recurrentgemma-2b and the
+encoder-decoder whisper-medium.
 """
 from __future__ import annotations
 
@@ -15,12 +15,14 @@ import dataclasses
 from repro_torch.models.config import ArchConfig, ShapeSpec
 
 from . import (arctic_480b, deepseek_67b, gemma2_9b, llama32_3b,
-               mixtral_8x22b, qwen2_vl_2b, qwen15_110b)
+               mamba2_13b, mixtral_8x22b, qwen2_vl_2b, qwen15_110b,
+               recurrentgemma_2b, whisper_medium)
 
 ARCHS: dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG for m in (
-        deepseek_67b, mixtral_8x22b, arctic_480b, qwen15_110b, gemma2_9b,
-        llama32_3b, qwen2_vl_2b,
+        deepseek_67b, qwen15_110b, gemma2_9b, llama32_3b, arctic_480b,
+        mixtral_8x22b, whisper_medium, recurrentgemma_2b, qwen2_vl_2b,
+        mamba2_13b,
     )
 }
 

@@ -24,8 +24,11 @@ token's, float32) and `build_serve_step` `fn(params, cache, token, pos,
 positions3=None) -> (next_tok int32, cache)`, one greedy decode step
 that writes the cache in place; both run under `torch.inference_mode` on
 one device, in the policy's compute dtype (bf16; the 'lean' policy's
-params are bf16 too, and no step makes an fp32 copy of them). Every
-step passes the batch's `positions3`, `patches` and `patch_positions`
+params are bf16 too, and no step makes an fp32 copy of them). Both run
+every family: an encoder-decoder's prefill encodes `batch["frames"]`
+and decodes the tokens against it, and its serve step needs a cache
+whose cross K/V `whisper.build_cross_cache` has filled. Every step
+passes the batch's `positions3`, `patches` and `patch_positions`
 (qwen2-vl) through, the last left on the host, where the model checks
 them. `data` or `model` axes above 1 (FSDP/TP) wait for the model's
 `param_axes` (ROADMAP.md, queue 1 item 12.7), and with them the mesh
@@ -44,7 +47,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
-from repro_torch.models import Model
+from repro_torch.models import Model, from_numpy_params
 from repro_torch.models.config import ArchConfig, ShapeSpec
 from repro_torch.optim import AdamWConfig, adamw, schedule
 from repro_torch.runtime.spans import span
@@ -217,8 +220,9 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
 def build_prefill_step(model: Model, shape: ShapeSpec) -> Callable:
     """`fn(params, batch) -> (B, V) float32` logits of the prompt's last
     token (`batch["tokens"]` of the shape's (global_batch, seq_len), and
-    qwen2-vl's `positions3`, `patches` and `patch_positions`), as the
-    reference's prefill step: no final softcap."""
+    qwen2-vl's `positions3`, `patches` and `patch_positions`; an
+    encoder-decoder's `frames` (B, encoder_seq, D)), as the reference's
+    prefill step: no final softcap."""
     cfg = model.cfg
     compute_dtype = _policy(cfg)["compute_dtype"]
     want = (shape.global_batch, shape.seq_len)
@@ -231,13 +235,20 @@ def build_prefill_step(model: Model, shape: ShapeSpec) -> Callable:
             raise ValueError(f"batch['tokens'] has shape "
                              f"{tuple(tokens.shape)}, the step was built "
                              f"for {want}")
-        extra = {k: torch.as_tensor(batch[k]).to(dev) for k in (
-            "positions3", "patches") if k in batch}
-        if "patch_positions" in batch:
-            extra["patch_positions"] = torch.as_tensor(
-                batch["patch_positions"])
-        h = model.mod.forward_hidden(cfg, params, tokens,
-                                     compute_dtype=compute_dtype, **extra)
+        if cfg.family == "encdec":
+            enc = model.mod.encode(cfg, params,
+                                   torch.as_tensor(batch["frames"]).to(dev),
+                                   compute_dtype=compute_dtype)
+            h = model.mod.decode_hidden(cfg, params, tokens, enc,
+                                        compute_dtype=compute_dtype)
+        else:
+            extra = {k: torch.as_tensor(batch[k]).to(dev) for k in (
+                "positions3", "patches") if k in batch}
+            if "patch_positions" in batch:
+                extra["patch_positions"] = torch.as_tensor(
+                    batch["patch_positions"])
+            h = model.mod.forward_hidden(cfg, params, tokens,
+                                         compute_dtype=compute_dtype, **extra)
         unembed = (params["embed"].T if cfg.tie_embeddings
                    else params["unembed"])
         return h[:, -1, :].to(torch.float32) @ unembed.to(torch.float32)
@@ -250,16 +261,17 @@ def build_serve_step(model: Model, shape: ShapeSpec) -> Callable:
     int32, cache)`: one decode step of the shape's global_batch sequences
     against a cache of its seq_len (`model.init_cache`), written in
     place, and the greedy next token; an M-RoPE config passes
-    `positions3` (3, B, 1)."""
+    `positions3` (3, B, 1). An encoder-decoder's cache must hold its
+    cross K/V already (`whisper.build_cross_cache`)."""
     compute_dtype = _policy(model.cfg)["compute_dtype"]
 
     def serve_step(params, cache, token, pos, positions3=None):
         if token.shape != (shape.global_batch,):
             raise ValueError(f"token has shape {tuple(token.shape)}, the "
                              f"step was built for ({shape.global_batch},)")
+        kw = {} if positions3 is None else {"positions3": positions3}
         logits, cache = model.decode_step(params, cache, token, pos,
-                                          positions3=positions3,
-                                          compute_dtype=compute_dtype)
+                                          compute_dtype=compute_dtype, **kw)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return serve_step
@@ -283,7 +295,6 @@ def from_numpy_state(model: Model, state: dict, *, device=None) -> dict:
     """The port's train state from the reference's `{params, opt: {m, v,
     count}[, ef: {residual}]}` (numpy arrays under the same names), in the
     policy's dtypes (the residual in float32). `device=None` means CUDA."""
-    from repro_torch.models.transformer import from_numpy_params
     dev = resolve_device(device)
     pol = _policy(model.cfg)
     params = from_numpy_params(model.cfg, state["params"], device=dev,

@@ -1,7 +1,7 @@
 """Architecture configuration schema consumed by the model families and the
 launch layer (a copy of `repro/models/config.py`; the port imports nothing
 of the reference). One instance per architecture lives in
-repro_torch/configs/; the port builds the dense decoder family so far.
+repro_torch/configs/.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
-"""Shared model layers of the decoder: RMSNorm, softcap, RoPE and
-Qwen2-VL's M-RoPE, GQA attention (dense, or chunked with an online
-softmax), SwiGLU, GeGLU and the chunked cross-entropy.
+"""Shared model layers: RMSNorm, LayerNorm, softcap, RoPE and Qwen2-VL's
+M-RoPE, GQA attention (dense, or chunked with an online softmax),
+SwiGLU, GeGLU, the GELU MLP, the causal depthwise conv (whole sequence
+and one token) and the chunked cross-entropy.
 
-Port of the decoder's functions of `repro/models/layers.py`, as plain
+Port of `repro/models/layers.py`, as plain
 torch ops that follow the reference's math and layouts: activations are
 (B, S, H, dh), attention scores and logits are float32, norms and RoPE
 compute in float32 and cast back to the input dtype. Every function takes
@@ -42,6 +43,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (weight.to(torch.float32) + offset)).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               *, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with float32 statistics, cast back to x's dtype."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.to(torch.float32) + bias.to(torch.float32)).to(dtype)
 
 
 def soft_cap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
@@ -204,7 +216,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 
 def swiglu(x, w_gate, w_up, w_down):
@@ -215,6 +227,42 @@ def geglu(x, w_gate, w_up, w_down):
     """Gemma's gated MLP: tanh-approximate GELU, as `jax.nn.gelu`'s
     default."""
     return (F.gelu(x @ w_gate, approximate="tanh") * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    """Whisper's MLP: tanh-approximate GELU between two biased products."""
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (mamba2's and RG-LRU's short conv)
+# ---------------------------------------------------------------------------
+
+def causal_depthwise_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, C); w: (W, C). Left-pads W-1 zeros, so out[t] sees
+    x[t-W+1..t]: W shifted multiply-adds, summed in float32 and rounded
+    once to x's dtype."""
+    W, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, W - 1, 0)).to(torch.float32)
+    wf = w.to(torch.float32)
+    out = xp[:, :S] * wf[0]
+    for i in range(1, W):
+        out = out + xp[:, i:i + S] * wf[i]
+    return out.to(torch.result_type(x, w))
+
+
+def conv1d_update(x_t: torch.Tensor, conv_state: torch.Tensor,
+                  w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The conv at one new token. x_t: (B, C); conv_state: (B, W-1, C),
+    the previous W-1 inputs. Returns (out (B, C), the new state (B, W-1,
+    C)); the caller copies the state into its cache."""
+    W = w.shape[0]
+    dtype = torch.result_type(conv_state, x_t)
+    window = torch.cat([conv_state.to(dtype), x_t[:, None, :].to(dtype)],
+                       dim=1)
+    out = (window.to(torch.float32) * w.to(torch.float32)).sum(dim=1)
+    return (out.to(torch.result_type(window, w)),
+            window[:, 1:] if W > 1 else conv_state)
 
 
 # ---------------------------------------------------------------------------
@@ -256,5 +304,6 @@ def chunked_ce_loss(h: torch.Tensor, unembed: torch.Tensor,
 
 
 __all__ = ["NEG_INF", "apply_mrope", "apply_rope", "attention",
-           "chunked_ce_loss", "geglu", "remat", "rms_norm", "soft_cap",
-           "swiglu"]
+           "causal_depthwise_conv1d", "chunked_ce_loss", "conv1d_update",
+           "geglu", "gelu_mlp", "layer_norm", "remat", "rms_norm",
+           "soft_cap", "swiglu"]

@@ -10,9 +10,11 @@ Port of `repro/models/transformer.py`, with its KV-cache decode
 nested dict under the reference's names, with per-layer tensors stacked
 on a leading L axis, so the leaves and their shapes are the reference's
 and a parameter tree carries across (`from_numpy_params`). `Decoder` is
-the `nn.Module` view of such a dict. The GELU MLP, the LayerNorm and the
-other families raise NotImplementedError until their slice lands
-(ROADMAP.md, queue 1 item 12.6), as does remat='dots' (12.7).
+the `nn.Module` view of such a dict. A config with the GELU MLP or
+LayerNorm raises NotImplementedError here: they belong to the
+encoder-decoder family (`models/whisper.py`), and the reference's decoder
+would silently run SwiGLU and RMSNorm in their place. remat='dots' raises
+until item 12.7 (ROADMAP.md, queue 1).
 
 The MoE FFN dispatches the model's tokens in one group: the reference's
 `moe_groups=` (one group a data shard) comes back with the data axes of
@@ -26,29 +28,39 @@ from __future__ import annotations
 
 from typing import Any
 
-import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
 
 from . import layers as nn
+from . import params as ptree
 from .config import ArchConfig
 from .moe import moe_ffn
 
-_ROADMAP = "not ported yet (ROADMAP.md, queue 1 item 12)"
+_ROADMAP = "not ported yet (ROADMAP.md, queue 1 item 12.7)"
 
 #: the position of an empty cache slot: causally masked for every query
 EMPTY_POS = 1 << 30
 
+#: the cache's recurrent state (none: a KV cache only), which
+#: `launch.serve.SlotServer` keeps apart between slots
+RECURRENT_STATE: tuple[str, ...] = ()
+
 
 def _check_ported(cfg: ArchConfig) -> None:
     if cfg.family != "decoder":
-        raise NotImplementedError(f"the {cfg.family!r} family is {_ROADMAP}")
+        raise NotImplementedError(
+            f"the {cfg.family!r} family is not the decoder's; build it "
+            "with models.build_model")
     for what, on in ((f"the {cfg.mlp!r} MLP",
                       cfg.mlp not in ("swiglu", "geglu")),
                      (f"the {cfg.norm!r} norm", cfg.norm != "rms")):
         if on:
-            raise NotImplementedError(f"{what} in the decoder is {_ROADMAP}")
+            raise NotImplementedError(
+                f"{what} is not the decoder's (SwiGLU or GeGLU, RMSNorm): "
+                "the reference's decoder would silently run SwiGLU and "
+                "RMSNorm in its place; it belongs to the encoder-decoder "
+                "family (models/whisper.py)")
 
 
 def _check_positions3(cfg: ArchConfig, positions3) -> None:
@@ -104,30 +116,15 @@ def _spec(cfg: ArchConfig) -> dict[str, tuple[tuple[int, ...], str]]:
     return s
 
 
-def _assign(tree: dict, path: str, leaf) -> None:
-    parts = path.split("/")
-    for p in parts[:-1]:
-        tree = tree.setdefault(p, {})
-    tree[parts[-1]] = leaf
-
-
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype=torch.float32) -> dict:
     """Random parameters on the generator's device, drawn from it in the
     reference's sorted path order (the numbers differ from JAX's)."""
     params: dict[str, Any] = {}
-    dev = generator.device
     for path, (shape, kind) in sorted(_spec(cfg).items()):
         if kind == "norm":
-            leaf = (torch.zeros if cfg.norm_offset else torch.ones)(
-                shape, dtype=dtype, device=dev)
-        elif kind == "zeros":
-            leaf = torch.zeros(shape, dtype=dtype, device=dev)
-        else:
-            std = 0.02 if kind == "embed" else 1.0 / (shape[-2] ** 0.5)
-            leaf = torch.randn(shape, generator=generator, dtype=dtype,
-                               device=dev).mul_(std)   # no second copy
-        _assign(params, path, leaf)
+            kind = "zeros" if cfg.norm_offset else "ones"
+        ptree.assign(params, path, ptree.draw(kind, shape, generator, dtype))
     return params
 
 
@@ -136,18 +133,8 @@ def from_numpy_params(cfg: ArchConfig, tree: dict, *, device=None,
     """The port's parameter dict from the reference's (numpy arrays under
     the same nested names); every leaf's shape is checked against the
     spec. `device=None` means CUDA."""
-    dev = resolve_device(device)
-    out: dict[str, Any] = {}
-    for path, (shape, _) in sorted(_spec(cfg).items()):
-        node = tree
-        for p in path.split("/"):
-            node = node[p]
-        a = np.asarray(node, dtype=np.float32)
-        if a.shape != tuple(shape):
-            raise ValueError(f"{path}: shape {a.shape}, the spec of "
-                             f"{cfg.name} has {tuple(shape)}")
-        _assign(out, path, torch.tensor(a, dtype=dtype, device=dev))
-    return out
+    return ptree.from_numpy(_spec(cfg), tree, cfg.name, device=device,
+                            dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -406,30 +393,12 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
         "pos": pos.expand(cfg.n_layers, B, C).contiguous()}
 
 
-class Decoder(torch.nn.Module):
-    """The `nn.Module` view of a parameter dict: the tensors are
-    registered as parameters (sharing storage, no copy), `param_tree()`
-    returns the nested dict under the reference's names, and `forward`
-    is `loss_fn`."""
+class Decoder(ptree.FamilyModule):
+    """The `nn.Module` view of a parameter dict (the tensors registered
+    as parameters, no copy); `param_tree()` returns the nested dict and
+    `forward` is `loss_fn`."""
 
-    def __init__(self, cfg: ArchConfig, params: dict):
-        super().__init__()
-        self.cfg = cfg
-        for name, node in params.items():
-            if isinstance(node, dict):
-                self.add_module(name, torch.nn.ParameterDict(
-                    {k: torch.nn.Parameter(v) for k, v in node.items()}))
-            else:
-                self.register_parameter(name, torch.nn.Parameter(node))
-
-    def param_tree(self) -> dict:
-        tree: dict[str, Any] = dict(self._parameters)
-        for name, mod in self._modules.items():
-            tree[name] = dict(mod.items())
-        return tree
-
-    def forward(self, batch: dict, **kw) -> torch.Tensor:
-        return loss_fn(self.cfg, self.param_tree(), batch, **kw)
+    loss = staticmethod(loss_fn)
 
 
 __all__ = ["Decoder", "EMPTY_POS", "cache_len", "decode_step", "forward_hidden",

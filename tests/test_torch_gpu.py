@@ -1,7 +1,8 @@
 """Card-only tests of the CUDA kernels K1/K2/K3/K4/K5/K6 against their
 plain versions, of the fused training step that runs K4, and of the LM
 decode path on the card (the in-place cache, the slot server's CUDA
-graph, the MoE dispatch on CUDA and inside that graph).
+graph, the MoE dispatch on CUDA and inside that graph, the recurrent
+families' graphed servers and whisper's graphed decode step).
 
 Marked `gpu`; the `cuda` fixture skips them where no CUDA device is
 present (decided inside the fixture, never at import or collection, so
@@ -758,3 +759,115 @@ def test_moe_slot_server_on_the_card_graph_equals_eager(cuda):
     for tok, pos, logits in calls:
         assert torch.equal(model.decode_step(params, cache, tok, pos)[0],
                            logits)
+
+
+def _served_logits(model, params, prompts, cuda, eager: bool):
+    """Every decode call's logits of a 2-slot server on the card over the
+    prompts (the server's CUDA graph, or `eager` the plain
+    `decode_step` on a server of its own)."""
+    from repro_torch.launch.serve import Request, SlotServer
+    srv = SlotServer(model, slots=2, max_seq=32, eos=None, max_gen=6,
+                     device=cuda, params=params)
+    step = model.decode_step if eager else srv._step
+    calls = []
+
+    def recorded(p, cache, tok, pos):
+        logits, cache = step(p, cache, tok, pos)
+        calls.append(logits.clone())
+        return logits, cache
+    srv._step = recorded
+    assert len(srv.run([Request(i, p) for i, p in enumerate(prompts)])) == \
+        len(prompts)
+    return calls
+
+
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_recurrent_slot_server_on_the_card_graph_equals_eager(cuda, name):
+    """A recurrent model's server: its cache right after the capture
+    equals `init_cache` bit for bit (every leaf, the ring buffer's
+    EMPTY_POS included), and the graphed server's logits equal an eager
+    server's at every call (the slot resets and restores between calls
+    run on both)."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import SlotServer
+    from repro_torch.models import build_model
+    model = build_model(reduced(get_config(name)))
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    srv = SlotServer(model, slots=2, max_seq=32, eos=None, max_gen=6,
+                     device=cuda, params=params)
+    fresh = model.init_cache(2, 32, device=cuda)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(srv.cache),
+                                                 tree_leaves(fresh)))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 256, size=(5 + i % 4,)) for i in range(5)]
+    graphed = _served_logits(model, params, prompts, cuda, eager=False)
+    eager = _served_logits(model, params, prompts, cuda, eager=True)
+    assert len(graphed) == len(eager)
+    assert all(torch.equal(a, b) for a, b in zip(graphed, eager))
+
+
+def test_decoder_slot_server_cache_after_capture_equals_init_cache(cuda):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import SlotServer
+    from repro_torch.models import build_model
+    model = build_model(reduced(get_config("llama3.2-3b")))
+    srv = SlotServer(model, slots=2, max_seq=32, eos=None, max_gen=6,
+                     device=cuda)
+    fresh = model.init_cache(2, 32, device=cuda)
+    assert all(torch.equal(srv.cache[k], fresh[k]) for k in fresh)
+
+
+def test_whisper_decode_step_on_the_card_graph_equals_eager(cuda):
+    """Whisper's decode step (self-attention cache written in place, the
+    cross K/V from `build_cross_cache`) captured as a CUDA graph against
+    the eager step on a copy of the cache: the same logits bit for bit at
+    every step, and decode against `decode_hidden` at fp32 within the
+    reference's 2e-3."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model, whisper
+    model = build_model(reduced(get_config("whisper-medium")))
+    cfg = model.cfg
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init(g)
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=g,
+                         device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 12), generator=g, device=cuda,
+                         dtype=torch.int32)
+    enc = whisper.encode(cfg, params, frames)
+    cache = whisper.build_cross_cache(cfg, params, enc,
+                                      model.init_cache(2, 12, device=cuda))
+    twin = {k: v.clone() for k, v in cache.items()}
+    tok = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    pos = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    model.decode_step(params, cache, tok, pos)          # warm-up
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, _ = model.decode_step(params, cache, tok, pos)
+    for k in ("k", "v"):
+        cache[k].copy_(twin[k])
+    for t in range(12):
+        tok.copy_(toks[:, t])
+        pos.fill_(t)
+        graph.replay()
+        want, _ = model.decode_step(params, twin, toks[:, t], pos.clone())
+        assert torch.equal(logits, want), t
+    enc32 = whisper.encode(cfg, params, frames, compute_dtype=torch.float32)
+    h = whisper.decode_hidden(cfg, params, toks, enc32,
+                              compute_dtype=torch.float32)
+    full = h @ params["embed"].T
+    c32 = whisper.build_cross_cache(
+        cfg, params, enc32, model.init_cache(2, 12, dtype=torch.float32,
+                                             device=cuda),
+        compute_dtype=torch.float32)
+    dec = torch.stack([model.decode_step(
+        params, c32, toks[:, t], torch.full((2,), t, device=cuda),
+        compute_dtype=torch.float32)[0] for t in range(12)], 1)
+    torch.testing.assert_close(dec, full, rtol=2e-3, atol=2e-3)
+
+
+def test_serve_cli_on_the_card_refuses_whisper(cuda, capsys):
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "whisper-medium"])
+    assert "encoder-decoder" in capsys.readouterr().err

@@ -7,10 +7,14 @@ server on the reference server's own parameters (`srv.params` carried
 across as numpy), each decode step's logits within BF16_TOL of the
 largest reference logit (bf16 compute on both sides; see
 `tests/test_torch_decode.py`) and the greedy tokens equal wherever the
-reference's top two logits lie further apart than that; `ByteTokenizer`
-round trips; and the CLI on the CPU.
+reference's top two logits lie further apart than that; the slots of a
+recurrent model's server kept apart (mamba2, recurrentgemma), each
+request's tokens held against the reference's model decoding it alone
+(not against the reference's server, whose recurrent slots leak into
+each other); `ByteTokenizer` round trips; and the CLI on the CPU.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,8 +28,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.data import ByteTokenizer
 from repro_torch.launch import serve
 from repro_torch.launch.serve import Request, SlotServer
-from repro_torch.models import build_model
-from repro_torch.models.transformer import from_numpy_params
+from repro_torch.models import build_model, from_numpy_params
 
 BF16_TOL = 3e-2
 
@@ -153,6 +156,70 @@ def _steps_match_reference_server(name):
     assert clear_steps > 0
 
 
+def _reference_alone(jm, step, jp, prompt, served) -> tuple[int, int]:
+    """The reference's `decode_step` decoding one request alone from a
+    fresh batch-1 cache, as the server feeds it (the prompt token by
+    token, then the prompt's last argmax), each later step fed the
+    port's served token. Returns (positions whose top two reference
+    logits lie further apart than BF16_TOL of the largest, those of them
+    where the served token is the reference's argmax): bf16 on both
+    sides, so a near tie may flip, as in `_steps_match_reference_server`.
+    `step` is the reference's jitted decode step."""
+    cache = jm.init_cache(1, 32)
+    for t, tok in enumerate(prompt):
+        logits, cache = step(jp, cache, jnp.asarray([tok], jnp.int32),
+                             jnp.asarray([t], jnp.int32))
+    tok, clear, agree = int(jnp.argmax(logits[0])), 0, 0
+    for pos, got in enumerate(served, start=len(prompt)):
+        logits, cache = step(jp, cache, jnp.asarray([tok], jnp.int32),
+                             jnp.asarray([pos], jnp.int32))
+        lg = np.asarray(logits[0])
+        top2 = np.sort(lg)[-2:]
+        if top2[1] - top2[0] > BF16_TOL * np.abs(lg).max():
+            clear += 1
+            agree += int(lg.argmax() == got)
+        tok = got
+    return clear, agree
+
+
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_recurrent_slot_server_keeps_its_slots_apart(name):
+    """A recurrent model's server (2 slots, eager): each request's tokens
+    equal (a) the same request served alone, (b) the same request after
+    another request has used its slot, and (c) the reference's model
+    decoding it alone from a fresh cache, at every position whose top
+    two reference logits are clearly apart. The reference's own server
+    fails (a) and (b) for these models: its prompt steps advance every
+    slot's recurrent state, and a reused slot keeps its state."""
+    jm = jbuild_model(jreduced(jget_config(name)))
+    jp = jm.init(jax.random.PRNGKey(0))
+    model = build_model(reduced(get_config(name)))
+    params = from_numpy_params(model.cfg, jax.tree.map(np.asarray, jp),
+                               device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, 256, size=(5 + 2 * i,)) for i in range(3)]
+
+    def serve(*runs):
+        """Each run's requests through one server, one run after the
+        other; {rid: generated tokens}."""
+        srv = SlotServer(model, slots=2, max_seq=32, eos=None, max_gen=6,
+                         device="cpu", params=params)
+        out = {}
+        for run in runs:
+            for r in srv.run([Request(i, prompts[i]) for i in run]):
+                out[r.rid] = r.generated
+        return out
+
+    step = jax.jit(jm.decode_step)
+    full = serve([0, 1, 2])   # 0 and 1 together; 2 in a slot one of them used
+    for i in range(3):
+        alone = serve([i])[i]
+        assert full[i] == alone, i
+        assert serve([(i + 1) % 3], [i])[i] == alone, i
+        clear, agree = _reference_alone(jm, step, jp, prompts[i], alone)
+        assert agree == clear >= 4, (i, clear, agree)
+
+
 @pytest.mark.parametrize("text", ["hello, world", "", "ümlaut ✓ 漢字",
                                   "tabs\tand\nnewlines"])
 def test_byte_tokenizer_round_trips(text):
@@ -164,6 +231,13 @@ def test_byte_tokenizer_round_trips(text):
     with_specials = np.concatenate([[tok.bos], ids, [tok.eos]])
     assert tok.decode(with_specials) == text
     assert (tok.vocab_size, tok.bos, tok.eos) == (258, 256, 257)
+
+
+def test_serve_cli_refuses_the_encoder_decoder(capsys):
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "whisper-medium", "--reduced", "--device",
+                    "cpu"])
+    assert "encoder-decoder" in capsys.readouterr().err
 
 
 def test_serve_cli_on_the_cpu(capsys):

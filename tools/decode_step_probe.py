@@ -1,21 +1,23 @@
 """Where a full-width decode step spends its device time.
 
-One `decode_step` of a decoder at its published widths (random weights at
+One `decode_step` of a model at its published widths (random weights at
 the policy's dtype: fp32, or bf16 under 'lean'; bf16 compute, `slots`
 sequences against a `max_seq` cache), at full depth or cut to `LAYERS`
 (an MoE model's default is `chip_smoke.py` phase 18's cut: 4 layers of
 mixtral-8x22b, 2 of arctic-480b), run eagerly under torch.profiler (CPU
 and CUDA activity) for a few steps: the device time a step split by the
 aten op that launched it -- the per-layer casts of the weights to the
-compute dtype, the matrix products, and for an MoE model the expert
-products (the batched SwiGLU's three `bmm`s) and the dispatch (the
-router, top-k, the slot ranks, the scatter into the expert buffer, the
-gather and the gate-weighted sum: every other op inside `moe_ffn`) --
-and the rest; the kernel records and the host's launch calls a step,
-and the wall ms a step; then the same step captured as a CUDA graph by
-the LM server (`launch.serve._GraphedStep`), its wall ms a step and
-whether its logits equal the eager step's bit for bit. Prints one JSON
-line.
+compute dtype (a `copy_` under `_to_copy`), the other copies (a
+recurrent state written back into the cache, layout copies), the
+matrix products, and for an MoE model the expert products (the batched
+SwiGLU's three `bmm`s) and the dispatch (the router, top-k, the slot
+ranks, the scatter into the expert buffer, the gather and the
+gate-weighted sum: every other op inside `moe_ffn`) -- and the rest;
+the kernel records and the host's launch calls a step, and the wall ms
+a step; then the same step captured as a CUDA graph by the LM server
+(`launch.serve._GraphedStep`), its wall ms a step and whether its logits
+equal the eager step's bit for bit from the same cache. Any family
+runs (whisper's cross K/V stay zeros). Prints one JSON line.
 
     python3 tools/decode_step_probe.py [ARCH] [SLOTS] [LAYERS]  # on a card
 
@@ -33,6 +35,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.tree import tree_leaves  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.serve import _GraphedStep  # noqa: E402
 from repro_torch.models import build_model, transformer  # noqa: E402
@@ -58,8 +61,11 @@ def _part(event, n_experts) -> str:
         expert = (event.name == "aten::bmm" and shapes[0]
                   and shapes[0][0] == n_experts)
         return "expert_product" if expert else "dispatch"
-    return ("cast" if event.name in CAST else
-            "product" if event.name in PRODUCT else "other")
+    if event.name in CAST:
+        parent = event.cpu_parent
+        return ("cast" if parent is not None
+                and parent.name == "aten::_to_copy" else "copy")
+    return "product" if event.name in PRODUCT else "other"
 
 
 def main() -> int:
@@ -107,7 +113,7 @@ def main() -> int:
             torch.cuda.synchronize()
     finally:
         transformer.moe_ffn = moe_ffn
-    split = {"cast": 0.0, "product": 0.0, "other": 0.0}
+    split = {"cast": 0.0, "copy": 0.0, "product": 0.0, "other": 0.0}
     if n_experts:
         split.update(expert_product=0.0, dispatch=0.0)
     for e in prof.events():
@@ -119,8 +125,16 @@ def main() -> int:
     ka = prof.key_averages()
     kernels = sum(e.count for e in ka if e.device_type.name == "CUDA")
     launches = sum(e.count for e in ka if e.key in LAUNCH)
-    graphed = _GraphedStep(model, params, cache, slots, dev)  # the server's
+    leaves = tree_leaves(cache)
+    snap = [t.clone() for t in leaves]
+
+    def restore():
+        for t, s in zip(leaves, snap):
+            t.copy_(s)
+    graphed = _GraphedStep(model, params, cache, slots, dev,
+                           restore)                     # the server's
     out = graphed(params, cache, tok, pos)[0].clone()
+    restore()
     same = bool(torch.equal(out, step()))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
