@@ -255,10 +255,37 @@ Phases (each raises on failure, so the script exits non-zero):
      `build_serve_step`s (ms a step, device time and idle share); decode
      against `decode_hidden` at fp32 on 2 x 32 tokens; `build_prefill_step`
      with frames on 4 x 448 tokens. The numbers join the `lm_serve` line.
+  20. the data axis (FSDP) on two gloo ranks sharing the card, a
+     `(data=2, model=1)` mesh, at phase 9's widths (llama3.2-3b cut to 2
+     layers, seq 4096, global batch 2: one row a rank; AdamW's default
+     clip of 1.0, constant lr 3e-4). This process first runs the
+     one-rank reference from the parameters drawn once from seed 0 (3
+     uncompressed steps: each loss, step 1's gradient, the params after
+     3 steps; the one-rank `compress` of that gradient and its sketch)
+     and writes it with the parameters under `tempfile.mkdtemp()` (about
+     25 GB free needed, checked first); the ranks read their blocks of
+     it. 20a: 3 uncompressed FSDP steps (`build_train_step(mesh=)`,
+     each rank holding its blocks of params, m and v, their bytes
+     printed: half of the whole for every sharded leaf); step 1's loss
+     within 1e-5 relative of the one-rank step's and steps 2-3 within
+     1e-4, step 1's mean gradient (through the step's own gather and
+     reduce-scatter) within 2e-3 of max|g|, the params after 3 steps
+     within 6 lr. 20b: the compressor split over the ranks
+     (`bucket_spec`): the sketch and the EF of the one-rank gradient
+     within 1e-4 of the one-rank `compress`'s; 3 compressed steps on the
+     unfused branch, every loss finite, K1 and K2 launched on each rank
+     (their launches go into the training rows). 20c:
+     `train_loop.run(mesh=, shardings=)` with async saves every 2 steps
+     (rank 0 writes whole leaves) and a crash before step 3 under
+     `run_with_restarts`, restored through `restore(shardings=)`: params,
+     m and v bit-equal on both ranks to 20a's uninterrupted run; the
+     bytes on disk and each rank's restore seconds. The numbers (step ms,
+     the ledger's gather and reduce bytes and host ms by tag, peak GiB a
+     rank, K1/K2 launches) go on the `fsdp` line.
 Then it prints the `collective` JSON line (phase 15's numbers), the
-`pod_ckpt` and `lm_serve` lines (phases 16 to 19), the `kernels`
-JSON line, the card's name and power limit, and as its last line
-`{"ok": true, "device": {...}}`.
+`pod_ckpt`, `lm_serve` and `fsdp` lines (phases 16 to 20), the
+`kernels` JSON line, the card's name and power limit, and as its last
+line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -2008,7 +2035,8 @@ def _pod_rank(rank, world, tmp, task, shapes, extra):
                             world_size=world, rank=rank)
     try:
         res = {"collective": _pod_collective, "train": _pod_train,
-               "ckpt": _pod_ckpt}[task](rank, shapes, extra)
+               "ckpt": _pod_ckpt, "fsdp": _fsdp_rank}[task](rank, shapes,
+                                                           extra)
         Path(tmp, f"{task}_{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -3748,6 +3776,382 @@ def rec_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the data axis (FSDP) on two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+FSDP_STEPS = 3         # 20a and 20b: counted steps of each run
+FSDP_CRASH = 2         # 20c: saves every 2 steps, a crash before step 3
+FSDP_LOSS_RTOL = 1e-5  # step 1's loss against the one-rank step's
+FSDP_LATER_RTOL = 1e-4  # steps 2-3: the params already differ by up to 2
+                        # lr where AdamW's sqrt(v) is near eps, and this
+                        # slice's loss moves 7 nats in a step at lr 3e-4
+FSDP_GRAD_TOL = 2e-3   # of max|g|: bf16 products, the sums split otherwise
+FSDP_PARAM_LR = 6.0    # params after 3 steps: at most 2 lr a step apart
+FSDP_SKETCH_TOL = 1e-4  # sketch and EF of the split K1/K2 against whole
+
+
+def _fsdp_slice():
+    """Phase 20's slice: phase 9's llama3.2-3b widths and depth cut, its
+    sequence, global batch 2, AdamW with its default clip of 1.0 and a
+    constant lr (model, cfg, shape, opt, lr_fn, data)."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import AdamWConfig, schedule
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              n_layers=TRAIN_LAYERS)
+    shape = ShapeSpec("train_4k", cfg.shape("train_4k").seq_len, 2, "train")
+    return (build_model(cfg), cfg, shape, AdamWConfig(),
+            functools.partial(schedule.constant, peak_lr=TRAIN_LR),
+            SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
+                                   global_batch=2, seed=0)))
+
+
+def _ledger_by_tag(led) -> dict:
+    """{tag: {op, calls, bytes, host_ms}} of a ledger's rows."""
+    out = {}
+    for r in led.table():
+        row = out.setdefault(r["tag"], {"op": r["op"], "calls": 0,
+                                        "bytes": 0, "host_ms": 0.0})
+        row["calls"] += r["calls"]
+        row["bytes"] += r["bytes"]
+        row["host_ms"] += 1e3 * r["host_s"]
+    return out
+
+
+def _fsdp_rank(rank, shapes, extra):
+    """20a-c on one rank of the (data=2, model=1) mesh; every check that
+    needs the one-rank reference reads it from the phase's files (memory
+    mapped) and compares this rank's blocks. Returns the numbers."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.ckpt import checkpointer
+    from repro_torch.core.tree import (tree_flatten, tree_leaves, tree_map,
+                                       tree_unflatten)
+    from repro_torch.kernels import _sweep
+    from repro_torch.launch import fsdp, sharding, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compress import (SketchCompressor,
+                                            parse_compress_flag)
+    from repro_torch.rp import shard
+    from repro_torch.runtime import train_loop
+    from repro_torch.runtime.resilience import FaultInjector, \
+        run_with_restarts
+
+    dev = torch.device(extra["device"])
+    mesh = make_mesh((2, 1), ("data", "model"), device=dev, backend="gloo")
+    model, cfg, shape, opt, lr_fn, data = _fsdp_slice()
+    ref = torch.load(Path(extra["root"]) / "ref.pt", mmap=True,
+                     weights_only=True)
+    specs = steps.state_specs(model, mesh)
+    pspecs = specs["params"]
+    on_dev = lambda tree: tree_map(lambda t: t.to(dev), tree)  # noqa: E731
+
+    def fresh():
+        """This rank's blocks of the drawn parameters, zero moments."""
+        params = on_dev(fsdp.shard_tree(ref["params0"], pspecs, mesh))
+        return {"params": params, "opt": adamw.init_state(params, opt)}
+
+    def worst(blocks, whole, scale=None):
+        """max |block - the same block of `whole`| over leaves, over
+        max|whole leaf| (or over `scale`)."""
+        out = 0.0
+        for b, w in zip(tree_leaves(blocks), tree_leaves(
+                fsdp.Sharded(mesh, pspecs).blocks(whole))):
+            d = float((b.float() - w.to(dev).float()).abs().max())
+            out = max(out, d / (scale or max(float(w.abs().max()), 1e-30)))
+        return out
+
+    def digest(state):
+        return {"params": bits_digest(state["params"]),
+                "m": bits_digest(state["opt"]["m"]),
+                "v": bits_digest(state["opt"]["v"])}
+
+    def timed_steps(step_fn, state, first, n):
+        rows = []
+        for i in range(first, first + n):
+            batch = data.batch(i)
+            shard.collective_ledger().reset()
+            s_ev, e_ev = _mark(dev), _mark(dev)
+            s_ev.record()
+            state, met = step_fn(state, batch)
+            e_ev.record()
+            _sync(dev)
+            rows.append({"step": i, "loss": float(met["loss"]),
+                         "grad_norm": float(met["grad_norm"]),
+                         "step_ms": s_ev.elapsed_time(e_ev),
+                         "ledger": _ledger_by_tag(shard.collective_ledger())})
+        return state, rows
+
+    res = {"rank": rank}
+    # -- 20a: three uncompressed FSDP steps --------------------------------
+    state = fresh()
+    held = {k: sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+            for k, tree in (("params", state["params"]),
+                            ("m", state["opt"]["m"]),
+                            ("v", state["opt"]["v"]))}
+    res["held_bytes"] = held
+    res["whole_bytes"] = 4 * sum(t.numel() for t in
+                                 tree_leaves(model.param_shapes()))
+    # step 1's mean gradient, through the step's own pieces: this rank's
+    # row of the batch (the batch of 2 splits over data=2), the per-layer
+    # gather, the reduce-scatter and the replicated leaves' mean
+    layout = fsdp.Sharded(mesh, pspecs)
+    batch = {k: torch.as_tensor(v).to(dev).narrow(0, rank, 1)
+             for k, v in data.batch(0).items()}
+    leaves, treedef = tree_flatten(state["params"])
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        loss = model.loss_fn(tree_unflatten(treedef, live), batch,
+                             gather=layout)
+        grads = torch.autograd.grad(loss, live)
+    grads = layout.finish(tree_unflatten(treedef, list(grads)))
+    res["grad_rel"] = worst(grads, ref["g1"],
+                            scale=max(float(t.abs().max())
+                                      for t in tree_leaves(ref["g1"])))
+    del live, grads, loss
+    _free(dev)
+    step_fn = steps.build_train_step(model, shape, mesh=mesh, opt=opt,
+                                     lr_fn=lr_fn)
+    state, res["20a"] = timed_steps(step_fn, state, 0, FSDP_STEPS)
+    res["param_lr"] = worst(state["params"], ref["params3"], scale=TRAIN_LR)
+    res["digest_20a"] = digest(state)
+
+    # -- 20b: three compressed steps on the unfused branch -----------------
+    comp = SketchCompressor(parse_compress_flag(TRAIN_COMPRESS))
+    mcomp = dataclasses.replace(comp, mesh=mesh,
+                                bucket_spec=sharding.bucket_specs(mesh))
+    g1 = on_dev(ref["g1"])
+    kernels.reset_launch_counts()
+    seed = mcomp._key(0)
+    y = mcomp._sketcher(g1).sketch(g1, seed)
+    _, est, _ = mcomp.compress(g1, mcomp.init_state(g1), step=0)
+    _sync(dev)
+    res["check_launches"] = {"sweep_project": _sweep.sweep_project.launches,
+                             "sweep_reconstruct":
+                                 _sweep.sweep_reconstruct.launches}
+    y_ref = ref["y"].to(dev)
+    res["sketch_rel"] = float((y - y_ref).abs().max() / y_ref.abs().max())
+    res["ef_rel"] = max(float((e - r.to(dev)).abs().max()
+                              / r.abs().max().clamp_min(1e-30))
+                        for e, r in zip(tree_leaves(est["residual"]),
+                                        tree_leaves(ref["ef"])))
+    del g1, y, est, y_ref
+    _free(dev)
+    # the EF residual, whole on every rank (the reference's P())
+    state["ef"] = {"residual": tree_map(lambda t: torch.zeros(
+        t.shape, device=dev), model.param_shapes())}
+    step_c = steps.build_train_step(model, shape, mesh=mesh, opt=opt,
+                                    lr_fn=lr_fn, compressor=comp)
+    kernels.reset_launch_counts()
+    state, res["20b"] = timed_steps(step_c, state, FSDP_STEPS, FSDP_STEPS)
+    res["launches"] = {"sweep_project": _sweep.sweep_project.launches,
+                       "sweep_reconstruct": _sweep.sweep_reconstruct.launches}
+    del state
+    _free(dev)
+
+    # -- 20c: the train loop on the data mesh, a crash and the restore -----
+    restore_s, final = [], {}
+    restore = checkpointer.restore
+
+    def timed_restore(*a, **kw):
+        t0 = time.perf_counter()
+        out = restore(*a, **kw)
+        restore_s.append(time.perf_counter() - t0)
+        return out
+
+    def attempt(injector):
+        final["state"], step = train_loop.run(
+            step_fn, fresh(), data, train_loop.LoopConfig(
+                total_steps=FSDP_STEPS, ckpt_dir=extra["ckpt_dir"],
+                ckpt_every=2, keep_ckpts=1, log_every=100),
+            injector=injector, mesh=mesh, shardings=specs,
+            log=lambda *_: None)
+        return step
+
+    shard.collective_ledger().reset()
+    checkpointer.restore = timed_restore
+    t0 = time.perf_counter()
+    try:
+        report = run_with_restarts(attempt, max_restarts=1,
+                                   injector=FaultInjector({FSDP_CRASH}))
+    finally:
+        checkpointer.restore = restore
+    _sync(dev)
+    res["20c"] = {"seconds": time.perf_counter() - t0,
+                  "restarts": report.restarts,
+                  "final_step": report.final_step,
+                  "restore_s": restore_s,
+                  "gather": _ledger_by_tag(shard.collective_ledger()).get(
+                      "ckpt_gather"),
+                  "bit_equal": digest(final["state"]) == res["digest_20a"]}
+    if rank == 0:
+        path = Path(extra["ckpt_dir"]) / f"step_{FSDP_STEPS:010d}"
+        res["20c"]["disk_bytes"] = sum(f.stat().st_size
+                                       for f in path.iterdir())
+    res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if dev.type == "cuda" else None)
+    return res
+
+
+def fsdp_phase(dev) -> dict:
+    """Phase 20: the train step on a (data=2, model=1) mesh of two gloo
+    ranks sharing the card, at phase 9's widths. This process first runs
+    the one-rank reference (its loss each step, step 1's gradient, the
+    params after 3 steps, the one-rank `compress` of that gradient and
+    its sketch) and writes it beside the drawn parameters, then frees the
+    card; the ranks (`_fsdp_rank`) read their blocks of it. Returns the
+    numbers of the `fsdp` line, with the K1/K2 launches under
+    `launches`."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core.tree import tree_flatten, tree_leaves, \
+        tree_map, tree_unflatten
+    from repro_torch.launch import steps
+    from repro_torch.optim.compress import (SketchCompressor,
+                                            parse_compress_flag)
+
+    t_phase = time.perf_counter()
+    model, cfg, shape, opt, lr_fn, data = _fsdp_slice()
+    p_bytes = 4 * sum(t.numel() for t in tree_leaves(model.param_shapes()))
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_fsdp_"))
+    free_disk = shutil.disk_usage(root).free
+    need = 4 * p_bytes + 2.1 * 3 * p_bytes   # the reference, 2 checkpoints
+    log(f"phase 20: {free_disk / 1e9:.2f} GB free under {root}; the "
+        f"reference files and two checkpoints need {need / 1e9:.2f} GB")
+    if free_disk < need:
+        raise AssertionError(f"phase 20 needs {need / 1e9:.2f} GB free "
+                             f"under {root}")
+    try:
+        # -- the one-rank reference, in this process -----------------------
+        t0 = time.perf_counter()
+        state = steps.init_train_state(
+            model, torch.Generator(device=dev).manual_seed(0), opt=opt)
+        host = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+        ref = {"params0": host(state["params"])}
+        leaves, treedef = tree_flatten(state["params"])
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        batch = {k: torch.as_tensor(v).to(dev)
+                 for k, v in data.batch(0).items()}
+        with torch.enable_grad():
+            g1 = torch.autograd.grad(model.loss_fn(
+                tree_unflatten(treedef, live), batch), live)
+        g1 = tree_unflatten(treedef, list(g1))
+        del live, batch
+        step_fn = steps.build_train_step(model, shape, opt=opt, lr_fn=lr_fn,
+                                         device=dev)
+        losses = []
+        for i in range(FSDP_STEPS):
+            state, met = step_fn(state, data.batch(i))
+            losses.append(float(met["loss"]))
+        ref["params3"] = host(state["params"])
+        del state
+        comp = SketchCompressor(parse_compress_flag(TRAIN_COMPRESS))
+        ref["y"] = comp._sketcher(g1).sketch(g1, comp._key(0)).cpu()
+        _, est, _ = comp.compress(g1, comp.init_state(g1), step=0)
+        ref["ef"] = host(est["residual"])
+        ref["g1"] = host(g1)
+        del g1, est
+        torch.save(ref, root / "ref.pt")
+        del ref
+        _free(dev)
+        ref_s = time.perf_counter() - t0
+        log(f"20: the one-rank reference (3 steps, step 1's gradient and "
+            f"its compress) took {ref_s:.1f} s; losses {losses}")
+
+        # -- 20a-c on two ranks ---------------------------------------------
+        t0 = time.perf_counter()
+        ranks = _pod_ranks("fsdp", None, {
+            "device": str(dev), "root": str(root),
+            "ckpt_dir": str(root / "ckpt")})
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {"sweep_project": 0, "sweep_reconstruct": 0}
+    for r in ranks:
+        for name in launches:
+            launches[name] += r["launches"][name]
+        a, b, c = r["20a"], r["20b"], r["20c"]
+        log(f"20a rank {r['rank']}: holds params/m/v "
+            f"{r['held_bytes']} B of {r['whole_bytes']} B each whole; "
+            f"step 1's gradient {r['grad_rel']:.3e} of max|g| from the "
+            f"one-rank's; losses {[s['loss'] for s in a]} (one-rank "
+            f"{losses}); step ms {[round(s['step_ms'], 1) for s in a]}; "
+            f"params after {FSDP_STEPS} steps {r['param_lr']:.3f} lr from "
+            f"the one-rank's; ledger of the last step {a[-1]['ledger']}")
+        log(f"20b rank {r['rank']}: split sketch {r['sketch_rel']:.3e}, EF "
+            f"{r['ef_rel']:.3e} of max|ref| from the one-rank compress "
+            f"(K1/K2 {r['check_launches']}); losses "
+            f"{[s['loss'] for s in b]}; step ms "
+            f"{[round(s['step_ms'], 1) for s in b]}; K1/K2 launches of the "
+            f"steps {r['launches']}; ledger of the last step "
+            f"{b[-1]['ledger']}")
+        log(f"20c rank {r['rank']}: restarts {c['restarts']}, final step "
+            f"{c['final_step']}, params/m/v bit-equal to 20a's "
+            f"{c['bit_equal']}; restore s {c['restore_s']}; checkpoint "
+            f"gather {c['gather']}; {c.get('disk_bytes', '-')} B on disk; "
+            f"{c['seconds']:.1f} s; peak {r['peak_gib']} GiB")
+        for i, s in enumerate(a):
+            tol = FSDP_LOSS_RTOL if i == 0 else FSDP_LATER_RTOL
+            if abs(s["loss"] - losses[i]) > tol * abs(losses[i]):
+                raise AssertionError(f"20a rank {r['rank']} step {i}: loss "
+                                     f"{s['loss']} vs one-rank {losses[i]}")
+        if r["grad_rel"] > FSDP_GRAD_TOL:
+            raise AssertionError(f"20a: step 1's gradient {r['grad_rel']}")
+        if r["param_lr"] > FSDP_PARAM_LR:
+            raise AssertionError(f"20a: params {r['param_lr']} lr apart")
+        if not all(2 * held < r["whole_bytes"] * 1.01 + 1e6
+                   for held in r["held_bytes"].values()):
+            raise AssertionError(f"20a: a rank holds more than its blocks: "
+                                 f"{r['held_bytes']}")
+        if max(r["sketch_rel"], r["ef_rel"]) > FSDP_SKETCH_TOL:
+            raise AssertionError(f"20b: split K1/K2 off the whole: sketch "
+                                 f"{r['sketch_rel']}, EF {r['ef_rel']}")
+        if not all(math.isfinite(s["loss"]) for s in b):
+            raise AssertionError(f"20b: a loss is not finite: {b}")
+        if not all(r["launches"][n] > 0 and r["check_launches"][n] > 0
+                   for n in launches):
+            raise AssertionError(f"20b rank {r['rank']}: K1 or K2 was not "
+                                 f"launched: {r['launches']}")
+        if (c["restarts"], c["final_step"]) != (1, FSDP_STEPS) or not c[
+                "bit_equal"]:
+            raise AssertionError(f"20c rank {r['rank']}: the crash-restart "
+                                 f"is not the uninterrupted run: {c}")
+    for part in ("20a", "20b"):
+        if [s["loss"] for s in ranks[0][part]] != [
+                s["loss"] for s in ranks[1][part]]:
+            raise AssertionError(f"{part}: the ranks' losses differ")
+    steps_ms = [s["step_ms"] for r in ranks for s in r["20a"]]
+    comp_ms = [s["step_ms"] for r in ranks for s in r["20b"]]
+    numbers = {
+        "arch": cfg.name, "layers": cfg.n_layers, "seq": shape.seq_len,
+        "global_batch": shape.global_batch, "params": p_bytes // 4,
+        "one_rank_losses": losses, "reference_s": ref_s, "ranks_s": ranks_s,
+        "step_ms_median": statistics.median(steps_ms),
+        "compressed_step_ms_median": statistics.median(comp_ms),
+        "ledger_a_step": ranks[0]["20a"][-1]["ledger"],
+        "compressed_ledger_a_step": ranks[0]["20b"][-1]["ledger"],
+        "peak_gib": [r["peak_gib"] for r in ranks],
+        "launches": launches, "ranks": ranks}
+    numbers["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 20 took {numbers['seconds']:.1f}s; step ms (median) "
+        f"{numbers['step_ms_median']:.1f} uncompressed, "
+        f"{numbers['compressed_step_ms_median']:.1f} compressed; K1/K2 "
+        f"launches {launches}")
+    return numbers
+
+
 def _leaf_names(tree, prefix=()):
     """Key paths of a nested dict's leaves in sorted-key order."""
     out = []
@@ -4465,6 +4869,12 @@ def main() -> int:
     lm.update({arch: row for arch, row in rec.items() if arch != "seconds"})
     lm["seconds_phase19"] = rec["seconds"]
 
+    # -- 20. the data axis (FSDP) on two ranks sharing the card ----------
+    fsdp = fsdp_phase(dev)
+    for name, n in fsdp["launches"].items():
+        next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
+        launches[name] += n
+
     for name in launches:
         total = sum(r["launches"] for r in rows
                     if r["name"].split(":")[0] == name)
@@ -4478,6 +4888,7 @@ def main() -> int:
     print(json.dumps({"collective": pod}))
     print(json.dumps({"pod_ckpt": pod_ckpt}))
     print(json.dumps({"lm_serve": lm}))
+    print(json.dumps({"fsdp": fsdp}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

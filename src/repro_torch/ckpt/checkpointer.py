@@ -21,7 +21,11 @@ Port-specific:
     (uint16) with the manifest dtype ``"bfloat16"`` and come back bit
     for bit.
   * ``restore`` returns tensors on an explicit ``device=``, else on each
-    example leaf's device (a meta example leaf: the CPU).
+    example leaf's device (a meta example leaf: the CPU). Its
+    ``shardings=`` is a tree of specs beside ``mesh=`` (the port's
+    counterpart of a ``NamedSharding`` tree): each leaf comes back as this
+    rank's block, read from a memory map of the array, so only the block's
+    bytes are read (verification still checksums every byte).
   * ``AsyncCheckpointer`` copies CUDA leaves into pinned host buffers on a
     side stream (``non_blocking``, one event the writer thread waits on),
     so the caller's critical path holds no transfer; the buffers are
@@ -269,19 +273,26 @@ def newest_verified_step(directory: str | os.PathLike) -> int | None:
 
 
 def restore(directory: str | os.PathLike, example_tree: Any,
-            step: int | None = None, *, device=None,
-            verify_integrity: bool = True,
+            step: int | None = None, *, device=None, shardings: Any = None,
+            mesh=None, verify_integrity: bool = True,
             fallback: bool = True) -> tuple[Any, int]:
     """Restore into the structure of `example_tree`. Returns (tree, step).
 
     `example_tree`'s leaves are tensors (meta tensors will do). Each leaf
     comes back as a tensor of its example leaf's dtype, on `device` when
-    given, else on the example leaf's device (the CPU for a meta tensor). `verify_integrity` runs the full
-    checksum/hash check first; `fallback` walks back from a checkpoint
-    that fails it to the newest one that passes (`CorruptionError` only
-    when none does). An explicit `step=` with `fallback=False` raises on
-    that exact step.
+    given, else on the example leaf's device (the CPU for a meta tensor).
+    `shardings` (a tree of specs, one a leaf, with the `mesh` they refer
+    to; `launch.steps.state_specs`) returns each leaf as this rank's block
+    along its spec (`launch.fsdp.block`), read alone from a memory map;
+    the example leaves then have the blocks' shapes. `verify_integrity`
+    runs the full checksum/hash check first; `fallback` walks back from a
+    checkpoint that fails it to the newest one that passes
+    (`CorruptionError` only when none does). An explicit `step=` with
+    `fallback=False` raises on that exact step.
     """
+    if shardings is not None and mesh is None:
+        raise CheckpointError("restore(shardings=) needs the mesh= the "
+                              "specs refer to")
     directory = pathlib.Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -289,6 +300,7 @@ def restore(directory: str | os.PathLike, example_tree: Any,
             raise FileNotFoundError(f"no checkpoints under {directory}")
     with obs.span("ckpt.restore", step=step) as sp:
         loaded = None
+        keep = shardings is None   # a sharded restore maps each file
         if verify_integrity:
             candidates = [step] + [s for s in
                                    reversed(available_steps(directory))
@@ -297,7 +309,8 @@ def restore(directory: str | os.PathLike, example_tree: Any,
             for cand in candidates:
                 arrays: list = []
                 try:
-                    _verify(directory / f"step_{cand:010d}", arrays)
+                    _verify(directory / f"step_{cand:010d}",
+                            arrays if keep else None)
                 except CorruptionError as e:
                     last_err = e
                     if not fallback:
@@ -308,14 +321,14 @@ def restore(directory: str | os.PathLike, example_tree: Any,
                     # loop owns the (exactly-one) ckpt.fallback event
                     sp.set(fallback_from=step, step=cand)
                     step = cand
-                loaded = arrays
+                loaded = arrays if keep else None
                 break
             else:
                 raise CorruptionError(
                     f"no verifiable checkpoint under {directory} "
                     f"(newest failure: {last_err})")
         return _restore_body(directory, example_tree, step, device,
-                             loaded), step
+                             loaded, shardings, mesh), step
 
 
 def _leaf_device(ref, device) -> torch.device:
@@ -324,8 +337,24 @@ def _leaf_device(ref, device) -> torch.device:
     return ref.device if ref.device.type != "meta" else torch.device("cpu")
 
 
+def _spec_leaves(shardings) -> list:
+    """A spec tree's leaves in `core.tree` order (a spec is a tuple, which
+    `tree_flatten` would open)."""
+    if isinstance(shardings, dict):
+        return [s for k in sorted(shardings)
+                for s in _spec_leaves(shardings[k])]
+    return [shardings]
+
+
+def _block(arr: np.ndarray, spec, mesh) -> np.ndarray:
+    """This rank's block of a (memory-mapped) array, read alone."""
+    from repro_torch.launch.fsdp import block_slices
+    return np.array(arr[block_slices(arr.shape, spec, mesh)])
+
+
 def _restore_body(directory: pathlib.Path, example_tree: Any, step: int,
-                  device, loaded: list | None) -> Any:
+                  device, loaded: list | None, shardings=None,
+                  mesh=None) -> Any:
     path = directory / f"step_{step:010d}"
     manifest = json.loads((path / "manifest.json").read_text())
     leaves, treedef = tree_flatten(example_tree)
@@ -334,6 +363,16 @@ def _restore_body(directory: pathlib.Path, example_tree: Any, step: int,
             f"checkpoint {path} holds {manifest['n_arrays']} arrays but the "
             f"example tree has {len(leaves)} leaves: tree structure changed "
             "between save and restore")
+    if shardings is not None:
+        specs = _spec_leaves(shardings)
+        if len(specs) != manifest["n_arrays"]:
+            raise CheckpointError(
+                f"shardings tree has {len(specs)} leaves but the checkpoint "
+                f"holds {manifest['n_arrays']} arrays: pass one spec per "
+                "restored leaf")
+        loaded = [_block(np.load(path / meta["file"], mmap_mode="r"), spec,
+                         mesh)
+                  for meta, spec in zip(manifest["arrays"], specs)]
     if loaded is None:
         loaded = [np.load(path / meta["file"]) for meta in manifest["arrays"]]
     new_leaves = []

@@ -6,8 +6,9 @@ the process groups the port's collectives run on:
 
   pod   — slow inter-pod data parallelism; the gradient sketch compressor
           syncs this axis (`optim/compress.py::compress_collective`).
-  data  — in-pod data parallelism (the sketcher's bucket axis).
-  model — tensor parallelism (waits for item 12's `param_axes`).
+  data  — in-pod data parallelism: FSDP's blocks of the parameters
+          (`launch/fsdp.py`) and the sketcher's bucket axis.
+  model — tensor parallelism (item 12.7b).
 
 Every axis and every tuple of axes gets its group once, when the mesh is
 built, on every rank in the same order (`new_group` must be entered by

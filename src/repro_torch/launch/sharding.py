@@ -1,14 +1,113 @@
-"""Layout helpers for a mesh (partial port of `repro/launch/sharding.py`).
+"""Logical-axis -> mesh-axis layout rules (port of
+`repro/launch/sharding.py`).
 
-Only the sketch-bucket template is ported: `bucket_specs`, which the
-checkpoint codec's sketcher reads (`ckpt/elastic.py`). The parameter
-and batch layouts (`axis_rules`, `spec_for`, `param_specs`,
-`input_batch_specs`, `shard_batch_seq`) go with the model's
-`param_axes` (ROADMAP.md, queue 1 item 12.7).
+Parameters carry logical axis names (`models.<family>.param_axes`); this
+module maps them to specs for a concrete mesh, with the reference's
+per-dimension divisibility fallbacks (whisper's vocab of 51865 does not
+split over 16 ranks, so its vocab dim falls back to replicated, recorded
+in `notes`). A spec is a tuple with one entry a dim: None, one axis name,
+or a tuple of names (the reference's `PartitionSpec` entries).
+
+Strategy (the reference's):
+  embed, vocab_fsdp -> (pod, data)  FSDP: the weights' data-axis blocks
+  heads/mlp/vocab   -> model        tensor parallel
+  experts           -> model        expert parallel (if E divides |model|)
+  expert_mlp        -> model        only when experts don't shard
+  layers            -> None         (the layer stack)
+The batch goes over the data axes (`batch_spec`). Every function here
+reads only `mesh.shape` and `mesh.axis_names`, so a stand-in mesh with no
+process group will do. The port runs the data axis (`launch/fsdp.py`);
+the model axis, `cache_specs` and `shard_batch_seq` wait for item 12.7b
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
-from .mesh import data_axes
+from typing import Any
+
+from repro_torch.models.config import ArchConfig
+
+from .mesh import data_axes, model_size
+
+
+def axis_rules(cfg: ArchConfig, mesh, *, fsdp_axes=None) -> dict[str, Any]:
+    """Logical axis -> mesh axes. `fsdp_axes` overrides the data axes the
+    parameters are sharded over (the reference's compressor on a pod mesh
+    sets ('data',): params replicate across pods)."""
+    dp = fsdp_axes if fsdp_axes is not None else data_axes(mesh)
+    ms = model_size(mesh)
+    experts_shardable = (cfg.moe is not None
+                         and cfg.moe.num_experts % ms == 0)
+    return {
+        "embed": dp,
+        "vocab_fsdp": dp,
+        "embed_tp": "model",
+        "heads": "model",
+        "mlp": "model",
+        "mlp2": None,
+        "vocab": "model",
+        "experts": "model" if experts_shardable else None,
+        "expert_mlp": None if experts_shardable else "model",
+        "layers": None,
+        None: None,
+    }
+
+
+def _axis_size(mesh, axis) -> int:
+    if axis is None:
+        return 1
+    if isinstance(axis, (tuple, list)):
+        out = 1
+        for a in axis:
+            out *= mesh.shape[a]
+        return out
+    return mesh.shape[axis]
+
+
+def spec_for(shape: tuple[int, ...], axes: tuple, rules: dict, mesh,
+             notes: list | None = None) -> tuple:
+    """The spec of one leaf: each dim's mesh axes, dropping axes that do
+    not divide the dim (a tuple of axes first tries its prefixes); each
+    drop to replicated is recorded in `notes`."""
+    entries = []
+    for dim, logical in zip(shape, axes):
+        mesh_axis = rules.get(logical, None)
+        if mesh_axis is None:
+            entries.append(None)
+            continue
+        if dim % _axis_size(mesh, mesh_axis) != 0:
+            chosen = None
+            if isinstance(mesh_axis, (tuple, list)):
+                for cut in range(len(mesh_axis) - 1, 0, -1):
+                    sub = tuple(mesh_axis[:cut])
+                    if dim % _axis_size(mesh, sub) == 0:
+                        chosen = sub
+                        break
+            if chosen is None and notes is not None:
+                notes.append(f"dim {dim} !% {mesh_axis} -> replicated")
+            entries.append(chosen)
+        else:
+            entries.append(tuple(mesh_axis) if isinstance(mesh_axis, list)
+                           else mesh_axis)
+    return tuple(entries)
+
+
+def _shape(node) -> tuple[int, ...]:
+    return tuple(node) if isinstance(node, (tuple, list)) \
+        else tuple(node.shape)
+
+
+def param_specs(cfg: ArchConfig, axes_tree, mesh, shapes_tree,
+                notes: list | None = None, *, fsdp_axes=None):
+    """The tree of specs matching the params tree (`shapes_tree`: tensors,
+    meta tensors or shape tuples; `axes_tree`: `Model.param_axes()`),
+    notes in sorted-key order."""
+    rules = axis_rules(cfg, mesh, fsdp_axes=fsdp_axes)
+
+    def walk(shapes, axes):
+        if isinstance(shapes, dict):
+            return {k: walk(shapes[k], axes[k]) for k in sorted(shapes)}
+        return spec_for(_shape(shapes), axes, rules, mesh, notes)
+    return walk(shapes_tree, axes_tree)
 
 
 def bucket_specs(mesh, *, exclude: tuple = ()) -> tuple:
@@ -20,4 +119,36 @@ def bucket_specs(mesh, *, exclude: tuple = ()) -> tuple:
     return (axes,) if axes else (None,)
 
 
-__all__ = ["bucket_specs"]
+def batch_spec(shape: tuple[int, ...], mesh) -> tuple:
+    """Dim 0 (the global batch) over as many data axes as divide it,
+    replicated when none does."""
+    dp = data_axes(mesh)
+    n = shape[0]
+    for cut in range(len(dp), -1, -1):
+        sub = dp[:cut]
+        if n % _axis_size(mesh, sub) == 0:
+            return (sub if sub else None,) + (None,) * (len(shape) - 1)
+    return (None,) * len(shape)
+
+
+def input_batch_specs(batch_tree, mesh):
+    """Specs for a batch dict (tokens, labels, frames, ...; tensors, meta
+    tensors or shape tuples): positions3 (3, B, S) holds its batch on dim
+    1, everything else on dim 0."""
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        shape = _shape(node)
+        if name == "positions3":
+            return (None,) + batch_spec(shape[1:], mesh)
+        return batch_spec(shape, mesh)
+    return walk(batch_tree, None)
+
+
+def batch_dim(name: str) -> int:
+    """The dim of a batch entry that holds its rows."""
+    return 1 if name == "positions3" else 0
+
+
+__all__ = ["axis_rules", "batch_dim", "batch_spec", "bucket_specs",
+           "input_batch_specs", "param_specs", "spec_for"]

@@ -17,7 +17,22 @@ it). Branches:
   compressor by `compress_collective` (one K1 and two or one K2 launches
   a leaf and the sketch's or the dense leaves' mean), without one by one
   dense all_reduce of the whole gradient — then `adamw.update`. Each rank
-  holds its own pod's EF residual, without a pod dim.
+  holds its own pod's EF residual, without a pod dim;
+* a `mesh=` whose 'data' axis is above 1 (model 1, no pod axis): the
+  reference's FSDP. Each rank takes its rows of the global batch by
+  `sharding.batch_spec` (all of them when the data size does not divide
+  it) and holds params, m and v as its blocks of `sharding.param_specs`
+  (`shard_state`); the forward reads a layer's leaves through
+  `launch.fsdp.Sharded`, whose backward reduce-scatters each gradient to
+  the block; the replicated leaves' gradients are averaged, the loss is
+  the ranks' mean and the clip norm the whole gradient's. With a
+  compressor (the reference's single-pod branch) the backward
+  all-reduces instead, `compress` sketches the whole mean gradient with
+  each rank's block of a leaf's buckets through K1 and K2
+  (`bucket_spec = sharding.bucket_specs(mesh)`), and AdamW updates the
+  rank's block of the estimate; the EF residual is whole on every rank
+  (the reference's `P()`). The MoE FFN dispatches a rank's rows in
+  `moe_groups_for(...)` over the number of row blocks groups.
 
 `build_prefill_step` gives `fn(params, batch) -> logits` (the last
 token's, float32) and `build_serve_step` `fn(params, cache, token, pos,
@@ -30,11 +45,9 @@ and decodes the tokens against it, and its serve step needs a cache
 whose cross K/V `whisper.build_cross_cache` has filled. Every step
 passes the batch's `positions3`, `patches` and `patch_positions`
 (qwen2-vl) through, the last left on the host, where the model checks
-them. `data` or `model` axes above 1 (FSDP/TP) wait for the model's
-`param_axes` (ROADMAP.md, queue 1 item 12.7), and with them the mesh
-arguments of the prefill and serve steps and the reference's MoE
-dispatch groups (`moe_groups_for`, one group a data shard): every step
-dispatches the MoE FFN in one group.
+them. A `model` axis above 1 (TP/EP/SP), a data axis beside a pod axis,
+`fused_update` on a data mesh and the mesh arguments of the prefill and
+serve steps are item 12.7b (ROADMAP.md, queue 1): they raise.
 """
 from __future__ import annotations
 
@@ -52,6 +65,11 @@ from repro_torch.models.config import ArchConfig, ShapeSpec
 from repro_torch.optim import AdamWConfig, adamw, schedule
 from repro_torch.runtime.spans import span
 
+from . import fsdp, sharding
+from .mesh import data_axes
+
+_LATER = "item 12.7b (ROADMAP.md, queue 1)"
+
 
 def _policy(cfg: ArchConfig) -> dict:
     if cfg.policy == "lean":
@@ -59,6 +77,71 @@ def _policy(cfg: ArchConfig) -> dict:
                     compute_dtype=torch.bfloat16)
     return dict(param_dtype=torch.float32, moment_dtype=torch.float32,
                 compute_dtype=torch.bfloat16)
+
+
+def moe_groups_for(cfg: ArchConfig, mesh, global_batch: int) -> int:
+    """The MoE dispatch groups of the global batch: the number of data
+    shards, halved until it divides the batch (1 without MoE)."""
+    if cfg.moe is None:
+        return 1
+    g = 1
+    for a in data_axes(mesh):
+        g *= mesh.shape[a]
+    while g > 1 and global_batch % g:
+        g //= 2
+    return max(1, g)
+
+
+def _replicated(specs):
+    if isinstance(specs, dict):
+        return {k: _replicated(v) for k, v in specs.items()}
+    return (None,) * len(specs)
+
+
+def state_specs(model: Model, mesh, state: dict | None = None) -> dict:
+    """The train state's layout on a data mesh: params, m and v by
+    `sharding.param_specs`, the step count and the EF residual (when
+    `state` has one) whole on every rank."""
+    pspecs = sharding.param_specs(model.cfg, model.param_axes(), mesh,
+                                  model.param_shapes())
+    out = {"params": pspecs, "opt": {"m": pspecs, "v": pspecs,
+                                     "count": ()}}
+    if state is not None and "ef" in state:
+        out["ef"] = {"residual": _replicated(pspecs)}
+    return out
+
+
+def shard_state(model: Model, state: dict, mesh) -> dict:
+    """This rank's train state on a data mesh from the whole one (every
+    rank passes the same): its blocks of params, m and v, the rest as it
+    is (`fsdp.shard_tree`)."""
+    return fsdp.shard_tree(state, state_specs(model, mesh, state), mesh)
+
+
+def unshard_state(model: Model, state: dict, mesh) -> dict:
+    """The whole train state on every rank from the ranks' blocks: the
+    inverse of `shard_state` (one all_gather a sharded leaf)."""
+    return fsdp.unshard_tree(state, state_specs(model, mesh, state), mesh)
+
+
+def _check_mesh(mesh, fused_update: bool) -> bool:
+    """Refuse what item 12.7b brings; True on a data mesh (data above
+    1)."""
+    sizes = dict(mesh.shape)
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"a model axis of {sizes['model']} (TP/EP/SP within a pod) is "
+            f"{_LATER}; run a (data, 1) or (pod, 1, 1) mesh")
+    data = sizes.get("data", 1) > 1
+    if data and "pod" in sizes:
+        raise NotImplementedError(
+            f"a data axis beside a pod axis (pod x data, {sizes}) is "
+            f"{_LATER}; run a (data, 1) or (pod, 1, 1) mesh")
+    if data and fused_update:
+        raise NotImplementedError(
+            f"fused_update=True on a data mesh is {_LATER}; build the "
+            "unfused step (compress -> adamw.update)")
+    return data
 
 
 def build_train_step(model: Model, shape: ShapeSpec, *,
@@ -73,20 +156,16 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
     """`fused_update=True` swaps the compress -> adamw.update chain for
     `adamw.update_sketched` (one fused unsketch+EF+AdamW launch per leaf);
     it needs a compressor, no pod axis, and `AdamWConfig(clip_norm=None)`.
-    `mesh` (a `launch.mesh.Mesh`) with a 'pod' axis builds the pod branch
-    on the mesh's device. `compute_dtype=None` takes the config's policy
-    (bf16 compute under 'mixed' and 'lean'); `device=None` means CUDA."""
+    `mesh` (a `launch.mesh.Mesh`) with a 'pod' axis builds the pod branch,
+    one whose 'data' axis is above 1 the data branch (its state comes from
+    `shard_state`), on the mesh's device. `compute_dtype=None` takes the
+    config's policy (bf16 compute under 'mixed' and 'lean');
+    `device=None` means CUDA."""
     cfg = model.cfg
     pol = _policy(cfg)
-    npod, group = 1, None
+    npod, group, data_mesh = 1, None, False
     if mesh is not None:
-        wide = {a: n for a, n in mesh.shape.items()
-                if a in ("data", "model") and n > 1}
-        if wide:
-            raise NotImplementedError(
-                f"mesh axes {wide} above 1 shard params and batch within a "
-                "pod (FSDP/TP), which needs the model's param_axes "
-                "(ROADMAP.md, queue 1 item 12.7); run a (pod, 1, 1) mesh")
+        data_mesh = _check_mesh(mesh, fused_update)
         if "pod" in mesh.axis_names:
             group = mesh.group("pod")
             npod = group.size
@@ -117,18 +196,20 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
     if compressor is not None and mesh is not None:
         compressor = dataclasses.replace(
             compressor, pod_axis="pod" if group is not None else None,
-            mesh=mesh)
+            mesh=mesh, bucket_spec=sharding.bucket_specs(mesh)
+            if data_mesh else None)
     if shape.global_batch % npod:
         raise ValueError(f"global batch {shape.global_batch} does not split "
                          f"into {npod} pods' rows")
     want = (shape.global_batch, shape.seq_len)
 
-    def loss_and_grads(params, batch):
+    def loss_and_grads(params, batch, **kw):
         leaves, treedef = tree_flatten(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
         with torch.enable_grad():
             loss = model.loss_fn(tree_unflatten(treedef, live), batch,
-                                 compute_dtype=compute_dtype, remat=remat)
+                                 compute_dtype=compute_dtype, remat=remat,
+                                 **kw)
             grads = torch.autograd.grad(loss, live)
         return loss.detach(), tree_unflatten(treedef, list(grads))
 
@@ -185,10 +266,16 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
         new_state["opt"] = new_opt
         return new_state, metrics
 
+    if data_mesh:
+        data_step = _data_step(model, shape, mesh, opt, lr_fn, compressor,
+                               loss_and_grads)
+
     def train_step(state, batch):
         batch = on_device(batch)
         if group is not None:
             return pod_step(state, batch)
+        if data_mesh:
+            return data_step(state, batch)
         params = state["params"]
         metrics = {}
         new_state = dict(state)
@@ -215,6 +302,76 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
         return new_state, metrics
 
     return train_step
+
+
+def _data_step(model: Model, shape: ShapeSpec, mesh, opt: AdamWConfig,
+               lr_fn, compressor, loss_and_grads) -> Callable:
+    """The data-mesh branch of `build_train_step` (see its module
+    docstring): `fn(state, batch)` on this rank's blocks."""
+    from repro_torch.rp import shard
+    cfg = model.cfg
+    pspecs = sharding.param_specs(cfg, model.param_axes(), mesh,
+                                  model.param_shapes())
+    dgroup = mesh.group(data_axes(mesh))
+    n = dgroup.size
+    entry = sharding.batch_spec((shape.global_batch,), mesh)[0]
+    rows_group = fsdp.mesh_group(mesh, entry) if entry else None
+    n_blocks = rows_group.size if rows_group else 1
+    per = shape.global_batch // n_blocks
+    # the global batch's groups of contiguous tokens over this rank's rows
+    kw = ({"moe_groups": max(1, moe_groups_for(cfg, mesh, shape.global_batch)
+                             // n_blocks)} if cfg.moe is not None else {})
+    blocks = fsdp.Sharded(mesh, pspecs).blocks(model.param_shapes())
+    want = [tuple(t.shape) for t in tree_flatten(blocks)[0]]
+
+    def rows(batch):
+        if rows_group is None:
+            return batch
+        return {k: v.narrow(sharding.batch_dim(k), rows_group.index * per,
+                            per) for k, v in batch.items()}
+
+    def data_step(state, batch):
+        params = state["params"]
+        got = [tuple(t.shape) for t in tree_flatten(params)[0]]
+        if got != want:
+            raise ValueError(
+                "the data-mesh step takes this rank's blocks of the params "
+                "(launch.steps.shard_state); a leaf has the shape of the "
+                "whole")
+        metrics = {}
+        new_state = dict(state)
+        layout = fsdp.Sharded(mesh, pspecs, reduce="all" if compressor
+                              is not None else "scatter")
+        with span("train.loss_grad"):
+            loss, grads = loss_and_grads(params, rows(batch), gather=layout,
+                                         **kw)
+            grads = layout.finish(grads)
+            loss = shard.all_reduce(loss.reshape(1), dgroup,
+                                    tag="loss")[0] / n
+        count = state["opt"]["count"]
+        norm = None
+        if compressor is not None:
+            with span("train.compress"):
+                g_hat, new_state["ef"], cmet = compressor.compress(
+                    grads, state["ef"], step=count)
+            metrics.update(cmet)
+            if opt.clip_norm is not None:   # g_hat is whole on every rank
+                norm = adamw.global_norm(g_hat)
+            grads = layout.blocks(g_hat)
+        elif opt.clip_norm is not None:
+            norm = layout.global_norm(grads)
+        lr = lr_fn(count)
+        with span("train.update"):
+            new_p, new_opt, omet = adamw.update(params, grads, state["opt"],
+                                                lr, opt, norm=norm)
+        metrics.update(omet)
+        metrics["loss"] = loss
+        metrics["lr"] = lr
+        new_state["params"] = new_p
+        new_state["opt"] = new_opt
+        return new_state, metrics
+
+    return data_step
 
 
 def build_prefill_step(model: Model, shape: ShapeSpec) -> Callable:
@@ -317,4 +474,5 @@ def from_numpy_state(model: Model, state: dict, *, device=None) -> dict:
 
 
 __all__ = ["build_prefill_step", "build_serve_step", "build_train_step",
-           "from_numpy_state", "init_train_state"]
+           "from_numpy_state", "init_train_state", "moe_groups_for",
+           "shard_state", "state_specs", "unshard_state"]

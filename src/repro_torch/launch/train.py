@@ -30,6 +30,16 @@ mean of the dense reconstructions or of the sketches):
 `--dist-backend` picks the process groups' backend (default NCCL on
 CUDA, gloo on the CPU; gloo also runs several ranks on one card). Rank
 0 alone prints.
+
+FSDP over a data mesh (`--mesh DATAx1`, the reference's layout: each
+rank holds its blocks of params, m and v and takes its rows of the
+batch; a checkpoint holds whole leaves, written by rank 0):
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.train --arch llama3.2-3b \
+        --reduced --mesh 2x1 --dist-backend gloo --device cpu --steps 20
+
+A model axis above 1 (`--mesh AxB`, B > 1) is item 12.7b and refused.
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ from repro_torch.core.sketch import (PytreeSketcher, SketchConfig,
 from repro_torch.core.tree import tree_leaves
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.fsdp import unshard_tree
 from repro_torch.launch.mesh import make_host_mesh, make_mesh
 from repro_torch.models import build_model
 from repro_torch.models.config import ShapeSpec
@@ -69,6 +80,10 @@ def parse_mesh(spec: str | None, *, device=None, backend=None):
     if names is None:
         raise ValueError(f"--mesh {spec!r}: expected AxB (data x model) or "
                          "AxBxC (pod x data x model)")
+    if dims[-1] > 1:
+        raise NotImplementedError(
+            f"--mesh {spec}: a model axis above 1 (TP/EP/SP) is item 12.7b "
+            "(ROADMAP.md, queue 1); run DATAx1 or PODx1x1")
     need = 1
     for d in dims:
         need *= d
@@ -152,17 +167,26 @@ def main(argv=None) -> int:
                                          compressor=compressor, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     state = steps_lib.init_train_state(model, gen, compressor=compressor)
+    data_mesh = mesh is not None and mesh.shape.get("data", 1) > 1
+    shardings = None
+    if data_mesh:   # every rank drew the same state: keep its blocks
+        shardings = steps_lib.state_specs(model, mesh, state)
+        state = steps_lib.shard_state(model, state, mesh)
     on_metrics = None
     if args.monitor:
         mon_cfg = SketchConfig(family="tt", k=256, rank=2,
                                bucket_elems=4 * 8 * 16, dims=(4, 8, 16),
                                fresh_per_step=False)
-        monitor = SketchMonitor(PytreeSketcher(mon_cfg, state["params"]),
+        monitor = SketchMonitor(PytreeSketcher(mon_cfg,
+                                               model.param_shapes()),
                                 seed=17)
 
         def on_metrics(step, metrics, live_state):
             if step % 10 == 0:
-                m = monitor.update(live_state["params"])
+                params = live_state["params"]
+                if data_mesh:   # every rank joins the gather
+                    params = unshard_tree(params, shardings["params"], mesh)
+                m = monitor.update(params)
                 say(f"   [monitor] step {step} "
                     f"sketch_norm={float(m['sketch_norm']):.4f} "
                     f"drift={float(m['sketch_drift']):.5f}")
@@ -192,8 +216,8 @@ def main(argv=None) -> int:
     state, final = train_loop.run(step_fn, state, data, loop_cfg,
                                   injector=injector, log=say,
                                   on_metrics=on_metrics, ef_codec=ef_codec,
-                                  mesh=mesh)
-    n = sum(x.numel() for x in tree_leaves(state["params"]))
+                                  mesh=mesh, shardings=shardings)
+    n = sum(x.numel() for x in tree_leaves(model.param_shapes()))
     say(f"[train] finished at step {final} (params={n})")
     if mesh is not None:
         dist.destroy_process_group()

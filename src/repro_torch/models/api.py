@@ -38,6 +38,17 @@ class Model:
     def init(self, generator: torch.Generator, dtype=torch.float32) -> dict:
         return self.mod.init_params(self.cfg, generator, dtype)
 
+    def param_axes(self) -> dict:
+        """The parameter tree's logical sharding axes (the reference's)."""
+        return self.mod.param_axes(self.cfg)
+
+    def param_shapes(self, dtype=torch.float32) -> dict:
+        """The parameter tree as meta tensors: every leaf's shape and
+        dtype, nothing drawn or allocated (the reference's `eval_shape`
+        of `init`)."""
+        from .params import shapes
+        return shapes(self.mod._spec(self.cfg), dtype)
+
     def module(self, params: dict) -> torch.nn.Module:
         """The family's `nn.Module` view of a parameter dict (no copy)."""
         return _VIEWS[self.cfg.family](self.cfg, params)

@@ -17,7 +17,8 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import settings
 
@@ -29,6 +30,28 @@ def remat(fn, *args):
     instead of stored: the reference's `jax.checkpoint(nothing_saveable)`."""
     return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the weight products (2-D `mm`/`addmm`: no batch dims), recompute
+    everything else, attention's batched `bmm` included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat_dots(fn, *args):
+    """`fn(*args)` under a selective checkpoint that keeps the outputs of
+    the weight products and recomputes the rest in the backward pass: the
+    reference's `jax.checkpoint(checkpoint_dots_with_no_batch_dims)`. A
+    3-D activation times a weight reaches `aten.mm` through `aten.matmul`
+    when the activation is contiguous, which the blocks' are."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, context_fn=_dots_contexts)
 
 
 # ---------------------------------------------------------------------------
@@ -305,5 +328,5 @@ def chunked_ce_loss(h: torch.Tensor, unembed: torch.Tensor,
 
 __all__ = ["NEG_INF", "apply_mrope", "apply_rope", "attention",
            "causal_depthwise_conv1d", "chunked_ce_loss", "conv1d_update",
-           "geglu", "gelu_mlp", "layer_norm", "remat", "rms_norm",
-           "soft_cap", "swiglu"]
+           "geglu", "gelu_mlp", "layer_norm", "remat", "remat_dots",
+           "rms_norm", "soft_cap", "swiglu"]

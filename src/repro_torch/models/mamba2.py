@@ -44,25 +44,27 @@ def _dims(cfg: ArchConfig):
     return D, d_in, H, ds, G, conv_ch
 
 
-def _spec(cfg: ArchConfig) -> dict[str, tuple[tuple[int, ...], str]]:
-    """path -> (shape, init_kind), the reference's leaves."""
+def _spec(cfg: ArchConfig) -> dict[str, tuple[tuple[int, ...], tuple, str]]:
+    """path -> (shape, logical axes, init_kind), the reference's leaves
+    and axes."""
     D, d_in, H, ds, G, conv_ch = _dims(cfg)
     L, V, W = cfg.n_layers, cfg.vocab, cfg.conv_width
     proj_out = 2 * d_in + 2 * G * ds + H
-    s: dict[str, tuple] = {"embed": ((V, D), "embed")}
+    s: dict[str, tuple] = {
+        "embed": ((V, D), ("vocab_fsdp", "embed_tp"), "embed")}
     lyr = {
-        "norm": ((L, D), "ones"),
-        "in_proj": ((L, D, proj_out), "fanin"),
-        "conv_w": ((L, W, conv_ch), "fanin"),
-        "conv_b": ((L, conv_ch), "zeros"),
-        "a_log": ((L, H), "a_log"),
-        "d_skip": ((L, H), "ones"),
-        "dt_bias": ((L, H), "dt_bias"),
-        "norm_gate": ((L, d_in), "ones"),
-        "out_proj": ((L, d_in, D), "fanin"),
+        "norm": ((L, D), ("layers", None), "ones"),
+        "in_proj": ((L, D, proj_out), ("layers", "embed", "mlp"), "fanin"),
+        "conv_w": ((L, W, conv_ch), ("layers", None, "mlp"), "fanin"),
+        "conv_b": ((L, conv_ch), ("layers", "mlp"), "zeros"),
+        "a_log": ((L, H), ("layers", None), "a_log"),
+        "d_skip": ((L, H), ("layers", None), "ones"),
+        "dt_bias": ((L, H), ("layers", None), "dt_bias"),
+        "norm_gate": ((L, d_in), ("layers", "mlp"), "ones"),
+        "out_proj": ((L, d_in, D), ("layers", "mlp", "embed"), "fanin"),
     }
     s.update({f"layers/{k}": v for k, v in lyr.items()})
-    s["final_norm"] = ((D,), "ones")
+    s["final_norm"] = ((D,), (None,), "ones")
     return s
 
 
@@ -73,7 +75,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     U[1, 16); dt_bias the softplus inverse of dt, log-uniform in [1e-3,
     0.1) (the numbers differ from JAX's)."""
     params: dict[str, Any] = {}
-    for path, (shape, kind) in sorted(_spec(cfg).items()):
+    for path, (shape, _, kind) in sorted(_spec(cfg).items()):
         if kind == "a_log":
             leaf = torch.log(ptree.uniform(shape, generator, 1.0, 16.0,
                                            dtype))
@@ -85,6 +87,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             leaf = ptree.draw(kind, shape, generator, dtype)
         ptree.assign(params, path, leaf)
     return params
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The parameter tree's logical sharding axes, leaf for leaf."""
+    return ptree.axes(_spec(cfg))
 
 
 def from_numpy_params(cfg: ArchConfig, tree: dict, *, device=None,
@@ -189,9 +196,10 @@ def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
     return torch.split(zxbcdt, [d_in, conv_ch, H], dim=-1)
 
 
-def _layer_params(params: dict, i: int, compute_dtype):
-    """Layer i's raw leaves and the ones read in the compute dtype."""
-    lp_raw = {k: t[i] for k, t in params["layers"].items()}
+def _layer_params(params: dict, i: int, compute_dtype, gather=None):
+    """Layer i's raw leaves (read through `gather`, `params.take`) and
+    the ones read in the compute dtype."""
+    lp_raw = ptree.take_all(gather, "layers/", params["layers"], i)
     return lp_raw, {k: lp_raw[k].to(compute_dtype) for k in _CAST}
 
 
@@ -224,19 +232,21 @@ def _block_seq(cfg: ArchConfig, lp_raw, lp, h, *, chunk: int):
 
 def forward_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                    compute_dtype=torch.bfloat16,
-                   remat: str = "nothing") -> torch.Tensor:
+                   remat: str = "nothing", gather=None) -> torch.Tensor:
     """Full-sequence forward to final hidden states (B, S, D). The SSD
     chunk is cfg.ssm_chunk, halved until it divides S. Any remat but
     'none' recomputes each layer in the backward pass (the reference's
-    `jax.checkpoint(nothing_saveable)` around its layer scan)."""
+    `jax.checkpoint(nothing_saveable)` around its layer scan). On a data
+    mesh the leaves are read through `gather` (`params.take`)."""
     S = tokens.shape[1]
-    h = params["embed"][tokens.to(torch.int64)].to(compute_dtype)
+    h = ptree.take(gather, "embed", params["embed"])[
+        tokens.to(torch.int64)].to(compute_dtype)
     chunk = min(cfg.ssm_chunk, S)
     while S % chunk:
         chunk //= 2
 
     def layer(h, i):
-        lp_raw, lp = _layer_params(params, i, compute_dtype)
+        lp_raw, lp = _layer_params(params, i, compute_dtype, gather)
         return _block_seq(cfg, lp_raw, lp, h, chunk=chunk)
 
     for i in range(cfg.n_layers):
@@ -245,11 +255,14 @@ def forward_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
-            compute_dtype=torch.bfloat16,
-            remat: str = "nothing") -> torch.Tensor:
+            compute_dtype=torch.bfloat16, remat: str = "nothing",
+            gather=None) -> torch.Tensor:
     h = forward_hidden(cfg, params, batch["tokens"],
-                       compute_dtype=compute_dtype, remat=remat)
-    return nn.chunked_ce_loss(h, params["embed"].T, batch["labels"])
+                       compute_dtype=compute_dtype, remat=remat,
+                       gather=gather)
+    return nn.chunked_ce_loss(h, ptree.take(gather, "embed",
+                                            params["embed"]).T,
+                              batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,9 @@ experts never see it. The gather clamps as the reference's does and
 zeroes the dropped pairs, as the reference's `where(keep, ...)`.
 
 The reference's `_constrain` (the mesh's sharding constraints on the
-buffer) waits for the port's FSDP/TP axes (ROADMAP.md, queue 1 item
-12.7); the groups G are the data shards' token groups all the same.
+buffer) waits for the port's model axis (ROADMAP.md, queue 1 item
+12.7b); the groups G are the data shards' token groups
+(`launch.steps.moe_groups_for`), on a data mesh a rank's share of them.
 """
 from __future__ import annotations
 

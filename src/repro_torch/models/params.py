@@ -1,12 +1,15 @@
 """Parameter trees shared by the model families.
 
-Each family describes its parameters as a spec, `path -> (shape, init
-kind)`, under the reference's nested names (`"layers/wq"`,
-`"groups/rec_a/w_x"`, ...). From a spec this module draws the common
-init kinds from a `torch.Generator`, carries the reference's numpy tree
-across (every shape checked), and gives the `nn.Module` view of a
-parameter dict. The reference's logical sharding axes wait for item
-12.7's `param_axes` (ROADMAP.md, queue 1).
+Each family describes its parameters as a spec, `path -> (shape,
+logical axes, init kind)`, under the reference's nested names
+(`"layers/wq"`, `"groups/rec_a/w_x"`, ...), with the reference's logical
+sharding axes (`launch.sharding.axis_rules` maps them onto a mesh). From
+a spec this module draws the common init kinds from a `torch.Generator`,
+carries the reference's numpy tree across (every shape checked), gives
+the axes tree and the shape tree (meta tensors, nothing allocated), and
+the `nn.Module` view of a parameter dict. `take` is how a forward reads
+a leaf (or one layer of a stacked leaf): directly, or through the data
+mesh's gather (`launch.fsdp.Sharded`).
 """
 from __future__ import annotations
 
@@ -57,7 +60,7 @@ def from_numpy(spec: dict, tree: dict, name: str, *, device=None,
     spec of the config `name`. `device=None` means CUDA."""
     dev = resolve_device(device)
     out: dict[str, Any] = {}
-    for path, (shape, _) in sorted(spec.items()):
+    for path, (shape, *_) in sorted(spec.items()):
         node = tree
         for p in path.split("/"):
             node = node[p]
@@ -67,6 +70,40 @@ def from_numpy(spec: dict, tree: dict, name: str, *, device=None,
                              f"{name} has {tuple(shape)}")
         assign(out, path, torch.tensor(a, dtype=dtype, device=dev))
     return out
+
+
+def axes(spec: dict) -> dict:
+    """The nested tree of each leaf's logical axes."""
+    out: dict[str, Any] = {}
+    for path, (_, ax, _) in sorted(spec.items()):
+        assign(out, path, tuple(ax))
+    return out
+
+
+def shapes(spec: dict, dtype=torch.float32) -> dict:
+    """The nested tree of meta tensors of each leaf's shape and `dtype`:
+    no storage, nothing drawn."""
+    out: dict[str, Any] = {}
+    for path, (shape, *_) in sorted(spec.items()):
+        assign(out, path, torch.empty(shape, dtype=dtype, device="meta"))
+    return out
+
+
+def take(gather, path: str, leaf: torch.Tensor, index: int | None = None
+         ) -> torch.Tensor:
+    """The leaf at `path` (layer `index` of a stacked leaf) as a forward
+    reads it: `leaf[index]` without a gather, else through `gather(path,
+    leaf, index)`, which puts a sharded leaf's blocks back together."""
+    if gather is None:
+        return leaf if index is None else leaf[index]
+    return gather(path, leaf, index)
+
+
+def take_all(gather, prefix: str, tree: dict, index: int | None = None
+             ) -> dict:
+    """`take` on every leaf of a flat dict of leaves under `prefix`."""
+    return {k: take(gather, f"{prefix}{k}", t, index)
+            for k, t in tree.items()}
 
 
 class ParamTree(torch.nn.Module):
@@ -105,5 +142,5 @@ class FamilyModule(ParamTree):
         return type(self).loss(self.cfg, self.param_tree(), batch, **kw)
 
 
-__all__ = ["FamilyModule", "ParamTree", "assign", "draw", "from_numpy",
-           "uniform"]
+__all__ = ["FamilyModule", "ParamTree", "assign", "axes", "draw",
+           "from_numpy", "shapes", "take", "take_all", "uniform"]

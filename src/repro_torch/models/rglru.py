@@ -47,22 +47,24 @@ RECURRENT_STATE: tuple[str, ...] = ("rec_a", "rec_b", "tail")
 def _rec_spec(cfg: ArchConfig, lead: tuple[int, ...]):
     D, dr, W = cfg.d_model, cfg.rnn_width, cfg.conv_width
     return {
-        "norm1": (lead + (D,), "ones"),
-        "norm2": (lead + (D,), "ones"),
-        "w_x": (lead + (D, dr), "fanin"),
-        "w_y": (lead + (D, dr), "fanin"),
-        "conv_w": (lead + (W, dr), "fanin"),
-        "conv_b": (lead + (dr,), "zeros"),
-        "w_a": (lead + (dr, dr), "fanin"),
-        "b_a": (lead + (dr,), "zeros"),
-        "w_i": (lead + (dr, dr), "fanin"),
-        "b_i": (lead + (dr,), "zeros"),
-        "lam": (lead + (dr,), "lambda"),
-        "w_out": (lead + (dr, D), "fanin"),
+        "norm1": (lead + (D,), ("layers", None), "ones"),
+        "norm2": (lead + (D,), ("layers", None), "ones"),
+        "w_x": (lead + (D, dr), ("layers", "embed", "mlp"), "fanin"),
+        "w_y": (lead + (D, dr), ("layers", "embed", "mlp"), "fanin"),
+        "conv_w": (lead + (W, dr), ("layers", None, "mlp"), "fanin"),
+        "conv_b": (lead + (dr,), ("layers", "mlp"), "zeros"),
+        "w_a": (lead + (dr, dr), ("layers", "mlp", "mlp2"), "fanin"),
+        "b_a": (lead + (dr,), ("layers", "mlp"), "zeros"),
+        "w_i": (lead + (dr, dr), ("layers", "mlp", "mlp2"), "fanin"),
+        "b_i": (lead + (dr,), ("layers", "mlp"), "zeros"),
+        "lam": (lead + (dr,), ("layers", "mlp"), "lambda"),
+        "w_out": (lead + (dr, D), ("layers", "mlp", "embed"), "fanin"),
         # MLP half of the residual block
-        "w_gate": (lead + (D, cfg.d_ff), "fanin"),
-        "w_up": (lead + (D, cfg.d_ff), "fanin"),
-        "w_down": (lead + (cfg.d_ff, D), "fanin"),
+        "w_gate": (lead + (D, cfg.d_ff), ("layers", "embed", "mlp"),
+                   "fanin"),
+        "w_up": (lead + (D, cfg.d_ff), ("layers", "embed", "mlp"), "fanin"),
+        "w_down": (lead + (cfg.d_ff, D), ("layers", "mlp", "embed"),
+                   "fanin"),
     }
 
 
@@ -70,15 +72,17 @@ def _attn_spec(cfg: ArchConfig, lead: tuple[int, ...]):
     D, hd = cfg.d_model, cfg.hd
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
     return {
-        "norm1": (lead + (D,), "ones"),
-        "norm2": (lead + (D,), "ones"),
-        "wq": (lead + (D, Hq * hd), "fanin"),
-        "wk": (lead + (D, Hkv * hd), "fanin"),
-        "wv": (lead + (D, Hkv * hd), "fanin"),
-        "wo": (lead + (Hq * hd, D), "fanin"),
-        "w_gate": (lead + (D, cfg.d_ff), "fanin"),
-        "w_up": (lead + (D, cfg.d_ff), "fanin"),
-        "w_down": (lead + (cfg.d_ff, D), "fanin"),
+        "norm1": (lead + (D,), ("layers", None), "ones"),
+        "norm2": (lead + (D,), ("layers", None), "ones"),
+        "wq": (lead + (D, Hq * hd), ("layers", "embed", "heads"), "fanin"),
+        "wk": (lead + (D, Hkv * hd), ("layers", "embed", "heads"), "fanin"),
+        "wv": (lead + (D, Hkv * hd), ("layers", "embed", "heads"), "fanin"),
+        "wo": (lead + (Hq * hd, D), ("layers", "heads", "embed"), "fanin"),
+        "w_gate": (lead + (D, cfg.d_ff), ("layers", "embed", "mlp"),
+                   "fanin"),
+        "w_up": (lead + (D, cfg.d_ff), ("layers", "embed", "mlp"), "fanin"),
+        "w_down": (lead + (cfg.d_ff, D), ("layers", "mlp", "embed"),
+                   "fanin"),
     }
 
 
@@ -92,18 +96,21 @@ def _layout(cfg: ArchConfig) -> tuple[int, int]:
     return groups, cfg.n_layers - 3 * groups
 
 
-def _spec(cfg: ArchConfig) -> dict[str, tuple[tuple[int, ...], str]]:
-    """path -> (shape, init_kind), the reference's leaves."""
+def _spec(cfg: ArchConfig) -> dict[str, tuple[tuple[int, ...], tuple, str]]:
+    """path -> (shape, logical axes, init_kind), the reference's leaves
+    and axes (a tail layer's have no "layers" axis)."""
     G, T = _layout(cfg)
     D, V = cfg.d_model, cfg.vocab
-    s: dict[str, tuple] = {"embed": ((V, D), "embed")}
+    s: dict[str, tuple] = {
+        "embed": ((V, D), ("vocab_fsdp", "embed_tp"), "embed")}
     for name, sub in (("rec_a", _rec_spec(cfg, (G,))),
                       ("rec_b", _rec_spec(cfg, (G,))),
                       ("attn", _attn_spec(cfg, (G,)))):
         s.update({f"groups/{name}/{k}": v for k, v in sub.items()})
     for t in range(T):
-        s.update({f"tail_{t}/{k}": v for k, v in _rec_spec(cfg, ()).items()})
-    s["final_norm"] = ((D,), "ones")
+        s.update({f"tail_{t}/{k}": (shape, ax[1:], kind)
+                  for k, (shape, ax, kind) in _rec_spec(cfg, ()).items()})
+    s["final_norm"] = ((D,), (None,), "ones")
     return s
 
 
@@ -113,7 +120,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     reference's sorted path order; Lambda such that a = exp(-c
     softplus(Lambda)) ~ U[0.9, 0.999) (the numbers differ from JAX's)."""
     params: dict[str, Any] = {}
-    for path, (shape, kind) in sorted(_spec(cfg).items()):
+    for path, (shape, _, kind) in sorted(_spec(cfg).items()):
         if kind == "lambda":
             u = ptree.uniform(shape, generator, 0.9, 0.999, dtype)
             leaf = torch.log(torch.expm1(-torch.log(u) / RGLRU_C))
@@ -121,6 +128,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             leaf = ptree.draw(kind, shape, generator, dtype)
         ptree.assign(params, path, leaf)
     return params
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The parameter tree's logical sharding axes, leaf for leaf."""
+    return ptree.axes(_spec(cfg))
 
 
 def from_numpy_params(cfg: ArchConfig, tree: dict, *, device=None,
@@ -223,31 +235,35 @@ def _attn_block_seq(cfg, lp_raw, lp, h, positions):
     return _mlp(lp_raw, lp, h)
 
 
-def _group_params(params: dict, g: int) -> dict:
-    return {name: {k: t[g] for k, t in sub.items()}
+def _group_params(params: dict, g: int, gather=None) -> dict:
+    """Group g's leaves, read through `gather` (`params.take`)."""
+    return {name: ptree.take_all(gather, f"groups/{name}/", sub, g)
             for name, sub in params["groups"].items()}
 
 
-def _embed(cfg: ArchConfig, params: dict, tokens, compute_dtype):
+def _embed(cfg: ArchConfig, params: dict, tokens, compute_dtype,
+           gather=None):
     """Embedding rows times sqrt(D), the scale rounded to the compute
     dtype first (as the reference)."""
-    h = params["embed"][tokens.to(torch.int64)].to(compute_dtype)
+    h = ptree.take(gather, "embed", params["embed"])[
+        tokens.to(torch.int64)].to(compute_dtype)
     return h * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
 
 
 def forward_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                    compute_dtype=torch.bfloat16,
-                   remat: str = "nothing") -> torch.Tensor:
+                   remat: str = "nothing", gather=None) -> torch.Tensor:
     """Full-sequence forward to final hidden states (B, S, D). Any remat
     but 'none' recomputes each (rec, rec, attn) group in the backward
     pass (the reference's `jax.checkpoint(nothing_saveable)` around its
-    group scan); the tail layers store theirs, as the reference's."""
+    group scan); the tail layers store theirs, as the reference's. On a
+    data mesh the leaves are read through `gather` (`params.take`)."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    h = _embed(cfg, params, tokens, compute_dtype)
+    h = _embed(cfg, params, tokens, compute_dtype, gather)
 
     def group(h, g):
-        gp_raw = _group_params(params, g)
+        gp_raw = _group_params(params, g, gather)
         gp = {name: _cast(sub, compute_dtype) for name, sub in gp_raw.items()}
         h = _rec_block_seq(cfg, gp_raw["rec_a"], gp["rec_a"], h)
         h = _rec_block_seq(cfg, gp_raw["rec_b"], gp["rec_b"], h)
@@ -257,17 +273,20 @@ def forward_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     for g in range(G):
         h = group(h, g) if remat == "none" else nn.remat(group, h, g)
     for t in range(T):
-        lp_raw = params[f"tail_{t}"]
+        lp_raw = ptree.take_all(gather, f"tail_{t}/", params[f"tail_{t}"])
         h = _rec_block_seq(cfg, lp_raw, _cast(lp_raw, compute_dtype), h)
     return nn.rms_norm(h, params["final_norm"])
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
-            compute_dtype=torch.bfloat16,
-            remat: str = "nothing") -> torch.Tensor:
+            compute_dtype=torch.bfloat16, remat: str = "nothing",
+            gather=None) -> torch.Tensor:
     h = forward_hidden(cfg, params, batch["tokens"],
-                       compute_dtype=compute_dtype, remat=remat)
-    return nn.chunked_ce_loss(h, params["embed"].T, batch["labels"])
+                       compute_dtype=compute_dtype, remat=remat,
+                       gather=gather)
+    return nn.chunked_ce_loss(h, ptree.take(gather, "embed",
+                                            params["embed"]).T,
+                              batch["labels"])
 
 
 # ---------------------------------------------------------------------------

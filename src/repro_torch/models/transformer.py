@@ -13,12 +13,16 @@ and a parameter tree carries across (`from_numpy_params`). `Decoder` is
 the `nn.Module` view of such a dict. A config with the GELU MLP or
 LayerNorm raises NotImplementedError here: they belong to the
 encoder-decoder family (`models/whisper.py`), and the reference's decoder
-would silently run SwiGLU and RMSNorm in their place. remat='dots' raises
-until item 12.7 (ROADMAP.md, queue 1).
+would silently run SwiGLU and RMSNorm in their place.
 
-The MoE FFN dispatches the model's tokens in one group: the reference's
-`moe_groups=` (one group a data shard) comes back with the data axes of
-item 12.7; `moe.moe_ffn(groups=)` already takes it.
+The training forward takes the reference's `moe_groups=` (the MoE FFN
+dispatches its tokens in that many contiguous groups; on a data mesh one
+group a data shard, `launch.steps.moe_groups_for`) and `gather=`: on a
+data mesh a layer's leaves are read through the mesh's gather
+(`launch.fsdp.Sharded`), which puts their blocks back together for that
+layer alone and reduces the gradient back to the blocks. The decode
+steps dispatch in one group on one device (their mesh arguments are item
+12.7b, ROADMAP.md queue 1).
 
 `decode_step` writes the new keys, values and positions into the cache
 in place (under `torch.inference_mode`) and returns the same dict: a
@@ -36,8 +40,6 @@ from . import layers as nn
 from . import params as ptree
 from .config import ArchConfig
 from .moe import moe_ffn
-
-_ROADMAP = "not ported yet (ROADMAP.md, queue 1 item 12.7)"
 
 #: the position of an empty cache slot: causally masked for every query
 EMPTY_POS = 1 << 30
@@ -73,46 +75,51 @@ def _check_positions3(cfg: ArchConfig, positions3) -> None:
 # Parameter specification
 # ---------------------------------------------------------------------------
 
-def _spec(cfg: ArchConfig) -> dict[str, tuple[tuple[int, ...], str]]:
-    """path -> (shape, init_kind). (The reference's logical sharding axes
-    wait for the mesh, ROADMAP.md queue 1 item 11.)"""
+def _spec(cfg: ArchConfig) -> dict[str, tuple[tuple[int, ...], tuple, str]]:
+    """path -> (shape, logical axes, init_kind), the reference's leaves and
+    axes (`launch.sharding.axis_rules` maps the axes onto a mesh)."""
     _check_ported(cfg)
     D, hd = cfg.d_model, cfg.hd
     Hq, Hkv, F, V, L = (cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab,
                         cfg.n_layers)
     s: dict[str, tuple] = {}
-    s["embed"] = ((V, D), "embed")
+    s["embed"] = ((V, D), ("vocab_fsdp", "embed_tp"), "embed")
     lyr = {
-        "norm1": ((L, D), "norm"),
-        "norm2": ((L, D), "norm"),
-        "wq": ((L, D, Hq * hd), "fanin"),
-        "wk": ((L, D, Hkv * hd), "fanin"),
-        "wv": ((L, D, Hkv * hd), "fanin"),
-        "wo": ((L, Hq * hd, D), "fanin"),
+        "norm1": ((L, D), ("layers", None), "norm"),
+        "norm2": ((L, D), ("layers", None), "norm"),
+        "wq": ((L, D, Hq * hd), ("layers", "embed", "heads"), "fanin"),
+        "wk": ((L, D, Hkv * hd), ("layers", "embed", "heads"), "fanin"),
+        "wv": ((L, D, Hkv * hd), ("layers", "embed", "heads"), "fanin"),
+        "wo": ((L, Hq * hd, D), ("layers", "heads", "embed"), "fanin"),
     }
     if cfg.qkv_bias:
-        lyr["bq"] = ((L, Hq * hd), "zeros")
-        lyr["bk"] = ((L, Hkv * hd), "zeros")
-        lyr["bv"] = ((L, Hkv * hd), "zeros")
+        lyr["bq"] = ((L, Hq * hd), ("layers", "heads"), "zeros")
+        lyr["bk"] = ((L, Hkv * hd), ("layers", "heads"), "zeros")
+        lyr["bv"] = ((L, Hkv * hd), ("layers", "heads"), "zeros")
     if cfg.post_norm:
-        lyr["norm1_post"] = ((L, D), "norm")
-        lyr["norm2_post"] = ((L, D), "norm")
+        lyr["norm1_post"] = ((L, D), ("layers", None), "norm")
+        lyr["norm2_post"] = ((L, D), ("layers", None), "norm")
     if cfg.moe is not None:
         e = cfg.moe
         E, Fe = e.num_experts, e.d_ff_expert
-        lyr["router"] = ((L, D, E), "fanin")
-        lyr["we_gate"] = ((L, E, D, Fe), "fanin")
-        lyr["we_up"] = ((L, E, D, Fe), "fanin")
-        lyr["we_down"] = ((L, E, Fe, D), "fanin")
+        lyr["router"] = ((L, D, E), ("layers", "embed", None), "fanin")
+        lyr["we_gate"] = ((L, E, D, Fe),
+                          ("layers", "experts", "embed", "expert_mlp"),
+                          "fanin")
+        lyr["we_up"] = ((L, E, D, Fe),
+                        ("layers", "experts", "embed", "expert_mlp"), "fanin")
+        lyr["we_down"] = ((L, E, Fe, D),
+                          ("layers", "experts", "expert_mlp", "embed"),
+                          "fanin")
         F = e.dense_residual_ff       # arctic's dense FFN beside the MoE
     if F:
-        lyr["w_gate"] = ((L, D, F), "fanin")
-        lyr["w_up"] = ((L, D, F), "fanin")
-        lyr["w_down"] = ((L, F, D), "fanin")
+        lyr["w_gate"] = ((L, D, F), ("layers", "embed", "mlp"), "fanin")
+        lyr["w_up"] = ((L, D, F), ("layers", "embed", "mlp"), "fanin")
+        lyr["w_down"] = ((L, F, D), ("layers", "mlp", "embed"), "fanin")
     s.update({f"layers/{k}": v for k, v in lyr.items()})
-    s["final_norm"] = ((D,), "norm")
+    s["final_norm"] = ((D,), (None,), "norm")
     if not cfg.tie_embeddings:
-        s["unembed"] = ((D, V), "fanin")
+        s["unembed"] = ((D, V), ("embed", "vocab"), "fanin")
     return s
 
 
@@ -121,11 +128,16 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Random parameters on the generator's device, drawn from it in the
     reference's sorted path order (the numbers differ from JAX's)."""
     params: dict[str, Any] = {}
-    for path, (shape, kind) in sorted(_spec(cfg).items()):
+    for path, (shape, _, kind) in sorted(_spec(cfg).items()):
         if kind == "norm":
             kind = "zeros" if cfg.norm_offset else "ones"
         ptree.assign(params, path, ptree.draw(kind, shape, generator, dtype))
     return params
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The parameter tree's logical sharding axes, leaf for leaf."""
+    return ptree.axes(_spec(cfg))
 
 
 def from_numpy_params(cfg: ArchConfig, tree: dict, *, device=None,
@@ -151,18 +163,21 @@ def _qkv(cfg: ArchConfig, lp: dict, x: torch.Tensor):
             v.reshape(B, S, Hkv, hd))
 
 
-def _ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor, *,
+def _ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor, *, moe_groups: int = 1,
          full_capacity: bool = False) -> torch.Tensor:
-    """FFN (dense / MoE / arctic hybrid) on (B, S, D). `full_capacity`
+    """FFN (dense / MoE / arctic hybrid) on (B, S, D); the MoE dispatches
+    the B*S tokens in `moe_groups` contiguous groups. `full_capacity`
     disables token dropping (decode: a dropped token would corrupt the
     stream; T is tiny there so the buffer cost is negligible)."""
     mlp = nn.geglu if cfg.mlp == "geglu" else nn.swiglu
     if cfg.moe is None:
         return mlp(x, lp["w_gate"], lp["w_up"], lp["w_down"])
     B, S, D = x.shape
+    G = max(moe_groups, 1)
     out = moe_ffn(x.reshape(B * S, D), lp["router"], lp["we_gate"],
-                  lp["we_up"], lp["we_down"], cfg.moe,
-                  capacity=B * S if full_capacity else None).reshape(B, S, D)
+                  lp["we_up"], lp["we_down"], cfg.moe, groups=G,
+                  capacity=B * S // G if full_capacity else None
+                  ).reshape(B, S, D)
     if cfg.moe.dense_residual_ff:
         out = out + nn.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
     return out
@@ -176,7 +191,8 @@ def _rope(cfg: ArchConfig, x, positions, positions3):
 
 
 def _block(cfg: ArchConfig, h, lp_raw: dict, positions, compute_dtype,
-           attend, *, positions3=None, full_capacity: bool = False):
+           attend, *, positions3=None, moe_groups: int = 1,
+           full_capacity: bool = False):
     """One block on the residual stream h (B, S, D): the parameters cast
     to the compute dtype, q and k rotated at `positions` (B, S) (under
     M-RoPE at `positions3` (3, B, S)), and `attend(q, k, v)` -> (B, S,
@@ -192,24 +208,36 @@ def _block(cfg: ArchConfig, h, lp_raw: dict, positions, compute_dtype,
         attn = nn.rms_norm(attn, lp_raw["norm1_post"], offset=cfg.norm_offset)
     h = h + attn
     hn2 = nn.rms_norm(h, lp_raw["norm2"], offset=cfg.norm_offset)
-    ff = _ffn(cfg, lp, hn2, full_capacity=full_capacity)
+    ff = _ffn(cfg, lp, hn2, moe_groups=moe_groups,
+              full_capacity=full_capacity)
     if cfg.post_norm:
         ff = nn.rms_norm(ff, lp_raw["norm2_post"], offset=cfg.norm_offset)
     return h + ff
 
 
 def _layer(cfg: ArchConfig, h, stacked: dict, i: int, window: int,
-           positions, compute_dtype, positions3):
-    """Block i of the stack on the full sequence h (B, S, D)."""
+           positions, compute_dtype, positions3, moe_groups: int = 1,
+           gather=None):
+    """Block i of the stack on the full sequence h (B, S, D), its leaves
+    read through `gather` (see `params.take`)."""
     def attend(q, k, v):
         return nn.attention(q, k, v, positions, positions, causal=True,
                             window=window, softcap=cfg.attn_softcap)
-    return _block(cfg, h, {name: t[i] for name, t in stacked.items()},
-                  positions, compute_dtype, attend, positions3=positions3)
+    return _block(cfg, h, ptree.take_all(gather, "layers/", stacked, i),
+                  positions, compute_dtype, attend, positions3=positions3,
+                  moe_groups=moe_groups)
 
 
-def _embed(cfg: ArchConfig, params: dict, tokens, compute_dtype):
-    h = params["embed"][tokens.to(torch.int64)].to(compute_dtype)
+def _unembed(cfg: ArchConfig, params: dict, gather=None) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return ptree.take(gather, "embed", params["embed"]).T
+    return ptree.take(gather, "unembed", params["unembed"])
+
+
+def _embed(cfg: ArchConfig, params: dict, tokens, compute_dtype,
+           gather=None):
+    table = ptree.take(gather, "embed", params["embed"])
+    h = table[tokens.to(torch.int64)].to(compute_dtype)
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
     return h
@@ -217,8 +245,7 @@ def _embed(cfg: ArchConfig, params: dict, tokens, compute_dtype):
 
 def _logits(cfg: ArchConfig, params: dict, h) -> torch.Tensor:
     """float32 logits of final hidden states h (B, D), soft-capped."""
-    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    logits = h.to(torch.float32) @ unembed.to(torch.float32)
+    logits = h.to(torch.float32) @ _unembed(cfg, params).to(torch.float32)
     return nn.soft_cap(logits, cfg.final_softcap)
 
 
@@ -228,30 +255,32 @@ def forward_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                    patches: torch.Tensor | None = None,
                    patch_positions: torch.Tensor | None = None,
                    compute_dtype=torch.bfloat16,
-                   remat: str = "nothing") -> torch.Tensor:
+                   remat: str = "nothing", moe_groups: int = 1,
+                   gather=None) -> torch.Tensor:
     """Full-sequence forward to final hidden states (B, S, D).
 
     `patches` (B, P, D) replace the embedded rows at `patch_positions`
     (B, P) (the VLM stub's precomputed patch embeddings); an M-RoPE
     config needs `positions3` (3, B, S). remat='nothing' recomputes each
     block in the backward pass (the reference's
-    `jax.checkpoint(nothing_saveable)` around its layer scan); any other
-    value but 'dots' stores the activations.
+    `jax.checkpoint(nothing_saveable)` around its layer scan), 'dots'
+    keeps the weight products' outputs and recomputes the rest
+    (`checkpoint_dots_with_no_batch_dims`), any other value stores the
+    activations. `moe_groups` and `gather` as in the module docstring.
     """
     _check_ported(cfg)
     _check_positions3(cfg, positions3)
-    if remat == "dots":
-        raise NotImplementedError(f"remat='dots' is {_ROADMAP}")
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    h = _embed(cfg, params, tokens, compute_dtype)
+    h = _embed(cfg, params, tokens, compute_dtype, gather)
     if patches is not None:
         h = _put_patches(h, patches, patch_positions)
+    wrap = {"nothing": nn.remat, "dots": nn.remat_dots}.get(remat)
     for i, window in enumerate(cfg.window_array()):
         args = (cfg, h, params["layers"], i, window, positions,
-                compute_dtype, positions3)
-        h = nn.remat(_layer, *args) if remat == "nothing" else _layer(*args)
+                compute_dtype, positions3, moe_groups, gather)
+        h = wrap(_layer, *args) if wrap is not None else _layer(*args)
     return nn.rms_norm(h, params["final_norm"], offset=cfg.norm_offset)
 
 
@@ -276,15 +305,16 @@ def _put_patches(h, patches, patch_positions):
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
-            compute_dtype=torch.bfloat16,
-            remat: str = "nothing") -> torch.Tensor:
+            compute_dtype=torch.bfloat16, remat: str = "nothing",
+            moe_groups: int = 1, gather=None) -> torch.Tensor:
     h = forward_hidden(cfg, params, batch["tokens"],
                        positions3=batch.get("positions3"),
                        patches=batch.get("patches"),
                        patch_positions=batch.get("patch_positions"),
-                       compute_dtype=compute_dtype, remat=remat)
-    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return nn.chunked_ce_loss(h, unembed, batch["labels"],
+                       compute_dtype=compute_dtype, remat=remat,
+                       moe_groups=moe_groups, gather=gather)
+    return nn.chunked_ce_loss(h, _unembed(cfg, params, gather),
+                              batch["labels"],
                               softcap=cfg.final_softcap,
                               mask=batch.get("loss_mask"))
 

@@ -29,44 +29,50 @@ RECURRENT_STATE: tuple[str, ...] = ()
 
 def _attn_spec(D, Hq, hd, lead, prefix=""):
     return {
-        f"{prefix}ln_w": (lead + (D,), "ones"),
-        f"{prefix}ln_b": (lead + (D,), "zeros"),
-        f"{prefix}wq": (lead + (D, Hq * hd), "fanin"),
-        f"{prefix}bq": (lead + (Hq * hd,), "zeros"),
-        f"{prefix}wk": (lead + (D, Hq * hd), "fanin"),
-        f"{prefix}wv": (lead + (D, Hq * hd), "fanin"),
-        f"{prefix}bv": (lead + (Hq * hd,), "zeros"),
-        f"{prefix}wo": (lead + (Hq * hd, D), "fanin"),
-        f"{prefix}bo": (lead + (D,), "zeros"),
+        f"{prefix}ln_w": (lead + (D,), ("layers", None), "ones"),
+        f"{prefix}ln_b": (lead + (D,), ("layers", None), "zeros"),
+        f"{prefix}wq": (lead + (D, Hq * hd), ("layers", "embed", "heads"),
+                        "fanin"),
+        f"{prefix}bq": (lead + (Hq * hd,), ("layers", "heads"), "zeros"),
+        f"{prefix}wk": (lead + (D, Hq * hd), ("layers", "embed", "heads"),
+                        "fanin"),
+        f"{prefix}wv": (lead + (D, Hq * hd), ("layers", "embed", "heads"),
+                        "fanin"),
+        f"{prefix}bv": (lead + (Hq * hd,), ("layers", "heads"), "zeros"),
+        f"{prefix}wo": (lead + (Hq * hd, D), ("layers", "heads", "embed"),
+                        "fanin"),
+        f"{prefix}bo": (lead + (D,), ("layers", None), "zeros"),
     }
 
 
 def _mlp_spec(D, F, lead):
     return {
-        "ln2_w": (lead + (D,), "ones"),
-        "ln2_b": (lead + (D,), "zeros"),
-        "w_in": (lead + (D, F), "fanin"),
-        "b_in": (lead + (F,), "zeros"),
-        "w_out": (lead + (F, D), "fanin"),
-        "b_out": (lead + (D,), "zeros"),
+        "ln2_w": (lead + (D,), ("layers", None), "ones"),
+        "ln2_b": (lead + (D,), ("layers", None), "zeros"),
+        "w_in": (lead + (D, F), ("layers", "embed", "mlp"), "fanin"),
+        "b_in": (lead + (F,), ("layers", "mlp"), "zeros"),
+        "w_out": (lead + (F, D), ("layers", "mlp", "embed"), "fanin"),
+        "b_out": (lead + (D,), ("layers", None), "zeros"),
     }
 
 
-def _spec(cfg: ArchConfig) -> dict[str, tuple[tuple[int, ...], str]]:
-    """path -> (shape, init_kind), the reference's leaves."""
+def _spec(cfg: ArchConfig) -> dict[str, tuple[tuple[int, ...], tuple, str]]:
+    """path -> (shape, logical axes, init_kind), the reference's leaves
+    and axes."""
     D, hd, Hq, F, V = cfg.d_model, cfg.hd, cfg.n_heads, cfg.d_ff, cfg.vocab
     Le, Ld = cfg.encoder_layers, cfg.n_layers
-    s: dict[str, tuple] = {"embed": ((V, D), "embed")}
+    s: dict[str, tuple] = {
+        "embed": ((V, D), ("vocab_fsdp", "embed_tp"), "embed")}
     enc = {**_attn_spec(D, Hq, hd, (Le,)), **_mlp_spec(D, F, (Le,))}
     s.update({f"enc/{k}": v for k, v in enc.items()})
-    s["enc_ln_w"] = ((D,), "ones")
-    s["enc_ln_b"] = ((D,), "zeros")
+    s["enc_ln_w"] = ((D,), (None,), "ones")
+    s["enc_ln_b"] = ((D,), (None,), "zeros")
     dec = {**_attn_spec(D, Hq, hd, (Ld,)),
            **_attn_spec(D, Hq, hd, (Ld,), prefix="x_"),
            **_mlp_spec(D, F, (Ld,))}
     s.update({f"dec/{k}": v for k, v in dec.items()})
-    s["dec_ln_w"] = ((D,), "ones")
-    s["dec_ln_b"] = ((D,), "zeros")
+    s["dec_ln_w"] = ((D,), (None,), "ones")
+    s["dec_ln_b"] = ((D,), (None,), "zeros")
     return s
 
 
@@ -75,9 +81,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Random parameters on the generator's device, drawn in the
     reference's sorted path order (the numbers differ from JAX's)."""
     params: dict[str, Any] = {}
-    for path, (shape, kind) in sorted(_spec(cfg).items()):
+    for path, (shape, _, kind) in sorted(_spec(cfg).items()):
         ptree.assign(params, path, ptree.draw(kind, shape, generator, dtype))
     return params
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The parameter tree's logical sharding axes, leaf for leaf."""
+    return ptree.axes(_spec(cfg))
 
 
 def from_numpy_params(cfg: ArchConfig, tree: dict, *, device=None,
@@ -100,9 +111,11 @@ def sinusoidal(S: int, D: int, dtype=torch.float32, *,
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
 
 
-def _layer(stacked: dict, i: int, compute_dtype):
-    """Layer i's raw leaves, and all of them in the compute dtype."""
-    raw = {k: t[i] for k, t in stacked.items()}
+def _layer(stacked: dict, i: int, compute_dtype, gather=None,
+           prefix: str = ""):
+    """Layer i's raw leaves (read through `gather` under `prefix`,
+    `params.take`), and all of them in the compute dtype."""
+    raw = ptree.take_all(gather, prefix, stacked, i)
     return raw, {k: t.to(compute_dtype) for k, t in raw.items()}
 
 
@@ -142,17 +155,18 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, *,
            compute_dtype=torch.bfloat16,
-           remat: str = "nothing") -> torch.Tensor:
+           remat: str = "nothing", gather=None) -> torch.Tensor:
     """frames: (B, Se, D) precomputed frame embeddings (the conv front
     end's stub) -> the encoder output (B, Se, D) in the compute dtype.
-    Any remat but 'none' recomputes each layer in the backward pass."""
+    Any remat but 'none' recomputes each layer in the backward pass. On a
+    data mesh the leaves are read through `gather` (`params.take`)."""
     B, Se, D = frames.shape
     h = (frames.to(compute_dtype)
          + sinusoidal(Se, D, compute_dtype, device=frames.device)[None])
     pos = _positions(B, Se, frames.device)
 
     def layer(h, i):
-        lp_raw, lp = _layer(params["enc"], i, compute_dtype)
+        lp_raw, lp = _layer(params["enc"], i, compute_dtype, gather, "enc/")
         hn = nn.layer_norm(h, lp_raw["ln_w"], lp_raw["ln_b"])
         h = h + _mha(cfg, lp, hn, hn, pos, pos, causal=False)
         return _mlp(lp_raw, lp, h)
@@ -164,19 +178,20 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, *,
 
 def decode_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
                   enc_out: torch.Tensor, *, compute_dtype=torch.bfloat16,
-                  remat: str = "nothing") -> torch.Tensor:
+                  remat: str = "nothing", gather=None) -> torch.Tensor:
     """The decoder over a whole sequence (B, S), attending to enc_out (B,
     Se, D): final hidden states (B, S, D)."""
     B, S = tokens.shape
     dev = tokens.device
-    h = (params["embed"][tokens.to(torch.int64)].to(compute_dtype)
+    table = ptree.take(gather, "embed", params["embed"])
+    h = (table[tokens.to(torch.int64)].to(compute_dtype)
          + sinusoidal(S, cfg.d_model, compute_dtype, device=dev)[None])
     pos = _positions(B, S, dev)
     pos_e = _positions(B, enc_out.shape[1], dev)
     enc_out = enc_out.to(compute_dtype)
 
     def layer(h, i):
-        lp_raw, lp = _layer(params["dec"], i, compute_dtype)
+        lp_raw, lp = _layer(params["dec"], i, compute_dtype, gather, "dec/")
         hn = nn.layer_norm(h, lp_raw["ln_w"], lp_raw["ln_b"])
         h = h + _mha(cfg, lp, hn, hn, pos, pos, causal=True)
         hx = nn.layer_norm(h, lp_raw["x_ln_w"], lp_raw["x_ln_b"])
@@ -190,14 +205,18 @@ def decode_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
-            compute_dtype=torch.bfloat16,
-            remat: str = "nothing") -> torch.Tensor:
+            compute_dtype=torch.bfloat16, remat: str = "nothing",
+            gather=None) -> torch.Tensor:
     """batch: frames (B, Se, D), tokens and labels (B, S)."""
     enc_out = encode(cfg, params, batch["frames"],
-                     compute_dtype=compute_dtype, remat=remat)
+                     compute_dtype=compute_dtype, remat=remat,
+                     gather=gather)
     h = decode_hidden(cfg, params, batch["tokens"], enc_out,
-                      compute_dtype=compute_dtype, remat=remat)
-    return nn.chunked_ce_loss(h, params["embed"].T, batch["labels"])
+                      compute_dtype=compute_dtype, remat=remat,
+                      gather=gather)
+    return nn.chunked_ce_loss(h, ptree.take(gather, "embed",
+                                            params["embed"]).T,
+                              batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -48,8 +48,10 @@ def global_norm(tree) -> torch.Tensor:
                           for g in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """`norm` (default: `global_norm(grads)`) is the whole gradient's norm
+    when `grads` is a rank's share of it (`launch.fsdp`)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
                     grads), norm
@@ -60,11 +62,13 @@ def _corrections(count: torch.Tensor, cfg: AdamWConfig):
     return 1.0 - cfg.b1 ** c, 1.0 - cfg.b2 ** c
 
 
-def update(params, grads, state, lr, cfg: AdamWConfig):
-    """Returns (new_params, new_state, metrics)."""
+def update(params, grads, state, lr, cfg: AdamWConfig, *, norm=None):
+    """Returns (new_params, new_state, metrics). `norm` is the gradient
+    norm the clip uses when the trees are a rank's blocks of the whole
+    (`launch.fsdp.Sharded.global_norm`)."""
     metrics = {}
     if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm)
         metrics["grad_norm"] = gnorm
     count = state["count"] + 1
     c1, c2 = _corrections(count, cfg)

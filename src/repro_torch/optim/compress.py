@@ -18,7 +18,9 @@ the `(n_buckets, k)` sketches, D/k times fewer bytes, and every pod
 unsketches the mean a second time. `wire='int8'` sends scaled int8
 payloads with float32 scales (`rp.shard.quantize_for_psum`).
 
-  * `compress` — the single-worker roundtrip estimator (no comm);
+  * `compress` — the single-worker roundtrip estimator (no comm); with a
+    `bucket_spec` (a data mesh) each rank projects and reconstructs its
+    block of every leaf's buckets and the blocks are all-gathered;
   * `compress_per_pod` — the whole pod axis in one process: leaves carry
     a leading npod dim, folded into the bucket batch (one K1 launch a
     leaf for every pod); the reference the collective is held against;
@@ -136,6 +138,12 @@ class SketchCompressor:
     wire: str = "fp32"
     # The default mesh of compress_collective (launch/steps.py sets it).
     mesh: Any = dataclasses.field(default=None, compare=False)
+    # The bucket-axis layout of `compress` on a data mesh (a spec whose
+    # entry 0 names the axes of the (n_buckets, ...) dim;
+    # launch/steps.py fills it with `sharding.bucket_specs(mesh)`): each
+    # rank projects and reconstructs its block of a leaf's buckets, one
+    # all_gather a leaf each way. None sketches every leaf whole.
+    bucket_spec: Any = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if self.sync not in ("local-mean", "sketch-mean"):
@@ -166,12 +174,16 @@ class SketchCompressor:
         leaves, treedef = tree_flatten(tree)
         return (treedef, tuple(self._leaf_memo_key(x) for x in leaves))
 
-    def _sketcher(self, tree) -> PytreeSketcher:
-        """Memoized PytreeSketcher for `tree`."""
-        key = self._memo_key(tree)
+    def _sketcher(self, tree, *, plain: bool = False) -> PytreeSketcher:
+        """Memoized PytreeSketcher for `tree`: with a `bucket_spec`, one
+        that splits each leaf's buckets over the mesh, unless `plain`
+        (`compress_collective`, whose ranks hold different pods' trees)."""
+        split = self.bucket_spec is not None and not plain
+        mesh, spec = (self.mesh, self.bucket_spec) if split else (None, None)
+        key = (self._memo_key(tree), split)
         if self._sk_cache is not None and self._sk_cache[0] == key:
             return self._sk_cache[1]
-        sk = PytreeSketcher(self.cfg, tree)
+        sk = PytreeSketcher(self.cfg, tree, mesh=mesh, bucket_spec=spec)
         self._sk_cache = (key, sk)
         return sk
 
@@ -289,7 +301,7 @@ class SketchCompressor:
                 f"wire='int8' supports at most 127 pods (the overflow-proof "
                 f"clip qmax = 127 // npod would be 0), got npod={npod}")
         self._agree_on(grads, group)
-        sk = self._sketcher(grads)
+        sk = self._sketcher(grads, plain=True)
         seed = self._key(step)
         alpha = self.cfg.shrinkage()
 

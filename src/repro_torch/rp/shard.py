@@ -22,7 +22,8 @@ a pod dim. A checkpoint holds the reference's `(npod, ...)` layout:
 `scatter_pod_rows` hands each rank its row of a restored stack.
 
 Every collective of the port goes through the wrappers at the end of
-this module (`all_reduce`, `all_gather`, `gather`). Each records its call, op,
+this module (`all_reduce`, `all_gather`, `all_gather_dim`,
+`reduce_scatter`, `gather`). Each records its call, op,
 dtype, axes, a tag naming its purpose and its payload bytes (the
 tensor this rank contributes) in the process's `CollectiveLedger`, which
 tests and `chip_smoke.py` read: the port's counterpart of the reference's
@@ -341,6 +342,37 @@ def all_gather(x, group, *, tag: str = "collective"):
     return torch.cat(out, dim=0) if src.ndim else torch.stack(out)
 
 
+def all_gather_dim(x, group, dim: int, *, tag: str = "collective"):
+    """Every rank's `x` (one shape on all), concatenated along `dim` in
+    the group's rank order: a data mesh's blocks put back together."""
+    src = x.detach().contiguous()
+    out = [torch.empty_like(src) for _ in range(group.size)]
+    t0 = time.perf_counter()
+    dist.all_gather(out, src, group=group.pg)
+    _LEDGER.record(tag, "all_gather", None, x.dtype, group.axes,
+                   x.numel() * x.element_size(), time.perf_counter() - t0)
+    return torch.cat(out, dim=dim)
+
+
+def reduce_scatter(x, group, dim: int, *, tag: str = "collective"):
+    """This rank's block along `dim` of `x` summed over `group`: the
+    group's i-th rank gets the i-th of `group.size` equal blocks. One
+    reduce_scatter, which gloo takes on CPU and CUDA tensors alike (torch
+    2.11 on the H100) and NCCL on CUDA; the payload recorded is the whole
+    `x`, which this rank contributes."""
+    n = group.size
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split "
+                         f"into {n} blocks over {group.axes}")
+    parts = [c.contiguous() for c in x.detach().chunk(n, dim)]
+    out = torch.empty_like(parts[0])
+    t0 = time.perf_counter()
+    dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=group.pg)
+    _LEDGER.record(tag, "reduce_scatter", "sum", x.dtype, group.axes,
+                   x.numel() * x.element_size(), time.perf_counter() - t0)
+    return out
+
+
 def gather(x, group, *, tag: str = "collective"):
     """Every rank's `x` (one shape on all) stacked along a new dim 0 in
     the group's rank order on the group's first rank, which gets the
@@ -357,8 +389,9 @@ def gather(x, group, *, tag: str = "collective"):
     return out
 
 
-__all__ = ["CollectiveLedger", "all_gather",
+__all__ = ["CollectiveLedger", "all_gather", "all_gather_dim",
            "all_reduce", "bucket_pspec", "collective_ledger",
            "dequantize_psum", "gather", "gather_blocks", "gather_pod_rows",
            "project_sharded", "quantize_for_psum", "reconstruct_sharded",
-           "scatter_pod_rows", "shard_entry", "sketch_tree_sharded"]
+           "reduce_scatter", "scatter_pod_rows", "shard_entry",
+           "sketch_tree_sharded"]

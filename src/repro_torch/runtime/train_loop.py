@@ -27,6 +27,16 @@ rank 0's last save is on disk. A SIGTERM reaches one rank: the ranks
 agree on the flag every step (one MAX all_reduce over the mesh), so they
 save and stop at the same step instead of one rank waiting in a gather
 that the others never join.
+
+On a data mesh (FSDP, `shardings=` the state's specs,
+`launch.steps.state_specs`) each rank holds its blocks of params, m and
+v. A save gathers the blocks onto rank 0 (`launch.fsdp.gather_tree`, one
+gather a sharded leaf), which writes whole leaves in the reference's
+format; a sketched EF record is encoded by every rank (the codec splits
+the buckets over the mesh), written by rank 0. A restore reads each
+rank's block alone (`checkpointer.restore(shardings=)`), after the same
+meeting as on a pod mesh. The SIGTERM, resume and done meetings are the
+pod mesh's.
 """
 from __future__ import annotations
 
@@ -63,11 +73,25 @@ class LoopConfig:
     verify_restore: bool = True
 
 
-def _to_save(state: Any, step: int, ef_codec, mesh) -> tuple[Any, dict]:
+def _to_save(state: Any, step: int, ef_codec, mesh,
+             shardings=None) -> tuple[Any, dict]:
     """(tree to write, manifest extra) — EF leaves go as sketch records.
-    On a pod mesh every rank joins the gather of the EF rows and only
-    rank 0 gets a tree (None elsewhere)."""
+    On a pod mesh every rank joins the gather of the EF rows, on a data
+    mesh the gather of the blocks (and the record's encode); only rank 0
+    gets a tree (None elsewhere)."""
     extra: dict = {}
+    if shardings is not None:
+        from repro_torch.launch.fsdp import gather_tree
+        record = (ef_codec.encode(state["ef"], step=step)
+                  if ef_codec is not None and "ef" in state else None)
+        if record is not None:
+            extra["sketched_ef"] = ef_codec.meta()
+            state = {k: v for k, v in state.items() if k != "ef"}
+            shardings = {k: v for k, v in shardings.items() if k != "ef"}
+        tree = gather_tree(state, shardings, mesh)
+        if tree is not None and record is not None:
+            tree["ef"] = record
+        return tree, extra
     if "ef" not in state:
         return (state if mesh is None or mesh.rank == 0 else None), extra
     tree = dict(state)
@@ -103,7 +127,7 @@ def run(step_fn: Callable, state: Any, data: SyntheticLM, cfg: LoopConfig, *,
         injector: FaultInjector | None = None,
         log: Callable[[str], None] = print,
         on_metrics: Callable[..., None] | None = None,
-        ef_codec=None, mesh=None) -> tuple[Any, int]:
+        ef_codec=None, mesh=None, shardings=None) -> tuple[Any, int]:
     """Runs step_fn(state, batch) -> (state, metrics) until total_steps.
 
     Resumes from the newest VERIFIED checkpoint in cfg.ckpt_dir if one
@@ -121,8 +145,17 @@ def run(step_fn: Callable, state: Any, data: SyntheticLM, cfg: LoopConfig, *,
     and encodes on rank 0. With a 'pod' axis a restore goes through
     `ckpt.resume_pod_rank`: it always verifies, reads a sketched record's
     codec from the manifest, and takes a checkpoint of another pod count.
+    On a data mesh `shardings` (the state's specs) is required: `state`
+    holds this rank's blocks, a save writes the whole leaves and a restore
+    reads the rank's blocks (see the module docstring).
     """
     pods = mesh is not None and "pod" in mesh.axis_names
+    blocks = mesh is not None and mesh.shape.get("data", 1) > 1
+    if blocks and shardings is None:
+        raise ValueError("run(mesh=) on a data mesh needs shardings=, the "
+                         "state's specs (launch.steps.state_specs)")
+    if not blocks:
+        shardings = None
     if cfg.npod > 1 and not (pods and mesh.shape["pod"] == cfg.npod):
         raise ValueError(
             f"LoopConfig(npod={cfg.npod}) needs the mesh= whose 'pod' axis "
@@ -131,19 +164,23 @@ def run(step_fn: Callable, state: Any, data: SyntheticLM, cfg: LoopConfig, *,
     start = 0
     if cfg.ckpt_dir:
         latest = checkpointer.latest_step(cfg.ckpt_dir)
-        if pods:    # after rank 0 has drained the save a crash cut short
+        if pods or blocks:  # after rank 0 drained a save a crash cut short
             latest = _agree(-1 if latest is None else latest, mesh,
                             "resume")
             latest = None if latest < 0 else latest
         if latest is not None and pods:
             state, start = resume_pod_rank(cfg.ckpt_dir, state, mesh)
         elif latest is not None:
-            example = state
+            example, specs = state, shardings
             if ef_codec is not None and "ef" in state:
                 example = dict(state)
                 example["ef"] = ef_codec.record_shapes()
+                if specs is not None:   # the record is whole on every rank
+                    specs = dict(specs)
+                    specs["ef"] = {k: (None,) * t.ndim
+                                   for k, t in example["ef"].items()}
             restored, start = checkpointer.restore(
-                cfg.ckpt_dir, example,
+                cfg.ckpt_dir, example, shardings=specs, mesh=mesh,
                 verify_integrity=cfg.verify_restore, fallback=True)
             if ef_codec is not None and "ef" in state:
                 restored["ef"] = ef_codec.decode(restored["ef"])
@@ -194,7 +231,8 @@ def run(step_fn: Callable, state: Any, data: SyntheticLM, cfg: LoopConfig, *,
                 (step + 1) % cfg.ckpt_every == 0
                 or step == cfg.total_steps - 1 or stop)
             if want_ckpt:
-                tree, extra = _to_save(state, step + 1, ef_codec, mesh)
+                tree, extra = _to_save(state, step + 1, ef_codec, mesh,
+                                       shardings)
                 extra["npod"] = cfg.npod
                 if ck is not None:
                     ck.save(step + 1, tree, extra=extra)

@@ -871,3 +871,119 @@ def test_serve_cli_on_the_card_refuses_whisper(cuda, capsys):
     with pytest.raises(SystemExit):
         serve.main(["--arch", "whisper-medium"])
     assert "encoder-decoder" in capsys.readouterr().err
+
+
+def test_remat_dots_on_the_card_equals_nothing(cuda):
+    """remat='dots' on CUDA at phase 9's widths (llama3.2-3b cut to 2
+    layers, one sequence of 2048, bf16 compute): the gradients equal
+    'nothing''s bit for bit; the backward runs as many `mm` as without
+    remat and as many `bmm` as under 'nothing'. The peak memory of each
+    is printed."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+    from repro_torch.models import build_model
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n[str(func)] = self.n.get(str(func), 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    model = build_model(dataclasses.replace(get_config("llama3.2-3b"),
+                                            n_layers=2))
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, model.cfg.vocab, (1, 2048), generator=g,
+                           device=cuda)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    out, peak, ops = {}, {}, {}
+    for remat in ("dots", "nothing", "none"):
+        leaves, treedef = tree_flatten(params)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = model.loss_fn(tree_unflatten(treedef, live), batch,
+                             remat=remat)
+        with Count() as count:
+            out[remat] = torch.autograd.grad(loss, live)
+        torch.cuda.synchronize()
+        peak[remat] = torch.cuda.max_memory_allocated() / 2**30
+        ops[remat] = count.n
+        del live, loss
+    print(f"remat peak GiB {peak}; backward mm "
+          f"{ {r: n.get('aten.mm.default') for r, n in ops.items()} }, bmm "
+          f"{ {r: n.get('aten.bmm.default') for r, n in ops.items()} }")
+    for a, b in zip(out["dots"], out["nothing"]):
+        assert torch.equal(a, b)
+    mm, bmm = "aten.mm.default", "aten.bmm.default"
+    assert ops["dots"][mm] == ops["none"][mm] < ops["nothing"][mm]
+    assert ops["dots"][bmm] == ops["nothing"][bmm] > ops["none"][bmm]
+
+
+@pytest.mark.parametrize("compressed", [False, True])
+def test_data_mesh_step_on_the_card(cuda, tmp_path, compressed):
+    """The data-mesh train step on two gloo ranks sharing the card
+    (reduced llama3.2-3b, fp32 compute, two steps) against the port's
+    one-device step on the card: the loss and the clip norm within 1e-5,
+    every leaf of m, v (and the EF) within 1e-4 of its largest entry, the
+    params within 0.1 lr; with a compressor each rank launches K1 and K2
+    on its block of a leaf's buckets."""
+    import functools
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import AdamWConfig, schedule
+    from repro_torch.optim.compress import SketchCompressor
+
+    from torch_dist_workers import run_ranks
+    cfg = dict(family="tt", k=64, rank=2, dims=(4, 8, 16), bucket_elems=512)
+    model = build_model(reduced(get_config("llama3.2-3b")))
+    state = steps.init_train_state(model, torch.Generator().manual_seed(0))
+    if compressed:
+        state["ef"] = {"residual": tree_map(torch.zeros_like,
+                                            state["params"])}
+    np_state = tree_map(lambda t: t.numpy(), state)
+    data = SyntheticLM(DataConfig(vocab=256, seq_len=16, global_batch=4))
+    batches = [{k: np.asarray(v) for k, v in data.batch(i).items()}
+               for i in range(2)]
+    out = run_ranks("fsdp", 2, tmp_path, {
+        "arch": "llama3.2-3b", "state": np_state, "batches": batches,
+        "seq": 16, "batch": 4, "lr": 1e-2, "device": str(cuda),
+        "modes": [cfg if compressed else None]},
+        shape=(2, 1), names=("data", "model"))
+    step = steps.build_train_step(
+        model, ShapeSpec("t", 16, 4, "train"), device=cuda,
+        compute_dtype=torch.float32, opt=AdamWConfig(),
+        compressor=SketchCompressor(SketchConfig(**cfg)) if compressed
+        else None, lr_fn=functools.partial(schedule.constant, peak_lr=1e-2))
+    live = tree_map(lambda t: t.to(cuda), state)
+    for i, b in enumerate(batches):
+        live, met = step(live, {k: torch.from_numpy(v) for k, v in b.items()})
+        for o in out:
+            run = o["modes"][0]["runs"][i]
+            assert run["loss"] == pytest.approx(float(met["loss"]),
+                                                rel=1e-5)
+            assert run["grad_norm"] == pytest.approx(
+                float(met["grad_norm"]), rel=1e-5)
+            for a, w in zip(run["params"], tree_leaves(live["params"])):
+                assert float((a - w.cpu()).abs().max()) <= 0.1 * 1e-2
+            for part, tree in (("m", live["opt"]["m"]),
+                               ("v", live["opt"]["v"]),
+                               ("ef", live.get("ef", {}))):
+                for a, w in zip(run[part], tree_leaves(tree)):
+                    assert _rel(a, w.cpu()) <= 1e-4, part
+            k1, k2 = run["launches"]
+            if compressed:
+                assert k1 > 0 and k2 > 0

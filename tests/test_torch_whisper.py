@@ -117,7 +117,7 @@ def test_params_carry_across_and_module(pair):
 
 def test_full_config_parameter_count_matches_reference():
     cfg = get_config(NAME)
-    got = sum(math.prod(s) for s, _ in whisper._spec(cfg).values())
+    got = sum(math.prod(s) for s, *_ in whisper._spec(cfg).values())
     want = sum(math.prod(a.shape) for a in jax.tree.leaves(
         jbuild_model(jget_config(NAME)).param_shapes()))
     assert got == want == 758_469_632

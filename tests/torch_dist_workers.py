@@ -72,7 +72,8 @@ def _rank_main(rank, world, store, shape, names, scenario, payload, tmp):
                             world_size=world, rank=rank)
     try:
         from repro_torch.launch.mesh import make_mesh
-        mesh = make_mesh(shape, names, device="cpu")
+        mesh = make_mesh(shape, names, device=payload.get("device", "cpu"),
+                         backend="gloo")
         try:
             res = SCENARIOS[scenario](mesh, payload)
         except Exception:   # reported to the parent, which fails the test
@@ -83,16 +84,17 @@ def _rank_main(rank, world, store, shape, names, scenario, payload, tmp):
             dist.destroy_process_group()
 
 
-def carry_ops(ops: dict) -> None:
+def carry_ops(ops: dict, device="cpu") -> None:
     """The port's `rp.make_projector` hands out the reference's operator
-    arrays `ops[seed] = (family, [arrays])` for those seeds."""
+    arrays `ops[seed] = (family, [arrays])` for those seeds, on
+    `device`."""
     from repro_torch import rp
     from repro_torch.core import from_numpy_operator
 
     @functools.lru_cache(maxsize=None)
     def cached(seed):
         family, arrays = ops[seed]
-        return from_numpy_operator(family, arrays, "cpu")
+        return from_numpy_operator(family, arrays, device)
 
     def make(spec, seed=0, *, device=None):
         return cached(int(seed))
@@ -395,6 +397,145 @@ def pod_sigterm_scenario(mesh, pl):
     return {"final_step": final, "ef": _leaves(state)["ef"], "logs": logs}
 
 
+def _fsdp_step(mesh, pl, cfg, remat="nothing", **kw):
+    """The reduced model's data-mesh train step (fp32 compute, constant
+    lr, the payload's clip, `remat`), through a compressor of `cfg` when
+    given."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import AdamWConfig, schedule
+    from repro_torch.optim.compress import SketchCompressor
+    model = build_model(reduced(get_config(pl["arch"])))
+    comp = None if cfg is None else SketchCompressor(SketchConfig(**cfg))
+    return model, steps.build_train_step(
+        model, ShapeSpec("t", pl["seq"], pl["batch"], "train"), mesh=mesh,
+        compressor=comp, compute_dtype=torch.float32,
+        opt=AdamWConfig(clip_norm=pl.get("clip", 1.0)),
+        lr_fn=functools.partial(schedule.constant, peak_lr=pl["lr"]),
+        remat=remat, **kw)
+
+
+def fsdp_scenario(mesh, pl):
+    """The data-mesh train step (FSDP) on the payload's reduced model from
+    the payload's whole state (`shard_state`), once a mode (None: no
+    compressor, else a SketchConfig dict; the payload's operators carried
+    across; "dots": no compressor under remat='dots'): per step the loss,
+    the clip's norm, the whole params, m, v (gathered back with
+    `unshard_state`) and EF, and the collective ledger; the shapes this
+    rank holds. Then `Sharded.global_norm` of a seeded tree's blocks
+    beside the whole tree's norm."""
+    from repro_torch import kernels
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import _sweep
+    from repro_torch.launch import fsdp, steps
+    from repro_torch.optim import adamw
+    from repro_torch.rp import shard
+    if "ops" in pl:
+        carry_ops(pl["ops"], mesh.device)
+    out = {"modes": []}
+    for mode in pl["modes"]:
+        cfg = None if mode == "dots" else mode
+        model, step_fn = _fsdp_step(mesh, pl, cfg, remat="dots"
+                                    if mode == "dots" else "nothing")
+        whole = steps.from_numpy_state(model, pl["state"],
+                                       device=mesh.device)
+        if cfg is None:
+            whole.pop("ef", None)
+        state = steps.shard_state(model, whole, mesh)
+        held = {part: [tuple(t.shape) for t in tree_leaves(tree)]
+                for part, tree in (("params", state["params"]),
+                                   ("m", state["opt"]["m"]),
+                                   ("v", state["opt"]["v"]),
+                                   ("ef", state.get("ef", {})))}
+        runs = []
+        for batch in pl["batches"]:
+            shard.collective_ledger().reset()
+            kernels.reset_launch_counts()
+            state, met = step_fn(state, {k: torch.from_numpy(v)
+                                         for k, v in batch.items()})
+            led = shard.collective_ledger().table()
+            full = steps.unshard_state(model, state, mesh)
+            host = lambda tree: [t.cpu().clone()  # noqa: E731
+                                 for t in tree_leaves(tree)]
+            runs.append({
+                "loss": float(met["loss"]),
+                "grad_norm": float(met["grad_norm"]),
+                "params": host(full["params"]), "m": host(full["opt"]["m"]),
+                "v": host(full["opt"]["v"]), "ef": host(full.get("ef", {})),
+                "ledger": led,
+                "launches": [_sweep.sweep_project.launches,
+                             _sweep.sweep_reconstruct.launches]})
+        out["modes"].append({"held": held, "runs": runs})
+    specs = steps.state_specs(model, mesh)["params"]
+    gen = torch.Generator().manual_seed(7)
+    tree = _rand_like(model.param_shapes(), gen)
+    layout = fsdp.Sharded(mesh, specs)
+    out["norm"] = float(layout.global_norm(layout.blocks(tree)))
+    out["whole_norm"] = float(adamw.global_norm(tree))
+    return out
+
+
+def _rand_like(tree, gen):
+    if isinstance(tree, dict):
+        return {k: _rand_like(v, gen) for k, v in sorted(tree.items())}
+    return torch.randn(tree.shape, generator=gen) * 3.0
+
+
+def fsdp_ckpt_scenario(mesh, pl):
+    """The data-mesh train loop (compressed, dense EF) twice from one
+    state: uninterrupted, and with checkpoints every 2 steps and a crash
+    at `crash_at`, restarted from the directory. Returns both final
+    states' blocks, the whole final state, the restart report, and this
+    rank's blocks of the final checkpoint through
+    `restore(shardings=)`."""
+    from repro_torch.ckpt import checkpointer
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.runtime import train_loop
+    from repro_torch.runtime.resilience import FaultInjector, \
+        run_with_restarts
+    carry_ops(pl["ops"])
+    model, step_fn = _fsdp_step(mesh, pl, pl["cfg"])
+    data = SyntheticLM(DataConfig(vocab=256, seq_len=pl["seq"],
+                                  global_batch=pl["batch"]))
+
+    def fresh():
+        whole = steps.from_numpy_state(model, pl["state"], device="cpu")
+        return steps.shard_state(model, whole, mesh)
+    specs = steps.state_specs(model, mesh, fresh())
+    total = pl["steps"]
+    plain, _ = train_loop.run(step_fn, fresh(), data, train_loop.LoopConfig(
+        total_steps=total, log_every=100), mesh=mesh, shardings=specs,
+        log=lambda *_: None)
+    final = {}
+
+    def attempt(injector):
+        final["state"], step = train_loop.run(
+            step_fn, fresh(), data, train_loop.LoopConfig(
+                total_steps=total, ckpt_dir=pl["dir"], ckpt_every=2,
+                log_every=100, async_ckpt=pl["async"]),
+            injector=injector, mesh=mesh, shardings=specs,
+            log=lambda *_: None)
+        return step
+
+    report = run_with_restarts(attempt, max_restarts=1,
+                               injector=FaultInjector({pl["crash_at"]}))
+    restored, step = checkpointer.restore(pl["dir"], fresh(),
+                                          shardings=specs, mesh=mesh)
+
+    def leaves(state):
+        return [t.clone() for t in tree_leaves(state)]
+    return {"plain": leaves(plain), "resumed": leaves(final["state"]),
+            "whole": leaves(steps.unshard_state(model, final["state"],
+                                                mesh)),
+            "restored": leaves(restored), "restored_step": step,
+            "restarts": report.restarts, "final_step": report.final_step}
+
+
 def _meta(tree):
     if isinstance(tree, dict):
         return {k: _meta(v) for k, v in tree.items()}
@@ -406,4 +547,5 @@ SCENARIOS = {"shard": shard_scenario, "collective": collective_scenario,
              "train": train_scenario, "resume": resume_scenario,
              "cli": cli_scenario, "pod_ckpt": pod_ckpt_scenario,
              "pod_sigterm": pod_sigterm_scenario,
-             "vlm_pod": vlm_pod_scenario}
+             "vlm_pod": vlm_pod_scenario, "fsdp": fsdp_scenario,
+             "fsdp_ckpt": fsdp_ckpt_scenario}
