@@ -279,13 +279,43 @@ Phases (each raises on failure, so the script exits non-zero):
      (rank 0 writes whole leaves) and a crash before step 3 under
      `run_with_restarts`, restored through `restore(shardings=)`: params,
      m and v bit-equal on both ranks to 20a's uninterrupted run; the
-     bytes on disk and each rank's restore seconds. The numbers (step ms,
-     the ledger's gather and reduce bytes and host ms by tag, peak GiB a
-     rank, K1/K2 launches) go on the `fsdp` line.
+     bytes on disk and each rank's restore seconds. 20d: 3 steps of
+     `build_train_step(mesh=, fused_update=True)` (clip None, fp32
+     compute on both sides) from the drawn parameters: the split K1 and
+     K4's block form
+     (`fused_update_block`, one launch a leaf: the whole leaf
+     reconstructed, the rank's blocks of params, m, v updated) against 3
+     fused steps of phase 9's one-rank step (run by this process): step
+     1's loss within 1e-5, steps 2-3 within 1e-4, the params within 6 lr;
+     the EF residual the same bits on both ranks; 11 K1 and 11 K4-block
+     launches a step a rank, no K2 and no whole-leaf K4, no `unsketch`
+     gather; then w_gate's block form against its plain version on the
+     card (1e-4). The numbers (step ms, the ledger's gather and reduce
+     bytes and host ms by tag, peak GiB a rank, K1/K2/K4-block launches)
+     go on the `fsdp` line. Phase 10 times the block form at w_gate
+     (rank 0's block of dim 1 on a data=2 mesh) beside its bound, its
+     plain version and the unfused chain: the `fused_update_block:train`
+     row, whose launches are 20d's.
+  21. pod x data meshes on four gloo ranks sharing the card, `(pod=2,
+     data=2, model=1)`, at phase 9's widths and depth cut with the
+     sequence cut to 1024 (global batch 4: one row a rank), AdamW's clip
+     of 1.0, lr 3e-4. This process first runs the one-rank compositions
+     from seed 0's parameters: 3 steps of the global batch, and 3 steps
+     of each pod's two rows through `compress_per_pod` (`sketch-mean`,
+     phase 9's compressor) and `adamw.update`; the ranks then run 3
+     uncompressed steps (FSDP over pod x data, each rank a quarter of
+     params, m and v) and 3 compressed ones (FSDP over data within the
+     pod, `compress_collective` across pods, each rank half of them and
+     its pod's residual whole): each step's loss within 1e-5 (step 1) /
+     1e-4 and its clip norm within 2e-3 of the composition's, the params
+     within 6 lr after 3 steps, the two pods' ranks of a data index the
+     same bits, the ledger's `compress` bytes = `wire_bytes`, K1 and K2
+     launched, each rank's peak at most 18 GiB. The numbers go on the
+     `pod_data` line.
 Then it prints the `collective` JSON line (phase 15's numbers), the
-`pod_ckpt`, `lm_serve` and `fsdp` lines (phases 16 to 20), the
-`kernels` JSON line, the card's name and power limit, and as its last
-line `{"ok": true, "device": {...}}`.
+`pod_ckpt`, `lm_serve`, `fsdp` and `pod_data` lines (phases 16 to 21),
+the `kernels` JSON line, the card's name and power limit, and as its
+last line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -321,14 +351,17 @@ SOURCES = {"sweep_project": "src/repro_torch/kernels/csrc/sweep_project.cu",
                "src/repro_torch/kernels/csrc/carry_sweep.cu",
            "carry_sweep_project_pipelined":
                "src/repro_torch/kernels/csrc/carry_sweep.cu",
-           "fused_update": "src/repro_torch/kernels/csrc/fused_update.cu"}
+           "fused_update": "src/repro_torch/kernels/csrc/fused_update.cu",
+           "fused_update_block":
+               "src/repro_torch/kernels/csrc/fused_update.cu"}
 REPLACES = {"sweep_project": "src/repro/kernels/_sweep.py:118",
             "sweep_project_pipelined": "src/repro/kernels/_sweep.py:204",
             "sweep_reconstruct": "src/repro/kernels/_sweep.py:236",
             "carry_sweep_project": "src/repro/kernels/struct/carry.py:99",
             "carry_sweep_project_pipelined":
                 "src/repro/kernels/struct/carry.py:182",
-            "fused_update": "src/repro/kernels/fused_update.py:169"}
+            "fused_update": "src/repro/kernels/fused_update.py:169",
+            "fused_update_block": "src/repro/kernels/fused_update.py:169"}
 SMALL_CARRY_DIMS = {2: (12, 20), 3: (6, 10, 14), 4: (4, 6, 5, 7),
                     5: (3, 4, 5, 3, 6), 6: (3, 2, 4, 3, 2, 3),
                     7: (2, 3, 2, 3, 2, 2, 3), 8: (2,) * 8}
@@ -655,6 +688,66 @@ def train_slice(dev):
     return model, cfg, shape, comp, opt, step_fn, state, data
 
 
+def k4_block_row(time_row, errs, per_family, op, yj, leaves_in, j, fplan,
+                 core_bytes, lr, c1, c2, khp, dense_g, shape_s) -> dict:
+    """K4's block form at leaf j (w_gate) of the training slice: rank 0's
+    FSDP block of a (data=2) mesh (the leaf's dim 1 halved), the whole
+    error-fed gradient and the leaf's sketch rows. Held against its plain
+    version and timed beside its bound, the plain version and the unfused
+    chain on the same block (`dense_g()`: one torch.einsum of the whole
+    reconstruction); its launches come from phase 20d."""
+    import torch
+    from repro_torch.kernels import fused_update as kfused
+    p = leaves_in[0][j]
+    shape = tuple(p.shape)
+    layout = kfused.BlockLayout.of(shape, 1, 0, shape[1] // 2)
+    blk = [t[j][:, :shape[1] // 2].contiguous() for t in leaves_in[1:]]
+    size, nblk = layout.size, layout.numel
+
+    def kern():
+        return kfused.fused_update_block(op, yj, p, *blk, lr, c1, c2,
+                                         layout=layout, **khp)
+
+    def plain():
+        return kfused.fused_update_block_plain(op, yj, p, *blk, lr, c1, c2,
+                                               layout=layout, **khp)
+
+    def chain():
+        g = dense_g().reshape(-1)[:size]
+        gb = g.view(layout.outer, layout.n_d, layout.inner)[
+            :, layout.lo:layout.hi]
+        hp = {key: khp[key] for key in ("b1", "b2", "eps", "weight_decay")}
+        return ((p.reshape(-1) - g).view(shape),) + kfused.adamw_epilogue(
+            gb, *(t.view(layout.shape) for t in blk), lr, c1, c2, **hp)
+
+    key = "fused_update_block:train"
+    got, ref = kern(), plain()
+    errs[key] = max(check(f"K4 block {shape_s}, rank 0's block of dim 1 "
+                          f"{layout.shape} {name}", a, b)
+                    for name, a, b in zip(("resid", "w'", "m'", "v'"),
+                                          got, ref))
+    if not all(torch.equal(a, b) for a, b in zip(got, kern())):
+        raise AssertionError("K4 block: a second call on the same inputs "
+                             "gave other bits")
+    del got, ref
+    torch.cuda.empty_cache()
+    # the reconstruction of the whole leaf, the residual's one op an
+    # element and the AdamW epilogue's 17 on the block
+    program, cheaper = fused_flops(fplan)
+    epilogue = 18 * fplan.b * math.prod(fplan.dims)
+    block_epi = size + 17 * nblk
+    nbytes = 4 * (yj.numel() + 2 * size + 6 * nblk) + core_bytes
+    per_family.setdefault(key, 0)
+    row = time_row(key, program - epilogue + block_epi,
+                   cheaper - epilogue + block_epi, nbytes, kern, plain,
+                   chain, f"{shape_s}; rank 0's block {layout.shape} of "
+                   f"dim 1 of {shape}", reps=10)
+    row["library_call"] = ("unfused chain: one torch.einsum of the whole "
+                           "reconstruct, then the residual and the block's "
+                           "epilogue in torch ops")
+    return row
+
+
 def train_phases(dev, gen, errs, per_family, launches, time_row):
     """Phases 8-11: K4 against its plain version, the sketch-compressed
     training slice at full width, the fused update against the unfused
@@ -975,6 +1068,11 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
         raise AssertionError("K4 at layers/w_gate: a second call on the "
                              "same inputs gave other bits")
     rows.append(row)
+    rows.append(k4_block_row(
+        time_row, errs, per_family, op, yj, leaves_in, names.index(
+            "layers/w_gate"), fplan, core_bytes, TRAIN_LR, c1, c2, khp,
+        lambda: dense_route(f"{lib_cores},nk->n{letters}", *cores, yj)
+        * scale_a, shape_s))
     p5plan = ops.plan_contraction("tt", "project", op.k, nb, op.in_dims,
                                   op.rank, pipeline="double")
 
@@ -1999,15 +2097,17 @@ def _rel_norm(a, b) -> float:
                  / max(float(torch.linalg.norm(a.reshape(-1))), 1e-30))
 
 
-def _pod_ranks(task: str, shapes, extra: dict) -> list[dict]:
-    """Run `task` on two gloo ranks that share the card; each rank's
+def _pod_ranks(task: str, shapes, extra: dict, world: int = 2
+               ) -> list[dict]:
+    """Run `task` on `world` gloo ranks that share the card; each rank's
     result dict comes back as JSON. A rank that fails fails the phase."""
     import tempfile
 
     import torch.multiprocessing as mp
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{task}_")
-    ctx = mp.start_processes(_pod_rank, args=(2, tmp, task, shapes, extra),
-                             nprocs=2, join=False, start_method="spawn")
+    ctx = mp.start_processes(_pod_rank, args=(world, tmp, task, shapes,
+                                              extra),
+                             nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + POD_TIMEOUT
     while not ctx.join(timeout=2.0):
         if time.monotonic() > deadline:
@@ -2016,7 +2116,7 @@ def _pod_ranks(task: str, shapes, extra: dict) -> list[dict]:
             raise AssertionError(f"the ranks of {task!r} did not end "
                                  f"within {POD_TIMEOUT:.0f} s")
     return [json.loads(Path(tmp, f"{task}_{r}.json").read_text())
-            for r in range(2)]
+            for r in range(world)]
 
 
 def _pod_rank(rank, world, tmp, task, shapes, extra):
@@ -2035,8 +2135,8 @@ def _pod_rank(rank, world, tmp, task, shapes, extra):
                             world_size=world, rank=rank)
     try:
         res = {"collective": _pod_collective, "train": _pod_train,
-               "ckpt": _pod_ckpt, "fsdp": _fsdp_rank}[task](rank, shapes,
-                                                           extra)
+               "ckpt": _pod_ckpt, "fsdp": _fsdp_rank,
+               "pod_data": _pod_data_rank}[task](rank, shapes, extra)
         Path(tmp, f"{task}_{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -3789,6 +3889,11 @@ FSDP_LATER_RTOL = 1e-4  # steps 2-3: the params already differ by up to 2
 FSDP_GRAD_TOL = 2e-3   # of max|g|: bf16 products, the sums split otherwise
 FSDP_PARAM_LR = 6.0    # params after 3 steps: at most 2 lr a step apart
 FSDP_SKETCH_TOL = 1e-4  # sketch and EF of the split K1/K2 against whole
+# 20d runs both sides at fp32 compute: at the policy's bf16 the fused step's
+# sketched estimate turns the bf16 gradients' rounding into sign flips of
+# AdamW's step, and the losses part by 1.3e-4 / 9.2e-4 at steps 2-3 (at
+# fp32: 1e-7 / 6e-7; tools/fsdp_drift_probe.py --fused [--compute ...])
+FSDP_FUSED_COMPUTE = "float32"
 
 
 def _fsdp_slice():
@@ -3832,11 +3937,12 @@ def _fsdp_rank(rank, shapes, extra):
     import dataclasses
 
     import torch
-    from repro_torch import kernels
+    from repro_torch import kernels, rp
     from repro_torch.ckpt import checkpointer
     from repro_torch.core.tree import (tree_flatten, tree_leaves, tree_map,
                                        tree_unflatten)
     from repro_torch.kernels import _sweep
+    from repro_torch.kernels import fused_update as kfused
     from repro_torch.launch import fsdp, sharding, steps
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import adamw
@@ -3887,7 +3993,8 @@ def _fsdp_rank(rank, shapes, extra):
             e_ev.record()
             _sync(dev)
             rows.append({"step": i, "loss": float(met["loss"]),
-                         "grad_norm": float(met["grad_norm"]),
+                         "grad_norm": (float(met["grad_norm"])
+                                       if "grad_norm" in met else None),
                          "step_ms": s_ev.elapsed_time(e_ev),
                          "ledger": _ledger_by_tag(shard.collective_ledger())})
         return state, rows
@@ -3959,6 +4066,55 @@ def _fsdp_rank(rank, shapes, extra):
     del state
     _free(dev)
 
+    # -- 20d: three fused steps: the split K1, then K4's block form -------
+    fopt = dataclasses.replace(opt, clip_norm=None)
+    state = fresh()
+    state["ef"] = {"residual": tree_map(lambda t: torch.zeros(
+        t.shape, device=dev), model.param_shapes())}
+    step_f = steps.build_train_step(
+        model, shape, mesh=mesh, opt=fopt, lr_fn=lr_fn, compressor=comp,
+        fused_update=True, compute_dtype=getattr(torch, FSDP_FUSED_COMPUTE))
+    kernels.reset_launch_counts()
+    state, res["20d"] = timed_steps(step_f, state, 0, FSDP_STEPS)
+    res["launches"].update(
+        fused_update_block=kfused.fused_update_block.launches)
+    res["fused_launches"] = {
+        "sweep_project": _sweep.sweep_project.launches,
+        "sweep_reconstruct": _sweep.sweep_reconstruct.launches,
+        "fused_update": kfused.fused_update_buckets.launches,
+        "fused_update_block": kfused.fused_update_block.launches}
+    res["launches"]["sweep_project"] += _sweep.sweep_project.launches
+    res["fused_param_lr"] = worst(state["params"], ref["fused_params3"],
+                                  scale=TRAIN_LR)
+    res["ef_digest"] = bits_digest(state["ef"]["residual"])
+    # one leaf's block form against its plain version on the card: the
+    # rank's blocks after the steps, the residual as the error-fed
+    # gradient, its sketch by the last step's operator
+    names = ["/".join(key) for key in _leaf_names(state["params"])]
+    j = names.index("layers/w_gate")
+    p_leaf = tree_leaves(state["ef"]["residual"])[j]
+    blk = [tree_leaves(t)[j].contiguous() for t in (
+        state["params"], state["opt"]["m"], state["opt"]["v"])]
+    seed = comp._key(FSDP_STEPS - 1)
+    op = comp.cfg.operator(seed, dev)
+    sk = comp._sketcher(state["ef"]["residual"])
+    y = rp.project(op, sk._leaf_to_buckets(p_leaf, sk._nb[j])).contiguous()
+    d = fsdp.shard_dim(fsdp._flat_specs(pspecs)["layers/w_gate"], mesh)
+    sl = fsdp.block_slices(tuple(p_leaf.shape),
+                           fsdp._flat_specs(pspecs)["layers/w_gate"],
+                           mesh)[d]
+    layout = kfused.BlockLayout.of(tuple(p_leaf.shape), d, sl.start,
+                                   sl.stop)
+    khp = dict(alpha=comp.cfg.shrinkage(), b1=fopt.b1, b2=fopt.b2,
+               eps=fopt.eps, weight_decay=fopt.weight_decay)
+    got = kfused.fused_update_block(op, y, p_leaf, *blk, TRAIN_LR, 0.1,
+                                    0.05, layout=layout, **khp)
+    want = kfused.fused_update_block_plain(op, y, p_leaf, *blk, TRAIN_LR,
+                                           0.1, 0.05, layout=layout, **khp)
+    res["block_rel"] = max(rel_err(a, b)[1] for a, b in zip(got, want))
+    del state, got, want, blk, p_leaf, y
+    _free(dev)
+
     # -- 20c: the train loop on the data mesh, a crash and the restore -----
     restore_s, final = [], {}
     restore = checkpointer.restore
@@ -4008,10 +4164,11 @@ def fsdp_phase(dev) -> dict:
     ranks sharing the card, at phase 9's widths. This process first runs
     the one-rank reference (its loss each step, step 1's gradient, the
     params after 3 steps, the one-rank `compress` of that gradient and
-    its sketch) and writes it beside the drawn parameters, then frees the
-    card; the ranks (`_fsdp_rank`) read their blocks of it. Returns the
-    numbers of the `fsdp` line, with the K1/K2 launches under
-    `launches`."""
+    its sketch, and three fused steps for 20d) and writes it beside the
+    drawn parameters, then frees the card; the ranks (`_fsdp_rank`) read
+    their blocks of it. Returns the numbers of the `fsdp` line, with the
+    K1/K2/K4-block launches under `launches`."""
+    import dataclasses
     import shutil
     import tempfile
 
@@ -4027,7 +4184,7 @@ def fsdp_phase(dev) -> dict:
     p_bytes = 4 * sum(t.numel() for t in tree_leaves(model.param_shapes()))
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_fsdp_"))
     free_disk = shutil.disk_usage(root).free
-    need = 4 * p_bytes + 2.1 * 3 * p_bytes   # the reference, 2 checkpoints
+    need = 5 * p_bytes + 2.1 * 3 * p_bytes   # the reference, 2 checkpoints
     log(f"phase 20: {free_disk / 1e9:.2f} GB free under {root}; the "
         f"reference files and two checkpoints need {need / 1e9:.2f} GB")
     if free_disk < need:
@@ -4063,12 +4220,31 @@ def fsdp_phase(dev) -> dict:
         ref["ef"] = host(est["residual"])
         ref["g1"] = host(g1)
         del g1, est
+        _free(dev)
+        # 20d's reference: three fused steps on one rank from the same
+        # drawn parameters (phase 9's step at phase 20's batch, at
+        # FSDP_FUSED_COMPUTE)
+        fopt = dataclasses.replace(opt, clip_norm=None)
+        state = steps.init_train_state(
+            model, torch.Generator(device=dev).manual_seed(0), opt=fopt,
+            compressor=comp)
+        step_f = steps.build_train_step(
+            model, shape, opt=fopt, lr_fn=lr_fn, compressor=comp,
+            fused_update=True, device=dev,
+            compute_dtype=getattr(torch, FSDP_FUSED_COMPUTE))
+        fused_losses = []
+        for i in range(FSDP_STEPS):
+            state, met = step_f(state, data.batch(i))
+            fused_losses.append(float(met["loss"]))
+        ref["fused_params3"] = host(state["params"])
+        del state
         torch.save(ref, root / "ref.pt")
         del ref
         _free(dev)
         ref_s = time.perf_counter() - t0
         log(f"20: the one-rank reference (3 steps, step 1's gradient and "
-            f"its compress) took {ref_s:.1f} s; losses {losses}")
+            f"its compress, 3 fused steps) took {ref_s:.1f} s; losses "
+            f"{losses}, fused {fused_losses}")
 
         # -- 20a-c on two ranks ---------------------------------------------
         t0 = time.perf_counter()
@@ -4078,11 +4254,12 @@ def fsdp_phase(dev) -> dict:
         ranks_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    launches = {"sweep_project": 0, "sweep_reconstruct": 0}
+    launches = {"sweep_project": 0, "sweep_reconstruct": 0,
+                "fused_update_block": 0}
     for r in ranks:
         for name in launches:
             launches[name] += r["launches"][name]
-        a, b, c = r["20a"], r["20b"], r["20c"]
+        a, b, c, f = r["20a"], r["20b"], r["20c"], r["20d"]
         log(f"20a rank {r['rank']}: holds params/m/v "
             f"{r['held_bytes']} B of {r['whole_bytes']} B each whole; "
             f"step 1's gradient {r['grad_rel']:.3e} of max|g| from the "
@@ -4121,34 +4298,349 @@ def fsdp_phase(dev) -> dict:
         if not all(math.isfinite(s["loss"]) for s in b):
             raise AssertionError(f"20b: a loss is not finite: {b}")
         if not all(r["launches"][n] > 0 and r["check_launches"][n] > 0
-                   for n in launches):
+                   for n in ("sweep_project", "sweep_reconstruct")):
             raise AssertionError(f"20b rank {r['rank']}: K1 or K2 was not "
                                  f"launched: {r['launches']}")
         if (c["restarts"], c["final_step"]) != (1, FSDP_STEPS) or not c[
                 "bit_equal"]:
             raise AssertionError(f"20c rank {r['rank']}: the crash-restart "
                                  f"is not the uninterrupted run: {c}")
-    for part in ("20a", "20b"):
+        log(f"20d rank {r['rank']}: fused losses {[s['loss'] for s in f]} "
+            f"(one-rank {fused_losses}); step ms "
+            f"{[round(s['step_ms'], 1) for s in f]}; params after "
+            f"{FSDP_STEPS} steps {r['fused_param_lr']:.3f} lr from the "
+            f"one-rank fused step's; launches {r['fused_launches']}; w_gate's "
+            f"block form {r['block_rel']:.3e} of max|plain|; ledger of the "
+            f"last step {f[-1]['ledger']}")
+        for i, s_ in enumerate(f):
+            tol = FSDP_LOSS_RTOL if i == 0 else FSDP_LATER_RTOL
+            if abs(s_["loss"] - fused_losses[i]) > tol * abs(fused_losses[i]):
+                raise AssertionError(f"20d rank {r['rank']} step {i}: loss "
+                                     f"{s_['loss']} vs one-rank "
+                                     f"{fused_losses[i]}")
+        if r["fused_param_lr"] > FSDP_PARAM_LR:
+            raise AssertionError(f"20d: params {r['fused_param_lr']} lr "
+                                 "apart")
+        n_leaves = len(tree_leaves(model.param_shapes()))
+        want_l = {"sweep_project": n_leaves * FSDP_STEPS,
+                  "sweep_reconstruct": 0, "fused_update": 0,
+                  "fused_update_block": n_leaves * FSDP_STEPS}
+        if r["fused_launches"] != want_l:
+            raise AssertionError(f"20d rank {r['rank']}: launches "
+                                 f"{r['fused_launches']}, expected {want_l}")
+        if any("unsketch" in s_["ledger"] for s_ in f):
+            raise AssertionError("20d: the fused step gathered an unsketch")
+        if r["block_rel"] > TOL:
+            raise AssertionError(f"20d: K4's block form {r['block_rel']} "
+                                 "off its plain version")
+    if ranks[0]["ef_digest"] != ranks[1]["ef_digest"]:
+        raise AssertionError("20d: the ranks' EF residuals differ in bits")
+    for part in ("20a", "20b", "20d"):
         if [s["loss"] for s in ranks[0][part]] != [
                 s["loss"] for s in ranks[1][part]]:
             raise AssertionError(f"{part}: the ranks' losses differ")
     steps_ms = [s["step_ms"] for r in ranks for s in r["20a"]]
     comp_ms = [s["step_ms"] for r in ranks for s in r["20b"]]
+    fused_ms = [s["step_ms"] for r in ranks for s in r["20d"]]
     numbers = {
         "arch": cfg.name, "layers": cfg.n_layers, "seq": shape.seq_len,
         "global_batch": shape.global_batch, "params": p_bytes // 4,
         "one_rank_losses": losses, "reference_s": ref_s, "ranks_s": ranks_s,
         "step_ms_median": statistics.median(steps_ms),
         "compressed_step_ms_median": statistics.median(comp_ms),
+        "fused_step_ms_median": statistics.median(fused_ms),
+        "one_rank_fused_losses": fused_losses,
         "ledger_a_step": ranks[0]["20a"][-1]["ledger"],
         "compressed_ledger_a_step": ranks[0]["20b"][-1]["ledger"],
+        "fused_ledger_a_step": ranks[0]["20d"][-1]["ledger"],
         "peak_gib": [r["peak_gib"] for r in ranks],
         "launches": launches, "ranks": ranks}
     numbers["seconds"] = time.perf_counter() - t_phase
     log(f"phase 20 took {numbers['seconds']:.1f}s; step ms (median) "
         f"{numbers['step_ms_median']:.1f} uncompressed, "
-        f"{numbers['compressed_step_ms_median']:.1f} compressed; K1/K2 "
+        f"{numbers['compressed_step_ms_median']:.1f} compressed, "
+        f"{numbers['fused_step_ms_median']:.1f} fused; K1/K2/K4-block "
         f"launches {launches}")
+    return numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 21: pod x data meshes on four gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+POD_DATA_SEQ = 1024     # cut from train_4k's 4096 so that four ranks fit
+POD_DATA_BATCH = 4      # one row a rank
+POD_DATA_GIB = 18.0     # a rank's peak device memory, at most
+POD_DATA_MODES = ("uncompressed", "compressed")
+
+
+def _pod_data_slice():
+    """Phase 21's slice: phase 9's llama3.2-3b widths and depth cut, the
+    sequence cut to POD_DATA_SEQ, global batch POD_DATA_BATCH, AdamW with
+    its clip of 1.0, a constant lr (model, cfg, shape, opt, lr_fn,
+    data)."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import AdamWConfig, schedule
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              n_layers=TRAIN_LAYERS)
+    shape = ShapeSpec("train_1k", POD_DATA_SEQ, POD_DATA_BATCH, "train")
+    return (build_model(cfg), cfg, shape, AdamWConfig(),
+            functools.partial(schedule.constant, peak_lr=TRAIN_LR),
+            SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=POD_DATA_SEQ,
+                                   global_batch=POD_DATA_BATCH, seed=0)))
+
+
+def _pod_data_comp():
+    from repro_torch.optim.compress import (SketchCompressor,
+                                            parse_compress_flag)
+    return SketchCompressor(parse_compress_flag(TRAIN_COMPRESS),
+                            sync="sketch-mean")
+
+
+def _pod_data_rank(rank, shapes, extra):
+    """Phase 21 on one rank of the (pod=2, data=2, model=1) mesh: three
+    uncompressed steps (FSDP over pod x data), then three compressed ones
+    (FSDP over data, `compress_collective` over pod), each from seed 0's
+    parameters; this rank's blocks after the steps against the same
+    blocks of the one-rank compositions' (memory mapped)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import _sweep
+    from repro_torch.launch import fsdp, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.rp import shard
+
+    dev = torch.device(extra["device"])
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), device=dev,
+                     backend="gloo")
+    model, cfg, shape, opt, lr_fn, data = _pod_data_slice()
+    ref = torch.load(Path(extra["root"]) / "ref.pt", mmap=True,
+                     weights_only=True)
+    res = {"rank": rank, "coordinate": mesh.coordinate, "launches": {
+        "sweep_project": 0, "sweep_reconstruct": 0}}
+    for mode in POD_DATA_MODES:
+        comp = _pod_data_comp() if mode == "compressed" else None
+        pspecs = steps.state_specs(model, mesh,
+                                   compressed=comp is not None)["params"]
+        # the parameters the parent drew, drawn again here from the same
+        # seed on the same card, and this rank's blocks of them kept
+        params = fsdp.shard_tree(model.init(
+            torch.Generator(device=dev).manual_seed(0),
+            dtype=torch.float32), pspecs, mesh)
+        _free(dev)
+        state = {"params": params, "opt": adamw.init_state(params, opt)}
+        if comp is not None:    # this pod's residual, whole
+            state["ef"] = {"residual": tree_map(lambda t: torch.zeros(
+                t.shape, device=dev), model.param_shapes())}
+        held = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(state["params"]))
+        step_fn = steps.build_train_step(model, shape, mesh=mesh, opt=opt,
+                                         lr_fn=lr_fn, compressor=comp)
+        kernels.reset_launch_counts()
+        rows = []
+        for i in range(FSDP_STEPS):
+            shard.collective_ledger().reset()
+            s_ev, e_ev = _mark(dev), _mark(dev)
+            s_ev.record()
+            state, met = step_fn(state, data.batch(i))
+            e_ev.record()
+            _sync(dev)
+            rows.append({"loss": float(met["loss"]),
+                         "grad_norm": float(met["grad_norm"]),
+                         "wire_bytes": float(met.get("wire_bytes", 0.0)),
+                         "step_ms": s_ev.elapsed_time(e_ev),
+                         "ledger": _ledger_by_tag(shard.collective_ledger())})
+        for name in res["launches"]:
+            res["launches"][name] += getattr(_sweep, name).launches
+        worst = 0.0
+        for b, w in zip(tree_leaves(state["params"]), tree_leaves(
+                fsdp.Sharded(mesh, pspecs).blocks(ref[f"params3_{mode}"]))):
+            worst = max(worst, float((b - w.to(dev)).abs().max()))
+        res[mode] = {"steps": rows, "param_lr": worst / TRAIN_LR,
+                     "held_bytes": held,
+                     "digest": bits_digest(state["params"])}
+        del state, params
+        _free(dev)
+    res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if dev.type == "cuda" else None)
+    return res
+
+
+def pod_data_phase(dev) -> dict:
+    """Phase 21: the train step on a (pod=2, data=2, model=1) mesh of four
+    gloo ranks sharing the card, at phase 9's widths and depth cut, the
+    sequence cut to POD_DATA_SEQ. This process first runs the one-rank
+    compositions from the drawn parameters (three steps of the global
+    batch; three steps of each pod's rows through `compress_per_pod` and
+    `adamw.update`) and writes them, then frees the card for the ranks
+    (`_pod_data_rank`). Returns the numbers of the `pod_data` line, with
+    the K1/K2 launches under `launches`."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core.tree import (tree_flatten, tree_leaves, tree_map,
+                                       tree_unflatten)
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    model, cfg, shape, opt, lr_fn, data = _pod_data_slice()
+    p_bytes = 4 * sum(t.numel() for t in tree_leaves(model.param_shapes()))
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_pod_data_"))
+    need = 2.1 * p_bytes
+    free_disk = shutil.disk_usage(root).free
+    log(f"phase 21: {free_disk / 1e9:.2f} GB free under {root}; the "
+        f"reference files need {need / 1e9:.2f} GB")
+    if free_disk < need:
+        raise AssertionError(f"phase 21 needs {need / 1e9:.2f} GB free "
+                             f"under {root}")
+    host = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+    batches = [{k: torch.as_tensor(v).to(dev)
+                for k, v in data.batch(i).items()}
+               for i in range(FSDP_STEPS)]
+    try:
+        t0 = time.perf_counter()
+        state = steps.init_train_state(
+            model, torch.Generator(device=dev).manual_seed(0), opt=opt)
+        ref, want = {}, {}
+        # the global batch on one rank
+        step_fn = steps.build_train_step(model, shape, opt=opt, lr_fn=lr_fn,
+                                         device=dev)
+        runs = []
+        for i in range(FSDP_STEPS):
+            state, met = step_fn(state, data.batch(i))
+            runs.append((float(met["loss"]), float(met["grad_norm"])))
+        ref["params3_uncompressed"] = host(state["params"])
+        want["uncompressed"] = runs
+        del state, step_fn
+        _free(dev)
+        # each pod's rows, compress_per_pod over the pods, adamw.update
+        comp = _pod_data_comp()
+        params = steps.init_train_state(
+            model, torch.Generator(device=dev).manual_seed(0),
+            opt=opt)["params"]
+        ostate = adamw.init_state(params, opt)
+        ef = {"residual": tree_map(lambda t: torch.zeros(
+            (2,) + tuple(t.shape), device=dev), params)}
+        half = POD_DATA_BATCH // 2
+        runs = []
+        for i in range(FSDP_STEPS):
+            leaves, treedef = tree_flatten(params)
+            losses, grads = [], []
+            for p in range(2):
+                live = [t.detach().requires_grad_(True) for t in leaves]
+                rows = {k: v[p * half:(p + 1) * half]
+                        for k, v in batches[i].items()}
+                with torch.enable_grad():
+                    loss = model.loss_fn(tree_unflatten(treedef, live), rows,
+                                         compute_dtype=torch.bfloat16)
+                    grads.append(torch.autograd.grad(loss, live))
+                losses.append(float(loss.detach()))
+                del live, loss
+            g_pp = tree_unflatten(treedef, [torch.stack(gs) for gs in
+                                            zip(*grads)])
+            del grads
+            g_hat, ef, _ = comp.compress_per_pod(g_pp, ef,
+                                                 step=ostate["count"])
+            del g_pp
+            params, ostate, met = adamw.update(params, g_hat, ostate,
+                                               TRAIN_LR, opt)
+            del g_hat
+            runs.append((sum(losses) / 2, float(met["grad_norm"])))
+        ref["params3_compressed"] = host(params)
+        want["compressed"] = runs
+        del params, ostate, ef, batches
+        _free(dev)
+        torch.save(ref, root / "ref.pt")
+        del ref
+        ref_s = time.perf_counter() - t0
+        log(f"21: the one-rank compositions (3 steps each) took "
+            f"{ref_s:.1f} s; (loss, clip norm) {want}")
+        t0 = time.perf_counter()
+        ranks = _pod_ranks("pod_data", None, {"device": str(dev),
+                                              "root": str(root)}, world=4)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {"sweep_project": 0, "sweep_reconstruct": 0}
+    by = {(r["coordinate"]["pod"], r["coordinate"]["data"]): r
+          for r in ranks}
+    n_leaves = len(tree_leaves(model.param_shapes()))
+    for r in ranks:
+        for name in launches:
+            launches[name] += r["launches"][name]
+        for mode in POD_DATA_MODES:
+            m = r[mode]
+            log(f"21 {mode} rank {r['rank']} {r['coordinate']}: holds "
+                f"{m['held_bytes']} B of params of {p_bytes} B; losses "
+                f"{[s['loss'] for s in m['steps']]} (one-rank "
+                f"{[x[0] for x in want[mode]]}); step ms "
+                f"{[round(s['step_ms'], 1) for s in m['steps']]}; params "
+                f"after {FSDP_STEPS} steps {m['param_lr']:.3f} lr from the "
+                f"one-rank's; ledger of the last step "
+                f"{m['steps'][-1]['ledger']}")
+            for i, s_ in enumerate(m["steps"]):
+                tol = FSDP_LOSS_RTOL if i == 0 else FSDP_LATER_RTOL
+                loss, norm = want[mode][i]
+                # the clip's norm: of bf16 gradients summed in another
+                # order, and from step 2 of params up to 2 lr apart
+                if abs(s_["loss"] - loss) > tol * abs(loss) or abs(
+                        s_["grad_norm"] - norm) > FSDP_GRAD_TOL * abs(norm):
+                    raise AssertionError(
+                        f"21 {mode} rank {r['rank']} step {i}: (loss, norm) "
+                        f"({s_['loss']}, {s_['grad_norm']}) vs one-rank "
+                        f"{want[mode][i]}")
+                if mode == "compressed":
+                    row = s_["ledger"]["compress"]
+                    if row["bytes"] != s_["wire_bytes"]:
+                        raise AssertionError(f"21: compress moved "
+                                             f"{row['bytes']} B, wire_bytes "
+                                             f"{s_['wire_bytes']}")
+            if m["param_lr"] > FSDP_PARAM_LR:
+                raise AssertionError(f"21 {mode}: params {m['param_lr']} lr "
+                                     "apart")
+            share = 2 if mode == "compressed" else 4
+            if m["held_bytes"] * share > p_bytes * 1.01 + 1e6:
+                raise AssertionError(f"21 {mode}: a rank holds "
+                                     f"{m['held_bytes']} B of {p_bytes}")
+        if r["peak_gib"] is not None and r["peak_gib"] > POD_DATA_GIB:
+            raise AssertionError(f"21: rank {r['rank']} peaked at "
+                                 f"{r['peak_gib']:.2f} GiB")
+    for d in range(2):
+        if by[0, d]["compressed"]["digest"] != by[1, d]["compressed"][
+                "digest"]:
+            raise AssertionError(f"21 compressed: the pods' ranks of data "
+                                 f"index {d} hold other blocks")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"21: K1 or K2 was not launched: {launches}")
+    for mode in POD_DATA_MODES:
+        if len({tuple(s["loss"] for s in r[mode]["steps"])
+                for r in ranks}) != 1:
+            raise AssertionError(f"21 {mode}: the ranks' losses differ")
+    numbers = {
+        "arch": cfg.name, "layers": cfg.n_layers, "seq": shape.seq_len,
+        "global_batch": shape.global_batch, "params": p_bytes // 4,
+        "leaves": n_leaves, "one_rank": want, "reference_s": ref_s,
+        "ranks_s": ranks_s, "peak_gib": [r["peak_gib"] for r in ranks],
+        "launches": launches, "ranks": ranks}
+    for mode in POD_DATA_MODES:
+        numbers[f"{mode}_step_ms_median"] = statistics.median(
+            s["step_ms"] for r in ranks for s in r[mode]["steps"])
+    numbers["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 21 took {numbers['seconds']:.1f}s; step ms (median) "
+        f"{numbers['uncompressed_step_ms_median']:.1f} uncompressed, "
+        f"{numbers['compressed_step_ms_median']:.1f} compressed; peak GiB "
+        f"{numbers['peak_gib']}; K1/K2 launches {launches}")
     return numbers
 
 
@@ -4396,7 +4888,8 @@ def main() -> int:
 
     launches = {"sweep_project": 0, "sweep_reconstruct": 0,
                 "sweep_project_pipelined": 0, "carry_sweep_project": 0,
-                "carry_sweep_project_pipelined": 0, "fused_update": 0}
+                "carry_sweep_project_pipelined": 0, "fused_update": 0,
+                "fused_update_block": 0}
     per_family = {}
     stores = {}
 
@@ -4875,6 +5368,12 @@ def main() -> int:
         next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
         launches[name] += n
 
+    # -- 21. pod x data meshes on four ranks sharing the card --------------
+    pod_data = pod_data_phase(dev)
+    for name, n in pod_data["launches"].items():
+        next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
+        launches[name] += n
+
     for name in launches:
         total = sum(r["launches"] for r in rows
                     if r["name"].split(":")[0] == name)
@@ -4889,6 +5388,7 @@ def main() -> int:
     print(json.dumps({"pod_ckpt": pod_ckpt}))
     print(json.dumps({"lm_serve": lm}))
     print(json.dumps({"fsdp": fsdp}))
+    print(json.dumps({"pod_data": pod_data}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -245,20 +245,24 @@ class PytreeSketcher:
         `(npod, n_buckets, k)` sketch (`sketch(npod=)`) comes back as
         leaves `(npod, *shape)`, every pod in the leaf's one dispatch.
         """
+        return tree_unflatten(self._treedef,
+                              list(self.iter_unsketch(y, seed)))
+
+    def iter_unsketch(self, y: torch.Tensor, seed: int):
+        """`unsketch` a leaf at a time: a generator of the leaves'
+        estimates in `tree_flatten` order, so a caller can use each and
+        let it go before the next is made."""
         op = self.cfg.operator(seed, y.device)
         npod = int(y.shape[0]) if y.ndim == 3 else None
         rows = npod or 1
         y = y.reshape(rows, self.n_buckets, self.cfg.k)
-        out = []
         off = 0
         for nb, size, shape, dtype in zip(self._nb, self._sizes,
                                           self._shapes, self._dtypes):
             buckets = self._reconstruct(
                 op, y[:, off:off + nb].reshape(rows * nb, self.cfg.k))
-            out.append(self._leaf_from_buckets(buckets, size, shape, dtype,
-                                               npod))
+            yield self._leaf_from_buckets(buckets, size, shape, dtype, npod)
             off += nb
-        return tree_unflatten(self._treedef, out)
 
     def roundtrip(self, tree: Any, seed: int) -> tuple[Any, torch.Tensor]:
         """Returns (reconstruction, sketch)."""

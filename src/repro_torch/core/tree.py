@@ -12,38 +12,45 @@ from __future__ import annotations
 from typing import Any, Callable
 
 
+# The recursions are module-level functions that take their accumulator:
+# a nested function that calls itself is a reference cycle (the function
+# and its closure cell), which would keep the leaves it captured alive
+# until Python's cyclic collector runs; a train step's whole trees would
+# outlive the step.
+
+def _flatten(node, leaves: list):
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", tuple(keys),
+                tuple(_flatten(node[k], leaves) for k in keys))
+    if isinstance(node, (list, tuple)):
+        return (type(node).__name__, len(node),
+                tuple(_flatten(c, leaves) for c in node))
+    leaves.append(node)
+    return None
+
+
 def tree_flatten(tree: Any) -> tuple[list, Any]:
     """(leaves, treedef); `treedef` is a hashable description of the
     containers."""
     leaves: list = []
+    return leaves, _flatten(tree, leaves)
 
-    def go(node):
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", tuple(keys), tuple(go(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            return (type(node).__name__, len(node),
-                    tuple(go(c) for c in node))
-        leaves.append(node)
-        return None
 
-    return leaves, go(tree)
+def _unflatten(d, it):
+    if d is None:
+        return next(it)
+    kind, keys, children = d
+    if kind == "dict":
+        return {k: _unflatten(c, it) for k, c in zip(keys, children)}
+    out = [_unflatten(c, it) for c in children]
+    return tuple(out) if kind == "tuple" else out
 
 
 def tree_unflatten(treedef: Any, leaves) -> Any:
     """Inverse of `tree_flatten`."""
     it = iter(leaves)
-
-    def go(d):
-        if d is None:
-            return next(it)
-        kind, keys, children = d
-        if kind == "dict":
-            return {k: go(c) for k, c in zip(keys, children)}
-        out = [go(c) for c in children]
-        return tuple(out) if kind == "tuple" else out
-
-    out = go(treedef)
+    out = _unflatten(treedef, it)
     if next(it, it) is not it:
         raise ValueError("tree_unflatten got more leaves than the treedef has")
     return out

@@ -61,7 +61,13 @@ _ARGTYPES = {
                                  ctypes.POINTER(_I)] + [_I] * 9
                     + [ctypes.c_float] * 7 + [_P],
 }
+# K4's block form: the same, then size, n_d, inner, lo, hi (int64)
+_ARGTYPES["fused_update_block"] = (_ARGTYPES["fused_update"][:-1]
+                                   + [ctypes.c_longlong] * 5 + [_P])
 _ARGTYPES["sweep_project_pipelined"] = _ARGTYPES["sweep_project"]
+# the source of an entry not named like it
+_ENTRY_SOURCE = {"sweep_project_pipelined": "sweep_project",
+                 "fused_update_block": "fused_update"}
 _FNS: dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -117,7 +123,7 @@ def _launcher(entry: str, source: str | None = None, argtypes=None):
     source named like the entry), built and loaded at first use."""
     fn = _FNS.get(entry)
     if fn is None:
-        source = entry if source is None else source
+        source = _ENTRY_SOURCE.get(entry, entry) if source is None else source
         build([source])
         fn = getattr(ctypes.CDLL(str(lib_path(source))), f"{entry}_launch")
         fn.restype = ctypes.c_int
@@ -245,7 +251,7 @@ def _launch_project(entry: str, x, cores, plan: ContractionPlan,
     # floats, which the kernel stages 16 bytes at a time
     lead = cores[0].permute(1, 2, 0).contiguous()
     with torch.cuda.device(x.device):
-        err = _launcher(entry, "sweep_project")(
+        err = _launcher(entry)(
             x.data_ptr(), y.data_ptr(), m.data_ptr(), part.data_ptr(),
             _pointers((lead,) + tuple(cores[1:])), _ints(plan.dims),
             _ints(codes), plan.order,

@@ -5,7 +5,9 @@
 //   m'    = b1 m + (1-b1) g
 //   v'    = b2 v + (1-b2) g^2
 //   w'    = w - lr ((m'/c1) / (sqrt(v'/c2) + eps) + wd w)
-// with p, w, m, v, resid, w', m', v' all (nb, d1..dN) float32 buckets.
+// with p, w, m, v, resid, w', m', v' all (nb, d1..dN) float32 buckets; or, in
+// the block form (fused_update_block_launch, a data mesh's rank), p and resid
+// the whole leaf and w, m, v, w', m', v' the rank's FSDP block of it.
 //
 // Replaces the Pallas TPU kernel repro/kernels/fused_update.py::_fused_launch
 // (_fused_kernel), which accumulated the reconstruction of a tile in its
@@ -30,39 +32,93 @@
 // product at the shapes the trainer gives it. The epilogue math is IEEE
 // fp32: sqrtf and true division (nvcc's defaults without fast math), because
 // the AdamW step amplifies relative error where v' is small.
+//
+// The block form shares the kernels: the whole-leaf form is its case of a
+// block that is the whole of its buckets (lo = 0, hi = n_d), for which the
+// block offset is the element's own and the epilogue skips the index
+// arithmetic (a branch the same for every thread of the launch). One
+// epilogue type keeps one set of recon_gemm instantiations, so the source
+// builds in one of K2's times.
 #include "sweep_reconstruct.cuh"
 
+// The epilogue, block-addressed. Around its split dim the leaf is (outer,
+// n_d, inner); the caller holds indices [lo, hi) of that dim, its block
+// (outer, hi - lo, inner) contiguous. recon_gemm hands over each element's
+// flat offset in the leaf's buckets (y starts at the leaf's first bucket).
+// An element at off < size writes resid[off]; it writes the AdamW outputs
+// only where its index j on the split dim lies in [lo, hi), at the block's
+// offset, reading w, m, v there. Offsets past size are the padded last
+// bucket and write nothing. The whole-leaf form passes size = every element
+// of its buckets, n_d = size, inner = 1, lo = 0, hi = size.
 struct FusedEpilogue {
-  const float* p;
-  const float* w;
-  const float* m1;   // first moment in
-  const float* v2;   // second moment in
-  float* resid;
-  float* w_out;
+  const float* p;     // the error-fed gradient (size floats)
+  const float* w;     // w, m, v: the block
+  const float* m1;    // first moment in
+  const float* v2;    // second moment in
+  float* resid;       // size floats
+  float* w_out;       // w', m', v': the block
   float* m1_out;
   float* v2_out;
   const float* scal;  // [lr, c1, c2, unused] on the device
+  long long size, span, inner, lo, hi;  // span = n_d * inner
   float scale, b1, omb1, b2, omb2, eps, wd;
   float lr, c1, c2;
+  bool whole;         // lo = 0 and hi = n_d: the block offset is off
   __device__ void begin() {
     lr = scal[0];
     c1 = scal[1];
     c2 = scal[2];
   }
   __device__ void operator()(long long off, float acc) const {
+    if (off >= size) return;
     const float g = acc * scale;
-    const float wv = w[off];
-    const float m = b1 * m1[off] + omb1 * g;
-    const float v = b2 * v2[off] + omb2 * g * g;
+    long long b = off;
+    if (!whole) {
+      const long long o = off / span, r = off - o * span, j = r / inner;
+      if (j < lo || j >= hi) {
+        resid[off] = p[off] - g;
+        return;
+      }
+      b = (o * (hi - lo) + j - lo) * inner + (r - j * inner);
+    }
+    // the loads before the first store, as the whole-leaf epilogue always
+    // had them: the outputs may alias nothing the compiler can prove
+    const float wv = w[b];
+    const float m = b1 * m1[b] + omb1 * g;
+    const float v = b2 * v2[b] + omb2 * g * g;
     const float step = (m / c1) / (sqrtf(v / c2) + eps);
     resid[off] = p[off] - g;
-    w_out[off] = wv - lr * (step + wd * wv);
-    m1_out[off] = m;
-    v2_out[off] = v;
+    w_out[b] = wv - lr * (step + wd * wv);
+    m1_out[b] = m;
+    v2_out[b] = v;
   }
 };
 
-// omb1 = 1 - b1 and omb2 = 1 - b2 come rounded from the caller's doubles.
+static int fused_launch(const void* y, const void* scal, const void* p, const void* w,
+                        const void* m1, const void* v2, void* resid, void* w_out,
+                        void* m1_out, void* v2_out, void* m_scratch,
+                        const void* const* cores, const int* dims, const int* ops,
+                        int order, int B, int K, int R, int tile_m, int tile_k,
+                        int tile_a, int tile_t, int smem_bytes, float scale, float b1,
+                        float omb1, float b2, float omb2, float eps, float wd,
+                        long long size, long long n_d, long long inner, long long lo,
+                        long long hi, void* stream) {
+  if (size < 1 || n_d < 1 || inner < 1 || size % (n_d * inner) != 0 || lo < 0 ||
+      hi > n_d || lo >= hi)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FusedEpilogue epi{static_cast<const float*>(p), static_cast<const float*>(w),
+                    static_cast<const float*>(m1), static_cast<const float*>(v2),
+                    static_cast<float*>(resid), static_cast<float*>(w_out),
+                    static_cast<float*>(m1_out), static_cast<float*>(v2_out),
+                    static_cast<const float*>(scal), size, n_d * inner, inner, lo,
+                    hi, scale, b1, omb1, b2, omb2, eps, wd, 0.f, 0.f, 0.f,
+                    lo == 0 && hi == n_d};
+  return recon_launch(y, m_scratch, cores, dims, ops, order, B, K, R, tile_m,
+                      tile_k, tile_a, tile_t, smem_bytes, epi, stream);
+}
+
+// p, w, m, v and the outputs: (B, d1..dN) buckets. omb1 = 1 - b1 and
+// omb2 = 1 - b2 come rounded from the caller's doubles.
 extern "C" int fused_update_launch(const void* y, const void* scal, const void* p,
                                    const void* w, const void* m1, const void* v2,
                                    void* resid, void* w_out, void* m1_out,
@@ -73,12 +129,27 @@ extern "C" int fused_update_launch(const void* y, const void* scal, const void* 
                                    int smem_bytes, float scale,
                                    float b1, float omb1, float b2, float omb2,
                                    float eps, float wd, void* stream) {
-  FusedEpilogue epi{static_cast<const float*>(p), static_cast<const float*>(w),
-                    static_cast<const float*>(m1), static_cast<const float*>(v2),
-                    static_cast<float*>(resid), static_cast<float*>(w_out),
-                    static_cast<float*>(m1_out), static_cast<float*>(v2_out),
-                    static_cast<const float*>(scal), scale, b1, omb1, b2, omb2,
-                    eps, wd, 0.f, 0.f, 0.f};
-  return recon_launch(y, m_scratch, cores, dims, ops, order, B, K, R, tile_m,
-                      tile_k, tile_a, tile_t, smem_bytes, epi, stream);
+  long long size = B;
+  for (int i = 0; i < order && i < SWEEP_MAX_ORDER; ++i) size *= dims[i];
+  return fused_launch(y, scal, p, w, m1, v2, resid, w_out, m1_out, v2_out, m_scratch,
+                      cores, dims, ops, order, B, K, R, tile_m, tile_k, tile_a, tile_t,
+                      smem_bytes, scale, b1, omb1, b2, omb2, eps, wd, size, size, 1, 0,
+                      size, stream);
+}
+
+// The block form, for a rank of a data mesh: p and resid the whole leaf
+// (size floats), w, m1, v2 and their outputs the rank's block; y holds the
+// leaf's B buckets.
+extern "C" int fused_update_block_launch(
+    const void* y, const void* scal, const void* p, const void* w, const void* m1,
+    const void* v2, void* resid, void* w_out, void* m1_out, void* v2_out,
+    void* m_scratch, const void* const* cores, const int* dims, const int* ops,
+    int order, int B, int K, int R, int tile_m, int tile_k, int tile_a, int tile_t,
+    int smem_bytes, float scale, float b1, float omb1, float b2, float omb2,
+    float eps, float wd, long long size, long long n_d, long long inner,
+    long long lo, long long hi, void* stream) {
+  return fused_launch(y, scal, p, w, m1, v2, resid, w_out, m1_out, v2_out, m_scratch,
+                      cores, dims, ops, order, B, K, R, tile_m, tile_k, tile_a, tile_t,
+                      smem_bytes, scale, b1, omb1, b2, omb2, eps, wd, size, n_d, inner,
+                      lo, hi, stream);
 }

@@ -27,11 +27,19 @@ Inputs arrive in BUCKET space, all float32 (`PytreeSketcher.
 _leaf_to_buckets` casts on the way in, `_leaf_from_buckets` casts back to
 the storage dtype on the way out — the cast points of the unfused chain).
 
+`fused_update_block` is K4's block form, for a rank of a data mesh
+(`launch/fsdp.py`) that holds its FSDP block of a leaf's params and
+moments but the whole gradient and EF residual: the same reconstruction
+of the whole leaf from its sketch rows, an epilogue that writes the whole
+residual and w', m', v' only for the block (`BlockLayout`), read and
+written at the block's own offsets. No dense bytes cross ranks.
+
 `fused_hbm_bytes` / `unfused_hbm_bytes` give the analytic device-memory
 traffic of the two formulations for the same plan.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -123,10 +131,172 @@ def update_epilogue(g, p, w, m, v, lr, c1, c2, *, b1: float, b2: float,
                     eps: float, weight_decay: float):
     """K4's epilogue on the reconstruction g and the dense operands at the
     same elements: (resid, w_new, m_new, v_new)."""
+    return (p - g,) + adamw_epilogue(g, w, m, v, lr, c1, c2, b1=b1, b2=b2,
+                                     eps=eps, weight_decay=weight_decay)
+
+
+def adamw_epilogue(g, w, m, v, lr, c1, c2, *, b1: float, b2: float,
+                   eps: float, weight_decay: float):
+    """The AdamW part of K4's epilogue: (w_new, m_new, v_new)."""
     m32 = b1 * m + (1.0 - b1) * g
     v32 = b2 * v + (1.0 - b2) * g * g
     step = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)
-    return (p - g, w - lr * (step + weight_decay * w), m32, v32)
+    return (w - lr * (step + weight_decay * w), m32, v32)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockLayout:
+    """A rank's block of a leaf of `size` elements for K4's block form: the
+    leaf read as (outer, n_d, inner) around its split dim, the rank holding
+    indices [lo, hi) of that dim, its block (outer, hi - lo, inner)
+    contiguous. An unsplit leaf is lo = 0, hi = n_d."""
+
+    size: int
+    n_d: int
+    inner: int
+    lo: int
+    hi: int
+
+    def __post_init__(self):
+        if (self.size < 1 or self.n_d < 1 or self.inner < 1
+                or self.size % (self.n_d * self.inner)
+                or not 0 <= self.lo < self.hi <= self.n_d):
+            raise ValueError(f"not a block of a leaf: {self}")
+
+    @classmethod
+    def of(cls, shape, dim: int | None = None, lo: int = 0,
+           hi: int | None = None) -> "BlockLayout":
+        """The block [lo, hi) along `dim` of a leaf of `shape` (dim None:
+        the whole leaf)."""
+        shape = tuple(int(s) for s in shape)
+        size = _prod(shape)
+        if dim is None:
+            return cls(size, size, 1, 0, size)
+        hi = shape[dim] if hi is None else hi
+        return cls(size, shape[dim], _prod(shape[dim + 1:]), lo, hi)
+
+    @property
+    def outer(self) -> int:
+        return self.size // (self.n_d * self.inner)
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        """The block as (outer, hi - lo, inner)."""
+        return (self.outer, self.hi - self.lo, self.inner)
+
+    @property
+    def numel(self) -> int:
+        return self.outer * (self.hi - self.lo) * self.inner
+
+
+def _check_block(plan: ContractionPlan, layout: BlockLayout, y, p,
+                 blocks) -> None:
+    """Raise on what K4's block form does not take."""
+    if tuple(y.shape) != (plan.b, plan.k):
+        raise ValueError(f"fused_update sketch has shape {tuple(y.shape)}, "
+                         f"expected {(plan.b, plan.k)}")
+    bucket = _prod(plan.dims)
+    if not (plan.b - 1) * bucket < layout.size <= plan.b * bucket:
+        raise ValueError(f"a leaf of {layout.size} elements does not fill "
+                         f"{plan.b} buckets of {bucket}")
+    for t in (y, p) + tuple(blocks):
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_update takes float32, got {t.dtype}")
+        if t.device != y.device:
+            raise ValueError(f"operands on {t.device} and {y.device}")
+        if not t.is_contiguous():
+            raise ValueError("fused_update takes contiguous operands")
+    if p.numel() != layout.size:
+        raise ValueError(f"fused_update_block's gradient has {p.numel()} "
+                         f"elements, the leaf {layout.size}")
+    for t in blocks:
+        if t.shape != blocks[0].shape or t.numel() != layout.numel:
+            raise ValueError(
+                f"fused_update_block's block operands have shapes "
+                f"{[tuple(b.shape) for b in blocks]}, the block "
+                f"{layout.shape} {layout.numel} elements")
+
+
+def fused_update_block_plain(op, y, p, w, m, v, lr, c1, c2, *,
+                             layout: BlockLayout, alpha: float, b1: float,
+                             b2: float, eps: float, weight_decay: float):
+    """K4's block form with torch ops: the whole leaf's reconstruction as
+    `fused_update_buckets_plain` makes it, the residual of the whole leaf,
+    and the AdamW epilogue on the block's elements of it. Returns (resid
+    in p's shape, w_new, m_new, v_new in w's shape)."""
+    from ._sweep import sweep_reconstruct_plain
+    family, cores = _operator(op)
+    plan = plan_fused_update(family, op.k, y.shape[0], op.in_dims, op.rank)
+    g = sweep_reconstruct_plain(y, *cores, steps=plan.steps,
+                                scale=float(alpha) / math.sqrt(op.k))
+    g = g.reshape(-1)[:layout.size]
+    resid = (p.reshape(-1) - g).view(p.shape)
+    gb = g.view(layout.outer, layout.n_d, layout.inner)[
+        :, layout.lo:layout.hi]
+    outs = adamw_epilogue(gb, *(t.view(layout.shape) for t in (w, m, v)),
+                          lr, c1, c2, b1=b1, b2=b2, eps=eps,
+                          weight_decay=weight_decay)
+    return (resid,) + tuple(o.reshape(w.shape) for o in outs)
+
+
+def block_epilogue(layout: BlockLayout, plan: ContractionPlan, p, w, m, v,
+                   lr, c1, c2, *, b1: float, b2: float, eps: float,
+                   weight_decay: float):
+    """K4's block epilogue for `_sweep.sweep_reconstruct_tiled_plain`:
+    (epilogue, outputs). The epilogue takes a finished tile and its index
+    into the (B, d1, T) view of the leaf's buckets and does what the
+    kernel's does at each element's flat offset `off = (n*d1 + a)*T + t`:
+    below `layout.size` it writes resid[off], and where the element's
+    index on the split dim lies in [lo, hi) the AdamW outputs at the
+    block's offset. The outputs (the flat residual, and the block's w',
+    m', v' flat) start as NaN, so an element no tile wrote shows."""
+    d1, trail = plan.dims[0], plan.trail
+    span = layout.n_d * layout.inner
+    pf = p.reshape(-1)
+    wf, mf, vf = (t.reshape(-1) for t in (w, m, v))
+    outs = (torch.full_like(pf, float("nan")),) + tuple(
+        torch.full_like(wf, float("nan")) for _ in range(3))
+
+    def epilogue(index, g):
+        n_i, a_i, t_i = (torch.arange(s.start, s.stop) for s in index)
+        off = ((n_i[:, None, None] * d1 + a_i[None, :, None]) * trail
+               + t_i[None, None, :])
+        inside = off < layout.size
+        o, g1 = off[inside], g[inside]
+        outs[0][o] = pf[o] - g1
+        r = o % span
+        j = r // layout.inner
+        mine = (j >= layout.lo) & (j < layout.hi)
+        b = (((o // span) * (layout.hi - layout.lo) + j - layout.lo)
+             * layout.inner + r - j * layout.inner)[mine]
+        vals = adamw_epilogue(g1[mine], wf[b], mf[b], vf[b], lr, c1, c2,
+                              b1=b1, b2=b2, eps=eps,
+                              weight_decay=weight_decay)
+        for out, val in zip(outs[1:], vals):
+            out[b] = val
+
+    return epilogue, outs
+
+
+def fused_update_block_tiled_plain(op, y, p, w, m, v, lr, c1, c2, *,
+                                   layout: BlockLayout, alpha: float,
+                                   b1: float, b2: float, eps: float,
+                                   weight_decay: float):
+    """K4's block form on K2's tile schedule
+    (`_sweep.sweep_reconstruct_tiled_plain` with `block_epilogue`): a
+    check of the kernel's index arithmetic on the CPU; no path runs it.
+    Returns what `fused_update_block` returns."""
+    from ._sweep import sweep_reconstruct_tiled_plain
+    family, cores = _operator(op)
+    plan = plan_fused_update(family, op.k, y.shape[0], op.in_dims, op.rank)
+    epilogue, outs = block_epilogue(layout, plan, p, w, m, v, lr, c1, c2,
+                                    b1=b1, b2=b2, eps=eps,
+                                    weight_decay=weight_decay)
+    sweep_reconstruct_tiled_plain(y, *cores, plan=plan,
+                                  scale=float(alpha) / math.sqrt(op.k),
+                                  epilogue=epilogue)
+    return (outs[0].view(p.shape),) + tuple(o.view(w.shape)
+                                            for o in outs[1:])
 
 
 def _check(plan: ContractionPlan, y, dense) -> None:
@@ -145,6 +315,29 @@ def _check(plan: ContractionPlan, y, dense) -> None:
         if tuple(t.shape) != want:
             raise ValueError(f"fused_update bucket operand has shape "
                              f"{tuple(t.shape)}, expected {want}")
+
+
+def _launch(entry: str, op, cores, plan: ContractionPlan, y, dense, outs,
+            lr, c1, c2, hp: dict, tail: tuple = ()) -> None:
+    """One launch of K4's C `entry` on CUDA tensors, or its refusal."""
+    if y.device.type != "cuda":
+        raise ValueError(f"{entry} runs on CUDA tensors (its plain version "
+                         f"on CPU tensors), got a {y.device.type} tensor")
+    if any(c.device != y.device or c.dtype != torch.float32 for c in cores):
+        raise ValueError(f"{entry} needs the operator's float32 cores on "
+                         f"{y.device}")
+    if plan.rank > MAX_RANK:
+        raise ValueError(f"fused_update holds bond ranks up to {MAX_RANK} "
+                         f"per thread, got rank {plan.rank}")
+    from ._sweep import _launch_reconstruct
+    scal = _scalars(lr, c1, c2, y.device)
+    b1, b2 = hp["b1"], hp["b2"]
+    _launch_reconstruct(
+        entry, (y.data_ptr(), scal.data_ptr(),
+                *(t.data_ptr() for t in tuple(dense) + tuple(outs))),
+        cores, plan, (float(hp["alpha"]) / math.sqrt(op.k), float(b1),
+                      float(1.0 - b1), float(b2), float(1.0 - b2),
+                      float(hp["eps"]), float(hp["weight_decay"])) + tail)
 
 
 def fused_update_buckets(op, y, p, w, m, v, lr, c1, c2, *, alpha: float,
@@ -175,25 +368,8 @@ def fused_update_buckets(op, y, p, w, m, v, lr, c1, c2, *, alpha: float,
     if y.device.type == "cpu":
         return fused_update_buckets_plain(op, y, p, w, m, v, lr, c1, c2,
                                           **hp)
-    if y.device.type != "cuda":
-        raise ValueError(f"fused_update_buckets runs on CUDA tensors (its "
-                         f"plain version on CPU tensors), got a "
-                         f"{y.device.type} tensor")
-    if any(c.device != y.device or c.dtype != torch.float32 for c in cores):
-        raise ValueError("fused_update_buckets needs the operator's float32 "
-                         f"cores on {y.device}")
-    if plan.rank > MAX_RANK:
-        raise ValueError(f"fused_update holds bond ranks up to {MAX_RANK} "
-                         f"per thread, got rank {plan.rank}")
-    from ._sweep import _launch_reconstruct
-    scal = _scalars(lr, c1, c2, y.device)
     outs = tuple(torch.empty_like(p) for _ in range(4))
-    _launch_reconstruct(
-        "fused_update", (y.data_ptr(), scal.data_ptr(),
-                         *(t.data_ptr() for t in dense + outs)),
-        cores, plan, (float(alpha) / math.sqrt(op.k), float(b1),
-                      float(1.0 - b1), float(b2), float(1.0 - b2),
-                      float(eps), float(weight_decay)))
+    _launch("fused_update", op, cores, plan, y, dense, outs, lr, c1, c2, hp)
     fused_update_buckets.launches += 1
     return outs
 
@@ -201,11 +377,51 @@ def fused_update_buckets(op, y, p, w, m, v, lr, c1, c2, *, alpha: float,
 fused_update_buckets.launches = 0
 
 
+def fused_update_block(op, y, p, w, m, v, lr, c1, c2, *,
+                       layout: BlockLayout, alpha: float, b1: float,
+                       b2: float, eps: float, weight_decay: float):
+    """ONE launch of K4's block form for one leaf on a rank of a data mesh.
+
+    y      : (nb, k) sketch rows of the leaf (all of its buckets).
+    p      : the whole error-fed gradient leaf (g + e), `layout.size`
+             float32 elements in any shape, not bucketized.
+    w/m/v  : the rank's blocks of the param and moments (`layout`),
+             float32, any one shape of `layout.numel` elements.
+    The rest as `fused_update_buckets`.
+
+    Returns (resid in p's shape, whole; w_new, m_new, v_new in w's shape,
+    the block). CPU tensors take the plain version; CUDA tensors launch
+    the kernel (counted in `fused_update_block.launches`) or raise.
+    """
+    family, cores = _operator(op)
+    nb = y.shape[0]
+    plan = plan_fused_update(family, op.k, nb, op.in_dims, op.rank)
+    _check_block(plan, layout, y, p, (w, m, v))
+    hp = dict(alpha=alpha, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    if y.device.type == "cpu":
+        return fused_update_block_plain(op, y, p, w, m, v, lr, c1, c2,
+                                        layout=layout, **hp)
+    outs = (torch.empty_like(p),) + tuple(torch.empty_like(w)
+                                          for _ in range(3))
+    _launch("fused_update_block", op, cores, plan, y, (p, w, m, v), outs, lr,
+            c1, c2, hp, (layout.size, layout.n_d, layout.inner, layout.lo,
+                         layout.hi))
+    fused_update_block.launches += 1
+    return outs
+
+
+fused_update_block.launches = 0
+
+
 def reset_launch_counts() -> None:
-    """Set K4's launch counter to 0."""
+    """Set K4's launch counters (whole-leaf and block form) to 0."""
     fused_update_buckets.launches = 0
+    fused_update_block.launches = 0
 
 
-__all__ = ["fused_hbm_bytes", "fused_update_buckets",
-           "fused_update_buckets_plain", "plan_fused_update",
-           "reset_launch_counts", "unfused_hbm_bytes", "update_epilogue"]
+__all__ = ["BlockLayout", "adamw_epilogue", "block_epilogue",
+           "fused_hbm_bytes", "fused_update_block",
+           "fused_update_block_plain", "fused_update_block_tiled_plain",
+           "fused_update_buckets", "fused_update_buckets_plain",
+           "plan_fused_update", "reset_launch_counts", "unfused_hbm_bytes",
+           "update_epilogue"]

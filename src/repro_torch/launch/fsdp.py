@@ -22,7 +22,14 @@ process a rank, so the same layout is written out here:
 * `Sharded.finish`: the replicated leaves' gradients, which every rank
   computed on its own rows, become their mean (one all_reduce of them
   all); `Sharded.global_norm`: the gradient norm over every rank's
-  blocks, a replicated leaf counted once.
+  blocks, a replicated leaf counted once; `Sharded.ranges`: each leaf's
+  split dim and this rank's range of it (K4's block form).
+
+On a pod x data mesh whose pods each sync through the compressed pod
+collective (the reference's `fsdp_axes=("data",)`), `Sharded(axes=
+("data",))` averages the gradients over the data ranks of this rank's
+pod only: the pod's mean gradient, which `compress_collective` then
+syncs across pods.
 
 Every collective goes through `rp.shard`'s ledger under its own tag:
 `param_gather`, `grad_reduce`, `grad_replicated`, `grad_norm`.
@@ -150,10 +157,14 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         layout, path, dim, index, group, full_shape = ctx.meta
         n = layout.size
+        rest = layout.rest(group)
         if layout.reduce == "scatter":
-            out = shard.reduce_scatter(g, group, dim, tag="grad_reduce") / n
+            out = shard.reduce_scatter(g, group, dim, tag="grad_reduce")
+            if rest is not None:    # the ranks that hold the same block
+                out = shard.all_reduce(out, rest, tag="grad_reduce")
+            out = out / n
         else:
-            mean = shard.all_reduce(g, group, tag="grad_reduce") / n
+            mean = shard.all_reduce(g, layout.group, tag="grad_reduce") / n
             sink = layout._full.get(path)
             if sink is None:
                 sink = layout._full[path] = mean.new_zeros(full_shape)
@@ -170,7 +181,8 @@ class Sharded:
     block of the mean gradient) or 'all' (the whole mean gradient of
     every sharded leaf, which `finish` returns)."""
 
-    def __init__(self, mesh, specs, *, reduce: str = "scatter"):
+    def __init__(self, mesh, specs, *, reduce: str = "scatter",
+                 axes: tuple[str, ...] | None = None):
         if reduce not in ("scatter", "all"):
             raise ValueError(f"unknown reduce {reduce!r}; expected "
                              "'scatter' or 'all'")
@@ -178,9 +190,25 @@ class Sharded:
         self.reduce = reduce
         self.specs = _flat_specs(specs)
         self.dims = {p: shard_dim(s, mesh) for p, s in self.specs.items()}
-        self.group = mesh.group(data_axes(mesh))
+        # the ranks whose gradients are averaged: every data axis, or the
+        # data ranks within a pod (`axes=("data",)`)
+        self.group = mesh.group(data_axes(mesh) if axes is None else axes)
         self.size = self.group.size
+        for p, d in self.dims.items():
+            if d is not None and not set(_axes(self.specs[p][d])) <= set(
+                    self.group.axes):
+                raise ValueError(f"{p} is split over {self.specs[p][d]}, "
+                                 f"outside the gradient's axes "
+                                 f"{self.group.axes}")
         self._full: dict[str, torch.Tensor] = {}
+
+    def rest(self, group):
+        """The group of the gradient's axes that a leaf's `group` leaves
+        out (the ranks holding the same block of a leaf split over fewer
+        axes, as ('pod',) where ('pod', 'data') does not divide its dim),
+        or None."""
+        axes = tuple(a for a in self.group.axes if a not in group.axes)
+        return self.mesh.group(axes) if axes else None
 
     def __call__(self, path: str, leaf: torch.Tensor,
                  index: int | None = None) -> torch.Tensor:
@@ -223,6 +251,22 @@ class Sharded:
         return _map_flat(lambda x, s: block(x, s, self.mesh), tree,
                          self.specs)
 
+    def ranges(self, shapes) -> list:
+        """For each leaf of a tree of whole leaves (tensors or meta
+        tensors), in `tree_flatten` order: `(dim, lo, hi)`, this rank's
+        range of the leaf's split dim, or None for a leaf it holds whole
+        (`adamw.update_sketched(blocks=)`)."""
+        out = []
+        for (p, spec), leaf in zip(self.specs.items(),
+                                   tree_flatten(shapes)[0]):
+            d = self.dims[p]
+            if d is None:
+                out.append(None)
+                continue
+            sl = block_slices(tuple(leaf.shape), spec, self.mesh)[d]
+            out.append((d, sl.start, sl.stop))
+        return out
+
     def global_norm(self, grads) -> torch.Tensor:
         """The l2 norm of the whole gradient from the ranks' blocks: the
         sharded leaves' squares summed over the data ranks (one all_reduce
@@ -232,10 +276,12 @@ class Sharded:
         sharded, rep = zero, zero
         for g, p in zip(flat, self.specs):
             sq = torch.sum(torch.square(g.to(torch.float32)))
-            if self.dims[p] is None:
+            d = self.dims[p]
+            if d is None:
                 rep = rep + sq
-            else:
-                sharded = sharded + sq
+            else:   # a block that several ranks hold is counted once
+                sharded = sharded + sq / (self.size // mesh_group(
+                    self.mesh, self.specs[p][d]).size)
         total = shard.all_reduce(sharded.reshape(1), self.group,
                                  tag="grad_norm")[0]
         return torch.sqrt(total + rep)

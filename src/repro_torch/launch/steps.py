@@ -18,8 +18,8 @@ it). Branches:
   a leaf and the sketch's or the dense leaves' mean), without one by one
   dense all_reduce of the whole gradient — then `adamw.update`. Each rank
   holds its own pod's EF residual, without a pod dim;
-* a `mesh=` whose 'data' axis is above 1 (model 1, no pod axis): the
-  reference's FSDP. Each rank takes its rows of the global batch by
+* a `mesh=` whose 'data' axis is above 1 (model 1): the reference's
+  FSDP. Each rank takes its rows of the global batch by
   `sharding.batch_spec` (all of them when the data size does not divide
   it) and holds params, m and v as its blocks of `sharding.param_specs`
   (`shard_state`); the forward reads a layer's leaves through
@@ -31,8 +31,26 @@ it). Branches:
   each rank's block of a leaf's buckets through K1 and K2
   (`bucket_spec = sharding.bucket_specs(mesh)`), and AdamW updates the
   rank's block of the estimate; the EF residual is whole on every rank
-  (the reference's `P()`). The MoE FFN dispatches a rank's rows in
-  `moe_groups_for(...)` over the number of row blocks groups.
+  (the reference's `P()`). With `fused_update=True` the sketch is the
+  same split K1, and each leaf then runs K4's block form
+  (`adamw.update_sketched(blocks=)`): every rank reconstructs the whole
+  leaf from the gathered sketch, writes the whole residual (the same bits
+  on every rank) and updates only its blocks of params, m and v, so no
+  dense bytes cross ranks and nothing is unsketched apart. The MoE FFN
+  dispatches a rank's rows in `moe_groups_for(...)` over the number of
+  row blocks groups;
+* a `mesh=` with a 'pod' axis and a 'data' axis above 1 (pod x data):
+  without a compressor, the FSDP above over both axes (`data_axes`).
+  With one (the reference's `fsdp_axes=("data",)`): params, m and v are
+  FSDP blocks over 'data', the same on every pod; each rank takes its
+  (pod, data) rows; the backward all-reduces each gradient over the data
+  ranks of its pod (`fsdp.Sharded(axes=("data",))`), so every rank holds
+  its pod's mean gradient whole; `compress_collective` over the ranks
+  that share its data index (`mesh.group("pod")`) syncs it across pods,
+  the clip norm is the synced gradient's, and AdamW updates the rank's
+  blocks. Each rank holds its own pod's EF residual whole, without a pod
+  dim (the reference keeps a block of it, `P(pod, *spec)`: ROADMAP.md,
+  "Differences kept on purpose"). The loss is every rank's mean.
 
 `build_prefill_step` gives `fn(params, batch) -> logits` (the last
 token's, float32) and `build_serve_step` `fn(params, cache, token, pos,
@@ -45,9 +63,9 @@ and decodes the tokens against it, and its serve step needs a cache
 whose cross K/V `whisper.build_cross_cache` has filled. Every step
 passes the batch's `positions3`, `patches` and `patch_positions`
 (qwen2-vl) through, the last left on the host, where the model checks
-them. A `model` axis above 1 (TP/EP/SP), a data axis beside a pod axis,
-`fused_update` on a data mesh and the mesh arguments of the prefill and
-serve steps are item 12.7b (ROADMAP.md, queue 1): they raise.
+them. A `model` axis above 1 (TP/EP/SP) and the mesh arguments of the
+prefill and serve steps are item 12.7b (ROADMAP.md, queue 1): they
+raise. `fused_update` with a pod axis raises, as in the reference.
 """
 from __future__ import annotations
 
@@ -98,12 +116,26 @@ def _replicated(specs):
     return (None,) * len(specs)
 
 
-def state_specs(model: Model, mesh, state: dict | None = None) -> dict:
+def fsdp_axes_for(mesh, compressed: bool):
+    """The mesh axes the params are sharded over (`param_specs`'
+    `fsdp_axes`): ('data',) on a pod mesh whose pods the compressor syncs
+    (the params replicate across pods), else None (every data axis), as
+    the reference's `build_train_step` sets them."""
+    return ("data",) if compressed and "pod" in mesh.axis_names else None
+
+
+def state_specs(model: Model, mesh, state: dict | None = None, *,
+                compressed: bool | None = None) -> dict:
     """The train state's layout on a data mesh: params, m and v by
-    `sharding.param_specs`, the step count and the EF residual (when
-    `state` has one) whole on every rank."""
+    `sharding.param_specs` (over `fsdp_axes_for(mesh, compressed)`;
+    `compressed=None` reads it off `state`: an EF residual means a
+    compressor), the step count and the EF residual (when `state` has
+    one) whole on every rank."""
+    if compressed is None:
+        compressed = state is not None and "ef" in state
     pspecs = sharding.param_specs(model.cfg, model.param_axes(), mesh,
-                                  model.param_shapes())
+                                  model.param_shapes(),
+                                  fsdp_axes=fsdp_axes_for(mesh, compressed))
     out = {"params": pspecs, "opt": {"m": pspecs, "v": pspecs,
                                      "count": ()}}
     if state is not None and "ef" in state:
@@ -124,24 +156,15 @@ def unshard_state(model: Model, state: dict, mesh) -> dict:
     return fsdp.unshard_tree(state, state_specs(model, mesh, state), mesh)
 
 
-def _check_mesh(mesh, fused_update: bool) -> bool:
-    """Refuse what item 12.7b brings; True on a data mesh (data above
-    1)."""
+def _check_mesh(mesh) -> bool:
+    """Refuse what item 12.7b brings (a model axis); True on a data mesh
+    (data above 1, with or without a pod axis)."""
     sizes = dict(mesh.shape)
     if sizes.get("model", 1) > 1:
         raise NotImplementedError(
             f"a model axis of {sizes['model']} (TP/EP/SP within a pod) is "
-            f"{_LATER}; run a (data, 1) or (pod, 1, 1) mesh")
-    data = sizes.get("data", 1) > 1
-    if data and "pod" in sizes:
-        raise NotImplementedError(
-            f"a data axis beside a pod axis (pod x data, {sizes}) is "
-            f"{_LATER}; run a (data, 1) or (pod, 1, 1) mesh")
-    if data and fused_update:
-        raise NotImplementedError(
-            f"fused_update=True on a data mesh is {_LATER}; build the "
-            "unfused step (compress -> adamw.update)")
-    return data
+            f"{_LATER}; run a (data, 1) or (pod, data, 1) mesh")
+    return sizes.get("data", 1) > 1
 
 
 def build_train_step(model: Model, shape: ShapeSpec, *,
@@ -154,23 +177,24 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
                      device=None,
                      compute_dtype=None) -> Callable:
     """`fused_update=True` swaps the compress -> adamw.update chain for
-    `adamw.update_sketched` (one fused unsketch+EF+AdamW launch per leaf);
-    it needs a compressor, no pod axis, and `AdamWConfig(clip_norm=None)`.
-    `mesh` (a `launch.mesh.Mesh`) with a 'pod' axis builds the pod branch,
-    one whose 'data' axis is above 1 the data branch (its state comes from
-    `shard_state`), on the mesh's device. `compute_dtype=None` takes the
+    `adamw.update_sketched` (one fused unsketch+EF+AdamW launch per leaf;
+    K4's block form on a data mesh); it needs a compressor, no pod axis,
+    and `AdamWConfig(clip_norm=None)`. `mesh` (a `launch.mesh.Mesh`) whose
+    'data' axis is above 1 builds the data branch (its state comes from
+    `shard_state`; with a 'pod' axis too, pod x data), one with a 'pod'
+    axis and data 1 the pod branch, on the mesh's device. `compute_dtype=None` takes the
     config's policy (bf16 compute under 'mixed' and 'lean');
     `device=None` means CUDA."""
+    # the first remat (torch.utils.checkpoint) imports torch._dynamo, and
+    # that import leaves frames in reference cycles: imported here, the
+    # step's own frames (and the trees they hold) stay out of them
+    import torch._dynamo  # noqa: F401
     cfg = model.cfg
     pol = _policy(cfg)
     npod, group, data_mesh = 1, None, False
     if mesh is not None:
-        data_mesh = _check_mesh(mesh, fused_update)
-        if "pod" in mesh.axis_names:
-            group = mesh.group("pod")
-            npod = group.size
-        device = mesh.device if device is None else device
-    dev = resolve_device(device)
+        data_mesh = _check_mesh(mesh)
+    has_pod = mesh is not None and "pod" in mesh.axis_names
     compute_dtype = compute_dtype or pol["compute_dtype"]
     opt = opt or AdamWConfig(moment_dtype=pol["moment_dtype"])
     lr_fn = lr_fn or functools.partial(
@@ -182,7 +206,7 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
                 "fused_update=True needs a compressor: the fused kernel IS "
                 "the unsketch — without sketch compression there is "
                 "nothing to fuse; pass compressor= or drop fused_update")
-        if group is not None:
+        if has_pod:
             raise ValueError(
                 "fused_update=True is wired for the single-pod roundtrip "
                 "branch; the pod-collective branch syncs sketches across "
@@ -193,11 +217,17 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
                 "fused_update=True fuses AdamW into the unsketch kernel, "
                 "which never materializes the dense gradient estimate to "
                 "clip; construct AdamWConfig(clip_norm=None)")
+    if mesh is not None:
+        if has_pod:
+            group = mesh.group("pod")
+            npod = group.size
+        device = mesh.device if device is None else device
+    dev = resolve_device(device)
     if compressor is not None and mesh is not None:
         compressor = dataclasses.replace(
             compressor, pod_axis="pod" if group is not None else None,
             mesh=mesh, bucket_spec=sharding.bucket_specs(mesh)
-            if data_mesh else None)
+            if data_mesh and group is None else None)
     if shape.global_batch % npod:
         raise ValueError(f"global batch {shape.global_batch} does not split "
                          f"into {npod} pods' rows")
@@ -268,14 +298,14 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
 
     if data_mesh:
         data_step = _data_step(model, shape, mesh, opt, lr_fn, compressor,
-                               loss_and_grads)
+                               loss_and_grads, fused_update)
 
     def train_step(state, batch):
         batch = on_device(batch)
-        if group is not None:
-            return pod_step(state, batch)
         if data_mesh:
             return data_step(state, batch)
+        if group is not None:
+            return pod_step(state, batch)
         params = state["params"]
         metrics = {}
         new_state = dict(state)
@@ -305,13 +335,20 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
 
 
 def _data_step(model: Model, shape: ShapeSpec, mesh, opt: AdamWConfig,
-               lr_fn, compressor, loss_and_grads) -> Callable:
+               lr_fn, compressor, loss_and_grads,
+               fused_update: bool) -> Callable:
     """The data-mesh branch of `build_train_step` (see its module
-    docstring): `fn(state, batch)` on this rank's blocks."""
+    docstring), pod x data included: `fn(state, batch)` on this rank's
+    blocks."""
     from repro_torch.rp import shard
     cfg = model.cfg
-    pspecs = sharding.param_specs(cfg, model.param_axes(), mesh,
-                                  model.param_shapes())
+    pods = compressor is not None and "pod" in mesh.axis_names
+    pspecs = sharding.param_specs(
+        cfg, model.param_axes(), mesh, model.param_shapes(),
+        fsdp_axes=fsdp_axes_for(mesh, compressor is not None))
+    # the gradient's mean: over every data rank, or over the data ranks
+    # of this rank's pod when the compressor syncs the pods
+    grad_axes = ("data",) if pods else None
     dgroup = mesh.group(data_axes(mesh))
     n = dgroup.size
     entry = sharding.batch_spec((shape.global_batch,), mesh)[0]
@@ -321,8 +358,10 @@ def _data_step(model: Model, shape: ShapeSpec, mesh, opt: AdamWConfig,
     # the global batch's groups of contiguous tokens over this rank's rows
     kw = ({"moe_groups": max(1, moe_groups_for(cfg, mesh, shape.global_batch)
                              // n_blocks)} if cfg.moe is not None else {})
-    blocks = fsdp.Sharded(mesh, pspecs).blocks(model.param_shapes())
-    want = [tuple(t.shape) for t in tree_flatten(blocks)[0]]
+    view = fsdp.Sharded(mesh, pspecs, axes=grad_axes)
+    want = [tuple(t.shape) for t in tree_flatten(
+        view.blocks(model.param_shapes()))[0]]
+    ranges = view.ranges(model.param_shapes()) if fused_update else None
 
     def rows(batch):
         if rows_group is None:
@@ -341,7 +380,7 @@ def _data_step(model: Model, shape: ShapeSpec, mesh, opt: AdamWConfig,
         metrics = {}
         new_state = dict(state)
         layout = fsdp.Sharded(mesh, pspecs, reduce="all" if compressor
-                              is not None else "scatter")
+                              is not None else "scatter", axes=grad_axes)
         with span("train.loss_grad"):
             loss, grads = loss_and_grads(params, rows(batch), gather=layout,
                                          **kw)
@@ -349,18 +388,32 @@ def _data_step(model: Model, shape: ShapeSpec, mesh, opt: AdamWConfig,
             loss = shard.all_reduce(loss.reshape(1), dgroup,
                                     tag="loss")[0] / n
         count = state["opt"]["count"]
+        lr = lr_fn(count)
+        if fused_update:    # the whole gradient -> K1 split, K4 blocks
+            new_p, new_opt, new_state["ef"], cmet = adamw.update_sketched(
+                params, grads, state["ef"], state["opt"], lr, opt,
+                compressor=compressor, blocks=ranges)
+            metrics.update(cmet)
+            metrics["loss"] = loss
+            metrics["lr"] = lr
+            new_state["params"] = new_p
+            new_state["opt"] = new_opt
+            return new_state, metrics
         norm = None
         if compressor is not None:
             with span("train.compress"):
-                g_hat, new_state["ef"], cmet = compressor.compress(
-                    grads, state["ef"], step=count)
+                sync = (compressor.compress_collective if pods
+                        else compressor.compress)
+                g_hat, new_state["ef"], cmet = sync(grads, state["ef"],
+                                                    step=count)
             metrics.update(cmet)
             if opt.clip_norm is not None:   # g_hat is whole on every rank
                 norm = adamw.global_norm(g_hat)
-            grads = layout.blocks(g_hat)
+            # copies of this rank's blocks, so that the whole estimate goes
+            grads = fsdp.shard_tree(g_hat, pspecs, mesh)
+            del g_hat
         elif opt.clip_norm is not None:
             norm = layout.global_norm(grads)
-        lr = lr_fn(count)
         with span("train.update"):
             new_p, new_opt, omet = adamw.update(params, grads, state["opt"],
                                                 lr, opt, norm=norm)
@@ -474,5 +527,5 @@ def from_numpy_state(model: Model, state: dict, *, device=None) -> dict:
 
 
 __all__ = ["build_prefill_step", "build_serve_step", "build_train_step",
-           "from_numpy_state", "init_train_state", "moe_groups_for",
-           "shard_state", "state_specs", "unshard_state"]
+           "from_numpy_state", "fsdp_axes_for", "init_train_state",
+           "moe_groups_for", "shard_state", "state_specs", "unshard_state"]

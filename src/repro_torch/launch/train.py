@@ -39,6 +39,17 @@ batch; a checkpoint holds whole leaves, written by rank 0):
         --nproc-per-node 2 -m repro_torch.launch.train --arch llama3.2-3b \
         --reduced --mesh 2x1 --dist-backend gloo --device cpu --steps 20
 
+Pod x data (`--mesh PODxDATAx1`, DATA > 1): with `--compress`, FSDP
+over 'data' within each pod and `compress_collective` across pods (the
+reference's `fsdp_axes=("data",)`); without it, FSDP over both axes.
+Its checkpoints (`--ckpt-dir`) are item 12.7b and refused:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-3b \
+        --reduced --mesh 2x2x1 --compress tt:k=64,dims=4x8x16 \
+        --compress-sync sketch-mean --dist-backend gloo --device cpu \
+        --steps 6 --batch 4 --seq 16
+
 A model axis above 1 (`--mesh AxB`, B > 1) is item 12.7b and refused.
 """
 from __future__ import annotations
@@ -83,7 +94,7 @@ def parse_mesh(spec: str | None, *, device=None, backend=None):
     if dims[-1] > 1:
         raise NotImplementedError(
             f"--mesh {spec}: a model axis above 1 (TP/EP/SP) is item 12.7b "
-            "(ROADMAP.md, queue 1); run DATAx1 or PODx1x1")
+            "(ROADMAP.md, queue 1); run DATAx1 or PODxDATAx1")
     need = 1
     for d in dims:
         need *= d

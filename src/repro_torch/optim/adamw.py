@@ -62,6 +62,12 @@ def _corrections(count: torch.Tensor, cfg: AdamWConfig):
     return 1.0 - cfg.b1 ** c, 1.0 - cfg.b2 ** c
 
 
+# elements of a leaf that AdamW's elementwise math takes in one pass: a
+# larger leaf goes in chunks, so its temporaries stay a chunk's size (the
+# same bits: every op is elementwise)
+UPDATE_CHUNK = 1 << 25
+
+
 def update(params, grads, state, lr, cfg: AdamWConfig, *, norm=None):
     """Returns (new_params, new_state, metrics). `norm` is the gradient
     norm the clip uses when the trees are a rank's blocks of the whole
@@ -73,7 +79,7 @@ def update(params, grads, state, lr, cfg: AdamWConfig, *, norm=None):
     count = state["count"] + 1
     c1, c2 = _corrections(count, cfg)
 
-    def upd(p, g, m, v):
+    def upd_pass(p, g, m, v):
         g32 = g.to(torch.float32)
         m32 = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * g32
         v32 = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * g32 * g32
@@ -81,6 +87,19 @@ def update(params, grads, state, lr, cfg: AdamWConfig, *, norm=None):
         p32 = p.to(torch.float32)
         p_new = p32 - lr * (step + cfg.weight_decay * p32)
         return p_new.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
+
+    def upd(p, g, m, v):
+        n = p.numel()
+        if n <= UPDATE_CHUNK:
+            return upd_pass(p, g, m, v)
+        outs = tuple(torch.empty(p.shape, dtype=t.dtype, device=p.device)
+                     for t in (p, m, v))
+        flat = [t.reshape(-1) for t in (p, g, m, v)]
+        for i in range(0, n, UPDATE_CHUNK):
+            part = upd_pass(*(t[i:i + UPDATE_CHUNK] for t in flat))
+            for out, val in zip(outs, part):
+                out.view(-1)[i:i + UPDATE_CHUNK] = val
+        return outs
 
     flat_p, treedef = tree_flatten(params)
     out = [upd(p, g, m, v) for p, g, m, v in zip(
@@ -93,7 +112,7 @@ def update(params, grads, state, lr, cfg: AdamWConfig, *, norm=None):
 
 
 def update_sketched(params, grads, ef_state, opt_state, lr,
-                    cfg: AdamWConfig, *, compressor):
+                    cfg: AdamWConfig, *, compressor, blocks=None):
     """Fused sketch-compressed AdamW step: one K4 launch per leaf.
 
     Equal (to fp32 kernel tolerance) to the unfused chain
@@ -111,6 +130,17 @@ def update_sketched(params, grads, ef_state, opt_state, lr,
     Requires `cfg.clip_norm is None` and a dense-leaf tree — both enforced
     with typed errors. Returns (new_params, new_opt_state, new_ef_state,
     metrics).
+
+    `blocks` (a data mesh's rank, `launch/fsdp.py`): one `(dim, lo, hi)`
+    a leaf in `tree_flatten` order (None for a leaf the rank holds whole),
+    the rank's range [lo, hi) of the leaf's split dim. `params` and the
+    moments are then the rank's blocks, `grads` and the residual whole
+    (the compressor's sketcher splits K1 over the mesh and gathers the
+    whole sketch); each leaf runs K4's block form
+    (`fused_update_block`), which reconstructs the whole leaf, writes the
+    whole residual and updates only the block. The residual is the same
+    bits on every rank; no dense bytes cross ranks.
+    `metrics['fused_hbm_bytes']` keeps its whole-leaf meaning.
     """
     if cfg.clip_norm is not None:
         raise ValueError(
@@ -122,7 +152,8 @@ def update_sketched(params, grads, ef_state, opt_state, lr,
     # scope (core <-> rp import cycle)
     from repro_torch import rp
     from repro_torch.core.sketch import _is_struct_leaf
-    from repro_torch.kernels import fused_update_buckets
+    from repro_torch.kernels import (BlockLayout, fused_update_block,
+                                     fused_update_buckets)
 
     if any(_is_struct_leaf(leaf) for leaf in tree_leaves(grads)):
         raise ValueError(
@@ -141,23 +172,40 @@ def update_sketched(params, grads, ef_state, opt_state, lr,
     count = opt_state["count"] + 1
     c1, c2 = _corrections(count, cfg)
     flat_w, treedef = tree_flatten(params)
+    if blocks is not None and len(blocks) != len(flat_w):
+        raise ValueError(f"{len(blocks)} block ranges for {len(flat_w)} "
+                         "leaves")
+    hp = dict(alpha=alpha, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+              weight_decay=cfg.weight_decay)
     new_w, new_m, new_v, new_r = [], [], [], []
     off = 0
     fused_hbm = 0
     with span("train.fused_update"):
-        for pe, w, m, v, nb, size, shape in zip(
+        for i, (pe, w, m, v, nb, size, shape) in enumerate(zip(
                 tree_leaves(p_fed), flat_w, tree_leaves(opt_state["m"]),
-                tree_leaves(opt_state["v"]), sk._nb, sk._sizes, sk._shapes):
+                tree_leaves(opt_state["v"]), sk._nb, sk._sizes,
+                sk._shapes)):
             rp.count_kernel_dispatch(family=compressor.cfg.family,
                                      structure="fused-update",
                                      order=len(compressor.cfg.dims))
             fused_hbm += rp.plan_update(op, nb, fused=True).cost.hbm_bytes
+            if blocks is not None:
+                layout = BlockLayout.of(shape, *(blocks[i] or (None,)))
+                f32 = [t.to(torch.float32).contiguous() for t in (w, m, v)]
+                r, w_b, m_b, v_b = fused_update_block(
+                    op, y[off:off + nb], pe.contiguous(), *f32, lr, c1, c2,
+                    layout=layout, **hp)
+                off += nb
+                new_r.append(r)
+                new_w.append(w_b.to(w.dtype))
+                new_m.append(m_b.to(m.dtype))
+                new_v.append(v_b.to(v.dtype))
+                continue
             r_b, w_b, m_b, v_b = fused_update_buckets(
                 op, y[off:off + nb],
                 sk._leaf_to_buckets(pe, nb), sk._leaf_to_buckets(w, nb),
                 sk._leaf_to_buckets(m, nb), sk._leaf_to_buckets(v, nb),
-                lr, c1, c2, alpha=alpha, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
-                weight_decay=cfg.weight_decay)
+                lr, c1, c2, **hp)
             off += nb
             new_r.append(sk._leaf_from_buckets(r_b, size, shape,
                                                torch.float32))

@@ -44,7 +44,8 @@ from repro_torch import obs
 from repro_torch.core.formats import BatchedCPTensor, BatchedTTTensor
 from repro_torch.core.sketch import (PytreeSketcher, SketchConfig,
                                      _is_struct_leaf)
-from repro_torch.core.tree import tree_flatten, tree_leaves, tree_map
+from repro_torch.core.tree import (tree_flatten, tree_leaves, tree_map,
+                                   tree_unflatten)
 from repro_torch.rp import shard
 
 
@@ -316,15 +317,28 @@ class SketchCompressor:
         p = tree_map(lambda g, e: g.to(torch.float32) + e, grads,
                      state["residual"])
         y = sk.sketch(p, seed)                          # (n_buckets, k)
-        h_local = tree_map(lambda x: alpha * x, sk.unsketch(y, seed))
         if self.sync == "sketch-mean":
-            g_hat = tree_map(lambda x: alpha * x, sk.unsketch(
-                mean_over_pods(y, per_row=True), seed))
+            # each leaf's residual as soon as its local reconstruction is
+            # made, into p's leaf: a whole reconstruction of the tree is
+            # never held. The reconstructions and p are this call's own,
+            # so they are scaled and subtracted in place (the same bits as
+            # p - alpha * x)
+            p_leaves, treedef = tree_flatten(p)
+            del p
+            resid = []
+            for i, x in enumerate(sk.iter_unsketch(y, seed)):
+                resid.append(p_leaves[i].sub_(x.mul_(alpha).to(
+                    torch.float32)))
+                p_leaves[i] = None
+            new_residual = tree_unflatten(treedef, resid)
+            g_hat = tree_unflatten(treedef, [x.mul_(alpha) for x in (
+                sk.iter_unsketch(mean_over_pods(y, per_row=True), seed))])
         else:  # 'local-mean'
+            h_local = tree_map(lambda x: alpha * x, sk.unsketch(y, seed))
             g_hat = tree_map(lambda h: mean_over_pods(h, per_row=False),
                              h_local)
-        new_residual = tree_map(lambda pp, h: pp - h.to(torch.float32),
-                                p, h_local)
+            new_residual = tree_map(lambda pp, h: pp - h.to(torch.float32),
+                                    p, h_local)
         g_out = tree_map(lambda gh, g: gh.to(g.dtype), g_hat, grads)
         return g_out, {"residual": new_residual}, self._pod_metrics(
             sk, new_residual)
@@ -354,8 +368,10 @@ class SketchCompressor:
         return {
             "sketch_bytes": torch.tensor(float(sk.sketch_bytes())),
             "dense_bytes": torch.tensor(float(sk.dense_bytes())),
+            # a dot product a leaf: no squared copy of the residual
             "residual_norm": torch.sqrt(sum(
-                torch.sum(torch.square(r)) for r in tree_leaves(residual))),
+                torch.dot(r.reshape(-1), r.reshape(-1))
+                for r in tree_leaves(residual))),
         }
 
     def compression_ratio(self, params) -> float:

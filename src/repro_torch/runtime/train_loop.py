@@ -156,6 +156,12 @@ def run(step_fn: Callable, state: Any, data: SyntheticLM, cfg: LoopConfig, *,
                          "state's specs (launch.steps.state_specs)")
     if not blocks:
         shardings = None
+    if pods and blocks and cfg.ckpt_dir:
+        raise NotImplementedError(
+            "checkpoints of a pod x data mesh (each rank's pod residual "
+            "beside the data blocks) are item 12.7b (ROADMAP.md, queue 1); "
+            "run it without ckpt_dir, or checkpoint a (data, 1) or "
+            "(pod, 1, 1) mesh")
     if cfg.npod > 1 and not (pods and mesh.shape["pod"] == cfg.npod):
         raise ValueError(
             f"LoopConfig(npod={cfg.npod}) needs the mesh= whose 'pod' axis "

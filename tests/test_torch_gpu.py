@@ -1,5 +1,6 @@
 """Card-only tests of the CUDA kernels K1/K2/K3/K4/K5/K6 against their
-plain versions, of the fused training step that runs K4, and of the LM
+plain versions (K4 also in its block form), of the fused training step
+that runs K4, and of the LM
 decode path on the card (the in-place cache, the slot server's CUDA
 graph, the MoE dispatch on CUDA and inside that graph, the recurrent
 families' graphed servers and whisper's graphed decode step).
@@ -195,6 +196,57 @@ def test_k2_k4_give_the_same_bits_every_call(cuda, family):
     first = fused.fused_update_buckets(op, y, *dense, 1e-3, 0.3, 0.2, **HP)
     again = fused.fused_update_buckets(op, y, *dense, 1e-3, 0.3, 0.2, **HP)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("family", ["tt", "cp"])
+@pytest.mark.parametrize("split", [0, 1, 2, None],
+                         ids=["dim0", "dim1", "dim2", "unsplit"])
+def test_k4_block_form_matches_plain_version_and_whole_leaf(cuda, family,
+                                                            split):
+    """K4's block form on a (6, 50, 36) leaf (a padded last bucket of 4 x
+    8 x 16, k = 37) split over 2 ranks on each dim, and unsplit: every
+    rank's outputs against the plain block form (1e-4) and, as both run
+    the same kernels, the residual and the block bit for bit against the
+    whole-leaf K4's."""
+    dims, k, shape = (4, 8, 16), 37, (6, 50, 36)
+    op, _ = _operands(family, dims, k, 3, cuda)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    size, bucket = math.prod(shape), math.prod(dims)
+    nb = -(-size // bucket)
+    y = torch.randn((nb, k), generator=g, device=cuda)
+    p, w, m, v = (torch.randn(shape, generator=g, device=cuda)
+                  for _ in range(4))
+    v = v.abs() * 1e-2
+
+    def buckets(t):
+        flat = torch.zeros(nb * bucket, device=cuda)
+        flat[:size] = t.reshape(-1)
+        return flat.reshape((nb,) + dims)
+
+    whole = fused.fused_update_buckets(op, y, *(buckets(t) for t in (
+        p, w, m, v)), 1e-3, 0.3, 0.2, **HP)
+    whole = [t.reshape(-1)[:size].reshape(shape) for t in whole]
+    ranks = 1 if split is None else 2
+    for r in range(ranks):
+        if split is None:
+            layout, index = fused.BlockLayout.of(shape), (slice(None),) * 3
+        else:
+            n = shape[split] // 2
+            layout = fused.BlockLayout.of(shape, split, r * n, (r + 1) * n)
+            index = tuple(slice(r * n, (r + 1) * n) if i == split
+                          else slice(None) for i in range(3))
+        blk = [t[index].contiguous() for t in (w, m, v)]
+        before = fused.fused_update_block.launches
+        got = fused.fused_update_block(op, y, p, *blk, 1e-3, 0.3, 0.2,
+                                       layout=layout, **HP)
+        assert fused.fused_update_block.launches == before + 1
+        ref = fused.fused_update_block_plain(op, y, p, *blk, 1e-3, 0.3, 0.2,
+                                             layout=layout, **HP)
+        for a, b in zip(got, ref):
+            assert _rel(a, b) <= 1e-4
+        assert torch.equal(got[0], whole[0])
+        for a, b in zip(got[1:], whole[1:]):
+            assert torch.equal(a, b[index])
 
 
 CARRY_SHAPES = SHAPES + [(2, 3, 2, 3, 2, 2, 3), (2,) * 8, (8, 128, 64)]

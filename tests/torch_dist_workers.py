@@ -397,10 +397,10 @@ def pod_sigterm_scenario(mesh, pl):
     return {"final_step": final, "ef": _leaves(state)["ef"], "logs": logs}
 
 
-def _fsdp_step(mesh, pl, cfg, remat="nothing", **kw):
+def _fsdp_step(mesh, pl, cfg, remat="nothing", sync="local-mean", **kw):
     """The reduced model's data-mesh train step (fp32 compute, constant
-    lr, the payload's clip, `remat`), through a compressor of `cfg` when
-    given."""
+    lr, the payload's clip, `remat`), through a compressor of `cfg` (its
+    pod `sync`) when given."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.sketch import SketchConfig
     from repro_torch.launch import steps
@@ -409,7 +409,8 @@ def _fsdp_step(mesh, pl, cfg, remat="nothing", **kw):
     from repro_torch.optim import AdamWConfig, schedule
     from repro_torch.optim.compress import SketchCompressor
     model = build_model(reduced(get_config(pl["arch"])))
-    comp = None if cfg is None else SketchCompressor(SketchConfig(**cfg))
+    comp = (None if cfg is None else
+            SketchCompressor(SketchConfig(**cfg), sync=sync))
     return model, steps.build_train_step(
         model, ShapeSpec("t", pl["seq"], pl["batch"], "train"), mesh=mesh,
         compressor=comp, compute_dtype=torch.float32,
@@ -536,6 +537,155 @@ def fsdp_ckpt_scenario(mesh, pl):
             "restarts": report.restarts, "final_step": report.final_step}
 
 
+def _counting(names):
+    """Wrap `repro_torch.kernels.<name>` (the names `adamw.update_sketched`
+    imports at each call) with call counters; returns the counts."""
+    from repro_torch import kernels
+    counts = dict.fromkeys(names, 0)
+    for name in names:
+        fn = getattr(kernels, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*a, **kw)
+        setattr(kernels, name, wrapped)
+    return counts
+
+
+def _dispatches(stats) -> dict:
+    """{structure: calls} of a `rp.dispatch_stats()` scope: 'dense' the
+    sketches (K1), 'sketch' the reconstructions (K2), 'fused-update' K4."""
+    out: dict = {}
+    for (_, structure, _, _), n in stats.breakdown.items():
+        out[structure] = out.get(structure, 0) + n
+    return out
+
+
+def fsdp_fused_scenario(mesh, pl):
+    """The data-mesh train step with `fused_update=True` (clip None) on
+    the payload's reduced model from the payload's whole state
+    (`shard_state`): per step the loss, the whole params, m, v (gathered
+    with `unshard_state`) and EF, this rank's EF, the collective ledger,
+    the kernel dispatches by structure and the K4 calls by form; the
+    shapes this rank holds."""
+    from repro_torch import rp
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import steps
+    from repro_torch.rp import shard
+    carry_ops(pl["ops"])
+    calls = _counting(("fused_update_block", "fused_update_buckets"))
+    model, step_fn = _fsdp_step(mesh, pl, pl["cfg"], fused_update=True)
+    whole = steps.from_numpy_state(model, pl["state"], device="cpu")
+    state = steps.shard_state(model, whole, mesh)
+    held = {part: [tuple(t.shape) for t in tree_leaves(tree)]
+            for part, tree in (("params", state["params"]),
+                               ("m", state["opt"]["m"]),
+                               ("v", state["opt"]["v"]),
+                               ("ef", state["ef"]))}
+    runs = []
+    for batch in pl["batches"]:
+        shard.collective_ledger().reset()
+        before = dict(calls)
+        with rp.dispatch_stats() as st:
+            state, met = step_fn(state, {k: torch.from_numpy(v)
+                                         for k, v in batch.items()})
+        led = shard.collective_ledger().table()
+        full = steps.unshard_state(model, state, mesh)
+        runs.append({
+            "loss": float(met["loss"]),
+            "params": [t.clone() for t in tree_leaves(full["params"])],
+            "m": [t.clone() for t in tree_leaves(full["opt"]["m"])],
+            "v": [t.clone() for t in tree_leaves(full["opt"]["v"])],
+            "ef": [t.clone() for t in tree_leaves(full["ef"])],
+            "ledger": led, "dispatches": _dispatches(st),
+            "calls": {k: calls[k] - before[k] for k in calls}})
+    return {"held": held, "runs": runs}
+
+
+def pod_data_scenario(mesh, pl):
+    """The reduced llama3.2-3b train step on a (pod, data, 1) mesh, once a
+    mode ("compressed": a sketch-mean compressor of `cfg`, the payload's
+    operators carried across; "uncompressed"), from the payload's whole
+    state (`shard_state`), clip 1.0, fp32 compute: per step the loss, the
+    clip's norm, the whole params, m and v (`unshard_state`), this rank's
+    blocks and EF, the ledger, and the compressor's `wire_bytes`; the
+    shapes this rank holds."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import steps
+    from repro_torch.rp import shard
+    carry_ops(pl["ops"])
+    out = {"coordinate": mesh.coordinate}
+    for mode in pl["modes"]:
+        compressed = mode == "compressed"
+        model, step_fn = _fsdp_step(mesh, pl, pl["cfg"] if compressed
+                                    else None, sync="sketch-mean")
+        whole = steps.from_numpy_state(model, pl["state"], device="cpu")
+        if not compressed:
+            whole.pop("ef", None)
+        state = steps.shard_state(model, whole, mesh)
+        held = {part: [tuple(t.shape) for t in tree_leaves(tree)]
+                for part, tree in (("params", state["params"]),
+                                   ("m", state["opt"]["m"]),
+                                   ("ef", state.get("ef", {})))}
+        runs = []
+        for batch in pl["batches"]:
+            shard.collective_ledger().reset()
+            state, met = step_fn(state, {k: torch.from_numpy(v)
+                                         for k, v in batch.items()})
+            led = shard.collective_ledger().table()
+            full = steps.unshard_state(model, state, mesh)
+            runs.append({
+                "loss": float(met["loss"]),
+                "grad_norm": float(met["grad_norm"]),
+                "params": [t.clone() for t in tree_leaves(full["params"])],
+                "m": [t.clone() for t in tree_leaves(full["opt"]["m"])],
+                "v": [t.clone() for t in tree_leaves(full["opt"]["v"])],
+                "blocks": [t.clone() for t in tree_leaves(state["params"])],
+                "ef": [t.clone() for t in tree_leaves(state.get("ef", {}))],
+                "ledger": led, "wire_bytes": met.get("wire_bytes")})
+        out[mode] = {"held": held, "runs": runs}
+    out["partial"] = _partial_split(mesh)
+    return out
+
+
+def _partial_tree():
+    """A whole tree, each of 4 ranks' loss weights, and specs that split
+    `a` over ('pod', 'data'), `b` over 'pod' alone (as `spec_for` falls
+    back to where a dim does not divide), `c` not at all."""
+    gen = torch.Generator().manual_seed(3)
+    whole = {"a": torch.randn(8, 3, generator=gen),
+             "b": torch.randn(4, 3, generator=gen),
+             "c": torch.randn(3, generator=gen)}
+    xs = [{k: torch.randn(v.shape, generator=gen) for k, v in whole.items()}
+          for _ in range(4)]
+    specs = {"a": (("pod", "data"), None), "b": (("pod",), None),
+             "c": (None,)}
+    return whole, xs, specs
+
+
+def _partial_split(mesh):
+    """`fsdp.Sharded` on a (pod, data) mesh with a leaf split over fewer
+    axes than the gradient's: each rank's loss sum(leaf * x_rank) through
+    the layout's gather; the gradients `finish` returns under
+    reduce='scatter' and 'all', and `global_norm` of the whole tree's
+    blocks."""
+    from repro_torch.launch import fsdp
+    whole, xs, specs = _partial_tree()
+    keys = sorted(whole)
+    out = {}
+    for reduce in ("scatter", "all"):
+        layout = fsdp.Sharded(mesh, specs, reduce=reduce)
+        live = {k: v.clone().requires_grad_(True)
+                for k, v in layout.blocks(whole).items()}
+        loss = sum((layout(k, live[k]) * xs[mesh.rank][k]).sum()
+                   for k in keys)
+        grads = dict(zip(keys, torch.autograd.grad(
+            loss, [live[k] for k in keys])))
+        out[reduce] = layout.finish(grads)
+    out["norm"] = float(layout.global_norm(layout.blocks(whole)))
+    return out
+
+
 def _meta(tree):
     if isinstance(tree, dict):
         return {k: _meta(v) for k, v in tree.items()}
@@ -548,4 +698,6 @@ SCENARIOS = {"shard": shard_scenario, "collective": collective_scenario,
              "cli": cli_scenario, "pod_ckpt": pod_ckpt_scenario,
              "pod_sigterm": pod_sigterm_scenario,
              "vlm_pod": vlm_pod_scenario, "fsdp": fsdp_scenario,
-             "fsdp_ckpt": fsdp_ckpt_scenario}
+             "fsdp_ckpt": fsdp_ckpt_scenario,
+             "fsdp_fused": fsdp_fused_scenario,
+             "pod_data": pod_data_scenario}
