@@ -164,25 +164,27 @@ Phases (each raises on failure, so the script exits non-zero):
      / 586,988 / 2,381,377,536 / 595,344,428); `project_sharded` and
      `reconstruct_sharded` at w_gate over a `("data",)` mesh of 2 against
      the whole K1/K2 within TOL; the collectives alone (host ms). 15c: the
-     pod train step (`build_train_step(mesh=(pod=2))`, one row of the
-     global batch 2 a pod, seq 4096): sketch-mean fp32 (a warm-up, 3
-     counted), sketch-mean int8 (3), local-mean fp32 (1); every loss
+     pod train step (`build_train_step(mesh=(pod=2))`, phase 9's widths
+     at 1 layer (cut from 2 for phase 22's time), one row of the global batch 2 a pod,
+     seq 4096): sketch-mean fp32 (a warm-up, 2
+     counted), sketch-mean int8 (2), local-mean fp32 (1); every loss
      finite, the params' digest all-gathered and equal after every step;
      device ms a step and its parts (`train.loss_grad`,
      `train.compress`, `train.update`), the collective's host ms, the
      peak memory (two layers when about 64 GB are free, else one). 15d:
      `torch.distributed.run --standalone --nproc-per-node 2 -m
      repro_torch.launch.train --reduced --mesh 2x1x1 --dist-backend gloo
-     ... --compress-sync sketch-mean --steps 20`: the last logged loss
+     ... --compress-sync sketch-mean --steps 10`: the last logged loss
      below the first. K1's and K2's launches in these runs go into their
      training rows.
-  16. pod-mesh checkpoints at phase 9's widths on two gloo ranks sharing
-     the card (the free disk checked first: a dense-EF checkpoint is
-     about 11.9 GB). 16a: the pod train loop (`runtime.train_loop.run`
-     with `mesh=`, sketch-mean fp32, global batch 2, seq 4096) for 4
-     steps uninterrupted, then with dense-EF checkpoints every 2 steps
-     (async, rank 0 writes the EF rows gathered into the `(2, ...)`
-     layout) and a crash at step 3 on both ranks under
+  16. (phase 19 runs in this process while 16's ranks do) pod-mesh
+     checkpoints at phase 9's widths cut to 1 layer (from 2, for phase
+     22's time) on two gloo ranks sharing the card (the free disk checked
+     first: a dense-EF checkpoint is about 9.9 GB). 16a: the pod train
+     loop (`runtime.train_loop.run` with `mesh=`, sketch-mean fp32, global batch 2, seq 4096) for 2
+     steps (cut from 4) uninterrupted, then with dense-EF checkpoints
+     every step (async, rank 0 writes the EF rows gathered into the
+     `(2, ...)` layout) and a crash before step 2 on both ranks under
      `run_with_restarts`: params, m, v and both EF rows after the restart
      bit-equal to the uninterrupted run; the gather's host ms and bytes,
      rank 0's save host-blocking ms, the bytes on disk. 16b: one more
@@ -193,10 +195,10 @@ Phases (each raises on failure, so the script exits non-zero):
      the 2-pod dense checkpoint restored onto one pod of an NCCL mesh of
      world size 1: the EF equals the fixed-order sum of the two rows bit
      for bit. K1's and K2's launches go into their training rows.
-  17. LM serving at full width: llama3.2-3b (28 layers, slots 8, 16
-     requests) and then gemma2-9b (42 layers, slots 4, 8 requests; llama
-     freed first), random fp32 weights from a seeded generator, prompts
-     of 64-128 tokens from a seeded numpy generator, 32 generated tokens
+  17. LM serving at full width: llama3.2-3b (28 layers, slots 8, 8
+     requests) and then gemma2-9b (42 layers, slots 4, 4 requests; llama
+     freed first), random fp32 weights from a
+     seeded generator, prompts of 64-128 tokens from a seeded numpy generator, 32 generated tokens
      each, `max_seq` 512: `SlotServer.run` timed (decode ms a step at
      B = slots by CUDA events, the server's prefill ms a prompt token,
      generated tokens/s, peak memory), the model's one-forward prefill
@@ -238,7 +240,8 @@ Phases (each raises on failure, so the script exits non-zero):
      forward at fp32 over 32 tokens whose positions3 differ across the
      sections (a 4 x 4 image's at token 8). The numbers join the
      `lm_serve` line, one entry an arch.
-  19. The SSM, hybrid and encoder-decoder families at full width and
+  19. (run beside phase 16's ranks) The SSM, hybrid and encoder-decoder
+     families at full width and
      depth (random fp32 weights, seed 0; bf16 compute): mamba2-1.3b (48
      layers) and recurrentgemma-2b (26) through the graphed `SlotServer`,
      8 slots, 16 requests of 32-64 prompt tokens, 32 greedy tokens each,
@@ -257,36 +260,37 @@ Phases (each raises on failure, so the script exits non-zero):
      with frames on 4 x 448 tokens. The numbers join the `lm_serve` line.
   20. the data axis (FSDP) on two gloo ranks sharing the card, a
      `(data=2, model=1)` mesh, at phase 9's widths (llama3.2-3b cut to 2
-     layers, seq 4096, global batch 2: one row a rank; AdamW's default
-     clip of 1.0, constant lr 3e-4). This process first runs the
-     one-rank reference from the parameters drawn once from seed 0 (3
-     uncompressed steps: each loss, step 1's gradient, the params after
-     3 steps; the one-rank `compress` of that gradient and its sketch)
-     and writes it with the parameters under `tempfile.mkdtemp()` (about
-     25 GB free needed, checked first); the ranks read their blocks of
-     it. 20a: 3 uncompressed FSDP steps (`build_train_step(mesh=)`,
-     each rank holding its blocks of params, m and v, their bytes
-     printed: half of the whole for every sharded leaf); step 1's loss
-     within 1e-5 relative of the one-rank step's and steps 2-3 within
-     1e-4, step 1's mean gradient (through the step's own gather and
-     reduce-scatter) within 2e-3 of max|g|, the params after 3 steps
-     within 6 lr. 20b: the compressor split over the ranks
-     (`bucket_spec`): the sketch and the EF of the one-rank gradient
-     within 1e-4 of the one-rank `compress`'s; 3 compressed steps on the
-     unfused branch, every loss finite, K1 and K2 launched on each rank
-     (their launches go into the training rows). 20c:
-     `train_loop.run(mesh=, shardings=)` with async saves every 2 steps
-     (rank 0 writes whole leaves) and a crash before step 3 under
-     `run_with_restarts`, restored through `restore(shardings=)`: params,
-     m and v bit-equal on both ranks to 20a's uninterrupted run; the
-     bytes on disk and each rank's restore seconds. 20d: 3 steps of
+     layers, seq cut to 1024 and its bf16 steps under `cast_params_once`
+     on both sides (for phase 22's time), global batch 2: one row
+     a rank; AdamW's default clip of 1.0, constant lr 3e-4). This process
+     first runs the one-rank reference from the parameters drawn once
+     from seed 0 (2 uncompressed steps: each loss, step 1's gradient, the
+     params after them; the one-rank `compress` of that gradient and its
+     sketch) and writes it with the parameters under
+     `tempfile.mkdtemp()` (about 25 GB free needed, checked first); the
+     ranks read their blocks of it. 20a: 2 uncompressed FSDP steps (cut
+     from 3; `build_train_step(mesh=)`, each rank holding its
+     blocks of params, m and v, their bytes printed: half of the whole
+     for every sharded leaf); step 1's loss within 1e-5 relative of the
+     one-rank step's and step 2 within 1e-4, step 1's mean gradient
+     (through the step's own gather and reduce-scatter) within 2e-3 of
+     max|g|, the params after the steps within 6 lr. 20b: the compressor
+     split over the ranks (`bucket_spec`): the sketch and the EF of the
+     one-rank gradient within 1e-4 of the one-rank `compress`'s; 2
+     compressed steps on the unfused branch, every loss finite, K1 and
+     K2 launched on each rank (their launches go into the training
+     rows). 20c: `train_loop.run(mesh=, shardings=)` with async saves
+     every step (rank 0 writes whole leaves) and a crash before step 2
+     under `run_with_restarts`, restored through `restore(shardings=)`:
+     params, m and v bit-equal on both ranks to 20a's uninterrupted run;
+     the bytes on disk and each rank's restore seconds. 20d: 2 steps of
      `build_train_step(mesh=, fused_update=True)` (clip None, fp32
      compute on both sides) from the drawn parameters: the split K1 and
      K4's block form
      (`fused_update_block`, one launch a leaf: the whole leaf
-     reconstructed, the rank's blocks of params, m, v updated) against 3
+     reconstructed, the rank's blocks of params, m, v updated) against 2
      fused steps of phase 9's one-rank step (run by this process): step
-     1's loss within 1e-5, steps 2-3 within 1e-4, the params within 6 lr;
+     1's loss within 1e-5, step 2 within 1e-4, the params within 6 lr;
      the EF residual the same bits on both ranks; 11 K1 and 11 K4-block
      launches a step a rank, no K2 and no whole-leaf K4, no `unsketch`
      gather; then w_gate's block form against its plain version on the
@@ -300,22 +304,51 @@ Phases (each raises on failure, so the script exits non-zero):
      data=2, model=1)`, at phase 9's widths and depth cut with the
      sequence cut to 1024 (global batch 4: one row a rank), AdamW's clip
      of 1.0, lr 3e-4. This process first runs the one-rank compositions
-     from seed 0's parameters: 3 steps of the global batch, and 3 steps
-     of each pod's two rows through `compress_per_pod` (`sketch-mean`,
-     phase 9's compressor) and `adamw.update`; the ranks then run 3
-     uncompressed steps (FSDP over pod x data, each rank a quarter of
-     params, m and v) and 3 compressed ones (FSDP over data within the
-     pod, `compress_collective` across pods, each rank half of them and
-     its pod's residual whole): each step's loss within 1e-5 (step 1) /
-     1e-4 and its clip norm within 2e-3 of the composition's, the params
-     within 6 lr after 3 steps, the two pods' ranks of a data index the
+     from seed 0's parameters: 2 steps (cut from 3) of the global
+     batch, and 2 of each pod's two rows through `compress_per_pod`
+     (`sketch-mean`, phase 9's compressor) and `adamw.update`; the ranks
+     then run 2 uncompressed steps (FSDP over pod x data, each rank a
+     quarter of params, m and v) and 2 compressed ones (FSDP over data
+     within the pod, `compress_collective` across pods, each rank half of
+     them and its pod's residual whole): each step's loss within 1e-5
+     (step 1) / 1e-4 and its clip norm within 2e-3 of the composition's,
+     the params within 6 lr after the steps, the two pods' ranks of a data index the
      same bits, the ledger's `compress` bytes = `wire_bytes`, K1 and K2
      launched, each rank's peak at most 18 GiB. The numbers go on the
      `pod_data` line.
+  22. the model axis (tensor, sequence and expert parallelism) on gloo
+     ranks sharing the card, at phase 9's llama3.2-3b widths and 2
+     layers, the sequence cut to 1024, global batch 2. This process first
+     runs the one-rank steps from seed 0's parameters (2 a mode, cut
+     from 3: uncompressed and compressed at bf16 compute with
+     `cast_params_once`, uncompressed and fused at fp32) for both parts.
+     22a, `(data=1, model=2)`: the bf16 uncompressed and compressed steps
+     and the fused ones on two ranks, each from its blocks of the same
+     parameters: step 1's loss within 1e-5, step 2's within 1e-4 (the
+     compressed one finite, as 20b's), the params within 6 lr after the
+     steps, the EF residual the same bits on both ranks; 11 K1 + 11 K2
+     launches a step a rank compressed, 11 K1 + 11 K4-block fused. 22b,
+     `(data=2, model=2)`, four ranks: the fp32 uncompressed and the fused
+     steps with the same bounds, K4's two-dim block form launched, the
+     EF's bits equal on all four ranks, each rank at most 18 GiB, and
+     w_gate's two-dim K4 block against its plain version on the card
+     (1e-4). 22c, serving on `(1, 2)`: llama3.2-3b at full depth (bf16)
+     and mixtral-8x22b at 2 layers (fp32, four experts a rank) through
+     `build_prefill_step(mesh=)` on 4 x 1024 tokens (after a 64-token
+     warm-up) and 32 eager `build_serve_step(mesh=)` steps from an empty
+     cache fed one rank's greedy tokens: the logits within LM_BF16_TOL
+     (bf16) or LM_DEC_TOL (fp32) of the largest of one rank's, the
+     tokens equal at every position clear by that bound. The numbers
+     (step ms, the last step's device ms, the ledger's bytes and host
+     ms by tag, bytes held and peak GiB a rank, K1/K2/K4 launches, prefill and
+     decode ms) go on the `tp` line. Phase 10 times K4's two-dim block
+     at w_gate (rank (0, 0)'s quarter) beside its bound, its plain
+     version and the unfused chain: the `fused_update_block2:train` row,
+     whose launches are 22b's.
 Then it prints the `collective` JSON line (phase 15's numbers), the
-`pod_ckpt`, `lm_serve`, `fsdp` and `pod_data` lines (phases 16 to 21),
-the `kernels` JSON line, the card's name and power limit, and as its
-last line `{"ok": true, "device": {...}}`.
+`pod_ckpt`, `lm_serve`, `fsdp`, `pod_data` and `tp` lines (phases 16 to
+22), the `kernels` JSON line, the card's name and power limit, and as
+its last line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -339,6 +372,11 @@ SMALL_DIMS = {2: (12, 20), 3: (6, 10, 14), 4: (4, 6, 5, 7), 5: (3, 4, 5, 3, 6)}
 # the training slice: llama3.2-3b cut to 2 layers, its train_4k sequence,
 # batch 2, and README's compressor flag
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_STEPS = 2, 2, 5
+# phases 15c and 16 run phase 9's widths at 1 layer (cut from 2 for phase
+# 22's time: the gloo collectives move the parameters); phases 20 and 21
+# keep 2 (at 1, 20a's step-2 loss parted by 1.06e-4 from one rank's under
+# its bf16 noise)
+MESH_LAYERS = 1
 TRAIN_COMPRESS = "tt:k=1024,rank=8,order=4"
 TRAIN_LR = 3e-4
 W_TOL_LR = 1e-3  # max|w'_fused - w'_unfused| in learning rates
@@ -353,6 +391,8 @@ SOURCES = {"sweep_project": "src/repro_torch/kernels/csrc/sweep_project.cu",
                "src/repro_torch/kernels/csrc/carry_sweep.cu",
            "fused_update": "src/repro_torch/kernels/csrc/fused_update.cu",
            "fused_update_block":
+               "src/repro_torch/kernels/csrc/fused_update.cu",
+           "fused_update_block2":
                "src/repro_torch/kernels/csrc/fused_update.cu"}
 REPLACES = {"sweep_project": "src/repro/kernels/_sweep.py:118",
             "sweep_project_pipelined": "src/repro/kernels/_sweep.py:204",
@@ -361,7 +401,8 @@ REPLACES = {"sweep_project": "src/repro/kernels/_sweep.py:118",
             "carry_sweep_project_pipelined":
                 "src/repro/kernels/struct/carry.py:182",
             "fused_update": "src/repro/kernels/fused_update.py:169",
-            "fused_update_block": "src/repro/kernels/fused_update.py:169"}
+            "fused_update_block": "src/repro/kernels/fused_update.py:169",
+            "fused_update_block2": "src/repro/kernels/fused_update.py:169"}
 SMALL_CARRY_DIMS = {2: (12, 20), 3: (6, 10, 14), 4: (4, 6, 5, 7),
                     5: (3, 4, 5, 3, 6), 6: (3, 2, 4, 3, 2, 3),
                     7: (2, 3, 2, 3, 2, 2, 3), 8: (2,) * 8}
@@ -748,6 +789,65 @@ def k4_block_row(time_row, errs, per_family, op, yj, leaves_in, j, fplan,
     return row
 
 
+def k4_block2_row(time_row, errs, per_family, op, yj, leaves_in, j, fplan,
+                  core_bytes, lr, c1, c2, khp, dense_g, shape_s) -> dict:
+    """K4's two-dim block form at leaf j (w_gate) of the training slice:
+    rank (0, 0)'s block of a (data=2, model=2) mesh (the leaf's dim 1 over
+    'data' and dim 2 over 'model', each halved), the whole error-fed
+    gradient and the leaf's sketch rows. Held against its plain version
+    and timed beside its bound, the plain version and the unfused chain on
+    the same block; its launches come from phase 22b."""
+    import torch
+    from repro_torch.kernels import fused_update as kfused
+    p = leaves_in[0][j]
+    shape = tuple(p.shape)
+    layout = kfused.BlockLayout.of(shape, 1, 0, shape[1] // 2, 2, 0,
+                                   shape[2] // 2)
+    blk = [t[j][:, :shape[1] // 2, :shape[2] // 2].contiguous()
+           for t in leaves_in[1:]]
+    size, nblk = layout.size, layout.numel
+
+    def kern():
+        return kfused.fused_update_block(op, yj, p, *blk, lr, c1, c2,
+                                         layout=layout, **khp)
+
+    def plain():
+        return kfused.fused_update_block_plain(op, yj, p, *blk, lr, c1, c2,
+                                               layout=layout, **khp)
+
+    def chain():
+        g = dense_g().reshape(-1)[:size]
+        hp = {key: khp[key] for key in ("b1", "b2", "eps", "weight_decay")}
+        return ((p.reshape(-1) - g).view(shape),) + kfused.adamw_epilogue(
+            layout.block_of(g), *(t.view(layout.view_shape) for t in blk),
+            lr, c1, c2, **hp)
+
+    key = "fused_update_block2:train"
+    got, ref = kern(), plain()
+    errs[key] = max(check(f"K4 two-dim block {shape_s}, rank (0, 0)'s "
+                          f"block {layout.shape} {name}", a, b)
+                    for name, a, b in zip(("resid", "w'", "m'", "v'"),
+                                          got, ref))
+    if not all(torch.equal(a, b) for a, b in zip(got, kern())):
+        raise AssertionError("K4 two-dim block: a second call on the same "
+                             "inputs gave other bits")
+    del got, ref
+    torch.cuda.empty_cache()
+    program, cheaper = fused_flops(fplan)
+    epilogue = 18 * fplan.b * math.prod(fplan.dims)
+    block_epi = size + 17 * nblk
+    nbytes = 4 * (yj.numel() + 2 * size + 6 * nblk) + core_bytes
+    per_family.setdefault(key, 0)
+    row = time_row(key, program - epilogue + block_epi,
+                   cheaper - epilogue + block_epi, nbytes, kern, plain,
+                   chain, f"{shape_s}; rank (0, 0)'s block {layout.shape} "
+                   f"of dims 1 and 2 of {shape}", reps=10)
+    row["library_call"] = ("unfused chain: one torch.einsum of the whole "
+                           "reconstruct, then the residual and the block's "
+                           "epilogue in torch ops")
+    return row
+
+
 def train_phases(dev, gen, errs, per_family, launches, time_row):
     """Phases 8-11: K4 against its plain version, the sketch-compressed
     training slice at full width, the fused update against the unfused
@@ -1068,11 +1168,12 @@ def train_phases(dev, gen, errs, per_family, launches, time_row):
         raise AssertionError("K4 at layers/w_gate: a second call on the "
                              "same inputs gave other bits")
     rows.append(row)
-    rows.append(k4_block_row(
-        time_row, errs, per_family, op, yj, leaves_in, names.index(
-            "layers/w_gate"), fplan, core_bytes, TRAIN_LR, c1, c2, khp,
-        lambda: dense_route(f"{lib_cores},nk->n{letters}", *cores, yj)
-        * scale_a, shape_s))
+    for row_fn in (k4_block_row, k4_block2_row):
+        rows.append(row_fn(
+            time_row, errs, per_family, op, yj, leaves_in, names.index(
+                "layers/w_gate"), fplan, core_bytes, TRAIN_LR, c1, c2, khp,
+            lambda: dense_route(f"{lib_cores},nk->n{letters}", *cores, yj)
+            * scale_a, shape_s))
     p5plan = ops.plan_contraction("tt", "project", op.k, nb, op.in_dims,
                                   op.rank, pipeline="double")
 
@@ -2097,10 +2198,11 @@ def _rel_norm(a, b) -> float:
                  / max(float(torch.linalg.norm(a.reshape(-1))), 1e-30))
 
 
-def _pod_ranks(task: str, shapes, extra: dict, world: int = 2
-               ) -> list[dict]:
+def _pod_ranks(task: str, shapes, extra: dict, world: int = 2,
+               beside=None) -> list[dict]:
     """Run `task` on `world` gloo ranks that share the card; each rank's
-    result dict comes back as JSON. A rank that fails fails the phase."""
+    result dict comes back as JSON. A rank that fails fails the phase.
+    `beside()`, when given, runs in this process while the ranks do."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -2109,6 +2211,13 @@ def _pod_ranks(task: str, shapes, extra: dict, world: int = 2
                                               extra),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + POD_TIMEOUT
+    if beside is not None:
+        try:
+            beside()
+        except BaseException:
+            for p in ctx.processes:
+                p.kill()
+            raise
     while not ctx.join(timeout=2.0):
         if time.monotonic() > deadline:
             for p in ctx.processes:
@@ -2136,7 +2245,8 @@ def _pod_rank(rank, world, tmp, task, shapes, extra):
     try:
         res = {"collective": _pod_collective, "train": _pod_train,
                "ckpt": _pod_ckpt, "fsdp": _fsdp_rank,
-               "pod_data": _pod_data_rank}[task](rank, shapes, extra)
+               "pod_data": _pod_data_rank,
+               "tp_train": _tp_train_rank}[task](rank, shapes, extra)
         Path(tmp, f"{task}_{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -2304,8 +2414,8 @@ def _pod_collective(rank, shapes, extra):
 
 def _pod_train(rank, shapes, extra):
     """15c on one rank: the pod train step at phase 9's widths (pod=2,
-    one row a pod): sketch-mean fp32 (a warm-up and 3 counted steps),
-    sketch-mean int8 (3), local-mean fp32 (1); each step's loss, device
+    one row a pod): sketch-mean fp32 (a warm-up and 2 counted steps, cut
+    from 3), sketch-mean int8 (2), local-mean fp32 (1); each step's loss, device
     ms and parts, the collective's host ms, the params' digest (ranks
     compare), the K1/K2 launches; then the peak memory."""
     import dataclasses
@@ -2341,7 +2451,7 @@ def _pod_train(rank, shapes, extra):
                                   global_batch=2, seed=0))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    plan = [("sketch-mean", "fp32", 1, 3), ("sketch-mean", "int8", 0, 3),
+    plan = [("sketch-mean", "fp32", 1, 2), ("sketch-mean", "int8", 0, 2),
             ("local-mean", "fp32", 0, 1)]
     out, i = [], 0
     for sync, wire, warm, counted in plan:
@@ -2541,7 +2651,7 @@ def pod_phase(dev) -> dict:
     _free(dev)
     free, total = (torch.cuda.mem_get_info() if dev.type == "cuda"
                    else (float("inf"), float("inf")))
-    layers = arch.n_layers
+    layers = MESH_LAYERS
     if free / 1e9 < 2 * POD_GB_A_RANK:
         layers = 1
     log(f"15c: {free / 1e9:.1f} GB free of {total / 1e9:.1f} GB; two ranks "
@@ -2582,7 +2692,7 @@ def pod_phase(dev) -> dict:
            "--arch", "llama3.2-3b", "--reduced", "--mesh", "2x1x1",
            "--dist-backend", "gloo", "--compress",
            "tt:k=1024,rank=8,dims=4x8x16", "--compress-sync", "sketch-mean",
-           "--steps", "20"] + (["--device", "cpu"] if dev.type == "cpu"
+           "--steps", "10"] + (["--device", "cpu"] if dev.type == "cpu"
                                else [])
     env = dict(__import__("os").environ, PYTHONPATH=str(SRC))
     done = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
@@ -2608,13 +2718,14 @@ def pod_phase(dev) -> dict:
 # phase 16: pod-mesh checkpoints
 # ---------------------------------------------------------------------------
 
-POD_CKPT_STEPS = 4    # 16a: steps of a run; saves every 2, a crash at 3
+POD_CKPT_STEPS = 2    # 16a: steps of a run (cut from 4 for the smoke's
+                      # time); saves every step, a crash before the last
 
 
 def _pod_ckpt(rank, shapes, extra):
     """16a-b on one rank of the (pod=2) mesh at phase 9's widths: the pod
-    train loop uninterrupted, then with dense-EF checkpoints every 2 steps
-    and a crash at step 3 on both ranks, restarted from the directory;
+    train loop uninterrupted, then with dense-EF checkpoints every step
+    and a crash before the last on both ranks, restarted from the directory;
     the digests of params, m, v and this rank's EF row after both. Then
     one more step whose save writes a sketched record of the stacked rows
     (K1 on rank 0), the record restored through K2 twice (the stacked
@@ -2676,7 +2787,8 @@ def _pod_ckpt(rank, shapes, extra):
     del plain
     _free(dev)
 
-    # -- 16a: dense EF, a crash at step 3 on both ranks, the restart -----
+    # -- 16a: dense EF, a crash before the last step on both ranks, the
+    # restart --
     save_ms, final = [], {}
     async_save = checkpointer.AsyncCheckpointer.save
 
@@ -2689,7 +2801,7 @@ def _pod_ckpt(rank, shapes, extra):
         final["state"], step = train_loop.run(
             step_fn, fresh(), data, train_loop.LoopConfig(
                 total_steps=POD_CKPT_STEPS, ckpt_dir=extra["dense_dir"],
-                ckpt_every=2, keep_ckpts=1, npod=2, log_every=100),
+                ckpt_every=1, keep_ckpts=1, npod=2, log_every=100),
             injector=injector, mesh=mesh, log=quiet)
         return step
 
@@ -2697,8 +2809,9 @@ def _pod_ckpt(rank, shapes, extra):
     checkpointer.AsyncCheckpointer.save = timed_save
     t0 = time.perf_counter()
     try:
-        report = run_with_restarts(attempt, max_restarts=1,
-                                   injector=FaultInjector({3}))
+        report = run_with_restarts(
+            attempt, max_restarts=1,
+            injector=FaultInjector({POD_CKPT_STEPS - 1}))
     finally:
         checkpointer.AsyncCheckpointer.save = async_save
     if not report.completed:
@@ -2760,13 +2873,15 @@ def _pod_ckpt(rank, shapes, extra):
     return res
 
 
-def pod_ckpt_phase(dev) -> dict:
+def pod_ckpt_phase(dev, beside=None) -> dict:
     """Phase 16: pod-mesh checkpoints. 16a-b on two gloo ranks sharing
-    the card (`_pod_ckpt`); 16c in this process: the 2-pod checkpoint
-    restored onto one pod of an NCCL mesh, its EF's digest that of the
-    fixed-order sum of the two rows (computed by rank 0 from the rows it
-    gathered). Returns the numbers of the `pod_ckpt` line, with the
-    K1/K2 launches of the phase under `launches`."""
+    the card (`_pod_ckpt`), `beside()` in this process meanwhile; 16c in
+    this process: the 2-pod checkpoint restored onto one pod of an NCCL
+    mesh, its EF's digest that of the fixed-order sum of the two rows
+    (computed by rank 0 from the rows it gathered). Returns the numbers
+    of the `pod_ckpt` line, with the K1/K2 launches of the phase under
+    `launches`."""
+    import dataclasses
     import shutil
     import tempfile
 
@@ -2794,15 +2909,20 @@ def pod_ckpt_phase(dev) -> dict:
                              f"under {root}, {free_disk / 1e9:.2f} GB there")
     free, total = (torch.cuda.mem_get_info() if dev.type == "cuda"
                    else (float("inf"), float("inf")))
-    layers = arch.n_layers if free / 1e9 >= 2 * POD_GB_A_RANK + 10 else 1
+    layers = MESH_LAYERS if free / 1e9 >= 2 * POD_GB_A_RANK + 10 else 1
     log(f"16a: {free / 1e9:.1f} GB free of {total / 1e9:.1f} GB: running "
         f"{layers} layer(s)")
+    # 16c restores the ranks' checkpoint: the leaves of `layers` layers
+    from repro_torch.models import build_model
+    shapes = tree_map(lambda t: tuple(t.shape), build_model(
+        dataclasses.replace(arch, n_layers=layers)).param_shapes())
     dense_dir, sk_dir = tempfile.mkdtemp(), tempfile.mkdtemp()
     try:
         t0 = time.perf_counter()
         ranks = _pod_ranks("ckpt", shapes, {
             "layers": layers, "device": str(dev), "cfg": arch,
-            "seq": shape.seq_len, "dense_dir": dense_dir, "sk_dir": sk_dir})
+            "seq": shape.seq_len, "dense_dir": dense_dir, "sk_dir": sk_dir},
+            beside=beside)
         numbers = {"layers": layers, "ranks_s": time.perf_counter() - t0,
                    "ranks": ranks}
         launches = {"sweep_project": 0, "sweep_reconstruct": 0}
@@ -2880,8 +3000,9 @@ def pod_ckpt_phase(dev) -> dict:
 # phase 17: LM serving at full width
 # ---------------------------------------------------------------------------
 
-# (arch, slots, requests) at full depth and width
-LM_CASES = (("llama3.2-3b", 8, 16), ("gemma2-9b", 4, 8))
+# (arch, slots, requests) at full depth and width: one wave of requests a
+# server (cut from 16 and 8 for phase 22's time)
+LM_CASES = (("llama3.2-3b", 8, 8), ("gemma2-9b", 4, 4))
 LM_MAX_SEQ = 512
 LM_PROMPT = (64, 128)  # prompt lengths, drawn from a seeded generator
 LM_GEN = 32
@@ -3880,8 +4001,30 @@ def rec_phase(dev) -> dict:
 # phase 20: the data axis (FSDP) on two gloo ranks sharing the card
 # ---------------------------------------------------------------------------
 
-FSDP_STEPS = 3         # 20a and 20b: counted steps of each run
-FSDP_CRASH = 2         # 20c: saves every 2 steps, a crash before step 3
+def _cast_once(fn):
+    """`fn` run under `models.settings.override(cast_params_once=True)`:
+    phase 20 (for phase 22's time) casts the fp32 matrices to the
+    bf16 compute dtype before the forward on one rank and on the mesh
+    alike, so the FSDP gathers and their reduces move half the bytes (a
+    no-op at fp32 compute: 20d). Phase 21 does not: its clip norm, of
+    gradients a bf16 embedding accumulates in bf16 on each side, parted
+    by 1.2% from one rank's on the card)."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kw):
+        from repro_torch.models import settings
+        with settings.override(cast_params_once=True):
+            return fn(*args, **kw)
+    return wrapped
+
+
+FSDP_STEPS = 2         # 20a, 20b, 20c, 20d: steps of each run (cut from
+                       # 3 for phase 22's time)
+FSDP_SEQ = 1024        # cut from train_4k's 4096 for phase 22's
+                       # time: the steps' gathers move the params, not
+                       # the sequence
+FSDP_CRASH = 1         # 20c: saves every step, a crash before step 2
 FSDP_LOSS_RTOL = 1e-5  # step 1's loss against the one-rank step's
 FSDP_LATER_RTOL = 1e-4  # steps 2-3: the params already differ by up to 2
                         # lr where AdamW's sqrt(v) is near eps, and this
@@ -3897,9 +4040,9 @@ FSDP_FUSED_COMPUTE = "float32"
 
 
 def _fsdp_slice():
-    """Phase 20's slice: phase 9's llama3.2-3b widths and depth cut, its
-    sequence, global batch 2, AdamW with its default clip of 1.0 and a
-    constant lr (model, cfg, shape, opt, lr_fn, data)."""
+    """Phase 20's slice: phase 9's llama3.2-3b widths and depth cut, the
+    sequence cut to FSDP_SEQ, global batch 2, AdamW with its default clip
+    of 1.0 and a constant lr (model, cfg, shape, opt, lr_fn, data)."""
     import dataclasses
     import functools
 
@@ -3911,7 +4054,7 @@ def _fsdp_slice():
 
     cfg = dataclasses.replace(get_config("llama3.2-3b"),
                               n_layers=TRAIN_LAYERS)
-    shape = ShapeSpec("train_4k", cfg.shape("train_4k").seq_len, 2, "train")
+    shape = ShapeSpec("train_1k", FSDP_SEQ, 2, "train")
     return (build_model(cfg), cfg, shape, AdamWConfig(),
             functools.partial(schedule.constant, peak_lr=TRAIN_LR),
             SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
@@ -3919,17 +4062,21 @@ def _fsdp_slice():
 
 
 def _ledger_by_tag(led) -> dict:
-    """{tag: {op, calls, bytes, host_ms}} of a ledger's rows."""
+    """{tag: {op, calls, bytes, host_ms}} of a ledger's rows (the ops of a
+    tag joined by '+' where it ran more than one)."""
     out = {}
     for r in led.table():
         row = out.setdefault(r["tag"], {"op": r["op"], "calls": 0,
                                         "bytes": 0, "host_ms": 0.0})
+        if r["op"] not in row["op"].split("+"):
+            row["op"] += "+" + r["op"]
         row["calls"] += r["calls"]
         row["bytes"] += r["bytes"]
         row["host_ms"] += 1e3 * r["host_s"]
     return out
 
 
+@_cast_once
 def _fsdp_rank(rank, shapes, extra):
     """20a-c on one rank of the (data=2, model=1) mesh; every check that
     needs the one-rank reference reads it from the phase's files (memory
@@ -4129,7 +4276,7 @@ def _fsdp_rank(rank, shapes, extra):
         final["state"], step = train_loop.run(
             step_fn, fresh(), data, train_loop.LoopConfig(
                 total_steps=FSDP_STEPS, ckpt_dir=extra["ckpt_dir"],
-                ckpt_every=2, keep_ckpts=1, log_every=100),
+                ckpt_every=1, keep_ckpts=1, log_every=100),
             injector=injector, mesh=mesh, shardings=specs,
             log=lambda *_: None)
         return step
@@ -4159,6 +4306,7 @@ def _fsdp_rank(rank, shapes, extra):
     return res
 
 
+@_cast_once
 def fsdp_phase(dev) -> dict:
     """Phase 20: the train step on a (data=2, model=1) mesh of two gloo
     ranks sharing the card, at phase 9's widths. This process first runs
@@ -4242,8 +4390,9 @@ def fsdp_phase(dev) -> dict:
         del ref
         _free(dev)
         ref_s = time.perf_counter() - t0
-        log(f"20: the one-rank reference (3 steps, step 1's gradient and "
-            f"its compress, 3 fused steps) took {ref_s:.1f} s; losses "
+        log(f"20: the one-rank reference ({FSDP_STEPS} steps, step 1's "
+            f"gradient and its compress, {FSDP_STEPS} fused steps) took "
+            f"{ref_s:.1f} s; losses "
             f"{losses}, fused {fused_losses}")
 
         # -- 20a-c on two ranks ---------------------------------------------
@@ -4370,6 +4519,8 @@ def fsdp_phase(dev) -> dict:
 
 POD_DATA_SEQ = 1024     # cut from train_4k's 4096 so that four ranks fit
 POD_DATA_BATCH = 4      # one row a rank
+POD_DATA_STEPS = 2      # steps a mode (cut from 3 for phase 22's
+                        # time)
 POD_DATA_GIB = 18.0     # a rank's peak device memory, at most
 POD_DATA_MODES = ("uncompressed", "compressed")
 
@@ -4447,7 +4598,7 @@ def _pod_data_rank(rank, shapes, extra):
                                          lr_fn=lr_fn, compressor=comp)
         kernels.reset_launch_counts()
         rows = []
-        for i in range(FSDP_STEPS):
+        for i in range(POD_DATA_STEPS):
             shard.collective_ledger().reset()
             s_ev, e_ev = _mark(dev), _mark(dev)
             s_ev.record()
@@ -4507,7 +4658,7 @@ def pod_data_phase(dev) -> dict:
     host = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
     batches = [{k: torch.as_tensor(v).to(dev)
                 for k, v in data.batch(i).items()}
-               for i in range(FSDP_STEPS)]
+               for i in range(POD_DATA_STEPS)]
     try:
         t0 = time.perf_counter()
         state = steps.init_train_state(
@@ -4517,7 +4668,7 @@ def pod_data_phase(dev) -> dict:
         step_fn = steps.build_train_step(model, shape, opt=opt, lr_fn=lr_fn,
                                          device=dev)
         runs = []
-        for i in range(FSDP_STEPS):
+        for i in range(POD_DATA_STEPS):
             state, met = step_fn(state, data.batch(i))
             runs.append((float(met["loss"]), float(met["grad_norm"])))
         ref["params3_uncompressed"] = host(state["params"])
@@ -4534,7 +4685,7 @@ def pod_data_phase(dev) -> dict:
             (2,) + tuple(t.shape), device=dev), params)}
         half = POD_DATA_BATCH // 2
         runs = []
-        for i in range(FSDP_STEPS):
+        for i in range(POD_DATA_STEPS):
             leaves, treedef = tree_flatten(params)
             losses, grads = [], []
             for p in range(2):
@@ -4564,7 +4715,8 @@ def pod_data_phase(dev) -> dict:
         torch.save(ref, root / "ref.pt")
         del ref
         ref_s = time.perf_counter() - t0
-        log(f"21: the one-rank compositions (3 steps each) took "
+        log(f"21: the one-rank compositions ({POD_DATA_STEPS} steps each) "
+            f"took "
             f"{ref_s:.1f} s; (loss, clip norm) {want}")
         t0 = time.perf_counter()
         ranks = _pod_ranks("pod_data", None, {"device": str(dev),
@@ -4586,7 +4738,7 @@ def pod_data_phase(dev) -> dict:
                 f"{[s['loss'] for s in m['steps']]} (one-rank "
                 f"{[x[0] for x in want[mode]]}); step ms "
                 f"{[round(s['step_ms'], 1) for s in m['steps']]}; params "
-                f"after {FSDP_STEPS} steps {m['param_lr']:.3f} lr from the "
+                f"after {POD_DATA_STEPS} steps {m['param_lr']:.3f} lr from the "
                 f"one-rank's; ledger of the last step "
                 f"{m['steps'][-1]['ledger']}")
             for i, s_ in enumerate(m["steps"]):
@@ -4641,6 +4793,631 @@ def pod_data_phase(dev) -> dict:
         f"{numbers['uncompressed_step_ms_median']:.1f} uncompressed, "
         f"{numbers['compressed_step_ms_median']:.1f} compressed; peak GiB "
         f"{numbers['peak_gib']}; K1/K2 launches {launches}")
+    return numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the model axis (TP/SP/EP) on gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+TP_SEQ = 1024           # 22a/22b: cut from train_4k's 4096, as phase 21's:
+                        # the model axis gathers the sequence through gloo
+TP_BATCH = 2            # phase 9's batch: on (2, 2) a row a data index, so
+                        # 22a and 22b share the one-rank steps
+TP_GIB = 18.0           # 22b: a rank's peak device memory, at most
+TP_STEPS = 2            # 22a/22b: steps a mode (cut from 3 for the
+                        # smoke's time)
+TP_A_MODES = ("uncompressed", "compressed", "fused")
+TP_B_MODES = ("uncompressed-fp32", "fused")
+# (arch, layers or None for all, slots, compute dtype): mixtral's at fp32,
+# where the mesh's and one rank's router logits cannot part across a near
+# tie of the top two experts (a bf16 rounding there picks another expert)
+TP_SERVE = (("llama3.2-3b", None, 8, "bfloat16"),
+            ("mixtral-8x22b", 2, 4, "float32"))
+TP_PROMPT = (4, 1024)   # 22c: the mesh prefill's batch and prompt length
+TP_DECODE = 32          # 22c: eager mesh decode steps
+TP_MAX_SEQ = 512        # 22c: the decode cache, as phase 17's
+
+
+def _tp_slice(batch: int):
+    """Phase 22a/b's slice: phase 9's llama3.2-3b widths and depth cut,
+    the sequence cut to TP_SEQ, AdamW with its clip of 1.0, a constant lr
+    (model, cfg, shape, opt, lr_fn, data)."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import AdamWConfig, schedule
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              n_layers=TRAIN_LAYERS)
+    shape = ShapeSpec("train_1k", TP_SEQ, batch, "train")
+    return (build_model(cfg), cfg, shape, AdamWConfig(),
+            functools.partial(schedule.constant, peak_lr=TRAIN_LR),
+            SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TP_SEQ,
+                                   global_batch=batch, seed=0)))
+
+
+def _tp_mode(mode: str, opt):
+    """(compressor, AdamWConfig, fused, compute dtype) of a mode: the
+    fused one at fp32 compute and clip None (as 20d), 'uncompressed-fp32'
+    (22b's) at fp32 compute, the others at the policy's bf16, which
+    `cast_params_once` (`_tp_settings`) then casts the matrices to before
+    the forward on both sides."""
+    import dataclasses
+
+    import torch
+    from repro_torch.optim.compress import (SketchCompressor,
+                                            parse_compress_flag)
+    comp = (SketchCompressor(parse_compress_flag(TRAIN_COMPRESS))
+            if not mode.startswith("uncompressed") else None)
+    if mode == "fused":
+        return (comp, dataclasses.replace(opt, clip_norm=None), True,
+                torch.float32)
+    if mode == "uncompressed-fp32":
+        return comp, opt, False, torch.float32
+    return comp, opt, False, torch.bfloat16
+
+
+def _tp_settings(compute):
+    """The model settings of a mode's steps, one rank's and the mesh's:
+    `cast_params_once` at bf16 compute (the tied embedding's model gather
+    and the gathers' reduces move bf16)."""
+    import torch
+    from repro_torch.models import settings
+    return settings.override(cast_params_once=compute == torch.bfloat16)
+
+
+def _device_ms(fn, on: bool):
+    """(fn(), the device ms of the work it queued: every CUDA activity
+    torch.profiler recorded, kernels and copies, summed; None when `on`
+    is false or the profiler recorded none)."""
+    if not on:
+        return fn(), None
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ms = sum((getattr(ev, "device_time_total", 0)
+              or getattr(ev, "cuda_time_total", 0))
+             for ev in prof.key_averages()) / 1e3
+    return out, ms or None
+
+
+def _draw_blocks(model, mesh, dev, seed: int = 0, dtype=None):
+    """This rank's blocks of `model.init(Generator(dev).manual_seed(seed))`
+    on `mesh` (`sharding.param_specs`), drawn leaf by leaf on the card in
+    `init`'s order, each whole leaf freed once its block is kept: the
+    same bits as sharding the whole tree, at one leaf's memory."""
+    import torch
+    from repro_torch.launch import fsdp, sharding
+    from repro_torch.models import params as ptree
+    from repro_torch.models import transformer
+    dtype = dtype or torch.float32
+    cfg = model.cfg
+    specs = fsdp._flat_specs(sharding.param_specs(
+        cfg, model.param_axes(), mesh, model.param_shapes()))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out: dict = {}
+    for path, (shape, _, kind) in sorted(transformer._spec(cfg).items()):
+        if kind == "norm":
+            kind = "zeros" if cfg.norm_offset else "ones"
+        leaf = ptree.draw(kind, shape, gen, dtype)
+        blk = fsdp.block(leaf, specs[path], mesh)
+        ptree.assign(out, path, blk.clone() if blk is not leaf else leaf)
+        del leaf, blk
+    return out
+
+
+def _tp_train_rank(rank, shapes, extra):
+    """22a or 22b on one rank of the (data, model) mesh `extra["mesh"]`:
+    TP_STEPS steps a mode from seed 0's parameters (this rank's blocks of
+    them), each step's loss and device ms and the ledger by tag, this
+    rank's blocks after the steps against the same blocks of the one-rank
+    steps' (memory mapped), the EF residual's digest, the K1/K2/K4
+    launches of the steps, bytes held and the peak; on (2, 2) then w_gate's
+    two-dim K4 block against its plain version on the card."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import _sweep
+    from repro_torch.kernels import fused_update as kfused
+    from repro_torch.launch import fsdp, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.rp import shard
+
+    dev = torch.device(extra["device"])
+    shape_m = tuple(extra["mesh"])
+    mesh = make_mesh(shape_m, ("data", "model"), device=dev, backend="gloo")
+    model, cfg, shape, opt, lr_fn, data = _tp_slice(extra["batch"])
+    ref = torch.load(Path(extra["root"]) / "ref.pt", mmap=True,
+                     weights_only=True)
+    res = {"rank": rank, "coordinate": mesh.coordinate, "launches": {
+        "sweep_project": 0, "sweep_reconstruct": 0, "fused_update_block": 0,
+        "fused_update_block2": 0}}
+    pspecs = steps.state_specs(model, mesh)["params"]
+    view = fsdp.Sharded(mesh, pspecs)
+    for mode in extra["modes"]:
+        comp, mopt, fused, compute = _tp_mode(mode, opt)
+        params = _draw_blocks(model, mesh, dev)
+        state = {"params": params, "opt": adamw.init_state(params, mopt)}
+        if comp is not None:    # the EF residual, whole
+            state["ef"] = {"residual": tree_map(lambda t: torch.zeros(
+                t.shape, device=dev), model.param_shapes())}
+        held = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(state["params"]))
+        step_fn = steps.build_train_step(
+            model, shape, mesh=mesh, opt=mopt, lr_fn=lr_fn, compressor=comp,
+            fused_update=fused, compute_dtype=compute)
+        kernels.reset_launch_counts()
+        rows = []
+        for i in range(TP_STEPS):
+            shard.collective_ledger().reset()
+            s_ev, e_ev = _mark(dev), _mark(dev)
+            s_ev.record()
+            with _tp_settings(compute):   # the last step's device ms too
+                (state, met), dev_ms = _device_ms(
+                    lambda: step_fn(state, data.batch(i)),
+                    i == TP_STEPS - 1 and dev.type == "cuda")
+            e_ev.record()
+            _sync(dev)
+            rows.append({"loss": float(met["loss"]),
+                         "step_ms": s_ev.elapsed_time(e_ev),
+                         "device_ms": dev_ms,
+                         "ledger": _ledger_by_tag(shard.collective_ledger())})
+        got = {"sweep_project": _sweep.sweep_project.launches,
+               "sweep_reconstruct": _sweep.sweep_reconstruct.launches,
+               "fused_update": kfused.fused_update_buckets.launches,
+               "fused_update_block": kfused.fused_update_block.launches,
+               "fused_update_block2": kfused.fused_update_block.launches_2d}
+        for name in res["launches"]:
+            res["launches"][name] += got[name]
+        worst = 0.0
+        for b, w in zip(tree_leaves(state["params"]),
+                        tree_leaves(view.blocks(ref[f"params3_{mode}"]))):
+            worst = max(worst, float((b.float() - w.to(dev)).abs().max()))
+        res[mode] = {"steps": rows, "param_lr": worst / TRAIN_LR,
+                     "held_bytes": held, "launches": got,
+                     "ef_digest": (bits_digest(state["ef"]["residual"])
+                                   if "ef" in state else None)}
+        if fused and shape_m == (2, 2):
+            res["block2_rel"] = _tp_block2_check(model, mesh, view, state,
+                                                 comp, mopt, dev)
+        del state, params
+        _free(dev)
+    res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if dev.type == "cuda" else None)
+    if "serve" in extra:    # 22c on the same ranks
+        res["serve"] = _tp_serve_rank(mesh, dev, rank, extra["serve"])
+    return res
+
+
+def _tp_block2_check(model, mesh, view, state, comp, opt, dev) -> float:
+    """w_gate's two-dim K4 block (dim 1 over 'data', dim 2 over 'model')
+    against its plain version on the card: the rank's blocks after the
+    steps, the residual as the error-fed gradient, its sketch by the last
+    step's operator. Returns max |d| / max |plain| over the outputs."""
+    from repro_torch import rp
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import fused_update as kfused
+    names = ["/".join(key) for key in _leaf_names(state["params"])]
+    j = names.index("layers/w_gate")
+    p_leaf = tree_leaves(state["ef"]["residual"])[j]
+    blk = [tree_leaves(t)[j].contiguous() for t in (
+        state["params"], state["opt"]["m"], state["opt"]["v"])]
+    op = comp.cfg.operator(comp._key(TP_STEPS - 1), dev)
+    sk = comp._sketcher(state["ef"]["residual"])
+    y = rp.project(op, sk._leaf_to_buckets(p_leaf, sk._nb[j])).contiguous()
+    rng = view.ranges(model.param_shapes())[j]
+    if rng is None or len(rng) != 6:
+        raise AssertionError(f"22b: w_gate's block is not split on two "
+                             f"dims: {rng}")
+    layout = kfused.BlockLayout.of(tuple(p_leaf.shape), *rng)
+    khp = dict(alpha=comp.cfg.shrinkage(), b1=opt.b1, b2=opt.b2,
+               eps=opt.eps, weight_decay=opt.weight_decay)
+    got = kfused.fused_update_block(op, y, p_leaf, *blk, TRAIN_LR, 0.1, 0.05,
+                                    layout=layout, **khp)
+    want = kfused.fused_update_block_plain(op, y, p_leaf, *blk, TRAIN_LR,
+                                           0.1, 0.05, layout=layout, **khp)
+    return max(rel_err(a, b)[1] for a, b in zip(got, want))
+
+
+def _tp_reference(dev, root: Path, modes) -> tuple[dict, dict]:
+    """The one-rank steps of each mode from the drawn parameters (TP_STEPS
+    a mode), their params after the steps written to `root` for the ranks
+    (then the card freed); returns each mode's losses and its last step's
+    device ms."""
+    import shutil
+
+    import torch
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch import steps
+
+    model, cfg, shape, opt, lr_fn, data = _tp_slice(TP_BATCH)
+    p_bytes = 4 * sum(t.numel() for t in tree_leaves(model.param_shapes()))
+    need = 1.1 * len(modes) * p_bytes
+    if shutil.disk_usage(root).free < need:
+        raise AssertionError(f"phase 22 needs {need / 1e9:.2f} GB free "
+                             f"under {root}")
+    host = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+    ref, want, device_ms = {}, {}, {}
+    for mode in modes:
+        comp, mopt, fused, compute = _tp_mode(mode, opt)
+        state = steps.init_train_state(
+            model, torch.Generator(device=dev).manual_seed(0), opt=mopt,
+            compressor=comp)
+        step_fn = steps.build_train_step(
+            model, shape, opt=mopt, lr_fn=lr_fn, compressor=comp,
+            fused_update=fused, compute_dtype=compute, device=dev)
+        losses = []
+        for i in range(TP_STEPS):
+            with _tp_settings(compute):   # the last step's device ms too
+                (state, met), dev_ms = _device_ms(
+                    lambda: step_fn(state, data.batch(i)),
+                    i == TP_STEPS - 1 and dev.type == "cuda")
+            losses.append(float(met["loss"]))
+        ref[f"params3_{mode}"] = host(state["params"])
+        want[mode] = losses
+        device_ms[mode] = dev_ms
+        del state, step_fn
+        _free(dev)
+    torch.save(ref, root / "ref.pt")
+    return want, device_ms
+
+
+def _tp_train_part(dev, part: str, mesh_shape, modes, root: Path,
+                   want: dict, serve: dict | None = None) -> dict:
+    """22a or 22b: the ranks' steps against the one-rank steps' (`want`,
+    and the params under `root`); the checks; the numbers. `serve` hands
+    the ranks 22c's cases after their steps."""
+    from repro_torch.core.tree import tree_leaves
+
+    model, cfg, shape, opt, lr_fn, data = _tp_slice(TP_BATCH)
+    p_bytes = 4 * sum(t.numel() for t in tree_leaves(model.param_shapes()))
+    t0 = time.perf_counter()
+    extra = {"device": str(dev), "root": str(root),
+             "mesh": list(mesh_shape), "batch": TP_BATCH,
+             "modes": list(modes)}
+    if serve is not None:
+        extra["serve"] = serve
+    ranks = _pod_ranks("tp_train", None, extra,
+                       world=mesh_shape[0] * mesh_shape[1])
+    ranks_s = time.perf_counter() - t0
+    n_leaves = len(tree_leaves(model.param_shapes()))
+    launches = {"sweep_project": 0, "sweep_reconstruct": 0,
+                "fused_update_block": 0, "fused_update_block2": 0}
+    for r in ranks:
+        for name in launches:
+            launches[name] += r["launches"][name]
+        for mode in modes:
+            m = r[mode]
+            log(f"{part} {mode} rank {r['rank']} {r['coordinate']}: holds "
+                f"{m['held_bytes']} B of params of {p_bytes} B; losses "
+                f"{[s['loss'] for s in m['steps']]} (one-rank {want[mode]});"
+                f" step ms {[round(s['step_ms'], 1) for s in m['steps']]} "
+                f"(the last's device ms {m['steps'][-1]['device_ms']}); "
+                f"params after {TP_STEPS} steps {m['param_lr']:.3f} lr from"
+                f" the one-rank's; launches {m['launches']}; ledger of the "
+                f"last step {m['steps'][-1]['ledger']}")
+            for i, s_ in enumerate(m["steps"]):
+                # phase 20's bounds: 20a's (and 20d's) for the
+                # uncompressed and fused steps; 20b's for the compressed
+                # ones after step 1 (their sketched estimates part with the
+                # bf16 gradients' rounding), every loss finite
+                tol = FSDP_LOSS_RTOL if i == 0 else FSDP_LATER_RTOL
+                if mode == "compressed" and i > 0:
+                    tol = math.inf
+                if not math.isfinite(s_["loss"]) or abs(
+                        s_["loss"] - want[mode][i]) > tol * abs(want[mode][i]):
+                    raise AssertionError(
+                        f"{part} {mode} rank {r['rank']} step {i}: loss "
+                        f"{s_['loss']} vs one-rank {want[mode][i]}")
+            if m["param_lr"] > FSDP_PARAM_LR:
+                raise AssertionError(f"{part} {mode}: params "
+                                     f"{m['param_lr']} lr apart")
+            if m["held_bytes"] * mesh_shape[0] * mesh_shape[1] > \
+                    p_bytes * 1.01 + 1e8:
+                raise AssertionError(f"{part} {mode}: a rank holds "
+                                     f"{m['held_bytes']} B of {p_bytes}")
+            n = n_leaves * TP_STEPS
+            expect = {"uncompressed": {"sweep_project": 0,
+                                       "sweep_reconstruct": 0},
+                      "compressed": {"sweep_project": n,
+                                     "sweep_reconstruct": n},
+                      "fused": {"sweep_project": n, "sweep_reconstruct": 0,
+                                "fused_update": 0}}[mode.split("-")[0]]
+            got_l = m["launches"]
+            if any(got_l[k] != v for k, v in expect.items()) or (
+                    mode == "fused" and got_l["fused_update_block"]
+                    + got_l["fused_update_block2"] != n):
+                raise AssertionError(f"{part} {mode} rank {r['rank']}: "
+                                     f"launches {got_l}")
+            if mode == "fused" and mesh_shape == (2, 2) and \
+                    got_l["fused_update_block2"] == 0:
+                raise AssertionError(f"{part}: no two-dim K4 block launched")
+        if "block2_rel" in r:
+            log(f"{part} rank {r['rank']}: w_gate's two-dim K4 block "
+                f"{r['block2_rel']:.3e} of max|plain|")
+            if r["block2_rel"] > TOL:
+                raise AssertionError(f"{part}: the two-dim K4 block "
+                                     f"{r['block2_rel']} off its plain "
+                                     "version")
+        if mesh_shape == (2, 2) and r["peak_gib"] is not None and \
+                r["peak_gib"] > TP_GIB:
+            raise AssertionError(f"{part}: rank {r['rank']} peaked at "
+                                 f"{r['peak_gib']:.2f} GiB")
+    for mode in modes:
+        if len({tuple(s["loss"] for s in r[mode]["steps"])
+                for r in ranks}) != 1:
+            raise AssertionError(f"{part} {mode}: the ranks' losses differ")
+        if not mode.startswith("uncompressed") and len(
+                {tuple(r[mode]["ef_digest"]) for r in ranks}) != 1:
+            raise AssertionError(f"{part} {mode}: the ranks' EF residuals "
+                                 "differ in bits")
+    numbers = {"mesh": list(mesh_shape), "seq": shape.seq_len,
+               "global_batch": shape.global_batch,
+               "one_rank": {m: want[m] for m in modes}, "ranks_s": ranks_s,
+               "peak_gib": [r["peak_gib"] for r in ranks],
+               "launches": launches, "ranks": ranks}
+    for mode in modes:
+        numbers[f"{mode}_step_ms_median"] = statistics.median(
+            s["step_ms"] for r in ranks for s in r[mode]["steps"])
+        numbers[f"{mode}_device_ms"] = [r[mode]["steps"][-1]["device_ms"]
+                                        for r in ranks]
+    return numbers
+
+
+def _tp_serve_rank(mesh, dev, rank, extra):
+    """22c on one rank of the (1, 2) mesh (22a's ranks, after their
+    steps), a case (arch) at a time: the arch's blocks of seed 0's
+    parameters, the mesh prefill step's logits of the prompts (after a
+    warm-up on their first 64 tokens), and TP_DECODE eager mesh serve
+    steps from an empty cache fed the one-rank run's tokens (their logits
+    and greedy tokens kept, device ms a step)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.rp import shard
+
+    out = {}
+    for arch, layers, slots, compute in extra["cases"]:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = build_model(cfg)
+        compute = getattr(torch, compute)
+        if dev.type == "cuda":  # this arch's peak
+            torch.cuda.reset_peak_memory_stats()
+        params = _draw_blocks(model, mesh, dev)
+        held = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        io = torch.load(Path(extra["root"]) / f"{arch}.pt", weights_only=True)
+        B, S = TP_PROMPT
+        # a short prompt first: the process's first collectives and
+        # kernels take their one-time costs there, not in the timed call
+        t0 = time.perf_counter()
+        steps.build_prefill_step(
+            model, ShapeSpec("p", 64, B, "prefill"), mesh=mesh,
+            compute_dtype=compute)(params, {"tokens": io["prompt"][
+                :, :64].to(dev)})
+        _sync(dev)
+        warm_s = time.perf_counter() - t0
+        prefill = steps.build_prefill_step(
+            model, ShapeSpec("p", S, B, "prefill"), mesh=mesh,
+            compute_dtype=compute)
+        shard.collective_ledger().reset()
+        s_ev, e_ev = _mark(dev), _mark(dev)
+        s_ev.record()
+        logits = prefill(params, {"tokens": io["prompt"].to(dev)})
+        e_ev.record()
+        _sync(dev)
+        pre_ms = s_ev.elapsed_time(e_ev)
+        pre_led = _ledger_by_tag(shard.collective_ledger())
+        pre_err = float((logits.cpu() - io["prefill"]).abs().max())
+        serve = steps.build_serve_step(model, ShapeSpec(
+            "d", TP_MAX_SEQ, slots, "decode"), mesh=mesh, logits=True,
+            compute_dtype=compute)
+        cache = steps.shard_cache(model, model.init_cache(
+            slots, TP_MAX_SEQ, device=dev), mesh)
+        toks, errs, ms = [], [], []
+        shard.collective_ledger().reset()
+        for i in range(TP_DECODE):
+            tok = io["feed"][i].to(dev)
+            pos = torch.full((slots,), i, dtype=torch.int32, device=dev)
+            s_ev, e_ev = _mark(dev), _mark(dev)
+            s_ev.record()
+            nxt, cache, lg = serve(params, cache, tok, pos)
+            e_ev.record()
+            _sync(dev)
+            ms.append(s_ev.elapsed_time(e_ev))
+            toks.append(nxt.cpu().tolist())
+            errs.append(float((lg.cpu() - io["logits"][i]).abs().max()))
+        out[arch] = {"rank": rank, "held_bytes": held, "prefill_ms": pre_ms,
+                     "warm_up_s": warm_s,
+                     "prefill_err": pre_err, "prefill_ledger": pre_led,
+                     "tokens": toks, "errs": errs, "step_ms": ms,
+                     "decode_ledger": _ledger_by_tag(
+                         shard.collective_ledger()),
+                     "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                  if dev.type == "cuda" else None)}
+        del params, cache, logits, lg, prefill, serve
+        _free(dev)
+    return out
+
+
+def _tp_serve_reference(dev, root: Path) -> dict:
+    """22c's one-rank side, per arch: the prefill step and TP_DECODE eager
+    serve steps (greedy from seeded first tokens), their logits and tokens
+    written to `root` for the ranks, the card freed; returns what the
+    checks read."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+
+    refs = {}
+    for arch, layers, slots, compute in TP_SERVE:
+        t0 = time.perf_counter()
+        compute = getattr(torch, compute)
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        gen = torch.Generator().manual_seed(7)
+        B, S = TP_PROMPT
+        prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen)
+        pre = steps.build_prefill_step(model, ShapeSpec("p", S, B,
+                                                        "prefill"),
+                                       compute_dtype=compute)
+        s_ev, e_ev = _mark(dev), _mark(dev)
+        s_ev.record()
+        logits = pre(params, {"tokens": prompt.to(dev)})
+        e_ev.record()
+        _sync(dev)
+        pre_ms = s_ev.elapsed_time(e_ev)
+        serve = steps.build_serve_step(model, ShapeSpec(
+            "d", TP_MAX_SEQ, slots, "decode"), logits=True,
+            compute_dtype=compute)
+        cache = model.init_cache(slots, TP_MAX_SEQ, device=dev)
+        tok = torch.randint(0, cfg.vocab, (slots,), generator=gen).to(
+            torch.int32)
+        feed, logs, ms = [], [], []
+        for i in range(TP_DECODE):
+            feed.append(tok.clone())
+            pos = torch.full((slots,), i, dtype=torch.int32, device=dev)
+            s_ev, e_ev = _mark(dev), _mark(dev)
+            s_ev.record()
+            nxt, cache, lg = serve(params, cache, tok.to(dev), pos)
+            e_ev.record()
+            _sync(dev)
+            ms.append(s_ev.elapsed_time(e_ev))
+            logs.append(lg.cpu())
+            tok = nxt.cpu()
+        torch.save({"prompt": prompt, "prefill": logits.cpu(), "feed": feed,
+                    "logits": logs}, root / f"{arch}.pt")
+        refs[arch] = {"layers": cfg.n_layers, "slots": slots,
+                      "compute": str(compute).removeprefix("torch."),
+                      "prefill_ms": pre_ms, "ms": ms, "logs": logs,
+                      "pre_top": float(logits.abs().max()),
+                      "reference_s": time.perf_counter() - t0}
+        del params, cache, logits, lg
+        _free(dev)
+    return refs
+
+
+def _tp_serve_check(refs: dict, ranks: list) -> dict:
+    """22c's checks on the ranks' serving (`_tp_serve_rank`) against the
+    one-rank side: the prefill's and every step's logits within a bound
+    of the largest |logit| (LM_BF16_TOL at bf16 compute, LM_DEC_TOL at
+    fp32), the greedy tokens equal at every position whose top two are
+    further apart than that; the numbers."""
+    import torch
+    out = {}
+    for arch, ref in refs.items():
+        logs, pre_top = ref["logs"], ref["pre_top"]
+        tol = LM_DEC_TOL if ref["compute"] == "float32" else LM_BF16_TOL
+        one_top = max(float(x.abs().max()) for x in logs)
+        clear_n = 0
+        rows = [rk["serve"][arch] for rk in ranks]
+        for r in rows:
+            if r["prefill_err"] > tol * pre_top:
+                raise AssertionError(
+                    f"22c {arch} rank {r['rank']}: the mesh prefill "
+                    f"{r['prefill_err']} off (largest {pre_top})")
+            worst = max(r["errs"])
+            if worst > tol * one_top:
+                raise AssertionError(
+                    f"22c {arch} rank {r['rank']}: a step's logits {worst} "
+                    f"off (largest {one_top})")
+            for i, lg in enumerate(logs):
+                top2 = torch.topk(lg, 2, dim=-1).values
+                clear = (top2[:, 0] - top2[:, 1]) > tol * one_top
+                want = lg.argmax(-1)
+                got = torch.tensor(r["tokens"][i])
+                if not torch.equal(got[clear], want[clear]):
+                    raise AssertionError(
+                        f"22c {arch} rank {r['rank']} step {i}: tokens "
+                        f"{got.tolist()} vs one-rank {want.tolist()}")
+                clear_n += int(clear.sum())
+        row = {"layers": ref["layers"], "slots": ref["slots"],
+               "compute": ref["compute"], "bound": tol,
+               "prompt": list(TP_PROMPT),
+               "one_rank_prefill_ms": ref["prefill_ms"],
+               "one_rank_step_ms_median": statistics.median(ref["ms"]),
+               "mesh_prefill_ms": [r["prefill_ms"] for r in rows],
+               "mesh_warm_up_s": [r["warm_up_s"] for r in rows],
+               "mesh_step_ms_median": statistics.median(
+                   x for r in rows for x in r["step_ms"]),
+               "prefill_err": [r["prefill_err"] for r in rows],
+               "step_err_max": [max(r["errs"]) for r in rows],
+               "largest_logit": one_top, "clear_positions": clear_n,
+               "held_bytes": [r["held_bytes"] for r in rows],
+               "peak_gib": [r["peak_gib"] for r in rows],
+               "prefill_ledger": rows[0]["prefill_ledger"],
+               "decode_ledger": rows[0]["decode_ledger"],
+               "reference_s": ref["reference_s"]}
+        log(f"22c {arch}: {row}")
+        out[arch] = row
+    return out
+
+
+def tp_phase(dev) -> dict:
+    """Phase 22: the model axis on gloo ranks sharing the card. 22a: a
+    (data=1, model=2) mesh, phase 9's llama3.2-3b widths and depth cut at
+    TP_SEQ, TP_STEPS uncompressed and compressed steps at bf16 and fused
+    at fp32, against the one-rank steps; 22b: (2, 2), four ranks,
+    TP_STEPS uncompressed and fused steps at fp32, each rank at
+    most TP_GIB, w_gate's two-dim K4 block against its plain version;
+    22c: serving on (1, 2), on 22a's ranks. Returns the numbers of the
+    `tp` line, with the K1/K2/K4 launches under `launches`."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    try:
+        serve = _tp_serve_reference(dev, root)
+        t0 = time.perf_counter()
+        want, one_dev = _tp_reference(dev, root, dict.fromkeys(
+            TP_A_MODES + TP_B_MODES))
+        ref_s = time.perf_counter() - t0
+        log(f"22: the one-rank steps ({TP_STEPS} a mode) took {ref_s:.1f} s;"
+            f" losses {want}; the last step's device ms {one_dev}")
+        a = _tp_train_part(dev, "22a", (1, 2), TP_A_MODES, root, want,
+                           serve={"root": str(root), "cases": [
+                               list(case) for case in TP_SERVE]})
+        b = _tp_train_part(dev, "22b", (2, 2), TP_B_MODES, root, want)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    c = _tp_serve_check(serve, a["ranks"])
+    launches = {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
+    numbers = {"22a": a, "22b": b, "22c": c, "launches": launches,
+               "reference_s": ref_s, "one_rank_device_ms": one_dev,
+               "seconds": time.perf_counter() - t_phase}
+    log(f"phase 22 took {numbers['seconds']:.1f}s; step ms (median) 22a "
+        + ", ".join(f"{m} {a[f'{m}_step_ms_median']:.1f}"
+                    for m in TP_A_MODES)
+        + "; 22b " + ", ".join(f"{m} {b[f'{m}_step_ms_median']:.1f}"
+                               for m in TP_B_MODES)
+        + f"; the last step's device ms, one rank {one_dev}, a rank of 22a "
+        + ", ".join(f"{m} {a[f'{m}_device_ms'][0]}" for m in TP_A_MODES)
+        + ", of 22b " + ", ".join(f"{m} {b[f'{m}_device_ms'][0]}"
+                                  for m in TP_B_MODES)
+        + f"; peak GiB 22a {a['peak_gib']}, 22b {b['peak_gib']}; launches "
+        f"{launches}")
     return numbers
 
 
@@ -4889,7 +5666,7 @@ def main() -> int:
     launches = {"sweep_project": 0, "sweep_reconstruct": 0,
                 "sweep_project_pipelined": 0, "carry_sweep_project": 0,
                 "carry_sweep_project_pipelined": 0, "fused_update": 0,
-                "fused_update_block": 0}
+                "fused_update_block": 0, "fused_update_block2": 0}
     per_family = {}
     stores = {}
 
@@ -5343,8 +6120,11 @@ def main() -> int:
         next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
         launches[name] += n
 
-    # -- 16. pod-mesh checkpoints ------------------------------------------
-    pod_ckpt = pod_ckpt_phase(dev)
+    # -- 16. pod-mesh checkpoints; phase 19 (serving, none of the
+    # kernels) in this process while 16's ranks run --------------------
+    side = {}
+    pod_ckpt = pod_ckpt_phase(
+        dev, beside=lambda: side.update(rec=rec_phase(dev)))
     for name, n in pod_ckpt["launches"].items():
         next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
         launches[name] += n
@@ -5357,8 +6137,8 @@ def main() -> int:
     lm.update({arch: row for arch, row in moe.items() if arch != "seconds"})
     lm["seconds_phase18"] = moe["seconds"]
 
-    # -- 19. SSM, hybrid and encoder-decoder serving at full width ---------
-    rec = rec_phase(dev)
+    # -- 19. SSM, hybrid and encoder-decoder serving (run beside 16) -----
+    rec = side["rec"]
     lm.update({arch: row for arch, row in rec.items() if arch != "seconds"})
     lm["seconds_phase19"] = rec["seconds"]
 
@@ -5371,6 +6151,12 @@ def main() -> int:
     # -- 21. pod x data meshes on four ranks sharing the card --------------
     pod_data = pod_data_phase(dev)
     for name, n in pod_data["launches"].items():
+        next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
+        launches[name] += n
+
+    # -- 22. the model axis (TP/SP/EP) on ranks sharing the card -----------
+    tp = tp_phase(dev)
+    for name, n in tp["launches"].items():
         next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
         launches[name] += n
 
@@ -5389,6 +6175,7 @@ def main() -> int:
     print(json.dumps({"lm_serve": lm}))
     print(json.dumps({"fsdp": fsdp}))
     print(json.dumps({"pod_data": pod_data}))
+    print(json.dumps({"tp": tp}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

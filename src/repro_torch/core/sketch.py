@@ -115,14 +115,17 @@ class PytreeSketcher:
     buckets and one all_gather a leaf puts the blocks back together, so
     `sketch` and `unsketch` return what they return without a mesh. A
     leaf whose bucket count the axes do not divide runs whole on every
-    rank.
+    rank. `constrain=False` splits nothing, mesh or not (the reference's
+    switch for a `shard_map` body: the pod collective, whose ranks hold
+    different pods' trees).
     """
 
     def __init__(self, cfg: SketchConfig, example_tree: Any, *,
-                 mesh=None, bucket_spec=None):
+                 mesh=None, bucket_spec=None, constrain: bool = True):
         self.cfg = cfg
         self.mesh = mesh
         self.bucket_spec = bucket_spec
+        self.constrain = constrain
         leaves, treedef = tree_flatten(example_tree)
         self._treedef = treedef
         self._struct = [_is_struct_leaf(x) for x in leaves]
@@ -152,8 +155,8 @@ class PytreeSketcher:
     # -- bucket-axis split over the mesh -----------------------------------
     def _leaf_spec(self, nb: int):
         """The spec that splits a batch of `nb` buckets over the mesh, or
-        None: no mesh, or axes that do not divide nb."""
-        if self.mesh is None:
+        None: no mesh, `constrain=False`, or axes that do not divide nb."""
+        if self.mesh is None or not self.constrain:
             return None
         from repro_torch.rp.shard import bucket_pspec, shard_entry
         spec = (self.bucket_spec if self.bucket_spec is not None
@@ -200,8 +203,8 @@ class PytreeSketcher:
         return out.reshape(lead + tuple(shape)).to(dtype)
 
     # -- sketch / unsketch -----------------------------------------------
-    def sketch(self, tree: Any, seed: int, *, npod: int | None = None
-               ) -> torch.Tensor:
+    def sketch(self, tree: Any, seed: int, *, npod: int | None = None,
+               project_fn=None) -> torch.Tensor:
         """tree -> (n_buckets, k) sketch (buckets concatenated over leaves).
 
         All buckets of a leaf go through ONE batched `rp.project` call (one
@@ -212,7 +215,9 @@ class PytreeSketcher:
         carries a leading pod dim of that size (`compress_per_pod`): each
         pod's row is bucketized on its own, the pods are folded into the
         leaf's bucket batch (still one dispatch a leaf), and the result is
-        `(npod, n_buckets, k)`.
+        `(npod, n_buckets, k)`. `project_fn(op, buckets) -> (nb, k)`
+        overrides the dense buckets' projection (`rp.sketch_tree_sharded`
+        passes its split one); structured leaves keep theirs.
         """
         from repro_torch import rp
         if npod is not None and any(self._struct):
@@ -230,7 +235,8 @@ class PytreeSketcher:
                 x = self._leaf_to_buckets(leaf, nb, rows)
                 if flat_op:
                     x = x.reshape(rows * nb, -1)
-                y = self._project(op, x)
+                y = (self._project if project_fn is None else project_fn)(
+                    op, x)
             ys.append(y.reshape(rows, nb, self.cfg.k))
         y = torch.cat(ys, dim=1)
         return y[0] if npod is None else y

@@ -64,10 +64,14 @@ _ARGTYPES = {
 # K4's block form: the same, then size, n_d, inner, lo, hi (int64)
 _ARGTYPES["fused_update_block"] = (_ARGTYPES["fused_update"][:-1]
                                    + [ctypes.c_longlong] * 5 + [_P])
+# its two-dim form: then n_b, inner_b, lo_b, hi_b of the second split dim
+_ARGTYPES["fused_update_block2"] = (_ARGTYPES["fused_update_block"][:-1]
+                                    + [ctypes.c_longlong] * 4 + [_P])
 _ARGTYPES["sweep_project_pipelined"] = _ARGTYPES["sweep_project"]
 # the source of an entry not named like it
 _ENTRY_SOURCE = {"sweep_project_pipelined": "sweep_project",
-                 "fused_update_block": "fused_update"}
+                 "fused_update_block": "fused_update",
+                 "fused_update_block2": "fused_update"}
 _FNS: dict[str, ctypes._CFuncPtr] = {}
 
 

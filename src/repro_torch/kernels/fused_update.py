@@ -32,7 +32,9 @@ the storage dtype on the way out — the cast points of the unfused chain).
 moments but the whole gradient and EF residual: the same reconstruction
 of the whole leaf from its sketch rows, an epilogue that writes the whole
 residual and w', m', v' only for the block (`BlockLayout`), read and
-written at the block's own offsets. No dense bytes cross ranks.
+written at the block's own offsets. No dense bytes cross ranks. On a
+(data, model) mesh a block may be split on two dims (`wq`'s dim 1 over
+'data', dim 2 over 'model'); the same epilogue takes a second range.
 
 `fused_hbm_bytes` / `unfused_hbm_bytes` give the analytic device-memory
 traffic of the two formulations for the same plan.
@@ -147,46 +149,96 @@ def adamw_epilogue(g, w, m, v, lr, c1, c2, *, b1: float, b2: float,
 @dataclasses.dataclass(frozen=True)
 class BlockLayout:
     """A rank's block of a leaf of `size` elements for K4's block form: the
-    leaf read as (outer, n_d, inner) around its split dim, the rank holding
-    indices [lo, hi) of that dim, its block (outer, hi - lo, inner)
-    contiguous. An unsplit leaf is lo = 0, hi = n_d."""
+    leaf read as (outer, n_d, inner) around its split dim a, the rank
+    holding indices [lo, hi) of that dim. On a (data, model) mesh a leaf
+    may be split on a second dim b > a too: `inner` then reads as (mid,
+    n_b, inner_b) and the rank holds [lo_b, hi_b) of dim b, its block
+    (outer, hi - lo, mid, hi_b - lo_b, inner_b) contiguous. A one-dim block
+    is the case n_b = inner_b = 1, lo_b = 0, hi_b = 1; an unsplit leaf lo =
+    0, hi = n_d as well."""
 
     size: int
     n_d: int
     inner: int
     lo: int
     hi: int
+    n_b: int = 1
+    inner_b: int = 1
+    lo_b: int = 0
+    hi_b: int = 1
 
     def __post_init__(self):
         if (self.size < 1 or self.n_d < 1 or self.inner < 1
                 or self.size % (self.n_d * self.inner)
-                or not 0 <= self.lo < self.hi <= self.n_d):
+                or not 0 <= self.lo < self.hi <= self.n_d
+                or self.n_b < 1 or self.inner_b < 1
+                or self.inner % (self.n_b * self.inner_b)
+                or not 0 <= self.lo_b < self.hi_b <= self.n_b):
             raise ValueError(f"not a block of a leaf: {self}")
 
     @classmethod
     def of(cls, shape, dim: int | None = None, lo: int = 0,
-           hi: int | None = None) -> "BlockLayout":
-        """The block [lo, hi) along `dim` of a leaf of `shape` (dim None:
-        the whole leaf)."""
+           hi: int | None = None, dim_b: int | None = None, lo_b: int = 0,
+           hi_b: int | None = None) -> "BlockLayout":
+        """The block [lo, hi) along `dim` (and [lo_b, hi_b) along `dim_b`
+        > dim) of a leaf of `shape` (dim None: the whole leaf)."""
         shape = tuple(int(s) for s in shape)
         size = _prod(shape)
         if dim is None:
             return cls(size, size, 1, 0, size)
         hi = shape[dim] if hi is None else hi
-        return cls(size, shape[dim], _prod(shape[dim + 1:]), lo, hi)
+        if dim_b is None:
+            return cls(size, shape[dim], _prod(shape[dim + 1:]), lo, hi)
+        if dim_b <= dim:
+            raise ValueError(f"the second split dim {dim_b} must follow the "
+                             f"first, {dim}")
+        hi_b = shape[dim_b] if hi_b is None else hi_b
+        return cls(size, shape[dim], _prod(shape[dim + 1:]), lo, hi,
+                   shape[dim_b], _prod(shape[dim_b + 1:]), lo_b, hi_b)
+
+    @property
+    def two_dim(self) -> bool:
+        return (self.n_b, self.inner_b, self.lo_b, self.hi_b) != (1, 1, 0, 1)
 
     @property
     def outer(self) -> int:
         return self.size // (self.n_d * self.inner)
 
     @property
-    def shape(self) -> tuple[int, int, int]:
-        """The block as (outer, hi - lo, inner)."""
-        return (self.outer, self.hi - self.lo, self.inner)
+    def mid(self) -> int:
+        return self.inner // (self.n_b * self.inner_b)
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        """The block as (outer, hi - lo, inner), or (outer, hi - lo, mid,
+        hi_b - lo_b, inner_b) when it is split on two dims."""
+        if not self.two_dim:
+            return (self.outer, self.hi - self.lo, self.inner)
+        return self.view_shape
+
+    @property
+    def view_shape(self) -> tuple[int, int, int, int, int]:
+        """The block as (outer, hi - lo, mid, hi_b - lo_b, inner_b)."""
+        return (self.outer, self.hi - self.lo, self.mid, self.hi_b - self.lo_b,
+                self.inner_b)
 
     @property
     def numel(self) -> int:
-        return self.outer * (self.hi - self.lo) * self.inner
+        return _prod(self.view_shape)
+
+    def tail(self) -> tuple[int, ...]:
+        """The C entry's trailing arguments: (size, n_d, inner, lo, hi),
+        then (n_b, inner_b, lo_b, hi_b) for a two-dim block."""
+        head = (self.size, self.n_d, self.inner, self.lo, self.hi)
+        return head + ((self.n_b, self.inner_b, self.lo_b, self.hi_b)
+                       if self.two_dim else ())
+
+    def block_of(self, g: torch.Tensor) -> torch.Tensor:
+        """The block's elements of a flat whole leaf `g` (a view, in
+        `view_shape`)."""
+        return g.view(self.outer, self.n_d, self.mid, self.n_b,
+                      self.inner_b)[:, self.lo:self.hi, :,
+                                    self.lo_b:self.hi_b]
 
 
 def _check_block(plan: ContractionPlan, layout: BlockLayout, y, p,
@@ -231,9 +283,8 @@ def fused_update_block_plain(op, y, p, w, m, v, lr, c1, c2, *,
                                 scale=float(alpha) / math.sqrt(op.k))
     g = g.reshape(-1)[:layout.size]
     resid = (p.reshape(-1) - g).view(p.shape)
-    gb = g.view(layout.outer, layout.n_d, layout.inner)[
-        :, layout.lo:layout.hi]
-    outs = adamw_epilogue(gb, *(t.view(layout.shape) for t in (w, m, v)),
+    outs = adamw_epilogue(layout.block_of(g),
+                          *(t.view(layout.view_shape) for t in (w, m, v)),
                           lr, c1, c2, b1=b1, b2=b2, eps=eps,
                           weight_decay=weight_decay)
     return (resid,) + tuple(o.reshape(w.shape) for o in outs)
@@ -247,11 +298,12 @@ def block_epilogue(layout: BlockLayout, plan: ContractionPlan, p, w, m, v,
     into the (B, d1, T) view of the leaf's buckets and does what the
     kernel's does at each element's flat offset `off = (n*d1 + a)*T + t`:
     below `layout.size` it writes resid[off], and where the element's
-    index on the split dim lies in [lo, hi) the AdamW outputs at the
-    block's offset. The outputs (the flat residual, and the block's w',
+    indices on the split dims lie in [lo, hi) and [lo_b, hi_b) the AdamW
+    outputs at the block's offset. The outputs (the flat residual, and the block's w',
     m', v' flat) start as NaN, so an element no tile wrote shows."""
     d1, trail = plan.dims[0], plan.trail
     span = layout.n_d * layout.inner
+    span_b = layout.n_b * layout.inner_b
     pf = p.reshape(-1)
     wf, mf, vf = (t.reshape(-1) for t in (w, m, v))
     outs = (torch.full_like(pf, float("nan")),) + tuple(
@@ -266,9 +318,15 @@ def block_epilogue(layout: BlockLayout, plan: ContractionPlan, p, w, m, v,
         outs[0][o] = pf[o] - g1
         r = o % span
         j = r // layout.inner
-        mine = (j >= layout.lo) & (j < layout.hi)
-        b = (((o // span) * (layout.hi - layout.lo) + j - layout.lo)
-             * layout.inner + r - j * layout.inner)[mine]
+        r1 = r - j * layout.inner
+        mi, r2 = r1 // span_b, r1 % span_b
+        jb = r2 // layout.inner_b
+        mine = ((j >= layout.lo) & (j < layout.hi) & (jb >= layout.lo_b)
+                & (jb < layout.hi_b))
+        b = (((((o // span) * (layout.hi - layout.lo) + j - layout.lo)
+               * layout.mid + mi) * (layout.hi_b - layout.lo_b) + jb
+              - layout.lo_b) * layout.inner_b + r2
+             - jb * layout.inner_b)[mine]
         vals = adamw_epilogue(g1[mine], wf[b], mf[b], vf[b], lr, c1, c2,
                               b1=b1, b2=b2, eps=eps,
                               weight_decay=weight_decay)
@@ -391,7 +449,10 @@ def fused_update_block(op, y, p, w, m, v, lr, c1, c2, *,
 
     Returns (resid in p's shape, whole; w_new, m_new, v_new in w's shape,
     the block). CPU tensors take the plain version; CUDA tensors launch
-    the kernel (counted in `fused_update_block.launches`) or raise.
+    the kernel or raise. A block split on two dims (a rank of a (data,
+    model) mesh) launches the entry `fused_update_block2`, counted in
+    `fused_update_block.launches_2d`; the others `fused_update_block`,
+    counted in `fused_update_block.launches`.
     """
     family, cores = _operator(op)
     nb = y.shape[0]
@@ -403,20 +464,25 @@ def fused_update_block(op, y, p, w, m, v, lr, c1, c2, *,
                                         layout=layout, **hp)
     outs = (torch.empty_like(p),) + tuple(torch.empty_like(w)
                                           for _ in range(3))
-    _launch("fused_update_block", op, cores, plan, y, (p, w, m, v), outs, lr,
-            c1, c2, hp, (layout.size, layout.n_d, layout.inner, layout.lo,
-                         layout.hi))
-    fused_update_block.launches += 1
+    entry = "fused_update_block2" if layout.two_dim else "fused_update_block"
+    _launch(entry, op, cores, plan, y, (p, w, m, v), outs, lr, c1, c2, hp,
+            layout.tail())
+    if layout.two_dim:
+        fused_update_block.launches_2d += 1
+    else:
+        fused_update_block.launches += 1
     return outs
 
 
-fused_update_block.launches = 0
+fused_update_block.launches = 0     # the one-dim (and whole) block entry
+fused_update_block.launches_2d = 0  # the two-dim block entry
 
 
 def reset_launch_counts() -> None:
-    """Set K4's launch counters (whole-leaf and block form) to 0."""
+    """Set K4's launch counters (whole-leaf and both block forms) to 0."""
     fused_update_buckets.launches = 0
     fused_update_block.launches = 0
+    fused_update_block.launches_2d = 0
 
 
 __all__ = ["BlockLayout", "adamw_epilogue", "block_epilogue",

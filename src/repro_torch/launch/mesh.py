@@ -8,7 +8,7 @@ the process groups the port's collectives run on:
           syncs this axis (`optim/compress.py::compress_collective`).
   data  — in-pod data parallelism: FSDP's blocks of the parameters
           (`launch/fsdp.py`) and the sketcher's bucket axis.
-  model — tensor parallelism (item 12.7b).
+  model — tensor, sequence and expert parallelism (`launch/tp.py`).
 
 Every axis and every tuple of axes gets its group once, when the mesh is
 built, on every rank in the same order (`new_group` must be entered by

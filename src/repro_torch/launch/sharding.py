@@ -14,11 +14,13 @@ Strategy (the reference's):
   experts           -> model        expert parallel (if E divides |model|)
   expert_mlp        -> model        only when experts don't shard
   layers            -> None         (the layer stack)
-The batch goes over the data axes (`batch_spec`). Every function here
-reads only `mesh.shape` and `mesh.axis_names`, so a stand-in mesh with no
-process group will do. The port runs the data axis (`launch/fsdp.py`);
-the model axis, `cache_specs` and `shard_batch_seq` wait for item 12.7b
-(ROADMAP.md, queue 1).
+The batch goes over the data axes (`batch_spec`); the residual stream's
+sequence over 'model' between blocks (`seq_spec`, the reference's
+`shard_batch_seq`, whose rows a rank holds are `seq_rows`); a decode
+cache by `cache_specs`. Every function here reads only `mesh.shape` and
+`mesh.axis_names` (and `seq_rows` a mesh's `group`), so a stand-in mesh
+with no process group will do. The port runs the data axis
+(`launch/fsdp.py`) and the model axis (`launch/tp.py`).
 """
 from __future__ import annotations
 
@@ -145,10 +147,83 @@ def input_batch_specs(batch_tree, mesh):
     return walk(batch_tree, None)
 
 
+def cache_specs(cfg: ArchConfig, cache_tree, mesh):
+    """Specs for a decode cache (tensors, meta tensors or shape tuples
+    under the families' names), the reference's layouts and fallbacks:
+    k/v (and whisper's cross xk/xv) (L, B, H, S, hd) by heads over
+    'model' where the model size divides H, else by positions where it
+    divides S, else whole; `pos` (L, B, S) follows the positions' split
+    (a decoder's where its KV heads do not divide, the hybrid's always
+    where S does); mamba2's `ssm` (L, B, H, P, ds) by heads, its `conv`
+    (L, B, W-1, C) by channels, the RG-LRU's `h` (G, B, dr) by width,
+    each where the model size divides; the batch dim over the data axes
+    where they divide it."""
+    ms = model_size(mesh)
+
+    def spec(name, shape):
+        b = shape[1] if len(shape) > 1 else 1
+        bax = batch_spec((b,), mesh)[0]
+        if name in ("k", "v", "xk", "xv") and len(shape) == 5:
+            _, _, H, S, _ = shape
+            if H % ms == 0:
+                return (None, bax, "model", None, None)
+            if S % ms == 0:
+                return (None, bax, None, "model", None)
+            return (None, bax, None, None, None)
+        if name == "pos" and len(shape) == 3:
+            S = shape[2]
+            if S % ms == 0 and cfg.family == "hybrid":
+                return (None, bax, "model")
+            if cfg.n_kv_heads % ms != 0 and S % ms == 0:
+                return (None, bax, "model")
+            return (None, bax, None)
+        if name == "ssm":
+            return (None, bax, "model" if shape[2] % ms == 0 else None,
+                    None, None)
+        if name == "conv":
+            return (None, bax, None, "model" if shape[3] % ms == 0 else None)
+        if name == "h":
+            return (None, bax, "model" if shape[2] % ms == 0 else None)
+        return (None,) * len(shape)
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return spec(name, _shape(node))
+    return walk(cache_tree, None)
+
+
+def seq_spec(shape: tuple[int, ...], mesh, *, seq_axis: int = 1,
+             exclude: tuple = ()) -> tuple:
+    """The residual stream's layout under sequence parallelism (the
+    reference's `shard_batch_seq`): dim 0 over the data axes (minus
+    `exclude`) where they divide it, the sequence over 'model' where the
+    model size divides it."""
+    dp = tuple(a for a in data_axes(mesh) if a not in exclude)
+    entries: list = [None] * len(shape)
+    entries[0] = dp if shape[0] % _axis_size(mesh, dp) == 0 else None
+    if shape[seq_axis] % model_size(mesh) == 0:
+        entries[seq_axis] = "model"
+    return tuple(entries)
+
+
+def seq_rows(seq_len: int, mesh) -> tuple[int, int]:
+    """This rank's rows [lo, hi) of a sequence of `seq_len` split over
+    'model' by `seq_spec` (all of them where the model size does not
+    divide it)."""
+    ms = model_size(mesh)
+    if ms <= 1 or seq_len % ms:
+        return 0, seq_len
+    per = seq_len // ms
+    i = mesh.group("model").index
+    return i * per, (i + 1) * per
+
+
 def batch_dim(name: str) -> int:
     """The dim of a batch entry that holds its rows."""
     return 1 if name == "positions3" else 0
 
 
 __all__ = ["axis_rules", "batch_dim", "batch_spec", "bucket_specs",
-           "input_batch_specs", "param_specs", "spec_for"]
+           "cache_specs", "input_batch_specs", "param_specs", "seq_rows",
+           "seq_spec", "spec_for"]

@@ -39,6 +39,22 @@ it). Branches:
   dense bytes cross ranks and nothing is unsketched apart. The MoE FFN
   dispatches a rank's rows in `moe_groups_for(...)` over the number of
   row blocks groups;
+* a `mesh=` whose 'model' axis is above 1 (a (data, model) mesh, the
+  decoder family): the same branch, each rank holding its blocks of the
+  leaves `sharding.param_specs` splits over 'model' too (two-dim blocks
+  where a leaf is split over both axes), the forward tensor-, sequence-
+  and expert-parallel over 'model' (`launch/tp.py`; `seq_parallel=True`,
+  the reference's default, splits the residual stream's sequence). The
+  model ranks of a data index take the same rows. The loss is taken as
+  sums and counts over every rank's rows (`loss_mask` included), each
+  rank's term summed over 'model' and averaged over the data axes. The
+  compressed and fused branches sketch each leaf's whole mean gradient:
+  the backward all-reduces it over the data axes and all-gathers a
+  model-split leaf over 'model' (`grad_model_gather`); the sketch stays
+  split over the data ranks' buckets only, so the model ranks of a data
+  index run the same K1 on the same buckets, and the EF residual is
+  whole on every rank. The fused branch's K4 writes each rank's two-dim
+  blocks (`fused_update_block`'s second range);
 * a `mesh=` with a 'pod' axis and a 'data' axis above 1 (pod x data):
   without a compressor, the FSDP above over both axes (`data_axes`).
   With one (the reference's `fsdp_axes=("data",)`): params, m and v are
@@ -55,17 +71,26 @@ it). Branches:
 `build_prefill_step` gives `fn(params, batch) -> logits` (the last
 token's, float32) and `build_serve_step` `fn(params, cache, token, pos,
 positions3=None) -> (next_tok int32, cache)`, one greedy decode step
-that writes the cache in place; both run under `torch.inference_mode` on
-one device, in the policy's compute dtype (bf16; the 'lean' policy's
-params are bf16 too, and no step makes an fp32 copy of them). Both run
-every family: an encoder-decoder's prefill encodes `batch["frames"]`
-and decodes the tokens against it, and its serve step needs a cache
-whose cross K/V `whisper.build_cross_cache` has filled. Every step
-passes the batch's `positions3`, `patches` and `patch_positions`
-(qwen2-vl) through, the last left on the host, where the model checks
-them. A `model` axis above 1 (TP/EP/SP) and the mesh arguments of the
-prefill and serve steps are item 12.7b (ROADMAP.md, queue 1): they
-raise. `fused_update` with a pod axis raises, as in the reference.
+that writes the cache in place; both run under `torch.inference_mode`,
+in the policy's compute dtype (bf16; the 'lean' policy's params are bf16
+too, and no step makes an fp32 copy of them). Both run every family: an
+encoder-decoder's prefill encodes `batch["frames"]` and decodes the
+tokens against it, and its serve step needs a cache whose cross K/V
+`whisper.build_cross_cache` has filled. Every step passes the batch's
+`positions3`, `patches` and `patch_positions` (qwen2-vl) through, the
+last left on the host, where the model checks them. With a `mesh=` (the
+decoder family on a (data, model) mesh) the params are the rank's
+blocks (`shard_params`), the batch's rows over the data axes are the
+rank's, the prefill runs sequence-parallel with `gqa_expand` (as the
+reference's), and the serve step's cache is the rank's block by
+`sharding.cache_specs` (`shard_cache`); both return every rank's rows
+(the logits and tokens alike on the model ranks). The serve step runs
+eagerly: a CUDA graph cannot capture a gloo collective.
+
+What stays refused, with its queue-1 item (ROADMAP.md): a model axis
+beside a pod axis (12.7b.3c), a model axis with the SSM, hybrid or
+encoder-decoder families (12.7b.3b); `fused_update` with a pod axis
+raises, as in the reference.
 """
 from __future__ import annotations
 
@@ -79,14 +104,15 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.models import Model, from_numpy_params
+from repro_torch.models import settings as model_settings
 from repro_torch.models.config import ArchConfig, ShapeSpec
 from repro_torch.optim import AdamWConfig, adamw, schedule
 from repro_torch.runtime.spans import span
 
-from . import fsdp, sharding
-from .mesh import data_axes
+from repro_torch.rp import shard
 
-_LATER = "item 12.7b (ROADMAP.md, queue 1)"
+from . import fsdp, sharding
+from .mesh import data_axes, model_size
 
 
 def _policy(cfg: ArchConfig) -> dict:
@@ -156,14 +182,23 @@ def unshard_state(model: Model, state: dict, mesh) -> dict:
     return fsdp.unshard_tree(state, state_specs(model, mesh, state), mesh)
 
 
-def _check_mesh(mesh) -> bool:
-    """Refuse what item 12.7b brings (a model axis); True on a data mesh
-    (data above 1, with or without a pod axis)."""
+def _check_mesh(mesh, cfg: ArchConfig) -> bool:
+    """Refuse what waits for later items (a model axis beside a pod axis,
+    12.7b.3c; a model axis with a family other than the decoder,
+    12.7b.3b); True on a mesh whose data or model axis is above 1."""
     sizes = dict(mesh.shape)
     if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a model axis of {sizes['model']} (TP/EP/SP within a pod) is "
-            f"{_LATER}; run a (data, 1) or (pod, data, 1) mesh")
+        if "pod" in sizes:
+            raise NotImplementedError(
+                f"a model axis of {sizes['model']} beside a pod axis is item "
+                "12.7b.3c (ROADMAP.md, queue 1); run a (data, model) mesh "
+                "or a (pod, data, 1) one")
+        if cfg.family != "decoder":
+            raise NotImplementedError(
+                f"a model axis of {sizes['model']} with the {cfg.family!r} "
+                f"family ({cfg.name}) is item 12.7b.3b (ROADMAP.md, queue "
+                "1); run the decoder family, or a (data, 1) mesh")
+        return True
     return sizes.get("data", 1) > 1
 
 
@@ -172,6 +207,7 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
                      opt: AdamWConfig | None = None,
                      lr_fn: Callable | None = None,
                      remat: str = "nothing",
+                     seq_parallel: bool = True,
                      compressor=None,
                      fused_update: bool = False,
                      device=None,
@@ -180,11 +216,12 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
     `adamw.update_sketched` (one fused unsketch+EF+AdamW launch per leaf;
     K4's block form on a data mesh); it needs a compressor, no pod axis,
     and `AdamWConfig(clip_norm=None)`. `mesh` (a `launch.mesh.Mesh`) whose
-    'data' axis is above 1 builds the data branch (its state comes from
-    `shard_state`; with a 'pod' axis too, pod x data), one with a 'pod'
-    axis and data 1 the pod branch, on the mesh's device. `compute_dtype=None` takes the
-    config's policy (bf16 compute under 'mixed' and 'lean');
-    `device=None` means CUDA."""
+    'data' or 'model' axis is above 1 builds the mesh branch (its state
+    comes from `shard_state`; with a 'pod' axis too, pod x data), one with
+    a 'pod' axis and data 1 the pod branch, on the mesh's device.
+    `seq_parallel` splits the residual stream's sequence over 'model'.
+    `compute_dtype=None` takes the config's policy (bf16 compute under
+    'mixed' and 'lean'); `device=None` means CUDA."""
     # the first remat (torch.utils.checkpoint) imports torch._dynamo, and
     # that import leaves frames in reference cycles: imported here, the
     # step's own frames (and the trees they hold) stay out of them
@@ -193,7 +230,7 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
     pol = _policy(cfg)
     npod, group, data_mesh = 1, None, False
     if mesh is not None:
-        data_mesh = _check_mesh(mesh)
+        data_mesh = _check_mesh(mesh, cfg)
     has_pod = mesh is not None and "pod" in mesh.axis_names
     compute_dtype = compute_dtype or pol["compute_dtype"]
     opt = opt or AdamWConfig(moment_dtype=pol["moment_dtype"])
@@ -236,8 +273,14 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
     def loss_and_grads(params, batch, **kw):
         leaves, treedef = tree_flatten(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            loss = model.loss_fn(tree_unflatten(treedef, live), batch,
+        st = model_settings.get()
+        # the reference's cast_params_once: the fp32 matrices in the
+        # compute dtype before the forward, so its gathers move that
+        read = ([p.to(compute_dtype) if p.dtype == torch.float32
+                 and p.ndim >= 2 else p for p in live]
+                if st.cast_params_once else live)
+        with torch.enable_grad(), model_settings.override(mesh=mesh):
+            loss = model.loss_fn(tree_unflatten(treedef, read), batch,
                                  compute_dtype=compute_dtype, remat=remat,
                                  **kw)
             grads = torch.autograd.grad(loss, live)
@@ -257,7 +300,6 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
 
     def pod_step(state, batch):
         """The pod branch: this pod's rows, the synced gradient, AdamW."""
-        from repro_torch.rp import shard
         params = state["params"]
         metrics = {}
         new_state = dict(state)
@@ -298,7 +340,7 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
 
     if data_mesh:
         data_step = _data_step(model, shape, mesh, opt, lr_fn, compressor,
-                               loss_and_grads, fused_update)
+                               loss_and_grads, fused_update, seq_parallel)
 
     def train_step(state, batch):
         batch = on_device(batch)
@@ -335,12 +377,11 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
 
 
 def _data_step(model: Model, shape: ShapeSpec, mesh, opt: AdamWConfig,
-               lr_fn, compressor, loss_and_grads,
-               fused_update: bool) -> Callable:
-    """The data-mesh branch of `build_train_step` (see its module
-    docstring), pod x data included: `fn(state, batch)` on this rank's
-    blocks."""
-    from repro_torch.rp import shard
+               lr_fn, compressor, loss_and_grads, fused_update: bool,
+               seq_parallel: bool) -> Callable:
+    """The mesh branch of `build_train_step` (see its module docstring),
+    pod x data and (data, model) included: `fn(state, batch)` on this
+    rank's blocks."""
     cfg = model.cfg
     pods = compressor is not None and "pod" in mesh.axis_names
     pspecs = sharding.param_specs(
@@ -351,6 +392,15 @@ def _data_step(model: Model, shape: ShapeSpec, mesh, opt: AdamWConfig,
     grad_axes = ("data",) if pods else None
     dgroup = mesh.group(data_axes(mesh))
     n = dgroup.size
+    ms = model_size(mesh)
+    # the loss's ranks: the data axes, and 'model' beside them
+    lgroup = mesh.group(data_axes(mesh) + ("model",)) if ms > 1 else dgroup
+    # the count that divides the loss: the gradient's data ranks' rows
+    cgroup = mesh.group(grad_axes) if grad_axes else dgroup
+    if ms > 1:
+        kw_tp = {"seq_parallel": seq_parallel}
+    else:
+        kw_tp = {}
     entry = sharding.batch_spec((shape.global_batch,), mesh)[0]
     rows_group = fsdp.mesh_group(mesh, entry) if entry else None
     n_blocks = rows_group.size if rows_group else 1
@@ -358,7 +408,9 @@ def _data_step(model: Model, shape: ShapeSpec, mesh, opt: AdamWConfig,
     # the global batch's groups of contiguous tokens over this rank's rows
     kw = ({"moe_groups": max(1, moe_groups_for(cfg, mesh, shape.global_batch)
                              // n_blocks)} if cfg.moe is not None else {})
-    view = fsdp.Sharded(mesh, pspecs, axes=grad_axes)
+    tp = dict(seq_parallel=ms > 1 and seq_parallel,
+              partial=getattr(model.mod, "MODEL_PARTIAL", ()))
+    view = fsdp.Sharded(mesh, pspecs, axes=grad_axes, **tp)
     want = [tuple(t.shape) for t in tree_flatten(
         view.blocks(model.param_shapes()))[0]]
     ranges = view.ranges(model.param_shapes()) if fused_update else None
@@ -380,12 +432,19 @@ def _data_step(model: Model, shape: ShapeSpec, mesh, opt: AdamWConfig,
         metrics = {}
         new_state = dict(state)
         layout = fsdp.Sharded(mesh, pspecs, reduce="all" if compressor
-                              is not None else "scatter", axes=grad_axes)
+                              is not None else "scatter", axes=grad_axes,
+                              **tp)
+        mine = rows(batch)
+        extra = dict(kw, **kw_tp)
+        if "loss_mask" in mine:     # sums and counts over every rank's rows
+            count = shard.all_reduce(mine["loss_mask"].to(
+                torch.float32).sum().reshape(1), cgroup, tag="loss_count")[0]
+            extra["denom"] = torch.clamp(count, min=1.0) / cgroup.size
         with span("train.loss_grad"):
-            loss, grads = loss_and_grads(params, rows(batch), gather=layout,
-                                         **kw)
+            loss, grads = loss_and_grads(params, mine, gather=layout,
+                                         **extra)
             grads = layout.finish(grads)
-            loss = shard.all_reduce(loss.reshape(1), dgroup,
+            loss = shard.all_reduce(loss.reshape(1), lgroup,
                                     tag="loss")[0] / n
         count = state["opt"]["count"]
         lr = lr_fn(count)
@@ -427,15 +486,65 @@ def _data_step(model: Model, shape: ShapeSpec, mesh, opt: AdamWConfig,
     return data_step
 
 
-def build_prefill_step(model: Model, shape: ShapeSpec) -> Callable:
+def _serve_mesh(model: Model, mesh):
+    """(the params' gather, the data rows' group) of the prefill and serve
+    steps on `mesh`, or Nones without one."""
+    if mesh is None:
+        return None, None
+    _check_mesh(mesh, model.cfg)
+    pspecs = sharding.param_specs(model.cfg, model.param_axes(), mesh,
+                                  model.param_shapes())
+    return fsdp.Sharded(mesh, pspecs), mesh.group(data_axes(mesh))
+
+
+def _rows_of(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The data group's rank's rows of `x` along `dim` (all of them when
+    the group's size does not divide them, as `sharding.batch_spec`)."""
+    if group is None or group.size == 1 or x.shape[dim] % group.size:
+        return x
+    per = x.shape[dim] // group.size
+    return x.narrow(dim, group.index * per, per)
+
+
+def _all_rows(x: torch.Tensor, group, whole: int) -> torch.Tensor:
+    """Every data rank's rows of `x` put back together (`whole` rows)."""
+    if group is None or group.size == 1 or x.shape[0] == whole:
+        return x
+    return shard.all_gather(x, group, tag="serve_rows")
+
+
+def shard_params(model: Model, params: dict, mesh) -> dict:
+    """This rank's blocks of whole params on `mesh` by
+    `sharding.param_specs` (every rank passes the same): what the prefill
+    and serve steps built with that mesh take."""
+    return fsdp.shard_tree(params, sharding.param_specs(
+        model.cfg, model.param_axes(), mesh, model.param_shapes()), mesh)
+
+
+def shard_cache(model: Model, cache: dict, mesh) -> dict:
+    """This rank's block of a whole decode cache on `mesh` by
+    `sharding.cache_specs`, copied (the serve step writes it in place)."""
+    return fsdp.shard_tree(cache, sharding.cache_specs(model.cfg, cache,
+                                                       mesh), mesh)
+
+
+def build_prefill_step(model: Model, shape: ShapeSpec, *, mesh=None,
+                       seq_parallel: bool = True,
+                       compute_dtype=None) -> Callable:
     """`fn(params, batch) -> (B, V) float32` logits of the prompt's last
     token (`batch["tokens"]` of the shape's (global_batch, seq_len), and
     qwen2-vl's `positions3`, `patches` and `patch_positions`; an
     encoder-decoder's `frames` (B, encoder_seq, D)), as the reference's
-    prefill step: no final softcap."""
+    prefill step: no final softcap. With `mesh=` the params are the
+    rank's blocks (`shard_params`), the forward runs over the model axis
+    (sequence-parallel with `seq_parallel`, `gqa_expand` on, as the
+    reference's), each data rank takes its rows of the batch, and every
+    rank returns the logits of all of them. `compute_dtype=None` takes the
+    policy's."""
     cfg = model.cfg
-    compute_dtype = _policy(cfg)["compute_dtype"]
+    compute_dtype = compute_dtype or _policy(cfg)["compute_dtype"]
     want = (shape.global_batch, shape.seq_len)
+    gather, dgroup = _serve_mesh(model, mesh)
 
     @torch.inference_mode()
     def prefill_step(params, batch):
@@ -451,6 +560,9 @@ def build_prefill_step(model: Model, shape: ShapeSpec) -> Callable:
                                    compute_dtype=compute_dtype)
             h = model.mod.decode_hidden(cfg, params, tokens, enc,
                                         compute_dtype=compute_dtype)
+        elif mesh is not None:
+            return _mesh_prefill(model, params, batch, tokens, dev, gather,
+                                 dgroup, compute_dtype, mesh, seq_parallel)
         else:
             extra = {k: torch.as_tensor(batch[k]).to(dev) for k in (
                 "positions3", "patches") if k in batch}
@@ -466,23 +578,78 @@ def build_prefill_step(model: Model, shape: ShapeSpec) -> Callable:
     return prefill_step
 
 
-def build_serve_step(model: Model, shape: ShapeSpec) -> Callable:
+def _mesh_prefill(model: Model, params, batch, tokens, dev, gather, dgroup,
+                  compute_dtype, mesh, seq_parallel: bool):
+    """The prefill step's forward on a mesh: the rank's rows, the model
+    axis, the last token's logits of every row (no final softcap)."""
+    from repro_torch.models import transformer
+    cfg = model.cfg
+    B = tokens.shape[0]
+    rows = {"tokens": _rows_of(tokens, dgroup)}
+    for k in ("positions3", "patches"):
+        if k in batch:
+            t = torch.as_tensor(batch[k]).to(dev)
+            rows[k] = _rows_of(t, dgroup, sharding.batch_dim(k))
+    if "patch_positions" in batch:
+        rows["patch_positions"] = _rows_of(torch.as_tensor(
+            batch["patch_positions"]), dgroup)
+    with model_settings.override(mesh=mesh, gqa_expand=True):
+        h = transformer.forward_hidden(
+            cfg, params, rows.pop("tokens"), compute_dtype=compute_dtype,
+            gather=gather, seq_parallel=seq_parallel, **rows)
+        axis = transformer._model_axis(cfg, seq_parallel)
+        if axis is not None and axis.sp(tokens.shape[1]):
+            h = axis.all_gather(h[:, -1:], 1, tag="tp_gather")
+        last = h[:, -1, :]
+        logits = transformer._logits(
+            dataclasses.replace(cfg, final_softcap=None), params, last,
+            gather, axis)
+    return _all_rows(logits, dgroup, B)
+
+
+def build_serve_step(model: Model, shape: ShapeSpec, *, mesh=None,
+                     logits: bool = False, compute_dtype=None) -> Callable:
     """`fn(params, cache, token, pos, positions3=None) -> (next_tok (B,)
     int32, cache)`: one decode step of the shape's global_batch sequences
     against a cache of its seq_len (`model.init_cache`), written in
     place, and the greedy next token; an M-RoPE config passes
     `positions3` (3, B, 1). An encoder-decoder's cache must hold its
-    cross K/V already (`whisper.build_cross_cache`)."""
-    compute_dtype = _policy(model.cfg)["compute_dtype"]
+    cross K/V already (`whisper.build_cross_cache`). With `mesh=` the
+    params are the rank's blocks (`shard_params`) and the cache its block
+    by `sharding.cache_specs` (`shard_cache`); each data rank steps its
+    rows, and every rank returns the tokens of all of them. `logits=True`
+    returns the step's (B, V) float32 logits third. `compute_dtype=None`
+    takes the policy's."""
+    compute_dtype = compute_dtype or _policy(model.cfg)["compute_dtype"]
+    gather, dgroup = _serve_mesh(model, mesh)
+    layout = None
+    if mesh is not None:
+        cspecs = sharding.cache_specs(model.cfg, model.init_cache(
+            shape.global_batch, shape.seq_len, device="meta"), mesh)
+        model_dim = [i for i, e in enumerate(cspecs["k"]) if e == "model"]
+        layout = {2: "heads", 3: "seq"}.get(model_dim[0]) if model_dim \
+            else None
 
     def serve_step(params, cache, token, pos, positions3=None):
         if token.shape != (shape.global_batch,):
             raise ValueError(f"token has shape {tuple(token.shape)}, the "
                              f"step was built for ({shape.global_batch},)")
         kw = {} if positions3 is None else {"positions3": positions3}
-        logits, cache = model.decode_step(params, cache, token, pos,
-                                          compute_dtype=compute_dtype, **kw)
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+        if mesh is None:
+            out, cache = model.decode_step(params, cache, token, pos,
+                                           compute_dtype=compute_dtype, **kw)
+            nxt = torch.argmax(out, dim=-1).to(torch.int32)
+        else:
+            if positions3 is not None:
+                kw["positions3"] = _rows_of(positions3, dgroup, 1)
+            with model_settings.override(mesh=mesh):
+                out, cache = model.decode_step(
+                    params, cache, _rows_of(token, dgroup),
+                    _rows_of(pos, dgroup), compute_dtype=compute_dtype,
+                    gather=gather, cache_layout=layout, **kw)
+            out = _all_rows(out, dgroup, shape.global_batch)
+            nxt = torch.argmax(out, dim=-1).to(torch.int32)
+        return (nxt, cache, out) if logits else (nxt, cache)
 
     return serve_step
 
@@ -528,4 +695,5 @@ def from_numpy_state(model: Model, state: dict, *, device=None) -> dict:
 
 __all__ = ["build_prefill_step", "build_serve_step", "build_train_step",
            "from_numpy_state", "fsdp_axes_for", "init_train_state",
-           "moe_groups_for", "shard_state", "state_specs", "unshard_state"]
+           "moe_groups_for", "shard_cache", "shard_params", "shard_state",
+           "state_specs", "unshard_state"]

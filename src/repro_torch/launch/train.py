@@ -42,7 +42,7 @@ batch; a checkpoint holds whole leaves, written by rank 0):
 Pod x data (`--mesh PODxDATAx1`, DATA > 1): with `--compress`, FSDP
 over 'data' within each pod and `compress_collective` across pods (the
 reference's `fsdp_axes=("data",)`); without it, FSDP over both axes.
-Its checkpoints (`--ckpt-dir`) are item 12.7b and refused:
+Its checkpoints (`--ckpt-dir`) are item 12.7b.4 and refused:
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-3b \
@@ -50,7 +50,17 @@ Its checkpoints (`--ckpt-dir`) are item 12.7b and refused:
         --compress-sync sketch-mean --dist-backend gloo --device cpu \
         --steps 6 --batch 4 --seq 16
 
-A model axis above 1 (`--mesh AxB`, B > 1) is item 12.7b and refused.
+A (data, model) mesh (`--mesh AxB`, B > 1; the decoder family): each
+rank holds its blocks of the leaves split over either axis, and the
+forward runs tensor-, sequence- and expert-parallel over 'model'
+(`launch/tp.py`); the model ranks of a data index take the same rows.
+Its checkpoints (`--ckpt-dir`) are item 12.7b.4 and refused; a model
+axis beside a pod axis (`--mesh PxDxM`, M > 1) is item 12.7b.3c:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-3b \
+        --reduced --mesh 2x2 --dist-backend gloo --device cpu --steps 6 \
+        --batch 4 --seq 16 [--compress tt:k=64,dims=4x8x16]
 """
 from __future__ import annotations
 
@@ -91,10 +101,10 @@ def parse_mesh(spec: str | None, *, device=None, backend=None):
     if names is None:
         raise ValueError(f"--mesh {spec!r}: expected AxB (data x model) or "
                          "AxBxC (pod x data x model)")
-    if dims[-1] > 1:
+    if dims[-1] > 1 and len(dims) == 3:
         raise NotImplementedError(
-            f"--mesh {spec}: a model axis above 1 (TP/EP/SP) is item 12.7b "
-            "(ROADMAP.md, queue 1); run DATAx1 or PODxDATAx1")
+            f"--mesh {spec}: a model axis beside a pod axis is item "
+            "12.7b.3c (ROADMAP.md, queue 1); run DATAxMODEL or PODxDATAx1")
     need = 1
     for d in dims:
         need *= d
@@ -178,7 +188,8 @@ def main(argv=None) -> int:
                                          compressor=compressor, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     state = steps_lib.init_train_state(model, gen, compressor=compressor)
-    data_mesh = mesh is not None and mesh.shape.get("data", 1) > 1
+    data_mesh = mesh is not None and (mesh.shape.get("data", 1) > 1
+                                      or mesh.shape.get("model", 1) > 1)
     shardings = None
     if data_mesh:   # every rank drew the same state: keep its blocks
         shardings = steps_lib.state_specs(model, mesh, state)

@@ -1,7 +1,10 @@
 """Shared model layers: RMSNorm, LayerNorm, softcap, RoPE and Qwen2-VL's
-M-RoPE, GQA attention (dense, or chunked with an online softmax),
-SwiGLU, GeGLU, the GELU MLP, the causal depthwise conv (whole sequence
-and one token) and the chunked cross-entropy.
+M-RoPE, GQA attention (dense, or chunked with an online softmax; on a
+model axis a rank's heads, `local_kv`, and one token's attention over a
+sequence-split cache, `attention_over_ranks`), SwiGLU, GeGLU, the GELU
+MLP, the causal depthwise conv (whole sequence and one token) and the
+chunked cross-entropy (on a model axis over a vocabulary split over it,
+`vocab_parallel_ce_loss`).
 
 Port of `repro/models/layers.py`, as plain
 torch ops that follow the reference's math and layouts: activations are
@@ -238,18 +241,116 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, Hq, dh).to(q.dtype)
 
 
+def local_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int, size: int,
+             index: int, *, expand: bool):
+    """The KV heads the query heads of rank `index` of a model axis of
+    `size` read, from k, v (B, S, Hkv, dh) of every KV head: the rank's
+    query heads are [index * Hq/size, (index + 1) * Hq/size). `expand`
+    (the settings' `gqa_expand`) repeats each KV head over its G = Hq/Hkv
+    query heads first and takes the rank's Hq/size of them; otherwise the
+    rank takes the grouped KV heads its query heads read (expanded all the
+    same where the rank's heads neither hold whole groups nor lie in
+    one)."""
+    Hkv = k.shape[2]
+    G = n_heads // Hkv
+    hq = n_heads // size
+    a = index * hq
+    if expand or not (hq % G == 0 or G % hq == 0):
+        return tuple(t.repeat_interleave(G, dim=2)[:, :, a:a + hq]
+                     for t in (k, v))
+    lo, hi = a // G, (a + hq - 1) // G + 1
+    return k[:, :, lo:hi], v[:, :, lo:hi]
+
+
+def attention_over_ranks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         positions_q: torch.Tensor, positions_k: torch.Tensor,
+                         axis, *, causal: bool = True, window=None,
+                         softcap: float | None = None) -> torch.Tensor:
+    """One decode step's GQA attention over a cache whose positions are
+    split over a model axis: q (B, Sq, Hq, dh) every query head, k, v (B,
+    Sk, Hkv, dh) this rank's positions of every KV head. Each rank takes
+    its partial softmax (the row max, the sum of exponentials and the
+    weighted values), and three all_reduces over the axis (tag
+    `tp_attn`) merge them; a rank whose positions are all masked adds
+    nothing. Returns (B, Sq, Hq, dh) in q's dtype, alike on every rank."""
+    B, Sq, Hq, dh = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, dh).to(torch.float32)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32)) \
+        / math.sqrt(dh)
+    s = soft_cap(s, softcap)
+    msk = _mask(positions_q, positions_k, causal=causal,
+                window=window)[:, None, None]
+    s = s.masked_fill(~msk, NEG_INF)
+    m = axis.all_reduce(s.amax(dim=-1), op="max", tag="tp_attn")
+    p = torch.where(msk, torch.exp(s - m[..., None]), 0.0)
+    l_sum = axis.all_reduce(p.sum(dim=-1), tag="tp_attn")
+    acc = axis.all_reduce(torch.einsum("bhgqk,bkhd->bqhgd", p,
+                                       v.to(torch.float32)), tag="tp_attn")
+    out = acc / torch.clamp(l_sum, min=1e-30).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, Sq, Hq, dh).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
-def swiglu(x, w_gate, w_up, w_down):
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+class _ProductIn(torch.autograd.Function):
+    """a @ b on the operands as given, its sums kept in `acc`: on the card
+    one cuBLAS product of the (bf16) operands with an `acc` output, so the
+    tensor cores run it; on the CPU the operands upcast (the same sums).
+    The backward runs in the operands' dtype, as one device's product's
+    does. b is (K, N) or batched as a."""
+
+    @staticmethod
+    def forward(ctx, a, b, acc):
+        ctx.save_for_backward(a, b)
+        if not a.is_cuda:
+            return a.to(acc) @ b.to(acc)
+        if b.dim() == 2:
+            return torch.mm(a.reshape(-1, a.shape[-1]), b,
+                            out_dtype=acc).reshape(*a.shape[:-1], -1)
+        return torch.bmm(a, b, out_dtype=acc)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = g @ b.transpose(-1, -2)
+        if ctx.needs_input_grad[1]:
+            gb = (a.reshape(-1, a.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+                  if b.dim() == 2 else a.transpose(-1, -2) @ g)
+        return ga, gb, None
 
 
-def geglu(x, w_gate, w_up, w_down):
+def product_in(a, b, acc=None):
+    """a @ b, its sums kept in `acc` (a dtype) when given: a model axis's
+    row-parallel partial sums, reduced before they are rounded."""
+    if acc is None or (a.dtype == acc and b.dtype == acc):
+        return a @ b
+    if a.dtype != b.dtype:
+        return a.to(acc) @ b.to(acc)
+    return _ProductIn.apply(a, b, acc)
+
+
+def _down(h, w_down, acc):
+    """The down product, in `acc` (a dtype) when given."""
+    return product_in(h, w_down, acc)
+
+
+def swiglu(x, w_gate, w_up, w_down, *, acc=None):
+    """SwiGLU; `acc` runs the down product in that dtype (a model axis's
+    partial sum, reduced before it is rounded)."""
+    return _down(F.silu(x @ w_gate) * (x @ w_up), w_down, acc)
+
+
+def geglu(x, w_gate, w_up, w_down, *, acc=None):
     """Gemma's gated MLP: tanh-approximate GELU, as `jax.nn.gelu`'s
-    default."""
-    return (F.gelu(x @ w_gate, approximate="tanh") * (x @ w_up)) @ w_down
+    default; `acc` as `swiglu`'s."""
+    return _down(F.gelu(x @ w_gate, approximate="tanh") * (x @ w_up), w_down,
+                 acc)
 
 
 def gelu_mlp(x, w_in, b_in, w_out, b_out):
@@ -295,11 +396,15 @@ def conv1d_update(x_t: torch.Tensor, conv_state: torch.Tensor,
 def chunked_ce_loss(h: torch.Tensor, unembed: torch.Tensor,
                     labels: torch.Tensor, *, chunk: int | None = None,
                     softcap: float | None = None,
-                    mask: torch.Tensor | None = None) -> torch.Tensor:
+                    mask: torch.Tensor | None = None,
+                    denom: torch.Tensor | None = None) -> torch.Tensor:
     """Cross-entropy without materializing (B, S, V) logits: float32
     logits per sequence chunk, each chunk recomputed in the backward pass.
 
     h: (B, S, D) final hidden states; unembed: (D, V); labels: (B, S).
+    `denom` (a mesh's step) divides the masked sum of the rows' losses in
+    place of their own count: the loss is then a term of the step's, its
+    sums and counts taken over every rank's rows.
     """
     B, S, D = h.shape
     chunk = min(chunk if chunk is not None else settings.get().ce_chunk, S)
@@ -323,10 +428,47 @@ def chunked_ce_loss(h: torch.Tensor, unembed: torch.Tensor,
         t, c = remat(body, h[:, i:i + chunk], labels[:, i:i + chunk],
                      mask[:, i:i + chunk])
         tot, cnt = tot + t, cnt + c
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot / (torch.clamp(cnt, min=1.0) if denom is None else denom)
+
+
+def vocab_parallel_ce_loss(h: torch.Tensor, unembed: torch.Tensor,
+                           labels: torch.Tensor, axis, *,
+                           chunk: int | None = None,
+                           softcap: float | None = None,
+                           mask: torch.Tensor | None = None,
+                           denom: torch.Tensor) -> torch.Tensor:
+    """`chunked_ce_loss` over a vocabulary split over a model axis: h (B,
+    S, D) every row, unembed (D, V/ms) this rank's block of the
+    vocabulary (`launch.tp.vocab_parallel_nll` merges the blocks a chunk
+    at a time). Every rank computes the same masked sum, divided by
+    `denom` and counted once over the axis (`ModelAxis.once`)."""
+    from repro_torch.launch.tp import vocab_parallel_nll
+    B, S, D = h.shape
+    chunk = min(chunk if chunk is not None else settings.get().ce_chunk, S)
+    while S % chunk:
+        chunk //= 2
+    labels = labels.to(torch.int64)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+    lo = axis.index * unembed.shape[1]
+
+    def body(hi, li, mi):
+        logits = soft_cap(hi.to(torch.float32) @ unembed.to(torch.float32),
+                          softcap)
+        nll = vocab_parallel_nll(logits.reshape(-1, logits.shape[-1]),
+                                 li.reshape(-1), lo, axis)
+        return (nll * mi.reshape(-1)).sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, chunk):
+        tot = tot + remat(body, h[:, i:i + chunk], labels[:, i:i + chunk],
+                          mask[:, i:i + chunk])
+    return axis.once(tot / denom)
 
 
 __all__ = ["NEG_INF", "apply_mrope", "apply_rope", "attention",
-           "causal_depthwise_conv1d", "chunked_ce_loss", "conv1d_update",
-           "geglu", "gelu_mlp", "layer_norm", "remat", "remat_dots",
-           "rms_norm", "soft_cap", "swiglu"]
+           "attention_over_ranks", "causal_depthwise_conv1d",
+           "chunked_ce_loss", "conv1d_update", "geglu", "gelu_mlp",
+           "layer_norm", "local_kv", "product_in", "remat", "remat_dots",
+           "rms_norm",
+           "soft_cap", "swiglu", "vocab_parallel_ce_loss"]

@@ -15,10 +15,22 @@ trash row, `E * C`: every dropped (token, k) pair writes there and the
 experts never see it. The gather clamps as the reference's does and
 zeroes the dropped pairs, as the reference's `where(keep, ...)`.
 
-The reference's `_constrain` (the mesh's sharding constraints on the
-buffer) waits for the port's model axis (ROADMAP.md, queue 1 item
-12.7b); the groups G are the data shards' token groups
+The groups G are the data shards' token groups
 (`launch.steps.moe_groups_for`), on a data mesh a rank's share of them.
+
+On a model axis (the reference's `_constrain` on the buffer, written out
+by hand) every model rank routes the same gathered tokens (the router is
+replicated over 'model') and builds the same buffer. Expert parallelism
+(`experts=(lo, hi)`, when E divides the axis): the rank runs its experts'
+rows of the buffer through its (E/ms, D, F) expert weights, and pulls
+only the pairs routed to them. With `expert_mlp` over 'model' instead
+(E does not divide the axis) the rank's weights are its columns of F,
+the products column- and row-parallel inside each expert. Either way the
+returned (T, D) is this rank's partial sum, which the block reduces over
+'model' as it reduces a row-parallel product's; with `c_axis` (the
+settings' `moe_c_shard`, capacity C a multiple of the axis) the expert
+output's partial sums are first reduce-scattered over C (tag `moe_c`),
+and the rank pulls the pairs in its slots of C.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import MoESpec
+from .layers import product_in
 
 
 def moe_capacity(spec: MoESpec, n_tokens: int) -> int:
@@ -35,13 +48,18 @@ def moe_capacity(spec: MoESpec, n_tokens: int) -> int:
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, spec: MoESpec, *,
-            capacity: int | None = None, groups: int = 1) -> torch.Tensor:
+            capacity: int | None = None, groups: int = 1,
+            experts: tuple[int, int] | None = None,
+            c_axis=None, acc=None) -> torch.Tensor:
     """x: (T, D) flattened tokens. router_w: (D, E). w_*: (E, D, F)/(E, F, D).
 
     Returns (T, D) in x's dtype. Over-capacity tokens drop per group (the
     residual stream carries them unchanged, standard Switch behaviour).
     The router runs in float32 on `router_w` as given (the caller's
-    compute-dtype cast included, as the reference's).
+    compute-dtype cast included, as the reference's). `experts` and
+    `c_axis` as in the module docstring (a model axis: a partial sum);
+    `acc` (a dtype) runs the down product and the combine in it and
+    returns the sum in it.
     """
     T, D = x.shape
     E, K = spec.num_experts, spec.top_k
@@ -74,16 +92,25 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     buf = x.new_zeros((G, trash + 1, D)).index_put((rows, ec_idx), upd)
 
     # batched expert SwiGLU, one bmm a weight on its own (E, D, F) layout:
-    # (E, G*C, D) x (E, D, F) -> (E, G*C, F)
-    xe = buf[:, :trash].reshape(G, E, C, D).transpose(0, 1).reshape(
-        E, G * C, D)
+    # (E, G*C, D) x (E, D, F) -> (E, G*C, F), on the rank's experts [lo, hi)
+    lo, hi = experts if experts is not None else (0, E)
+    El = hi - lo
+    xe = buf[:, lo * C:hi * C].reshape(G, El, C, D).transpose(0, 1).reshape(
+        El, G * C, D)
     h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
-    out_buf = torch.bmm(h, w_down).reshape(E, G, C, D).transpose(
-        0, 1).reshape(G, trash, D)
-
-    keep = (slot < C)[..., None]
-    pulled = torch.where(keep, out_buf[rows, ec_idx.clamp(max=trash - 1)],
-                         0) * gate[..., None].to(x.dtype)
+    out_buf = product_in(h, w_down, acc).reshape(El, G, C, D).transpose(0, 1)
+    keep = (slot < C) & (eid >= lo) & (eid < hi)
+    idx = (eid - lo) * C + slot
+    if c_axis is not None:  # the partial sums onto the rank's slots of C
+        out_buf = c_axis.scatter(out_buf, 2, "moe_c")
+        Cl = C // c_axis.size
+        c0 = c_axis.index * Cl
+        keep = keep & (slot >= c0) & (slot < c0 + Cl)
+        idx = (eid - lo) * Cl + slot - c0
+    out_buf = out_buf.reshape(G, -1, D)
+    keep = keep[..., None]
+    pulled = torch.where(keep, out_buf[rows, idx.clamp(
+        0, out_buf.shape[1] - 1)], 0) * gate[..., None].to(out_buf.dtype)
     # a token's K pairs lie next to each other: sum them in k order
     return pulled.reshape(G, Tg, K, D).sum(dim=2).reshape(T, D)
 

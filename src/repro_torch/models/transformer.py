@@ -18,11 +18,35 @@ would silently run SwiGLU and RMSNorm in their place.
 The training forward takes the reference's `moe_groups=` (the MoE FFN
 dispatches its tokens in that many contiguous groups; on a data mesh one
 group a data shard, `launch.steps.moe_groups_for`) and `gather=`: on a
-data mesh a layer's leaves are read through the mesh's gather
-(`launch.fsdp.Sharded`), which puts their blocks back together for that
-layer alone and reduces the gradient back to the blocks. The decode
-steps dispatch in one group on one device (their mesh arguments are item
-12.7b, ROADMAP.md queue 1).
+mesh a layer's leaves are read through the mesh's gather
+(`launch.fsdp.Sharded`), which puts their data blocks back together for
+that layer alone and reduces the gradient back to the blocks.
+
+The model axis (`settings.mesh` with 'model' above 1, read once at the
+forward's entry; `launch/tp.py`): every leaf is the rank's model block.
+`wq`/`wk`/`wv` (and their biases) are column-parallel over heads, `wo`
+row-parallel, `w_gate`/`w_up` column-parallel over the MLP's hidden dim
+and `w_down` row-parallel; the MoE's experts (or, where E does not
+divide the axis, each expert's hidden dim) are split over it
+(`models/moe.py`). The residual stream is the rank's sequence rows
+between the parallel regions (`seq_parallel=True`, the reference's
+default; the norms run on those rows), gathered before each
+column-parallel product and reduced onto them after each row-parallel
+one. Attention runs on the rank's query heads over the whole sequence,
+rotated at the gathered sequence's own positions. Where the axis does
+not divide the KV heads, the layer reads `wk`/`wv`/`bk`/`bv` whole
+(`Sharded(whole=True)`) and takes the KV heads its query heads read
+(`layers.local_kv`; `settings.gqa_expand` expands them first). The
+embedding's lookup on the rank's columns is gathered to whole rows and
+the patches are scattered before the stream is split. The loss: an
+untied unembedding's cross-entropy over its vocabulary blocks
+(`layers.vocab_parallel_ce_loss`), a tied one's over the rank's own rows
+with the embedding gathered whole; `denom=` divides by the step's count
+over every rank's rows. `decode_step` on a model axis (no sequence
+parallelism) holds the rank's KV heads of the cache, or, where the axis
+does not divide them, the rank's positions of every head
+(`cache_layout="seq"`, `launch.sharding.cache_specs`), whose partial
+softmaxes merge over the axis (`layers.attention_over_ranks`).
 
 `decode_step` writes the new keys, values and positions into the cache
 in place (under `torch.inference_mode`) and returns the same dict: a
@@ -38,11 +62,17 @@ from repro_torch.core.device import resolve_device
 
 from . import layers as nn
 from . import params as ptree
+from . import settings
 from .config import ArchConfig
-from .moe import moe_ffn
+from .moe import moe_capacity, moe_ffn
 
 #: the position of an empty cache slot: causally masked for every query
 EMPTY_POS = 1 << 30
+
+#: the model-replicated leaves the forward reads inside a parallel region
+#: of the model axis, whose gradients are partial over it with or without
+#: sequence parallelism (`launch.fsdp.Sharded(partial=)`)
+MODEL_PARTIAL = ("layers/router",)
 
 #: the cache's recurrent state (none: a KV cache only), which
 #: `launch.serve.SlotServer` keeps apart between slots
@@ -153,33 +183,82 @@ def from_numpy_params(cfg: ArchConfig, tree: dict, *, device=None,
 # Forward
 # ---------------------------------------------------------------------------
 
+def _model_axis(cfg: ArchConfig, seq_parallel: bool = False):
+    """The forward's model axis (`launch.tp.ModelAxis`) from the settings'
+    mesh, or None; refuses what the axis does not split."""
+    mesh = settings.get().mesh
+    if mesh is None or mesh.shape.get("model", 1) <= 1:
+        return None
+    from repro_torch.launch.tp import ModelAxis
+    axis = ModelAxis.from_settings(seq_parallel=seq_parallel)
+    if cfg.n_heads % axis.size:
+        raise NotImplementedError(
+            f"{cfg.name}: a model axis of {axis.size} does not divide the "
+            f"{cfg.n_heads} query heads (spec_for would split inside a "
+            "head)")
+    return axis
+
+
+def _kv_whole(cfg: ArchConfig, axis) -> bool:
+    """Whether the layer reads the KV weights whole: a model axis that
+    does not divide the KV heads."""
+    return axis is not None and cfg.n_kv_heads % axis.size != 0
+
+
+def _layer_params(cfg: ArchConfig, gather, stacked: dict, i: int, axis
+                  ) -> dict:
+    """Layer i's leaves (see `params.take`); on a model axis that does not
+    divide the KV heads, `wk`/`wv`/`bk`/`bv` whole."""
+    whole = ("wk", "wv", "bk", "bv") if _kv_whole(cfg, axis) else ()
+    if whole and gather is None:
+        raise ValueError("a model axis reads its leaves through gather= "
+                         "(launch.fsdp.Sharded)")
+    return {k: gather(f"layers/{k}", t, i, whole=True) if k in whole
+            else ptree.take(gather, f"layers/{k}", t, i)
+            for k, t in stacked.items()}
+
+
 def _qkv(cfg: ArchConfig, lp: dict, x: torch.Tensor):
+    """q, k, v (B, S, H, hd) of the heads the leaves hold (a model axis:
+    the rank's query heads, and its KV heads or every one)."""
     B, S, _ = x.shape
-    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
     q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    return (q.reshape(B, S, Hq, hd), k.reshape(B, S, Hkv, hd),
-            v.reshape(B, S, Hkv, hd))
+    return (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
+            v.reshape(B, S, -1, hd))
 
 
 def _ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor, *, moe_groups: int = 1,
-         full_capacity: bool = False) -> torch.Tensor:
+         full_capacity: bool = False, axis=None) -> torch.Tensor:
     """FFN (dense / MoE / arctic hybrid) on (B, S, D); the MoE dispatches
     the B*S tokens in `moe_groups` contiguous groups. `full_capacity`
     disables token dropping (decode: a dropped token would corrupt the
-    stream; T is tiny there so the buffer cost is negligible)."""
+    stream; T is tiny there so the buffer cost is negligible). On a
+    model axis: the rank's partial sum, in float32 (see `_block`)."""
     mlp = nn.geglu if cfg.mlp == "geglu" else nn.swiglu
+    acc = torch.float32 if axis is not None else None
     if cfg.moe is None:
-        return mlp(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+        return mlp(x, lp["w_gate"], lp["w_up"], lp["w_down"], acc=acc)
     B, S, D = x.shape
     G = max(moe_groups, 1)
+    cap = B * S // G if full_capacity else None
+    E = cfg.moe.num_experts
+    experts = c_axis = None
+    if axis is not None and lp["we_gate"].shape[0] != E:    # experts split
+        per = lp["we_gate"].shape[0]
+        experts = (axis.index * per, (axis.index + 1) * per)
+    elif axis is not None and axis.moe_c_shard:
+        C = cap if cap is not None else moe_capacity(cfg.moe, B * S // G)
+        c_axis = axis if C % axis.size == 0 else None
     out = moe_ffn(x.reshape(B * S, D), lp["router"], lp["we_gate"],
                   lp["we_up"], lp["we_down"], cfg.moe, groups=G,
-                  capacity=B * S // G if full_capacity else None
+                  capacity=cap, experts=experts, c_axis=c_axis, acc=acc
                   ).reshape(B, S, D)
     if cfg.moe.dense_residual_ff:
-        out = out + nn.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+        out = out + nn.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"],
+                              acc=acc)
     return out
 
 
@@ -192,40 +271,69 @@ def _rope(cfg: ArchConfig, x, positions, positions3):
 
 def _block(cfg: ArchConfig, h, lp_raw: dict, positions, compute_dtype,
            attend, *, positions3=None, moe_groups: int = 1,
-           full_capacity: bool = False):
+           full_capacity: bool = False, axis=None, sp: bool = False):
     """One block on the residual stream h (B, S, D): the parameters cast
     to the compute dtype, q and k rotated at `positions` (B, S) (under
     M-RoPE at `positions3` (3, B, S)), and `attend(q, k, v)` -> (B, S,
-    Hq, hd) for the attention itself."""
-    B, S, _ = h.shape
+    Hq, hd) for the attention itself. On a model `axis` h is the rank's
+    rows under sequence parallelism (`sp`), positions the whole
+    sequence's, and `attend` gets the rank's query heads. There the
+    row-parallel products (`wo`, the FFN's down product) keep their sums
+    in float32 on the compute dtype's operands (`nn.product_in`), their
+    partial sums are reduced in float32 and rounded once, as one device's
+    product rounds its sum."""
     lp = {name: t.to(compute_dtype) for name, t in lp_raw.items()}
     hn = nn.rms_norm(h, lp_raw["norm1"], offset=cfg.norm_offset)
+    if axis is not None:
+        hn = axis.enter(hn, sp)
+    B, S, _ = hn.shape
     q, k, v = _qkv(cfg, lp, hn)
     q = _rope(cfg, q, positions, positions3)
     k = _rope(cfg, k, positions, positions3)
-    attn = attend(q, k, v).reshape(B, S, cfg.n_heads * cfg.hd) @ lp["wo"]
+    attn = attend(q, k, v)
+    attn = attn.reshape(B, S, attn.shape[2] * cfg.hd)
+    if axis is None:
+        attn = attn @ lp["wo"]
+    else:
+        attn = axis.leave(nn.product_in(attn, lp["wo"], torch.float32),
+                          sp).to(attn.dtype)
     if cfg.post_norm:
         attn = nn.rms_norm(attn, lp_raw["norm1_post"], offset=cfg.norm_offset)
     h = h + attn
     hn2 = nn.rms_norm(h, lp_raw["norm2"], offset=cfg.norm_offset)
+    if axis is not None:
+        hn2 = axis.enter(hn2, sp)
     ff = _ffn(cfg, lp, hn2, moe_groups=moe_groups,
-              full_capacity=full_capacity)
+              full_capacity=full_capacity, axis=axis)
+    if axis is not None:
+        ff = axis.leave(ff, sp).to(hn2.dtype)
     if cfg.post_norm:
         ff = nn.rms_norm(ff, lp_raw["norm2_post"], offset=cfg.norm_offset)
     return h + ff
 
 
+def _heads(cfg: ArchConfig, axis, k, v):
+    """The KV heads the rank's query heads read, from k, v as `_qkv` gave
+    them (a model axis that does not divide the KV heads: every one)."""
+    if not _kv_whole(cfg, axis):
+        return k, v
+    return nn.local_kv(k, v, cfg.n_heads, axis.size, axis.index,
+                       expand=axis.gqa_expand)
+
+
 def _layer(cfg: ArchConfig, h, stacked: dict, i: int, window: int,
            positions, compute_dtype, positions3, moe_groups: int = 1,
-           gather=None):
-    """Block i of the stack on the full sequence h (B, S, D), its leaves
-    read through `gather` (see `params.take`)."""
+           gather=None, axis=None, sp: bool = False):
+    """Block i of the stack on the sequence h (B, S, D) (the rank's rows
+    under sequence parallelism), its leaves read through `gather` (see
+    `params.take`)."""
     def attend(q, k, v):
+        k, v = _heads(cfg, axis, k, v)
         return nn.attention(q, k, v, positions, positions, causal=True,
                             window=window, softcap=cfg.attn_softcap)
-    return _block(cfg, h, ptree.take_all(gather, "layers/", stacked, i),
+    return _block(cfg, h, _layer_params(cfg, gather, stacked, i, axis),
                   positions, compute_dtype, attend, positions3=positions3,
-                  moe_groups=moe_groups)
+                  moe_groups=moe_groups, axis=axis, sp=sp)
 
 
 def _unembed(cfg: ArchConfig, params: dict, gather=None) -> torch.Tensor:
@@ -235,17 +343,41 @@ def _unembed(cfg: ArchConfig, params: dict, gather=None) -> torch.Tensor:
 
 
 def _embed(cfg: ArchConfig, params: dict, tokens, compute_dtype,
-           gather=None):
+           gather=None, axis=None):
+    """The embedded tokens (..., D); on a model axis the lookup of the
+    rank's columns of the table, gathered to whole rows."""
     table = ptree.take(gather, "embed", params["embed"])
     h = table[tokens.to(torch.int64)].to(compute_dtype)
+    if axis is not None and table.shape[1] != cfg.d_model:
+        h = axis.gather_cols(h)
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
     return h
 
 
-def _logits(cfg: ArchConfig, params: dict, h) -> torch.Tensor:
-    """float32 logits of final hidden states h (B, D), soft-capped."""
-    logits = h.to(torch.float32) @ _unembed(cfg, params).to(torch.float32)
+def _logits(cfg: ArchConfig, params: dict, h, gather=None, axis=None
+            ) -> torch.Tensor:
+    """float32 logits of final hidden states h (B, D), soft-capped; on a
+    model axis h is every rank's alike, and the logits are put together
+    from the rank's vocabulary block (untied) or summed from its columns
+    of the embedding (tied)."""
+    h = h.to(torch.float32)
+    if axis is None:
+        logits = h @ _unembed(cfg, params, gather).to(torch.float32)
+    elif cfg.tie_embeddings:
+        table = ptree.take(gather, "embed", params["embed"])
+        lo = axis.index * table.shape[1] if table.shape[1] != cfg.d_model \
+            else None
+        if lo is None:
+            logits = h @ table.to(torch.float32).T
+        else:
+            logits = axis.all_reduce(h[:, lo:lo + table.shape[1]]
+                                     @ table.to(torch.float32).T)
+    else:
+        w = ptree.take(gather, "unembed", params["unembed"])
+        logits = h @ w.to(torch.float32)
+        if w.shape[1] != cfg.vocab:
+            logits = axis.all_gather(logits, 1, tag="tp_logits")
     return nn.soft_cap(logits, cfg.final_softcap)
 
 
@@ -256,7 +388,7 @@ def forward_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                    patch_positions: torch.Tensor | None = None,
                    compute_dtype=torch.bfloat16,
                    remat: str = "nothing", moe_groups: int = 1,
-                   gather=None) -> torch.Tensor:
+                   gather=None, seq_parallel: bool = False) -> torch.Tensor:
     """Full-sequence forward to final hidden states (B, S, D).
 
     `patches` (B, P, D) replace the embedded rows at `patch_positions`
@@ -267,19 +399,25 @@ def forward_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     keeps the weight products' outputs and recomputes the rest
     (`checkpoint_dots_with_no_batch_dims`), any other value stores the
     activations. `moe_groups` and `gather` as in the module docstring.
+    On a model axis with `seq_parallel` (a sequence the axis divides) the
+    hidden states are the rank's rows (B, S/ms, D), else every row.
     """
     _check_ported(cfg)
     _check_positions3(cfg, positions3)
+    axis = _model_axis(cfg, seq_parallel)
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    h = _embed(cfg, params, tokens, compute_dtype, gather)
+    h = _embed(cfg, params, tokens, compute_dtype, gather, axis)
     if patches is not None:
         h = _put_patches(h, patches, patch_positions)
+    sp = axis is not None and axis.sp(S)
+    if sp:
+        h = axis.split(h)
     wrap = {"nothing": nn.remat, "dots": nn.remat_dots}.get(remat)
     for i, window in enumerate(cfg.window_array()):
         args = (cfg, h, params["layers"], i, window, positions,
-                compute_dtype, positions3, moe_groups, gather)
+                compute_dtype, positions3, moe_groups, gather, axis, sp)
         h = wrap(_layer, *args) if wrap is not None else _layer(*args)
     return nn.rms_norm(h, params["final_norm"], offset=cfg.norm_offset)
 
@@ -306,17 +444,60 @@ def _put_patches(h, patches, patch_positions):
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
             compute_dtype=torch.bfloat16, remat: str = "nothing",
-            moe_groups: int = 1, gather=None) -> torch.Tensor:
+            moe_groups: int = 1, gather=None, seq_parallel: bool = False,
+            denom: torch.Tensor | None = None) -> torch.Tensor:
+    """The mean cross-entropy of the batch's rows; with `denom` (a mesh's
+    step) their masked sum over `denom`, the step's count over every
+    rank's rows. On a model axis this rank's term of it: the terms'
+    sum over the axis is the rows' loss (see the module docstring)."""
     h = forward_hidden(cfg, params, batch["tokens"],
                        positions3=batch.get("positions3"),
                        patches=batch.get("patches"),
                        patch_positions=batch.get("patch_positions"),
                        compute_dtype=compute_dtype, remat=remat,
-                       moe_groups=moe_groups, gather=gather)
-    return nn.chunked_ce_loss(h, _unembed(cfg, params, gather),
-                              batch["labels"],
-                              softcap=cfg.final_softcap,
-                              mask=batch.get("loss_mask"))
+                       moe_groups=moe_groups, gather=gather,
+                       seq_parallel=seq_parallel)
+    labels, mask = batch["labels"], batch.get("loss_mask")
+    axis = _model_axis(cfg, seq_parallel)
+    if axis is None:
+        return nn.chunked_ce_loss(h, _unembed(cfg, params, gather), labels,
+                                  softcap=cfg.final_softcap, mask=mask,
+                                  denom=denom)
+    if gather is None:
+        raise ValueError("a model axis reads its leaves through gather= "
+                         "(launch.fsdp.Sharded)")
+    B, S = labels.shape
+    if denom is None:
+        denom = torch.clamp(mask.to(torch.float32).sum() if mask is not None
+                            else torch.tensor(float(B * S)), min=1.0)
+    if not cfg.tie_embeddings:
+        w = gather("unembed", params["unembed"])
+        if w.shape[1] == cfg.vocab:
+            raise NotImplementedError(
+                f"{cfg.name}: a model axis of {axis.size} does not divide "
+                f"the vocabulary of {cfg.vocab}")
+        return nn.vocab_parallel_ce_loss(
+            axis.enter(h, axis.sp(S)), w, labels, axis,
+            softcap=cfg.final_softcap, mask=mask, denom=denom)
+    # tied: the embedding gathered whole, the cross-entropy of own rows
+    if axis.sp(S):
+        from repro_torch.launch.sharding import seq_rows
+        lo, hi = seq_rows(S, axis.mesh)
+        labels = labels[:, lo:hi]
+        mask = mask[:, lo:hi] if mask is not None else None
+    else:
+        if (B * S) % axis.size:
+            raise NotImplementedError(
+                f"{B * S} rows do not split over a model axis of "
+                f"{axis.size}")
+        h = axis.split(h.reshape(1, B * S, -1))
+        per = B * S // axis.size
+        rows = slice(axis.index * per, (axis.index + 1) * per)
+        labels = labels.reshape(1, B * S)[:, rows]
+        mask = mask.reshape(1, B * S)[:, rows] if mask is not None else None
+    table = gather("embed", params["embed"], whole=True)
+    return nn.chunked_ce_loss(h, table.T, labels, softcap=cfg.final_softcap,
+                              mask=mask, denom=denom)
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +529,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 def decode_step(cfg: ArchConfig, params: dict, cache: dict,
                 token: torch.Tensor, pos: torch.Tensor, *,
                 positions3: torch.Tensor | None = None,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, gather=None,
+                cache_layout: str | None = None):
     """token: (B,) int; pos: (B,) int (each sequence's position);
     positions3: (3, B, 1), an M-RoPE config's rotary positions.
 
@@ -356,33 +538,59 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     ring slot `pos % C`, in place, and attends over the whole ring. The
     MoE FFN runs at full capacity (no token drops). Returns (logits (B,
     V) float32, cache) -- the same cache dict.
+
+    On a model axis (`settings.mesh`; the leaves read through `gather`)
+    the cache is the rank's block by `launch.sharding.cache_specs`:
+    `cache_layout` 'heads' (its KV heads), 'seq' (its C/ms ring slots of
+    every head: the step's new key and value go to the rank whose slots
+    hold `pos % C`, and the ranks' partial softmaxes merge) or None (the
+    whole cache on every rank).
     """
     _check_ported(cfg)
     _check_positions3(cfg, positions3)
+    axis = _model_axis(cfg)
+    if cache_layout not in (None, "heads", "seq"):
+        raise ValueError(f"unknown cache_layout {cache_layout!r}")
     B = token.shape[0]
-    C = cache["k"].shape[3]
+    Cl = cache["k"].shape[3]
+    seq = axis is not None and cache_layout == "seq"
+    C = Cl * axis.size if seq else Cl
+    c0 = axis.index * Cl if seq else 0
     pos = pos.to(device=token.device, dtype=torch.int32)
     pos_q = pos[:, None]                                  # (B, 1)
     slot = (pos % C).to(torch.int64)
+    mine = (slot >= c0) & (slot < c0 + Cl)                # this rank's slot
+    slot = torch.where(mine, slot - c0, 0)
     rows = torch.arange(B, device=token.device)
-    h = _embed(cfg, params, token, compute_dtype)[:, None, :]  # (B, 1, D)
+    h = _embed(cfg, params, token, compute_dtype, gather, axis)[:, None, :]
+    hq = cfg.n_heads // (axis.size if axis is not None else 1)
     for i, window in enumerate(cfg.window_array()):
         kc, vc, pc = cache["k"][i], cache["v"][i], cache["pos"][i]
 
         def attend(q, k, v, kc=kc, vc=vc, pc=pc, window=window):
+            if seq:     # only the rank whose slots hold pos % C writes
+                r = rows[mine]
+                kc[r, :, slot[mine]] = k[mine, 0].to(kc.dtype)
+                vc[r, :, slot[mine]] = v[mine, 0].to(vc.dtype)
+                pc[r, slot[mine]] = pos[mine]
+                out = nn.attention_over_ranks(
+                    axis.all_gather(q, 2), kc.transpose(1, 2),
+                    vc.transpose(1, 2), pos_q, pc, axis, causal=True,
+                    window=window, softcap=cfg.attn_softcap)
+                return out[:, :, axis.index * hq:(axis.index + 1) * hq]
             kc[rows, :, slot] = k[:, 0].to(kc.dtype)
             vc[rows, :, slot] = v[:, 0].to(vc.dtype)
             pc[rows, slot] = pos
-            return nn.attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
-                                pos_q, pc, causal=True, window=window,
-                                softcap=cfg.attn_softcap,
+            kk, vv = _heads(cfg, axis, kc.transpose(1, 2), vc.transpose(1, 2))
+            return nn.attention(q, kk, vv, pos_q, pc, causal=True,
+                                window=window, softcap=cfg.attn_softcap,
                                 dense_below=1 << 62)
-        h = _block(cfg, h, {name: t[i] for name, t in
-                            params["layers"].items()},
+        h = _block(cfg, h, _layer_params(cfg, gather, params["layers"], i,
+                                         axis),
                    pos_q, compute_dtype, attend, positions3=positions3,
-                   full_capacity=True)
+                   full_capacity=True, axis=axis)
     h = nn.rms_norm(h, params["final_norm"], offset=cfg.norm_offset)
-    return _logits(cfg, params, h[:, 0, :]), cache
+    return _logits(cfg, params, h[:, 0, :], gather, axis), cache
 
 
 @torch.inference_mode()

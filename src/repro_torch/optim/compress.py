@@ -179,12 +179,13 @@ class SketchCompressor:
         """Memoized PytreeSketcher for `tree`: with a `bucket_spec`, one
         that splits each leaf's buckets over the mesh, unless `plain`
         (`compress_collective`, whose ranks hold different pods' trees)."""
-        split = self.bucket_spec is not None and not plain
-        mesh, spec = (self.mesh, self.bucket_spec) if split else (None, None)
-        key = (self._memo_key(tree), split)
+        key = (self._memo_key(tree), plain)
         if self._sk_cache is not None and self._sk_cache[0] == key:
             return self._sk_cache[1]
-        sk = PytreeSketcher(self.cfg, tree, mesh=mesh, bucket_spec=spec)
+        sk = PytreeSketcher(self.cfg, tree, mesh=self.mesh,
+                            bucket_spec=self.bucket_spec,
+                            constrain=self.bucket_spec is not None
+                            and not plain)
         self._sk_cache = (key, sk)
         return sk
 

@@ -136,18 +136,31 @@ def gather_blocks(block, mesh, spec, *, tag: str = "gather"):
     return all_gather(block, mesh.group(axes), tag=tag)
 
 
-def sketch_tree_sharded(cfg, tree, seed, *, mesh, spec=None):
+def sketch_tree_sharded(cfg, tree, seed, *, mesh, spec=None, sketcher=None):
     """Whole-tree sketch with each leaf's bucket axis split over `mesh`.
 
-    Buckets are built per leaf as `PytreeSketcher` builds them, each
+    Buckets are built per leaf as `PytreeSketcher` builds them (by
+    `sketcher`, a sketcher of the tree's structure, when given), each
     rank projects its block of every leaf whose bucket count the spec's
     axes divide (the others whole), and each leaf's blocks are gathered
     back: returns the canonical `(n_buckets, k)` sketch on every rank,
     what `PytreeSketcher.sketch` returns under the same seed.
     """
     from repro_torch.core.sketch import PytreeSketcher
-    return PytreeSketcher(cfg, tree, mesh=mesh, bucket_spec=spec).sketch(
-        tree, seed)
+    sk = sketcher if sketcher is not None else PytreeSketcher(
+        cfg, tree, mesh=mesh, bucket_spec=spec)
+
+    def project_fn(op, buckets):
+        nb = buckets.shape[0]
+        leaf_spec = spec if spec is not None else bucket_pspec(mesh, nb)
+        _, _, size = shard_entry(mesh, leaf_spec)
+        if size > 1 and nb % size == 0:
+            return gather_blocks(project_sharded(
+                op, buckets, mesh=mesh, spec=leaf_spec,
+                backend=sk.cfg.backend), mesh, leaf_spec, tag="sketch")
+        return project(op, buckets, backend=sk.cfg.backend)
+
+    return sk.sketch(tree, seed, project_fn=project_fn)
 
 
 # ---------------------------------------------------------------------------

@@ -150,18 +150,19 @@ def run(step_fn: Callable, state: Any, data: SyntheticLM, cfg: LoopConfig, *,
     reads the rank's blocks (see the module docstring).
     """
     pods = mesh is not None and "pod" in mesh.axis_names
-    blocks = mesh is not None and mesh.shape.get("data", 1) > 1
+    model = mesh is not None and mesh.shape.get("model", 1) > 1
+    blocks = mesh is not None and (mesh.shape.get("data", 1) > 1 or model)
     if blocks and shardings is None:
         raise ValueError("run(mesh=) on a data mesh needs shardings=, the "
                          "state's specs (launch.steps.state_specs)")
     if not blocks:
         shardings = None
-    if pods and blocks and cfg.ckpt_dir:
+    if (model or pods and blocks) and cfg.ckpt_dir:
         raise NotImplementedError(
             "checkpoints of a pod x data mesh (each rank's pod residual "
-            "beside the data blocks) are item 12.7b (ROADMAP.md, queue 1); "
-            "run it without ckpt_dir, or checkpoint a (data, 1) or "
-            "(pod, 1, 1) mesh")
+            "beside the data blocks) and of a mesh with a model axis are "
+            "item 12.7b.4 (ROADMAP.md, queue 1); run it without ckpt_dir, "
+            "or checkpoint a (data, 1) or (pod, 1, 1) mesh")
     if cfg.npod > 1 and not (pods and mesh.shape["pod"] == cfg.npod):
         raise ValueError(
             f"LoopConfig(npod={cfg.npod}) needs the mesh= whose 'pod' axis "

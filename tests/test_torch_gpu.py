@@ -249,6 +249,58 @@ def test_k4_block_form_matches_plain_version_and_whole_leaf(cuda, family,
             assert torch.equal(a, b[index])
 
 
+@pytest.mark.parametrize("family", ["tt", "cp"])
+@pytest.mark.parametrize("dims_ab", [(1, 2), (0, 1), (0, 2)],
+                         ids=["dims12", "dims01", "dims02"])
+def test_k4_two_dim_block_matches_plain_version_and_whole_leaf(cuda, family,
+                                                               dims_ab):
+    """K4's block form split on two dims of a (6, 50, 36) leaf (a padded
+    last bucket), a 2 x 2 grid of ranks (a (data, model) mesh's): each
+    rank's outputs against the plain two-dim form (1e-4), the residual
+    and the block bit for bit against the whole-leaf K4's, and the
+    launch counted as a two-dim one."""
+    dims, k, shape = (4, 8, 16), 37, (6, 50, 36)
+    op, _ = _operands(family, dims, k, 3, cuda)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    size, bucket = math.prod(shape), math.prod(dims)
+    nb = -(-size // bucket)
+    y = torch.randn((nb, k), generator=g, device=cuda)
+    p, w, m, v = (torch.randn(shape, generator=g, device=cuda)
+                  for _ in range(4))
+    v = v.abs() * 1e-2
+
+    def buckets(t):
+        flat = torch.zeros(nb * bucket, device=cuda)
+        flat[:size] = t.reshape(-1)
+        return flat.reshape((nb,) + dims)
+
+    whole = fused.fused_update_buckets(op, y, *(buckets(t) for t in (
+        p, w, m, v)), 1e-3, 0.3, 0.2, **HP)
+    whole = [t.reshape(-1)[:size].reshape(shape) for t in whole]
+    da, db = dims_ab
+    na, nb_ = shape[da] // 2, shape[db] // 2
+    for i in range(2):
+        for j in range(2):
+            layout = fused.BlockLayout.of(shape, da, i * na, (i + 1) * na,
+                                          db, j * nb_, (j + 1) * nb_)
+            index = [slice(None)] * 3
+            index[da] = slice(i * na, (i + 1) * na)
+            index[db] = slice(j * nb_, (j + 1) * nb_)
+            index = tuple(index)
+            blk = [t[index].contiguous() for t in (w, m, v)]
+            before = fused.fused_update_block.launches_2d
+            got = fused.fused_update_block(op, y, p, *blk, 1e-3, 0.3, 0.2,
+                                           layout=layout, **HP)
+            assert fused.fused_update_block.launches_2d == before + 1
+            ref = fused.fused_update_block_plain(op, y, p, *blk, 1e-3, 0.3,
+                                                 0.2, layout=layout, **HP)
+            for a, b in zip(got, ref):
+                assert _rel(a, b) <= 1e-4
+            assert torch.equal(got[0], whole[0])
+            for a, b in zip(got[1:], whole[1:]):
+                assert torch.equal(a, b[index])
+
+
 CARRY_SHAPES = SHAPES + [(2, 3, 2, 3, 2, 2, 3), (2,) * 8, (8, 128, 64)]
 
 
@@ -923,6 +975,31 @@ def test_serve_cli_on_the_card_refuses_whisper(cuda, capsys):
     with pytest.raises(SystemExit):
         serve.main(["--arch", "whisper-medium"])
     assert "encoder-decoder" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_product_in_on_the_card(cuda, batched):
+    """`nn.product_in` on the card: one bf16 product with an fp32 output
+    (`torch.mm`/`torch.bmm` with `out_dtype`), within 1e-5 of the largest
+    entry of the upcast fp32 product (the same exact products, summed in
+    another order); its backward equals the bf16 product's bit for bit."""
+    from repro_torch.models import layers as nn
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    shape_a, shape_b = ((8, 256, 3072), (8, 3072, 512)) if batched else \
+        ((2, 1024, 3072), (3072, 3072))
+    a = torch.randn(shape_a, generator=gen, device=cuda).to(torch.bfloat16)
+    b = torch.randn(shape_b, generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn(shape_a[:-1] + (shape_b[-1],), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    a1, b1 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    out = nn.product_in(a1, b1, torch.float32)
+    assert out.dtype == torch.float32
+    assert _rel(out, a.float() @ b.float()) <= 1e-5
+    out.backward(g.float())
+    a2, b2 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    (a2 @ b2).backward(g)
+    assert torch.equal(a1.grad, a2.grad) and torch.equal(b1.grad, b2.grad)
 
 
 def test_remat_dots_on_the_card_equals_nothing(cuda):

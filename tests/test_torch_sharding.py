@@ -11,7 +11,9 @@ the reference's on stand-in meshes (16, 16), (2, 16, 16), (2, 1),
 both packages' functions read. The reference's `PartitionSpec` stores a
 one-axis entry as the bare name, so every entry is normalized to a tuple
 of names (or None) on both sides, as `tests/test_torch_shard.py` does.
-The data-mesh train step refuses what item 12.7b brings.
+The mesh train step refuses what the rest of item 12.7b brings (a
+model axis beside a pod axis, 12.7b.3c; a model axis with the SSM,
+hybrid or encoder-decoder families, 12.7b.3b).
 """
 import functools
 import types
@@ -202,29 +204,34 @@ class _Mesh(types.SimpleNamespace):
 
 
 @pytest.mark.parametrize("what,shape,names,kw", [
-    ("model", (1, 2), ("data", "model"), {}),
-    ("model", (2, 2), ("data", "model"), {}),
+    ("pod beside model", (2, 1, 2), ("pod", "data", "model"), {}),
+    ("hybrid on model", (1, 2), ("data", "model"),
+     {"arch": "recurrentgemma-2b"}),
     ("pod x data", (2, 2, 1), ("pod", "data", "model"),
      {"fused_update": True}),
-    ("fused_update", (2, 2), ("data", "model"), {"fused_update": True}),
+    ("ssm on model, fused", (2, 2), ("data", "model"),
+     {"fused_update": True, "arch": "mamba2-1.3b"}),
 ])
 def test_what_item_12_7b_brings_is_refused(what, shape, names, kw):
-    """A model axis above 1 is item 12.7b's, fused or not; pod x data
-    meshes and `fused_update` on a data mesh have landed, but
-    `fused_update` beside a pod axis stays refused, as the reference
-    refuses it (the pod collective keeps the unfused update)."""
+    """What the rest of item 12.7b brings stays refused, each with its
+    label: a model axis beside a pod axis (12.7b.3c), a model axis with a
+    family other than the decoder (12.7b.3b), fused or not; and
+    `fused_update` beside a pod axis, as the reference refuses it (the
+    pod collective keeps the unfused update)."""
     from repro_torch.configs import reduced
     from repro_torch.core.sketch import SketchConfig
     from repro_torch.optim import AdamWConfig
     from repro_torch.optim.compress import SketchCompressor
     mesh = _Mesh(shape=dict(zip(names, shape)), axis_names=names)
-    model = build_model(reduced(get_config("llama3.2-3b")))
+    kw = dict(kw)
+    model = build_model(reduced(get_config(kw.pop("arch", "llama3.2-3b"))))
     comp = SketchCompressor(SketchConfig(family="tt", k=16, rank=2,
                                          dims=(4, 8), bucket_elems=32))
-    err_type, match, names_it = (
-        (ValueError, "run without a 'pod' mesh axis", "pod")
-        if what == "pod x data" else
-        (NotImplementedError, r"item 12\.7b", "model axis"))
+    err_type, match, names_it = {
+        "pod x data": (ValueError, "run without a 'pod' mesh axis", "pod"),
+        "pod beside model": (NotImplementedError, r"item 12\.7b\.3c",
+                             "beside a pod axis"),
+    }.get(what, (NotImplementedError, r"item 12\.7b\.3b", "family"))
     with pytest.raises(err_type, match=match) as err:
         steps.build_train_step(model, ShapeSpec("t", 8, 4, "train"),
                                mesh=mesh, compressor=comp, device="cpu",
@@ -233,6 +240,8 @@ def test_what_item_12_7b_brings_is_refused(what, shape, names, kw):
 
 
 def test_train_cli_refuses_a_model_axis():
+    """A model axis beside a pod axis (`--mesh PxDxM`, M > 1) is item
+    12.7b.3c; `--mesh AxB` with B > 1 runs (tests/test_torch_tp_steps.py)."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match=r"item 12\.7b"):
-        train.parse_mesh("1x2")
+    with pytest.raises(NotImplementedError, match=r"item 12\.7b\.3c"):
+        train.parse_mesh("2x1x2")

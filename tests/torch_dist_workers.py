@@ -397,10 +397,11 @@ def pod_sigterm_scenario(mesh, pl):
     return {"final_step": final, "ef": _leaves(state)["ef"], "logs": logs}
 
 
-def _fsdp_step(mesh, pl, cfg, remat="nothing", sync="local-mean", **kw):
-    """The reduced model's data-mesh train step (fp32 compute, constant
-    lr, the payload's clip, `remat`), through a compressor of `cfg` (its
-    pod `sync`) when given."""
+def _fsdp_step(mesh, pl, cfg, remat="nothing", sync="local-mean",
+               compute_dtype=torch.float32, **kw):
+    """The reduced model's data-mesh train step (fp32 compute unless
+    `compute_dtype`, constant lr, the payload's clip, `remat`), through a
+    compressor of `cfg` (its pod `sync`) when given."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.sketch import SketchConfig
     from repro_torch.launch import steps
@@ -413,7 +414,7 @@ def _fsdp_step(mesh, pl, cfg, remat="nothing", sync="local-mean", **kw):
             SketchCompressor(SketchConfig(**cfg), sync=sync))
     return model, steps.build_train_step(
         model, ShapeSpec("t", pl["seq"], pl["batch"], "train"), mesh=mesh,
-        compressor=comp, compute_dtype=torch.float32,
+        compressor=comp, compute_dtype=compute_dtype,
         opt=AdamWConfig(clip_norm=pl.get("clip", 1.0)),
         lr_fn=functools.partial(schedule.constant, peak_lr=pl["lr"]),
         remat=remat, **kw)
@@ -686,6 +687,183 @@ def _partial_split(mesh):
     return out
 
 
+def _tp_model(case):
+    """The reduced decoder of a model-axis case (its expert count
+    overridden where the case names one)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    cfg = reduced(get_config(case["arch"]))
+    if case.get("experts"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=case["experts"]))
+    return build_model(cfg)
+
+
+def tp_grad_scenario(mesh, pl):
+    """Each case's loss and gradient on a (data, model) mesh through the
+    step's pieces, fp32 compute: the rank's blocks of the payload's whole
+    params (`fsdp.shard_tree`), its rows of the batch, `fsdp.Sharded`
+    and `model.loss_fn` under `settings.override(mesh=, **settings)`,
+    with `seq_parallel` on and off: the loss summed over the ranks, the
+    whole gradient (`unshard_tree`) and, for each leaf the model axis
+    does not split, this rank's gradient of it as `finish` leaves it."""
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+    from repro_torch.launch import fsdp, sharding
+    from repro_torch.models import from_numpy_params, settings
+    from repro_torch.rp import shard
+    out = {}
+    for case in pl["cases"]:
+        model = _tp_model(case)
+        cfg = model.cfg
+        params = from_numpy_params(cfg, case["params"], device="cpu")
+        pspecs = sharding.param_specs(cfg, model.param_axes(), mesh,
+                                      model.param_shapes())
+        blocks, treedef = tree_flatten(fsdp.shard_tree(params, pspecs, mesh))
+        dg = mesh.group(("data",))
+        rows = {}
+        for k, v in case["batch"].items():
+            t = torch.from_numpy(np.array(v))
+            d = sharding.batch_dim(k)
+            if k != "patch_positions" and t.shape[d] % dg.size == 0:
+                per = t.shape[d] // dg.size
+                t = t.narrow(d, dg.index * per, per)
+            rows[k] = t
+        res = {}
+        for sp in (True, False):
+            layout = fsdp.Sharded(mesh, pspecs, seq_parallel=sp,
+                                  partial=("layers/router",))
+            live = [t.detach().requires_grad_(True) for t in blocks]
+            with torch.enable_grad(), settings.override(
+                    mesh=mesh, **case.get("settings", {})):
+                loss = model.loss_fn(tree_unflatten(treedef, live), rows,
+                                     compute_dtype=torch.float32,
+                                     gather=layout, seq_parallel=sp)
+                grads = torch.autograd.grad(loss, live)
+            grads = layout.finish(tree_unflatten(treedef, list(grads)))
+            total = shard.all_reduce(loss.detach().reshape(1), mesh.group(
+                ("data", "model")))[0] / dg.size
+            rep = {p: g.clone() for p, g, in zip(
+                layout.specs, tree_flatten(grads)[0])
+                if layout.model_dim[p] is None}
+            whole = fsdp.unshard_tree(grads, pspecs, mesh)
+            res[sp] = {"loss": float(total),
+                       "grads": [t.clone() for t in tree_flatten(whole)[0]],
+                       "rep": rep}
+        out[case["name"]] = res
+    return out
+
+
+def tp_steps_scenario(mesh, pl):
+    """The reduced model's train step on a (data, model) mesh from the
+    payload's whole state (`shard_state`), once a mode: "uncompressed",
+    "compressed" (the payload's sketch, its operators carried across),
+    "fused" (`fused_update=True`, clip None), and "bf16" / "cast" (no
+    compressor, bf16 compute, `cast_params_once` off / on): per step the
+    loss, the clip's norm, the whole params, m, v (`unshard_state`), this
+    rank's EF, the ledger, the kernel dispatches by structure and the K4
+    calls by form; the shapes this rank holds. With `serve` in the
+    payload, then `tp_serve_scenario` on its cases."""
+    from repro_torch import rp
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import steps
+    from repro_torch.models import settings
+    from repro_torch.rp import shard
+    carry_ops(pl["ops"])
+    calls = _counting(("fused_update_block", "fused_update_buckets"))
+    out = {"coordinate": mesh.coordinate}
+    for mode in pl["modes"]:
+        sketch = pl["cfg"] if mode in ("compressed", "fused") else None
+        kw = {"fused_update": True} if mode == "fused" else {}
+        if mode in ("bf16", "cast"):
+            kw["compute_dtype"] = torch.bfloat16
+        model, step_fn = _fsdp_step(
+            mesh, dict(pl, clip=None) if mode == "fused" else pl, sketch,
+            **kw)
+        whole = steps.from_numpy_state(model, pl["state"], device="cpu")
+        if sketch is None:
+            whole.pop("ef", None)
+        state = steps.shard_state(model, whole, mesh)
+        held = [tuple(t.shape) for t in tree_leaves(state["params"])]
+        runs = []
+        for batch in pl["batches"]:
+            shard.collective_ledger().reset()
+            before = dict(calls)
+            with rp.dispatch_stats() as st, settings.override(
+                    cast_params_once=mode == "cast"):
+                state, met = step_fn(state, {k: torch.from_numpy(v)
+                                             for k, v in batch.items()})
+            led = shard.collective_ledger().table()
+            full = steps.unshard_state(model, state, mesh)
+            runs.append({
+                "loss": float(met["loss"]),
+                "grad_norm": (float(met["grad_norm"]) if "grad_norm" in met
+                              else None),
+                "params": [t.clone() for t in tree_leaves(full["params"])],
+                "m": [t.clone() for t in tree_leaves(full["opt"]["m"])],
+                "v": [t.clone() for t in tree_leaves(full["opt"]["v"])],
+                "ef": [t.clone() for t in tree_leaves(state.get("ef", {}))],
+                "ledger": led, "dispatches": _dispatches(st),
+                "calls": {k: calls[k] - before[k] for k in calls}})
+        out[mode] = {"held": held, "runs": runs}
+    if "serve" in pl:   # the serving cases on the same mesh
+        out["serve"] = tp_serve_scenario(mesh, {"cases": pl["serve"]})
+    return out
+
+
+def tp_serve_scenario(mesh, pl):
+    """The prefill and serve steps on a (data, model) mesh, per case (the
+    reference's whole params, its prefill cache and greedy tokens): the
+    mesh prefill's logits, 8 serve steps (the policy's bf16) from the
+    cache in bf16 (`shard_cache`) fed the reference's tokens, and the
+    same steps at fp32 compute from it in fp32 (their logits); the
+    cache's layout."""
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import from_numpy_params
+    from repro_torch.models.config import ShapeSpec
+    out = {}
+    for case in pl["cases"]:
+        model = _tp_model(case)
+        cfg = model.cfg
+        params = steps.shard_params(model, from_numpy_params(
+            cfg, case["params"], device="cpu"), mesh)
+        tokens = torch.from_numpy(case["tokens"])
+        B, S = tokens.shape
+        pre = steps.build_prefill_step(model, ShapeSpec("p", S, B,
+                                                        "prefill"), mesh=mesh)
+        logits = pre(params, {"tokens": tokens})
+
+        def cache(arrays, dtype):
+            whole = {k: torch.from_numpy(np.array(v)).to(
+                torch.int32 if k == "pos" else dtype)
+                for k, v in arrays.items()}
+            return whole, steps.shard_cache(model, whole, mesh)
+        whole, c_bf16 = cache(case["cache"], torch.bfloat16)
+        _, c_fp32 = cache(case["cache"], torch.float32)
+        layout = {2: "heads", 3: "seq"}.get(next(
+            (i for i, e in enumerate(sharding.cache_specs(cfg, whole, mesh)[
+                "k"]) if e == "model"), None))
+        shape = ShapeSpec("d", whole["k"].shape[3], B, "decode")
+        serve = steps.build_serve_step(model, shape, mesh=mesh)
+        serve32 = steps.build_serve_step(model, shape, mesh=mesh,
+                                         logits=True,
+                                         compute_dtype=torch.float32)
+        toks, fp32 = [], []
+        for i, tok in enumerate(case["feed"]):
+            pos = torch.full((B,), S + i, dtype=torch.int32)
+            tok = torch.from_numpy(tok)
+            nxt, c_bf16 = serve(params, c_bf16, tok, pos)
+            toks.append(nxt.clone())
+            _, c_fp32, lg = serve32(params, c_fp32, tok, pos)
+            fp32.append(lg.clone())
+        out[case["name"]] = {"prefill": logits.clone(), "tokens": toks,
+                             "logits": fp32, "layout": layout,
+                             "cache": {k: tuple(v.shape)
+                                       for k, v in c_bf16.items()}}
+    return out
+
+
 def _meta(tree):
     if isinstance(tree, dict):
         return {k: _meta(v) for k, v in tree.items()}
@@ -700,4 +878,5 @@ SCENARIOS = {"shard": shard_scenario, "collective": collective_scenario,
              "vlm_pod": vlm_pod_scenario, "fsdp": fsdp_scenario,
              "fsdp_ckpt": fsdp_ckpt_scenario,
              "fsdp_fused": fsdp_fused_scenario,
-             "pod_data": pod_data_scenario}
+             "pod_data": pod_data_scenario, "tp_grad": tp_grad_scenario,
+             "tp_steps": tp_steps_scenario, "tp_serve": tp_serve_scenario}

@@ -6,7 +6,7 @@ comparison at `--compute` (default float32), of 20a's uncompressed step,
 or with `--fused` of 20d's fused step (`fused_update=True` through phase
 9's compressor, clip None, each rank's K4 block form against the one-rank
 whole-leaf K4): phase 20's slice
-(llama3.2-3b at its published widths cut to 2 layers, seq 4096, global
+(llama3.2-3b at its published widths cut to 2 layers, phase 20's sequence, global
 batch 2: one row a rank; AdamW's clip of 1.0, constant `--lr`, default
 phase 20's 3e-4), the parameters drawn once from seed 0. This process runs
 `--steps` one-rank steps and writes the params after each, frees the
