@@ -195,9 +195,9 @@ Phases (each raises on failure, so the script exits non-zero):
      the 2-pod dense checkpoint restored onto one pod of an NCCL mesh of
      world size 1: the EF equals the fixed-order sum of the two rows bit
      for bit. K1's and K2's launches go into their training rows.
-  17. LM serving at full width: llama3.2-3b (28 layers, slots 8, 8
-     requests) and then gemma2-9b (42 layers, slots 4, 4 requests; llama
-     freed first), random fp32 weights from a
+  17. LM serving at full width: llama3.2-3b (14 of its 28 layers, slots
+     8, 8 requests) and then gemma2-9b (21 of 42 layers, slots 4, 4
+     requests; llama freed first), random fp32 weights from a
      seeded generator, prompts of 64-128 tokens from a seeded numpy generator, 32 generated tokens
      each, `max_seq` 512: `SlotServer.run` timed (decode ms a step at
      B = slots by CUDA events, the server's prefill ms a prompt token,
@@ -332,8 +332,8 @@ Phases (each raises on failure, so the script exits non-zero):
      steps with the same bounds, K4's two-dim block form launched, the
      EF's bits equal on all four ranks, each rank at most 18 GiB, and
      w_gate's two-dim K4 block against its plain version on the card
-     (1e-4). 22c, serving on `(1, 2)`: llama3.2-3b at full depth (bf16)
-     and mixtral-8x22b at 2 layers (fp32, four experts a rank) through
+     (1e-4). 22c, serving on `(1, 2)`: llama3.2-3b at 14 of 28 layers
+     (bf16) and mixtral-8x22b at 2 layers (fp32, four experts a rank) through
      `build_prefill_step(mesh=)` on 4 x 1024 tokens (after a 64-token
      warm-up) and 32 eager `build_serve_step(mesh=)` steps from an empty
      cache fed one rank's greedy tokens: the logits within LM_BF16_TOL
@@ -345,10 +345,28 @@ Phases (each raises on failure, so the script exits non-zero):
      at w_gate (rank (0, 0)'s quarter) beside its bound, its plain
      version and the unfused chain: the `fused_update_block2:train` row,
      whose launches are 22b's.
+  23. the model axis for the SSM, hybrid and encoder-decoder families,
+     on 22a's `(data=1, model=2)` ranks after 22c, at full width and
+     fp32 compute (FAM_CASES: mamba2-1.3b at 2 of 48 layers,
+     recurrentgemma-2b at 3 of 26, whisper-medium at 2 + 2 of 24 + 24),
+     each rank running one rank's steps itself from the same seed-0
+     parameters. 23a: one uncompressed step a family (seq 1024,
+     whisper's decoder 448, batch 2, AdamW without its clip): the loss
+     within 1e-5, the gradient (m after the step) within 2e-3 of
+     max|g|, the params within 6 lr; mamba2's two fused steps, whose K1
+     and K4-block launches (11 a step a rank) are counted over the mesh's
+     steps alone, the EF residual the same bits on both ranks. 23b: the
+     mesh prefill of 4 x 1024 tokens (whisper 4 x 1500 frames + 64
+     tokens) and 16 eager mesh serve steps at B=4 from an empty
+     512-position cache fed one rank's greedy tokens (whisper's cross K/V
+     from the mesh's `encode`), recurrentgemma again on an 8-slot ring
+     that wraps twice: the logits within LM_DEC_TOL of the largest, the
+     tokens equal at every clear position. Its numbers go on the
+     `tp_families` line.
 Then it prints the `collective` JSON line (phase 15's numbers), the
-`pod_ckpt`, `lm_serve`, `fsdp`, `pod_data` and `tp` lines (phases 16 to
-22), the `kernels` JSON line, the card's name and power limit, and as
-its last line `{"ok": true, "device": {...}}`.
+`pod_ckpt`, `lm_serve`, `fsdp`, `pod_data`, `tp` and `tp_families` lines
+(phases 16 to 23), the `kernels` JSON line, the card's name and power
+limit, and as its last line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -3000,9 +3018,10 @@ def pod_ckpt_phase(dev, beside=None) -> dict:
 # phase 17: LM serving at full width
 # ---------------------------------------------------------------------------
 
-# (arch, slots, requests) at full depth and width: one wave of requests a
-# server (cut from 16 and 8 for phase 22's time)
-LM_CASES = (("llama3.2-3b", 8, 8), ("gemma2-9b", 4, 4))
+# (arch, layers, slots, requests) at full width: one wave of requests a
+# server (cut from 16 and 8 for phase 22's time), half the published
+# depth (28 and 42 layers, cut for phase 23's time)
+LM_CASES = (("llama3.2-3b", 14, 8, 8), ("gemma2-9b", 21, 4, 4))
 LM_MAX_SEQ = 512
 LM_PROMPT = (64, 128)  # prompt lengths, drawn from a seeded generator
 LM_GEN = 32
@@ -3333,15 +3352,15 @@ def _moe_vs_dense(dev, cfg, params, slots: int, tag: str) -> float:
 
 
 def lm_phase(dev) -> dict:
-    """Phase 17: `SlotServer` at full width, llama3.2-3b (28 layers) then
-    gemma2-9b (42 layers; llama's tensors freed first): the timed serve,
+    """Phase 17: `SlotServer` at full width, llama3.2-3b (14 of 28 layers)
+    then gemma2-9b (21 of 42; llama's tensors freed first): the timed serve,
     the batched prefill against a token-by-token loop (bit for bit),
     decode against the forward at fp32, the server's bf16 decode against
     the same forward; the numbers of the `lm_serve` line."""
     t_phase = time.perf_counter()
     out = {}
-    for arch, slots, n_req in LM_CASES:
-        out[arch] = _lm_case(dev, arch, slots, n_req)
+    for arch, layers, slots, n_req in LM_CASES:
+        out[arch] = _lm_case(dev, arch, slots, n_req, layers=layers)
         _free(dev)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 17 took {out['seconds']:.1f}s")
@@ -4812,7 +4831,8 @@ TP_B_MODES = ("uncompressed-fp32", "fused")
 # (arch, layers or None for all, slots, compute dtype): mixtral's at fp32,
 # where the mesh's and one rank's router logits cannot part across a near
 # tie of the top two experts (a bf16 rounding there picks another expert)
-TP_SERVE = (("llama3.2-3b", None, 8, "bfloat16"),
+TP_SERVE = (("llama3.2-3b", 14, 8, "bfloat16"),  # 14 of 28 layers (cut
+                                                  # for phase 23's time)
             ("mixtral-8x22b", 2, 4, "float32"))
 TP_PROMPT = (4, 1024)   # 22c: the mesh prefill's batch and prompt length
 TP_DECODE = 32          # 22c: eager mesh decode steps
@@ -4994,6 +5014,8 @@ def _tp_train_rank(rank, shapes, extra):
                        if dev.type == "cuda" else None)
     if "serve" in extra:    # 22c on the same ranks
         res["serve"] = _tp_serve_rank(mesh, dev, rank, extra["serve"])
+    if "families" in extra:     # phase 23 on the same ranks
+        res["families"] = _tp_family_rank(mesh, dev, rank, extra["families"])
     return res
 
 
@@ -5071,10 +5093,11 @@ def _tp_reference(dev, root: Path, modes) -> tuple[dict, dict]:
 
 
 def _tp_train_part(dev, part: str, mesh_shape, modes, root: Path,
-                   want: dict, serve: dict | None = None) -> dict:
+                   want: dict, serve: dict | None = None,
+                   families: dict | None = None) -> dict:
     """22a or 22b: the ranks' steps against the one-rank steps' (`want`,
     and the params under `root`); the checks; the numbers. `serve` hands
-    the ranks 22c's cases after their steps."""
+    the ranks 22c's cases after their steps, `families` phase 23's."""
     from repro_torch.core.tree import tree_leaves
 
     model, cfg, shape, opt, lr_fn, data = _tp_slice(TP_BATCH)
@@ -5085,6 +5108,8 @@ def _tp_train_part(dev, part: str, mesh_shape, modes, root: Path,
              "modes": list(modes)}
     if serve is not None:
         extra["serve"] = serve
+    if families is not None:
+        extra["families"] = families
     ranks = _pod_ranks("tp_train", None, extra,
                        world=mesh_shape[0] * mesh_shape[1])
     ranks_s = time.perf_counter() - t0
@@ -5374,6 +5399,393 @@ def _tp_serve_check(refs: dict, ranks: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the model axis for the SSM, hybrid and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+# (arch, depth cut): full width, fp32 compute, on 22a's (data=1, model=2)
+# ranks; recurrentgemma-2b one (rec, rec, attn) group
+FAM_CASES = (("mamba2-1.3b", {"n_layers": 2}),
+             ("recurrentgemma-2b", {"n_layers": 3}),
+             ("whisper-medium", {"n_layers": 2, "encoder_layers": 2}))
+FAM_SEQ = 1024          # 23a: train_4k's 4096 cut as phase 22's
+FAM_WHISPER_SEQ = 448   # 23a: whisper's decoder (its 448-token context)
+FAM_BATCH = 2           # 23a: phase 22's batch
+FAM_FUSED_STEPS = 2     # 23a: mamba2's fused steps
+FAM_PROMPT = (4, 1024)  # 23b: the mesh prefill's prompts (whisper: 4 x
+FAM_WHISPER_PROMPT = 64  # 1500 frames + 64 tokens)
+FAM_DECODE = 16         # 23b: eager mesh serve steps
+FAM_MAX_SEQ = 512       # 23b: the decode cache, as 22c's
+FAM_RING = 8            # 23b: recurrentgemma's second run: a ring of 8
+                        # slots, 4 a rank, that wraps twice in 16 steps
+
+
+def _fam_cfg(arch: str, cut: dict):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **cut)
+
+
+def _fam_batch(cfg, seq: int, batch: int, step: int = 0) -> dict:
+    """Seeded training rows (whisper's with standard normal frames)."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import FramesLM
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=0))
+    if cfg.family == "encdec":
+        data = FramesLM(data, cfg.encoder_seq, cfg.d_model)
+    return data.batch(step)
+
+
+def _fam_train(mesh, dev, cfg, fused: bool) -> dict:
+    """23a for one config on this rank: from seed 0's parameters, one
+    rank's steps (this process, no mesh) and the mesh's steps on this
+    rank's blocks, fp32 compute, a constant lr, AdamW without its clip
+    (so m after the first step is (1 - b1) times the gradient); `fused`
+    the compressor's fused steps (K1 and K4's block form, their launches
+    counted over the mesh's steps alone). Returns the losses, the
+    gradient (m after the first step) and params against one rank's, the
+    EF residual's digest, the steps' ms, the last step's device ms and
+    ledger by tag."""
+    import dataclasses
+    import functools
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import _sweep
+    from repro_torch.kernels import fused_update as kfused
+    from repro_torch.launch import fsdp, steps
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import AdamWConfig, adamw, schedule
+    from repro_torch.optim.compress import (SketchCompressor,
+                                            parse_compress_flag)
+    from repro_torch.rp import shard
+
+    f32 = torch.float32
+    model = build_model(cfg)
+    seq = FAM_WHISPER_SEQ if cfg.family == "encdec" else FAM_SEQ
+    shape = ShapeSpec("train_fam", seq, FAM_BATCH, "train")
+    opt = dataclasses.replace(AdamWConfig(), clip_norm=None)
+    lr_fn = functools.partial(schedule.constant, peak_lr=TRAIN_LR)
+    comp = (SketchCompressor(parse_compress_flag(TRAIN_COMPRESS)) if fused
+            else None)
+    n_steps = FAM_FUSED_STEPS if fused else 1
+    batches = [_fam_batch(cfg, seq, FAM_BATCH, i) for i in range(n_steps)]
+
+    def fresh(params):
+        st = {"params": params, "opt": adamw.init_state(params, opt)}
+        if comp is not None:
+            st["ef"] = {"residual": tree_map(torch.zeros_like, params)}
+        return st
+    whole = model.init(torch.Generator(device=dev).manual_seed(0))
+    state = steps.shard_state(model, fresh(whole), mesh)
+    view = fsdp.Sharded(mesh, steps.state_specs(model, mesh)["params"])
+    one = fresh(whole)
+    del whole
+    one_fn = steps.build_train_step(model, shape, opt=opt, lr_fn=lr_fn,
+                                    compressor=comp, fused_update=fused,
+                                    compute_dtype=f32, device=dev)
+    one_loss, one_ms = [], []
+    for i, b in enumerate(batches):
+        s_ev, e_ev = _mark(dev), _mark(dev)
+        s_ev.record()
+        one, met = one_fn(one, b)
+        e_ev.record()
+        _sync(dev)
+        one_ms.append(s_ev.elapsed_time(e_ev))
+        one_loss.append(float(met["loss"]))
+        if i == 0:
+            m1 = [t.clone() for t in tree_leaves(view.blocks(one["opt"]["m"]))]
+    want = [t.clone() for t in tree_leaves(view.blocks(one["params"]))]
+    del one, one_fn
+    _free(dev)
+    fn = steps.build_train_step(model, shape, mesh=mesh, opt=opt, lr_fn=lr_fn,
+                                compressor=comp, fused_update=fused,
+                                compute_dtype=f32)
+    kernels.reset_launch_counts()
+    losses, ms, grad_rel = [], [], 0.0
+    for i, b in enumerate(batches):
+        shard.collective_ledger().reset()
+        s_ev, e_ev = _mark(dev), _mark(dev)
+        s_ev.record()
+        (state, met), dev_ms = _device_ms(
+            lambda: fn(state, b), i == n_steps - 1 and dev.type == "cuda")
+        e_ev.record()
+        _sync(dev)
+        ms.append(s_ev.elapsed_time(e_ev))
+        losses.append(float(met["loss"]))
+        if i == 0:
+            for got, w in zip(tree_leaves(state["opt"]["m"]), m1):
+                grad_rel = max(grad_rel, float((got - w).abs().max()) / max(
+                    float(w.abs().max()), 1e-30))
+    launches = {"sweep_project": _sweep.sweep_project.launches,
+                "sweep_reconstruct": _sweep.sweep_reconstruct.launches,
+                "fused_update_block": kfused.fused_update_block.launches,
+                "fused_update_block2": kfused.fused_update_block.launches_2d}
+    worst = max(float((a - w).abs().max()) for a, w in zip(
+        tree_leaves(state["params"]), want))
+    out = {"losses": losses, "one_rank_losses": one_loss, "grad_rel": grad_rel,
+           "param_lr": worst / TRAIN_LR, "step_ms": ms,
+           "one_rank_step_ms": one_ms, "device_ms": dev_ms,
+           "ledger": _ledger_by_tag(shard.collective_ledger()),
+           "launches": launches,
+           "n_leaves": len(tree_leaves(model.param_shapes())),
+           "held_bytes": sum(t.numel() * t.element_size()
+                             for t in tree_leaves(state["params"])),
+           "ef_digest": (bits_digest(state["ef"]["residual"])
+                         if "ef" in state else None)}
+    del state, fn, m1, want
+    _free(dev)
+    return out
+
+
+def _fam_serve(mesh, dev, cfg, max_seq: int, prefill: bool) -> dict:
+    """23b for one config on this rank: seed 0's parameters; one rank's
+    prefill step of the prompts and FAM_DECODE greedy decode steps from an
+    empty cache of `max_seq` (this process, no mesh), then the mesh's
+    prefill step and serve steps on this rank's blocks fed one rank's
+    tokens, fp32 compute (whisper's cross K/V from `encode` of the
+    frames, on the mesh through `build_cross_cache(gather=)`). Returns the
+    errors against one rank's logits (max over rows), the largest logit,
+    the tokens equal at every position whose top two logits are further
+    apart than LM_DEC_TOL of it, the times and the ledger by tag."""
+    import torch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import fsdp, sharding, steps
+    from repro_torch.models import build_model, settings
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.rp import shard
+
+    f32 = torch.float32
+    model = build_model(cfg)
+    B, S = FAM_PROMPT
+    if cfg.family == "encdec":
+        S = FAM_WHISPER_PROMPT
+    gen = torch.Generator().manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                      generator=gen)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    first = torch.randint(0, cfg.vocab, (B,), generator=gen).to(torch.int32)
+    whole = model.init(torch.Generator(device=dev).manual_seed(0))
+    params = steps.shard_params(model, whole, mesh)
+    pshape = ShapeSpec("p", S, B, "prefill")
+    dshape = ShapeSpec("d", max_seq, B, "decode")
+    out = {"max_seq": max_seq}
+
+    def cross(p, cache, gather=None):
+        if cfg.family == "encdec":
+            with torch.inference_mode():
+                enc = model.mod.encode(cfg, p, batch["frames"],
+                                       compute_dtype=f32, gather=gather)
+                model.mod.build_cross_cache(cfg, p, enc, cache,
+                                            compute_dtype=f32, gather=gather)
+        return cache
+
+    def timed(fn):
+        s_ev, e_ev = _mark(dev), _mark(dev)
+        s_ev.record()
+        res = fn()
+        e_ev.record()
+        _sync(dev)
+        return res, s_ev.elapsed_time(e_ev)
+    if prefill:
+        want_pre, out["one_rank_prefill_ms"] = timed(lambda: steps.build_prefill_step(
+            model, pshape, compute_dtype=f32)(whole, batch))
+    serve1 = steps.build_serve_step(model, dshape, logits=True,
+                                    compute_dtype=f32)
+    cache = cross(whole, model.init_cache(B, max_seq, f32, device=dev))
+    feed, logs, one_ms = [], [], []
+    tok = first.to(dev)
+    for i in range(FAM_DECODE):
+        feed.append(tok)
+        pos = torch.full((B,), i, dtype=torch.int32, device=dev)
+        (nxt, cache, lg), t = timed(lambda: serve1(whole, cache, tok, pos))
+        one_ms.append(t)
+        logs.append(lg.clone())
+        tok = nxt
+    del whole, cache
+    _free(dev)
+    if prefill:
+        shard.collective_ledger().reset()
+        got, out["prefill_ms"] = timed(lambda: steps.build_prefill_step(
+            model, pshape, mesh=mesh, compute_dtype=f32)(params, batch))
+        out["prefill_ledger"] = _ledger_by_tag(shard.collective_ledger())
+        out["prefill_err"] = float((got - want_pre).abs().max())
+        out["prefill_top"] = float(want_pre.abs().max())
+    gather = fsdp.Sharded(mesh, sharding.param_specs(
+        cfg, model.param_axes(), mesh, model.param_shapes()))
+    cache = steps.shard_cache(model, model.init_cache(B, max_seq, f32,
+                                                      device=dev), mesh)
+    with settings.override(mesh=mesh):
+        cache = cross(params, cache, gather)
+    serve = steps.build_serve_step(model, dshape, mesh=mesh, logits=True,
+                                   compute_dtype=f32)
+    top = max(float(x.abs().max()) for x in logs)
+    errs, ms, clear_n, wrong = [], [], 0, []
+    shard.collective_ledger().reset()
+    for i in range(FAM_DECODE):
+        pos = torch.full((B,), i, dtype=torch.int32, device=dev)
+        (nxt, cache, lg), t = timed(lambda: serve(params, cache, feed[i], pos))
+        ms.append(t)
+        errs.append(float((lg - logs[i]).abs().max()))
+        top2 = torch.topk(logs[i], 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > LM_DEC_TOL * top
+        clear_n += int(clear.sum())
+        if not torch.equal(nxt[clear], logs[i].argmax(-1).to(nxt.dtype)[
+                clear]):
+            wrong.append(i)
+    out.update({"errs": errs, "largest_logit": top, "clear_positions": clear_n,
+                "wrong_steps": wrong, "step_ms": ms, "one_rank_step_ms": one_ms,
+                "decode_ledger": _ledger_by_tag(shard.collective_ledger()),
+                "layout": steps.cache_layout(model, B, max_seq, mesh),
+                "held_bytes": sum(t.numel() * t.element_size()
+                                  for t in tree_leaves(params))})
+    del params, cache
+    _free(dev)
+    return out
+
+
+def _tp_family_rank(mesh, dev, rank, extra) -> dict:
+    """Phase 23 on one rank of the (1, 2) mesh (22a's ranks, after 22c):
+    per config 23a's train steps (mamba2's fused steps too) and 23b's
+    serving (recurrentgemma's again on a ring of FAM_RING slots)."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"rank": rank, "cases": {}}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for arch, cut in extra["cases"]:
+        cfg = _fam_cfg(arch, cut)
+        row = {"train": _fam_train(mesh, dev, cfg, False),
+               "serve": _fam_serve(mesh, dev, cfg, FAM_MAX_SEQ, True)}
+        if cfg.family == "ssm":
+            row["fused"] = _fam_train(mesh, dev, cfg, True)
+        if cfg.family == "hybrid":
+            row["ring"] = _fam_serve(mesh, dev, cfg, FAM_RING, False)
+        out["cases"][arch] = row
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if dev.type == "cuda" else None)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _tp_family_check(ranks: list) -> dict:
+    """Phase 23's checks on the ranks' numbers (`_tp_family_rank`): the
+    losses against one rank's (FSDP_LOSS_RTOL on the first step,
+    FSDP_LATER_RTOL after), the gradient (m after the first step) within
+    FSDP_GRAD_TOL of its largest entry, the params within FSDP_PARAM_LR
+    lr, the losses alike on both ranks; mamba2's fused steps launching K1
+    and K4's block form once a leaf a step, the EF residual's bits equal
+    on both ranks; the serving's logits within LM_DEC_TOL of the largest
+    and the tokens equal at every clear position. Returns the numbers,
+    the launches under `launches`."""
+    t0 = time.perf_counter()
+    rows = [r["families"] for r in ranks]
+    launches = {"sweep_project": 0, "sweep_reconstruct": 0,
+                "fused_update_block": 0, "fused_update_block2": 0}
+    out = {"cases": {}}
+    for arch, _ in FAM_CASES:
+        for kind in ("train", "fused"):
+            if kind not in rows[0]["cases"][arch]:
+                continue
+            rs = [r["cases"][arch][kind] for r in rows]
+            for r in rs:
+                for i, (a, b) in enumerate(zip(r["losses"],
+                                               r["one_rank_losses"])):
+                    tol = FSDP_LOSS_RTOL if i == 0 else FSDP_LATER_RTOL
+                    if not math.isfinite(a) or abs(a - b) > tol * abs(b):
+                        raise AssertionError(f"23a {arch} {kind} step {i}: "
+                                             f"loss {a} vs one rank's {b}")
+                if r["grad_rel"] > FSDP_GRAD_TOL:
+                    raise AssertionError(f"23a {arch} {kind}: the gradient "
+                                         f"{r['grad_rel']} of max|g| off")
+                if r["param_lr"] > FSDP_PARAM_LR:
+                    raise AssertionError(f"23a {arch} {kind}: params "
+                                         f"{r['param_lr']} lr apart")
+                n = r["n_leaves"] * len(r["losses"])
+                got = r["launches"]
+                if kind == "fused" and (
+                        got["sweep_project"] != n
+                        or got["fused_update_block"]
+                        + got["fused_update_block2"] != n
+                        or got["fused_update_block"] == 0):
+                    raise AssertionError(f"23a {arch} fused: launches {got}")
+                if kind == "train" and any(got.values()):
+                    raise AssertionError(f"23a {arch}: the uncompressed step "
+                                         f"launched {got}")
+                for k in launches:
+                    launches[k] += got[k]
+            if len({tuple(r["losses"]) for r in rs}) != 1:
+                raise AssertionError(f"23a {arch} {kind}: the ranks' losses "
+                                     "differ")
+            if kind == "fused" and len({tuple(r["ef_digest"])
+                                        for r in rs}) != 1:
+                raise AssertionError(f"23a {arch}: the ranks' EF residuals "
+                                     "differ in bits")
+            out["cases"].setdefault(arch, {})[kind] = {
+                k: [r[k] for r in rs] if k in ("grad_rel", "param_lr",
+                                               "step_ms", "device_ms")
+                else rs[0][k] for k in rs[0] if k != "ef_digest"}
+            r0 = out["cases"][arch][kind]
+            log(f"23a {arch} {kind}: losses {r0['losses']} (one rank "
+                f"{r0['one_rank_losses']}); gradient {r0['grad_rel']} of "
+                f"max|g|, params {r0['param_lr']} lr from one rank's; step "
+                f"ms {r0['step_ms']} (one rank {r0['one_rank_step_ms']}), "
+                f"the last's device ms {r0['device_ms']}; launches "
+                f"{r0['launches']}; ledger {r0['ledger']}")
+        for kind in ("serve", "ring"):
+            if kind not in rows[0]["cases"][arch]:
+                continue
+            rs = [r["cases"][arch][kind] for r in rows]
+            for r in rs:
+                worst = max(r["errs"])
+                if worst > LM_DEC_TOL * r["largest_logit"]:
+                    raise AssertionError(
+                        f"23b {arch} {kind}: a step's logits {worst} off "
+                        f"(largest {r['largest_logit']})")
+                if "prefill_err" in r and r["prefill_err"] > \
+                        LM_DEC_TOL * r["prefill_top"]:
+                    raise AssertionError(
+                        f"23b {arch}: the mesh prefill {r['prefill_err']} off"
+                        f" (largest {r['prefill_top']})")
+                if r["wrong_steps"] or r["clear_positions"] == 0:
+                    raise AssertionError(
+                        f"23b {arch} {kind}: tokens differ at clear positions"
+                        f" of steps {r['wrong_steps']} "
+                        f"({r['clear_positions']} clear)")
+            row = {k: [r[k] for r in rs] if k in (
+                "errs", "step_ms", "prefill_ms", "prefill_err")
+                else rs[0][k] for k in rs[0]}
+            row["step_ms_median"] = statistics.median(
+                x for r in rs for x in r["step_ms"])
+            row["one_rank_step_ms_median"] = statistics.median(
+                rs[0]["one_rank_step_ms"])
+            out["cases"].setdefault(arch, {})[kind] = row
+            log(f"23b {arch} {kind} (cache {row['max_seq']}, layout "
+                f"{row['layout']}): step logits within "
+                f"{max(max(e) for e in row['errs']):.3e} of one rank's "
+                f"(largest {row['largest_logit']:.4f}), "
+                f"{row['clear_positions']} clear positions equal; prefill "
+                f"{row.get('prefill_err')} (largest "
+                f"{row.get('prefill_top')}), {row.get('prefill_ms')} ms (one "
+                f"rank {row.get('one_rank_prefill_ms')}); "
+                f"{row['step_ms_median']:.1f} ms a step (one rank "
+                f"{row['one_rank_step_ms_median']:.1f}); decode ledger "
+                f"{row['decode_ledger']}")
+    out["launches"] = launches
+    out["peak_gib"] = [r["peak_gib"] for r in rows]
+    out["ranks_s"] = [r["seconds"] for r in rows]
+    out["seconds"] = max(out["ranks_s"]) + time.perf_counter() - t0
+    log(f"phase 23 took {out['seconds']:.1f}s (the ranks' part "
+        f"{out['ranks_s']}); peak GiB {out['peak_gib']}; launches {launches}")
+    return out
+
+
 def tp_phase(dev) -> dict:
     """Phase 22: the model axis on gloo ranks sharing the card. 22a: a
     (data=1, model=2) mesh, phase 9's llama3.2-3b widths and depth cut at
@@ -5381,8 +5793,10 @@ def tp_phase(dev) -> dict:
     at fp32, against the one-rank steps; 22b: (2, 2), four ranks,
     TP_STEPS uncompressed and fused steps at fp32, each rank at
     most TP_GIB, w_gate's two-dim K4 block against its plain version;
-    22c: serving on (1, 2), on 22a's ranks. Returns the numbers of the
-    `tp` line, with the K1/K2/K4 launches under `launches`."""
+    22c: serving on (1, 2), on 22a's ranks; then phase 23 on the same
+    ranks (`_tp_family_rank`), its numbers under "23" (its seconds not
+    phase 22's). Returns the numbers of the `tp` line, with the K1/K2/K4
+    launches under `launches`."""
     import shutil
     import tempfile
 
@@ -5398,15 +5812,22 @@ def tp_phase(dev) -> dict:
             f" losses {want}; the last step's device ms {one_dev}")
         a = _tp_train_part(dev, "22a", (1, 2), TP_A_MODES, root, want,
                            serve={"root": str(root), "cases": [
-                               list(case) for case in TP_SERVE]})
+                               list(case) for case in TP_SERVE]},
+                           families={"cases": [[arch, cut] for arch, cut
+                                               in FAM_CASES]})
         b = _tp_train_part(dev, "22b", (2, 2), TP_B_MODES, root, want)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     c = _tp_serve_check(serve, a["ranks"])
+    fam = _tp_family_check(a["ranks"])
+    for r in a["ranks"]:
+        del r["families"]
     launches = {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
+    # phase 23 ran on 22a's ranks: its part is not phase 22's
     numbers = {"22a": a, "22b": b, "22c": c, "launches": launches,
                "reference_s": ref_s, "one_rank_device_ms": one_dev,
-               "seconds": time.perf_counter() - t_phase}
+               "seconds": time.perf_counter() - t_phase - fam["seconds"],
+               "23": fam}
     log(f"phase 22 took {numbers['seconds']:.1f}s; step ms (median) 22a "
         + ", ".join(f"{m} {a[f'{m}_step_ms_median']:.1f}"
                     for m in TP_A_MODES)
@@ -6160,6 +6581,13 @@ def main() -> int:
         next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
         launches[name] += n
 
+    # -- 23. the model axis for the SSM, hybrid and enc-dec families -------
+    # (run on 22a's ranks after 22c; checked in tp_phase)
+    fam = tp.pop("23")
+    for name, n in fam["launches"].items():
+        next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
+        launches[name] += n
+
     for name in launches:
         total = sum(r["launches"] for r in rows
                     if r["name"].split(":")[0] == name)
@@ -6176,6 +6604,7 @@ def main() -> int:
     print(json.dumps({"fsdp": fsdp}))
     print(json.dumps({"pod_data": pod_data}))
     print(json.dumps({"tp": tp}))
+    print(json.dumps({"tp_families": fam}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

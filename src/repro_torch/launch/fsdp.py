@@ -34,7 +34,9 @@ activation collectives are `launch/tp.py`'s):
   (`seq_parallel=True`) the leaves the model axis does not split (the
   norms, the router) hold each model rank's partial sum over its own
   sequence rows, which become their sum (one all_reduce); without it
-  only the MoE router's do (`partial=`). With
+  only those a family reads inside a parallel region do (`partial=`, the
+  family's `MODEL_PARTIAL`: the MoE router, mamba2's `a_log`, `d_skip`
+  and `dt_bias`, read on the rank's heads). With
   reduce='all' every sharded leaf comes back whole (a model-split leaf
   all-gathered over 'model', tag `grad_model_gather`).
   `Sharded.global_norm`: the gradient norm over every rank's blocks, a
@@ -230,7 +232,8 @@ class Sharded:
     the model axis does not split then hold partial gradients, which
     `finish` sums over 'model'; without it only the leaves in `partial`
     do (those the forward reads inside a parallel region, as the MoE
-    router, whose gates weight each rank's partial expert outputs)."""
+    router, whose gates weight each rank's partial expert outputs, or
+    mamba2's per-head leaves, each rank reading its heads' entries)."""
 
     def __init__(self, mesh, specs, *, reduce: str = "scatter",
                  axes: tuple[str, ...] | None = None,

@@ -39,8 +39,8 @@ it). Branches:
   dense bytes cross ranks and nothing is unsketched apart. The MoE FFN
   dispatches a rank's rows in `moe_groups_for(...)` over the number of
   row blocks groups;
-* a `mesh=` whose 'model' axis is above 1 (a (data, model) mesh, the
-  decoder family): the same branch, each rank holding its blocks of the
+* a `mesh=` whose 'model' axis is above 1 (a (data, model) mesh, every
+  family): the same branch, each rank holding its blocks of the
   leaves `sharding.param_specs` splits over 'model' too (two-dim blocks
   where a leaf is split over both axes), the forward tensor-, sequence-
   and expert-parallel over 'model' (`launch/tp.py`; `seq_parallel=True`,
@@ -78,19 +78,24 @@ encoder-decoder's prefill encodes `batch["frames"]` and decodes the
 tokens against it, and its serve step needs a cache whose cross K/V
 `whisper.build_cross_cache` has filled. Every step passes the batch's
 `positions3`, `patches` and `patch_positions` (qwen2-vl) through, the
-last left on the host, where the model checks them. With a `mesh=` (the
-decoder family on a (data, model) mesh) the params are the rank's
+last left on the host, where the model checks them. With a `mesh=` (a
+(data, model) mesh) the params are the rank's
 blocks (`shard_params`), the batch's rows over the data axes are the
 rank's, the prefill runs sequence-parallel with `gqa_expand` (as the
 reference's), and the serve step's cache is the rank's block by
 `sharding.cache_specs` (`shard_cache`); both return every rank's rows
 (the logits and tokens alike on the model ranks). The serve step runs
-eagerly: a CUDA graph cannot capture a gloo collective.
+eagerly: a CUDA graph cannot capture a gloo collective. Every family
+runs on a (data, model) mesh: the SSM and hybrid families
+sequence-parallel as the decoder, whisper's stream whole on every model
+rank (`SEQ_PARALLEL`, as the reference's); their caches by
+`cache_specs` (mamba2's `ssm` by heads and `conv` by channels, the
+RG-LRU's `h` and `conv` by channels and its ring by positions,
+whisper's self and cross K/V by heads; `cache_layout`).
 
 What stays refused, with its queue-1 item (ROADMAP.md): a model axis
-beside a pod axis (12.7b.3c), a model axis with the SSM, hybrid or
-encoder-decoder families (12.7b.3b); `fused_update` with a pod axis
-raises, as in the reference.
+beside a pod axis (12.7b.3c), a model size that splits a head;
+`fused_update` with a pod axis raises, as in the reference.
 """
 from __future__ import annotations
 
@@ -182,10 +187,18 @@ def unshard_state(model: Model, state: dict, mesh) -> dict:
     return fsdp.unshard_tree(state, state_specs(model, mesh, state), mesh)
 
 
+def _heads(cfg: ArchConfig) -> int:
+    """The head count a model axis splits: mamba2's SSD heads, the other
+    families' query heads."""
+    if cfg.family == "ssm":
+        return cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    return cfg.n_heads
+
+
 def _check_mesh(mesh, cfg: ArchConfig) -> bool:
     """Refuse what waits for later items (a model axis beside a pod axis,
-    12.7b.3c; a model axis with a family other than the decoder,
-    12.7b.3b); True on a mesh whose data or model axis is above 1."""
+    12.7b.3c) and a model axis that would split inside a head; True on a
+    mesh whose data or model axis is above 1."""
     sizes = dict(mesh.shape)
     if sizes.get("model", 1) > 1:
         if "pod" in sizes:
@@ -193,13 +206,20 @@ def _check_mesh(mesh, cfg: ArchConfig) -> bool:
                 f"a model axis of {sizes['model']} beside a pod axis is item "
                 "12.7b.3c (ROADMAP.md, queue 1); run a (data, model) mesh "
                 "or a (pod, data, 1) one")
-        if cfg.family != "decoder":
+        if _heads(cfg) % sizes["model"]:
             raise NotImplementedError(
-                f"a model axis of {sizes['model']} with the {cfg.family!r} "
-                f"family ({cfg.name}) is item 12.7b.3b (ROADMAP.md, queue "
-                "1); run the decoder family, or a (data, 1) mesh")
+                f"{cfg.name}: a model axis of {sizes['model']} does not "
+                f"divide its {_heads(cfg)} heads (the reference's layout "
+                "would split inside a head); run a model size that divides "
+                "them")
         return True
     return sizes.get("data", 1) > 1
+
+
+def _seq_parallel(model: Model, seq_parallel: bool) -> bool:
+    """Whether the model axis runs sequence-parallel: asked, and the
+    family splits its stream (whisper's does not, as the reference's)."""
+    return seq_parallel and getattr(model.mod, "SEQ_PARALLEL", True)
 
 
 def build_train_step(model: Model, shape: ShapeSpec, *,
@@ -408,7 +428,7 @@ def _data_step(model: Model, shape: ShapeSpec, mesh, opt: AdamWConfig,
     # the global batch's groups of contiguous tokens over this rank's rows
     kw = ({"moe_groups": max(1, moe_groups_for(cfg, mesh, shape.global_batch)
                              // n_blocks)} if cfg.moe is not None else {})
-    tp = dict(seq_parallel=ms > 1 and seq_parallel,
+    tp = dict(seq_parallel=ms > 1 and _seq_parallel(model, seq_parallel),
               partial=getattr(model.mod, "MODEL_PARTIAL", ()))
     view = fsdp.Sharded(mesh, pspecs, axes=grad_axes, **tp)
     want = [tuple(t.shape) for t in tree_flatten(
@@ -554,15 +574,15 @@ def build_prefill_step(model: Model, shape: ShapeSpec, *, mesh=None,
             raise ValueError(f"batch['tokens'] has shape "
                              f"{tuple(tokens.shape)}, the step was built "
                              f"for {want}")
+        if mesh is not None:
+            return _mesh_prefill(model, params, batch, tokens, dev, gather,
+                                 dgroup, compute_dtype, mesh, seq_parallel)
         if cfg.family == "encdec":
             enc = model.mod.encode(cfg, params,
                                    torch.as_tensor(batch["frames"]).to(dev),
                                    compute_dtype=compute_dtype)
             h = model.mod.decode_hidden(cfg, params, tokens, enc,
                                         compute_dtype=compute_dtype)
-        elif mesh is not None:
-            return _mesh_prefill(model, params, batch, tokens, dev, gather,
-                                 dgroup, compute_dtype, mesh, seq_parallel)
         else:
             extra = {k: torch.as_tensor(batch[k]).to(dev) for k in (
                 "positions3", "patches") if k in batch}
@@ -581,23 +601,34 @@ def build_prefill_step(model: Model, shape: ShapeSpec, *, mesh=None,
 def _mesh_prefill(model: Model, params, batch, tokens, dev, gather, dgroup,
                   compute_dtype, mesh, seq_parallel: bool):
     """The prefill step's forward on a mesh: the rank's rows, the model
-    axis, the last token's logits of every row (no final softcap)."""
+    axis (an encoder-decoder's `encode` and `decode_hidden`, the other
+    families' `forward_hidden`), the last token's logits of every row (no
+    final softcap)."""
     from repro_torch.models import transformer
     cfg = model.cfg
+    mod = model.mod
     B = tokens.shape[0]
     rows = {"tokens": _rows_of(tokens, dgroup)}
-    for k in ("positions3", "patches"):
+    for k in ("positions3", "patches", "frames"):
         if k in batch:
             t = torch.as_tensor(batch[k]).to(dev)
             rows[k] = _rows_of(t, dgroup, sharding.batch_dim(k))
     if "patch_positions" in batch:
         rows["patch_positions"] = _rows_of(torch.as_tensor(
             batch["patch_positions"]), dgroup)
+    sp = _seq_parallel(model, seq_parallel)
     with model_settings.override(mesh=mesh, gqa_expand=True):
-        h = transformer.forward_hidden(
-            cfg, params, rows.pop("tokens"), compute_dtype=compute_dtype,
-            gather=gather, seq_parallel=seq_parallel, **rows)
-        axis = transformer._model_axis(cfg, seq_parallel)
+        toks = rows.pop("tokens")
+        if cfg.family == "encdec":
+            enc = mod.encode(cfg, params, rows.pop("frames"),
+                             compute_dtype=compute_dtype, gather=gather)
+            h = mod.decode_hidden(cfg, params, toks, enc,
+                                  compute_dtype=compute_dtype, gather=gather)
+        else:
+            h = mod.forward_hidden(cfg, params, toks,
+                                   compute_dtype=compute_dtype,
+                                   gather=gather, seq_parallel=sp, **rows)
+        axis = mod.model_axis(cfg, sp)
         if axis is not None and axis.sp(tokens.shape[1]):
             h = axis.all_gather(h[:, -1:], 1, tag="tp_gather")
         last = h[:, -1, :]
@@ -605,6 +636,20 @@ def _mesh_prefill(model: Model, params, batch, tokens, dev, gather, dgroup,
             dataclasses.replace(cfg, final_softcap=None), params, last,
             gather, axis)
     return _all_rows(logits, dgroup, B)
+
+
+def cache_layout(model: Model, batch: int, max_seq: int, mesh) -> str | None:
+    """How `sharding.cache_specs` splits the attention cache's K/V over
+    the model axis (the decoder's `k`, the hybrid's `attn/k`): 'heads',
+    'seq' (its ring's positions) or None (whole on every rank; mamba2's
+    cache has no K/V, its states take their layout from the specs)."""
+    cspecs = sharding.cache_specs(model.cfg, model.init_cache(
+        batch, max_seq, device="meta"), mesh)
+    spec = cspecs.get("k") or cspecs.get("attn", {}).get("k")
+    if spec is None:
+        return None
+    model_dim = [i for i, e in enumerate(spec) if e == "model"]
+    return {2: "heads", 3: "seq"}.get(model_dim[0]) if model_dim else None
 
 
 def build_serve_step(model: Model, shape: ShapeSpec, *, mesh=None,
@@ -624,11 +669,7 @@ def build_serve_step(model: Model, shape: ShapeSpec, *, mesh=None,
     gather, dgroup = _serve_mesh(model, mesh)
     layout = None
     if mesh is not None:
-        cspecs = sharding.cache_specs(model.cfg, model.init_cache(
-            shape.global_batch, shape.seq_len, device="meta"), mesh)
-        model_dim = [i for i, e in enumerate(cspecs["k"]) if e == "model"]
-        layout = {2: "heads", 3: "seq"}.get(model_dim[0]) if model_dim \
-            else None
+        layout = cache_layout(model, shape.global_batch, shape.seq_len, mesh)
 
     def serve_step(params, cache, token, pos, positions3=None):
         if token.shape != (shape.global_batch,):
@@ -695,5 +736,6 @@ def from_numpy_state(model: Model, state: dict, *, device=None) -> dict:
 
 __all__ = ["build_prefill_step", "build_serve_step", "build_train_step",
            "from_numpy_state", "fsdp_axes_for", "init_train_state",
-           "moe_groups_for", "shard_cache", "shard_params", "shard_state",
+           "cache_layout", "moe_groups_for", "shard_cache", "shard_params",
+           "shard_state",
            "state_specs", "unshard_state"]

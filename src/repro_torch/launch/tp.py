@@ -31,6 +31,19 @@ through `rp.shard`'s ledger under its own tag:
 * `ModelAxis.split`: the rank's sequence rows of a tensor every model
   rank holds whole (the embedded stream before the first block); the
   backward all-gathers the rows' gradient (tag `tp_grad`).
+* `ModelAxis.cols`: the rank's contiguous column block of a product's
+  output all-gathered along the last dim (tag `tp_cols`; mamba2's
+  `in_proj`, whose blocks are not the rank's heads); the backward
+  reduce-scatters the ranks' partial gradients back onto the blocks.
+* `ModelAxis.stat`: the all_reduce of a statistic each rank takes over
+  its own channels and then uses on them alone (the sum of squares of
+  mamba2's gated RMSNorm over the whole `d_in`; tag `tp_stat`). Its
+  backward all-reduces too: each rank's gradient of the sum covers only
+  its own channels' uses of it. (`_Reduce`'s pass-through backward is
+  right for a stream every rank then uses whole, and wrong here.)
+* `ModelAxis.scatter`: partial sums reduce-scattered along a dim onto the
+  rank's block (the RG-LRU's gate products, row-split with whole
+  columns, onto the rank's channels; tag `tp_gate`).
 
 Convention: a tensor the model ranks hold alike carries the same whole
 gradient on each of them (the Megatron convention); a product's partial
@@ -106,6 +119,22 @@ class _Reduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _Stat(torch.autograd.Function):
+    """All-reduce of a statistic each rank takes over its own channels
+    and uses on them alone; the backward all-reduces the ranks' partial
+    gradients of it."""
+
+    @staticmethod
+    def forward(ctx, x, group, tag):
+        ctx.meta = (group, tag)
+        return shard.all_reduce(x, group, tag=tag).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, tag = ctx.meta
+        return shard.all_reduce(g, group, tag=tag).to(g.dtype), None, None
 
 
 class _Copy(torch.autograd.Function):
@@ -209,6 +238,18 @@ class ModelAxis:
         """Partial sums reduce-scattered along `dim` onto the rank's
         block; the backward all-gathers."""
         return _Scatter.apply(x, self.group, dim, tag)
+
+    def cols(self, x: torch.Tensor, tag: str = "tp_cols") -> torch.Tensor:
+        """The rank's contiguous column block (..., N/ms) of a product's
+        output all-gathered to (..., N); the backward reduce-scatters the
+        ranks' partial gradients onto the blocks."""
+        return _Gather.apply(x, self.group, x.ndim - 1, tag, "scatter")
+
+    def stat(self, x: torch.Tensor, tag: str = "tp_stat") -> torch.Tensor:
+        """The sum over the ranks of a statistic of each rank's own
+        channels, which each rank then uses on its channels alone; the
+        backward all-reduces (see `_Stat`)."""
+        return _Stat.apply(x, self.group, tag)
 
     def gather_cols(self, x: torch.Tensor) -> torch.Tensor:
         """The rank's columns (..., D/ms) of rows every rank looked up

@@ -50,17 +50,24 @@ Its checkpoints (`--ckpt-dir`) are item 12.7b.4 and refused:
         --compress-sync sketch-mean --dist-backend gloo --device cpu \
         --steps 6 --batch 4 --seq 16
 
-A (data, model) mesh (`--mesh AxB`, B > 1; the decoder family): each
-rank holds its blocks of the leaves split over either axis, and the
-forward runs tensor-, sequence- and expert-parallel over 'model'
-(`launch/tp.py`); the model ranks of a data index take the same rows.
-Its checkpoints (`--ckpt-dir`) are item 12.7b.4 and refused; a model
-axis beside a pod axis (`--mesh PxDxM`, M > 1) is item 12.7b.3c:
+A (data, model) mesh (`--mesh AxB`, B > 1; every family): each rank
+holds its blocks of the leaves split over either axis, and the forward
+runs tensor-, sequence- and expert-parallel over 'model'
+(`launch/tp.py`; whisper's stream whole on every model rank, as the
+reference's); the model ranks of a data index take the same rows. Its
+checkpoints (`--ckpt-dir`) are item 12.7b.4 and refused; a model axis
+beside a pod axis (`--mesh PxDxM`, M > 1) is item 12.7b.3c, and a model
+size that splits a head is refused:
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-3b \
         --reduced --mesh 2x2 --dist-backend gloo --device cpu --steps 6 \
         --batch 4 --seq 16 [--compress tt:k=64,dims=4x8x16]
+
+The same with `--arch mamba2-1.3b`, `recurrentgemma-2b` or
+`whisper-medium` (`--nproc-per-node 2 ... --mesh 1x2` as well). An
+encoder-decoder's batches carry synthetic audio frames (B, encoder_seq,
+D), standard normal, drawn from the seed and the step (`FramesLM`).
 """
 from __future__ import annotations
 
@@ -68,6 +75,7 @@ import argparse
 import functools
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -86,6 +94,23 @@ from repro_torch.optim import schedule
 from repro_torch.optim.compress import SketchCompressor, parse_compress_flag
 from repro_torch.runtime import train_loop
 from repro_torch.runtime.resilience import FaultInjector
+
+
+class FramesLM:
+    """An encoder-decoder's data: the token batches of `lm` with
+    `frames` (B, encoder_seq, D) float32 beside them, standard normal,
+    drawn from the seed and the step (the conv front end is a stub)."""
+
+    def __init__(self, lm: SyntheticLM, encoder_seq: int, d_model: int):
+        self.lm, self.cfg = lm, lm.cfg
+        self.shape = (lm.cfg.global_batch, encoder_seq, d_model)
+
+    def batch(self, step: int, **kw):
+        out = self.lm.batch(step, **kw)
+        rng = np.random.default_rng(self.cfg.seed * 1_000_003 + step)
+        out["frames"] = rng.standard_normal(
+            (out["tokens"].shape[0],) + self.shape[1:]).astype(np.float32)
+        return out
 
 
 def parse_mesh(spec: str | None, *, device=None, backend=None):
@@ -183,6 +208,8 @@ def main(argv=None) -> int:
                               total_steps=args.steps)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                   global_batch=args.batch, seed=args.seed))
+    if cfg.family == "encdec":
+        data = FramesLM(data, cfg.encoder_seq, cfg.d_model)
     step_fn = steps_lib.build_train_step(model, shape, mesh=mesh,
                                          lr_fn=lr_fn, remat=args.remat,
                                          compressor=compressor, device=dev)

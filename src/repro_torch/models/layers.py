@@ -71,6 +71,20 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
     return (x * (weight.to(torch.float32) + offset)).to(dtype)
 
 
+def rms_norm_split(x: torch.Tensor, weight: torch.Tensor, axis, width: int,
+                   *, eps: float = 1e-6) -> torch.Tensor:
+    """`rms_norm` of a vector whose `width` channels are split over a
+    model axis: x (..., width/ms) and weight are the rank's channels. The
+    sum of squares is taken over the rank's channels in float32, summed
+    over the axis (`ModelAxis.stat`, whose backward all-reduces) and
+    divided by the whole width."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = axis.stat(torch.sum(x * x, dim=-1, keepdim=True)) / width
+    x = x * torch.rsqrt(var + eps)
+    return (x * weight.to(torch.float32)).to(dtype)
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                *, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with float32 statistics, cast back to x's dtype."""
@@ -353,9 +367,15 @@ def geglu(x, w_gate, w_up, w_down, *, acc=None):
                  acc)
 
 
-def gelu_mlp(x, w_in, b_in, w_out, b_out):
-    """Whisper's MLP: tanh-approximate GELU between two biased products."""
-    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+def gelu_mlp(x, w_in, b_in, w_out, b_out, *, acc=None):
+    """Whisper's MLP: tanh-approximate GELU between two biased products.
+    With `acc` (a model axis) the down product's partial sum in that
+    dtype and no output bias: the caller adds `b_out` once, after the
+    partial sums are reduced."""
+    h = F.gelu(x @ w_in + b_in, approximate="tanh")
+    if acc is not None:
+        return _down(h, w_out, acc)
+    return h @ w_out + b_out
 
 
 # ---------------------------------------------------------------------------
@@ -470,5 +490,5 @@ __all__ = ["NEG_INF", "apply_mrope", "apply_rope", "attention",
            "attention_over_ranks", "causal_depthwise_conv1d",
            "chunked_ce_loss", "conv1d_update", "geglu", "gelu_mlp",
            "layer_norm", "local_kv", "product_in", "remat", "remat_dots",
-           "rms_norm",
+           "rms_norm", "rms_norm_split",
            "soft_cap", "swiglu", "vocab_parallel_ce_loss"]

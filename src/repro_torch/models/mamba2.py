@@ -11,6 +11,26 @@ step on the (B, H, P, N) state, O(1) a token. `decode_step` writes each
 layer's SSM and conv state into the cache in place (under
 `torch.inference_mode`) and returns the same dict, as the decoder's KV
 cache is written. `Mamba2` is the `nn.Module` view of a parameter dict.
+
+The model axis (`settings.mesh` with 'model' above 1; `launch/tp.py`),
+in the reference's layout (`launch.sharding.param_specs`): each rank
+holds its contiguous blocks of `in_proj`'s columns, `conv_w`/`conv_b`'s
+channels, `norm_gate` and `out_proj`'s rows. `in_proj`'s columns are laid
+out z | x | B | C | dt, so a block is not the rank's heads (at
+mamba2-1.3b on two ranks, rank 0's half is all of z and 160 channels of
+x): the rank multiplies by its block, and the columns are all-gathered
+(`ModelAxis.cols`, tag `tp_cols`), after which the rank takes its heads'
+z, x and dt and the whole B and C. The training forward reads the conv's
+leaves whole (`Sharded(whole=True)`) and runs it on the channels it
+needs; SSD runs on the rank's H/ms heads (`a_log`, `d_skip`, `dt_bias`
+replicated, sliced to them: `MODEL_PARTIAL`); the gated RMSNorm's
+statistic spans the whole `d_in` (`layers.rms_norm_split`, tag
+`tp_stat`); `out_proj` is row-parallel. Under sequence parallelism the
+residual stream is the rank's rows between layers, as the reference's
+`constrain`. `decode_step` on the axis holds the rank's heads of the
+SSM state and its channel block of the conv state (`cache_specs`): it
+shifts its block, convolves it with its blocks of the conv's leaves and
+all-gathers the conv's output (tag `tp_conv`).
 """
 from __future__ import annotations
 
@@ -24,11 +44,17 @@ from repro_torch.core.device import resolve_device
 
 from . import layers as nn
 from . import params as ptree
+from . import transformer
 from .config import ArchConfig
 
 #: the cache's recurrent state, which `launch.serve.SlotServer` keeps
 #: apart between slots (every leaf of this family's cache)
 RECURRENT_STATE: tuple[str, ...] = ("conv", "ssm")
+
+#: the model-replicated leaves the forward reads on the rank's heads, inside
+#: a parallel region of the model axis: their gradients are partial over
+#: it with or without sequence parallelism (`launch.fsdp.Sharded(partial=)`)
+MODEL_PARTIAL = ("layers/a_log", "layers/d_skip", "layers/dt_bias")
 
 # the leaves a block reads in the compute dtype (the rest in float32)
 _CAST = ("in_proj", "conv_w", "conv_b", "out_proj")
@@ -196,58 +222,154 @@ def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
     return torch.split(zxbcdt, [d_in, conv_ch, H], dim=-1)
 
 
-def _layer_params(params: dict, i: int, compute_dtype, gather=None):
-    """Layer i's raw leaves (read through `gather`, `params.take`) and
-    the ones read in the compute dtype."""
-    lp_raw = ptree.take_all(gather, "layers/", params["layers"], i)
+def model_axis(cfg: ArchConfig, seq_parallel: bool = False):
+    """The forward's model axis (`launch.tp.ModelAxis`), or None; refuses
+    one that splits inside an SSD head or does not divide `in_proj`'s
+    columns or the conv's channels."""
+    _, d_in, H, ds, G, conv_ch = _dims(cfg)
+    return transformer._model_axis(
+        cfg, seq_parallel, heads=H,
+        widths=(("in_proj's columns", 2 * d_in + 2 * G * ds + H),
+                ("the conv's channels", conv_ch)))
+
+
+def _heads(cfg: ArchConfig, axis):
+    """(h0, hr): the first of the heads the rank's SSD runs, and their
+    count (every head off a model axis)."""
+    H = _dims(cfg)[2]
+    if axis is None:
+        return 0, H
+    hr = H // axis.size
+    return axis.index * hr, hr
+
+
+def _head_groups(t: torch.Tensor, h0: int, hr: int, H: int) -> torch.Tensor:
+    """The B or C groups (..., G, N) that heads [h0, h0 + hr) read, as
+    groups of those heads alone (head h reads group h // (H / G))."""
+    rep = H // t.shape[-2]
+    if hr % rep == 0 or rep % hr == 0:
+        lo = h0 // rep
+        return t[..., lo:lo + max(hr // rep, 1), :]
+    return t.repeat_interleave(rep, dim=-2)[..., h0:h0 + hr, :]
+
+
+def _mine(cfg: ArchConfig, zxbcdt: torch.Tensor, axis):
+    """z, the conv's input channels, dt of the rank's heads from the
+    whole in_proj output (..., proj_out): its heads' z, x and dt, and the
+    whole B and C; and the slices of the conv's channels they are (x's,
+    then B's and C's)."""
+    _, d_in, H, ds, G, conv_ch = _dims(cfg)
+    P = cfg.ssm_head_dim
+    h0, hr = _heads(cfg, axis)
+    if axis is None:
+        z, xbc, dt = _split_proj(cfg, zxbcdt)
+        return z, xbc, dt, None
+    x0, x1 = h0 * P, (h0 + hr) * P
+    z = zxbcdt[..., x0:x1]
+    xbc = torch.cat([zxbcdt[..., d_in + x0:d_in + x1],
+                     zxbcdt[..., 2 * d_in:d_in + conv_ch]], dim=-1)
+    dt = zxbcdt[..., d_in + conv_ch + h0:d_in + conv_ch + h0 + hr]
+    return z, xbc, dt, (slice(x0, x1), slice(d_in, conv_ch))
+
+
+def _channels(t: torch.Tensor, picks) -> torch.Tensor:
+    """The conv leaf's channels (last dim) that `_mine` picked."""
+    if picks is None:
+        return t
+    return torch.cat([t[..., sl] for sl in picks], dim=-1)
+
+
+def _layer_params(params: dict, i: int, compute_dtype, gather=None,
+                  axis=None):
+    """Layer i's raw leaves (read through `gather`, `params.take`; on a
+    model axis the conv's leaves whole) and the ones read in the compute
+    dtype."""
+    whole = ("conv_w", "conv_b") if axis is not None else ()
+    if whole and gather is None:
+        raise ValueError("a model axis reads its leaves through gather= "
+                         "(launch.fsdp.Sharded)")
+    lp_raw = {k: gather(f"layers/{k}", t, i, whole=True) if k in whole
+              else ptree.take(gather, f"layers/{k}", t, i)
+              for k, t in params["layers"].items()}
     return lp_raw, {k: lp_raw[k].to(compute_dtype) for k in _CAST}
 
 
-def _gate_out(cfg: ArchConfig, lp_raw, lp, h, y, xs, z):
+def _ssm_leaves(cfg: ArchConfig, lp_raw, axis):
+    """(a (float32), dt_bias, d_skip) of the rank's heads."""
+    h0, hr = _heads(cfg, axis)
+    return (-torch.exp(lp_raw["a_log"][h0:h0 + hr].to(torch.float32)),
+            lp_raw["dt_bias"][h0:h0 + hr], lp_raw["d_skip"][h0:h0 + hr])
+
+
+def _gate_out(cfg: ArchConfig, lp_raw, lp, h, y, xs, z, d_skip, axis=None,
+              sp: bool = False):
     """D skip, the gated RMSNorm and out_proj, added to the residual h.
-    y, xs: (..., H, P); z: (..., d_in)."""
-    y = (y + lp_raw["d_skip"].to(torch.float32)[:, None]
+    y, xs: (..., H, P) (the rank's heads on a model axis); z: (..., d_in)
+    (its channels). On the axis the norm's statistic spans every rank's
+    channels and out_proj's partial sums leave through `axis.leave`."""
+    y = (y + d_skip.to(torch.float32)[:, None]
          * xs.to(torch.float32)).reshape(z.shape)
-    y = nn.rms_norm((y * F.silu(z.to(torch.float32))).to(h.dtype),
-                    lp_raw["norm_gate"])
-    return h + y @ lp["out_proj"]
+    g = (y * F.silu(z.to(torch.float32))).to(h.dtype)
+    if axis is None:
+        return h + nn.rms_norm(g, lp_raw["norm_gate"]) @ lp["out_proj"]
+    g = nn.rms_norm_split(g, lp_raw["norm_gate"], axis, _dims(cfg)[1])
+    out = axis.leave(nn.product_in(g, lp["out_proj"], torch.float32), sp)
+    return h + out.to(h.dtype)
 
 
-def _block_seq(cfg: ArchConfig, lp_raw, lp, h, *, chunk: int):
-    Bsz, S, _ = h.shape
+def _block_seq(cfg: ArchConfig, lp_raw, lp, h, *, chunk: int, axis=None,
+               sp: bool = False):
+    """One layer on the residual stream h (B, S, D) (the rank's rows under
+    sequence parallelism)."""
     _, d_in, H, ds, G, _ = _dims(cfg)
     P = cfg.ssm_head_dim
+    h0, hr = _heads(cfg, axis)
     hn = nn.rms_norm(h, lp_raw["norm"])
-    z, xbc, dt_raw = _split_proj(cfg, hn @ lp["in_proj"])
-    xbc = F.silu(nn.causal_depthwise_conv1d(xbc, lp["conv_w"])
-                 + lp["conv_b"])
-    xs, bmat, cmat = torch.split(xbc, [d_in, G * ds, G * ds], dim=-1)
-    xs = xs.reshape(Bsz, S, H, P)
-    dt = F.softplus(dt_raw.to(torch.float32) + lp_raw["dt_bias"])
-    a = -torch.exp(lp_raw["a_log"].to(torch.float32))
-    y, _ = ssd_chunked(xs, dt, a, bmat.reshape(Bsz, S, G, ds),
-                       cmat.reshape(Bsz, S, G, ds), chunk=chunk)
-    return _gate_out(cfg, lp_raw, lp, h, y, xs, z)
+    if axis is not None:
+        hn = axis.enter(hn, sp)
+    Bsz, S, _ = hn.shape
+    zxbcdt = hn @ lp["in_proj"]
+    if axis is not None:
+        zxbcdt = axis.cols(zxbcdt)
+    z, xbc, dt_raw, picks = _mine(cfg, zxbcdt, axis)
+    xbc = F.silu(nn.causal_depthwise_conv1d(xbc, _channels(lp["conv_w"],
+                                                           picks))
+                 + _channels(lp["conv_b"], picks))
+    xs, bmat, cmat = torch.split(xbc, [hr * P, G * ds, G * ds], dim=-1)
+    xs = xs.reshape(Bsz, S, hr, P)
+    a, dt_bias, d_skip = _ssm_leaves(cfg, lp_raw, axis)
+    dt = F.softplus(dt_raw.to(torch.float32) + dt_bias)
+    y, _ = ssd_chunked(xs, dt, a,
+                       _head_groups(bmat.reshape(Bsz, S, G, ds), h0, hr, H),
+                       _head_groups(cmat.reshape(Bsz, S, G, ds), h0, hr, H),
+                       chunk=chunk)
+    return _gate_out(cfg, lp_raw, lp, h, y, xs, z, d_skip, axis, sp)
 
 
 def forward_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                    compute_dtype=torch.bfloat16,
-                   remat: str = "nothing", gather=None) -> torch.Tensor:
+                   remat: str = "nothing", gather=None,
+                   seq_parallel: bool = False) -> torch.Tensor:
     """Full-sequence forward to final hidden states (B, S, D). The SSD
     chunk is cfg.ssm_chunk, halved until it divides S. Any remat but
     'none' recomputes each layer in the backward pass (the reference's
-    `jax.checkpoint(nothing_saveable)` around its layer scan). On a data
-    mesh the leaves are read through `gather` (`params.take`)."""
+    `jax.checkpoint(nothing_saveable)` around its layer scan). On a mesh
+    the leaves are read through `gather` (`params.take`); on a model axis
+    with `seq_parallel` (a sequence the axis divides) the hidden states
+    are the rank's rows (B, S/ms, D), else every row."""
     S = tokens.shape[1]
-    h = ptree.take(gather, "embed", params["embed"])[
-        tokens.to(torch.int64)].to(compute_dtype)
+    axis = model_axis(cfg, seq_parallel)
+    h = transformer._lookup(cfg, params, tokens, compute_dtype, gather, axis)
     chunk = min(cfg.ssm_chunk, S)
     while S % chunk:
         chunk //= 2
+    sp = axis is not None and axis.sp(S)
+    if sp:
+        h = axis.split(h)
 
     def layer(h, i):
-        lp_raw, lp = _layer_params(params, i, compute_dtype, gather)
-        return _block_seq(cfg, lp_raw, lp, h, chunk=chunk)
+        lp_raw, lp = _layer_params(params, i, compute_dtype, gather, axis)
+        return _block_seq(cfg, lp_raw, lp, h, chunk=chunk, axis=axis, sp=sp)
 
     for i in range(cfg.n_layers):
         h = layer(h, i) if remat == "none" else nn.remat(layer, h, i)
@@ -256,13 +378,21 @@ def forward_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
             compute_dtype=torch.bfloat16, remat: str = "nothing",
-            gather=None) -> torch.Tensor:
+            gather=None, seq_parallel: bool = False,
+            denom: torch.Tensor | None = None) -> torch.Tensor:
+    """The mean cross-entropy of the batch's rows (the reference's: no
+    loss mask); with `denom` (a mesh's step) their sum over `denom`. On a
+    model axis this rank's term of it (`transformer._axis_loss`)."""
     h = forward_hidden(cfg, params, batch["tokens"],
                        compute_dtype=compute_dtype, remat=remat,
-                       gather=gather)
+                       gather=gather, seq_parallel=seq_parallel)
+    axis = model_axis(cfg, seq_parallel)
+    if axis is not None:
+        return transformer._axis_loss(cfg, params, h, batch["labels"], None,
+                                      axis, gather, denom)
     return nn.chunked_ce_loss(h, ptree.take(gather, "embed",
                                             params["embed"]).T,
-                              batch["labels"])
+                              batch["labels"], denom=denom)
 
 
 # ---------------------------------------------------------------------------
@@ -288,34 +418,55 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 @torch.inference_mode()
 def decode_step(cfg: ArchConfig, params: dict, cache: dict,
                 token: torch.Tensor, pos: torch.Tensor, *,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, gather=None,
+                cache_layout: str | None = None):
     """token: (B,) int; pos: (B,) int, unused (the state carries every
     position). Advances every row's SSM and conv state one token, in
-    place. Returns (logits (B, V) float32, cache), the same cache dict."""
-    del pos
+    place. Returns (logits (B, V) float32, cache), the same cache dict.
+    On a model axis (`settings.mesh`; the leaves read through `gather`)
+    the cache is the rank's block by `launch.sharding.cache_specs`: its
+    heads of `ssm`, its channel block of `conv` (see the module
+    docstring); `cache_layout` is the attention caches' and unused."""
+    del pos, cache_layout
     Bsz = token.shape[0]
-    _, d_in, H, ds, G, _ = _dims(cfg)
+    _, d_in, H, ds, G, conv_ch = _dims(cfg)
     P = cfg.ssm_head_dim
-    h = params["embed"][token.to(torch.int64)].to(compute_dtype)  # (B, D)
+    axis = model_axis(cfg)
+    h0, hr = _heads(cfg, axis)
+    h = transformer._lookup(cfg, params, token, compute_dtype, gather,
+                            axis)                              # (B, D)
     for i in range(cfg.n_layers):
-        lp_raw, lp = _layer_params(params, i, compute_dtype)
+        lp_raw = ptree.take_all(gather, "layers/", params["layers"], i)
+        lp = {k: lp_raw[k].to(compute_dtype) for k in _CAST}
         ssm_st, conv_st = cache["ssm"][i], cache["conv"][i]
         hn = nn.rms_norm(h, lp_raw["norm"])
-        z, xbc, dt_raw = _split_proj(cfg, hn @ lp["in_proj"])
-        xbc, conv_new = nn.conv1d_update(xbc, conv_st, lp["conv_w"])
-        conv_st.copy_(conv_new)
-        xbc = F.silu(xbc + lp["conv_b"])
-        xs, b_t, c_t = torch.split(xbc, [d_in, G * ds, G * ds], dim=-1)
-        xs = xs.reshape(Bsz, H, P)
-        dt = F.softplus(dt_raw.to(torch.float32) + lp_raw["dt_bias"])
-        a = -torch.exp(lp_raw["a_log"].to(torch.float32))
-        y, ssm_new = ssd_step(xs, dt, a, b_t.reshape(Bsz, G, ds),
-                              c_t.reshape(Bsz, G, ds), ssm_st)
+        zxbcdt = hn @ lp["in_proj"]
+        if axis is not None:
+            zxbcdt = axis.all_gather(zxbcdt, -1, tag="tp_cols")
+        z, xbc, dt_raw, picks = _mine(cfg, zxbcdt, axis)
+        if axis is None:
+            xbc, conv_new = nn.conv1d_update(xbc, conv_st, lp["conv_w"])
+            conv_st.copy_(conv_new)
+            xbc = F.silu(xbc + lp["conv_b"])
+        else:   # the rank's channel block of the conv, then every channel
+            n = conv_st.shape[-1]
+            c0 = d_in + axis.index * n
+            out, conv_new = nn.conv1d_update(zxbcdt[..., c0:c0 + n], conv_st,
+                                             lp["conv_w"])
+            conv_st.copy_(conv_new)
+            xbc = _channels(axis.all_gather(F.silu(out + lp["conv_b"]), -1,
+                                            tag="tp_conv"), picks)
+        xs, b_t, c_t = torch.split(xbc, [hr * P, G * ds, G * ds], dim=-1)
+        xs = xs.reshape(Bsz, hr, P)
+        a, dt_bias, d_skip = _ssm_leaves(cfg, lp_raw, axis)
+        dt = F.softplus(dt_raw.to(torch.float32) + dt_bias)
+        y, ssm_new = ssd_step(
+            xs, dt, a, _head_groups(b_t.reshape(Bsz, G, ds), h0, hr, H),
+            _head_groups(c_t.reshape(Bsz, G, ds), h0, hr, H), ssm_st)
         ssm_st.copy_(ssm_new)
-        h = _gate_out(cfg, lp_raw, lp, h, y, xs, z)
+        h = _gate_out(cfg, lp_raw, lp, h, y, xs, z, d_skip, axis)
     h = nn.rms_norm(h, params["final_norm"])
-    logits = h.to(torch.float32) @ params["embed"].T.to(torch.float32)
-    return logits, cache
+    return transformer._logits(cfg, params, h, gather, axis), cache
 
 
 class Mamba2(ptree.FamilyModule):
@@ -325,6 +476,6 @@ class Mamba2(ptree.FamilyModule):
     loss = staticmethod(loss_fn)
 
 
-__all__ = ["Mamba2", "RECURRENT_STATE", "decode_step", "forward_hidden",
-           "from_numpy_params", "init_cache", "init_params", "loss_fn",
-           "ssd_chunked", "ssd_step"]
+__all__ = ["MODEL_PARTIAL", "Mamba2", "RECURRENT_STATE", "decode_step",
+           "forward_hidden", "from_numpy_params", "init_cache", "init_params",
+           "loss_fn", "model_axis", "ssd_chunked", "ssd_step"]

@@ -18,6 +18,23 @@ recurrent tail layers (`tail_{t}/`). `decode_step` writes the recurrent
 states and the attention ring buffer into the cache in place (under
 `torch.inference_mode`) and returns the same dict. `Griffin` is the
 `nn.Module` view of a parameter dict.
+
+The model axis (`settings.mesh` with 'model' above 1; `launch/tp.py`),
+in the reference's layout (`launch.sharding.param_specs`). The recurrent
+block: `w_x` and `w_y` are column-parallel over the RG-LRU width, their
+blocks the rank's channels; `conv_w`, `conv_b`, `b_a`, `b_i` and `lam`
+are split on the same channels; `w_a` and `w_i` (axes ('mlp', 'mlp2'))
+hold the rank's rows with whole columns, so each gate product is a
+partial sum over every channel, reduce-scattered in float32 onto the
+rank's channels (`ModelAxis.scatter`, tag `tp_gate`) before the bias and
+the sigmoid; the scan runs on the rank's channels; `w_out` is
+row-parallel. The attention block is the decoder's MQA case (one KV
+head: `wk`/`wv` read whole, `transformer._heads`), the GeGLU MLP the
+decoder's. Under sequence parallelism the residual stream is the rank's
+rows between the parallel regions. `decode_step` on the axis holds the
+rank's channels of the recurrent states and the rank's positions of the
+attention ring (`cache_specs` splits the window's slots: one KV head),
+whose partial softmaxes merge over the axis (`transformer._ring_attend`).
 """
 from __future__ import annotations
 
@@ -30,6 +47,7 @@ from repro_torch.core.device import resolve_device
 
 from . import layers as nn
 from . import params as ptree
+from . import transformer
 from .config import ArchConfig
 from .transformer import EMPTY_POS
 
@@ -38,6 +56,10 @@ RGLRU_C = 8.0
 #: the cache's recurrent state, which `launch.serve.SlotServer` keeps
 #: apart between slots (the attention ring buffer under "attn" is not)
 RECURRENT_STATE: tuple[str, ...] = ("rec_a", "rec_b", "tail")
+
+#: the model-replicated leaves read inside a parallel region of the model
+#: axis (none: the norms are read before it, every other leaf is split)
+MODEL_PARTIAL: tuple[str, ...] = ()
 
 
 # ---------------------------------------------------------------------------
@@ -189,104 +211,176 @@ def rglru_step(x_t, r_t, i_t, lam, h):
 # Blocks
 # ---------------------------------------------------------------------------
 
+def model_axis(cfg: ArchConfig, seq_parallel: bool = False):
+    """The forward's model axis (`launch.tp.ModelAxis`), or None; refuses
+    one that splits inside a query head or does not divide the RG-LRU's
+    or the MLP's width."""
+    return transformer._model_axis(
+        cfg, seq_parallel, widths=(("the RG-LRU width", cfg.rnn_width),
+                                   ("the MLP width", cfg.d_ff)))
+
+
 def _cast(lp_raw: dict, compute_dtype) -> dict:
     return {k: t.to(compute_dtype) for k, t in lp_raw.items()
             if k not in ("norm1", "norm2", "lam")}
 
 
-def _mlp(lp_raw, lp, h):
+def _leave(h, x, w, axis, sp: bool):
+    """h + x @ w for a row-parallel w: on a model axis the partial sums in
+    float32, reduced (`ModelAxis.leave`) and rounded once."""
+    if axis is None:
+        return h + x @ w
+    return h + axis.leave(nn.product_in(x, w, torch.float32), sp).to(h.dtype)
+
+
+def _mlp(lp_raw, lp, h, axis=None, sp: bool = False):
     """The GeGLU half of a residual block."""
     hn2 = nn.rms_norm(h, lp_raw["norm2"])
-    return h + nn.geglu(hn2, lp["w_gate"], lp["w_up"], lp["w_down"])
+    if axis is None:
+        return h + nn.geglu(hn2, lp["w_gate"], lp["w_up"], lp["w_down"])
+    ff = nn.geglu(axis.enter(hn2, sp), lp["w_gate"], lp["w_up"],
+                  lp["w_down"], acc=torch.float32)
+    return h + axis.leave(ff, sp).to(h.dtype)
 
 
-def _rec_block_seq(cfg, lp_raw, lp, h):
-    """Recurrent temporal block + MLP residual, full sequence."""
+def _gate(gx, w, axis):
+    """gx @ w; on a model axis gx is the rank's channels and w its rows
+    (whole columns): the partial sums reduce-scattered in float32 onto
+    the rank's channels, rounded once."""
+    if axis is None:
+        return gx @ w
+    return axis.scatter(nn.product_in(gx, w, torch.float32), -1,
+                        tag="tp_gate").to(gx.dtype)
+
+
+def _rec_block_seq(cfg, lp_raw, lp, h, axis=None, sp: bool = False):
+    """Recurrent temporal block + MLP residual, full sequence (h the
+    rank's rows under sequence parallelism; the gates and the scan on
+    the rank's channels of a model axis)."""
     hn = nn.rms_norm(h, lp_raw["norm1"])
+    if axis is not None:
+        hn = axis.enter(hn, sp)
     gx = hn @ lp["w_x"]                                   # (B, S, dr)
     gy = F.gelu(hn @ lp["w_y"], approximate="tanh")
     gx = nn.causal_depthwise_conv1d(gx, lp["conv_w"]) + lp["conv_b"]
-    r = torch.sigmoid(gx @ lp["w_a"] + lp["b_a"])
-    i = torch.sigmoid(gx @ lp["w_i"] + lp["b_i"])
+    r = torch.sigmoid(_gate(gx, lp["w_a"], axis) + lp["b_a"])
+    i = torch.sigmoid(_gate(gx, lp["w_i"], axis) + lp["b_i"])
     y, _ = rglru_scan(gx, r, i, lp_raw["lam"])
-    h = h + (y.to(h.dtype) * gy) @ lp["w_out"]
-    return _mlp(lp_raw, lp, h)
+    h = _leave(h, y.to(h.dtype) * gy, lp["w_out"], axis, sp)
+    return _mlp(lp_raw, lp, h, axis, sp)
 
 
 def _qkv(cfg, lp, hn):
+    """q, k, v (B, S, H, hd) of the heads the leaves hold."""
     B, S, _ = hn.shape
-    return ((hn @ lp["wq"]).reshape(B, S, cfg.n_heads, cfg.hd),
-            (hn @ lp["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.hd),
-            (hn @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.hd))
+    return ((hn @ lp["wq"]).reshape(B, S, -1, cfg.hd),
+            (hn @ lp["wk"]).reshape(B, S, -1, cfg.hd),
+            (hn @ lp["wv"]).reshape(B, S, -1, cfg.hd))
 
 
 def _window(cfg: ArchConfig) -> int:
     return int(cfg.window_pattern[-1] or EMPTY_POS)
 
 
-def _attn_block_seq(cfg, lp_raw, lp, h, positions):
-    B, S, _ = h.shape
-    q, k, v = _qkv(cfg, lp, nn.rms_norm(h, lp_raw["norm1"]))
+def _attn_block_seq(cfg, lp_raw, lp, h, positions, axis=None,
+                    sp: bool = False):
+    hn = nn.rms_norm(h, lp_raw["norm1"])
+    if axis is not None:
+        hn = axis.enter(hn, sp)
+    B, S, _ = hn.shape
+    q, k, v = _qkv(cfg, lp, hn)
     q = nn.apply_rope(q, positions, theta=cfg.rope_theta)
     k = nn.apply_rope(k, positions, theta=cfg.rope_theta)
+    k, v = transformer._heads(cfg, axis, k, v)
     attn = nn.attention(q, k, v, positions, positions, causal=True,
                         window=_window(cfg))
-    h = h + attn.reshape(B, S, -1) @ lp["wo"]
-    return _mlp(lp_raw, lp, h)
+    h = _leave(h, attn.reshape(B, S, -1), lp["wo"], axis, sp)
+    return _mlp(lp_raw, lp, h, axis, sp)
 
 
-def _group_params(params: dict, g: int, gather=None) -> dict:
-    """Group g's leaves, read through `gather` (`params.take`)."""
-    return {name: ptree.take_all(gather, f"groups/{name}/", sub, g)
-            for name, sub in params["groups"].items()}
+def _group_params(cfg: ArchConfig, params: dict, g: int, gather=None,
+                  axis=None) -> dict:
+    """Group g's leaves, read through `gather` (`params.take`); on a
+    model axis that does not divide the KV heads the attention's `wk` and
+    `wv` whole (`Sharded(whole=True)`)."""
+    whole = ("wk", "wv") if transformer._kv_whole(cfg, axis) else ()
+    if whole and gather is None:
+        raise ValueError("a model axis reads its leaves through gather= "
+                         "(launch.fsdp.Sharded)")
+    out = {}
+    for name, sub in params["groups"].items():
+        pre = f"groups/{name}/"
+        out[name] = {k: gather(pre + k, t, g, whole=True)
+                     if name == "attn" and k in whole
+                     else ptree.take(gather, pre + k, t, g)
+                     for k, t in sub.items()}
+    return out
 
 
 def _embed(cfg: ArchConfig, params: dict, tokens, compute_dtype,
-           gather=None):
+           gather=None, axis=None):
     """Embedding rows times sqrt(D), the scale rounded to the compute
-    dtype first (as the reference)."""
-    h = ptree.take(gather, "embed", params["embed"])[
-        tokens.to(torch.int64)].to(compute_dtype)
+    dtype first (as the reference); on a model axis the lookup of the
+    rank's columns gathered to whole rows."""
+    h = transformer._lookup(cfg, params, tokens, compute_dtype, gather,
+                            axis)
     return h * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
 
 
 def forward_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                    compute_dtype=torch.bfloat16,
-                   remat: str = "nothing", gather=None) -> torch.Tensor:
+                   remat: str = "nothing", gather=None,
+                   seq_parallel: bool = False) -> torch.Tensor:
     """Full-sequence forward to final hidden states (B, S, D). Any remat
     but 'none' recomputes each (rec, rec, attn) group in the backward
     pass (the reference's `jax.checkpoint(nothing_saveable)` around its
     group scan); the tail layers store theirs, as the reference's. On a
-    data mesh the leaves are read through `gather` (`params.take`)."""
+    mesh the leaves are read through `gather` (`params.take`); on a model
+    axis with `seq_parallel` (a sequence the axis divides) the hidden
+    states are the rank's rows (B, S/ms, D), else every row."""
     B, S = tokens.shape
+    axis = model_axis(cfg, seq_parallel)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    h = _embed(cfg, params, tokens, compute_dtype, gather)
+    h = _embed(cfg, params, tokens, compute_dtype, gather, axis)
+    sp = axis is not None and axis.sp(S)
+    if sp:
+        h = axis.split(h)
 
     def group(h, g):
-        gp_raw = _group_params(params, g, gather)
+        gp_raw = _group_params(cfg, params, g, gather, axis)
         gp = {name: _cast(sub, compute_dtype) for name, sub in gp_raw.items()}
-        h = _rec_block_seq(cfg, gp_raw["rec_a"], gp["rec_a"], h)
-        h = _rec_block_seq(cfg, gp_raw["rec_b"], gp["rec_b"], h)
-        return _attn_block_seq(cfg, gp_raw["attn"], gp["attn"], h, positions)
+        h = _rec_block_seq(cfg, gp_raw["rec_a"], gp["rec_a"], h, axis, sp)
+        h = _rec_block_seq(cfg, gp_raw["rec_b"], gp["rec_b"], h, axis, sp)
+        return _attn_block_seq(cfg, gp_raw["attn"], gp["attn"], h, positions,
+                               axis, sp)
 
     G, T = _layout(cfg)
     for g in range(G):
         h = group(h, g) if remat == "none" else nn.remat(group, h, g)
     for t in range(T):
         lp_raw = ptree.take_all(gather, f"tail_{t}/", params[f"tail_{t}"])
-        h = _rec_block_seq(cfg, lp_raw, _cast(lp_raw, compute_dtype), h)
+        h = _rec_block_seq(cfg, lp_raw, _cast(lp_raw, compute_dtype), h,
+                           axis, sp)
     return nn.rms_norm(h, params["final_norm"])
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
             compute_dtype=torch.bfloat16, remat: str = "nothing",
-            gather=None) -> torch.Tensor:
+            gather=None, seq_parallel: bool = False,
+            denom: torch.Tensor | None = None) -> torch.Tensor:
+    """The mean cross-entropy of the batch's rows (the reference's: no
+    loss mask); with `denom` (a mesh's step) their sum over `denom`. On a
+    model axis this rank's term of it (`transformer._axis_loss`)."""
     h = forward_hidden(cfg, params, batch["tokens"],
                        compute_dtype=compute_dtype, remat=remat,
-                       gather=gather)
+                       gather=gather, seq_parallel=seq_parallel)
+    axis = model_axis(cfg, seq_parallel)
+    if axis is not None:
+        return transformer._axis_loss(cfg, params, h, batch["labels"], None,
+                                      axis, gather, denom)
     return nn.chunked_ce_loss(h, ptree.take(gather, "embed",
                                             params["embed"]).T,
-                              batch["labels"])
+                              batch["labels"], denom=denom)
 
 
 # ---------------------------------------------------------------------------
@@ -321,73 +415,74 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     }
 
 
-def _rec_block_step(cfg, lp_raw, lp, h, h_st, conv_st):
+def _rec_block_step(cfg, lp_raw, lp, h, h_st, conv_st, axis=None):
     """h: (B, D) one token; h_st (B, dr) and conv_st (B, W-1, dr) are
-    the layer's state, advanced in place."""
+    the layer's state (the rank's channels on a model axis), advanced in
+    place."""
     hn = nn.rms_norm(h, lp_raw["norm1"])
     gx = hn @ lp["w_x"]
     gy = F.gelu(hn @ lp["w_y"], approximate="tanh")
     gx, conv_new = nn.conv1d_update(gx, conv_st, lp["conv_w"])
     conv_st.copy_(conv_new)
     gx = gx + lp["conv_b"]
-    r = torch.sigmoid(gx @ lp["w_a"] + lp["b_a"])
-    i = torch.sigmoid(gx @ lp["w_i"] + lp["b_i"])
+    r = torch.sigmoid(_gate(gx, lp["w_a"], axis) + lp["b_a"])
+    i = torch.sigmoid(_gate(gx, lp["w_i"], axis) + lp["b_i"])
     y, h_new = rglru_step(gx, r, i, lp_raw["lam"], h_st)
     h_st.copy_(h_new)
-    h = h + (y.to(h.dtype) * gy) @ lp["w_out"]
-    return _mlp(lp_raw, lp, h)
+    h = _leave(h, y.to(h.dtype) * gy, lp["w_out"], axis, False)
+    return _mlp(lp_raw, lp, h, axis)
 
 
-def _attn_block_step(cfg, lp_raw, lp, h, kc, vc, pc, pos, rows, slot):
-    """h: (B, D) one token at positions pos (B,); writes its key, value
+def _attn_block_step(cfg, lp_raw, lp, h, kc, vc, pc, ring, axis=None):
+    """h: (B, D) one token at the ring's positions; writes its key, value
     and position into the ring buffer (kc, vc (B, Hkv, C, hd), pc (B,
-    C)) at `slot` = pos % C, in place, and attends over the ring."""
+    C); a model axis's block by `cache_specs`) at its slot pos % C, in
+    place, and attends over the ring (`transformer._ring_attend`)."""
     B = h.shape[0]
     q, k, v = _qkv(cfg, lp, nn.rms_norm(h, lp_raw["norm1"])[:, None, :])
-    pos_q = pos[:, None]
-    q = nn.apply_rope(q, pos_q, theta=cfg.rope_theta)
-    k = nn.apply_rope(k, pos_q, theta=cfg.rope_theta)
-    kc[rows, :, slot] = k[:, 0].to(kc.dtype)
-    vc[rows, :, slot] = v[:, 0].to(vc.dtype)
-    pc[rows, slot] = pos
-    attn = nn.attention(q, kc.transpose(1, 2), vc.transpose(1, 2), pos_q,
-                        pc, causal=True, window=_window(cfg),
-                        dense_below=1 << 62)
-    h = h + attn.reshape(B, -1) @ lp["wo"]
-    return _mlp(lp_raw, lp, h)
+    q = nn.apply_rope(q, ring["pos_q"], theta=cfg.rope_theta)
+    k = nn.apply_rope(k, ring["pos_q"], theta=cfg.rope_theta)
+    attn = transformer._ring_attend(cfg, axis, ring, q, k, v, kc, vc, pc,
+                                    _window(cfg))
+    h = _leave(h, attn.reshape(B, -1), lp["wo"], axis, False)
+    return _mlp(lp_raw, lp, h, axis)
 
 
 @torch.inference_mode()
 def decode_step(cfg: ArchConfig, params: dict, cache: dict,
                 token: torch.Tensor, pos: torch.Tensor, *,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, gather=None,
+                cache_layout: str | None = None):
     """token: (B,) int; pos: (B,) int (each sequence's position).
     Advances every row's recurrent states one token and writes the
     attention layers' key, value and position at ring slot pos % C, all
-    in place. Returns (logits (B, V) float32, cache), the same dict."""
-    B = token.shape[0]
-    pos = pos.to(device=token.device, dtype=torch.int32)
-    C = cache["attn"]["k"].shape[3]
-    slot = (pos % C).to(torch.int64)
-    rows = torch.arange(B, device=token.device)
-    h = _embed(cfg, params, token, compute_dtype)
+    in place. Returns (logits (B, V) float32, cache), the same dict. On
+    a model axis (`settings.mesh`; the leaves read through `gather`) the
+    cache is the rank's block by `launch.sharding.cache_specs`: the
+    recurrent states' channels, and the ring's slots under
+    `cache_layout` 'seq' (else the whole ring)."""
+    axis = model_axis(cfg)
+    ring = transformer._ring(axis, cache["attn"]["k"].shape[3], token, pos,
+                             cache_layout)
+    h = _embed(cfg, params, token, compute_dtype, gather, axis)
     G, T = _layout(cfg)
     for g in range(G):
-        gp_raw = _group_params(params, g)
+        gp_raw = _group_params(cfg, params, g, gather, axis)
         gp = {name: _cast(sub, compute_dtype) for name, sub in gp_raw.items()}
         for name in ("rec_a", "rec_b"):
             h = _rec_block_step(cfg, gp_raw[name], gp[name], h,
-                                cache[name]["h"][g], cache[name]["conv"][g])
+                                cache[name]["h"][g], cache[name]["conv"][g],
+                                axis)
         at = cache["attn"]
         h = _attn_block_step(cfg, gp_raw["attn"], gp["attn"], h, at["k"][g],
-                             at["v"][g], at["pos"][g], pos, rows, slot)
+                             at["v"][g], at["pos"][g], ring, axis)
     for t in range(T):
-        lp_raw = params[f"tail_{t}"]
+        lp_raw = ptree.take_all(gather, f"tail_{t}/", params[f"tail_{t}"])
         h = _rec_block_step(cfg, lp_raw, _cast(lp_raw, compute_dtype), h,
-                            cache["tail"]["h"][t], cache["tail"]["conv"][t])
+                            cache["tail"]["h"][t], cache["tail"]["conv"][t],
+                            axis)
     h = nn.rms_norm(h, params["final_norm"])
-    logits = h.to(torch.float32) @ params["embed"].T.to(torch.float32)
-    return logits, cache
+    return transformer._logits(cfg, params, h, gather, axis), cache
 
 
 class Griffin(ptree.FamilyModule):
@@ -397,6 +492,7 @@ class Griffin(ptree.FamilyModule):
     loss = staticmethod(loss_fn)
 
 
-__all__ = ["Griffin", "RECURRENT_STATE", "RGLRU_C", "decode_step",
-           "forward_hidden", "from_numpy_params", "init_cache", "init_params",
-           "loss_fn", "rglru_scan", "rglru_step"]
+__all__ = ["Griffin", "MODEL_PARTIAL", "RECURRENT_STATE", "RGLRU_C",
+           "decode_step", "forward_hidden", "from_numpy_params", "init_cache",
+           "init_params", "loss_fn", "model_axis", "rglru_scan",
+           "rglru_step"]

@@ -183,20 +183,36 @@ def from_numpy_params(cfg: ArchConfig, tree: dict, *, device=None,
 # Forward
 # ---------------------------------------------------------------------------
 
-def _model_axis(cfg: ArchConfig, seq_parallel: bool = False):
+def _model_axis(cfg: ArchConfig, seq_parallel: bool = False, *,
+                heads: int | None = None, widths: tuple = ()):
     """The forward's model axis (`launch.tp.ModelAxis`) from the settings'
-    mesh, or None; refuses what the axis does not split."""
+    mesh, or None; refuses what the axis does not split: a head count
+    (`heads`, the config's query heads by default) it would split inside
+    a head, or a width of `widths` ((what, size) pairs: a dim whose
+    blocks the family reads as the rank's) it does not divide. Every
+    family reads its axis here."""
     mesh = settings.get().mesh
     if mesh is None or mesh.shape.get("model", 1) <= 1:
         return None
     from repro_torch.launch.tp import ModelAxis
     axis = ModelAxis.from_settings(seq_parallel=seq_parallel)
-    if cfg.n_heads % axis.size:
+    heads = cfg.n_heads if heads is None else heads
+    if heads % axis.size:
         raise NotImplementedError(
             f"{cfg.name}: a model axis of {axis.size} does not divide the "
-            f"{cfg.n_heads} query heads (spec_for would split inside a "
-            "head)")
+            f"{heads} query heads (spec_for would split inside a head)")
+    for what, size in widths:
+        if size % axis.size:
+            raise NotImplementedError(
+                f"{cfg.name}: a model axis of {axis.size} does not divide "
+                f"{what} of {size}")
     return axis
+
+
+def model_axis(cfg: ArchConfig, seq_parallel: bool = False):
+    """The forward's model axis (`launch.tp.ModelAxis`), or None; each
+    family has one (`models.<family>.model_axis`)."""
+    return _model_axis(cfg, seq_parallel)
 
 
 def _kv_whole(cfg: ArchConfig, axis) -> bool:
@@ -342,14 +358,23 @@ def _unembed(cfg: ArchConfig, params: dict, gather=None) -> torch.Tensor:
     return ptree.take(gather, "unembed", params["unembed"])
 
 
-def _embed(cfg: ArchConfig, params: dict, tokens, compute_dtype,
-           gather=None, axis=None):
-    """The embedded tokens (..., D); on a model axis the lookup of the
-    rank's columns of the table, gathered to whole rows."""
+def _lookup(cfg: ArchConfig, params: dict, tokens, compute_dtype,
+            gather=None, axis=None):
+    """The embedding's rows of the tokens (..., D) in the compute dtype;
+    on a model axis the lookup of the rank's columns of the table,
+    gathered to whole rows. Every family embeds its tokens here."""
     table = ptree.take(gather, "embed", params["embed"])
     h = table[tokens.to(torch.int64)].to(compute_dtype)
     if axis is not None and table.shape[1] != cfg.d_model:
         h = axis.gather_cols(h)
+    return h
+
+
+def _embed(cfg: ArchConfig, params: dict, tokens, compute_dtype,
+           gather=None, axis=None):
+    """The embedded tokens (..., D) (`_lookup`), times sqrt(D) where the
+    config scales them."""
+    h = _lookup(cfg, params, tokens, compute_dtype, gather, axis)
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
     return h
@@ -463,6 +488,16 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
         return nn.chunked_ce_loss(h, _unembed(cfg, params, gather), labels,
                                   softcap=cfg.final_softcap, mask=mask,
                                   denom=denom)
+    return _axis_loss(cfg, params, h, labels, mask, axis, gather, denom)
+
+
+def _axis_loss(cfg: ArchConfig, params: dict, h, labels, mask, axis,
+               gather, denom):
+    """The loss's term on a model axis from the final hidden states h
+    (the rank's rows under sequence parallelism, else every row; see
+    `loss_fn`): an untied unembedding's cross-entropy over its vocabulary
+    blocks, a tied one's over the rank's own rows with the embedding
+    gathered whole. Every family's loss on a model axis is taken here."""
     if gather is None:
         raise ValueError("a model axis reads its leaves through gather= "
                          "(launch.fsdp.Sharded)")
@@ -525,6 +560,52 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                               device=dev)}
 
 
+def _ring(axis, cl: int, token, pos, cache_layout):
+    """One decode step's ring-buffer bookkeeping over a cache of `cl`
+    slots (the rank's, under `cache_layout` 'seq'): the positions, each
+    row's slot `pos % C` and whether this rank holds it."""
+    if cache_layout not in (None, "heads", "seq"):
+        raise ValueError(f"unknown cache_layout {cache_layout!r}")
+    seq = axis is not None and cache_layout == "seq"
+    C = cl * axis.size if seq else cl
+    c0 = axis.index * cl if seq else 0
+    pos = pos.to(device=token.device, dtype=torch.int32)
+    slot = (pos % C).to(torch.int64)
+    mine = (slot >= c0) & (slot < c0 + cl)                # this rank's slot
+    return {"seq": seq, "pos": pos, "pos_q": pos[:, None],
+            "slot": torch.where(mine, slot - c0, 0), "mine": mine,
+            "rows": torch.arange(token.shape[0], device=token.device)}
+
+
+def _ring_attend(cfg: ArchConfig, axis, ring: dict, q, k, v, kc, vc, pc,
+                 window):
+    """Write one token's key, value and position (k, v (B, 1, Hkv, hd))
+    into a layer's ring (kc, vc (B, Hkv, C, hd), pc (B, C)) at its slot,
+    in place, and attend the rank's query heads q over the ring. Under
+    the 'seq' layout only the rank whose slots hold the position writes,
+    and the ranks' partial softmaxes merge (`nn.attention_over_ranks`)."""
+    rows, slot, mine, pos = ring["rows"], ring["slot"], ring["mine"], \
+        ring["pos"]
+    if ring["seq"]:     # only the rank whose slots hold pos % C writes
+        r = rows[mine]
+        kc[r, :, slot[mine]] = k[mine, 0].to(kc.dtype)
+        vc[r, :, slot[mine]] = v[mine, 0].to(vc.dtype)
+        pc[r, slot[mine]] = pos[mine]
+        hq = q.shape[2]
+        out = nn.attention_over_ranks(
+            axis.all_gather(q, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            ring["pos_q"], pc, axis, causal=True, window=window,
+            softcap=cfg.attn_softcap)
+        return out[:, :, axis.index * hq:(axis.index + 1) * hq]
+    kc[rows, :, slot] = k[:, 0].to(kc.dtype)
+    vc[rows, :, slot] = v[:, 0].to(vc.dtype)
+    pc[rows, slot] = pos
+    kk, vv = _heads(cfg, axis, kc.transpose(1, 2), vc.transpose(1, 2))
+    return nn.attention(q, kk, vv, ring["pos_q"], pc, causal=True,
+                        window=window, softcap=cfg.attn_softcap,
+                        dense_below=1 << 62)
+
+
 @torch.inference_mode()
 def decode_step(cfg: ArchConfig, params: dict, cache: dict,
                 token: torch.Tensor, pos: torch.Tensor, *,
@@ -549,46 +630,17 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     _check_ported(cfg)
     _check_positions3(cfg, positions3)
     axis = _model_axis(cfg)
-    if cache_layout not in (None, "heads", "seq"):
-        raise ValueError(f"unknown cache_layout {cache_layout!r}")
-    B = token.shape[0]
-    Cl = cache["k"].shape[3]
-    seq = axis is not None and cache_layout == "seq"
-    C = Cl * axis.size if seq else Cl
-    c0 = axis.index * Cl if seq else 0
-    pos = pos.to(device=token.device, dtype=torch.int32)
-    pos_q = pos[:, None]                                  # (B, 1)
-    slot = (pos % C).to(torch.int64)
-    mine = (slot >= c0) & (slot < c0 + Cl)                # this rank's slot
-    slot = torch.where(mine, slot - c0, 0)
-    rows = torch.arange(B, device=token.device)
+    ring = _ring(axis, cache["k"].shape[3], token, pos, cache_layout)
     h = _embed(cfg, params, token, compute_dtype, gather, axis)[:, None, :]
-    hq = cfg.n_heads // (axis.size if axis is not None else 1)
     for i, window in enumerate(cfg.window_array()):
         kc, vc, pc = cache["k"][i], cache["v"][i], cache["pos"][i]
 
         def attend(q, k, v, kc=kc, vc=vc, pc=pc, window=window):
-            if seq:     # only the rank whose slots hold pos % C writes
-                r = rows[mine]
-                kc[r, :, slot[mine]] = k[mine, 0].to(kc.dtype)
-                vc[r, :, slot[mine]] = v[mine, 0].to(vc.dtype)
-                pc[r, slot[mine]] = pos[mine]
-                out = nn.attention_over_ranks(
-                    axis.all_gather(q, 2), kc.transpose(1, 2),
-                    vc.transpose(1, 2), pos_q, pc, axis, causal=True,
-                    window=window, softcap=cfg.attn_softcap)
-                return out[:, :, axis.index * hq:(axis.index + 1) * hq]
-            kc[rows, :, slot] = k[:, 0].to(kc.dtype)
-            vc[rows, :, slot] = v[:, 0].to(vc.dtype)
-            pc[rows, slot] = pos
-            kk, vv = _heads(cfg, axis, kc.transpose(1, 2), vc.transpose(1, 2))
-            return nn.attention(q, kk, vv, pos_q, pc, causal=True,
-                                window=window, softcap=cfg.attn_softcap,
-                                dense_below=1 << 62)
+            return _ring_attend(cfg, axis, ring, q, k, v, kc, vc, pc, window)
         h = _block(cfg, h, _layer_params(cfg, gather, params["layers"], i,
                                          axis),
-                   pos_q, compute_dtype, attend, positions3=positions3,
-                   full_capacity=True, axis=axis)
+                   ring["pos_q"], compute_dtype, attend,
+                   positions3=positions3, full_capacity=True, axis=axis)
     h = nn.rms_norm(h, params["final_norm"], offset=cfg.norm_offset)
     return _logits(cfg, params, h[:, 0, :], gather, axis), cache
 
@@ -641,4 +693,4 @@ class Decoder(ptree.FamilyModule):
 
 __all__ = ["Decoder", "EMPTY_POS", "cache_len", "decode_step", "forward_hidden",
            "from_numpy_params", "init_cache", "init_params", "loss_fn",
-           "prefill"]
+           "model_axis", "prefill"]

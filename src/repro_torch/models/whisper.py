@@ -10,6 +10,19 @@ the cross-attention keys and values of the encoder output
 (`build_cross_cache`); `decode_step` writes the new key and value in
 place (under `torch.inference_mode`) and returns the same dict.
 `Whisper` is the `nn.Module` view of a parameter dict.
+
+The model axis (`settings.mesh` with 'model' above 1; `launch/tp.py`),
+in the reference's layout (`launch.sharding.param_specs`): self- and
+cross-attention are split over heads (`wq`, `wk`, `wv` and their biases
+column-parallel, `wo` row-parallel), the GELU MLP over its hidden dim
+(`w_in`, `b_in` column-parallel, `w_out` row-parallel); `bo` and `b_out`
+are added once, after the row-parallel partial sums are reduced (in
+float32, rounded once); the cross-attention's `x_wk` and `x_wv` read the
+whole encoder output. There is no sequence parallelism: the reference
+passes no `constrain` to `encode` and `decode_hidden`, so the stream is
+whole on every model rank (`SEQ_PARALLEL`). `decode_step` on the axis
+holds the rank's heads of the self-attention cache and of the cross
+K/V, which `build_cross_cache` fills from the rank's blocks.
 """
 from __future__ import annotations
 
@@ -21,10 +34,19 @@ from repro_torch.core.device import resolve_device
 
 from . import layers as nn
 from . import params as ptree
+from . import transformer
 from .config import ArchConfig
 
 #: the cache's recurrent state (none: self- and cross-attention K/V)
 RECURRENT_STATE: tuple[str, ...] = ()
+
+#: the model-replicated leaves read inside a parallel region of the model
+#: axis (none: the norms are read before it, the biases after it)
+MODEL_PARTIAL: tuple[str, ...] = ()
+
+#: whether the forward splits the stream's sequence over the model axis
+#: (no: the reference constrains neither `encode` nor `decode_hidden`)
+SEQ_PARALLEL = False
 
 
 def _attn_spec(D, Hq, hd, lead, prefix=""):
@@ -111,6 +133,15 @@ def sinusoidal(S: int, D: int, dtype=torch.float32, *,
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
 
 
+def model_axis(cfg: ArchConfig, seq_parallel: bool = False):
+    """The forward's model axis (`launch.tp.ModelAxis`, never
+    sequence-parallel: `SEQ_PARALLEL`), or None; refuses one that splits
+    inside a head or does not divide the MLP's width."""
+    del seq_parallel
+    return transformer._model_axis(cfg, False,
+                                   widths=(("the MLP width", cfg.d_ff),))
+
+
 def _layer(stacked: dict, i: int, compute_dtype, gather=None,
            prefix: str = ""):
     """Layer i's raw leaves (read through `gather` under `prefix`,
@@ -122,31 +153,52 @@ def _layer(stacked: dict, i: int, compute_dtype, gather=None,
 def _project_q(cfg, lp, x, prefix=""):
     B, S, _ = x.shape
     return (x @ lp[f"{prefix}wq"] + lp[f"{prefix}bq"]).reshape(
-        B, S, cfg.n_heads, cfg.hd)
+        B, S, -1, cfg.hd)
 
 
 def _project_kv(cfg, lp, x, prefix=""):
-    """Keys (no bias) and values of x (B, S, D): (B, S, H, hd) each."""
+    """Keys (no bias) and values of x (B, S, D): (B, S, H, hd) each (the
+    rank's heads on a model axis)."""
     B, S, _ = x.shape
-    k = (x @ lp[f"{prefix}wk"]).reshape(B, S, cfg.n_heads, cfg.hd)
+    k = (x @ lp[f"{prefix}wk"]).reshape(B, S, -1, cfg.hd)
     v = (x @ lp[f"{prefix}wv"] + lp[f"{prefix}bv"]).reshape(
-        B, S, cfg.n_heads, cfg.hd)
+        B, S, -1, cfg.hd)
     return k, v
 
 
-def _mha(cfg, lp, x_q, x_kv, pos_q, pos_k, *, causal, prefix=""):
+def _out(h, x, w, b, axis):
+    """h + (x @ w + b) for a row-parallel w: on a model axis the partial
+    sums in float32, all-reduced and rounded once, the bias added after."""
+    if axis is None:
+        return h + (x @ w + b)
+    return h + (axis.leave(nn.product_in(x, w, torch.float32), False)
+                .to(h.dtype) + b)
+
+
+def _mha(cfg, lp, h, x_q, x_kv, pos_q, pos_k, *, causal, prefix="",
+         axis=None):
+    """h + the attention block's output of queries x_q over x_kv (on a
+    model axis both already entered: `axis.enter`)."""
     B, Sq, _ = x_q.shape
     q = _project_q(cfg, lp, x_q, prefix)
     k, v = _project_kv(cfg, lp, x_kv, prefix)
     out = nn.attention(q, k, v, pos_q, pos_k, causal=causal)
-    return (out.reshape(B, Sq, cfg.n_heads * cfg.hd) @ lp[f"{prefix}wo"]
-            + lp[f"{prefix}bo"])
+    return _out(h, out.reshape(B, Sq, -1), lp[f"{prefix}wo"],
+                lp[f"{prefix}bo"], axis)
 
 
-def _mlp(lp_raw, lp, h):
-    hn2 = nn.layer_norm(h, lp_raw["ln2_w"], lp_raw["ln2_b"])
-    return h + nn.gelu_mlp(hn2, lp["w_in"], lp["b_in"], lp["w_out"],
-                           lp["b_out"])
+def _enter(x, axis):
+    return x if axis is None else axis.enter(x, False)
+
+
+def _mlp(lp_raw, lp, h, axis=None):
+    hn2 = _enter(nn.layer_norm(h, lp_raw["ln2_w"], lp_raw["ln2_b"]), axis)
+    if axis is None:
+        return h + nn.gelu_mlp(hn2, lp["w_in"], lp["b_in"], lp["w_out"],
+                               lp["b_out"])
+    ff = nn.gelu_mlp(hn2, lp["w_in"], lp["b_in"], lp["w_out"], lp["b_out"],
+                     acc=torch.float32)
+    return h + (axis.leave(ff, False).to(h.dtype) + lp["b_out"])
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -159,17 +211,19 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, *,
     """frames: (B, Se, D) precomputed frame embeddings (the conv front
     end's stub) -> the encoder output (B, Se, D) in the compute dtype.
     Any remat but 'none' recomputes each layer in the backward pass. On a
-    data mesh the leaves are read through `gather` (`params.take`)."""
+    mesh the leaves are read through `gather` (`params.take`); on a model
+    axis every rank returns the whole output."""
     B, Se, D = frames.shape
+    axis = model_axis(cfg)
     h = (frames.to(compute_dtype)
          + sinusoidal(Se, D, compute_dtype, device=frames.device)[None])
     pos = _positions(B, Se, frames.device)
 
     def layer(h, i):
         lp_raw, lp = _layer(params["enc"], i, compute_dtype, gather, "enc/")
-        hn = nn.layer_norm(h, lp_raw["ln_w"], lp_raw["ln_b"])
-        h = h + _mha(cfg, lp, hn, hn, pos, pos, causal=False)
-        return _mlp(lp_raw, lp, h)
+        hn = _enter(nn.layer_norm(h, lp_raw["ln_w"], lp_raw["ln_b"]), axis)
+        h = _mha(cfg, lp, h, hn, hn, pos, pos, causal=False, axis=axis)
+        return _mlp(lp_raw, lp, h, axis)
 
     for i in range(cfg.encoder_layers):
         h = layer(h, i) if remat == "none" else nn.remat(layer, h, i)
@@ -180,24 +234,28 @@ def decode_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
                   enc_out: torch.Tensor, *, compute_dtype=torch.bfloat16,
                   remat: str = "nothing", gather=None) -> torch.Tensor:
     """The decoder over a whole sequence (B, S), attending to enc_out (B,
-    Se, D): final hidden states (B, S, D)."""
+    Se, D): final hidden states (B, S, D) (every row on every rank of a
+    model axis)."""
     B, S = tokens.shape
     dev = tokens.device
-    table = ptree.take(gather, "embed", params["embed"])
-    h = (table[tokens.to(torch.int64)].to(compute_dtype)
+    axis = model_axis(cfg)
+    h = (transformer._lookup(cfg, params, tokens, compute_dtype, gather,
+                             axis)
          + sinusoidal(S, cfg.d_model, compute_dtype, device=dev)[None])
     pos = _positions(B, S, dev)
     pos_e = _positions(B, enc_out.shape[1], dev)
-    enc_out = enc_out.to(compute_dtype)
+    # one entry for every layer's cross K/V: one all_reduce of its gradient
+    enc_out = _enter(enc_out.to(compute_dtype), axis)
 
     def layer(h, i):
         lp_raw, lp = _layer(params["dec"], i, compute_dtype, gather, "dec/")
-        hn = nn.layer_norm(h, lp_raw["ln_w"], lp_raw["ln_b"])
-        h = h + _mha(cfg, lp, hn, hn, pos, pos, causal=True)
-        hx = nn.layer_norm(h, lp_raw["x_ln_w"], lp_raw["x_ln_b"])
-        h = h + _mha(cfg, lp, hx, enc_out, pos, pos_e, causal=False,
-                     prefix="x_")
-        return _mlp(lp_raw, lp, h)
+        hn = _enter(nn.layer_norm(h, lp_raw["ln_w"], lp_raw["ln_b"]), axis)
+        h = _mha(cfg, lp, h, hn, hn, pos, pos, causal=True, axis=axis)
+        hx = _enter(nn.layer_norm(h, lp_raw["x_ln_w"], lp_raw["x_ln_b"]),
+                    axis)
+        h = _mha(cfg, lp, h, hx, enc_out, pos, pos_e, causal=False,
+                 prefix="x_", axis=axis)
+        return _mlp(lp_raw, lp, h, axis)
 
     for i in range(cfg.n_layers):
         h = layer(h, i) if remat == "none" else nn.remat(layer, h, i)
@@ -206,17 +264,26 @@ def decode_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
             compute_dtype=torch.bfloat16, remat: str = "nothing",
-            gather=None) -> torch.Tensor:
-    """batch: frames (B, Se, D), tokens and labels (B, S)."""
+            gather=None, seq_parallel: bool = False,
+            denom: torch.Tensor | None = None) -> torch.Tensor:
+    """batch: frames (B, Se, D), tokens and labels (B, S). The mean
+    cross-entropy of the rows (the reference's: no loss mask); with
+    `denom` (a mesh's step) their sum over `denom`. On a model axis this
+    rank's term of it (`transformer._axis_loss`; `seq_parallel` is
+    ignored: `SEQ_PARALLEL`)."""
     enc_out = encode(cfg, params, batch["frames"],
                      compute_dtype=compute_dtype, remat=remat,
                      gather=gather)
     h = decode_hidden(cfg, params, batch["tokens"], enc_out,
                       compute_dtype=compute_dtype, remat=remat,
                       gather=gather)
+    axis = model_axis(cfg, seq_parallel)
+    if axis is not None:
+        return transformer._axis_loss(cfg, params, h, batch["labels"], None,
+                                      axis, gather, denom)
     return nn.chunked_ce_loss(h, ptree.take(gather, "embed",
                                             params["embed"]).T,
-                              batch["labels"])
+                              batch["labels"], denom=denom)
 
 
 # ---------------------------------------------------------------------------
@@ -238,14 +305,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 
 @torch.inference_mode()
 def build_cross_cache(cfg: ArchConfig, params: dict, enc_out: torch.Tensor,
-                      cache: dict, *, compute_dtype=torch.bfloat16) -> dict:
+                      cache: dict, *, compute_dtype=torch.bfloat16,
+                      gather=None) -> dict:
     """Every decoder layer's cross-attention keys and values of enc_out
     (B, Se, D), computed in the compute dtype and written into the
-    cache's xk and xv in place. Returns the same cache dict."""
+    cache's xk and xv in place (on a model axis the rank's heads, from
+    its blocks of the leaves read through `gather`). Returns the same
+    cache dict."""
     e = enc_out.to(compute_dtype)
     for i in range(cfg.n_layers):
-        lp = {k: params["dec"][k][i].to(compute_dtype)
-              for k in ("x_wk", "x_wv", "x_bv")}
+        lp = {k: ptree.take(gather, f"dec/{k}", params["dec"][k], i).to(
+            compute_dtype) for k in ("x_wk", "x_wv", "x_bv")}
         xk, xv = _project_kv(cfg, lp, e, prefix="x_")
         cache["xk"][i].copy_(xk.transpose(1, 2))
         cache["xv"][i].copy_(xv.transpose(1, 2))
@@ -255,17 +325,26 @@ def build_cross_cache(cfg: ArchConfig, params: dict, enc_out: torch.Tensor,
 @torch.inference_mode()
 def decode_step(cfg: ArchConfig, params: dict, cache: dict,
                 token: torch.Tensor, pos: torch.Tensor, *,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, gather=None,
+                cache_layout: str | None = None):
     """token: (B,) int; pos: (B,) int (each sequence's position). Writes
     each layer's new key and value at `pos`, in place, attends causally
     over the self-attention cache and fully over the cross K/V. Returns
-    (logits (B, V) float32, cache), the same dict."""
+    (logits (B, V) float32, cache), the same dict. On a model axis
+    (`settings.mesh`; the leaves read through `gather`) the cache holds
+    the rank's heads (`cache_layout` 'heads' or None)."""
+    axis = model_axis(cfg)
+    if axis is not None and cache_layout == "seq":
+        raise NotImplementedError(
+            f"{cfg.name}: the model axis splits the heads, so the cache is "
+            "split by heads, not by positions")
     B = token.shape[0]
     dev = token.device
     max_seq, Se = cache["k"].shape[3], cache["xk"].shape[3]
     pos = pos.to(device=dev, dtype=torch.int64)
     rows = torch.arange(B, device=dev)
-    h = params["embed"][token.to(torch.int64)].to(compute_dtype)[:, None, :]
+    h = transformer._lookup(cfg, params, token, compute_dtype, gather,
+                            axis)[:, None, :]
     # each sequence's own position embedding
     h = h + sinusoidal(max_seq, cfg.d_model, compute_dtype,
                        device=dev)[pos][:, None, :]
@@ -273,7 +352,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     pos_k = _positions(B, max_seq, dev)
     pos_e = _positions(B, Se, dev)
     for i in range(cfg.n_layers):
-        lp_raw, lp = _layer(params["dec"], i, compute_dtype)
+        lp_raw, lp = _layer(params["dec"], i, compute_dtype, gather, "dec/")
         kc, vc = cache["k"][i], cache["v"][i]
         hn = nn.layer_norm(h, lp_raw["ln_w"], lp_raw["ln_b"])
         q = _project_q(cfg, lp, hn)
@@ -283,18 +362,28 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
         attn = nn.attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
                             pos_q, pos_k, causal=True, dense_below=1 << 62)
         # (h + a @ wo) + bo, the reference's order of the bf16 sums
-        h = h + attn.reshape(B, 1, -1) @ lp["wo"] + lp["bo"]
+        h = _out_step(h, attn.reshape(B, 1, -1), lp["wo"], lp["bo"], axis)
         hx = nn.layer_norm(h, lp_raw["x_ln_w"], lp_raw["x_ln_b"])
         qx = _project_q(cfg, lp, hx, prefix="x_")
         attn_x = nn.attention(
             qx, cache["xk"][i].transpose(1, 2).to(compute_dtype),
             cache["xv"][i].transpose(1, 2).to(compute_dtype), pos_q, pos_e,
             causal=False, dense_below=1 << 62)
-        h = h + attn_x.reshape(B, 1, -1) @ lp["x_wo"] + lp["x_bo"]
-        h = _mlp(lp_raw, lp, h)
+        h = _out_step(h, attn_x.reshape(B, 1, -1), lp["x_wo"], lp["x_bo"],
+                      axis)
+        h = _mlp(lp_raw, lp, h, axis)
     h = nn.layer_norm(h, params["dec_ln_w"], params["dec_ln_b"])
-    logits = h[:, 0].to(torch.float32) @ params["embed"].T.to(torch.float32)
-    return logits, cache
+    return transformer._logits(cfg, params, h[:, 0], gather, axis), cache
+
+
+def _out_step(h, x, w, b, axis):
+    """(h + x @ w) + b, the reference's order of a decode step's sums; on
+    a model axis x @ w's partial sums in float32, all-reduced and rounded
+    once."""
+    if axis is None:
+        return h + x @ w + b
+    return h + axis.leave(nn.product_in(x, w, torch.float32),
+                          False).to(h.dtype) + b
 
 
 class Whisper(ptree.FamilyModule):
@@ -304,6 +393,7 @@ class Whisper(ptree.FamilyModule):
     loss = staticmethod(loss_fn)
 
 
-__all__ = ["RECURRENT_STATE", "Whisper", "build_cross_cache", "decode_hidden",
-           "decode_step", "encode", "from_numpy_params", "init_cache",
-           "init_params", "loss_fn", "sinusoidal"]
+__all__ = ["MODEL_PARTIAL", "RECURRENT_STATE", "SEQ_PARALLEL", "Whisper",
+           "build_cross_cache", "decode_hidden", "decode_step", "encode",
+           "from_numpy_params", "init_cache", "init_params", "loss_fn",
+           "model_axis", "sinusoidal"]

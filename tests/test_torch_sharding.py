@@ -12,8 +12,8 @@ both packages' functions read. The reference's `PartitionSpec` stores a
 one-axis entry as the bare name, so every entry is normalized to a tuple
 of names (or None) on both sides, as `tests/test_torch_shard.py` does.
 The mesh train step refuses what the rest of item 12.7b brings (a
-model axis beside a pod axis, 12.7b.3c; a model axis with the SSM,
-hybrid or encoder-decoder families, 12.7b.3b).
+model axis beside a pod axis, 12.7b.3c) and a model size that splits a
+head.
 """
 import functools
 import types
@@ -205,17 +205,18 @@ class _Mesh(types.SimpleNamespace):
 
 @pytest.mark.parametrize("what,shape,names,kw", [
     ("pod beside model", (2, 1, 2), ("pod", "data", "model"), {}),
-    ("hybrid on model", (1, 2), ("data", "model"),
+    ("hybrid on model", (1, 3), ("data", "model"),
      {"arch": "recurrentgemma-2b"}),
     ("pod x data", (2, 2, 1), ("pod", "data", "model"),
      {"fused_update": True}),
-    ("ssm on model, fused", (2, 2), ("data", "model"),
+    ("ssm on model, fused", (2, 3), ("data", "model"),
      {"fused_update": True, "arch": "mamba2-1.3b"}),
 ])
 def test_what_item_12_7b_brings_is_refused(what, shape, names, kw):
     """What the rest of item 12.7b brings stays refused, each with its
-    label: a model axis beside a pod axis (12.7b.3c), a model axis with a
-    family other than the decoder (12.7b.3b), fused or not; and
+    label: a model axis beside a pod axis (12.7b.3c); a model size that
+    would split a head of another family (the reduced recurrentgemma's 4
+    query heads, mamba2's 8 SSD heads over 3 ranks), fused or not; and
     `fused_update` beside a pod axis, as the reference refuses it (the
     pod collective keeps the unfused update)."""
     from repro_torch.configs import reduced
@@ -231,7 +232,7 @@ def test_what_item_12_7b_brings_is_refused(what, shape, names, kw):
         "pod x data": (ValueError, "run without a 'pod' mesh axis", "pod"),
         "pod beside model": (NotImplementedError, r"item 12\.7b\.3c",
                              "beside a pod axis"),
-    }.get(what, (NotImplementedError, r"item 12\.7b\.3b", "family"))
+    }.get(what, (NotImplementedError, "does not divide", "heads"))
     with pytest.raises(err_type, match=match) as err:
         steps.build_train_step(model, ShapeSpec("t", 8, 4, "train"),
                                mesh=mesh, compressor=comp, device="cpu",

@@ -29,8 +29,16 @@ reference's mesh-free functions on the whole params:
   apart; the same steps' fp32 logits (`decode_step` on the mesh) within
   1e-4 (mixtral's ring of 8 wraps).
 * `cache_specs` equals the reference's on stand-in meshes (1, 2), (2, 4)
-  and (16, 16) for every decoder config, and `seq_spec` the reference's
+  and (16, 16) for every decoder config and mamba2-1.3b,
+  recurrentgemma-2b and whisper-medium, and `seq_spec` the reference's
   `shard_batch_seq` entries.
+* the two collectives of `launch/tp.py` the other families need, on two
+  gloo ranks against one process's autograd (1e-5 of the largest
+  entry): `ModelAxis.cols` (a column block's product all-gathered, each
+  rank using only some of the columns) and `ModelAxis.stat` (the gated
+  norm's statistic over every rank's channels, whose backward
+  all-reduces; `_Reduce`'s pass-through backward in its place is off by
+  far more).
 """
 import dataclasses
 import functools
@@ -247,11 +255,25 @@ def _norm(spec):
                  else tuple(e) for e in spec)
 
 
-DECODERS = [a for a in list_archs() if get_config(a).family == "decoder"]
+def _flat_specs(tree, prefix=""):
+    """{path: normalised spec} of a nested dict of specs."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_specs(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = _norm(v)
+    return out
+
+
+# every decoder, and the SSM, hybrid and encoder-decoder families, whose
+# caches nest (the hybrid's) and hold recurrent states and cross K/V
+ARCHS = [a for a in list_archs() if get_config(a).family == "decoder"] + [
+    "mamba2-1.3b", "recurrentgemma-2b", "whisper-medium"]
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 4), (16, 16)])
-@pytest.mark.parametrize("arch", DECODERS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_cache_specs_equal_the_reference(arch, shape):
     mesh = _stand_in(shape)
     model = build_model(get_config(arch))
@@ -259,11 +281,11 @@ def test_cache_specs_equal_the_reference(arch, shape):
     for batch, seq in ((8, 4096), (1, 320), (16, 32768)):
         cache = model.init_cache(batch, seq, device="meta")
         jcache = jax.eval_shape(lambda: jm.init_cache(batch, seq))
-        got = sharding.cache_specs(model.cfg, cache, mesh)
-        want = jsharding.cache_specs(jm.cfg, jcache, mesh)
+        got = _flat_specs(sharding.cache_specs(model.cfg, cache, mesh))
+        want = _flat_specs(jsharding.cache_specs(jm.cfg, jcache, mesh))
         assert set(got) == set(want)
         for k in got:
-            assert _norm(got[k]) == _norm(want[k]), (k, batch, seq)
+            assert got[k] == want[k], (k, batch, seq)
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 4), (16, 16), (3, 5)])
@@ -307,3 +329,36 @@ def test_product_in_keeps_sums_in_fp32_and_backs_off_in_bf16(batched):
     af, bf = a.float(), b.float()
     assert torch.equal(nn.product_in(af, bf, torch.float32), af @ bf)
     assert torch.equal(nn.product_in(a, b), a @ b)
+
+
+def test_column_gather_and_stat_reduce_backward(tmp_path):
+    """`ModelAxis.cols` and `ModelAxis.stat` (`layers.rms_norm_split`) on
+    a (1, 2) mesh (`tests/torch_dist_workers.py`'s `tp_collectives`):
+    the loss summed over the ranks and the gradients put back together
+    equal one process's autograd of the same functions to 1e-5 of their
+    largest entry; with `_Reduce`'s pass-through backward in `_Stat`'s
+    place the norm's input gradient is off by more than 10% of it."""
+    from repro_torch.models import layers as nn
+
+    from torch_dist_workers import collective_inputs, run_ranks
+    ranks = run_ranks("tp_collectives", 2, tmp_path, {}, shape=(1, 2),
+                      names=("data", "model"))
+    x, w, c, xn, wn, cn = collective_inputs()
+    x, w, xn, wn = (t.clone().requires_grad_(True) for t in (x, w, xn, wn))
+    cols = ((x @ w) * c).sum()
+    gx, gw = torch.autograd.grad(cols, (x, w))
+    norm = (nn.rms_norm(xn, wn) * cn).sum()
+    gxn, gwn = torch.autograd.grad(norm, (xn, wn))
+
+    def close(got, want):
+        return float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+    for r in ranks:
+        assert r["cols"]["loss"] == pytest.approx(float(cols.detach()),
+                                                 rel=1e-6)
+        assert close(r["cols"]["x"], gx) and close(r["cols"]["w"], gw)
+        assert r["stat"]["loss"] == pytest.approx(float(norm.detach()),
+                                                 rel=1e-6)
+        assert close(r["stat"]["x"], gxn) and close(r["stat"]["w"], gwn)
+        off = float((r["pass_through"]["x"] - gxn).abs().max())
+        assert off > 0.1 * float(gxn.abs().max())

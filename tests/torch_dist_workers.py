@@ -732,8 +732,9 @@ def tp_grad_scenario(mesh, pl):
             rows[k] = t
         res = {}
         for sp in (True, False):
-            layout = fsdp.Sharded(mesh, pspecs, seq_parallel=sp,
-                                  partial=("layers/router",))
+            layout = fsdp.Sharded(
+                mesh, pspecs, partial=getattr(model.mod, "MODEL_PARTIAL", ()),
+                seq_parallel=sp and getattr(model.mod, "SEQ_PARALLEL", True))
             live = [t.detach().requires_grad_(True) for t in blocks]
             with torch.enable_grad(), settings.override(
                     mesh=mesh, **case.get("settings", {})):
@@ -864,6 +865,127 @@ def tp_serve_scenario(mesh, pl):
     return out
 
 
+def collective_inputs():
+    """x (6, 8), w (8, 12) and the cotangent c (6, 12) of the column
+    gather's check, xn (6, 16), wn (16,) and cn (6, 16) of the split
+    norm's, drawn from a seed."""
+    gen = torch.Generator().manual_seed(5)
+    return tuple(torch.randn(shape, generator=gen) for shape in (
+        (6, 8), (8, 12), (6, 12), (6, 16), (16,), (6, 16)))
+
+
+def tp_collectives_scenario(mesh, pl):
+    """`ModelAxis.cols` and `ModelAxis.stat` on this rank's blocks of
+    `collective_inputs`: the column block's product gathered, of which
+    the rank uses every other column from its index (the whole of them
+    over the ranks); the split norm of its channels times its part of the
+    cotangent. The loss summed over the ranks and the gradients put back
+    together; and the norm's input gradient again with `_Reduce` (a
+    pass-through backward) in `_Stat`'s place."""
+    from repro_torch.launch import tp
+    from repro_torch.launch.tp import ModelAxis
+    from repro_torch.models import layers as nn
+    from repro_torch.rp import shard
+    axis = ModelAxis(mesh)
+    n, i = axis.size, axis.index
+    x, w, c, xn, wn, cn = collective_inputs()
+
+    def block(t, dim):
+        per = t.shape[dim] // n
+        return t.narrow(dim, i * per, per).clone().requires_grad_(True)
+    out = {}
+    xr = x.clone().requires_grad_(True)
+    wr = block(w, 1)
+    mine = (torch.arange(c.shape[1]) % n == i).to(c.dtype)
+    loss = (axis.cols(axis.enter(xr, False) @ wr) * c * mine).sum()
+    gx, gw = torch.autograd.grad(loss, (xr, wr))
+    out["cols"] = {"loss": float(shard.all_reduce(loss.detach().reshape(1),
+                                                  axis.group)[0]),
+                   "x": gx, "w": shard.all_gather_dim(gw, axis.group, 1)}
+    for name, fn in (("stat", tp._Stat), ("pass_through", tp._Reduce)):
+        tp_stat, tp._Stat = tp._Stat, fn
+        try:
+            xb, wb = block(xn, 1), block(wn, 0)
+            loss = (nn.rms_norm_split(xb, wb, axis, xn.shape[1])
+                    * cn.narrow(1, i * xb.shape[1], xb.shape[1])).sum()
+            gx, gw = torch.autograd.grad(loss, (xb, wb))
+        finally:
+            tp._Stat = tp_stat
+        out[name] = {"loss": float(shard.all_reduce(
+            loss.detach().reshape(1), axis.group)[0]),
+            "x": shard.all_gather_dim(gx, axis.group, 1),
+            "w": shard.all_gather_dim(gw, axis.group, 0)}
+    return out
+
+
+def tp_family_scenario(mesh, pl):
+    """The SSM, hybrid and encoder-decoder families on a (data, model)
+    mesh: `tp_grad_scenario` on the payload's `grad` cases, then per
+    `serve` case (the whole params, the prompt, whisper's frames, the fed
+    tokens and their positions) at fp32 compute: the mesh prefill step's
+    logits, the cache from `init_cache` (whisper's cross K/V from the
+    mesh's `encode` through `build_cross_cache`, on the rank's heads)
+    taken as the rank's block (`shard_cache`), and after each mesh serve
+    step its logits and the whole cache put back together from the
+    ranks' blocks (`unshard_tree` by `cache_specs`); the cache's layout
+    and the shapes this rank holds."""
+    from repro_torch.launch import fsdp, sharding, steps
+    from repro_torch.models import from_numpy_params, settings
+    from repro_torch.models.config import ShapeSpec
+    out = {"grad": tp_grad_scenario(mesh, {"cases": pl["grad"]}),
+           "serve": {}}
+    f32 = torch.float32
+    for case in pl["serve"]:
+        model = _tp_model(case)
+        cfg = model.cfg
+        whole = from_numpy_params(cfg, case["params"], device="cpu")
+        params = steps.shard_params(model, whole, mesh)
+        tokens = torch.from_numpy(case["tokens"])
+        B, S = tokens.shape
+        batch = {"tokens": tokens}
+        if "frames" in case:
+            batch["frames"] = torch.from_numpy(case["frames"])
+        pre = steps.build_prefill_step(model, ShapeSpec("p", S, B, "prefill"),
+                                       mesh=mesh, compute_dtype=f32)
+        logits = pre(params, batch)
+        cache = model.init_cache(B, case["max_seq"], f32, device="cpu")
+        cspecs = sharding.cache_specs(cfg, cache, mesh)
+        cache = steps.shard_cache(model, cache, mesh)
+        if cfg.family == "encdec":
+            gather = fsdp.Sharded(mesh, sharding.param_specs(
+                cfg, model.param_axes(), mesh, model.param_shapes()))
+            with torch.inference_mode(), settings.override(mesh=mesh):
+                enc = model.mod.encode(cfg, params, batch["frames"],
+                                       compute_dtype=f32, gather=gather)
+                model.mod.build_cross_cache(cfg, params, enc, cache,
+                                            compute_dtype=f32, gather=gather)
+        serve = steps.build_serve_step(
+            model, ShapeSpec("d", case["max_seq"], B, "decode"), mesh=mesh,
+            logits=True, compute_dtype=f32)
+        rows = []
+        for tok, pos in zip(case["feed"], case["pos"]):
+            _, cache, lg = serve(params, cache, torch.from_numpy(tok),
+                                 torch.from_numpy(pos))
+            rows.append({"logits": lg.clone(), "cache": fsdp.unshard_tree(
+                cache, cspecs, mesh)})
+        out["serve"][case["name"]] = {
+            "prefill": logits.clone(), "steps": rows,
+            "layout": steps.cache_layout(model, B, case["max_seq"], mesh),
+            "held": {"/".join(k): tuple(v.shape) for k, v in _flat(
+                cache).items()}}
+    return out
+
+
+def _flat(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
 def _meta(tree):
     if isinstance(tree, dict):
         return {k: _meta(v) for k, v in tree.items()}
@@ -879,4 +1001,6 @@ SCENARIOS = {"shard": shard_scenario, "collective": collective_scenario,
              "fsdp_ckpt": fsdp_ckpt_scenario,
              "fsdp_fused": fsdp_fused_scenario,
              "pod_data": pod_data_scenario, "tp_grad": tp_grad_scenario,
-             "tp_steps": tp_steps_scenario, "tp_serve": tp_serve_scenario}
+             "tp_steps": tp_steps_scenario, "tp_serve": tp_serve_scenario,
+             "tp_family": tp_family_scenario,
+             "tp_collectives": tp_collectives_scenario}
