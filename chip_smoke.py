@@ -171,7 +171,8 @@ Phases (each raises on failure, so the script exits non-zero):
      finite, the params' digest all-gathered and equal after every step;
      device ms a step and its parts (`train.loss_grad`,
      `train.compress`, `train.update`), the collective's host ms, the
-     peak memory (two layers when about 64 GB are free, else one). 15d:
+     peak memory (two layers when about 64 GB are free, else one). 15d
+     (started first, run beside 15a-c):
      `torch.distributed.run --standalone --nproc-per-node 2 -m
      repro_torch.launch.train --reduced --mesh 2x1x1 --dist-backend gloo
      ... --compress-sync sketch-mean --steps 10`: the last logged loss
@@ -195,7 +196,8 @@ Phases (each raises on failure, so the script exits non-zero):
      the 2-pod dense checkpoint restored onto one pod of an NCCL mesh of
      world size 1: the EF equals the fixed-order sum of the two rows bit
      for bit. K1's and K2's launches go into their training rows.
-  17. LM serving at full width: llama3.2-3b (14 of its 28 layers, slots
+  17. (run beside phase 20's ranks) LM serving at full width:
+     llama3.2-3b (14 of its 28 layers, slots
      8, 8 requests) and then gemma2-9b (21 of 42 layers, slots 4, 4
      requests; llama freed first), random fp32 weights from a
      seeded generator, prompts of 64-128 tokens from a seeded numpy generator, 32 generated tokens
@@ -258,7 +260,8 @@ Phases (each raises on failure, so the script exits non-zero):
      `build_serve_step`s (ms a step, device time and idle share); decode
      against `decode_hidden` at fp32 on 2 x 32 tokens; `build_prefill_step`
      with frames on 4 x 448 tokens. The numbers join the `lm_serve` line.
-  20. the data axis (FSDP) on two gloo ranks sharing the card, a
+  20. (phase 17 runs in this process while 20's ranks do) the data axis
+     (FSDP) on two gloo ranks sharing the card, a
      `(data=2, model=1)` mesh, at phase 9's widths (llama3.2-3b cut to 2
      layers, seq cut to 1024 and its bf16 steps under `cast_params_once`
      on both sides (for phase 22's time), global batch 2: one row
@@ -332,7 +335,7 @@ Phases (each raises on failure, so the script exits non-zero):
      steps with the same bounds, K4's two-dim block form launched, the
      EF's bits equal on all four ranks, each rank at most 18 GiB, and
      w_gate's two-dim K4 block against its plain version on the card
-     (1e-4). 22c, serving on `(1, 2)`: llama3.2-3b at 14 of 28 layers
+     (1e-4). 22c, serving on `(1, 2)`: llama3.2-3b at 7 of 28 layers
      (bf16) and mixtral-8x22b at 2 layers (fp32, four experts a rank) through
      `build_prefill_step(mesh=)` on 4 x 1024 tokens (after a 64-token
      warm-up) and 32 eager `build_serve_step(mesh=)` steps from an empty
@@ -363,10 +366,29 @@ Phases (each raises on failure, so the script exits non-zero):
      that wraps twice: the logits within LM_DEC_TOL of the largest, the
      tokens equal at every clear position. Its numbers go on the
      `tp_families` line.
+  24. the reference's production axes, `(pod=2, data=1, model=2)`, on
+     phase 21's four ranks after their steps (run inside phase 21's
+     call), at phase 21's slice and against its one-rank compositions.
+     24a: 2 uncompressed steps (FSDP over 'pod', TP/SP over 'model');
+     24b: 2 `sketch-mean` compressed steps (params, m and v split over
+     'model' alone, the same on both pods; `compress_collective` over
+     the ranks that share a (data, model) coordinate): phase 21's bounds,
+     the EF's bits equal on the ranks of a pod, the ledger's `compress`
+     bytes = `wire_bytes`, 11 K1 and 22 K2 launches a step a rank (K2
+     twice a leaf under `sketch-mean`). 24c: the train loop with the
+     sketched EF codec (the stacked rows' record, K1 on rank 0): a step,
+     an async save at step 1, a crash before step 2 and the restart on
+     the same ranks: the restored params, m, v and count equal the state
+     at the save bit for bit, each rank's EF row the record's decode
+     (K2; the decode against K2's plain version within 1e-4 on rank 0),
+     the restarted step's loss 24b's second one bit for bit; bytes on
+     disk, the save's host-blocking ms and the restore's seconds. Each
+     rank's peak at most 18 GiB. Its numbers go on the `pod_model` line.
 Then it prints the `collective` JSON line (phase 15's numbers), the
-`pod_ckpt`, `lm_serve`, `fsdp`, `pod_data`, `tp` and `tp_families` lines
-(phases 16 to 23), the `kernels` JSON line, the card's name and power
-limit, and as its last line `{"ok": true, "device": {...}}`.
+`pod_ckpt`, `lm_serve`, `fsdp`, `pod_data`, `pod_model`, `tp` and
+`tp_families` lines (phases 16 to 24), the `kernels` JSON line, the
+card's name and power limit, and as its last line `{"ok": true,
+"device": {...}}`.
 """
 from __future__ import annotations
 
@@ -1810,7 +1832,7 @@ def ckpt_phase(dev):
     from repro_torch import kernels, obs
     from repro_torch.ckpt import SketchedTreeCodec, checkpointer
     from repro_torch.core.tree import tree_leaves
-    from repro_torch.kernels import _sweep, ops
+    from repro_torch.kernels import _sweep
     from repro_torch.kernels import fused_update as kfused
     from repro_torch.runtime import train_loop
     from repro_torch.runtime.resilience import FaultInjector, run_with_restarts
@@ -1952,29 +1974,11 @@ def ckpt_phase(dev):
             raise AssertionError("the record's y differs from K1's sketch "
                                  "of the live EF under key_for(4)")
         dec = tree_leaves(codec.decode(got["ef"]))
-        op = comp.cfg.operator(codec.key_for(4), dev)
-        cores = kernel_operands(op, "tt")
-        scale = 1.0 / math.sqrt(op.k)
-        sk, y, off, worst = codec._sk, rec["y"], 0, 0.0
-        for leaf, nb, size in zip(dec, sk._nb, sk._sizes):
-            plan = ops.plan_contraction("tt", "reconstruct", op.k, nb,
-                                        op.in_dims, op.rank)
-            diff = top = 0.0
-            for i in range(0, nb, 4):
-                ref = _sweep.sweep_reconstruct_plain(
-                    y[off + i:off + min(i + 4, nb)], *cores,
-                    steps=plan.steps, scale=scale).reshape(-1)
-                lo = i * comp.cfg.bucket_elems
-                got_ = leaf.reshape(-1)[lo:lo + ref.numel()]
-                ref = ref[:got_.numel()]
-                diff = max(diff, rel_err(got_, ref)[0])
-                top = max(top, float(ref.abs().max()))
-            worst = max(worst, diff / max(top, 1e-30))
-            off += nb
+        worst = _decode_vs_plain(codec, rec["y"], 4, dec, dev)
         if worst > TOL:
             raise AssertionError(f"decode vs K2's plain version: "
                                  f"{worst:.3e} > {TOL}")
-        del got, dec, rec, y
+        del got, dec, rec
         dense_eq = 4 * p_bytes
         log(f"step-4 checkpoint: params, m, v and count equal the live "
             f"state bit for bit; the record's y equals K1's sketch under "
@@ -2532,17 +2536,13 @@ def pod_phase(dev) -> dict:
     """Phase 15: the cross-pod sketch collective on the card. 15a: NCCL at
     world size 1; 15b: compress_collective on two gloo ranks sharing the
     card; 15c: the pod train step at full width; 15d: the train CLI under
-    torch.distributed.run. Returns the numbers of the `collective` line,
-    with the K1/K2 launches of the phase under `launches`."""
-    import torch
-    import torch.distributed as dist
-    from repro_torch import kernels
-    from repro_torch.core.tree import tree_leaves, tree_map
-    from repro_torch.kernels import _sweep
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.optim.compress import (SketchCompressor,
-                                            parse_compress_flag)
-    from repro_torch.rp import shard
+    torch.distributed.run, started first and run beside 15a-c. Returns the
+    numbers of the `collective` line, with the K1/K2 launches of the phase
+    under `launches`."""
+    import tempfile
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.optim.compress import parse_compress_flag
     from repro_torch.rp.plan import collective_wire_bytes
 
     t_phase = time.perf_counter()
@@ -2564,6 +2564,65 @@ def pod_phase(dev) -> dict:
     numbers = {"leaves": len(sk._nb), "buckets": sk.n_buckets,
                "params": sk.n, "wire_bytes_expected": {
                    f"{s}/{w}": b for (s, w), b in WIRE_BYTES.items()}}
+    # 15d, the CLI on two ranks of the reduced model, runs beside 15a-c
+    t_cli = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+           "--arch", "llama3.2-3b", "--reduced", "--mesh", "2x1x1",
+           "--dist-backend", "gloo", "--compress",
+           "tt:k=1024,rank=8,dims=4x8x16", "--compress-sync", "sketch-mean",
+           "--steps", "10"] + (["--device", "cpu"] if dev.type == "cpu"
+                               else [])
+    env = dict(__import__("os").environ, PYTHONPATH=str(SRC))
+    # its output goes to files: a pipe nobody reads meanwhile could fill
+    with tempfile.TemporaryFile("w+") as fout, \
+            tempfile.TemporaryFile("w+") as ferr:
+        cli = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=fout,
+                               stderr=ferr, text=True)
+        try:
+            numbers.update(_pod_phase_15abc(dev, arch, shape, shapes, cfg,
+                                            sk, launches))
+            # -- 15d: the CLI on two ranks --------------------------------
+            cli.wait(timeout=POD_TIMEOUT)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.wait()
+        fout.seek(0)
+        ferr.seek(0)
+        out, err = fout.read(), ferr.read()
+    losses = _cli_losses(out)
+    log(f"15d (beside 15a-c): {' '.join(cmd[2:])}: exit {cli.returncode} "
+        f"in {time.perf_counter() - t_cli:.1f}s; logged losses {losses}")
+    if cli.returncode != 0:
+        raise AssertionError(f"15d: the CLI failed:\n{out[-3000:]}"
+                             f"\n{err[-3000:]}")
+    if len(losses) < 2 or not losses[-1] < losses[0]:
+        raise AssertionError(f"15d: the loss did not fall: {losses}")
+    numbers["15d"] = {"losses": losses,
+                      "seconds": time.perf_counter() - t_cli}
+    numbers["launches"] = launches
+    numbers["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15 took {numbers['seconds']:.1f}s; K1/K2 launches "
+        f"{launches}")
+    return numbers
+
+
+def _pod_phase_15abc(dev, arch, shape, shapes, cfg, sk, launches) -> dict:
+    """Phase 15's 15a-c (see `pod_phase`) on the training slice (`arch`,
+    `shape`, the params' `shapes`, the compressor's config `cfg` and
+    sketcher `sk`); adds their K1/K2 launches to `launches` and returns
+    their numbers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import _sweep
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compress import SketchCompressor
+    from repro_torch.rp import shard
+
+    numbers = {}
 
     # -- 15a: NCCL, world size 1 ------------------------------------------
     mesh = make_mesh((1,), ("pod",), device=dev)
@@ -2702,33 +2761,6 @@ def pod_phase(dev) -> dict:
             raise AssertionError(f"15c step {i}: ledger {s0['ledger_bytes']}"
                                  f" != wire_bytes {s0['wire_bytes']}")
     numbers["15c"] = c
-
-    # -- 15d: the CLI on two ranks ----------------------------------------
-    t0 = time.perf_counter()
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
-           "--arch", "llama3.2-3b", "--reduced", "--mesh", "2x1x1",
-           "--dist-backend", "gloo", "--compress",
-           "tt:k=1024,rank=8,dims=4x8x16", "--compress-sync", "sketch-mean",
-           "--steps", "10"] + (["--device", "cpu"] if dev.type == "cpu"
-                               else [])
-    env = dict(__import__("os").environ, PYTHONPATH=str(SRC))
-    done = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
-                          text=True, timeout=POD_TIMEOUT)
-    losses = _cli_losses(done.stdout)
-    log(f"15d: {' '.join(cmd[2:])}: exit {done.returncode} in "
-        f"{time.perf_counter() - t0:.1f}s; logged losses {losses}")
-    if done.returncode != 0:
-        raise AssertionError(f"15d: the CLI failed:\n{done.stdout[-3000:]}"
-                             f"\n{done.stderr[-3000:]}")
-    if len(losses) < 2 or not losses[-1] < losses[0]:
-        raise AssertionError(f"15d: the loss did not fall: {losses}")
-    numbers["15d"] = {"losses": losses,
-                      "seconds": time.perf_counter() - t0}
-    numbers["launches"] = launches
-    numbers["seconds"] = time.perf_counter() - t_phase
-    log(f"phase 15 took {numbers['seconds']:.1f}s; K1/K2 launches "
-        f"{launches}")
     return numbers
 
 
@@ -4080,6 +4112,34 @@ def _fsdp_slice():
                                    global_batch=2, seed=0)))
 
 
+def _decode_vs_plain(codec, y, step, dec, dev) -> float:
+    """max |decode - K2's plain version| / max |plain| over the leaves of
+    a sketched record's decode `dec` (its `y`, written at `step`), the
+    plain version run on the card in chunks of 4 buckets a leaf."""
+    from repro_torch.kernels import _sweep, ops
+    op = codec.cfg.operator(codec.key_for(step), dev)
+    cores = kernel_operands(op, "tt")
+    scale = 1.0 / math.sqrt(op.k)
+    y = y.to(dev)
+    off, worst = 0, 0.0
+    for leaf, nb in zip(dec, codec._sk._nb):
+        plan = ops.plan_contraction("tt", "reconstruct", op.k, nb,
+                                    op.in_dims, op.rank)
+        diff = top = 0.0
+        for i in range(0, nb, 4):
+            ref = _sweep.sweep_reconstruct_plain(
+                y[off + i:off + min(i + 4, nb)], *cores,
+                steps=plan.steps, scale=scale).reshape(-1)
+            lo = i * codec.cfg.bucket_elems
+            got = leaf.reshape(-1)[lo:lo + ref.numel()]
+            ref = ref[:got.numel()]
+            diff = max(diff, rel_err(got, ref)[0])
+            top = max(top, float(ref.abs().max()))
+        worst = max(worst, diff / max(top, 1e-30))
+        off += nb
+    return worst
+
+
 def _ledger_by_tag(led) -> dict:
     """{tag: {op, calls, bytes, host_ms}} of a ledger's rows (the ops of a
     tag joined by '+' where it ran more than one)."""
@@ -4326,15 +4386,16 @@ def _fsdp_rank(rank, shapes, extra):
 
 
 @_cast_once
-def fsdp_phase(dev) -> dict:
+def fsdp_phase(dev, beside=None) -> dict:
     """Phase 20: the train step on a (data=2, model=1) mesh of two gloo
     ranks sharing the card, at phase 9's widths. This process first runs
     the one-rank reference (its loss each step, step 1's gradient, the
     params after 3 steps, the one-rank `compress` of that gradient and
     its sketch, and three fused steps for 20d) and writes it beside the
     drawn parameters, then frees the card; the ranks (`_fsdp_rank`) read
-    their blocks of it. Returns the numbers of the `fsdp` line, with the
-    K1/K2/K4-block launches under `launches`."""
+    their blocks of it, `beside()` runs in this process meanwhile.
+    Returns the numbers of the `fsdp` line, with the K1/K2/K4-block
+    launches under `launches`."""
     import dataclasses
     import shutil
     import tempfile
@@ -4418,7 +4479,7 @@ def fsdp_phase(dev) -> dict:
         t0 = time.perf_counter()
         ranks = _pod_ranks("fsdp", None, {
             "device": str(dev), "root": str(root),
-            "ckpt_dir": str(root / "ckpt")})
+            "ckpt_dir": str(root / "ckpt")}, beside=beside)
         ranks_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4574,30 +4635,23 @@ def _pod_data_comp():
                             sync="sketch-mean")
 
 
-def _pod_data_rank(rank, shapes, extra):
-    """Phase 21 on one rank of the (pod=2, data=2, model=1) mesh: three
-    uncompressed steps (FSDP over pod x data), then three compressed ones
-    (FSDP over data, `compress_collective` over pod), each from seed 0's
-    parameters; this rank's blocks after the steps against the same
-    blocks of the one-rank compositions' (memory mapped)."""
+def _pod_steps(mesh, dev, ref, modes) -> dict:
+    """Phase 21's (and 24's) steps on `mesh`, once a mode: POD_DATA_STEPS
+    uncompressed steps or `sketch-mean` compressed ones, each from seed
+    0's parameters; this rank's blocks after the steps against the same
+    blocks of the one-rank compositions' (`ref`, memory mapped); the K1
+    and K2 launches of the steps (set to 0 just before them)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.kernels import _sweep
     from repro_torch.launch import fsdp, steps
-    from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import adamw
     from repro_torch.rp import shard
 
-    dev = torch.device(extra["device"])
-    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), device=dev,
-                     backend="gloo")
     model, cfg, shape, opt, lr_fn, data = _pod_data_slice()
-    ref = torch.load(Path(extra["root"]) / "ref.pt", mmap=True,
-                     weights_only=True)
-    res = {"rank": rank, "coordinate": mesh.coordinate, "launches": {
-        "sweep_project": 0, "sweep_reconstruct": 0}}
-    for mode in POD_DATA_MODES:
+    res = {"launches": {"sweep_project": 0, "sweep_reconstruct": 0}}
+    for mode in modes:
         comp = _pod_data_comp() if mode == "compressed" else None
         pspecs = steps.state_specs(model, mesh,
                                    compressed=comp is not None)["params"]
@@ -4629,31 +4683,357 @@ def _pod_data_rank(rank, shapes, extra):
                          "wire_bytes": float(met.get("wire_bytes", 0.0)),
                          "step_ms": s_ev.elapsed_time(e_ev),
                          "ledger": _ledger_by_tag(shard.collective_ledger())})
-        for name in res["launches"]:
-            res["launches"][name] += getattr(_sweep, name).launches
+        launches = {name: getattr(_sweep, name).launches
+                    for name in res["launches"]}
+        for name, n in launches.items():
+            res["launches"][name] += n
         worst = 0.0
         for b, w in zip(tree_leaves(state["params"]), tree_leaves(
                 fsdp.Sharded(mesh, pspecs).blocks(ref[f"params3_{mode}"]))):
             worst = max(worst, float((b - w.to(dev)).abs().max()))
         res[mode] = {"steps": rows, "param_lr": worst / TRAIN_LR,
-                     "held_bytes": held,
-                     "digest": bits_digest(state["params"])}
+                     "held_bytes": held, "launches": launches,
+                     "digest": bits_digest(state["params"]),
+                     "ef_digest": (bits_digest(state["ef"]) if comp
+                                   is not None else None)}
         del state, params
         _free(dev)
-    res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
-                       if dev.type == "cuda" else None)
     return res
 
 
-def pod_data_phase(dev) -> dict:
+def _pod_data_rank(rank, shapes, extra):
+    """Phase 21 on one rank of the (pod=2, data=2, model=1) mesh
+    (`_pod_steps` over `extra["modes"]`: uncompressed steps, FSDP over pod
+    x data, then compressed ones, FSDP over data and `compress_collective`
+    over pod); then phase 24 on the same ranks (`_pod_model_rank`)."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = torch.device(extra["device"])
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), device=dev,
+                     backend="gloo")
+    ref = torch.load(Path(extra["root"]) / "ref.pt", mmap=True,
+                     weights_only=True)
+    res = {"rank": rank, "coordinate": mesh.coordinate}
+    res.update(_pod_steps(mesh, dev, ref, extra["modes"]))
+    res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if dev.type == "cuda" else None)
+    res["24"] = _pod_model_rank(dev, ref, extra)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the (pod, data, model) mesh on phase 21's four ranks
+# ---------------------------------------------------------------------------
+
+POD_MODEL_MESH = (2, 1, 2)  # the reference's production axes (2, 16, 16)
+POD_MODEL_CRASH = 1         # 24c: a save at step 1, a crash before step 2
+
+
+def _pod_model_rank(dev, ref, extra) -> dict:
+    """Phase 24 on one rank of a (pod=2, data=1, model=2) mesh over phase
+    21's four ranks, at phase 21's slice: 24a and 24b, `_pod_steps` on
+    the mesh (uncompressed: FSDP over 'pod' beside TP/SP over 'model';
+    compressed: blocks over 'model', `compress_collective` over 'pod');
+    24c the train loop with the sketched EF codec (`for_pod_rows`): a
+    step, an async save at step 1, a crash before step 2, the restart on
+    the same ranks; the state the restart restored against the state at
+    the save (digests), the restarted step's loss, the K1/K2 launches of
+    the loop, the save's and the restore's times, and the record's decode
+    against K2's plain version (rank 0)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.ckpt import SketchedTreeCodec, checkpointer
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import _sweep
+    from repro_torch.launch import fsdp, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.rp import shard
+    from repro_torch.runtime import train_loop
+    from repro_torch.runtime.resilience import FaultInjector, \
+        run_with_restarts
+
+    t_phase = time.perf_counter()
+    _free(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(POD_MODEL_MESH, ("pod", "data", "model"), device=dev,
+                     backend="gloo")
+    res = {"coordinate": mesh.coordinate}
+    res.update(_pod_steps(mesh, dev, ref, POD_DATA_MODES))
+    res["steps_s"] = time.perf_counter() - t_phase
+
+    # -- 24c: the train loop, an async save, a crash, the restart --------
+    model, cfg, shape, opt, lr_fn, data = _pod_data_slice()
+    comp = _pod_data_comp()
+    step_fn = steps.build_train_step(model, shape, mesh=mesh, opt=opt,
+                                     lr_fn=lr_fn, compressor=comp)
+
+    def fresh():
+        pspecs = steps.state_specs(model, mesh, compressed=True)["params"]
+        params = fsdp.shard_tree(model.init(
+            torch.Generator(device=dev).manual_seed(0),
+            dtype=torch.float32), pspecs, mesh)
+        _free(dev)
+        return {"params": params, "opt": adamw.init_state(params, opt),
+                "ef": {"residual": tree_map(lambda t: torch.zeros(
+                    t.shape, device=dev), model.param_shapes())}}
+
+    def digests(st):
+        return {"params": bits_digest(st["params"]),
+                "m": bits_digest(st["opt"]["m"]),
+                "v": bits_digest(st["opt"]["v"]),
+                "count": int(st["opt"]["count"])}
+
+    ckdir = Path(extra["root"]) / "ckpt24"
+    seen = {"saved": None, "restored": None, "loss": None}
+    save_ms, to_save_ms, restore_s = [], [], []
+
+    def on_metrics(step, met, st):
+        if step == POD_MODEL_CRASH - 1 and seen["saved"] is None:
+            seen["saved"] = digests(st)     # the state at the save
+        if step == POD_MODEL_CRASH:         # the restarted step
+            seen["loss"] = float(met["loss"])
+
+    def restarted_step(st, batch):
+        if seen["saved"] is not None and seen["restored"] is None:
+            seen["restored"] = digests(st)      # what the restart restored
+            seen["row"] = bits_digest(st["ef"])
+        return step_fn(st, batch)
+
+    async_save, to_save = (checkpointer.AsyncCheckpointer.save,
+                           train_loop._to_save)
+    resume = train_loop.resume_pod_rank
+
+    def timed_save(self, step, tree, extra=None):
+        t0 = time.perf_counter()
+        async_save(self, step, tree, extra)
+        save_ms.append(1e3 * (time.perf_counter() - t0))
+
+    def timed_to_save(*a, **kw):
+        t0 = time.perf_counter()
+        out = to_save(*a, **kw)
+        to_save_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def timed_resume(*a, **kw):
+        t0 = time.perf_counter()
+        out = resume(*a, **kw)
+        _sync(dev)
+        restore_s.append(time.perf_counter() - t0)
+        return out
+
+    state = fresh()
+    specs = steps.state_specs(model, mesh, state)
+    codec = SketchedTreeCodec.for_pod_rows(comp.cfg, state["ef"], 2)
+    del state
+    _free(dev)
+
+    def attempt(injector):
+        state, step = train_loop.run(
+            restarted_step, fresh(), data, train_loop.LoopConfig(
+                total_steps=POD_MODEL_CRASH + 1, ckpt_dir=str(ckdir),
+                ckpt_every=1, keep_ckpts=2, npod=2, log_every=100),
+            injector=injector, on_metrics=on_metrics, ef_codec=codec,
+            mesh=mesh, shardings=specs, log=lambda *_: None)
+        del state
+        return step
+
+    shard.collective_ledger().reset()
+    checkpointer.AsyncCheckpointer.save = timed_save
+    train_loop._to_save, train_loop.resume_pod_rank = (timed_to_save,
+                                                       timed_resume)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        report = run_with_restarts(
+            attempt, max_restarts=1,
+            injector=FaultInjector({POD_MODEL_CRASH}))
+    finally:
+        checkpointer.AsyncCheckpointer.save = async_save
+        train_loop._to_save, train_loop.resume_pod_rank = to_save, resume
+    _sync(dev)
+    loop_s = time.perf_counter() - t0
+    loop_launches = {name: getattr(_sweep, name).launches
+                     for name in res["launches"]}
+    for name, n in loop_launches.items():
+        res["launches"][name] += n
+    led = _ledger_by_tag(shard.collective_ledger())
+    _free(dev)
+    # the step-1 record's decode on the card: this rank's row of it is
+    # what the restart restored; rank 0 holds it against K2's plain version
+    path = ckdir / f"step_{POD_MODEL_CRASH:010d}"
+    manifest = json.loads((path / "manifest.json").read_text())
+    arrays = [np.load(path / a["file"]) for a in manifest["arrays"][:3]]
+    record = {"seed": torch.tensor(arrays[0]),
+              "step": torch.tensor(arrays[1]),
+              "y": torch.from_numpy(arrays[2])}     # "ef" sorts first
+    dec = tree_leaves(codec.decode(record))
+    pod = mesh.coordinate["pod"]
+    row = bits_digest([t[pod] for t in dec])
+    t0 = time.perf_counter()
+    decode_rel = (_decode_vs_plain(codec, record["y"], POD_MODEL_CRASH, dec,
+                                   dev) if mesh.rank == 0 else None)
+    del dec
+    _free(dev)
+    res["check_s"] = time.perf_counter() - t0
+    res["24c"] = {
+        "restarts": report.restarts, "completed": report.completed,
+        "final_step": report.final_step, "seconds": loop_s,
+        "saved": seen["saved"], "restored": seen["restored"],
+        "row_is_the_decode": seen.get("row") == row,
+        "loss": seen["loss"], "launches": loop_launches,
+        "save_host_ms": save_ms, "to_save_host_ms": to_save_ms,
+        "restore_s": restore_s, "decode_rel": decode_rel,
+        "record_bytes": codec.sketch_bytes(),
+        "ledger": {k: led[k] for k in ("ckpt_gather", "pod_rows")
+                   if k in led}}
+    if mesh.rank == 0:
+        res["24c"]["disk_bytes"] = sum(f.stat().st_size
+                                       for f in path.iterdir())
+    res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if dev.type == "cuda" else None)
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def _pod_model_check(ranks: list, want: dict, n_leaves: int,
+                     p_bytes: int) -> dict:
+    """Phase 24's checks over the ranks' results (`_pod_model_rank`,
+    under each rank's "24") against phase 21's one-rank compositions
+    `want` ({mode: [(loss, clip norm)] a step}). Returns phase 24's
+    numbers, with the K1/K2 launches under `launches`."""
+    t0 = time.perf_counter()
+    rows = [r["24"] for r in ranks]
+    launches = {"sweep_project": 0, "sweep_reconstruct": 0}
+    for r in rows:
+        for name in launches:
+            launches[name] += r["launches"][name]
+        for mode in POD_DATA_MODES:
+            m = r[mode]
+            log(f"24 {mode} rank {r['coordinate']}: holds "
+                f"{m['held_bytes']} B of params of {p_bytes} B; losses "
+                f"{[s['loss'] for s in m['steps']]} (one-rank "
+                f"{[x[0] for x in want[mode]]}); step ms "
+                f"{[round(s['step_ms'], 1) for s in m['steps']]}; params "
+                f"{m['param_lr']:.3f} lr from the one-rank's; launches "
+                f"{m['launches']}; ledger of the last step "
+                f"{m['steps'][-1]['ledger']}")
+            for i, s_ in enumerate(m["steps"]):
+                tol = FSDP_LOSS_RTOL if i == 0 else FSDP_LATER_RTOL
+                loss, norm = want[mode][i]
+                if abs(s_["loss"] - loss) > tol * abs(loss) or abs(
+                        s_["grad_norm"] - norm) > FSDP_GRAD_TOL * abs(norm):
+                    raise AssertionError(
+                        f"24 {mode} rank {r['coordinate']} step {i}: (loss, "
+                        f"norm) ({s_['loss']}, {s_['grad_norm']}) vs "
+                        f"one-rank {want[mode][i]}")
+                if mode == "compressed" and s_["ledger"]["compress"][
+                        "bytes"] != s_["wire_bytes"]:
+                    raise AssertionError(
+                        f"24: compress moved {s_['ledger']['compress']} B, "
+                        f"wire_bytes {s_['wire_bytes']}")
+            if m["param_lr"] > FSDP_PARAM_LR:
+                raise AssertionError(f"24 {mode}: params {m['param_lr']} lr "
+                                     "apart")
+            # uncompressed: blocks over 'pod' and 'model'; compressed:
+            # over 'model' alone (the params replicate across the pods)
+            share = 2 if mode == "compressed" else 4
+            if m["held_bytes"] * share > p_bytes * 1.01 + 1e6:
+                raise AssertionError(f"24 {mode}: a rank holds "
+                                     f"{m['held_bytes']} B of {p_bytes}")
+        # 24b: a step a rank launches K1 once a leaf and K2 twice (the
+        # local reconstruction for the residual, then the synced sketch's)
+        per_step = {"sweep_project": n_leaves * POD_DATA_STEPS,
+                    "sweep_reconstruct": 2 * n_leaves * POD_DATA_STEPS}
+        if r["compressed"]["launches"] != per_step:
+            raise AssertionError(f"24b rank {r['coordinate']}: K1/K2 "
+                                 f"launches {r['compressed']['launches']}, "
+                                 f"expected {per_step}")
+        if r["peak_gib"] is not None and r["peak_gib"] > POD_DATA_GIB:
+            raise AssertionError(f"24: rank {r['coordinate']} peaked at "
+                                 f"{r['peak_gib']:.2f} GiB")
+        c = r["24c"]
+        if not (c["completed"] and c["restarts"] == 1
+                and c["final_step"] == POD_MODEL_CRASH + 1):
+            raise AssertionError(f"24c rank {r['coordinate']}: the run did "
+                                 f"not restart and finish: {c}")
+        if c["restored"] != c["saved"]:
+            raise AssertionError(f"24c rank {r['coordinate']}: the restored "
+                                 f"params, m, v or count differ from the "
+                                 f"state at the save")
+        if not c["row_is_the_decode"]:
+            raise AssertionError(f"24c rank {r['coordinate']}: the EF row "
+                                 "is not the record's decode")
+        # the restarted step: the params after 24b's first step and the
+        # same batch
+        second = r["compressed"]["steps"][POD_MODEL_CRASH]["loss"]
+        if c["loss"] != second:
+            raise AssertionError(f"24c rank {r['coordinate']}: the restarted "
+                                 f"step's loss {c['loss']} != 24b's "
+                                 f"{second}")
+    for pod in range(2):    # the EF's bits: equal on the ranks of a pod
+        digests = {str(r["compressed"]["ef_digest"]) for r in rows
+                   if r["coordinate"]["pod"] == pod}
+        if len(digests) != 1:
+            raise AssertionError(f"24b: the EF of pod {pod} differs between "
+                                 "its ranks")
+    first = next(r for r in rows if r["24c"]["decode_rel"] is not None)
+    if first["24c"]["decode_rel"] > TOL:
+        raise AssertionError(f"24c: the record's decode vs K2's plain "
+                             f"version {first['24c']['decode_rel']:.3e}")
+    for mode in POD_DATA_MODES:
+        if len({tuple(s["loss"] for s in r[mode]["steps"])
+                for r in rows}) != 1:
+            raise AssertionError(f"24 {mode}: the ranks' losses differ")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"24: K1 or K2 was not launched: {launches}")
+    c0 = first["24c"]
+    numbers = {"mesh": dict(zip(("pod", "data", "model"), POD_MODEL_MESH)),
+               "launches": launches,
+               "peak_gib": [r["peak_gib"] for r in rows],
+               "ranks": rows, "disk_bytes": c0.get("disk_bytes"),
+               "save_host_ms": c0["save_host_ms"],
+               "to_save_host_ms": [r["24c"]["to_save_host_ms"]
+                                   for r in rows],
+               "restore_s": [r["24c"]["restore_s"] for r in rows],
+               "decode_rel": c0["decode_rel"]}
+    for mode in POD_DATA_MODES:
+        numbers[f"{mode}_step_ms_median"] = statistics.median(
+            s["step_ms"] for r in rows for s in r[mode]["steps"])
+    numbers["seconds"] = (max(r["seconds"] for r in rows)
+                          + time.perf_counter() - t0)
+    log(f"24c: restarted once on every rank; the restored params, m, v "
+        f"and count equal the state at the save, each EF row the record's "
+        f"decode (K2 vs plain {c0['decode_rel']:.3e}), the restarted "
+        f"step's loss 24b's; {c0.get('disk_bytes')} B on disk; rank 0's "
+        f"saves block {[round(x, 1) for x in c0['save_host_ms']]} ms after "
+        f"the gathers {[round(x, 1) for x in c0['to_save_host_ms']]} ms; "
+        f"restores {[[round(x, 2) for x in s] for s in numbers['restore_s']]}"
+        f" s; the loop {c0['seconds']:.1f} s; K1/K2 launches "
+        f"{c0['launches']} (rank 0); gathers {c0['ledger']}")
+    log(f"phase 24 took {numbers['seconds']:.1f}s; step ms (median) "
+        f"{numbers['uncompressed_step_ms_median']:.1f} uncompressed, "
+        f"{numbers['compressed_step_ms_median']:.1f} compressed (24a-b "
+        f"{max(r['steps_s'] for r in rows):.1f} s, 24c's loop "
+        f"{c0['seconds']:.1f} s, its decode check {first['check_s']:.1f} s); "
+        f"peak GiB {numbers['peak_gib']}; K1/K2 launches {launches}")
+    return numbers
+
+
+def pod_data_phase(dev, modes=POD_DATA_MODES) -> dict:
     """Phase 21: the train step on a (pod=2, data=2, model=1) mesh of four
     gloo ranks sharing the card, at phase 9's widths and depth cut, the
     sequence cut to POD_DATA_SEQ. This process first runs the one-rank
-    compositions from the drawn parameters (three steps of the global
-    batch; three steps of each pod's rows through `compress_per_pod` and
-    `adamw.update`) and writes them, then frees the card for the ranks
-    (`_pod_data_rank`). Returns the numbers of the `pod_data` line, with
-    the K1/K2 launches under `launches`."""
+    compositions from the drawn parameters (POD_DATA_STEPS steps of the
+    global batch; as many of each pod's rows through `compress_per_pod`
+    and `adamw.update`) and writes them, then frees the card for the ranks
+    (`_pod_data_rank`: phase 21's `modes`, then phase 24 on the same
+    ranks, held to the same compositions). Returns the numbers
+    of the `pod_data` line, with the K1/K2 launches under `launches` and
+    phase 24's numbers under "24"."""
     import shutil
     import tempfile
 
@@ -4667,10 +5047,13 @@ def pod_data_phase(dev) -> dict:
     model, cfg, shape, opt, lr_fn, data = _pod_data_slice()
     p_bytes = 4 * sum(t.numel() for t in tree_leaves(model.param_shapes()))
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_pod_data_"))
-    need = 2.1 * p_bytes
+    # the reference files, and phase 24c's two checkpoints (params, m and
+    # v whole, the EF record)
+    need = 8.3 * p_bytes
     free_disk = shutil.disk_usage(root).free
     log(f"phase 21: {free_disk / 1e9:.2f} GB free under {root}; the "
-        f"reference files need {need / 1e9:.2f} GB")
+        f"reference files (and phase 24's checkpoints) need "
+        f"{need / 1e9:.2f} GB")
     if free_disk < need:
         raise AssertionError(f"phase 21 needs {need / 1e9:.2f} GB free "
                              f"under {root}")
@@ -4738,8 +5121,9 @@ def pod_data_phase(dev) -> dict:
             f"took "
             f"{ref_s:.1f} s; (loss, clip norm) {want}")
         t0 = time.perf_counter()
-        ranks = _pod_ranks("pod_data", None, {"device": str(dev),
-                                              "root": str(root)}, world=4)
+        ranks = _pod_ranks("pod_data", None, {
+            "device": str(dev), "root": str(root), "modes": list(modes)},
+            world=4)
         ranks_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4750,7 +5134,7 @@ def pod_data_phase(dev) -> dict:
     for r in ranks:
         for name in launches:
             launches[name] += r["launches"][name]
-        for mode in POD_DATA_MODES:
+        for mode in modes:
             m = r[mode]
             log(f"21 {mode} rank {r['rank']} {r['coordinate']}: holds "
                 f"{m['held_bytes']} B of params of {p_bytes} B; losses "
@@ -4787,14 +5171,15 @@ def pod_data_phase(dev) -> dict:
         if r["peak_gib"] is not None and r["peak_gib"] > POD_DATA_GIB:
             raise AssertionError(f"21: rank {r['rank']} peaked at "
                                  f"{r['peak_gib']:.2f} GiB")
-    for d in range(2):
-        if by[0, d]["compressed"]["digest"] != by[1, d]["compressed"][
-                "digest"]:
-            raise AssertionError(f"21 compressed: the pods' ranks of data "
-                                 f"index {d} hold other blocks")
-    if not all(n > 0 for n in launches.values()):
+    if "compressed" in modes:
+        for d in range(2):
+            if by[0, d]["compressed"]["digest"] != by[1, d]["compressed"][
+                    "digest"]:
+                raise AssertionError(f"21 compressed: the pods' ranks of "
+                                     f"data index {d} hold other blocks")
+    if modes and not all(n > 0 for n in launches.values()):
         raise AssertionError(f"21: K1 or K2 was not launched: {launches}")
-    for mode in POD_DATA_MODES:
+    for mode in modes:
         if len({tuple(s["loss"] for s in r[mode]["steps"])
                 for r in ranks}) != 1:
             raise AssertionError(f"21 {mode}: the ranks' losses differ")
@@ -4803,15 +5188,19 @@ def pod_data_phase(dev) -> dict:
         "global_batch": shape.global_batch, "params": p_bytes // 4,
         "leaves": n_leaves, "one_rank": want, "reference_s": ref_s,
         "ranks_s": ranks_s, "peak_gib": [r["peak_gib"] for r in ranks],
-        "launches": launches, "ranks": ranks}
-    for mode in POD_DATA_MODES:
+        "launches": launches,
+        "ranks": [{k: v for k, v in r.items() if k != "24"} for r in ranks]}
+    for mode in modes:
         numbers[f"{mode}_step_ms_median"] = statistics.median(
             s["step_ms"] for r in ranks for s in r[mode]["steps"])
-    numbers["seconds"] = time.perf_counter() - t_phase
+    # phase 24 ran on these ranks: its part is not 21's
+    numbers["24"] = _pod_model_check(ranks, want, n_leaves, p_bytes)
+    numbers["seconds"] = (time.perf_counter() - t_phase
+                          - numbers["24"]["seconds"])
     log(f"phase 21 took {numbers['seconds']:.1f}s; step ms (median) "
-        f"{numbers['uncompressed_step_ms_median']:.1f} uncompressed, "
-        f"{numbers['compressed_step_ms_median']:.1f} compressed; peak GiB "
-        f"{numbers['peak_gib']}; K1/K2 launches {launches}")
+        + ", ".join(f"{numbers[f'{m}_step_ms_median']:.1f} {m}"
+                    for m in modes)
+        + f"; peak GiB {numbers['peak_gib']}; K1/K2 launches {launches}")
     return numbers
 
 
@@ -4831,8 +5220,8 @@ TP_B_MODES = ("uncompressed-fp32", "fused")
 # (arch, layers or None for all, slots, compute dtype): mixtral's at fp32,
 # where the mesh's and one rank's router logits cannot part across a near
 # tie of the top two experts (a bf16 rounding there picks another expert)
-TP_SERVE = (("llama3.2-3b", 14, 8, "bfloat16"),  # 14 of 28 layers (cut
-                                                  # for phase 23's time)
+TP_SERVE = (("llama3.2-3b", 7, 8, "bfloat16"),   # 7 of 28 layers (cut
+                                                  # for phases 23-24's time)
             ("mixtral-8x22b", 2, 4, "float32"))
 TP_PROMPT = (4, 1024)   # 22c: the mesh prefill's batch and prompt length
 TP_DECODE = 32          # 22c: eager mesh decode steps
@@ -6550,11 +6939,18 @@ def main() -> int:
         next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
         launches[name] += n
 
-    # -- 17. LM serving at full width --------------------------------------
-    lm = lm_phase(dev)
-
     # -- 18. MoE and M-RoPE serving at full width --------------------------
     moe = moe_phase(dev)
+
+    # -- 20. the data axis (FSDP) on two ranks sharing the card ----------
+    # (17 runs in this process meanwhile)
+    fsdp = fsdp_phase(dev, beside=lambda: side.update(lm=lm_phase(dev)))
+    for name, n in fsdp["launches"].items():
+        next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
+        launches[name] += n
+
+    # -- 17. LM serving at full width (run beside 20) ----------------------
+    lm = side["lm"]
     lm.update({arch: row for arch, row in moe.items() if arch != "seconds"})
     lm["seconds_phase18"] = moe["seconds"]
 
@@ -6563,15 +6959,16 @@ def main() -> int:
     lm.update({arch: row for arch, row in rec.items() if arch != "seconds"})
     lm["seconds_phase19"] = rec["seconds"]
 
-    # -- 20. the data axis (FSDP) on two ranks sharing the card ----------
-    fsdp = fsdp_phase(dev)
-    for name, n in fsdp["launches"].items():
-        next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
-        launches[name] += n
-
     # -- 21. pod x data meshes on four ranks sharing the card --------------
     pod_data = pod_data_phase(dev)
     for name, n in pod_data["launches"].items():
+        next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
+        launches[name] += n
+
+    # -- 24. the (pod, data, model) mesh and its checkpoints ---------------
+    # (run on 21's ranks after their steps; checked in pod_data_phase)
+    pod_model = pod_data.pop("24")
+    for name, n in pod_model["launches"].items():
         next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
         launches[name] += n
 
@@ -6603,6 +7000,7 @@ def main() -> int:
     print(json.dumps({"lm_serve": lm}))
     print(json.dumps({"fsdp": fsdp}))
     print(json.dumps({"pod_data": pod_data}))
+    print(json.dumps({"pod_model": pod_model}))
     print(json.dumps({"tp": tp}))
     print(json.dumps({"tp_families": fam}))
     print(json.dumps({"kernels": rows}))

@@ -22,10 +22,11 @@ gathered, so the state equals what `mesh=None` returns.
 
 `resume_pod_rank` restores onto one rank of a pod mesh, whose EF is its
 own pod's row: every rank reads the same directory (the ranks share one
-filesystem, and the params and optimizer moments, most of the bytes, are
-needed whole on every rank anyway, so nothing needs to cross the pod
-link), respecs the saved rows to the mesh's pod count and keeps its row
-(`rp.shard.scatter_pod_rows`).
+filesystem, so nothing needs to cross the pod link), respecs the saved
+rows to the mesh's pod count and keeps its row
+(`rp.shard.scatter_pod_rows`). The params and optimizer moments come
+back whole, or, with `shardings=` (a pod x data or (pod, data, model)
+mesh), as this rank's blocks, each read alone.
 """
 from __future__ import annotations
 
@@ -90,7 +91,8 @@ def _pod_stripped(shape: tuple, npod: int) -> tuple:
 
 def resume_elastic(directory: str | os.PathLike, example_state: Any, *,
                    npod_new: int, mesh=None, step: int | None = None,
-                   device=None, ef_device=None) -> tuple[Any, int]:
+                   device=None, ef_device=None,
+                   shardings=None) -> tuple[Any, int]:
     """Restore the newest verified checkpoint onto `npod_new` pods.
 
     `example_state` describes the NEW job's state tree ({"params", "opt"[,
@@ -101,7 +103,11 @@ def resume_elastic(directory: str | os.PathLike, example_state: Any, *,
     example leaf's device (`checkpointer.restore`); a sketched EF decodes
     on `device`, else on the example EF's device, else on CUDA, split
     over `mesh`'s data axes when a mesh is given; `ef_device` puts the EF
-    (dense or decoded) on that device instead. Returns (state, step).
+    (dense or decoded) on that device instead. `shardings` (the specs of
+    the state's other entries on `mesh`, `launch.steps.state_specs`)
+    returns them as this rank's blocks (`checkpointer.restore(
+    shardings=)`, the example leaves the blocks' shapes); a sketched EF
+    then decodes whole on every rank. Returns (state, step).
     """
     directory = os.fspath(directory)
     verified = step is None
@@ -116,10 +122,12 @@ def resume_elastic(directory: str | os.PathLike, example_state: Any, *,
     sk_meta = extra.get("sketched_ef")
 
     has_ef = isinstance(example_state, dict) and "ef" in example_state
+    blocks = {} if shardings is None else dict(shardings=dict(shardings),
+                                               mesh=mesh)
     if not has_ef:
         return checkpointer.restore(directory, example_state, step,
                                     device=device,
-                                    verify_integrity=not verified)
+                                    verify_integrity=not verified, **blocks)
 
     # the SAVED tree's ef is shaped for npod_old (and possibly sketched):
     # rebuild that example from the new job's, pod dim swapped
@@ -132,19 +140,24 @@ def resume_elastic(directory: str | os.PathLike, example_state: Any, *,
     codec = None
     if sk_meta is not None:
         bucket_spec = None
-        if mesh is not None:
+        if mesh is not None and shardings is None:
             from repro_torch.launch.sharding import bucket_specs
             bucket_spec = bucket_specs(mesh)
         codec = SketchedTreeCodec.from_meta(
             sk_meta, old_ef_shapes,
             device=_codec_device(new_ef, ef_device or device),
-            mesh=mesh, bucket_spec=bucket_spec)
+            mesh=mesh if shardings is None else None,
+            bucket_spec=bucket_spec)
     saved_example = dict(example_state)
     saved_example["ef"] = codec.record_shapes() if codec else old_ef_shapes
+    if blocks:  # the saved EF (rows or record) whole on every rank
+        blocks["shardings"]["ef"] = tree_map(lambda t: (None,) * t.ndim,
+                                             saved_example["ef"])
     # a step picked by newest_verified_step was just verified
     restored, step = checkpointer.restore(directory, saved_example, step,
                                           device=device,
-                                          verify_integrity=not verified)
+                                          verify_integrity=not verified,
+                                          **blocks)
     if codec:
         ef_old = codec.decode(restored["ef"])
     else:   # the dense rows go where the new job's EF lives
@@ -156,7 +169,7 @@ def resume_elastic(directory: str | os.PathLike, example_state: Any, *,
 
 
 def resume_pod_rank(directory: str | os.PathLike, example_state: Any,
-                    mesh) -> tuple[Any, int]:
+                    mesh, *, shardings=None) -> tuple[Any, int]:
     """Restore the newest verified checkpoint onto this rank of `mesh`,
     whose 'pod' axis has `npod` ranks.
 
@@ -164,13 +177,20 @@ def resume_pod_rank(directory: str | os.PathLike, example_state: Any,
     EF leaves this pod's row, without a pod dim). Every rank reads the
     directory, respecs the saved EF rows to `npod` (`respec_pod_ef`, as
     `resume_elastic` does; a sketched record decodes whole on every rank,
-    the operator drawn from the saved seed) and keeps its own row. The
-    tensors land on the example leaves' devices. Returns (state, step).
+    the operator drawn from the saved seed) and keeps its own row. With
+    `shardings` (the state's specs on `mesh`, a pod x data mesh or one
+    with a model axis) params, m and v come back as this rank's blocks,
+    each read alone. The tensors land on the example leaves' devices.
+    Returns (state, step).
     """
     from repro_torch.rp.shard import scatter_pod_rows
     npod = mesh.group("pod").size
+    specs = None if shardings is None else {
+        k: v for k, v in shardings.items() if k != "ef"}
+    blocks = {} if specs is None else dict(mesh=mesh, shardings=specs)
     if not (isinstance(example_state, dict) and "ef" in example_state):
-        return resume_elastic(directory, example_state, npod_new=npod)
+        return resume_elastic(directory, example_state, npod_new=npod,
+                              **blocks)
     rows = example_state["ef"]
     ef_device = next(leaf.device for leaf in tree_leaves(rows))
     example = dict(example_state)
@@ -178,7 +198,7 @@ def resume_pod_rank(directory: str | os.PathLike, example_state: Any,
         ((npod,) if npod > 1 else ()) + tuple(leaf.shape), dtype=leaf.dtype,
         device="meta"), rows)
     restored, step = resume_elastic(directory, example, npod_new=npod,
-                                    ef_device=ef_device)
+                                    ef_device=ef_device, **blocks)
     if npod > 1:
         restored["ef"] = scatter_pod_rows(restored["ef"], mesh)
     return restored, step

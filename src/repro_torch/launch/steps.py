@@ -55,18 +55,23 @@ it). Branches:
   index run the same K1 on the same buckets, and the EF residual is
   whole on every rank. The fused branch's K4 writes each rank's two-dim
   blocks (`fused_update_block`'s second range);
-* a `mesh=` with a 'pod' axis and a 'data' axis above 1 (pod x data):
-  without a compressor, the FSDP above over both axes (`data_axes`).
-  With one (the reference's `fsdp_axes=("data",)`): params, m and v are
-  FSDP blocks over 'data', the same on every pod; each rank takes its
-  (pod, data) rows; the backward all-reduces each gradient over the data
-  ranks of its pod (`fsdp.Sharded(axes=("data",))`), so every rank holds
-  its pod's mean gradient whole; `compress_collective` over the ranks
-  that share its data index (`mesh.group("pod")`) syncs it across pods,
+* a `mesh=` with a 'pod' axis and a 'data' or 'model' axis above 1
+  (pod x data, and the reference's production (pod, data, model)):
+  without a compressor, the pod axis is one more data axis: the FSDP
+  above over both (`data_axes`), split over 'model' too where the mesh
+  has one. With a compressor (the reference's `fsdp_axes=("data",)`):
+  params, m and v are FSDP blocks over 'data', the same on every pod,
+  and split over 'model'; each rank takes its (pod, data) rows; the
+  backward all-reduces each gradient over the data ranks of its pod
+  (`fsdp.Sharded(axes=("data",))`) and all-gathers a model-split leaf's
+  over 'model' (`grad_model_gather`), so every rank holds its pod's mean
+  gradient whole; `compress_collective` over the ranks that share its
+  (data, model) coordinate (`mesh.group("pod")`) syncs it across pods,
   the clip norm is the synced gradient's, and AdamW updates the rank's
   blocks. Each rank holds its own pod's EF residual whole, without a pod
   dim (the reference keeps a block of it, `P(pod, *spec)`: ROADMAP.md,
-  "Differences kept on purpose"). The loss is every rank's mean.
+  "Differences kept on purpose"). The loss is every rank's mean; the MoE
+  FFN dispatches in the reference's `groups // npod` groups a pod.
 
 `build_prefill_step` gives `fn(params, batch) -> logits` (the last
 token's, float32) and `build_serve_step` `fn(params, cache, token, pos,
@@ -79,7 +84,8 @@ tokens against it, and its serve step needs a cache whose cross K/V
 `whisper.build_cross_cache` has filled. Every step passes the batch's
 `positions3`, `patches` and `patch_positions` (qwen2-vl) through, the
 last left on the host, where the model checks them. With a `mesh=` (a
-(data, model) mesh) the params are the rank's
+(data, model) or (pod, data, model) mesh; 'pod' is one more data axis
+for the rows and the blocks) the params are the rank's
 blocks (`shard_params`), the batch's rows over the data axes are the
 rank's, the prefill runs sequence-parallel with `gqa_expand` (as the
 reference's), and the serve step's cache is the rank's block by
@@ -93,9 +99,8 @@ rank (`SEQ_PARALLEL`, as the reference's); their caches by
 RG-LRU's `h` and `conv` by channels and its ring by positions,
 whisper's self and cross K/V by heads; `cache_layout`).
 
-What stays refused, with its queue-1 item (ROADMAP.md): a model axis
-beside a pod axis (12.7b.3c), a model size that splits a head;
-`fused_update` with a pod axis raises, as in the reference.
+What stays refused: a model size that splits a head; `fused_update`
+with a pod axis raises, as in the reference.
 """
 from __future__ import annotations
 
@@ -196,16 +201,11 @@ def _heads(cfg: ArchConfig) -> int:
 
 
 def _check_mesh(mesh, cfg: ArchConfig) -> bool:
-    """Refuse what waits for later items (a model axis beside a pod axis,
-    12.7b.3c) and a model axis that would split inside a head; True on a
-    mesh whose data or model axis is above 1."""
+    """Refuse a model axis that would split inside a head; True on a mesh
+    whose data or model axis is above 1 (a pod axis beside them
+    included)."""
     sizes = dict(mesh.shape)
     if sizes.get("model", 1) > 1:
-        if "pod" in sizes:
-            raise NotImplementedError(
-                f"a model axis of {sizes['model']} beside a pod axis is item "
-                "12.7b.3c (ROADMAP.md, queue 1); run a (data, model) mesh "
-                "or a (pod, data, 1) one")
         if _heads(cfg) % sizes["model"]:
             raise NotImplementedError(
                 f"{cfg.name}: a model axis of {sizes['model']} does not "

@@ -41,8 +41,7 @@ batch; a checkpoint holds whole leaves, written by rank 0):
 
 Pod x data (`--mesh PODxDATAx1`, DATA > 1): with `--compress`, FSDP
 over 'data' within each pod and `compress_collective` across pods (the
-reference's `fsdp_axes=("data",)`); without it, FSDP over both axes.
-Its checkpoints (`--ckpt-dir`) are item 12.7b.4 and refused:
+reference's `fsdp_axes=("data",)`); without it, FSDP over both axes:
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-3b \
@@ -54,10 +53,8 @@ A (data, model) mesh (`--mesh AxB`, B > 1; every family): each rank
 holds its blocks of the leaves split over either axis, and the forward
 runs tensor-, sequence- and expert-parallel over 'model'
 (`launch/tp.py`; whisper's stream whole on every model rank, as the
-reference's); the model ranks of a data index take the same rows. Its
-checkpoints (`--ckpt-dir`) are item 12.7b.4 and refused; a model axis
-beside a pod axis (`--mesh PxDxM`, M > 1) is item 12.7b.3c, and a model
-size that splits a head is refused:
+reference's); the model ranks of a data index take the same rows; a
+model size that splits a head is refused:
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-3b \
@@ -65,7 +62,23 @@ size that splits a head is refused:
         --batch 4 --seq 16 [--compress tt:k=64,dims=4x8x16]
 
 The same with `--arch mamba2-1.3b`, `recurrentgemma-2b` or
-`whisper-medium` (`--nproc-per-node 2 ... --mesh 1x2` as well). An
+`whisper-medium` (`--nproc-per-node 2 ... --mesh 1x2` as well).
+
+The reference's production layout, (pod, data, model) (`--mesh PxDxM`,
+M > 1): the model axis as on (data, model), beside the pod axis as on
+pod x data. On every mesh `--ckpt-dir` (with `--crash-at` and
+`--sketch-ef-ckpt`) checkpoints whole leaves gathered onto rank 0 and,
+on a pod mesh, every pod's EF row in the reference's `(npod, ...)`
+layout; a restart reads each rank's blocks and its pod's row:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 8 -m repro_torch.launch.train --arch llama3.2-3b \
+        --reduced --mesh 2x2x2 --compress tt:k=64,dims=4x8x16 \
+        --compress-sync sketch-mean --dist-backend gloo --device cpu \
+        --steps 6 --batch 4 --seq 16 --ckpt-dir d --ckpt-every 2 \
+        --sketch-ef-ckpt [--crash-at 3]
+
+An
 encoder-decoder's batches carry synthetic audio frames (B, encoder_seq,
 D), standard normal, drawn from the seed and the step (`FramesLM`).
 """
@@ -126,10 +139,6 @@ def parse_mesh(spec: str | None, *, device=None, backend=None):
     if names is None:
         raise ValueError(f"--mesh {spec!r}: expected AxB (data x model) or "
                          "AxBxC (pod x data x model)")
-    if dims[-1] > 1 and len(dims) == 3:
-        raise NotImplementedError(
-            f"--mesh {spec}: a model axis beside a pod axis is item "
-            "12.7b.3c (ROADMAP.md, queue 1); run DATAxMODEL or PODxDATAx1")
     need = 1
     for d in dims:
         need *= d

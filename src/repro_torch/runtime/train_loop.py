@@ -15,28 +15,35 @@ exception leaves `run` (what the reference's `AsyncCheckpointer.__exit__`
 does on a crash): otherwise the restarted attempt's checkpointer would
 sweep the live tmp directory away and find no checkpoint.
 
-On a mesh (`mesh=`, one process a rank) each rank holds its own pod's EF
-row. A save gathers the rows into the reference's `(npod, ...)` layout
-on rank 0 (`rp.shard.gather_pod_rows`, every rank on the step thread);
-rank 0 alone writes (the params and optimizer state are the same bits on
-every pod) and alone runs an `AsyncCheckpointer`. A restore reads the
-same directory on every rank (`ckpt.elastic.resume_pod_rank`), after
-the ranks have met, so that none lists the directory while rank 0 still
+On a mesh (`mesh=`, one process a rank) with a 'pod' axis each rank
+holds its own pod's EF row, the same bits on every rank of a pod. A save
+gathers the rows into the reference's `(npod, ...)` layout on rank 0
+(`rp.shard.gather_pod_rows` over rank 0's pod group alone, the ranks at
+(data, model) coordinate 0, on the step thread); rank 0 alone writes
+(the params and optimizer state are the same bits on every pod), alone
+encodes a sketched record of the stacked rows and alone runs an
+`AsyncCheckpointer`. A restore reads the same directory on every rank
+(`ckpt.elastic.resume_pod_rank`: the rows respecced to the mesh's pod
+count, a sketched record decoded whole, this rank's row kept), after the
+ranks have met, so that none lists the directory while rank 0 still
 drains a save that a crash cut short; `run` returns on no rank before
 rank 0's last save is on disk. A SIGTERM reaches one rank: the ranks
 agree on the flag every step (one MAX all_reduce over the mesh), so they
 save and stop at the same step instead of one rank waiting in a gather
 that the others never join.
 
-On a data mesh (FSDP, `shardings=` the state's specs,
-`launch.steps.state_specs`) each rank holds its blocks of params, m and
-v. A save gathers the blocks onto rank 0 (`launch.fsdp.gather_tree`, one
-gather a sharded leaf), which writes whole leaves in the reference's
-format; a sketched EF record is encoded by every rank (the codec splits
-the buckets over the mesh), written by rank 0. A restore reads each
-rank's block alone (`checkpointer.restore(shardings=)`), after the same
-meeting as on a pod mesh. The SIGTERM, resume and done meetings are the
-pod mesh's.
+On a mesh whose data or model axis is above 1 (`shardings=` the state's
+specs, `launch.steps.state_specs`) each rank holds its blocks of params,
+m and v. A save gathers the blocks onto rank 0 (`launch.fsdp.gather_tree`,
+one gather a sharded leaf, a two-dim block's model dim first), which
+writes whole leaves in the reference's format; without a pod axis the EF
+is whole on every rank and a sketched record is encoded by every rank
+(the codec splits the buckets over the mesh). A restore reads each
+rank's blocks alone (`checkpointer.restore(shardings=)`). With a pod axis
+too (pod x data, or the reference's (pod, data, model)) both hold: the
+rows' gather, then the blocks'; at a restore `resume_pod_rank(shardings=)`
+reads this rank's blocks beside its pod's row. The SIGTERM, resume and
+done meetings are the same on every mesh.
 """
 from __future__ import annotations
 
@@ -76,33 +83,35 @@ class LoopConfig:
 def _to_save(state: Any, step: int, ef_codec, mesh,
              shardings=None) -> tuple[Any, dict]:
     """(tree to write, manifest extra) — EF leaves go as sketch records.
-    On a pod mesh every rank joins the gather of the EF rows, on a data
-    mesh the gather of the blocks (and the record's encode); only rank 0
-    gets a tree (None elsewhere)."""
+    On a mesh every rank joins the gathers: on a pod mesh rank 0's pod
+    group gathers the EF rows, then with `shardings` every rank joins the
+    gather of the blocks; only rank 0 gets a tree (None elsewhere)."""
     extra: dict = {}
+    writer = mesh is None or mesh.rank == 0
+    pods = mesh is not None and mesh.shape.get("pod", 1) > 1
+    ef = state.get("ef")
+    if ef is not None and pods:
+        # the ranks of a pod hold the same residual bits (each syncs its
+        # pod's whole mean gradient), so rank 0's pod group, the ranks at
+        # (data, model) coordinate 0, alone gathers the rows
+        first = all(mesh.coordinate[a] == 0 for a in mesh.axis_names
+                    if a != "pod")
+        from repro_torch.rp.shard import gather_pod_rows
+        ef = gather_pod_rows(ef, mesh) if first else None
+    if ef is not None and ef_codec is not None and (writer or not pods):
+        # the stacked rows are encoded on rank 0; off a pod mesh every
+        # rank encodes (the codec splits the buckets over the mesh)
+        ef = ef_codec.encode(ef, step=step)
+        extra["sketched_ef"] = ef_codec.meta()
+    tree = {k: v for k, v in state.items() if k != "ef"}
     if shardings is not None:
         from repro_torch.launch.fsdp import gather_tree
-        record = (ef_codec.encode(state["ef"], step=step)
-                  if ef_codec is not None and "ef" in state else None)
-        if record is not None:
-            extra["sketched_ef"] = ef_codec.meta()
-            state = {k: v for k, v in state.items() if k != "ef"}
-            shardings = {k: v for k, v in shardings.items() if k != "ef"}
-        tree = gather_tree(state, shardings, mesh)
-        if tree is not None and record is not None:
-            tree["ef"] = record
-        return tree, extra
-    if "ef" not in state:
-        return (state if mesh is None or mesh.rank == 0 else None), extra
-    tree = dict(state)
-    if mesh is not None and mesh.shape.get("pod", 1) > 1:
-        from repro_torch.rp.shard import gather_pod_rows
-        tree["ef"] = gather_pod_rows(state["ef"], mesh)
-    if mesh is not None and mesh.rank != 0:
+        tree = gather_tree(tree, {k: v for k, v in shardings.items()
+                                  if k != "ef"}, mesh)
+    if not writer:
         return None, extra
-    if ef_codec is not None:
-        tree["ef"] = ef_codec.encode(tree["ef"], step=step)
-        extra["sketched_ef"] = ef_codec.meta()
+    if "ef" in state:
+        tree["ef"] = ef
     return tree, extra
 
 
@@ -140,29 +149,24 @@ def run(step_fn: Callable, state: Any, data: SyntheticLM, cfg: LoopConfig, *,
     Returns (final_state, final_step).
 
     `mesh` (a `launch.mesh.Mesh`; needed when `cfg.npod > 1`) runs the
-    loop on every rank of it: each rank passes its own pod's EF row,
-    `ef_codec` is the stacked tree's (`SketchedTreeCodec.for_pod_rows`)
-    and encodes on rank 0. With a 'pod' axis a restore goes through
-    `ckpt.resume_pod_rank`: it always verifies, reads a sketched record's
-    codec from the manifest, and takes a checkpoint of another pod count.
-    On a data mesh `shardings` (the state's specs) is required: `state`
-    holds this rank's blocks, a save writes the whole leaves and a restore
+    loop on every rank of it: with a 'pod' axis each rank passes its own
+    pod's EF row, `ef_codec` is the stacked tree's
+    (`SketchedTreeCodec.for_pod_rows`) and encodes on rank 0, and a
+    restore goes through `ckpt.resume_pod_rank`: it always verifies,
+    reads a sketched record's codec from the manifest, and takes a
+    checkpoint of another pod count. On a mesh whose data or model axis
+    is above 1 `shardings` (the state's specs) is required: `state` holds
+    this rank's blocks, a save writes the whole leaves and a restore
     reads the rank's blocks (see the module docstring).
     """
     pods = mesh is not None and "pod" in mesh.axis_names
-    model = mesh is not None and mesh.shape.get("model", 1) > 1
-    blocks = mesh is not None and (mesh.shape.get("data", 1) > 1 or model)
+    blocks = mesh is not None and (mesh.shape.get("data", 1) > 1
+                                   or mesh.shape.get("model", 1) > 1)
     if blocks and shardings is None:
         raise ValueError("run(mesh=) on a data mesh needs shardings=, the "
                          "state's specs (launch.steps.state_specs)")
     if not blocks:
         shardings = None
-    if (model or pods and blocks) and cfg.ckpt_dir:
-        raise NotImplementedError(
-            "checkpoints of a pod x data mesh (each rank's pod residual "
-            "beside the data blocks) and of a mesh with a model axis are "
-            "item 12.7b.4 (ROADMAP.md, queue 1); run it without ckpt_dir, "
-            "or checkpoint a (data, 1) or (pod, 1, 1) mesh")
     if cfg.npod > 1 and not (pods and mesh.shape["pod"] == cfg.npod):
         raise ValueError(
             f"LoopConfig(npod={cfg.npod}) needs the mesh= whose 'pod' axis "
@@ -176,7 +180,8 @@ def run(step_fn: Callable, state: Any, data: SyntheticLM, cfg: LoopConfig, *,
                             "resume")
             latest = None if latest < 0 else latest
         if latest is not None and pods:
-            state, start = resume_pod_rank(cfg.ckpt_dir, state, mesh)
+            state, start = resume_pod_rank(cfg.ckpt_dir, state, mesh,
+                                           shardings=shardings)
         elif latest is not None:
             example, specs = state, shardings
             if ef_codec is not None and "ef" in state:

@@ -31,8 +31,9 @@ largest entry (on the pod x data mesh 1e-4 a step taken: the
 summation-order noise compounds over the three steps); the params 0.01
 lr where the reference's sqrt(v_hat) stayed above 100 eps, 2 lr a step
 everywhere, and 1e-4 of the largest entry on 99.9% of each leaf. The
-train CLI runs `--mesh 2x2x1` under `torch.distributed.run`; a
-checkpoint of a pod x data run is refused.
+train CLI runs `--mesh 2x2x1` under `torch.distributed.run`; the pod x
+data ranks save a checkpoint and restore it (the checkpoints' crash and
+restart: `tests/test_torch_pod_model.py`).
 """
 import functools
 import subprocess
@@ -59,7 +60,6 @@ from repro.optim.compress import SketchCompressor as JCompressor
 from repro_torch.configs import get_config, reduced
 from repro_torch.launch import fsdp, steps
 from repro_torch.models import build_model
-from repro_torch.runtime import train_loop
 
 from torch_dist_workers import start_ranks
 
@@ -187,7 +187,9 @@ def runs(tmp_path_factory):
         "pod_data", 4, tmp_path_factory.mktemp("pod_data"),
         {"arch": "llama3.2-3b", "state": state, "batches": batches,
          "seq": SEQ, "batch": BATCH, "lr": LR, "ops": ops, "cfg": SKETCH,
-         "modes": ["compressed", "uncompressed"]}, shape=POD_MESH[0],
+         "modes": ["compressed", "uncompressed"],
+         "ckpt_dir": str(tmp_path_factory.mktemp("pod_data_ckpt"))},
+        shape=POD_MESH[0],
         names=POD_MESH[1])
     for name, arch in FUSED.items():
         G = jmoe_groups_for(jget_config(arch),
@@ -384,13 +386,17 @@ def test_a_leaf_split_over_part_of_the_gradients_axes(runs):
         assert got["norm"] == pytest.approx(norm, rel=1e-6)
 
 
-def test_pod_data_checkpoints_are_refused():
-    mesh = _stand_in(*POD_MESH)
-    with pytest.raises(NotImplementedError, match=r"item 12\.7b"):
-        train_loop.run(lambda s, b: (s, {}), {}, None,
-                       train_loop.LoopConfig(total_steps=1, ckpt_dir="d",
-                                             npod=2),
-                       mesh=mesh, shardings={})
+def test_pod_data_checkpoints_are_refused(runs):
+    """The call that was refused before pod x data checkpoints were
+    ported, `train_loop.run(mesh=, shardings=)` with a `ckpt_dir` on the
+    (2, 2, 1) mesh, now saves a step and, called again, restores it:
+    every rank's blocks, moments and EF row bit for bit."""
+    out, _ = runs["pod"]
+    for o in out:
+        saved, restored = o["ckpt"]
+        assert len(saved) == len(restored) > 0
+        for a, b in zip(saved, restored):
+            assert torch.equal(a, b)
 
 
 def test_train_cli_on_a_pod_data_mesh(tmp_path):

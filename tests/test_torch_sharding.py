@@ -11,9 +11,9 @@ the reference's on stand-in meshes (16, 16), (2, 16, 16), (2, 1),
 both packages' functions read. The reference's `PartitionSpec` stores a
 one-axis entry as the bare name, so every entry is normalized to a tuple
 of names (or None) on both sides, as `tests/test_torch_shard.py` does.
-The mesh train step refuses what the rest of item 12.7b brings (a
-model axis beside a pod axis, 12.7b.3c) and a model size that splits a
-head.
+The mesh train step refuses a model size that splits a head, and
+`fused_update` beside a pod axis (with or without a model axis), as the
+reference does; the train CLI builds a (pod, data, model) mesh.
 """
 import functools
 import types
@@ -204,7 +204,10 @@ class _Mesh(types.SimpleNamespace):
 
 
 @pytest.mark.parametrize("what,shape,names,kw", [
-    ("pod beside model", (2, 1, 2), ("pod", "data", "model"), {}),
+    ("pod beside model", (2, 1, 2), ("pod", "data", "model"),
+     {"fused_update": True}),
+    ("pod beside model, split head", (2, 1, 3), ("pod", "data", "model"),
+     {}),
     ("hybrid on model", (1, 3), ("data", "model"),
      {"arch": "recurrentgemma-2b"}),
     ("pod x data", (2, 2, 1), ("pod", "data", "model"),
@@ -213,12 +216,13 @@ class _Mesh(types.SimpleNamespace):
      {"fused_update": True, "arch": "mamba2-1.3b"}),
 ])
 def test_what_item_12_7b_brings_is_refused(what, shape, names, kw):
-    """What the rest of item 12.7b brings stays refused, each with its
-    label: a model axis beside a pod axis (12.7b.3c); a model size that
-    would split a head of another family (the reduced recurrentgemma's 4
-    query heads, mamba2's 8 SSD heads over 3 ranks), fused or not; and
-    `fused_update` beside a pod axis, as the reference refuses it (the
-    pod collective keeps the unfused update)."""
+    """What stays refused on the meshes of item 12.7b, each with its
+    label: a model size that would split a head (the reduced llama's 4
+    query heads over 3 model ranks beside a pod axis, the reduced
+    recurrentgemma's 4, mamba2's 8 SSD heads over 3 ranks), fused or not;
+    and `fused_update` beside a pod axis, with or without a model axis, as
+    the reference refuses it (the pod collective keeps the unfused
+    update)."""
     from repro_torch.configs import reduced
     from repro_torch.core.sketch import SketchConfig
     from repro_torch.optim import AdamWConfig
@@ -230,8 +234,8 @@ def test_what_item_12_7b_brings_is_refused(what, shape, names, kw):
                                          dims=(4, 8), bucket_elems=32))
     err_type, match, names_it = {
         "pod x data": (ValueError, "run without a 'pod' mesh axis", "pod"),
-        "pod beside model": (NotImplementedError, r"item 12\.7b\.3c",
-                             "beside a pod axis"),
+        "pod beside model": (ValueError, "run without a 'pod' mesh axis",
+                             "pod"),
     }.get(what, (NotImplementedError, "does not divide", "heads"))
     with pytest.raises(err_type, match=match) as err:
         steps.build_train_step(model, ShapeSpec("t", 8, 4, "train"),
@@ -240,9 +244,19 @@ def test_what_item_12_7b_brings_is_refused(what, shape, names, kw):
     assert names_it in str(err.value)
 
 
-def test_train_cli_refuses_a_model_axis():
-    """A model axis beside a pod axis (`--mesh PxDxM`, M > 1) is item
-    12.7b.3c; `--mesh AxB` with B > 1 runs (tests/test_torch_tp_steps.py)."""
+def test_train_cli_refuses_a_model_axis(monkeypatch):
+    """`--mesh PxDxM` with M > 1 builds a (pod, data, model) mesh over the
+    ranks torchrun launched (tests/test_torch_pod_model.py runs it on
+    eight); a mesh whose ranks are not the world's is refused."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match=r"item 12\.7b\.3c"):
+    made = []
+    monkeypatch.setattr(train, "make_mesh",
+                        lambda *a, **kw: made.append((a, kw)) or "mesh")
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    assert train.parse_mesh("2x1x2", device="cpu") == "mesh"
+    assert made == [(((2, 1, 2), ("pod", "data", "model")),
+                     {"device": "cpu", "backend": None})]
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="holds 4 ranks but the world has 2"):
         train.parse_mesh("2x1x2")
+    assert len(made) == 1

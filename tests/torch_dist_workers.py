@@ -400,8 +400,11 @@ def pod_sigterm_scenario(mesh, pl):
 def _fsdp_step(mesh, pl, cfg, remat="nothing", sync="local-mean",
                compute_dtype=torch.float32, **kw):
     """The reduced model's data-mesh train step (fp32 compute unless
-    `compute_dtype`, constant lr, the payload's clip, `remat`), through a
-    compressor of `cfg` (its pod `sync`) when given."""
+    `compute_dtype`, constant lr, the payload's clip, `remat`, an MoE
+    capacity factor of the payload's `capacity` where it names one),
+    through a compressor of `cfg` (its pod `sync`) when given."""
+    import dataclasses
+
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.sketch import SketchConfig
     from repro_torch.launch import steps
@@ -409,7 +412,11 @@ def _fsdp_step(mesh, pl, cfg, remat="nothing", sync="local-mean",
     from repro_torch.models.config import ShapeSpec
     from repro_torch.optim import AdamWConfig, schedule
     from repro_torch.optim.compress import SketchCompressor
-    model = build_model(reduced(get_config(pl["arch"])))
+    arch = reduced(get_config(pl["arch"]))
+    if pl.get("capacity"):
+        arch = dataclasses.replace(arch, moe=dataclasses.replace(
+            arch.moe, capacity_factor=pl["capacity"]))
+    model = build_model(arch)
     comp = (None if cfg is None else
             SketchCompressor(SketchConfig(**cfg), sync=sync))
     return model, steps.build_train_step(
@@ -646,6 +653,33 @@ def pod_data_scenario(mesh, pl):
                 "ledger": led, "wire_bytes": met.get("wire_bytes")})
         out[mode] = {"held": held, "runs": runs}
     out["partial"] = _partial_split(mesh)
+    if "ckpt_dir" in pl:
+        out["ckpt"] = _save_and_restore(mesh, pl)
+    return out
+
+
+def _save_and_restore(mesh, pl):
+    """`train_loop.run(mesh=, shardings=)` with a checkpoint directory on
+    the mesh (compressed, sketch-mean): one step, saved; then the same
+    call again, which restores the step and runs none. The saved and the
+    restored states' leaves (this rank's blocks and EF row)."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.runtime import train_loop
+    model, step_fn = _fsdp_step(mesh, pl, pl["cfg"], sync="sketch-mean")
+    data = SyntheticLM(DataConfig(vocab=256, seq_len=pl["seq"],
+                                  global_batch=pl["batch"]))
+    state = steps.shard_state(model, steps.from_numpy_state(
+        model, pl["state"], device="cpu"), mesh)
+    specs = steps.state_specs(model, mesh, state)
+    cfg = train_loop.LoopConfig(total_steps=1, ckpt_dir=pl["ckpt_dir"],
+                                npod=mesh.shape["pod"], async_ckpt=False)
+    out = []
+    for _ in range(2):
+        state, _ = train_loop.run(step_fn, state, data, cfg, mesh=mesh,
+                                  shardings=specs, log=lambda *_: None)
+        out.append([t.clone() for t in tree_leaves(state)])
     return out
 
 
@@ -976,6 +1010,179 @@ def tp_family_scenario(mesh, pl):
     return out
 
 
+def _steps_case(mesh, pl, case):
+    """One train case on the mesh from the case's whole state
+    (`shard_state`), once a mode ("compressed": a sketch-mean compressor
+    of the payload's sketch; "uncompressed"), fp32 compute, clip 1.0: per
+    step the loss, the clip's norm, the whole params, m and v
+    (`unshard_state`), this rank's EF, the ledger and `wire_bytes`; the
+    shapes this rank holds."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import steps
+    from repro_torch.rp import shard
+    out = {}
+    for mode in case["modes"]:
+        compressed = mode == "compressed"
+        model, step_fn = _fsdp_step(
+            mesh, dict(pl, arch=case["arch"], capacity=case.get("capacity")),
+            pl["cfg"] if compressed else None, sync="sketch-mean")
+        whole = steps.from_numpy_state(model, case["state"], device="cpu")
+        if not compressed:
+            whole.pop("ef", None)
+        state = steps.shard_state(model, whole, mesh)
+        held = [tuple(t.shape) for t in tree_leaves(state["params"])]
+        runs = []
+        for batch in case["batches"]:
+            shard.collective_ledger().reset()
+            state, met = step_fn(state, {k: torch.from_numpy(v)
+                                         for k, v in batch.items()})
+            led = shard.collective_ledger().table()
+            full = steps.unshard_state(model, state, mesh)
+            runs.append({
+                "loss": float(met["loss"]),
+                "grad_norm": float(met["grad_norm"]),
+                "params": [t.clone() for t in tree_leaves(full["params"])],
+                "m": [t.clone() for t in tree_leaves(full["opt"]["m"])],
+                "v": [t.clone() for t in tree_leaves(full["opt"]["v"])],
+                "ef": [t.clone() for t in tree_leaves(state.get("ef", {}))],
+                "ledger": led, "wire_bytes": met.get("wire_bytes")})
+        out[mode] = {"held": held, "runs": runs}
+    return out
+
+
+def mesh_ckpt_scenario(mesh, pl):
+    """The train loop on the mesh (the payload's arch, its sketch with a
+    sketch-mean compressor, `fused` for `fused_update=True` and clip
+    None, a dense EF) twice from one state: uninterrupted, and with
+    checkpoints every step and a crash at `crash_at`, restarted from the
+    directory. Returns both final states' leaves (this rank's blocks and
+    EF), the whole final state (`unshard_state`), the restart report and
+    this rank's blocks of the last checkpoint through `restore(shardings=)`
+    (its EF stacked `(npod, ...)` where the mesh has a pod axis). With
+    `sketched_dir`, one step more from a fresh state, saved as a sketched
+    record of the stacked rows (`for_pod_rows`) and restored: the live EF
+    and the restored one. With `respec`, the uninterrupted run's last
+    checkpoint restored onto a (1, pod * data, model) mesh of the same
+    ranks: its step, whole state and EF."""
+    from repro_torch.ckpt import SketchedTreeCodec, checkpointer, \
+        resume_pod_rank
+    from repro_torch.core.sketch import SketchConfig
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import train_loop
+    from repro_torch.runtime.resilience import FaultInjector, \
+        run_with_restarts
+    carry_ops(pl["ops"])
+    fused = pl.get("fused", False)
+    model, step_fn = _fsdp_step(mesh, dict(pl, clip=None) if fused else pl,
+                                pl["cfg"], sync="sketch-mean",
+                                fused_update=fused)
+    npod = mesh.shape.get("pod", 1)
+    data = SyntheticLM(DataConfig(vocab=256, seq_len=pl["seq"],
+                                  global_batch=pl["batch"]))
+
+    def fresh(on=mesh):
+        whole = steps.from_numpy_state(model, pl["state"], device="cpu")
+        return steps.shard_state(model, whole, on)
+    specs = steps.state_specs(model, mesh, fresh())
+    total = pl["steps"]
+
+    def loop(ckpt_dir=None, injector=None, steps_=total, codec=None):
+        return train_loop.run(
+            step_fn, fresh(), data, train_loop.LoopConfig(
+                total_steps=steps_, ckpt_dir=ckpt_dir, ckpt_every=1,
+                npod=npod, log_every=100, keep_ckpts=1,
+                async_ckpt=pl["async"]),
+            injector=injector, ef_codec=codec, mesh=mesh, shardings=specs,
+            log=lambda *_: None)[0]
+
+    plain = loop(pl["plain_dir"])
+    final = {}
+
+    def attempt(injector):
+        final["state"] = loop(pl["dir"], injector)
+        return total
+
+    report = run_with_restarts(attempt, max_restarts=1,
+                               injector=FaultInjector({pl["crash_at"]}))
+    example = fresh()
+    if npod > 1:
+        example["ef"] = tree_map(lambda t: torch.empty(
+            (npod,) + tuple(t.shape)), example["ef"])
+    restored, _ = checkpointer.restore(
+        pl["dir"], example, mesh=mesh, shardings=dict(
+            specs, ef=tree_map(lambda t: (None,) * t.ndim, example["ef"])))
+
+    def leaves(state):
+        return [t.clone() for t in tree_leaves(state)]
+    out = {"coordinate": mesh.coordinate, "plain": leaves(plain),
+           "resumed": leaves(final["state"]),
+           "whole": leaves(steps.unshard_state(model, plain, mesh)),
+           "restored": leaves(restored), "restarts": report.restarts,
+           "final_step": report.final_step}
+    if pl.get("sketched_dir"):
+        codec = SketchedTreeCodec.for_pod_rows(
+            SketchConfig(**pl["cfg"]), fresh()["ef"], npod)
+        live = loop(pl["sketched_dir"], steps_=1, codec=codec)
+        back, step = resume_pod_rank(pl["sketched_dir"], fresh(), mesh,
+                                     shardings=specs)
+        out["sketched"] = {"live": leaves(live["ef"]), "step": step,
+                           "restored": leaves(back["ef"]),
+                           "params_equal": all(torch.equal(a, b) for a, b in
+                                               zip(tree_leaves(back[
+                                                   "params"]), tree_leaves(
+                                                   live["params"])))}
+    if pl.get("respec"):
+        flat = make_mesh((1, mesh.shape["data"] * npod, mesh.shape["model"]),
+                         ("pod", "data", "model"), device="cpu",
+                         backend="gloo")
+        state, step = resume_pod_rank(pl["plain_dir"], fresh(flat), flat,
+                                      shardings=steps.state_specs(
+                                          model, flat, fresh(flat)))
+        out["respec"] = {"step": step, "ef": leaves(state["ef"]),
+                         "whole": leaves(steps.unshard_state(model, state,
+                                                             flat))}
+    return out
+
+
+def pod_model_scenario(mesh, pl):
+    """The (pod, data, model) mesh: `_steps_case` for each of the
+    payload's train cases, `tp_serve_scenario` on its serving cases, then
+    `mesh_ckpt_scenario` on the payload's `ckpt`."""
+    carry_ops(pl["ops"])
+    out = {"coordinate": mesh.coordinate,
+           "train": {c["name"]: _steps_case(mesh, pl, c)
+                     for c in pl["train"]}}
+    out["serve"] = tp_serve_scenario(mesh, {"cases": pl["serve"]})
+    out["ckpt"] = mesh_ckpt_scenario(mesh, dict(pl, **pl["ckpt"]))
+    return out
+
+
+def cli_resume_scenario(mesh, pl):
+    """The train CLI (`train.main`) on this rank's group twice: with
+    `--crash-at`, which raises, then the same argv without it, which
+    resumes; rank 0's printed lines of both and the first one's error."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+    os.environ["WORLD_SIZE"] = str(dist.get_world_size())
+    first = io.StringIO()
+    error = None
+    with contextlib.redirect_stdout(first):
+        try:
+            train.main(pl["argv"] + ["--crash-at", str(pl["crash_at"])])
+        except RuntimeError as err:
+            error = str(err)
+    second = io.StringIO()
+    with contextlib.redirect_stdout(second):
+        train.main(pl["argv"])
+    return {"error": error, "first": first.getvalue(),
+            "second": second.getvalue()}
+
+
 def _flat(tree, prefix=()):
     out = {}
     for k, v in tree.items():
@@ -1003,4 +1210,7 @@ SCENARIOS = {"shard": shard_scenario, "collective": collective_scenario,
              "pod_data": pod_data_scenario, "tp_grad": tp_grad_scenario,
              "tp_steps": tp_steps_scenario, "tp_serve": tp_serve_scenario,
              "tp_family": tp_family_scenario,
-             "tp_collectives": tp_collectives_scenario}
+             "tp_collectives": tp_collectives_scenario,
+             "mesh_ckpt": mesh_ckpt_scenario,
+             "pod_model": pod_model_scenario,
+             "cli_resume": cli_resume_scenario}
