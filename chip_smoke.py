@@ -384,11 +384,30 @@ Phases (each raises on failure, so the script exits non-zero):
      the restarted step's loss 24b's second one bit for bit; bytes on
      disk, the save's host-blocking ms and the restore's seconds. Each
      rank's peak at most 18 GiB. Its numbers go on the `pod_model` line.
+  25. the dry run (`launch/dryrun.py`), host work beside the card's
+     runs: four processes, started after phase 2's build, each counting
+     one cell's step on meta tensors as rank 0 of a fake process group,
+     with no card (CUDA_VISIBLE_DEVICES empty); their results are read
+     after phase 23. 25a: phase 22a's uncompressed cell (llama3.2-3b's
+     widths, 2 layers, seq 1024, batch 2, `(data=1, model=2)`, bf16 under
+     `cast_params_once`): its ledger, tag by tag (calls and bytes), must
+     equal the ledger rank 0 recorded for 22a's last uncompressed step.
+     25b: phase 9's one-rank cell (2 layers, seq 4096, batch 2, the
+     fused compressed step): its `peak_bytes_per_device` against phase
+     9's `max_memory_allocated` must lie within 0.5-2.0 of it (a reading:
+     meta counts the einsum route where the card runs K1 and K4), and its
+     `compute_s` (the counted flops at the published bf16 peak) is
+     printed as a share of phase 9's measured device ms a step. 25c:
+     `python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape
+     train_4k` on (16, 16), and on (2, 16, 16) with `--compress
+     tt:k=1024,rank=8,order=4 --compress-sync sketch-mean`: status ok,
+     flops above 0, their cell JSON printed. The phase's processes' seconds
+     and the wait for them go on the `dry_run` line.
 Then it prints the `collective` JSON line (phase 15's numbers), the
-`pod_ckpt`, `lm_serve`, `fsdp`, `pod_data`, `pod_model`, `tp` and
-`tp_families` lines (phases 16 to 24), the `kernels` JSON line, the
-card's name and power limit, and as its last line `{"ok": true,
-"device": {...}}`.
+`pod_ckpt`, `lm_serve`, `fsdp`, `pod_data`, `pod_model`, `tp`,
+`tp_families` and `dry_run` lines (phases 16 to 25), the `kernels` JSON
+line, the card's name and power limit, and as its last line `{"ok":
+true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -6231,6 +6250,179 @@ def tp_phase(dev) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the dry run, on meta tensors beside the card's runs
+# ---------------------------------------------------------------------------
+
+DRY_RATIO = (0.5, 2.0)   # 25b: meta peak / phase 9's max_memory_allocated
+DRY_TIMEOUT = 900.0      # seconds each dry-run process may take
+# 25c: the production cells, through the CLI a user runs
+DRY_CLI = {"25c_16x16": ["--arch", "llama3.2-3b", "--shape", "train_4k"],
+           "25c_2x16x16": ["--arch", "llama3.2-3b", "--shape", "train_4k",
+                           "--multi-pod", "--compress", TRAIN_COMPRESS,
+                           "--compress-sync", "sketch-mean"]}
+
+
+def _dry_cell(name: str, out: str) -> None:
+    """25a or 25b in this process (a child of the smoke, no card): the
+    cell's JSON written to `out`."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeSpec
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              n_layers=TRAIN_LAYERS)
+    if name == "25a":   # phase 22a's uncompressed cell
+        cell = dryrun.run_cell(
+            "llama3.2-3b", "train_1k", multi_pod=False, out_dir=None,
+            cfg_override=cfg, mesh_shape=(1, 2),
+            shape_override=ShapeSpec("train_1k", TP_SEQ, TP_BATCH, "train"),
+            opts={"cast_params_once": True})
+    else:               # phase 9's one-rank cell
+        cell = dryrun.run_cell(
+            "llama3.2-3b", "train_4k", multi_pod=False, out_dir=None,
+            cfg_override=cfg, mesh_shape=(),
+            shape_override=ShapeSpec("train_4k", 4096, TRAIN_BATCH, "train"),
+            compress=TRAIN_COMPRESS, fused_update=True)
+    Path(out).write_text(json.dumps(cell))
+
+
+def dry_start() -> dict:
+    """Start phase 25's four processes; returns what `dry_finish` reads."""
+    import os
+    import tempfile
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dry_"))
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    procs = {}
+    for name in ("25a", "25b"):
+        code = (f"import sys; sys.path[:0] = [{str(REPO)!r}, {str(SRC)!r}]; "
+                f"import chip_smoke; chip_smoke._dry_cell({name!r}, "
+                f"{str(root / name)!r})")
+        procs[name] = [sys.executable, "-c", code]
+    for name, argv in DRY_CLI.items():
+        procs[name] = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       *argv, "--out", str(root / name)]
+    import atexit
+    import threading
+    started, ended = {}, {}
+
+    def watch(name, proc):     # each process's own end, while phases run
+        proc.wait()
+        ended[name] = time.perf_counter()
+
+    for name, cmd in procs.items():
+        log_f = open(root / f"{name}.log", "w")
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log_f,
+                                stderr=subprocess.STDOUT)
+        started[name] = (proc, log_f, time.perf_counter())
+        threading.Thread(target=watch, args=(name, proc), daemon=True).start()
+    # a phase that fails ends the smoke: its dry runs end with it
+    atexit.register(lambda: [p.kill() for p, _, _ in started.values()
+                             if p.poll() is None])
+    log(f"25: started the dry runs {sorted(started)} (on meta tensors, no "
+        "card) beside the card's phases")
+    return {"root": root, "procs": started, "ended": ended}
+
+
+def _dry_wait(dry: dict) -> dict:
+    """Wait for phase 25's processes; {name: (cell, seconds)}. A process
+    that fails or outlives DRY_TIMEOUT fails the phase."""
+    out = {}
+    for name, (proc, log_f, t0) in dry["procs"].items():
+        try:
+            rc = proc.wait(timeout=max(1.0, DRY_TIMEOUT - (
+                time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        log_f.close()
+        seconds = dry["ended"].get(name, time.perf_counter()) - t0
+        text = (dry["root"] / f"{name}.log").read_text()
+        if rc != 0:
+            raise AssertionError(f"25 {name}: the dry run ended with {rc}: "
+                                 f"{text[-3000:]}")
+        path = dry["root"] / name
+        if path.is_dir():    # the CLI's cell file
+            path = next(path.glob("*.json"))
+        out[name] = (json.loads(path.read_text()), seconds)
+    return out
+
+
+def _dry_by_tag(rows) -> dict:
+    """{tag: (calls, bytes)} of ledger rows."""
+    out = {}
+    for r in rows:
+        calls, nbytes = out.get(r["tag"], (0, 0))
+        out[r["tag"]] = (calls + r["calls"], nbytes + r["bytes"])
+    return out
+
+
+def dry_finish(dry: dict, tp: dict, train_log: dict) -> dict:
+    """Phase 25's checks once its processes end: 25a against 22a's rank 0
+    ledger of its last uncompressed step, 25b against phase 9's peak and
+    device ms a step, 25c's cells ok. Returns the `dry_run` line."""
+    import shutil
+
+    from repro_torch.launch import roofline
+    t0 = time.perf_counter()
+    try:
+        cells = _dry_wait(dry)
+    finally:
+        shutil.rmtree(dry["root"], ignore_errors=True)
+    wait_s = time.perf_counter() - t0
+    for name, (cell, seconds) in cells.items():
+        if cell["status"] != "ok" or \
+                cell["roofline"]["hlo_flops_per_device"] <= 0:
+            raise AssertionError(f"25 {name}: {cell}")
+        log(f"25 {name}: {seconds:.1f} s; full-depth trace "
+            f"{cell['compile_s']} s, probes {cell['probe_compile_s']} s; "
+            f"notes {cell['notes']}")
+    # 25a: the dry run's ledger against 22a's rank 0 step, tag by tag
+    dry_led = _dry_by_tag(cells["25a"][0]["ledger"])
+    r0 = next(r for r in tp["22a"]["ranks"] if r["rank"] == 0)
+    card = {tag: (row["calls"], row["bytes"]) for tag, row in
+            r0["uncompressed"]["steps"][-1]["ledger"].items()}
+    log(f"25a: the dry run's ledger by tag {dry_led}; 22a rank 0's last "
+        f"uncompressed step {card}")
+    if dry_led != card:
+        raise AssertionError(f"25a: the dry run's ledger {dry_led} != 22a "
+                             f"rank 0's {card}")
+    # 25b: peak memory and compute against phase 9's measurements
+    rb = cells["25b"][0]["roofline"]
+    peak = rb["memory_per_device"]["peak_bytes_per_device"]
+    card_peak = train_log["peak_gib"] * 2**30
+    ratio = peak / card_peak
+    step_ms = statistics.median(train_log["step_ms"])
+    share = rb["compute_s"] * 1e3 / step_ms
+    log(f"25b: meta peak {peak / 2**30:.2f} GiB (einsum route) / phase 9's "
+        f"max_memory_allocated {train_log['peak_gib']:.2f} GiB (K1 and K4) "
+        f"= {ratio:.3f} (a reading; bound {DRY_RATIO}); the counted flops "
+        f"{rb['hlo_flops_per_device']:.4g} at the published bf16 peak "
+        f"({roofline.PEAK_FLOPS:.4g} FLOP/s) take {rb['compute_s'] * 1e3:.2f}"
+        f" ms, {100 * share:.2f}% of phase 9's {step_ms:.1f} device ms a "
+        "step: the step's share of the published bf16 peak")
+    if not DRY_RATIO[0] <= ratio <= DRY_RATIO[1]:
+        raise AssertionError(f"25b: meta peak / card peak {ratio:.3f} "
+                             f"outside {DRY_RATIO}")
+    for name in DRY_CLI:
+        print(json.dumps(cells[name][0]))
+    seconds = {name: sec for name, (_, sec) in cells.items()}
+    log(f"phase 25: the dry runs took {seconds} s in their own processes "
+        f"beside phases 3-23; waiting for them after phase 23 took "
+        f"{wait_s:.1f} s, the checks {time.perf_counter() - t0 - wait_s:.2f}"
+        " s")
+    return {"seconds": seconds, "wait_s": wait_s,
+            "25a": {"ledger_by_tag": {t: list(v) for t, v in
+                                      dry_led.items()}},
+            "25b": {"peak_bytes": peak, "card_peak_bytes": card_peak,
+                    "ratio": ratio, "compute_s": rb["compute_s"],
+                    "card_step_ms": step_ms, "bf16_peak_share": share},
+            "25c": {name: cells[name][0]["roofline"] for name in DRY_CLI}}
+
+
 def _leaf_names(tree, prefix=()):
     """Key paths of a nested dict's leaves in sorted-key order."""
     out = []
@@ -6277,6 +6469,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _sweep.build()
     log(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f}s")
+    # -- 25. the dry run: host processes beside the card's phases ----------
+    dry = dry_start()
     for name, text in logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("Compiling entry", "registers",
@@ -6985,6 +7179,10 @@ def main() -> int:
         next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
         launches[name] += n
 
+    # -- 25. the dry run (started after phase 2), checked -----------------
+    dry_run = dry_finish(dry, tp, next(
+        r for r in rows if r["name"] == "fused_update:tt")["train"])
+
     for name in launches:
         total = sum(r["launches"] for r in rows
                     if r["name"].split(":")[0] == name)
@@ -7003,6 +7201,7 @@ def main() -> int:
     print(json.dumps({"pod_model": pod_model}))
     print(json.dumps({"tp": tp}))
     print(json.dumps({"tp_families": fam}))
+    print(json.dumps({"dry_run": dry_run}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -125,14 +125,16 @@ class CPRP:
 
 
 def sample_cp_rp(generator: torch.Generator, dims: Sequence[int], k: int,
-                 rank: int, dtype=torch.float32) -> CPRP:
+                 rank: int, dtype=torch.float32, device=None) -> CPRP:
     """Draw f_CP(R) factors per Definition 2 (var = (1/R)^(1/N)) on the
-    generator's device."""
+    generator's device (or `device`: 'meta', the dry run's, where torch
+    draws nothing)."""
+    device = generator.device if device is None else device
     N = len(dims)
     std = (1.0 / rank) ** (1.0 / (2.0 * N))
     return CPRP(tuple(
         std * torch.randn((k, int(dims[n]), rank), generator=generator,
-                          device=generator.device, dtype=dtype)
+                          device=device, dtype=dtype)
         for n in range(N)))
 
 

@@ -147,9 +147,11 @@ class TTRP:
 
 
 def sample_tt_rp(generator: torch.Generator, dims: Sequence[int], k: int,
-                 rank: int, dtype=torch.float32) -> TTRP:
+                 rank: int, dtype=torch.float32, device=None) -> TTRP:
     """Draw f_TT(R) cores per Definition 1's variance schedule, on the
-    generator's device."""
+    generator's device (or `device`: 'meta', the dry run's, where torch
+    draws nothing)."""
+    device = generator.device if device is None else device
     N = len(dims)
     ranks = [1] + [rank] * (N - 1) + [1]
     cores = []
@@ -161,7 +163,6 @@ def sample_tt_rp(generator: torch.Generator, dims: Sequence[int], k: int,
         else:
             var = 1.0 / rank
         g = torch.randn((k, ranks[n], int(dims[n]), ranks[n + 1]),
-                        generator=generator, device=generator.device,
-                        dtype=dtype)
+                        generator=generator, device=device, dtype=dtype)
         cores.append(g * math.sqrt(var))
     return TTRP(tuple(cores))

@@ -53,6 +53,10 @@ from repro_torch.core.tt_rp import TTRP
 from .ops import (MAX_ORDER, MAX_RANK, ContractionPlan, kernel_order_supported,
                   plan_contraction, sweep_hbm_bytes, tt_cores_squeezed)
 
+# the devices whose tensors take K4's plain version: the CPU, and 'meta'
+# (the dry run counts the plain program, `launch/dryrun.py`)
+_PLAIN_DEVICES = ("cpu", "meta")
+
 
 def plan_fused_update(family: str, k: int, b: int, dims: tuple[int, ...],
                       rank: int) -> ContractionPlan:
@@ -414,8 +418,8 @@ def fused_update_buckets(op, y, p, w, m, v, lr, c1, c2, *, alpha: float,
              JLT 1/sqrt(k) into the kernel's scale.
 
     Returns (resid, w_new, m_new, v_new), each (nb, *dims) float32. CPU
-    tensors take the plain version; CUDA tensors launch K4 (counted in
-    `fused_update_buckets.launches`) or raise.
+    and meta tensors take the plain version; CUDA tensors launch K4
+    (counted in `fused_update_buckets.launches`) or raise.
     """
     family, cores = _operator(op)
     nb = y.shape[0]
@@ -423,7 +427,7 @@ def fused_update_buckets(op, y, p, w, m, v, lr, c1, c2, *, alpha: float,
     dense = (p, w, m, v)
     _check(plan, y, dense)
     hp = dict(alpha=alpha, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
-    if y.device.type == "cpu":
+    if y.device.type in _PLAIN_DEVICES:
         return fused_update_buckets_plain(op, y, p, w, m, v, lr, c1, c2,
                                           **hp)
     outs = tuple(torch.empty_like(p) for _ in range(4))
@@ -448,9 +452,9 @@ def fused_update_block(op, y, p, w, m, v, lr, c1, c2, *,
     The rest as `fused_update_buckets`.
 
     Returns (resid in p's shape, whole; w_new, m_new, v_new in w's shape,
-    the block). CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise. A block split on two dims (a rank of a (data,
-    model) mesh) launches the entry `fused_update_block2`, counted in
+    the block). CPU and meta tensors take the plain version; CUDA
+    tensors launch the kernel or raise. A block split on two dims (a rank
+    of a (data, model) mesh) launches the entry `fused_update_block2`, counted in
     `fused_update_block.launches_2d`; the others `fused_update_block`,
     counted in `fused_update_block.launches`.
     """
@@ -459,7 +463,7 @@ def fused_update_block(op, y, p, w, m, v, lr, c1, c2, *,
     plan = plan_fused_update(family, op.k, nb, op.in_dims, op.rank)
     _check_block(plan, layout, y, p, (w, m, v))
     hp = dict(alpha=alpha, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
-    if y.device.type == "cpu":
+    if y.device.type in _PLAIN_DEVICES:
         return fused_update_block_plain(op, y, p, w, m, v, lr, c1, c2,
                                         layout=layout, **hp)
     outs = (torch.empty_like(p),) + tuple(torch.empty_like(w)

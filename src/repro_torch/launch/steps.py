@@ -99,8 +99,11 @@ rank (`SEQ_PARALLEL`, as the reference's); their caches by
 RG-LRU's `h` and `conv` by channels and its ring by positions,
 whisper's self and cross K/V by heads; `cache_layout`).
 
-What stays refused: a model size that splits a head; `fused_update`
-with a pod axis raises, as in the reference.
+A model size that splits a decoder's or the hybrid's query heads keeps
+the reference's column blocks of `wq` (`launch.tp.ModelAxis.head_split`).
+What stays refused: a model size that splits mamba2's or whisper's
+heads, or a decoder's Hq*hd columns; `fused_update` with a pod axis
+raises, as in the reference.
 """
 from __future__ import annotations
 
@@ -201,12 +204,16 @@ def _heads(cfg: ArchConfig) -> int:
 
 
 def _check_mesh(mesh, cfg: ArchConfig) -> bool:
-    """Refuse a model axis that would split inside a head; True on a mesh
-    whose data or model axis is above 1 (a pod axis beside them
-    included)."""
+    """Refuse a model axis that would split inside a head the port cannot
+    split (mamba2's SSD heads, whisper's; the decoder's and the hybrid's
+    query heads split where the axis divides their Hq*hd columns,
+    `launch.tp.ModelAxis.head_split`); True on a mesh whose data or model
+    axis is above 1 (a pod axis beside them included)."""
     sizes = dict(mesh.shape)
     if sizes.get("model", 1) > 1:
-        if _heads(cfg) % sizes["model"]:
+        split = cfg.family in ("decoder", "hybrid") and (
+            cfg.n_heads * cfg.hd) % sizes["model"] == 0
+        if _heads(cfg) % sizes["model"] and not split:
             raise NotImplementedError(
                 f"{cfg.name}: a model axis of {sizes['model']} does not "
                 f"divide its {_heads(cfg)} heads (the reference's layout "

@@ -45,6 +45,18 @@ through `rp.shard`'s ledger under its own tag:
   rank's block (the RG-LRU's gate products, row-split with whole
   columns, onto the rank's channels; tag `tp_gate`).
 
+A model axis that does not divide the query heads (llama3.2-3b's 24, or
+qwen2-vl-2b's 12, on the production mesh's 16) keeps the reference's
+layout, which splits `wq` into equal blocks of Hq*hd/ms columns and `wo`
+into as many rows: a block holds part of a head (`ModelAxis.head_split`,
+set by `transformer._model_axis` for the decoder and hybrid families).
+The rank's block of q is all-gathered to every head (`cols`, tag
+`tp_heads`), the rank attends with the heads its block of `wo`'s rows
+reads (at most two more than the block's share: the heads at its two
+ends, which the neighbouring ranks attend too), and takes its columns of
+their output into the row-parallel product. The KV heads then never
+divide either, so `wk`/`wv` are read whole.
+
 Convention: a tensor the model ranks hold alike carries the same whole
 gradient on each of them (the Megatron convention); a product's partial
 sum is reduced where it leaves the parallel region. The gradients of the
@@ -203,6 +215,37 @@ class ModelAxis:
         self.seq_parallel = seq_parallel
         self.gqa_expand = gqa_expand
         self.moe_c_shard = moe_c_shard
+        # (lo, hi, off, width) where the axis splits inside a head: the
+        # query heads [lo, hi) the rank's `width` rows of wo read, and the
+        # offset of those rows in their (hi - lo) heads' output
+        self.head_split = None
+
+    def split_heads(self, n_heads: int, hd: int) -> None:
+        """Mark the axis as splitting `n_heads` heads of `hd` inside a
+        head: the rank's rows of wo are [index w, (index + 1) w), w =
+        n_heads hd / size."""
+        width = n_heads * hd // self.size
+        a = self.index * width
+        lo, hi = a // hd, (a + width - 1) // hd + 1
+        self.head_split = (lo, hi, a - lo * hd, width)
+
+    def rank_heads(self, q: torch.Tensor) -> torch.Tensor:
+        """The query heads (dim 2) the rank attends with: its own block of
+        q's heads as the forward made it, or under `head_split` (q every
+        head) the heads its rows of wo read."""
+        if self.head_split is None:
+            return q
+        lo, hi = self.head_split[:2]
+        return q[:, :, lo:hi]
+
+    def head_cols(self, attn: torch.Tensor) -> torch.Tensor:
+        """The rank's columns (..., width) of the attention output (...,
+        (hi - lo) hd) of `rank_heads`, which its rows of wo take; the
+        output as it is without `head_split`."""
+        if self.head_split is None:
+            return attn
+        off, width = self.head_split[2:]
+        return attn.narrow(-1, off, width)
 
     @classmethod
     def from_settings(cls, *, seq_parallel: bool = False):

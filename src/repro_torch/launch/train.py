@@ -54,7 +54,7 @@ holds its blocks of the leaves split over either axis, and the forward
 runs tensor-, sequence- and expert-parallel over 'model'
 (`launch/tp.py`; whisper's stream whole on every model rank, as the
 reference's); the model ranks of a data index take the same rows; a
-model size that splits a head is refused:
+model size that splits mamba2's or whisper's heads is refused:
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-3b \

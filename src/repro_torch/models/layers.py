@@ -180,10 +180,23 @@ def _attend_dense(q, k, v, pq, pk, *, causal, window, softcap, scale):
     return torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
 
 
+def _pv_bf16(p, v):
+    """The flash PV product under `flash_p_bf16`: p (B, Hkv, G, cq, ck)
+    rounded to bf16, v (B, ck, Hkv, dh) in its own dtype, the sums in
+    fp32 (`product_in`; the reference's `preferred_element_type`)."""
+    B, Hkv, G, cq, ck = p.shape
+    dh = v.shape[-1]
+    a = p.to(torch.bfloat16).reshape(B * Hkv, G * cq, ck)
+    b = v.permute(0, 2, 1, 3).reshape(B * Hkv, ck, dh)
+    return product_in(a, b, torch.float32).reshape(B, Hkv, G, cq, dh)
+
+
 def _attend_flash(q, k, v, pq, pk, *, causal, window, softcap, scale,
-                  chunk_q: int, chunk_k: int):
+                  chunk_q: int, chunk_k: int, p_bf16: bool = False):
     """Same contract as _attend_dense; O(chunk_q*chunk_k) score memory.
-    Keeps the grouped (Hkv, G) head layout (the reference's default)."""
+    Keeps the grouped (Hkv, G) head layout (the reference's default).
+    `p_bf16` (the settings' `flash_p_bf16`) takes the PV product on bf16
+    softmax weights with fp32 sums."""
     B, Sq, Hkv, G, dh = q.shape
     Sk = k.shape[1]
     if Sq % chunk_q or Sk % chunk_k:
@@ -211,8 +224,9 @@ def _attend_flash(q, k, v, pq, pk, *, causal, window, softcap, scale,
             p = torch.where(msk, torch.exp(s - m_new[..., None]), 0.0)
             corr = torch.exp(m_run - m_new)
             l_run = l_run * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p, vi)
+            pv = (_pv_bf16(p, v[:, j:j + chunk_k]) if p_bf16 else
+                  torch.einsum("bhgqk,bkhd->bhgqd", p, vi))
+            acc = acc * corr[..., None] + pv
             m_run = m_new
         out = acc / torch.clamp(l_run, min=1e-30)[..., None]  # (B,Hkv,G,Cq,dh)
         return out.movedim(3, 1)                              # (B,Cq,Hkv,G,dh)
@@ -251,28 +265,32 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ck //= 2
         out = _attend_flash(qg, k, v, positions_q, positions_k, causal=causal,
                             window=window, softcap=softcap, scale=scale,
-                            chunk_q=cq, chunk_k=ck)
+                            chunk_q=cq, chunk_k=ck, p_bf16=cfg.flash_p_bf16)
     return out.reshape(B, Sq, Hq, dh).to(q.dtype)
 
 
 def local_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int, size: int,
-             index: int, *, expand: bool):
+             index: int, *, expand: bool, span: tuple | None = None):
     """The KV heads the query heads of rank `index` of a model axis of
     `size` read, from k, v (B, S, Hkv, dh) of every KV head: the rank's
-    query heads are [index * Hq/size, (index + 1) * Hq/size). `expand`
-    (the settings' `gqa_expand`) repeats each KV head over its G = Hq/Hkv
-    query heads first and takes the rank's Hq/size of them; otherwise the
-    rank takes the grouped KV heads its query heads read (expanded all the
-    same where the rank's heads neither hold whole groups nor lie in
-    one)."""
+    query heads are [index * Hq/size, (index + 1) * Hq/size), or `span`
+    (a, b) where the axis splits inside a head (`ModelAxis.head_split`).
+    `expand` (the settings' `gqa_expand`) repeats each KV head over its G
+    = Hq/Hkv query heads first and takes the rank's query heads' of them;
+    otherwise the rank takes the grouped KV heads its query heads read
+    (expanded all the same where the rank's heads neither hold whole
+    groups nor lie in one)."""
     Hkv = k.shape[2]
     G = n_heads // Hkv
-    hq = n_heads // size
-    a = index * hq
-    if expand or not (hq % G == 0 or G % hq == 0):
-        return tuple(t.repeat_interleave(G, dim=2)[:, :, a:a + hq]
+    if span is None:
+        hq = n_heads // size
+        span = (index * hq, (index + 1) * hq)
+    a, b = span
+    grouped = (a % G == 0 and b % G == 0) or a // G == (b - 1) // G
+    if expand or not grouped:
+        return tuple(t.repeat_interleave(G, dim=2)[:, :, a:b]
                      for t in (k, v))
-    lo, hi = a // G, (a + hq - 1) // G + 1
+    lo, hi = a // G, (b - 1) // G + 1
     return k[:, :, lo:hi], v[:, :, lo:hi]
 
 

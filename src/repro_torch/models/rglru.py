@@ -213,8 +213,9 @@ def rglru_step(x_t, r_t, i_t, lam, h):
 
 def model_axis(cfg: ArchConfig, seq_parallel: bool = False):
     """The forward's model axis (`launch.tp.ModelAxis`), or None; refuses
-    one that splits inside a query head or does not divide the RG-LRU's
-    or the MLP's width."""
+    one that does not divide the query heads' columns (it may split
+    inside a head: `ModelAxis.head_split`) or the RG-LRU's or the MLP's
+    width."""
     return transformer._model_axis(
         cfg, seq_parallel, widths=(("the RG-LRU width", cfg.rnn_width),
                                    ("the MLP width", cfg.d_ff)))
@@ -270,12 +271,20 @@ def _rec_block_seq(cfg, lp_raw, lp, h, axis=None, sp: bool = False):
     return _mlp(lp_raw, lp, h, axis, sp)
 
 
-def _qkv(cfg, lp, hn):
-    """q, k, v (B, S, H, hd) of the heads the leaves hold."""
+def _qkv(cfg, lp, hn, axis=None):
+    """q, k, v (B, S, H, hd) of the heads the leaves hold (every query
+    head where the model axis splits inside one, `transformer._qkv`)."""
     B, S, _ = hn.shape
-    return ((hn @ lp["wq"]).reshape(B, S, -1, cfg.hd),
+    return (transformer._whole_q(hn @ lp["wq"], axis).reshape(
+                B, S, -1, cfg.hd),
             (hn @ lp["wk"]).reshape(B, S, -1, cfg.hd),
             (hn @ lp["wv"]).reshape(B, S, -1, cfg.hd))
+
+
+def _head_cols(attn, axis):
+    """The rank's columns of the attention output for its rows of `wo`
+    (`ModelAxis.head_cols`)."""
+    return attn if axis is None else axis.head_cols(attn)
 
 
 def _window(cfg: ArchConfig) -> int:
@@ -288,13 +297,14 @@ def _attn_block_seq(cfg, lp_raw, lp, h, positions, axis=None,
     if axis is not None:
         hn = axis.enter(hn, sp)
     B, S, _ = hn.shape
-    q, k, v = _qkv(cfg, lp, hn)
+    q, k, v = _qkv(cfg, lp, hn, axis)
     q = nn.apply_rope(q, positions, theta=cfg.rope_theta)
     k = nn.apply_rope(k, positions, theta=cfg.rope_theta)
-    k, v = transformer._heads(cfg, axis, k, v)
+    q, k, v = transformer._heads(cfg, axis, q, k, v)
     attn = nn.attention(q, k, v, positions, positions, causal=True,
                         window=_window(cfg))
-    h = _leave(h, attn.reshape(B, S, -1), lp["wo"], axis, sp)
+    h = _leave(h, _head_cols(attn.reshape(B, S, -1), axis), lp["wo"], axis,
+               sp)
     return _mlp(lp_raw, lp, h, axis, sp)
 
 
@@ -439,12 +449,14 @@ def _attn_block_step(cfg, lp_raw, lp, h, kc, vc, pc, ring, axis=None):
     C); a model axis's block by `cache_specs`) at its slot pos % C, in
     place, and attends over the ring (`transformer._ring_attend`)."""
     B = h.shape[0]
-    q, k, v = _qkv(cfg, lp, nn.rms_norm(h, lp_raw["norm1"])[:, None, :])
+    q, k, v = _qkv(cfg, lp, nn.rms_norm(h, lp_raw["norm1"])[:, None, :],
+                   axis)
     q = nn.apply_rope(q, ring["pos_q"], theta=cfg.rope_theta)
     k = nn.apply_rope(k, ring["pos_q"], theta=cfg.rope_theta)
     attn = transformer._ring_attend(cfg, axis, ring, q, k, v, kc, vc, pc,
                                     _window(cfg))
-    h = _leave(h, attn.reshape(B, -1), lp["wo"], axis, False)
+    h = _leave(h, _head_cols(attn.reshape(B, -1), axis), lp["wo"], axis,
+               False)
     return _mlp(lp_raw, lp, h, axis)
 
 

@@ -23,12 +23,18 @@ and passes what it read down, so a block recomputed in the backward pass
   reduce-scattered over the capacity dim (tag `moe_c`) before the
   combine; off, they go through the combine and are reduced with the
   block's output.
+* `flash_p_bf16`: the flash attention's PV product takes the softmax
+  weights in bf16 and keeps its sums in fp32 (the scores stay fp32), as
+  the reference's; `launch/dryrun.py --flash-bf16` sets it.
+* `unroll_scans`: accepted, and changes nothing. The reference's cost
+  probes set it so that XLA's cost analysis sees every iteration of a
+  `lax.scan`; the port's loops are eager Python, every iteration of
+  which runs and is counted (`scan_unroll()` returns what the
+  reference's does, for a caller that reads it).
 
-The reference's `unroll_scans` and `flash_p_bf16` are the dry run's
-(ROADMAP.md, queue 1 item 12.8). Its `manual_axes` (the axes a
-`shard_map` body holds in manual control) and `constrain_attn_heads`
-(the heads' layout constraint inside flash attention) have nothing to
-act on here: the port has no partitioner, and its attention always runs
+The reference's `manual_axes` (the axes a `shard_map` body holds in
+manual control) and `constrain_attn_heads` (the heads' layout
+constraint inside flash attention) have nothing to act on here: the port has no partitioner, and its attention always runs
 on the rank's heads. Its `sp_block_outputs` chooses where XLA places the
 sequence-parallel constraint on a block's output; the port's collectives
 are written by hand, and a row-parallel product always leaves by one
@@ -52,6 +58,8 @@ class ModelSettings:
     cast_params_once: bool = False
     gqa_expand: bool = False
     moe_c_shard: bool = False
+    flash_p_bf16: bool = False
+    unroll_scans: bool = False
 
 
 _settings: contextvars.ContextVar[ModelSettings] = contextvars.ContextVar(
@@ -60,6 +68,12 @@ _settings: contextvars.ContextVar[ModelSettings] = contextvars.ContextVar(
 
 def get() -> ModelSettings:
     return _settings.get()
+
+
+def scan_unroll():
+    """The reference's `lax.scan(..., unroll=...)` value; the port has no
+    scan to unroll."""
+    return True if _settings.get().unroll_scans else 1
 
 
 @contextlib.contextmanager
@@ -72,4 +86,4 @@ def override(**kw):
         _settings.reset(token)
 
 
-__all__ = ["ModelSettings", "get", "override"]
+__all__ = ["ModelSettings", "get", "override", "scan_unroll"]

@@ -189,18 +189,24 @@ def _model_axis(cfg: ArchConfig, seq_parallel: bool = False, *,
     mesh, or None; refuses what the axis does not split: a head count
     (`heads`, the config's query heads by default) it would split inside
     a head, or a width of `widths` ((what, size) pairs: a dim whose
-    blocks the family reads as the rank's) it does not divide. Every
-    family reads its axis here."""
+    blocks the family reads as the rank's) it does not divide. The
+    decoder's and the hybrid's query heads may split where the axis
+    divides their Hq*hd columns (`ModelAxis.head_split`). Every family
+    reads its axis here."""
     mesh = settings.get().mesh
     if mesh is None or mesh.shape.get("model", 1) <= 1:
         return None
     from repro_torch.launch.tp import ModelAxis
     axis = ModelAxis.from_settings(seq_parallel=seq_parallel)
+    split = heads is None and cfg.family in ("decoder", "hybrid")
     heads = cfg.n_heads if heads is None else heads
     if heads % axis.size:
-        raise NotImplementedError(
-            f"{cfg.name}: a model axis of {axis.size} does not divide the "
-            f"{heads} query heads (spec_for would split inside a head)")
+        if not split or heads * cfg.hd % axis.size:
+            raise NotImplementedError(
+                f"{cfg.name}: a model axis of {axis.size} does not divide "
+                f"the {heads} query heads (spec_for would split inside a "
+                "head)")
+        axis.split_heads(heads, cfg.hd)
     for what, size in widths:
         if size % axis.size:
             raise NotImplementedError(
@@ -234,16 +240,27 @@ def _layer_params(cfg: ArchConfig, gather, stacked: dict, i: int, axis
             for k, t in stacked.items()}
 
 
-def _qkv(cfg: ArchConfig, lp: dict, x: torch.Tensor):
+def _qkv(cfg: ArchConfig, lp: dict, x: torch.Tensor, axis=None):
     """q, k, v (B, S, H, hd) of the heads the leaves hold (a model axis:
-    the rank's query heads, and its KV heads or every one)."""
+    the rank's query heads, and its KV heads or every one; one that
+    splits inside a head: every query head, the rank's block of q's
+    columns all-gathered)."""
     B, S, _ = x.shape
     hd = cfg.hd
     q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    return (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
+    return (_whole_q(q, axis).reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
             v.reshape(B, S, -1, hd))
+
+
+def _whole_q(q: torch.Tensor, axis) -> torch.Tensor:
+    """q's columns of every head from the rank's block where the model
+    axis splits inside a head (tag `tp_heads`; the backward
+    reduce-scatters the ranks' partial gradients onto the blocks)."""
+    if axis is None or axis.head_split is None:
+        return q
+    return axis.cols(q, tag="tp_heads")
 
 
 def _ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor, *, moe_groups: int = 1,
@@ -303,7 +320,7 @@ def _block(cfg: ArchConfig, h, lp_raw: dict, positions, compute_dtype,
     if axis is not None:
         hn = axis.enter(hn, sp)
     B, S, _ = hn.shape
-    q, k, v = _qkv(cfg, lp, hn)
+    q, k, v = _qkv(cfg, lp, hn, axis)
     q = _rope(cfg, q, positions, positions3)
     k = _rope(cfg, k, positions, positions3)
     attn = attend(q, k, v)
@@ -311,8 +328,8 @@ def _block(cfg: ArchConfig, h, lp_raw: dict, positions, compute_dtype,
     if axis is None:
         attn = attn @ lp["wo"]
     else:
-        attn = axis.leave(nn.product_in(attn, lp["wo"], torch.float32),
-                          sp).to(attn.dtype)
+        attn = axis.leave(nn.product_in(axis.head_cols(attn), lp["wo"],
+                                        torch.float32), sp).to(attn.dtype)
     if cfg.post_norm:
         attn = nn.rms_norm(attn, lp_raw["norm1_post"], offset=cfg.norm_offset)
     h = h + attn
@@ -328,13 +345,16 @@ def _block(cfg: ArchConfig, h, lp_raw: dict, positions, compute_dtype,
     return h + ff
 
 
-def _heads(cfg: ArchConfig, axis, k, v):
-    """The KV heads the rank's query heads read, from k, v as `_qkv` gave
-    them (a model axis that does not divide the KV heads: every one)."""
+def _heads(cfg: ArchConfig, axis, q, k, v):
+    """The query heads the rank attends with (`ModelAxis.rank_heads`) and
+    the KV heads they read, from q, k, v as `_qkv` gave them (a model
+    axis that does not divide the KV heads: every one)."""
     if not _kv_whole(cfg, axis):
-        return k, v
-    return nn.local_kv(k, v, cfg.n_heads, axis.size, axis.index,
-                       expand=axis.gqa_expand)
+        return q, k, v
+    span = axis.head_split[:2] if axis.head_split is not None else None
+    return (axis.rank_heads(q),) + nn.local_kv(
+        k, v, cfg.n_heads, axis.size, axis.index, expand=axis.gqa_expand,
+        span=span)
 
 
 def _layer(cfg: ArchConfig, h, stacked: dict, i: int, window: int,
@@ -344,7 +364,7 @@ def _layer(cfg: ArchConfig, h, stacked: dict, i: int, window: int,
     under sequence parallelism), its leaves read through `gather` (see
     `params.take`)."""
     def attend(q, k, v):
-        k, v = _heads(cfg, axis, k, v)
+        q, k, v = _heads(cfg, axis, q, k, v)
         return nn.attention(q, k, v, positions, positions, causal=True,
                             window=window, softcap=cfg.attn_softcap)
     return _block(cfg, h, _layer_params(cfg, gather, stacked, i, axis),
@@ -587,20 +607,27 @@ def _ring_attend(cfg: ArchConfig, axis, ring: dict, q, k, v, kc, vc, pc,
     rows, slot, mine, pos = ring["rows"], ring["slot"], ring["mine"], \
         ring["pos"]
     if ring["seq"]:     # only the rank whose slots hold pos % C writes
-        r = rows[mine]
-        kc[r, :, slot[mine]] = k[mine, 0].to(kc.dtype)
-        vc[r, :, slot[mine]] = v[mine, 0].to(vc.dtype)
-        pc[r, slot[mine]] = pos[mine]
+        # (the other rows write slot 0's own values back: no write depends
+        # on the data's shape, so a dry run on meta tensors takes it too)
+        m = mine[:, None, None]
+        kc[rows, :, slot] = torch.where(m, k[:, 0].to(kc.dtype),
+                                        kc[rows, :, slot])
+        vc[rows, :, slot] = torch.where(m, v[:, 0].to(vc.dtype),
+                                        vc[rows, :, slot])
+        pc[rows, slot] = torch.where(mine, pos, pc[rows, slot])
         hq = q.shape[2]
+        split = axis.head_split is not None     # q holds every head
         out = nn.attention_over_ranks(
-            axis.all_gather(q, 2), kc.transpose(1, 2), vc.transpose(1, 2),
-            ring["pos_q"], pc, axis, causal=True, window=window,
-            softcap=cfg.attn_softcap)
+            q if split else axis.all_gather(q, 2), kc.transpose(1, 2),
+            vc.transpose(1, 2), ring["pos_q"], pc, axis, causal=True,
+            window=window, softcap=cfg.attn_softcap)
+        if split:
+            return axis.rank_heads(out)
         return out[:, :, axis.index * hq:(axis.index + 1) * hq]
     kc[rows, :, slot] = k[:, 0].to(kc.dtype)
     vc[rows, :, slot] = v[:, 0].to(vc.dtype)
     pc[rows, slot] = pos
-    kk, vv = _heads(cfg, axis, kc.transpose(1, 2), vc.transpose(1, 2))
+    q, kk, vv = _heads(cfg, axis, q, kc.transpose(1, 2), vc.transpose(1, 2))
     return nn.attention(q, kk, vv, ring["pos_q"], pc, causal=True,
                         window=window, softcap=cfg.attn_softcap,
                         dense_below=1 << 62)

@@ -254,9 +254,11 @@ class SketchCompressor:
     def _agree_on(self, tree, group) -> None:
         """On the first call with a tree structure, all-gather a digest of
         its (shape, dtype)s over the pod group and refuse a mismatch (a
-        collective over trees of different sizes would hang or mix)."""
+        collective over trees of different sizes would hang or mix). A
+        fake process group (the dry run) has no peer to agree with: the
+        check is skipped there."""
         key = self._memo_key(tree)
-        if self._agreed == key:
+        if self._agreed == key or group.mesh.backend == "fake":
             return
         desc = repr([(tuple(x.shape), str(x.dtype))
                      for x in tree_leaves(tree)]).encode()

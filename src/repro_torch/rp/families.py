@@ -18,15 +18,15 @@ from .registry import register_family
 
 
 @register_family("tt")
-def _make_tt(spec: ProjectorSpec, generator):
+def _make_tt(spec: ProjectorSpec, generator, device=None):
     return sample_tt_rp(generator, spec.dims, spec.k, spec.rank,
-                        dtype=spec.dtype)
+                        dtype=spec.dtype, device=device)
 
 
 @register_family("cp")
-def _make_cp(spec: ProjectorSpec, generator):
+def _make_cp(spec: ProjectorSpec, generator, device=None):
     return sample_cp_rp(generator, spec.dims, spec.k, spec.rank,
-                        dtype=spec.dtype)
+                        dtype=spec.dtype, device=device)
 
 
 @register_family("gaussian", "dense")

@@ -562,9 +562,36 @@ def execute_plan(plan: ExecutionPlan, op, x):
     return _exec_dense_project(plan, op, x)
 
 
+# the TT/CP einsum route's first step holds prod(dims[:-1]) * k * R floats
+# a row of the batch; a batch whose step would pass this many bytes is
+# projected a chunk of rows at a time, as the route reconstructs one row
+# at a time (at 32^4 dims, k 1024, R 8 one row is 1 GiB: the whole of a
+# 571-bucket leaf would be 571 GiB)
+EINSUM_STEP_BYTES = 1 << 30
+
+
+def _einsum_project(plan: ExecutionPlan, op, xt):
+    """The einsum route of a dense projection, in chunks of rows whose
+    first step stays within `EINSUM_STEP_BYTES` (the whole batch at once
+    where it does)."""
+    n = plan.order
+    if plan.family not in _TN_FAMILIES or xt.ndim <= n:
+        return op.project(xt)
+    dims = tuple(op.in_dims)
+    row = _prod(dims[:-1]) * op.k * max(int(op.rank), 1) * 4
+    per = max(1, EINSUM_STEP_BYTES // row)
+    rows = _prod(xt.shape[:-n])
+    if rows <= per:
+        return op.project(xt)
+    flat = xt.reshape((rows,) + dims)
+    out = torch.cat([op.project(flat[i:i + per])
+                     for i in range(0, rows, per)])
+    return out.reshape(tuple(xt.shape[:-n]) + (op.k,))
+
+
 def _exec_dense_project(plan: ExecutionPlan, op, xt):
     if plan.route == "torch":
-        return op.project(xt)
+        return _einsum_project(plan, op, xt)
     from repro_torch.kernels import ops as kops
     kern = kops.tt_project if plan.family == "tt" else kops.cp_project
     n = plan.order

@@ -55,8 +55,13 @@ def make_projector(spec: ProjectorSpec, seed: int = 0, *,
 
     `device=None` means CUDA (raises where it is unavailable). Deterministic
     given (spec, seed, device): the same call regenerates the same
-    operator bitwise.
+    operator bitwise. On 'meta' (the dry run) the operator has its shapes
+    and nothing drawn; the TT and CP families take it (a CPU generator
+    stands in, which torch leaves unused there).
     """
-    gen = torch.Generator(device=resolve_device(device))
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return get_family(spec.family)(spec, torch.Generator(), device=dev)
+    gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     return get_family(spec.family)(spec, gen)

@@ -174,7 +174,10 @@ _AGREED: set = set()
 def _agree_one_tree(tree, group, what: str) -> None:
     """On the first call with a tree structure, all-gather a digest of its
     (shape, dtype)s over `group` and refuse a mismatch: gloo hangs on a
-    collective over tensors of different sizes."""
+    collective over tensors of different sizes. A fake process group (the
+    dry run) has no peer to agree with: the check is skipped there."""
+    if group.mesh.backend == "fake":
+        return
     desc = repr([(tuple(x.shape), str(x.dtype))
                  for x in tree_leaves(tree)]).encode()
     digest = int.from_bytes(hashlib.blake2b(desc, digest_size=7).digest(),

@@ -213,9 +213,22 @@ def test_block_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="does not fill"):
         fused.fused_update_block(op, y[:1], p, *blk, LR, C1, C2,
                                  layout=layout, **HP)
+    # meta tensors (the dry run's) take the plain version and launch
+    # nothing; the launch itself refuses a tensor that is not on CUDA
     meta = [t.to("meta") for t in (y, p, *blk)]
+    mop = rp.make_projector(rp.ProjectorSpec("tt", k, dims, 2), 3,
+                            device="meta")
+    before = (fused.fused_update_block.launches,
+              fused.fused_update_block.launches_2d)
+    outs = fused.fused_update_block(mop, *meta, LR, C1, C2, layout=layout,
+                                    **HP)
+    assert [(t.device.type, tuple(t.shape)) for t in outs] == \
+        [("meta", tuple(p.shape))] + [("meta", tuple(blk[0].shape))] * 3
+    assert (fused.fused_update_block.launches,
+            fused.fused_update_block.launches_2d) == before
     with pytest.raises(ValueError, match="runs on CUDA tensors"):
-        fused.fused_update_block(op, *meta, LR, C1, C2, layout=layout, **HP)
+        fused._launch("fused_update_block", op, (), None, y, (), (), LR, C1,
+                      C2, {})
     fused.fused_update_block.launches = 4
     fused.reset_launch_counts()
     assert fused.fused_update_block.launches == 0

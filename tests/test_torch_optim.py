@@ -305,11 +305,20 @@ def test_fused_typed_errors():
         fused.fused_update_buckets(
             op, args[0], torch.zeros((2, 16, 8, 16)).transpose(1, 2),
             *args[2:], *scal, **HP)
-    # a tensor neither on the CPU nor on CUDA has no plain version and no
-    # kernel: the wrapper raises
+    # meta tensors (the dry run's) take the plain version, as CPU tensors
+    # do, and launch nothing; the launch itself refuses a tensor that is
+    # not on CUDA
     meta = [torch.empty(a.shape, device="meta") for a in args]
+    mop = rp.make_projector(rp.ProjectorSpec("tt", k, dims, 2), 3,
+                            device="meta")
+    before = fused.fused_update_buckets.launches
+    outs = fused.fused_update_buckets(mop, *meta, *scal, **HP)
+    assert [(t.device.type, tuple(t.shape)) for t in outs] == \
+        [("meta", (2,) + dims)] * 4
+    assert fused.fused_update_buckets.launches == before
     with pytest.raises(ValueError, match="CUDA"):
-        fused.fused_update_buckets(op, *meta, *scal, **HP)
+        fused._launch("fused_update", op, (), None, args[0], (), (), *scal,
+                      {})
 
 
 def test_reset_launch_counts_covers_k4():

@@ -722,8 +722,8 @@ def _partial_split(mesh):
 
 
 def _tp_model(case):
-    """The reduced decoder of a model-axis case (its expert count
-    overridden where the case names one)."""
+    """The reduced decoder of a model-axis case (its expert count, its
+    query heads or its KV heads overridden where the case names them)."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduced
@@ -732,6 +732,9 @@ def _tp_model(case):
     if case.get("experts"):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, num_experts=case["experts"]))
+    for key, field in (("heads", "n_heads"), ("kv_heads", "n_kv_heads")):
+        if case.get(key):
+            cfg = dataclasses.replace(cfg, **{field: case[key]})
     return build_model(cfg)
 
 
@@ -1200,6 +1203,54 @@ def _meta(tree):
     return torch.empty(shape, dtype=getattr(torch, dtype), device="meta")
 
 
+def dry_ledger_scenario(mesh, pl):
+    """One train step of the payload's reduced arch on this mesh from a
+    drawn state (the payload's global batch of tokens): the ledger rows
+    it records, as `launch/dryrun.py` counts them on a fake mesh."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.rp import shard
+    cfg = dataclasses.replace(reduced(get_config(pl["arch"])),
+                              **pl.get("cfg", {}))
+    model = build_model(cfg)
+    B, S = pl["tokens"].shape
+    state = steps.shard_state(model, steps.init_train_state(
+        model, torch.Generator().manual_seed(0)), mesh)
+    step = steps.build_train_step(model, ShapeSpec("t", S, B, "train"),
+                                  mesh=mesh)
+    tokens = torch.from_numpy(pl["tokens"])
+    shard.collective_ledger().reset()
+    step(state, {"tokens": tokens, "labels": tokens})
+    return [{k: v for k, v in r.items() if k != "host_s"}
+            for r in shard.collective_ledger().table()]
+
+
+def digest_refusal_scenario(mesh, pl):
+    """Each pod rank's tree of another shape: the compressor's and
+    `gather_pod_rows`' digest agreements must refuse it (the messages)."""
+    from repro_torch.optim.compress import (SketchCompressor,
+                                            parse_compress_flag)
+    from repro_torch.rp import shard
+    group = mesh.group("pod")
+    tree = {"w": torch.zeros(4 + group.index, 2)}
+    out = {}
+    comp = SketchCompressor(parse_compress_flag("tt:k=8,dims=2x2x2"),
+                            pod_axis="pod", mesh=mesh)
+    for name, call in (("compress", lambda: comp._agree_on(tree, group)),
+                       ("pod_rows", lambda: shard.gather_pod_rows(tree,
+                                                                  mesh))):
+        try:
+            call()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
 SCENARIOS = {"shard": shard_scenario, "collective": collective_scenario,
              "train": train_scenario, "resume": resume_scenario,
              "cli": cli_scenario, "pod_ckpt": pod_ckpt_scenario,
@@ -1213,4 +1264,6 @@ SCENARIOS = {"shard": shard_scenario, "collective": collective_scenario,
              "tp_collectives": tp_collectives_scenario,
              "mesh_ckpt": mesh_ckpt_scenario,
              "pod_model": pod_model_scenario,
-             "cli_resume": cli_resume_scenario}
+             "cli_resume": cli_resume_scenario,
+             "dry_ledger": dry_ledger_scenario,
+             "digest_refusal": digest_refusal_scenario}
