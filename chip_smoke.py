@@ -2287,7 +2287,8 @@ def _pod_rank(rank, world, tmp, task, shapes, extra):
         res = {"collective": _pod_collective, "train": _pod_train,
                "ckpt": _pod_ckpt, "fsdp": _fsdp_rank,
                "pod_data": _pod_data_rank,
-               "tp_train": _tp_train_rank}[task](rank, shapes, extra)
+               "tp_train": _tp_train_rank,
+               "tp_sizes": _tp_sizes_rank}[task](rank, shapes, extra)
         Path(tmp, f"{task}_{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -5232,8 +5233,8 @@ TP_SEQ = 1024           # 22a/22b: cut from train_4k's 4096, as phase 21's:
 TP_BATCH = 2            # phase 9's batch: on (2, 2) a row a data index, so
                         # 22a and 22b share the one-rank steps
 TP_GIB = 18.0           # 22b: a rank's peak device memory, at most
-TP_STEPS = 2            # 22a/22b: steps a mode (cut from 3 for the
-                        # smoke's time)
+TP_STEPS = 1            # 22a/22b: steps a mode (cut from 3 to 2 for the
+                        # smoke's time, to 1 for phase 23c's)
 TP_A_MODES = ("uncompressed", "compressed", "fused")
 TP_B_MODES = ("uncompressed-fp32", "fused")
 # (arch, layers or None for all, slots, compute dtype): mixtral's at fp32,
@@ -5848,9 +5849,10 @@ def _fam_batch(cfg, seq: int, batch: int, step: int = 0) -> dict:
 
 def _fam_train(mesh, dev, cfg, fused: bool) -> dict:
     """23a for one config on this rank: from seed 0's parameters, one
-    rank's steps (this process, no mesh) and the mesh's steps on this
-    rank's blocks, fp32 compute, a constant lr, AdamW without its clip
-    (so m after the first step is (1 - b1) times the gradient); `fused`
+    rank's steps (this process, no mesh) and then the mesh's steps on this
+    rank's blocks (drawn again once one rank's state is freed), fp32
+    compute, a constant lr, AdamW without its clip (so m after the first
+    step is (1 - b1) times the gradient); `fused`
     the compressor's fused steps (K1 and K4's block form, their launches
     counted over the mesh's steps alone). Returns the losses, the
     gradient (m after the first step) and params against one rank's, the
@@ -5888,11 +5890,10 @@ def _fam_train(mesh, dev, cfg, fused: bool) -> dict:
         if comp is not None:
             st["ef"] = {"residual": tree_map(torch.zeros_like, params)}
         return st
-    whole = model.init(torch.Generator(device=dev).manual_seed(0))
-    state = steps.shard_state(model, fresh(whole), mesh)
+    def seed0():    # the same parameters at each call
+        return model.init(torch.Generator(device=dev).manual_seed(0))
     view = fsdp.Sharded(mesh, steps.state_specs(model, mesh)["params"])
-    one = fresh(whole)
-    del whole
+    one = fresh(seed0())
     one_fn = steps.build_train_step(model, shape, opt=opt, lr_fn=lr_fn,
                                     compressor=comp, fused_update=fused,
                                     compute_dtype=f32, device=dev)
@@ -5910,6 +5911,10 @@ def _fam_train(mesh, dev, cfg, fused: bool) -> dict:
     want = [t.clone() for t in tree_leaves(view.blocks(one["params"]))]
     del one, one_fn
     _free(dev)
+    # the rank's blocks once one rank's whole state is gone
+    whole = seed0()
+    state = steps.shard_state(model, fresh(whole), mesh)
+    del whole
     fn = steps.build_train_step(model, shape, mesh=mesh, opt=opt, lr_fn=lr_fn,
                                 compressor=comp, fused_update=fused,
                                 compute_dtype=f32)
@@ -5950,9 +5955,10 @@ def _fam_train(mesh, dev, cfg, fused: bool) -> dict:
     return out
 
 
-def _fam_serve(mesh, dev, cfg, max_seq: int, prefill: bool) -> dict:
+def _fam_serve(mesh, dev, cfg, max_seq: int, prefill: bool,
+               n_decode: int = FAM_DECODE) -> dict:
     """23b for one config on this rank: seed 0's parameters; one rank's
-    prefill step of the prompts and FAM_DECODE greedy decode steps from an
+    prefill step of the prompts and `n_decode` greedy decode steps from an
     empty cache of `max_seq` (this process, no mesh), then the mesh's
     prefill step and serve steps on this rank's blocks fed one rank's
     tokens, fp32 compute (whisper's cross K/V from `encode` of the
@@ -6009,7 +6015,7 @@ def _fam_serve(mesh, dev, cfg, max_seq: int, prefill: bool) -> dict:
     cache = cross(whole, model.init_cache(B, max_seq, f32, device=dev))
     feed, logs, one_ms = [], [], []
     tok = first.to(dev)
-    for i in range(FAM_DECODE):
+    for i in range(n_decode):
         feed.append(tok)
         pos = torch.full((B,), i, dtype=torch.int32, device=dev)
         (nxt, cache, lg), t = timed(lambda: serve1(whole, cache, tok, pos))
@@ -6036,7 +6042,7 @@ def _fam_serve(mesh, dev, cfg, max_seq: int, prefill: bool) -> dict:
     top = max(float(x.abs().max()) for x in logs)
     errs, ms, clear_n, wrong = [], [], 0, []
     shard.collective_ledger().reset()
-    for i in range(FAM_DECODE):
+    for i in range(n_decode):
         pos = torch.full((B,), i, dtype=torch.int32, device=dev)
         (nxt, cache, lg), t = timed(lambda: serve(params, cache, feed[i], pos))
         ms.append(t)
@@ -6082,8 +6088,10 @@ def _tp_family_rank(mesh, dev, rank, extra) -> dict:
     return out
 
 
-def _tp_family_check(ranks: list) -> dict:
-    """Phase 23's checks on the ranks' numbers (`_tp_family_rank`): the
+def _tp_family_check(rows: list, cases=FAM_CASES,
+                     tags=("23a", "23b", "phase 23")) -> dict:
+    """Phase 23's checks on the ranks' numbers (`_tp_family_rank`, a dict
+    a rank; 23c's too, its `tags`): the
     losses against one rank's (FSDP_LOSS_RTOL on the first step,
     FSDP_LATER_RTOL after), the gradient (m after the first step) within
     FSDP_GRAD_TOL of its largest entry, the params within FSDP_PARAM_LR
@@ -6093,11 +6101,11 @@ def _tp_family_check(ranks: list) -> dict:
     and the tokens equal at every clear position. Returns the numbers,
     the launches under `launches`."""
     t0 = time.perf_counter()
-    rows = [r["families"] for r in ranks]
+    ta, tb, tphase = tags
     launches = {"sweep_project": 0, "sweep_reconstruct": 0,
                 "fused_update_block": 0, "fused_update_block2": 0}
     out = {"cases": {}}
-    for arch, _ in FAM_CASES:
+    for arch, _ in cases:
         for kind in ("train", "fused"):
             if kind not in rows[0]["cases"][arch]:
                 continue
@@ -6107,13 +6115,13 @@ def _tp_family_check(ranks: list) -> dict:
                                                r["one_rank_losses"])):
                     tol = FSDP_LOSS_RTOL if i == 0 else FSDP_LATER_RTOL
                     if not math.isfinite(a) or abs(a - b) > tol * abs(b):
-                        raise AssertionError(f"23a {arch} {kind} step {i}: "
+                        raise AssertionError(f"{ta} {arch} {kind} step {i}: "
                                              f"loss {a} vs one rank's {b}")
                 if r["grad_rel"] > FSDP_GRAD_TOL:
-                    raise AssertionError(f"23a {arch} {kind}: the gradient "
+                    raise AssertionError(f"{ta} {arch} {kind}: the gradient "
                                          f"{r['grad_rel']} of max|g| off")
                 if r["param_lr"] > FSDP_PARAM_LR:
-                    raise AssertionError(f"23a {arch} {kind}: params "
+                    raise AssertionError(f"{ta} {arch} {kind}: params "
                                          f"{r['param_lr']} lr apart")
                 n = r["n_leaves"] * len(r["losses"])
                 got = r["launches"]
@@ -6122,25 +6130,25 @@ def _tp_family_check(ranks: list) -> dict:
                         or got["fused_update_block"]
                         + got["fused_update_block2"] != n
                         or got["fused_update_block"] == 0):
-                    raise AssertionError(f"23a {arch} fused: launches {got}")
+                    raise AssertionError(f"{ta} {arch} fused: launches {got}")
                 if kind == "train" and any(got.values()):
-                    raise AssertionError(f"23a {arch}: the uncompressed step "
+                    raise AssertionError(f"{ta} {arch}: the uncompressed step "
                                          f"launched {got}")
                 for k in launches:
                     launches[k] += got[k]
             if len({tuple(r["losses"]) for r in rs}) != 1:
-                raise AssertionError(f"23a {arch} {kind}: the ranks' losses "
+                raise AssertionError(f"{ta} {arch} {kind}: the ranks' losses "
                                      "differ")
             if kind == "fused" and len({tuple(r["ef_digest"])
                                         for r in rs}) != 1:
-                raise AssertionError(f"23a {arch}: the ranks' EF residuals "
+                raise AssertionError(f"{ta} {arch}: the ranks' EF residuals "
                                      "differ in bits")
             out["cases"].setdefault(arch, {})[kind] = {
                 k: [r[k] for r in rs] if k in ("grad_rel", "param_lr",
                                                "step_ms", "device_ms")
                 else rs[0][k] for k in rs[0] if k != "ef_digest"}
             r0 = out["cases"][arch][kind]
-            log(f"23a {arch} {kind}: losses {r0['losses']} (one rank "
+            log(f"{ta} {arch} {kind}: losses {r0['losses']} (one rank "
                 f"{r0['one_rank_losses']}); gradient {r0['grad_rel']} of "
                 f"max|g|, params {r0['param_lr']} lr from one rank's; step "
                 f"ms {r0['step_ms']} (one rank {r0['one_rank_step_ms']}), "
@@ -6154,16 +6162,16 @@ def _tp_family_check(ranks: list) -> dict:
                 worst = max(r["errs"])
                 if worst > LM_DEC_TOL * r["largest_logit"]:
                     raise AssertionError(
-                        f"23b {arch} {kind}: a step's logits {worst} off "
+                        f"{tb} {arch} {kind}: a step's logits {worst} off "
                         f"(largest {r['largest_logit']})")
                 if "prefill_err" in r and r["prefill_err"] > \
                         LM_DEC_TOL * r["prefill_top"]:
                     raise AssertionError(
-                        f"23b {arch}: the mesh prefill {r['prefill_err']} off"
+                        f"{tb} {arch}: the mesh prefill {r['prefill_err']} off"
                         f" (largest {r['prefill_top']})")
                 if r["wrong_steps"] or r["clear_positions"] == 0:
                     raise AssertionError(
-                        f"23b {arch} {kind}: tokens differ at clear positions"
+                        f"{tb} {arch} {kind}: tokens differ at clear positions"
                         f" of steps {r['wrong_steps']} "
                         f"({r['clear_positions']} clear)")
             row = {k: [r[k] for r in rs] if k in (
@@ -6174,7 +6182,7 @@ def _tp_family_check(ranks: list) -> dict:
             row["one_rank_step_ms_median"] = statistics.median(
                 rs[0]["one_rank_step_ms"])
             out["cases"].setdefault(arch, {})[kind] = row
-            log(f"23b {arch} {kind} (cache {row['max_seq']}, layout "
+            log(f"{tb} {arch} {kind} (cache {row['max_seq']}, layout "
                 f"{row['layout']}): step logits within "
                 f"{max(max(e) for e in row['errs']):.3e} of one rank's "
                 f"(largest {row['largest_logit']:.4f}), "
@@ -6189,7 +6197,7 @@ def _tp_family_check(ranks: list) -> dict:
     out["peak_gib"] = [r["peak_gib"] for r in rows]
     out["ranks_s"] = [r["seconds"] for r in rows]
     out["seconds"] = max(out["ranks_s"]) + time.perf_counter() - t0
-    log(f"phase 23 took {out['seconds']:.1f}s (the ranks' part "
+    log(f"{tphase} took {out['seconds']:.1f}s (the ranks' part "
         f"{out['ranks_s']}); peak GiB {out['peak_gib']}; launches {launches}")
     return out
 
@@ -6227,7 +6235,7 @@ def tp_phase(dev) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     c = _tp_serve_check(serve, a["ranks"])
-    fam = _tp_family_check(a["ranks"])
+    fam = _tp_family_check([r["families"] for r in a["ranks"]])
     for r in a["ranks"]:
         del r["families"]
     launches = {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
@@ -6248,6 +6256,89 @@ def tp_phase(dev) -> dict:
         + f"; peak GiB 22a {a['peak_gib']}, 22b {b['peak_gib']}; launches "
         f"{launches}")
     return numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 23c: model sizes the model axis does not divide, on (1, 3)
+# ---------------------------------------------------------------------------
+
+# (arch, depth cut): full width, fp32, three gloo ranks of a (data=1,
+# model=3) mesh; phase 23's shapes (seq 1024, whisper 448, batch 2)
+SIZE_CASES = (("llama3.2-3b", {"n_layers": 2}),
+              ("mamba2-1.3b", {"n_layers": 2}),
+              ("whisper-medium", {"n_layers": 2, "encoder_layers": 2}))
+SIZE_MESH = (1, 3)
+SIZE_DECODE = 8         # eager mesh serve steps (mamba2, whisper)
+# the parts a model axis of 3 leaves whole (`split_parts`): llama3.2-3b's
+# FFN (d_ff 8192; its 8 KV heads are read whole too), mamba2-1.3b's mixer
+# (8512 in_proj columns), whisper-medium's attention (16 heads) and MLP
+# (4096)
+SIZE_WHOLE = {"llama3.2-3b": {"ffn"}, "mamba2-1.3b": {"mixer"},
+              "whisper-medium": {"attn", "mlp"}}
+
+
+def _tp_sizes_rank(rank, shapes, extra) -> dict:
+    """23c on one rank of the (1, 3) mesh: per config the parts that run
+    whole on it (`split_parts`), phase 23's uncompressed step (mamba2's
+    fused steps too: K1 and K4 counted) against one rank's, and for
+    mamba2 and whisper the mesh prefill and SIZE_DECODE eager serve
+    steps against one rank's."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+
+    dev = torch.device(extra["device"])
+    mesh = make_mesh(SIZE_MESH, ("data", "model"), device=dev,
+                     backend="gloo")
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"rank": rank, "cases": {}}
+    for arch, cut in SIZE_CASES:
+        cfg = _fam_cfg(arch, cut)
+        parts = build_model(cfg).mod.split_parts(cfg, mesh)
+        row = {"whole": sorted(p for p, on in parts.items() if not on),
+               "train": _fam_train(mesh, dev, cfg, False)}
+        if cfg.family == "ssm":
+            row["fused"] = _fam_train(mesh, dev, cfg, True)
+        if cfg.family != "decoder":
+            row["serve"] = _fam_serve(mesh, dev, cfg, FAM_MAX_SEQ, True,
+                                      SIZE_DECODE)
+        out["cases"][arch] = row
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if dev.type == "cuda" else None)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def sizes_phase(dev) -> dict:
+    """Phase 23c: llama3.2-3b, mamba2-1.3b and whisper-medium on three
+    gloo ranks of a (data=1, model=3) mesh sharing the card, each with
+    the parts SIZE_WHOLE names whole on every rank, checked as phase 23
+    (`_tp_family_check`: step 1's loss, the gradient and the params
+    against one rank's, mamba2's K1 and K4 launches, the EF residual's
+    bits, the serving's logits and tokens), each rank's peak at most
+    TP_GIB. The three ranks are started here. Returns the numbers, the
+    launches under `launches`."""
+    t0 = time.perf_counter()
+    ranks = _pod_ranks("tp_sizes", None, {"device": str(dev)},
+                       world=SIZE_MESH[0] * SIZE_MESH[1])
+    for r in ranks:
+        for arch, want in SIZE_WHOLE.items():
+            if not want <= set(r["cases"][arch]["whole"]):
+                raise AssertionError(f"23c {arch}: rank {r['rank']} runs "
+                                     f"{r['cases'][arch]['whole']} whole, "
+                                     f"not {sorted(want)}")
+        if r["peak_gib"] is not None and r["peak_gib"] > TP_GIB:
+            raise AssertionError(f"23c: rank {r['rank']} peaked at "
+                                 f"{r['peak_gib']:.2f} GiB")
+    out = _tp_family_check(ranks, SIZE_CASES, ("23c", "23c", "phase 23c"))
+    out["whole"] = {arch: ranks[0]["cases"][arch]["whole"]
+                    for arch, _ in SIZE_CASES}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 23c took {out['seconds']:.1f}s with the ranks' start; "
+        f"whole on (1, 3): {out['whole']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -7179,6 +7270,12 @@ def main() -> int:
         next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
         launches[name] += n
 
+    # -- 23c. model sizes the model axis does not divide, on (1, 3) -------
+    sizes = sizes_phase(dev)
+    for name, n in sizes["launches"].items():
+        next(r for r in rows if r["name"] == f"{name}:train")["launches"] += n
+        launches[name] += n
+
     # -- 25. the dry run (started after phase 2), checked -----------------
     dry_run = dry_finish(dry, tp, next(
         r for r in rows if r["name"] == "fused_update:tt")["train"])
@@ -7201,6 +7298,7 @@ def main() -> int:
     print(json.dumps({"pod_model": pod_model}))
     print(json.dumps({"tp": tp}))
     print(json.dumps({"tp_families": fam}))
+    print(json.dumps({"tp_sizes": sizes}))
     print(json.dumps({"dry_run": dry_run}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

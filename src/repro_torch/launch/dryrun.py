@@ -119,7 +119,7 @@ def build_cell(cfg, shape, mesh, *, remat: str = "nothing",
         state = {"params": params, "opt": adamw.init_state(params, opt)}
         if compressor is not None:
             state["ef"] = compressor.init_state(params)
-        if mesh is not None and steps._check_mesh(mesh, cfg):
+        if mesh is not None and steps._check_mesh(mesh):
             state = steps.shard_state(model, state, mesh)
         fn = steps.build_train_step(model, shape, mesh=mesh, opt=opt,
                                     remat=remat, seq_parallel=seq_parallel,

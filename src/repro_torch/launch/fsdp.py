@@ -20,11 +20,15 @@ activation collectives are `launch/tp.py`'s):
   gathers it again (ZeRO-3's behaviour, and XLA's). It returns the rank's
   model block (a column-parallel `wq`'s heads, a row-parallel `wo`'s);
   `whole=True` gathers the model dim too (KV weights whose heads the
-  model axis does not divide, the tied embedding's unembedding). The
+  model axis does not divide, the tied embedding's unembedding, the
+  leaves the specs split of a part that runs whole, `launch/tp.py`). The
   backward of the gather reduce-scatters the gradient to the rank's block:
-  over 'model' a sum (the ranks' partial gradients), over the data axes a
-  mean (each data rank's loss term is scaled so that their mean is the
-  step's loss, `loss_scale`). With `reduce="all"` (the compressed step,
+  over 'model' a sum of the ranks' partial gradients (`partial=True`), or,
+  where every model rank computed the same whole gradient (a whole part
+  on a stream alike on every rank, `partial=False`, tag `model_whole`),
+  the rank's block of it; over the data axes a mean (each data rank's
+  loss term is scaled so that their mean is the step's loss,
+  `loss_scale`). With `reduce="all"` (the compressed step,
   whose sketcher needs each leaf's mean gradient whole) it all-reduces
   instead, keeps the reduced gradient for `Sharded.finish` and hands
   autograd the block of it.
@@ -35,8 +39,10 @@ activation collectives are `launch/tp.py`'s):
   norms, the router) hold each model rank's partial sum over its own
   sequence rows, which become their sum (one all_reduce); without it
   only those a family reads inside a parallel region do (`partial=`, the
-  family's `MODEL_PARTIAL`: the MoE router, mamba2's `a_log`, `d_skip`
-  and `dt_bias`, read on the rank's heads). With
+  family's `model_partial`: the MoE router of split experts, mamba2's
+  `a_log`, `d_skip` and `dt_bias` of a split mixer, read on the rank's
+  heads). The leaves of a part that runs whole are alike without it.
+  With
   reduce='all' every sharded leaf comes back whole (a model-split leaf
   all-gathered over 'model', tag `grad_model_gather`).
   `Sharded.global_norm`: the gradient norm over every rank's blocks, a
@@ -50,8 +56,8 @@ pod only: the pod's mean gradient, which `compress_collective` then
 syncs across pods.
 
 Every collective goes through `rp.shard`'s ledger under its own tag:
-`param_gather` (the data dim), `model_gather` (the model dim of a whole
-read), `grad_reduce`, `model_grad` (a whole read's backward over
+`param_gather` (the data dim), `model_gather` / `model_whole` (the model
+dim of a whole read, partial or alike), `grad_reduce`, `model_grad` (a whole read's backward over
 'model'), `grad_replicated`, `grad_model`, `grad_model_gather`,
 `grad_norm`.
 """
@@ -199,6 +205,9 @@ class _Gather(torch.autograd.Function):
         for group, dim, tag in steps:   # the model ranks' partial sums
             if tag == "model_gather":
                 g = shard.reduce_scatter(g, group, dim, tag="model_grad")
+            elif tag == "model_whole":  # alike on every model rank
+                per = g.shape[dim] // group.size
+                g = g.narrow(dim, group.index * per, per)
         for group, dim, tag in steps:
             if tag != "param_gather":
                 continue
@@ -277,17 +286,18 @@ class Sharded:
         return self.mesh.group(axes) if axes else None
 
     def __call__(self, path: str, leaf: torch.Tensor,
-                 index: int | None = None, *, whole: bool = False
-                 ) -> torch.Tensor:
+                 index: int | None = None, *, whole: bool = False,
+                 partial: bool = True) -> torch.Tensor:
         """Layer `index` of the leaf at `path` (the leaf itself when None)
         gathered over its data dim: the rank's model block. `whole=True`
-        gathers its model dim too."""
+        gathers its model dim too; `partial` says whether the model
+        ranks' gradients of it are partial sums (else alike)."""
         x = leaf if index is None else leaf[index]
         steps = []
         full = list(leaf.shape)     # the sink's: whole over the data axes
         for d, tag in ((self.data_dim[path], "param_gather"),
                        (self.model_dim[path] if whole else None,
-                        "model_gather")):
+                        "model_gather" if partial else "model_whole")):
             if d is None:
                 continue
             if index is not None and d == 0:

@@ -17,13 +17,19 @@ Strategy (the reference's):
 The batch goes over the data axes (`batch_spec`); the residual stream's
 sequence over 'model' between blocks (`seq_spec`, the reference's
 `shard_batch_seq`, whose rows a rank holds are `seq_rows`); a decode
-cache by `cache_specs`. Every function here reads only `mesh.shape` and
+cache by `cache_specs`. `model_split` names the leaves whose spec splits
+a dim over 'model': a family runs a part split over the model axis where
+the specs split its leaves, and whole on every model rank where they do
+not (`models.<family>.split_parts`), so any model size `spec_for`
+accepts runs. Every function here reads only `mesh.shape` and
 `mesh.axis_names` (and `seq_rows` a mesh's `group`), so a stand-in mesh
 with no process group will do. The port runs the data axis
 (`launch/fsdp.py`) and the model axis (`launch/tp.py`).
 """
 from __future__ import annotations
 
+import functools
+import types
 from typing import Any
 
 from repro_torch.models.config import ArchConfig
@@ -112,6 +118,37 @@ def param_specs(cfg: ArchConfig, axes_tree, mesh, shapes_tree,
     return walk(shapes_tree, axes_tree)
 
 
+def model_split(cfg: ArchConfig, mesh) -> frozenset[str]:
+    """The leaves ('/'-joined paths, as `fsdp.Sharded` names them) whose
+    spec by `param_specs` splits a dim over 'model' on `mesh`; none
+    without a model axis above 1. It reads the specs and adds no rule."""
+    if model_size(mesh) <= 1:
+        return frozenset()
+    names = tuple(mesh.axis_names)
+    return _model_split(cfg, names, tuple(mesh.shape[a] for a in names))
+
+
+@functools.lru_cache(maxsize=64)
+def _model_split(cfg: ArchConfig, names: tuple, sizes: tuple
+                 ) -> frozenset[str]:
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    stand = types.SimpleNamespace(shape=dict(zip(names, sizes)),
+                                  axis_names=names)
+    out = set()
+
+    def walk(specs, prefix):
+        for k, spec in specs.items():
+            if isinstance(spec, dict):
+                walk(spec, f"{prefix}{k}/")
+            elif any(e == "model" or (isinstance(e, tuple) and "model" in e)
+                     for e in spec):
+                out.add(f"{prefix}{k}")
+    walk(param_specs(cfg, model.param_axes(), stand, model.param_shapes()),
+         "")
+    return frozenset(out)
+
+
 def bucket_specs(mesh, *, exclude: tuple = ()) -> tuple:
     """Spec template for `(n_buckets, ...)` sketch-bucket arrays: the
     bucket dim over the mesh's data axes, minus `exclude` (the pod axis,
@@ -149,46 +186,49 @@ def input_batch_specs(batch_tree, mesh):
 
 def cache_specs(cfg: ArchConfig, cache_tree, mesh):
     """Specs for a decode cache (tensors, meta tensors or shape tuples
-    under the families' names), the reference's layouts and fallbacks:
-    k/v (and whisper's cross xk/xv) (L, B, H, S, hd) by heads over
-    'model' where the model size divides H, else by positions where it
-    divides S, else whole; `pos` (L, B, S) follows the positions' split
-    (a decoder's where its KV heads do not divide, the hybrid's always
-    where S does); mamba2's `ssm` (L, B, H, P, ds) by heads, its `conv`
-    (L, B, W-1, C) by channels, the RG-LRU's `h` (G, B, dr) by width,
-    each where the model size divides; the batch dim over the data axes
-    where they divide it."""
+    under the families' names), the reference's layouts and fallbacks for
+    the parts that run split over 'model' (`models.<family>.split_parts`):
+    k/v (and whisper's cross xk/xv) (L, B, H, S, hd) by heads where the
+    model size divides H, else by positions where it divides S, else
+    whole; `pos` (L, B, S) follows the positions' split; mamba2's `ssm`
+    (L, B, H, P, ds) by heads and its `conv` (L, B, W-1, C) by channels
+    where the model size divides them, the RG-LRU's `h` (G, B, dr) and
+    `conv` by width. The cache of a part that runs whole on every model
+    rank (its attention, mixer or recurrent block) stays whole. The batch
+    dim goes over the data axes where they divide it."""
+    from repro_torch.models import build_model
     ms = model_size(mesh)
+    parts = build_model(cfg).mod.split_parts(cfg, mesh) if ms > 1 else {}
+    kv = None       # the K/V's split: "heads", "seq" or None
 
     def spec(name, shape):
+        nonlocal kv
         b = shape[1] if len(shape) > 1 else 1
         bax = batch_spec((b,), mesh)[0]
         if name in ("k", "v", "xk", "xv") and len(shape) == 5:
             _, _, H, S, _ = shape
-            if H % ms == 0:
-                return (None, bax, "model", None, None)
-            if S % ms == 0:
-                return (None, bax, None, "model", None)
-            return (None, bax, None, None, None)
+            kv = (None if not parts.get("attn") else "heads" if H % ms == 0
+                  else "seq" if S % ms == 0 else None)
+            return (None, bax, "model" if kv == "heads" else None,
+                    "model" if kv == "seq" else None, None)
         if name == "pos" and len(shape) == 3:
-            S = shape[2]
-            if S % ms == 0 and cfg.family == "hybrid":
-                return (None, bax, "model")
-            if cfg.n_kv_heads % ms != 0 and S % ms == 0:
-                return (None, bax, "model")
-            return (None, bax, None)
+            return (None, bax, "model" if kv == "seq" else None)
         if name == "ssm":
-            return (None, bax, "model" if shape[2] % ms == 0 else None,
+            return (None, bax, "model" if parts.get("mixer") else None,
                     None, None)
         if name == "conv":
-            return (None, bax, None, "model" if shape[3] % ms == 0 else None)
+            split = parts.get("mixer", parts.get("rec")) and \
+                shape[3] % ms == 0
+            return (None, bax, None, "model" if split else None)
         if name == "h":
-            return (None, bax, "model" if shape[2] % ms == 0 else None)
+            return (None, bax, "model" if parts.get("rec") else None)
         return (None,) * len(shape)
 
     def walk(node, name):
-        if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, dict):     # the K/V before their positions
+            out = {k: walk(node[k], k) for k in sorted(
+                node, key=lambda k: k == "pos")}
+            return {k: out[k] for k in node}
         return spec(name, _shape(node))
     return walk(cache_tree, None)
 
@@ -225,5 +265,6 @@ def batch_dim(name: str) -> int:
 
 
 __all__ = ["axis_rules", "batch_dim", "batch_spec", "bucket_specs",
-           "cache_specs", "input_batch_specs", "param_specs", "seq_rows",
+           "cache_specs", "input_batch_specs", "model_split", "param_specs",
+           "seq_rows",
            "seq_spec", "spec_for"]

@@ -99,11 +99,16 @@ rank (`SEQ_PARALLEL`, as the reference's); their caches by
 RG-LRU's `h` and `conv` by channels and its ring by positions,
 whisper's self and cross K/V by heads; `cache_layout`).
 
-A model size that splits a decoder's or the hybrid's query heads keeps
-the reference's column blocks of `wq` (`launch.tp.ModelAxis.head_split`).
-What stays refused: a model size that splits mamba2's or whisper's
-heads, or a decoder's Hq*hd columns; `fused_update` with a pod axis
-raises, as in the reference.
+Any model size the reference's `spec_for` lays out runs. A part of a
+block whose leaves the specs replicate (a dim the model size does not
+divide) runs whole on every model rank (`models.<family>.split_parts`,
+`launch/tp.py`); a model size that splits a decoder's or the hybrid's
+query heads keeps the reference's column blocks of `wq`
+(`launch.tp.ModelAxis.head_split`). The gradient's bookkeeping
+(`grad_view`) takes the family's partial leaves for the parts that run
+split, and runs sequence-parallel only where the model size divides the
+sequence, as the forward does. What stays refused: `fused_update` with
+a pod axis, as in the reference.
 """
 from __future__ import annotations
 
@@ -195,38 +200,35 @@ def unshard_state(model: Model, state: dict, mesh) -> dict:
     return fsdp.unshard_tree(state, state_specs(model, mesh, state), mesh)
 
 
-def _heads(cfg: ArchConfig) -> int:
-    """The head count a model axis splits: mamba2's SSD heads, the other
-    families' query heads."""
-    if cfg.family == "ssm":
-        return cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
-    return cfg.n_heads
-
-
-def _check_mesh(mesh, cfg: ArchConfig) -> bool:
-    """Refuse a model axis that would split inside a head the port cannot
-    split (mamba2's SSD heads, whisper's; the decoder's and the hybrid's
-    query heads split where the axis divides their Hq*hd columns,
-    `launch.tp.ModelAxis.head_split`); True on a mesh whose data or model
-    axis is above 1 (a pod axis beside them included)."""
+def _check_mesh(mesh) -> bool:
+    """Whether `mesh` takes the mesh branch: its data or model axis is
+    above 1 (a pod axis beside them included). Every model size runs: a
+    part whose leaves the specs replicate runs whole on every model rank
+    (`models.<family>.split_parts`)."""
     sizes = dict(mesh.shape)
-    if sizes.get("model", 1) > 1:
-        split = cfg.family in ("decoder", "hybrid") and (
-            cfg.n_heads * cfg.hd) % sizes["model"] == 0
-        if _heads(cfg) % sizes["model"] and not split:
-            raise NotImplementedError(
-                f"{cfg.name}: a model axis of {sizes['model']} does not "
-                f"divide its {_heads(cfg)} heads (the reference's layout "
-                "would split inside a head); run a model size that divides "
-                "them")
-        return True
-    return sizes.get("data", 1) > 1
+    return sizes.get("model", 1) > 1 or sizes.get("data", 1) > 1
 
 
 def _seq_parallel(model: Model, seq_parallel: bool) -> bool:
     """Whether the model axis runs sequence-parallel: asked, and the
     family splits its stream (whisper's does not, as the reference's)."""
     return seq_parallel and getattr(model.mod, "SEQ_PARALLEL", True)
+
+
+def grad_view(model: Model, mesh, pspecs, seq_len: int, *,
+              seq_parallel: bool = True, reduce: str = "scatter",
+              axes: tuple[str, ...] | None = None) -> fsdp.Sharded:
+    """The gradient's bookkeeping (`fsdp.Sharded`) of one step of `model`
+    on sequences of `seq_len` over `mesh` (`pspecs`: its params' specs):
+    sequence-parallel as the forward runs it (asked, the family splits
+    its stream and the model size divides `seq_len`, `ModelAxis.sp`), and
+    the leaves the family reads inside its split parts partial over
+    'model' (`model_partial`)."""
+    ms = model_size(mesh)
+    sp = ms > 1 and _seq_parallel(model, seq_parallel) and seq_len % ms == 0
+    partial = model.mod.model_partial(model.cfg, mesh) if ms > 1 else ()
+    return fsdp.Sharded(mesh, pspecs, reduce=reduce, axes=axes,
+                        seq_parallel=sp, partial=partial)
 
 
 def build_train_step(model: Model, shape: ShapeSpec, *,
@@ -257,7 +259,7 @@ def build_train_step(model: Model, shape: ShapeSpec, *,
     pol = _policy(cfg)
     npod, group, data_mesh = 1, None, False
     if mesh is not None:
-        data_mesh = _check_mesh(mesh, cfg)
+        data_mesh = _check_mesh(mesh)
     has_pod = mesh is not None and "pod" in mesh.axis_names
     compute_dtype = compute_dtype or pol["compute_dtype"]
     opt = opt or AdamWConfig(moment_dtype=pol["moment_dtype"])
@@ -435,9 +437,8 @@ def _data_step(model: Model, shape: ShapeSpec, mesh, opt: AdamWConfig,
     # the global batch's groups of contiguous tokens over this rank's rows
     kw = ({"moe_groups": max(1, moe_groups_for(cfg, mesh, shape.global_batch)
                              // n_blocks)} if cfg.moe is not None else {})
-    tp = dict(seq_parallel=ms > 1 and _seq_parallel(model, seq_parallel),
-              partial=getattr(model.mod, "MODEL_PARTIAL", ()))
-    view = fsdp.Sharded(mesh, pspecs, axes=grad_axes, **tp)
+    view = grad_view(model, mesh, pspecs, shape.seq_len,
+                     seq_parallel=seq_parallel, axes=grad_axes)
     want = [tuple(t.shape) for t in tree_flatten(
         view.blocks(model.param_shapes()))[0]]
     ranges = view.ranges(model.param_shapes()) if fused_update else None
@@ -458,9 +459,10 @@ def _data_step(model: Model, shape: ShapeSpec, mesh, opt: AdamWConfig,
                 "whole")
         metrics = {}
         new_state = dict(state)
-        layout = fsdp.Sharded(mesh, pspecs, reduce="all" if compressor
-                              is not None else "scatter", axes=grad_axes,
-                              **tp)
+        layout = grad_view(model, mesh, pspecs, shape.seq_len,
+                           seq_parallel=seq_parallel, axes=grad_axes,
+                           reduce="all" if compressor is not None
+                           else "scatter")
         mine = rows(batch)
         extra = dict(kw, **kw_tp)
         if "loss_mask" in mine:     # sums and counts over every rank's rows
@@ -518,7 +520,6 @@ def _serve_mesh(model: Model, mesh):
     steps on `mesh`, or Nones without one."""
     if mesh is None:
         return None, None
-    _check_mesh(mesh, model.cfg)
     pspecs = sharding.param_specs(model.cfg, model.param_axes(), mesh,
                                   model.param_shapes())
     return fsdp.Sharded(mesh, pspecs), mesh.group(data_axes(mesh))
@@ -742,7 +743,8 @@ def from_numpy_state(model: Model, state: dict, *, device=None) -> dict:
 
 
 __all__ = ["build_prefill_step", "build_serve_step", "build_train_step",
-           "from_numpy_state", "fsdp_axes_for", "init_train_state",
+           "from_numpy_state", "fsdp_axes_for", "grad_view",
+           "init_train_state",
            "cache_layout", "moe_groups_for", "shard_cache", "shard_params",
            "shard_state",
            "state_specs", "unshard_state"]

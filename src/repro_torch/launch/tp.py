@@ -45,11 +45,27 @@ through `rp.shard`'s ledger under its own tag:
   rank's block (the RG-LRU's gate products, row-split with whole
   columns, onto the rank's channels; tag `tp_gate`).
 
-A model axis that does not divide the query heads (llama3.2-3b's 24, or
-qwen2-vl-2b's 12, on the production mesh's 16) keeps the reference's
-layout, which splits `wq` into equal blocks of Hq*hd/ms columns and `wo`
-into as many rows: a block holds part of a head (`ModelAxis.head_split`,
-set by `transformer._model_axis` for the decoder and hybrid families).
+A part whose leaves the reference's `spec_for` replicates (a dim the
+model size does not divide: llama3.2-3b's d_ff of 8192 on 3 ranks,
+mamba2-1.3b's 8512 `in_proj` columns) runs whole on every model rank
+(`ModelAxis.parts`, each family's `split_parts`; a leaf of it the specs
+do split is read whole, `fsdp.Sharded(whole=True)`). Under sequence
+parallelism `ModelAxis.whole_in` all-gathers its input's rows (tag
+`tp_whole`; the backward reduce-scatters, so each row's gradient is
+summed once) and `ModelAxis.whole_out` keeps the rank's rows of its
+output: nothing is reduced, and its weights' gradients are each rank's
+share of its own rows, summed over 'model' with the other replicated
+leaves' (`fsdp.Sharded.finish`). Without it the stream is whole and
+alike on every rank: the part's output leaves as it is, and its weights'
+gradients are whole already (summed, they would count model-size
+times).
+
+A model axis that does not divide the query heads but does divide their
+columns (llama3.2-3b's 24, or qwen2-vl-2b's 12, on the production
+mesh's 16) keeps the reference's layout, which splits `wq` into equal
+blocks of Hq*hd/ms columns and `wo` into as many rows: a block holds
+part of a head (`ModelAxis.head_split`, set by
+`transformer._model_axis` for the decoder and hybrid families).
 The rank's block of q is all-gathered to every head (`cols`, tag
 `tp_heads`), the rank attends with the heads its block of `wo`'s rows
 reads (at most two more than the block's share: the heads at its two
@@ -219,6 +235,13 @@ class ModelAxis:
         # query heads [lo, hi) the rank's `width` rows of wo read, and the
         # offset of those rows in their (hi - lo) heads' output
         self.head_split = None
+        # part -> whether it runs split (its family's `split_parts`)
+        self.parts: dict[str, bool] = {}
+
+    def runs_split(self, part: str) -> bool:
+        """Whether the family's `part` runs split over the axis (else
+        whole on every rank)."""
+        return self.parts.get(part, False)
 
     def split_heads(self, n_heads: int, hd: int) -> None:
         """Mark the axis as splitting `n_heads` heads of `hd` inside a
@@ -276,6 +299,28 @@ class ModelAxis:
         if not sp:
             return _Reduce.apply(x, self.group, "tp_reduce")
         return _Scatter.apply(x, self.group, 1, "tp_reduce")
+
+    def whole_in(self, x: torch.Tensor, sp: bool) -> torch.Tensor:
+        """The input of a part that runs whole on every rank: under
+        sequence parallelism the rank's rows (B, S_local, ...)
+        all-gathered to the whole sequence (tag `tp_whole`; the backward
+        reduce-scatters), else x as it is."""
+        if sp:
+            return _Gather.apply(x, self.group, 1, "tp_whole", "scatter")
+        return x
+
+    def whole_out(self, x: torch.Tensor, sp: bool) -> torch.Tensor:
+        """The output (B, S, ...) of a part that ran whole: the rank's
+        rows under sequence parallelism (`own_rows`), else x as it is."""
+        return self.own_rows(x) if sp else x
+
+    def own_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's block of dim 1 of a tensor every rank holds, sliced:
+        the backward leaves the other rows' gradient zero, so what was
+        read to make x gets the rank's own rows' share (`split`'s
+        backward gathers every row's instead)."""
+        per = x.shape[1] // self.size
+        return x.narrow(1, self.index * per, per)
 
     def scatter(self, x: torch.Tensor, dim: int, tag: str) -> torch.Tensor:
         """Partial sums reduce-scattered along `dim` onto the rank's

@@ -53,8 +53,9 @@ A (data, model) mesh (`--mesh AxB`, B > 1; every family): each rank
 holds its blocks of the leaves split over either axis, and the forward
 runs tensor-, sequence- and expert-parallel over 'model'
 (`launch/tp.py`; whisper's stream whole on every model rank, as the
-reference's); the model ranks of a data index take the same rows; a
-model size that splits mamba2's or whisper's heads is refused:
+reference's); the model ranks of a data index take the same rows; any
+model size runs, a part whose dims it does not divide whole on every
+model rank (`models.<family>.split_parts`):
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-3b \

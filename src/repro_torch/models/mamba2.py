@@ -23,14 +23,20 @@ x): the rank multiplies by its block, and the columns are all-gathered
 z, x and dt and the whole B and C. The training forward reads the conv's
 leaves whole (`Sharded(whole=True)`) and runs it on the channels it
 needs; SSD runs on the rank's H/ms heads (`a_log`, `d_skip`, `dt_bias`
-replicated, sliced to them: `MODEL_PARTIAL`); the gated RMSNorm's
+replicated, sliced to them: `model_partial`); the gated RMSNorm's
 statistic spans the whole `d_in` (`layers.rms_norm_split`, tag
 `tp_stat`); `out_proj` is row-parallel. Under sequence parallelism the
 residual stream is the rank's rows between layers, as the reference's
 `constrain`. `decode_step` on the axis holds the rank's heads of the
 SSM state and its channel block of the conv state (`cache_specs`): it
 shifts its block, convolves it with its blocks of the conv's leaves and
-all-gathers the conv's output (tag `tp_conv`).
+all-gathers the conv's output (tag `tp_conv`). Where the specs do not
+split both `in_proj`'s columns and `out_proj`'s rows, or the axis does
+not divide the SSD heads (mamba2-1.3b's 8512 columns on 3 ranks), the
+mixer runs whole on every model rank (`split_parts`; the leaves the
+specs do split read whole), on the whole sequence under sequence
+parallelism (`ModelAxis.whole_in` / `whole_out`), and `decode_step`
+advances a whole SSM and conv state.
 """
 from __future__ import annotations
 
@@ -50,11 +56,6 @@ from .config import ArchConfig
 #: the cache's recurrent state, which `launch.serve.SlotServer` keeps
 #: apart between slots (every leaf of this family's cache)
 RECURRENT_STATE: tuple[str, ...] = ("conv", "ssm")
-
-#: the model-replicated leaves the forward reads on the rank's heads, inside
-#: a parallel region of the model axis: their gradients are partial over
-#: it with or without sequence parallelism (`launch.fsdp.Sharded(partial=)`)
-MODEL_PARTIAL = ("layers/a_log", "layers/d_skip", "layers/dt_bias")
 
 # the leaves a block reads in the compute dtype (the rest in float32)
 _CAST = ("in_proj", "conv_w", "conv_b", "out_proj")
@@ -222,15 +223,38 @@ def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
     return torch.split(zxbcdt, [d_in, conv_ch, H], dim=-1)
 
 
+def split_parts(cfg: ArchConfig, mesh) -> dict[str, bool]:
+    """Which parts run split over the model axis of `mesh` (the rest
+    whole on every model rank): the mixer where the specs split both
+    `in_proj`'s columns and `out_proj`'s rows and the axis divides the
+    SSD heads; the embedding's lookup where they split its columns."""
+    from repro_torch.launch.mesh import model_size
+    from repro_torch.launch.sharding import model_split
+    split = model_split(cfg, mesh)
+    return {"mixer": {"layers/in_proj", "layers/out_proj"} <= split
+            and _dims(cfg)[2] % model_size(mesh) == 0,
+            "embed": "embed" in split}
+
+
+def model_partial(cfg: ArchConfig, mesh) -> tuple[str, ...]:
+    """The model-replicated leaves a split mixer reads on the rank's heads
+    or channels, whose gradients are partial over the axis with or
+    without sequence parallelism (`launch.fsdp.Sharded(partial=)`):
+    `a_log`, `d_skip`, `dt_bias`, and the conv's leaves where the specs
+    replicate them. None where the mixer runs whole."""
+    if not split_parts(cfg, mesh)["mixer"]:
+        return ()
+    from repro_torch.launch.sharding import model_split
+    split = model_split(cfg, mesh)
+    return ("layers/a_log", "layers/d_skip", "layers/dt_bias") + tuple(
+        p for p in ("layers/conv_w", "layers/conv_b") if p not in split)
+
+
 def model_axis(cfg: ArchConfig, seq_parallel: bool = False):
-    """The forward's model axis (`launch.tp.ModelAxis`), or None; refuses
-    one that splits inside an SSD head or does not divide `in_proj`'s
-    columns or the conv's channels."""
-    _, d_in, H, ds, G, conv_ch = _dims(cfg)
-    return transformer._model_axis(
-        cfg, seq_parallel, heads=H,
-        widths=(("in_proj's columns", 2 * d_in + 2 * G * ds + H),
-                ("the conv's channels", conv_ch)))
+    """The forward's model axis (`launch.tp.ModelAxis`), or None, with the
+    parts that run split on it (`split_parts`)."""
+    return transformer._model_axis(cfg, seq_parallel, parts=split_parts)
+
 
 
 def _heads(cfg: ArchConfig, axis):
@@ -280,16 +304,19 @@ def _channels(t: torch.Tensor, picks) -> torch.Tensor:
 
 
 def _layer_params(params: dict, i: int, compute_dtype, gather=None,
-                  axis=None):
+                  axis=None, sp: bool = False):
     """Layer i's raw leaves (read through `gather`, `params.take`; on a
-    model axis the conv's leaves whole) and the ones read in the compute
-    dtype."""
-    whole = ("conv_w", "conv_b") if axis is not None else ()
+    model axis the conv's leaves whole, and every leaf whole where the
+    mixer runs whole: partial gradients under sequence parallelism `sp`,
+    else alike) and the ones read in the compute dtype."""
+    whole = (() if axis is None else ("conv_w", "conv_b")
+             if axis.runs_split("mixer") else tuple(params["layers"]))
     if whole and gather is None:
         raise ValueError("a model axis reads its leaves through gather= "
                          "(launch.fsdp.Sharded)")
-    lp_raw = {k: gather(f"layers/{k}", t, i, whole=True) if k in whole
-              else ptree.take(gather, f"layers/{k}", t, i)
+    partial = sp or transformer._part_axis(axis, "mixer") is not None
+    lp_raw = {k: gather(f"layers/{k}", t, i, whole=True, partial=partial)
+              if k in whole else ptree.take(gather, f"layers/{k}", t, i)
               for k, t in params["layers"].items()}
     return lp_raw, {k: lp_raw[k].to(compute_dtype) for k in _CAST}
 
@@ -320,7 +347,11 @@ def _gate_out(cfg: ArchConfig, lp_raw, lp, h, y, xs, z, d_skip, axis=None,
 def _block_seq(cfg: ArchConfig, lp_raw, lp, h, *, chunk: int, axis=None,
                sp: bool = False):
     """One layer on the residual stream h (B, S, D) (the rank's rows under
-    sequence parallelism)."""
+    sequence parallelism; a mixer that runs whole on the whole
+    sequence)."""
+    if axis is not None and transformer._part_axis(axis, "mixer") is None:
+        out = _block_seq(cfg, lp_raw, lp, axis.whole_in(h, sp), chunk=chunk)
+        return axis.whole_out(out, sp)
     _, d_in, H, ds, G, _ = _dims(cfg)
     P = cfg.ssm_head_dim
     h0, hr = _heads(cfg, axis)
@@ -365,10 +396,11 @@ def forward_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         chunk //= 2
     sp = axis is not None and axis.sp(S)
     if sp:
-        h = axis.split(h)
+        h = transformer._own_rows(axis, h)
 
     def layer(h, i):
-        lp_raw, lp = _layer_params(params, i, compute_dtype, gather, axis)
+        lp_raw, lp = _layer_params(params, i, compute_dtype, gather, axis,
+                                   sp)
         return _block_seq(cfg, lp_raw, lp, h, chunk=chunk, axis=axis, sp=sp)
 
     for i in range(cfg.n_layers):
@@ -426,18 +458,24 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     On a model axis (`settings.mesh`; the leaves read through `gather`)
     the cache is the rank's block by `launch.sharding.cache_specs`: its
     heads of `ssm`, its channel block of `conv` (see the module
-    docstring); `cache_layout` is the attention caches' and unused."""
+    docstring), both whole where the mixer runs whole; `cache_layout` is
+    the attention caches' and unused."""
     del pos, cache_layout
     Bsz = token.shape[0]
     _, d_in, H, ds, G, conv_ch = _dims(cfg)
     P = cfg.ssm_head_dim
-    axis = model_axis(cfg)
+    whole_axis = model_axis(cfg)
+    axis = transformer._part_axis(whole_axis, "mixer")      # the mixer's: None where whole
     h0, hr = _heads(cfg, axis)
     h = transformer._lookup(cfg, params, token, compute_dtype, gather,
-                            axis)                              # (B, D)
+                            whole_axis)                        # (B, D)
     for i in range(cfg.n_layers):
-        lp_raw = ptree.take_all(gather, "layers/", params["layers"], i)
-        lp = {k: lp_raw[k].to(compute_dtype) for k in _CAST}
+        if axis is None and whole_axis is not None:
+            lp_raw, lp = _layer_params(params, i, compute_dtype, gather,
+                                       whole_axis)
+        else:
+            lp_raw = ptree.take_all(gather, "layers/", params["layers"], i)
+            lp = {k: lp_raw[k].to(compute_dtype) for k in _CAST}
         ssm_st, conv_st = cache["ssm"][i], cache["conv"][i]
         hn = nn.rms_norm(h, lp_raw["norm"])
         zxbcdt = hn @ lp["in_proj"]
@@ -448,14 +486,16 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
             xbc, conv_new = nn.conv1d_update(xbc, conv_st, lp["conv_w"])
             conv_st.copy_(conv_new)
             xbc = F.silu(xbc + lp["conv_b"])
-        else:   # the rank's channel block of the conv, then every channel
+        else:   # the rank's channel block of the conv (or every channel
+            # where the specs replicate it), then every channel
             n = conv_st.shape[-1]
-            c0 = d_in + axis.index * n
+            c0 = d_in + (0 if n == conv_ch else axis.index * n)
             out, conv_new = nn.conv1d_update(zxbcdt[..., c0:c0 + n], conv_st,
                                              lp["conv_w"])
             conv_st.copy_(conv_new)
-            xbc = _channels(axis.all_gather(F.silu(out + lp["conv_b"]), -1,
-                                            tag="tp_conv"), picks)
+            out = F.silu(out + lp["conv_b"])
+            xbc = _channels(out if n == conv_ch else axis.all_gather(
+                out, -1, tag="tp_conv"), picks)
         xs, b_t, c_t = torch.split(xbc, [hr * P, G * ds, G * ds], dim=-1)
         xs = xs.reshape(Bsz, hr, P)
         a, dt_bias, d_skip = _ssm_leaves(cfg, lp_raw, axis)
@@ -466,7 +506,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
         ssm_st.copy_(ssm_new)
         h = _gate_out(cfg, lp_raw, lp, h, y, xs, z, d_skip, axis)
     h = nn.rms_norm(h, params["final_norm"])
-    return transformer._logits(cfg, params, h, gather, axis), cache
+    return transformer._logits(cfg, params, h, gather, whole_axis), cache
 
 
 class Mamba2(ptree.FamilyModule):
@@ -476,6 +516,7 @@ class Mamba2(ptree.FamilyModule):
     loss = staticmethod(loss_fn)
 
 
-__all__ = ["MODEL_PARTIAL", "Mamba2", "RECURRENT_STATE", "decode_step",
-           "forward_hidden", "from_numpy_params", "init_cache", "init_params",
-           "loss_fn", "model_axis", "ssd_chunked", "ssd_step"]
+__all__ = ["Mamba2", "RECURRENT_STATE", "decode_step", "forward_hidden",
+           "from_numpy_params", "init_cache", "init_params", "loss_fn",
+           "model_axis", "model_partial", "split_parts", "ssd_chunked",
+           "ssd_step"]

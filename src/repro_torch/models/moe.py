@@ -30,7 +30,10 @@ returned (T, D) is this rank's partial sum, which the block reduces over
 'model' as it reduces a row-parallel product's; with `c_axis` (the
 settings' `moe_c_shard`, capacity C a multiple of the axis) the expert
 output's partial sums are first reduce-scattered over C (tag `moe_c`),
-and the rank pulls the pairs in its slots of C.
+and the rank pulls the pairs in its slots of C. Where the model size
+divides neither E nor F, the MoE runs whole on every model rank
+(`transformer.split_parts`), as does arctic's dense residual FFN where
+it does not divide that FFN's width.
 """
 from __future__ import annotations
 

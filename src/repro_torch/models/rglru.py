@@ -35,6 +35,11 @@ rows between the parallel regions. `decode_step` on the axis holds the
 rank's channels of the recurrent states and the rank's positions of the
 attention ring (`cache_specs` splits the window's slots: one KV head),
 whose partial softmaxes merge over the axis (`transformer._ring_attend`).
+Where the specs replicate a part's leaves (a model size that does not
+divide the RG-LRU width, the MLP's, or the attention's Hq*hd columns),
+that part runs whole on every model rank (`split_parts`;
+`ModelAxis.whole_in` / `whole_out` under sequence parallelism), and
+`decode_step` holds its state or ring whole.
 """
 from __future__ import annotations
 
@@ -56,10 +61,6 @@ RGLRU_C = 8.0
 #: the cache's recurrent state, which `launch.serve.SlotServer` keeps
 #: apart between slots (the attention ring buffer under "attn" is not)
 RECURRENT_STATE: tuple[str, ...] = ("rec_a", "rec_b", "tail")
-
-#: the model-replicated leaves read inside a parallel region of the model
-#: axis (none: the norms are read before it, every other leaf is split)
-MODEL_PARTIAL: tuple[str, ...] = ()
 
 
 # ---------------------------------------------------------------------------
@@ -211,14 +212,39 @@ def rglru_step(x_t, r_t, i_t, lam, h):
 # Blocks
 # ---------------------------------------------------------------------------
 
+def split_parts(cfg: ArchConfig, mesh) -> dict[str, bool]:
+    """Which parts run split over the model axis of `mesh` (the rest
+    whole on every model rank), as the specs lay out their leaves: the
+    recurrent block where they split the RG-LRU width, the MLP where they
+    split d_ff, the attention where they split its Hq*hd columns (inside
+    a head, `ModelAxis.head_split`, where the axis does not divide the
+    heads), the embedding's lookup where they split its columns."""
+    from repro_torch.launch.sharding import model_split
+    split = model_split(cfg, mesh)
+    return {"rec": "groups/rec_a/w_x" in split,
+            "mlp": "groups/rec_a/w_gate" in split,
+            "attn": "groups/attn/wq" in split, "embed": "embed" in split}
+
+
+def model_partial(cfg: ArchConfig, mesh) -> tuple[str, ...]:
+    """The model-replicated leaves read inside a parallel region of the
+    model axis: where the attention runs split, its KV weights if the
+    specs replicate them (each rank's query heads take their share; the
+    norms are read before a parallel region, a split part's other leaves
+    are split too)."""
+    from repro_torch.launch.sharding import model_split
+    if not split_parts(cfg, mesh)["attn"]:
+        return ()
+    split = model_split(cfg, mesh)
+    return tuple(p for p in ("groups/attn/wk", "groups/attn/wv")
+                 if p not in split)
+
+
 def model_axis(cfg: ArchConfig, seq_parallel: bool = False):
-    """The forward's model axis (`launch.tp.ModelAxis`), or None; refuses
-    one that does not divide the query heads' columns (it may split
-    inside a head: `ModelAxis.head_split`) or the RG-LRU's or the MLP's
-    width."""
-    return transformer._model_axis(
-        cfg, seq_parallel, widths=(("the RG-LRU width", cfg.rnn_width),
-                                   ("the MLP width", cfg.d_ff)))
+    """The forward's model axis (`launch.tp.ModelAxis`), or None, with the
+    parts that run split on it (`split_parts`)."""
+    return transformer._model_axis(cfg, seq_parallel, parts=split_parts)
+
 
 
 def _cast(lp_raw: dict, compute_dtype) -> dict:
@@ -235,9 +261,10 @@ def _leave(h, x, w, axis, sp: bool):
 
 
 def _mlp(lp_raw, lp, h, axis=None, sp: bool = False):
-    """The GeGLU half of a residual block."""
+    """The GeGLU half of a residual block (whole on the rank's rows where
+    the MLP runs whole)."""
     hn2 = nn.rms_norm(h, lp_raw["norm2"])
-    if axis is None:
+    if transformer._part_axis(axis, "mlp") is None:
         return h + nn.geglu(hn2, lp["w_gate"], lp["w_up"], lp["w_down"])
     ff = nn.geglu(axis.enter(hn2, sp), lp["w_gate"], lp["w_up"],
                   lp["w_down"], acc=torch.float32)
@@ -257,7 +284,18 @@ def _gate(gx, w, axis):
 def _rec_block_seq(cfg, lp_raw, lp, h, axis=None, sp: bool = False):
     """Recurrent temporal block + MLP residual, full sequence (h the
     rank's rows under sequence parallelism; the gates and the scan on
-    the rank's channels of a model axis)."""
+    the rank's channels of a model axis, or the whole block on the whole
+    sequence where it runs whole)."""
+    if axis is not None and transformer._part_axis(axis, "rec") is None:
+        h = axis.whole_out(_rec_temporal(cfg, lp_raw, lp,
+                                         axis.whole_in(h, sp)), sp)
+    else:
+        h = _rec_temporal(cfg, lp_raw, lp, h, axis, sp)
+    return _mlp(lp_raw, lp, h, axis, sp)
+
+
+def _rec_temporal(cfg, lp_raw, lp, h, axis=None, sp: bool = False):
+    """The recurrent temporal block added to h (see `_rec_block_seq`)."""
     hn = nn.rms_norm(h, lp_raw["norm1"])
     if axis is not None:
         hn = axis.enter(hn, sp)
@@ -267,8 +305,7 @@ def _rec_block_seq(cfg, lp_raw, lp, h, axis=None, sp: bool = False):
     r = torch.sigmoid(_gate(gx, lp["w_a"], axis) + lp["b_a"])
     i = torch.sigmoid(_gate(gx, lp["w_i"], axis) + lp["b_i"])
     y, _ = rglru_scan(gx, r, i, lp_raw["lam"])
-    h = _leave(h, y.to(h.dtype) * gy, lp["w_out"], axis, sp)
-    return _mlp(lp_raw, lp, h, axis, sp)
+    return _leave(h, y.to(h.dtype) * gy, lp["w_out"], axis, sp)
 
 
 def _qkv(cfg, lp, hn, axis=None):
@@ -293,18 +330,24 @@ def _window(cfg: ArchConfig) -> int:
 
 def _attn_block_seq(cfg, lp_raw, lp, h, positions, axis=None,
                     sp: bool = False):
+    """Local attention + MLP residual, full sequence (the attention on
+    the whole sequence where it runs whole)."""
+    aax = transformer._part_axis(axis, "attn")
     hn = nn.rms_norm(h, lp_raw["norm1"])
-    if axis is not None:
+    if aax is not None:
         hn = axis.enter(hn, sp)
+    elif axis is not None:
+        hn = axis.whole_in(hn, sp)
     B, S, _ = hn.shape
-    q, k, v = _qkv(cfg, lp, hn, axis)
+    q, k, v = _qkv(cfg, lp, hn, aax)
     q = nn.apply_rope(q, positions, theta=cfg.rope_theta)
     k = nn.apply_rope(k, positions, theta=cfg.rope_theta)
-    q, k, v = transformer._heads(cfg, axis, q, k, v)
+    q, k, v = transformer._heads(cfg, aax, q, k, v)
     attn = nn.attention(q, k, v, positions, positions, causal=True,
-                        window=_window(cfg))
-    h = _leave(h, _head_cols(attn.reshape(B, S, -1), axis), lp["wo"], axis,
-               sp)
+                        window=_window(cfg)).reshape(B, S, -1)
+    if aax is None and axis is not None:
+        attn = axis.whole_out(attn, sp)
+    h = _leave(h, _head_cols(attn, aax), lp["wo"], aax, sp)
     return _mlp(lp_raw, lp, h, axis, sp)
 
 
@@ -354,7 +397,7 @@ def forward_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     h = _embed(cfg, params, tokens, compute_dtype, gather, axis)
     sp = axis is not None and axis.sp(S)
     if sp:
-        h = axis.split(h)
+        h = transformer._own_rows(axis, h)
 
     def group(h, g):
         gp_raw = _group_params(cfg, params, g, gather, axis)
@@ -428,18 +471,19 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 def _rec_block_step(cfg, lp_raw, lp, h, h_st, conv_st, axis=None):
     """h: (B, D) one token; h_st (B, dr) and conv_st (B, W-1, dr) are
     the layer's state (the rank's channels on a model axis), advanced in
-    place."""
+    place. A recurrent block that runs whole holds its state whole."""
+    rax = transformer._part_axis(axis, "rec")
     hn = nn.rms_norm(h, lp_raw["norm1"])
     gx = hn @ lp["w_x"]
     gy = F.gelu(hn @ lp["w_y"], approximate="tanh")
     gx, conv_new = nn.conv1d_update(gx, conv_st, lp["conv_w"])
     conv_st.copy_(conv_new)
     gx = gx + lp["conv_b"]
-    r = torch.sigmoid(_gate(gx, lp["w_a"], axis) + lp["b_a"])
-    i = torch.sigmoid(_gate(gx, lp["w_i"], axis) + lp["b_i"])
+    r = torch.sigmoid(_gate(gx, lp["w_a"], rax) + lp["b_a"])
+    i = torch.sigmoid(_gate(gx, lp["w_i"], rax) + lp["b_i"])
     y, h_new = rglru_step(gx, r, i, lp_raw["lam"], h_st)
     h_st.copy_(h_new)
-    h = _leave(h, y.to(h.dtype) * gy, lp["w_out"], axis, False)
+    h = _leave(h, y.to(h.dtype) * gy, lp["w_out"], rax, False)
     return _mlp(lp_raw, lp, h, axis)
 
 
@@ -447,15 +491,17 @@ def _attn_block_step(cfg, lp_raw, lp, h, kc, vc, pc, ring, axis=None):
     """h: (B, D) one token at the ring's positions; writes its key, value
     and position into the ring buffer (kc, vc (B, Hkv, C, hd), pc (B,
     C); a model axis's block by `cache_specs`) at its slot pos % C, in
-    place, and attends over the ring (`transformer._ring_attend`)."""
+    place, and attends over the ring (`transformer._ring_attend`; the
+    whole ring where the attention runs whole)."""
     B = h.shape[0]
+    aax = transformer._part_axis(axis, "attn")
     q, k, v = _qkv(cfg, lp, nn.rms_norm(h, lp_raw["norm1"])[:, None, :],
-                   axis)
+                   aax)
     q = nn.apply_rope(q, ring["pos_q"], theta=cfg.rope_theta)
     k = nn.apply_rope(k, ring["pos_q"], theta=cfg.rope_theta)
-    attn = transformer._ring_attend(cfg, axis, ring, q, k, v, kc, vc, pc,
+    attn = transformer._ring_attend(cfg, aax, ring, q, k, v, kc, vc, pc,
                                     _window(cfg))
-    h = _leave(h, _head_cols(attn.reshape(B, -1), axis), lp["wo"], axis,
+    h = _leave(h, _head_cols(attn.reshape(B, -1), aax), lp["wo"], aax,
                False)
     return _mlp(lp_raw, lp, h, axis)
 
@@ -504,7 +550,7 @@ class Griffin(ptree.FamilyModule):
     loss = staticmethod(loss_fn)
 
 
-__all__ = ["Griffin", "MODEL_PARTIAL", "RECURRENT_STATE", "RGLRU_C",
-           "decode_step", "forward_hidden", "from_numpy_params", "init_cache",
-           "init_params", "loss_fn", "model_axis", "rglru_scan",
-           "rglru_step"]
+__all__ = ["Griffin", "RECURRENT_STATE", "RGLRU_C", "decode_step",
+           "forward_hidden", "from_numpy_params", "init_cache", "init_params",
+           "loss_fn", "model_axis", "model_partial", "rglru_scan",
+           "rglru_step", "split_parts"]

@@ -28,25 +28,36 @@ forward's entry; `launch/tp.py`): every leaf is the rank's model block.
 row-parallel, `w_gate`/`w_up` column-parallel over the MLP's hidden dim
 and `w_down` row-parallel; the MoE's experts (or, where E does not
 divide the axis, each expert's hidden dim) are split over it
-(`models/moe.py`). The residual stream is the rank's sequence rows
-between the parallel regions (`seq_parallel=True`, the reference's
-default; the norms run on those rows), gathered before each
-column-parallel product and reduced onto them after each row-parallel
-one. Attention runs on the rank's query heads over the whole sequence,
-rotated at the gathered sequence's own positions. Where the axis does
-not divide the KV heads, the layer reads `wk`/`wv`/`bk`/`bv` whole
-(`Sharded(whole=True)`) and takes the KV heads its query heads read
-(`layers.local_kv`; `settings.gqa_expand` expands them first). The
+(`models/moe.py`). A part whose leaves the specs replicate runs whole
+on every model rank (`split_parts`): the attention where the axis does
+not divide Hq*hd, the dense FFN where it does not divide d_ff, the MoE
+where it divides neither E nor the experts' F, the untied unembedding
+where it does not divide the vocabulary (`ModelAxis.whole_in` /
+`whole_out`; nothing of it is reduced over the axis). The residual
+stream is the rank's sequence rows between the parallel regions
+(`seq_parallel=True`, the reference's default; the norms run on those
+rows), gathered before each column-parallel product and reduced onto
+them after each row-parallel one. Split attention runs on the rank's
+query heads over the whole sequence, rotated at the gathered sequence's
+own positions. Where the axis does not divide the KV heads, the layer
+reads `wk`/`wv`/`bk`/`bv` whole (`Sharded(whole=True)`, or as the
+replicated leaves they are where the specs do not split them, their
+gradients partial: `model_partial`) and takes the KV heads its query
+heads read (`layers.local_kv`; `settings.gqa_expand` expands them
+first). The
 embedding's lookup on the rank's columns is gathered to whole rows and
 the patches are scattered before the stream is split. The loss: an
 untied unembedding's cross-entropy over its vocabulary blocks
-(`layers.vocab_parallel_ce_loss`), a tied one's over the rank's own rows
-with the embedding gathered whole; `denom=` divides by the step's count
-over every rank's rows. `decode_step` on a model axis (no sequence
-parallelism) holds the rank's KV heads of the cache, or, where the axis
-does not divide them, the rank's positions of every head
-(`cache_layout="seq"`, `launch.sharding.cache_specs`), whose partial
-softmaxes merge over the axis (`layers.attention_over_ranks`).
+(`layers.vocab_parallel_ce_loss`), else over the whole vocabulary of the
+rank's own rows (a tied embedding gathered whole), or of every row on
+every rank counted once where the rows do not split (`_axis_loss`);
+`denom=` divides by the step's count over every rank's rows.
+`decode_step` on a model axis (no sequence parallelism) holds the rank's
+KV heads of the cache, or, where the axis does not divide them, the
+rank's positions of every head (`cache_layout="seq"`,
+`launch.sharding.cache_specs`), whose partial softmaxes merge over the
+axis (`layers.attention_over_ranks`), or the whole cache where the
+attention runs whole.
 
 `decode_step` writes the new keys, values and positions into the cache
 in place (under `torch.inference_mode`) and returns the same dict: a
@@ -68,11 +79,6 @@ from .moe import moe_capacity, moe_ffn
 
 #: the position of an empty cache slot: causally masked for every query
 EMPTY_POS = 1 << 30
-
-#: the model-replicated leaves the forward reads inside a parallel region
-#: of the model axis, whose gradients are partial over it with or without
-#: sequence parallelism (`launch.fsdp.Sharded(partial=)`)
-MODEL_PARTIAL = ("layers/router",)
 
 #: the cache's recurrent state (none: a KV cache only), which
 #: `launch.serve.SlotServer` keeps apart between slots
@@ -183,35 +189,54 @@ def from_numpy_params(cfg: ArchConfig, tree: dict, *, device=None,
 # Forward
 # ---------------------------------------------------------------------------
 
+def split_parts(cfg: ArchConfig, mesh) -> dict[str, bool]:
+    """Which parts of a block run split over the model axis of `mesh`
+    (the rest whole on every model rank), as the specs lay their leaves
+    out (`launch.sharding.model_split`): the attention where they split
+    `wq` (and `wo`, on the same Hq*hd), the dense FFN where they split
+    d_ff, the MoE where they split the experts or their F columns, the
+    unembedding where they split the vocabulary, the embedding's lookup
+    where they split its columns."""
+    from repro_torch.launch.sharding import model_split
+    split = model_split(cfg, mesh)
+    return {"attn": "layers/wq" in split, "ffn": "layers/w_gate" in split,
+            "moe": "layers/we_gate" in split, "unembed": "unembed" in split,
+            "embed": "embed" in split}
+
+
+def model_partial(cfg: ArchConfig, mesh) -> tuple[str, ...]:
+    """The model-replicated leaves the forward reads inside a parallel
+    region of the model axis, whose gradients are partial over it with or
+    without sequence parallelism (`launch.fsdp.Sharded(partial=)`): the
+    MoE router where the experts run split, and where the attention runs
+    split the KV leaves the specs replicate (read on every rank, each
+    rank's query heads taking their share)."""
+    from repro_torch.launch.sharding import model_split
+    parts, split = split_parts(cfg, mesh), model_split(cfg, mesh)
+    out = ("layers/router",) if cfg.moe is not None and parts["moe"] else ()
+    if parts["attn"]:
+        out += tuple(p for p in (f"layers/{k}" for k in ("wk", "wv", "bk",
+                                                          "bv"))
+                     if p in _spec(cfg) and p not in split)
+    return out
+
+
 def _model_axis(cfg: ArchConfig, seq_parallel: bool = False, *,
-                heads: int | None = None, widths: tuple = ()):
+                parts=split_parts):
     """The forward's model axis (`launch.tp.ModelAxis`) from the settings'
-    mesh, or None; refuses what the axis does not split: a head count
-    (`heads`, the config's query heads by default) it would split inside
-    a head, or a width of `widths` ((what, size) pairs: a dim whose
-    blocks the family reads as the rank's) it does not divide. The
-    decoder's and the hybrid's query heads may split where the axis
-    divides their Hq*hd columns (`ModelAxis.head_split`). Every family
-    reads its axis here."""
+    mesh, or None, with the parts of the family that run split on it
+    (`parts(cfg, mesh)`, its `split_parts`). Split attention whose heads
+    the axis does not divide splits inside a head, in the reference's
+    column blocks of `wq` (`ModelAxis.head_split`). Every family reads its
+    axis here."""
     mesh = settings.get().mesh
     if mesh is None or mesh.shape.get("model", 1) <= 1:
         return None
     from repro_torch.launch.tp import ModelAxis
     axis = ModelAxis.from_settings(seq_parallel=seq_parallel)
-    split = heads is None and cfg.family in ("decoder", "hybrid")
-    heads = cfg.n_heads if heads is None else heads
-    if heads % axis.size:
-        if not split or heads * cfg.hd % axis.size:
-            raise NotImplementedError(
-                f"{cfg.name}: a model axis of {axis.size} does not divide "
-                f"the {heads} query heads (spec_for would split inside a "
-                "head)")
-        axis.split_heads(heads, cfg.hd)
-    for what, size in widths:
-        if size % axis.size:
-            raise NotImplementedError(
-                f"{cfg.name}: a model axis of {axis.size} does not divide "
-                f"{what} of {size}")
+    axis.parts = parts(cfg, mesh)
+    if axis.runs_split("attn") and cfg.n_heads % axis.size:
+        axis.split_heads(cfg.n_heads, cfg.hd)
     return axis
 
 
@@ -221,9 +246,17 @@ def model_axis(cfg: ArchConfig, seq_parallel: bool = False):
     return _model_axis(cfg, seq_parallel)
 
 
+def _part_axis(axis, part: str):
+    """The model axis as a family's `part` sees it (`split_parts`): None
+    where the part runs whole, or off a model axis. Every family reads
+    its parts' axes here."""
+    return axis if axis is not None and axis.runs_split(part) else None
+
+
 def _kv_whole(cfg: ArchConfig, axis) -> bool:
-    """Whether the layer reads the KV weights whole: a model axis that
-    does not divide the KV heads."""
+    """Whether the layer reads the KV weights whole: split attention on a
+    model axis that does not divide the KV heads."""
+    axis = _part_axis(axis, "attn")
     return axis is not None and cfg.n_kv_heads % axis.size != 0
 
 
@@ -264,16 +297,53 @@ def _whole_q(q: torch.Tensor, axis) -> torch.Tensor:
 
 
 def _ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor, *, moe_groups: int = 1,
-         full_capacity: bool = False, axis=None) -> torch.Tensor:
+         full_capacity: bool = False, axis=None, sp: bool = False
+         ) -> torch.Tensor:
     """FFN (dense / MoE / arctic hybrid) on (B, S, D); the MoE dispatches
     the B*S tokens in `moe_groups` contiguous groups. `full_capacity`
     disables token dropping (decode: a dropped token would corrupt the
     stream; T is tiny there so the buffer cost is negligible). On a
-    model axis: the rank's partial sum, in float32 (see `_block`)."""
+    model axis x is the rank's rows under sequence parallelism (`sp`):
+    the parts that run split enter the axis and their partial sums, in
+    float32, leave it reduced and rounded once (see `_block`); a part that
+    runs whole takes x as it is (the dense FFN, row by row) or the whole
+    sequence (the MoE, whose capacity counts every row), and nothing of
+    it is reduced."""
+    if axis is None:
+        return _ffn_parts(cfg, lp, x, moe_groups, full_capacity)
+    moe = cfg.moe is not None
+    dense = not moe or bool(cfg.moe.dense_residual_ff)
+    split = [p for p, on in (("moe", moe), ("ffn", dense))
+             if on and axis.runs_split(p)]
+    out = None
+    if split:
+        out = axis.leave(_ffn_parts(
+            cfg, lp, axis.enter(x, sp), moe_groups, full_capacity, axis,
+            parts=split), sp).to(x.dtype)
+    if moe and "moe" not in split:
+        w = axis.whole_out(_ffn_parts(cfg, lp, axis.whole_in(x, sp),
+                                      moe_groups, full_capacity,
+                                      parts=("moe",)), sp)
+        out = w if out is None else out + w
+    if dense and "ffn" not in split:
+        w = _ffn_parts(cfg, lp, x, moe_groups, full_capacity,
+                       parts=("ffn",))
+        out = w if out is None else out + w
+    return out
+
+
+def _ffn_parts(cfg: ArchConfig, lp: dict, x: torch.Tensor, moe_groups: int,
+               full_capacity: bool, axis=None, parts=("moe", "ffn")
+               ) -> torch.Tensor:
+    """The sum of the FFN's `parts` ('moe', 'ffn': arctic's dense FFN
+    beside the MoE, or a dense model's) on x; on a model `axis` (the
+    parts that run split) the rank's partial sum, in float32."""
     mlp = nn.geglu if cfg.mlp == "geglu" else nn.swiglu
     acc = torch.float32 if axis is not None else None
     if cfg.moe is None:
         return mlp(x, lp["w_gate"], lp["w_up"], lp["w_down"], acc=acc)
+    if "moe" not in parts:
+        return nn.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"], acc=acc)
     B, S, D = x.shape
     G = max(moe_groups, 1)
     cap = B * S // G if full_capacity else None
@@ -289,7 +359,7 @@ def _ffn(cfg: ArchConfig, lp: dict, x: torch.Tensor, *, moe_groups: int = 1,
                   lp["we_up"], lp["we_down"], cfg.moe, groups=G,
                   capacity=cap, experts=experts, c_axis=c_axis, acc=acc
                   ).reshape(B, S, D)
-    if cfg.moe.dense_residual_ff:
+    if cfg.moe.dense_residual_ff and "ffn" in parts:
         out = out + nn.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"],
                               acc=acc)
     return out
@@ -310,36 +380,35 @@ def _block(cfg: ArchConfig, h, lp_raw: dict, positions, compute_dtype,
     M-RoPE at `positions3` (3, B, S)), and `attend(q, k, v)` -> (B, S,
     Hq, hd) for the attention itself. On a model `axis` h is the rank's
     rows under sequence parallelism (`sp`), positions the whole
-    sequence's, and `attend` gets the rank's query heads. There the
-    row-parallel products (`wo`, the FFN's down product) keep their sums
-    in float32 on the compute dtype's operands (`nn.product_in`), their
-    partial sums are reduced in float32 and rounded once, as one device's
-    product rounds its sum."""
+    sequence's, and `attend` gets the rank's query heads (every head where
+    the attention runs whole). There the row-parallel products (`wo`, the
+    FFN's down product) keep their sums in float32 on the compute dtype's
+    operands (`nn.product_in`), their partial sums are reduced in float32
+    and rounded once, as one device's product rounds its sum."""
     lp = {name: t.to(compute_dtype) for name, t in lp_raw.items()}
     hn = nn.rms_norm(h, lp_raw["norm1"], offset=cfg.norm_offset)
+    split = _part_axis(axis, "attn") is not None
     if axis is not None:
-        hn = axis.enter(hn, sp)
+        hn = axis.enter(hn, sp) if split else axis.whole_in(hn, sp)
     B, S, _ = hn.shape
-    q, k, v = _qkv(cfg, lp, hn, axis)
+    q, k, v = _qkv(cfg, lp, hn, _part_axis(axis, "attn"))
     q = _rope(cfg, q, positions, positions3)
     k = _rope(cfg, k, positions, positions3)
     attn = attend(q, k, v)
     attn = attn.reshape(B, S, attn.shape[2] * cfg.hd)
-    if axis is None:
-        attn = attn @ lp["wo"]
-    else:
+    if split:
         attn = axis.leave(nn.product_in(axis.head_cols(attn), lp["wo"],
                                         torch.float32), sp).to(attn.dtype)
+    else:
+        if axis is not None:
+            attn = axis.whole_out(attn, sp)
+        attn = attn @ lp["wo"]
     if cfg.post_norm:
         attn = nn.rms_norm(attn, lp_raw["norm1_post"], offset=cfg.norm_offset)
     h = h + attn
     hn2 = nn.rms_norm(h, lp_raw["norm2"], offset=cfg.norm_offset)
-    if axis is not None:
-        hn2 = axis.enter(hn2, sp)
     ff = _ffn(cfg, lp, hn2, moe_groups=moe_groups,
-              full_capacity=full_capacity, axis=axis)
-    if axis is not None:
-        ff = axis.leave(ff, sp).to(hn2.dtype)
+              full_capacity=full_capacity, axis=axis, sp=sp)
     if cfg.post_norm:
         ff = nn.rms_norm(ff, lp_raw["norm2_post"], offset=cfg.norm_offset)
     return h + ff
@@ -388,6 +457,16 @@ def _lookup(cfg: ArchConfig, params: dict, tokens, compute_dtype,
     if axis is not None and table.shape[1] != cfg.d_model:
         h = axis.gather_cols(h)
     return h
+
+
+def _own_rows(axis, h):
+    """The rank's rows of the embedded stream (B, S, D) under sequence
+    parallelism: `ModelAxis.split` where the lookup's columns were
+    gathered (the gradient of h alike on every rank), a slice where the
+    embedding is replicated (its gradient then each rank's own rows'
+    share, summed over 'model' with the other replicated leaves'). Every
+    family splits its stream here."""
+    return axis.split(h) if axis.runs_split("embed") else axis.own_rows(h)
 
 
 def _embed(cfg: ArchConfig, params: dict, tokens, compute_dtype,
@@ -458,7 +537,7 @@ def forward_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         h = _put_patches(h, patches, patch_positions)
     sp = axis is not None and axis.sp(S)
     if sp:
-        h = axis.split(h)
+        h = _own_rows(axis, h)
     wrap = {"nothing": nn.remat, "dots": nn.remat_dots}.get(remat)
     for i, window in enumerate(cfg.window_array()):
         args = (cfg, h, params["layers"], i, window, positions,
@@ -516,8 +595,11 @@ def _axis_loss(cfg: ArchConfig, params: dict, h, labels, mask, axis,
     """The loss's term on a model axis from the final hidden states h
     (the rank's rows under sequence parallelism, else every row; see
     `loss_fn`): an untied unembedding's cross-entropy over its vocabulary
-    blocks, a tied one's over the rank's own rows with the embedding
-    gathered whole. Every family's loss on a model axis is taken here."""
+    blocks where the specs split the vocabulary; else over the whole
+    vocabulary (a tied embedding gathered whole): of the rank's own rows
+    (under sequence parallelism, or the tied embedding's split rows where
+    the axis divides B*S), or of every row on every rank, counted once.
+    Every family's loss on a model axis is taken here."""
     if gather is None:
         raise ValueError("a model axis reads its leaves through gather= "
                          "(launch.fsdp.Sharded)")
@@ -525,34 +607,31 @@ def _axis_loss(cfg: ArchConfig, params: dict, h, labels, mask, axis,
     if denom is None:
         denom = torch.clamp(mask.to(torch.float32).sum() if mask is not None
                             else torch.tensor(float(B * S)), min=1.0)
-    if not cfg.tie_embeddings:
-        w = gather("unembed", params["unembed"])
-        if w.shape[1] == cfg.vocab:
-            raise NotImplementedError(
-                f"{cfg.name}: a model axis of {axis.size} does not divide "
-                f"the vocabulary of {cfg.vocab}")
+    sp = axis.sp(S)
+    if not cfg.tie_embeddings and axis.runs_split("unembed"):
         return nn.vocab_parallel_ce_loss(
-            axis.enter(h, axis.sp(S)), w, labels, axis,
-            softcap=cfg.final_softcap, mask=mask, denom=denom)
-    # tied: the embedding gathered whole, the cross-entropy of own rows
-    if axis.sp(S):
+            axis.enter(h, sp), gather("unembed", params["unembed"]), labels,
+            axis, softcap=cfg.final_softcap, mask=mask, denom=denom)
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    rows = cfg.tie_embeddings and axis.runs_split("embed") and \
+        (B * S) % axis.size == 0
+    if sp:      # the rank's own rows
         from repro_torch.launch.sharding import seq_rows
         lo, hi = seq_rows(S, axis.mesh)
         labels = labels[:, lo:hi]
         mask = mask[:, lo:hi] if mask is not None else None
-    else:
-        if (B * S) % axis.size:
-            raise NotImplementedError(
-                f"{B * S} rows do not split over a model axis of "
-                f"{axis.size}")
+    elif rows:  # the rank's block of the B*S rows
         h = axis.split(h.reshape(1, B * S, -1))
         per = B * S // axis.size
-        rows = slice(axis.index * per, (axis.index + 1) * per)
-        labels = labels.reshape(1, B * S)[:, rows]
-        mask = mask.reshape(1, B * S)[:, rows] if mask is not None else None
-    table = gather("embed", params["embed"], whole=True)
-    return nn.chunked_ce_loss(h, table.T, labels, softcap=cfg.final_softcap,
-                              mask=mask, denom=denom)
+        mine = slice(axis.index * per, (axis.index + 1) * per)
+        labels = labels.reshape(1, B * S)[:, mine]
+        mask = mask.reshape(1, B * S)[:, mine] if mask is not None else None
+    own = sp or rows    # else every row, alike on every rank
+    w = gather(name, params[name], whole=True, partial=own)
+    loss = nn.chunked_ce_loss(h, w.T if cfg.tie_embeddings else w, labels,
+                              softcap=cfg.final_softcap, mask=mask,
+                              denom=denom)
+    return loss if own else axis.once(loss)
 
 
 # ---------------------------------------------------------------------------
@@ -720,4 +799,4 @@ class Decoder(ptree.FamilyModule):
 
 __all__ = ["Decoder", "EMPTY_POS", "cache_len", "decode_step", "forward_hidden",
            "from_numpy_params", "init_cache", "init_params", "loss_fn",
-           "model_axis", "prefill"]
+           "model_axis", "model_partial", "prefill", "split_parts"]

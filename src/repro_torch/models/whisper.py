@@ -22,7 +22,13 @@ whole encoder output. There is no sequence parallelism: the reference
 passes no `constrain` to `encode` and `decode_hidden`, so the stream is
 whole on every model rank (`SEQ_PARALLEL`). `decode_step` on the axis
 holds the rank's heads of the self-attention cache and of the cross
-K/V, which `build_cross_cache` fills from the rank's blocks.
+K/V, which `build_cross_cache` fills from the rank's blocks. Where the
+axis does not divide the heads (whisper-medium's 16 on 3 or 32 ranks) the
+attention runs whole on every model rank, its leaves read whole where
+the specs split them, and its caches are whole; where it does not divide
+d_ff (4096 on 3 ranks) the MLP runs whole (`split_parts`). The stream is
+alike on every rank, so nothing of a whole part is reduced and its
+weights' gradients are whole already.
 """
 from __future__ import annotations
 
@@ -39,10 +45,6 @@ from .config import ArchConfig
 
 #: the cache's recurrent state (none: self- and cross-attention K/V)
 RECURRENT_STATE: tuple[str, ...] = ()
-
-#: the model-replicated leaves read inside a parallel region of the model
-#: axis (none: the norms are read before it, the biases after it)
-MODEL_PARTIAL: tuple[str, ...] = ()
 
 #: whether the forward splits the stream's sequence over the model axis
 #: (no: the reference constrains neither `encode` nor `decode_hidden`)
@@ -133,20 +135,49 @@ def sinusoidal(S: int, D: int, dtype=torch.float32, *,
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
 
 
+def split_parts(cfg: ArchConfig, mesh) -> dict[str, bool]:
+    """Which parts run split over the model axis of `mesh` (the rest
+    whole on every model rank): the attention (self and cross, encoder
+    and decoder) where the specs split its Hq*hd columns and the axis
+    divides the heads, the MLP where the specs split d_ff, the
+    embedding's lookup where they split its columns."""
+    from repro_torch.launch.mesh import model_size
+    from repro_torch.launch.sharding import model_split
+    split = model_split(cfg, mesh)
+    return {"attn": "enc/wq" in split and cfg.n_heads % model_size(mesh)
+            == 0, "mlp": "enc/w_in" in split, "embed": "embed" in split}
+
+
+def model_partial(cfg: ArchConfig, mesh) -> tuple[str, ...]:
+    """The model-replicated leaves read inside a parallel region of the
+    model axis (none: the norms are read before it, the biases after
+    it)."""
+    return ()
+
+
 def model_axis(cfg: ArchConfig, seq_parallel: bool = False):
     """The forward's model axis (`launch.tp.ModelAxis`, never
-    sequence-parallel: `SEQ_PARALLEL`), or None; refuses one that splits
-    inside a head or does not divide the MLP's width."""
+    sequence-parallel: `SEQ_PARALLEL`), or None, with the parts that run
+    split on it (`split_parts`)."""
     del seq_parallel
-    return transformer._model_axis(cfg, False,
-                                   widths=(("the MLP width", cfg.d_ff),))
+    return transformer._model_axis(cfg, False, parts=split_parts)
+
+
+_ATTN = ("wq", "bq", "wk", "wv", "bv", "wo")
+
 
 
 def _layer(stacked: dict, i: int, compute_dtype, gather=None,
-           prefix: str = ""):
+           prefix: str = "", axis=None):
     """Layer i's raw leaves (read through `gather` under `prefix`,
-    `params.take`), and all of them in the compute dtype."""
-    raw = ptree.take_all(gather, prefix, stacked, i)
+    `params.take`), and all of them in the compute dtype. On a model axis
+    where the attention runs whole its leaves are read whole (alike on
+    every rank: the stream is)."""
+    whole = axis is not None and transformer._part_axis(axis, "attn") is None
+    raw = {k: gather(f"{prefix}{k}", t, i, whole=True, partial=False)
+           if whole and k.removeprefix("x_") in _ATTN
+           else ptree.take(gather, f"{prefix}{k}", t, i)
+           for k, t in stacked.items()}
     return raw, {k: t.to(compute_dtype) for k, t in raw.items()}
 
 
@@ -192,6 +223,9 @@ def _enter(x, axis):
 
 
 def _mlp(lp_raw, lp, h, axis=None):
+    """The GELU MLP's residual block (whole where it runs whole)."""
+    if axis is not None and not axis.runs_split("mlp"):
+        axis = None
     hn2 = _enter(nn.layer_norm(h, lp_raw["ln2_w"], lp_raw["ln2_b"]), axis)
     if axis is None:
         return h + nn.gelu_mlp(hn2, lp["w_in"], lp["b_in"], lp["w_out"],
@@ -219,10 +253,13 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, *,
          + sinusoidal(Se, D, compute_dtype, device=frames.device)[None])
     pos = _positions(B, Se, frames.device)
 
+    aax = transformer._part_axis(axis, "attn")
+
     def layer(h, i):
-        lp_raw, lp = _layer(params["enc"], i, compute_dtype, gather, "enc/")
-        hn = _enter(nn.layer_norm(h, lp_raw["ln_w"], lp_raw["ln_b"]), axis)
-        h = _mha(cfg, lp, h, hn, hn, pos, pos, causal=False, axis=axis)
+        lp_raw, lp = _layer(params["enc"], i, compute_dtype, gather, "enc/",
+                            axis)
+        hn = _enter(nn.layer_norm(h, lp_raw["ln_w"], lp_raw["ln_b"]), aax)
+        h = _mha(cfg, lp, h, hn, hn, pos, pos, causal=False, axis=aax)
         return _mlp(lp_raw, lp, h, axis)
 
     for i in range(cfg.encoder_layers):
@@ -244,17 +281,19 @@ def decode_hidden(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
          + sinusoidal(S, cfg.d_model, compute_dtype, device=dev)[None])
     pos = _positions(B, S, dev)
     pos_e = _positions(B, enc_out.shape[1], dev)
+    aax = transformer._part_axis(axis, "attn")
     # one entry for every layer's cross K/V: one all_reduce of its gradient
-    enc_out = _enter(enc_out.to(compute_dtype), axis)
+    enc_out = _enter(enc_out.to(compute_dtype), aax)
 
     def layer(h, i):
-        lp_raw, lp = _layer(params["dec"], i, compute_dtype, gather, "dec/")
-        hn = _enter(nn.layer_norm(h, lp_raw["ln_w"], lp_raw["ln_b"]), axis)
-        h = _mha(cfg, lp, h, hn, hn, pos, pos, causal=True, axis=axis)
+        lp_raw, lp = _layer(params["dec"], i, compute_dtype, gather, "dec/",
+                            axis)
+        hn = _enter(nn.layer_norm(h, lp_raw["ln_w"], lp_raw["ln_b"]), aax)
+        h = _mha(cfg, lp, h, hn, hn, pos, pos, causal=True, axis=aax)
         hx = _enter(nn.layer_norm(h, lp_raw["x_ln_w"], lp_raw["x_ln_b"]),
-                    axis)
+                    aax)
         h = _mha(cfg, lp, h, hx, enc_out, pos, pos_e, causal=False,
-                 prefix="x_", axis=axis)
+                 prefix="x_", axis=aax)
         return _mlp(lp_raw, lp, h, axis)
 
     for i in range(cfg.n_layers):
@@ -310,12 +349,15 @@ def build_cross_cache(cfg: ArchConfig, params: dict, enc_out: torch.Tensor,
     """Every decoder layer's cross-attention keys and values of enc_out
     (B, Se, D), computed in the compute dtype and written into the
     cache's xk and xv in place (on a model axis the rank's heads, from
-    its blocks of the leaves read through `gather`). Returns the same
-    cache dict."""
+    its blocks of the leaves read through `gather`; every head where the
+    attention runs whole). Returns the same cache dict."""
     e = enc_out.to(compute_dtype)
+    axis = model_axis(cfg)
     for i in range(cfg.n_layers):
-        lp = {k: ptree.take(gather, f"dec/{k}", params["dec"][k], i).to(
-            compute_dtype) for k in ("x_wk", "x_wv", "x_bv")}
+        lp = {k: (gather(f"dec/{k}", params["dec"][k], i, whole=True)
+                  if axis is not None and transformer._part_axis(axis, "attn") is None
+                  else ptree.take(gather, f"dec/{k}", params["dec"][k], i)
+                  ).to(compute_dtype) for k in ("x_wk", "x_wv", "x_bv")}
         xk, xv = _project_kv(cfg, lp, e, prefix="x_")
         cache["xk"][i].copy_(xk.transpose(1, 2))
         cache["xv"][i].copy_(xv.transpose(1, 2))
@@ -332,12 +374,14 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     over the self-attention cache and fully over the cross K/V. Returns
     (logits (B, V) float32, cache), the same dict. On a model axis
     (`settings.mesh`; the leaves read through `gather`) the cache holds
-    the rank's heads (`cache_layout` 'heads' or None)."""
+    the rank's heads (`cache_layout` 'heads'), or every head where the
+    attention runs whole (None)."""
     axis = model_axis(cfg)
     if axis is not None and cache_layout == "seq":
-        raise NotImplementedError(
-            f"{cfg.name}: the model axis splits the heads, so the cache is "
-            "split by heads, not by positions")
+        raise ValueError(
+            f"{cfg.name}: the cache is split by heads or whole "
+            "(launch.sharding.cache_specs), never by positions")
+    aax = transformer._part_axis(axis, "attn")
     B = token.shape[0]
     dev = token.device
     max_seq, Se = cache["k"].shape[3], cache["xk"].shape[3]
@@ -352,7 +396,8 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     pos_k = _positions(B, max_seq, dev)
     pos_e = _positions(B, Se, dev)
     for i in range(cfg.n_layers):
-        lp_raw, lp = _layer(params["dec"], i, compute_dtype, gather, "dec/")
+        lp_raw, lp = _layer(params["dec"], i, compute_dtype, gather, "dec/",
+                            axis)
         kc, vc = cache["k"][i], cache["v"][i]
         hn = nn.layer_norm(h, lp_raw["ln_w"], lp_raw["ln_b"])
         q = _project_q(cfg, lp, hn)
@@ -362,7 +407,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
         attn = nn.attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
                             pos_q, pos_k, causal=True, dense_below=1 << 62)
         # (h + a @ wo) + bo, the reference's order of the bf16 sums
-        h = _out_step(h, attn.reshape(B, 1, -1), lp["wo"], lp["bo"], axis)
+        h = _out_step(h, attn.reshape(B, 1, -1), lp["wo"], lp["bo"], aax)
         hx = nn.layer_norm(h, lp_raw["x_ln_w"], lp_raw["x_ln_b"])
         qx = _project_q(cfg, lp, hx, prefix="x_")
         attn_x = nn.attention(
@@ -370,7 +415,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
             cache["xv"][i].transpose(1, 2).to(compute_dtype), pos_q, pos_e,
             causal=False, dense_below=1 << 62)
         h = _out_step(h, attn_x.reshape(B, 1, -1), lp["x_wo"], lp["x_bo"],
-                      axis)
+                      aax)
         h = _mlp(lp_raw, lp, h, axis)
     h = nn.layer_norm(h, params["dec_ln_w"], params["dec_ln_b"])
     return transformer._logits(cfg, params, h[:, 0], gather, axis), cache
@@ -393,7 +438,7 @@ class Whisper(ptree.FamilyModule):
     loss = staticmethod(loss_fn)
 
 
-__all__ = ["MODEL_PARTIAL", "RECURRENT_STATE", "SEQ_PARALLEL", "Whisper",
+__all__ = ["RECURRENT_STATE", "SEQ_PARALLEL", "Whisper",
            "build_cross_cache", "decode_hidden", "decode_step", "encode",
            "from_numpy_params", "init_cache", "init_params", "loss_fn",
-           "model_axis", "sinusoidal"]
+           "model_axis", "model_partial", "sinusoidal", "split_parts"]

@@ -156,23 +156,30 @@ def _steps_match_reference_server(name):
     assert clear_steps > 0
 
 
-def _reference_alone(jm, step, jp, prompt, served) -> tuple[int, int]:
+def _reference_alone(jm, step, jp, prompt, first, served
+                     ) -> tuple[int, int]:
     """The reference's `decode_step` decoding one request alone from a
-    fresh batch-1 cache, as the server feeds it (the prompt token by
-    token, then the prompt's last argmax), each later step fed the
-    port's served token. Returns (positions whose top two reference
-    logits lie further apart than BF16_TOL of the largest, those of them
-    where the served token is the reference's argmax): bf16 on both
-    sides, so a near tie may flip, as in `_steps_match_reference_server`.
-    `step` is the reference's jitted decode step."""
+    fresh batch-1 cache, fed what the server fed it: the prompt token by
+    token, then the port's own first token (`first`, the server's argmax
+    at the prompt's end), each later step the port's served token. Returns
+    (positions whose top two reference logits lie further apart than
+    BF16_TOL of the largest, those of them where the port's token there
+    is the reference's argmax), the prompt's last position counted as the
+    others: bf16 on both sides, so a near tie may flip, as in
+    `_steps_match_reference_server`, and the reference then continues
+    from the port's token all the same. `step` is the reference's jitted
+    decode step."""
     cache = jm.init_cache(1, 32)
     for t, tok in enumerate(prompt):
         logits, cache = step(jp, cache, jnp.asarray([tok], jnp.int32),
                              jnp.asarray([t], jnp.int32))
-    tok, clear, agree = int(jnp.argmax(logits[0])), 0, 0
-    for pos, got in enumerate(served, start=len(prompt)):
-        logits, cache = step(jp, cache, jnp.asarray([tok], jnp.int32),
-                             jnp.asarray([pos], jnp.int32))
+    clear = agree = 0
+    tok = first
+    for pos, got in enumerate([first] + list(served),
+                              start=len(prompt) - 1):
+        if pos >= len(prompt):
+            logits, cache = step(jp, cache, jnp.asarray([tok], jnp.int32),
+                                 jnp.asarray([pos], jnp.int32))
         lg = np.asarray(logits[0])
         top2 = np.sort(lg)[-2:]
         if top2[1] - top2[0] > BF16_TOL * np.abs(lg).max():
@@ -188,9 +195,11 @@ def test_recurrent_slot_server_keeps_its_slots_apart(name):
     equal (a) the same request served alone, (b) the same request after
     another request has used its slot, and (c) the reference's model
     decoding it alone from a fresh cache, at every position whose top
-    two reference logits are clearly apart. The reference's own server
-    fails (a) and (b) for these models: its prompt steps advance every
-    slot's recurrent state, and a reused slot keeps its state."""
+    two reference logits are clearly apart, the reference fed the port's
+    own tokens (its first one from the server's prompt step). The
+    reference's own server fails (a) and (b) for these models: its prompt
+    steps advance every slot's recurrent state, and a reused slot keeps
+    its state."""
     jm = jbuild_model(jreduced(jget_config(name)))
     jp = jm.init(jax.random.PRNGKey(0))
     model = build_model(reduced(get_config(name)))
@@ -201,13 +210,21 @@ def test_recurrent_slot_server_keeps_its_slots_apart(name):
 
     def serve(*runs):
         """Each run's requests through one server, one run after the
-        other; {rid: generated tokens}."""
+        other; {rid: (the first token, the prompt step's argmax, then the
+        generated tokens)}."""
         srv = SlotServer(model, slots=2, max_seq=32, eos=None, max_gen=6,
                          device="cpu", params=params)
+        first = {}
+        feed = srv._feed_prompt
+
+        def feed_prompt(slot, req):     # the server's own first token
+            feed(slot, req)
+            first[req.rid] = int(srv.cur_tok[slot])
+        srv._feed_prompt = feed_prompt
         out = {}
         for run in runs:
             for r in srv.run([Request(i, prompts[i]) for i in run]):
-                out[r.rid] = r.generated
+                out[r.rid] = (first[r.rid], r.generated)
         return out
 
     step = jax.jit(jm.decode_step)
@@ -216,7 +233,7 @@ def test_recurrent_slot_server_keeps_its_slots_apart(name):
         alone = serve([i])[i]
         assert full[i] == alone, i
         assert serve([(i + 1) % 3], [i])[i] == alone, i
-        clear, agree = _reference_alone(jm, step, jp, prompts[i], alone)
+        clear, agree = _reference_alone(jm, step, jp, prompts[i], *alone)
         assert agree == clear >= 4, (i, clear, agree)
 
 

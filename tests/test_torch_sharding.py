@@ -11,9 +11,10 @@ the reference's on stand-in meshes (16, 16), (2, 16, 16), (2, 1),
 both packages' functions read. The reference's `PartitionSpec` stores a
 one-axis entry as the bare name, so every entry is normalized to a tuple
 of names (or None) on both sides, as `tests/test_torch_shard.py` does.
-The mesh train step refuses a model size that splits a head, and
-`fused_update` beside a pod axis (with or without a model axis), as the
-reference does; the train CLI builds a (pod, data, model) mesh.
+The mesh train step builds for any model size (the parts whose leaves
+the specs replicate run whole) and refuses `fused_update` beside a pod
+axis (with or without a model axis), as the reference does; the train
+CLI builds a (pod, data, model) mesh.
 """
 import functools
 import types
@@ -197,10 +198,15 @@ def test_moe_groups_for_equals_the_reference():
 
 
 class _Mesh(types.SimpleNamespace):
+    """A stand-in mesh whose groups are stand-ins (rank 0 of each): enough
+    to build a step, not to run one."""
     device = torch.device("cpu")
 
     def group(self, axes):
-        raise AssertionError("a refused mesh builds no group")
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return types.SimpleNamespace(
+            axes=axes, index=0, size=int(np.prod([self.shape[a]
+                                                  for a in axes])))
 
 
 @pytest.mark.parametrize("what,shape,names,kw", [
@@ -217,31 +223,42 @@ class _Mesh(types.SimpleNamespace):
 ])
 def test_what_item_12_7b_brings_is_refused(what, shape, names, kw):
     """What stays refused on the meshes of item 12.7b, each with its
-    label: a model size that would split a head (the reduced llama's 4
+    label: `fused_update` beside a pod axis, with or without a model axis,
+    as the reference refuses it (the pod collective keeps the unfused
+    update). The model sizes that were refused too (the reduced llama's 4
     query heads over 3 model ranks beside a pod axis, the reduced
-    recurrentgemma's 4, mamba2's 8 SSD heads over 3 ranks), fused or not;
-    and `fused_update` beside a pod axis, with or without a model axis, as
-    the reference refuses it (the pod collective keeps the unfused
-    update)."""
+    recurrentgemma's 4, mamba2's 8 SSD heads over 3 ranks, fused) now
+    build their steps, the parts the specs replicate whole
+    (`split_parts`; `tests/test_torch_model_sizes.py` runs them)."""
     from repro_torch.configs import reduced
     from repro_torch.core.sketch import SketchConfig
     from repro_torch.optim import AdamWConfig
     from repro_torch.optim.compress import SketchCompressor
     mesh = _Mesh(shape=dict(zip(names, shape)), axis_names=names)
     kw = dict(kw)
-    model = build_model(reduced(get_config(kw.pop("arch", "llama3.2-3b"))))
+    cfg = reduced(get_config(kw.pop("arch", "llama3.2-3b")))
+    model = build_model(cfg)
     comp = SketchCompressor(SketchConfig(family="tt", k=16, rank=2,
                                          dims=(4, 8), bucket_elems=32))
-    err_type, match, names_it = {
-        "pod x data": (ValueError, "run without a 'pod' mesh axis", "pod"),
-        "pod beside model": (ValueError, "run without a 'pod' mesh axis",
-                             "pod"),
-    }.get(what, (NotImplementedError, "does not divide", "heads"))
-    with pytest.raises(err_type, match=match) as err:
-        steps.build_train_step(model, ShapeSpec("t", 8, 4, "train"),
-                               mesh=mesh, compressor=comp, device="cpu",
-                               opt=AdamWConfig(clip_norm=None), **kw)
-    assert names_it in str(err.value)
+
+    def build():
+        return steps.build_train_step(
+            model, ShapeSpec("t", 8, 4, "train"), mesh=mesh,
+            compressor=comp, device="cpu", opt=AdamWConfig(clip_norm=None),
+            **kw)
+    whole = {"pod beside model, split head": {"attn", "moe", "unembed",
+                                              "embed"},
+             "hybrid on model": {"rec", "attn", "embed"},
+             "ssm on model, fused": {"mixer", "embed"}}.get(what)
+    if whole is not None:
+        assert callable(build())
+        parts = model.mod.split_parts(cfg, mesh)
+        assert {p for p, split in parts.items() if not split} == whole
+        return
+    with pytest.raises(ValueError, match="run without a 'pod' mesh axis"
+                       ) as err:
+        build()
+    assert "pod" in str(err.value)
 
 
 def test_train_cli_refuses_a_model_axis(monkeypatch):

@@ -21,6 +21,11 @@ mesh-free functions, with the reduced configs' query heads raised to 6
 * llama's mesh prefill and 8 serve steps from the reference's cache
   (split by positions: 2 KV heads over 4 ranks) against the reference's
   `prefill` and `decode_step`, `test_torch_tp.py`'s bounds.
+
+Mamba2's SSD heads and whisper's heads are not split inside a head: where
+the axis does not divide them, or where it does not divide a decoder's
+Hq*hd columns, that attention or mixer runs whole on every model rank
+(`tests/test_torch_model_sizes.py`).
 """
 import dataclasses
 

@@ -17,7 +17,7 @@ channels of x).
   `value_and_grad` and the port's one-process gradient (1e-5 relative,
   1e-5 of the largest entry); every leaf the model axis does not split
   has the same gradient bits on both ranks. The run without sequence
-  parallelism is the one a missing `MODEL_PARTIAL` (mamba2's `a_log`,
+  parallelism is the one a missing `model_partial` (mamba2's `a_log`,
   `d_skip`, `dt_bias`, read on the rank's heads) would fail.
 * Train on (2, 2), mamba2's fused step (`fused_update=True`, K4's block
   form through its plain version; `in_proj` a two-dim block, its data

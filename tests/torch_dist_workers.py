@@ -722,8 +722,9 @@ def _partial_split(mesh):
 
 
 def _tp_model(case):
-    """The reduced decoder of a model-axis case (its expert count, its
-    query heads or its KV heads overridden where the case names them)."""
+    """The reduced model of a model-axis case (its expert count, its dense
+    residual FFN, its query heads, its KV heads, its d_ff or its d_model
+    overridden where the case names them)."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduced
@@ -732,7 +733,11 @@ def _tp_model(case):
     if case.get("experts"):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, num_experts=case["experts"]))
-    for key, field in (("heads", "n_heads"), ("kv_heads", "n_kv_heads")):
+    if case.get("dense_ff"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dense_residual_ff=case["dense_ff"]))
+    for key, field in (("heads", "n_heads"), ("kv_heads", "n_kv_heads"),
+                       ("d_ff", "d_ff"), ("d_model", "d_model")):
         if case.get(key):
             cfg = dataclasses.replace(cfg, **{field: case[key]})
     return build_model(cfg)
@@ -741,13 +746,14 @@ def _tp_model(case):
 def tp_grad_scenario(mesh, pl):
     """Each case's loss and gradient on a (data, model) mesh through the
     step's pieces, fp32 compute: the rank's blocks of the payload's whole
-    params (`fsdp.shard_tree`), its rows of the batch, `fsdp.Sharded`
-    and `model.loss_fn` under `settings.override(mesh=, **settings)`,
+    params (`fsdp.shard_tree`), its rows of the batch, the step's
+    `fsdp.Sharded` (`steps.grad_view`) and `model.loss_fn` under
+    `settings.override(mesh=, **settings)`,
     with `seq_parallel` on and off: the loss summed over the ranks, the
     whole gradient (`unshard_tree`) and, for each leaf the model axis
     does not split, this rank's gradient of it as `finish` leaves it."""
     from repro_torch.core.tree import tree_flatten, tree_unflatten
-    from repro_torch.launch import fsdp, sharding
+    from repro_torch.launch import fsdp, sharding, steps
     from repro_torch.models import from_numpy_params, settings
     from repro_torch.rp import shard
     out = {}
@@ -769,9 +775,9 @@ def tp_grad_scenario(mesh, pl):
             rows[k] = t
         res = {}
         for sp in (True, False):
-            layout = fsdp.Sharded(
-                mesh, pspecs, partial=getattr(model.mod, "MODEL_PARTIAL", ()),
-                seq_parallel=sp and getattr(model.mod, "SEQ_PARALLEL", True))
+            layout = steps.grad_view(model, mesh, pspecs,
+                                     rows["tokens"].shape[1],
+                                     seq_parallel=sp)
             live = [t.detach().requires_grad_(True) for t in blocks]
             with torch.enable_grad(), settings.override(
                     mesh=mesh, **case.get("settings", {})):

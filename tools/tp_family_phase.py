@@ -37,7 +37,7 @@ if __name__ == "__main__":
                            "mesh": [1, 2], "batch": chip_smoke.TP_BATCH,
                            "modes": [], "families": {"cases": [
                                [a, c] for a, c in chip_smoke.FAM_CASES]}})
-    out = chip_smoke._tp_family_check(ranks)
+    out = chip_smoke._tp_family_check([r["families"] for r in ranks])
     print(json.dumps({"tp_families": out}), flush=True)
     print(f"phase 23 seconds {out['seconds']:.1f} (ranks with their start "
           f"{time.perf_counter() - t0:.1f})", flush=True)
